@@ -1,0 +1,158 @@
+"""Configuration dataclasses of the port (torch dtypes, JAX defaults).
+
+Mirrors `bindyouravatar_tpu/config.py` field for field for the configs the
+serving slice needs; that module imports `jax.numpy` for its dtype fields,
+so it is re-stated here rather than imported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """CogVideoX-style DiT denoiser config (5B defaults)."""
+
+    num_attention_heads: int = 48
+    attention_head_dim: int = 64
+    in_channels: int = 48          # 16 noise + 16 image + 16 bg-inpaint latents
+    out_channels: int = 16
+    time_embed_dim: int = 512
+    text_embed_dim: int = 4096
+    num_layers: int = 42
+    attention_bias: bool = True
+    sample_width: int = 90         # latent W
+    sample_height: int = 60        # latent H
+    sample_frames: int = 49        # pixel frames (13 latent frames)
+    patch_size: int = 2
+    temporal_compression_ratio: int = 4
+    max_text_seq_length: int = 226
+    norm_eps: float = 1e-5
+    qk_norm: bool = True
+    ff_mult: int = 4
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    use_rotary_positional_embeddings: bool = True
+
+    # --- conditioning subsystems ---
+    is_train_face: bool = True
+    cross_attn_interval: int = 2
+    is_train_audio: bool = True
+    audio_attn_interval: int = 1
+    num_ids: int = 2
+
+    dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def latent_frames(self) -> int:
+        return (self.sample_frames - 1) // self.temporal_compression_ratio + 1
+
+    @property
+    def latent_grid(self) -> Tuple[int, int, int]:
+        """Canonical (T, H, W) patch grid."""
+        p = self.patch_size
+        return (self.latent_frames, self.sample_height // p, self.sample_width // p)
+
+    @property
+    def video_seq_len(self) -> int:
+        t, h, w = self.latent_grid
+        return t * h * w
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """AudioAwareModel config (reference `models/audio_model.py:130-171`)."""
+    dim: int = 3072
+    audio_dim: int = 768
+    num_attention_heads: int = 48
+    attention_head_dim: int = 64
+    window_size: int = 5
+    window_stride: int = 1
+    num_layers: int = 42
+    blocks: int = 12
+    intermediate_dim: int = 512
+    context_tokens: int = 32
+    norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """Causal 3D VAE (CogVideoX `AutoencoderKLCogVideoX` semantics)."""
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 16
+    block_out_channels: Tuple[int, ...] = (128, 256, 256, 512)
+    layers_per_block: int = 3
+    temporal_compression_ratio: int = 4
+    spatial_compression_ratio: int = 8
+    norm_num_groups: int = 32
+    scaling_factor: float = 1.15258426
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """CogVideoX DDIM / DPM++ schedule (diffusers semantics)."""
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    snr_shift_scale: float = 3.0
+    rescale_betas_zero_snr: bool = True
+    prediction_type: str = "v_prediction"
+    timestep_spacing: str = "trailing"
+    set_alpha_to_one: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    height: int = 480
+    width: int = 720
+    num_frames: int = 49
+    num_inference_steps: int = 50
+    guidance_scale: float = 6.0
+    use_dynamic_cfg: bool = False
+    scheduler_type: str = "dpm"         # "dpm" | "ddim"
+    base_height: int = 480              # RoPE crop base
+    base_width: int = 720
+    zero2cond_cfg: bool = False
+    # run the uncond/cond CFG halves as two sequential batch-B forwards
+    # instead of one batch-2B forward: same FLOPs, half the activations
+    cfg_microbatch: bool = False
+    # VAE decode in chunks of this many latent frames (None = one pass).
+    # One pass at 49 x 480 x 720 holds 128-channel activations of more than
+    # 2^31 elements, so full-size decodes on the GPU set it.
+    decode_temporal_chunk: Optional[int] = None
+
+
+def tiny_dit_config(**overrides) -> DiTConfig:
+    """A tiny DiT for fast tests: 2 groups of layers, 8x12 latent grid
+    (the same shapes as the JAX package's `tiny_dit_config`)."""
+    base = dict(
+        num_attention_heads=6,
+        attention_head_dim=16,
+        in_channels=8,
+        out_channels=4,
+        time_embed_dim=32,
+        text_embed_dim=32,
+        num_layers=4,
+        sample_width=24,
+        sample_height=16,
+        sample_frames=9,
+        max_text_seq_length=8,
+        cross_attn_interval=2,
+        audio_attn_interval=1,
+        dtype=torch.float32,
+    )
+    base.update(overrides)
+    return DiTConfig(**base)

@@ -1,0 +1,73 @@
+"""Flax parameter tree (as numpy) -> the port's `state_dict`.
+
+The JAX importers stay the only way in from reference checkpoints
+(importer -> flax tree -> this converter).  Rules:
+  * Dense `kernel` [in, out] -> `weight` [out, in]; conv `kernel`
+    [kt, kh, kw, in, out] -> `weight` [out, in, kt, kh, kw];
+  * LayerNorm / GroupNorm `scale` -> `weight`, `bias` -> `bias` (this covers
+    the fused-QK-norm `_Affine` `norm_q`/`norm_k` params, whose tree is the
+    LayerNorm's);
+  * the audio projection's `conv_w` [2C, C] / `conv_b` -> `conv.weight`
+    [C, 2C] / `conv.bias`;
+  * the scan-stacked `blocks` and `audio_layers` [L, ...] leaves -> one
+    module per layer, `blocks.{i}.` / `audio_layers.{i}.`.
+Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_STACKED = ("blocks", "audio_layers")
+
+
+def _leaf(path: tuple, arr: np.ndarray):
+    *parents, name = path
+    if name == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(4, 3, 0, 1, 2)
+        name = "weight"
+    elif name == "scale":
+        name = "weight"
+    elif name == "conv_w":
+        parents, name, arr = parents + ["conv"], "weight", arr.T
+    elif name == "conv_b":
+        parents, name = parents + ["conv"], "bias"
+    return ".".join(parents + [name]), arr
+
+
+def _walk(tree: Mapping[str, Any], prefix: tuple, out: Dict[str, np.ndarray]) -> None:
+    for key, sub in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(sub, Mapping):
+            _walk(sub, path, out)
+        else:
+            name, arr = _leaf(path, np.asarray(sub))
+            out[name] = arr
+
+
+def _layer(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i of a scan-stacked subtree."""
+    return {k: _layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def _num_layers(tree: Mapping[str, Any]) -> int:
+    leaf = next(iter(tree.values()))
+    return _num_layers(leaf) if isinstance(leaf, Mapping) else np.asarray(leaf).shape[0]
+
+
+def jax_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a (numpy) flax param tree of `DiT.init` or `CausalVAE.init`."""
+    flat: Dict[str, np.ndarray] = {}
+    for top, sub in params.items():
+        if top in _STACKED:
+            for i in range(_num_layers(sub)):
+                _walk(_layer(sub, i), (top, str(i)), flat)
+        elif isinstance(sub, Mapping):
+            _walk(sub, (top,), flat)
+        else:
+            flat[top] = np.asarray(sub)
+    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}

@@ -1,0 +1,275 @@
+"""Causal 3D VAE in torch (port of `bindyouravatar_tpu/models/vae.py`).
+
+CogVideoX `AutoencoderKLCogVideoX` semantics: causal temporal padding by
+first-frame replication, fp32 group norms, avg-pool temporal downsample
+with the odd first frame passed through, nearest 2t-1 temporal / 2x spatial
+upsampling.  Internally NCDHW (torch's conv layout); the public tensors keep
+the JAX layout: video [B, T, 3, H, W], latents [B, T', C, H/8, W/8].
+Module names follow the flax tree (`down_0_res_0`, `norm_layer.gn`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import VAEConfig
+from .layers import init_random_
+
+
+class _Conv(nn.Conv3d):
+    """nn.Conv3d computing in `compute_dtype` (flax `nn.Conv(dtype=...)`)."""
+
+    def __init__(self, cin, cout, kernel, stride=1, padding=0,
+                 compute_dtype=torch.bfloat16, dtype=torch.float32):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, dtype=dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        return F.conv3d(x.to(cd), self.weight.to(cd), self.bias.to(cd), self.stride,
+                        self.padding)
+
+
+class CausalConv3d(nn.Module):
+    """3D conv, temporally causal: front-pad (kt-1) replicated first frames."""
+
+    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int] = (3, 3, 3), **kw):
+        super().__init__()
+        self.kernel = kernel
+        self.conv = _Conv(cin, cout, kernel, **kw)
+
+    def forward(self, x):
+        kt, kh, kw = self.kernel
+        if kt > 1:
+            x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
+        return self.conv(F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2)))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm in fp32, output in the input dtype."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.gn = nn.GroupNorm(groups, channels, eps=eps, dtype=dtype)
+
+    def forward(self, x):
+        g = self.gn
+        return F.group_norm(x.float(), g.num_groups, g.weight.float(), g.bias.float(),
+                            g.eps).to(x.dtype)
+
+
+class SpatialNorm3D(nn.Module):
+    """Decoder norm modulated by the latent zq (CogVideoXSpatialNorm3D)."""
+
+    def __init__(self, features: int, zq_channels: int, groups: int = 32, **kw):
+        super().__init__()
+        self.norm_layer = GroupNorm(groups, features, dtype=kw["dtype"])
+        self.conv_y = CausalConv3d(zq_channels, features, (1, 1, 1), **kw)
+        self.conv_b = CausalConv3d(zq_channels, features, (1, 1, 1), **kw)
+
+    def forward(self, x, zq):
+        t, h, w = x.shape[2:]
+        zt = zq.shape[2]
+        if zt != t:
+            dev = zq.device
+            if t > 1 and t % 2 == 1 and zt > 1:
+                idx = torch.arange(t - 1, device=dev) * (zt - 1) // (t - 1)
+                zq = torch.cat([zq[:, :, :1], zq[:, :, 1:][:, :, idx]], dim=2)
+            else:
+                zq = zq[:, :, torch.arange(t, device=dev) * zt // t]
+        if zq.shape[3] != h:
+            zq = F.interpolate(zq, size=(zq.shape[2], h, w), mode="nearest")
+        return self.norm_layer(x) * self.conv_y(zq) + self.conv_b(zq)
+
+
+class ResnetBlock3D(nn.Module):
+    def __init__(self, in_features: int, out_features: int, zq_channels: Optional[int] = None,
+                 groups: int = 32, **kw):
+        super().__init__()
+        self.zq = zq_channels is not None
+        if self.zq:
+            self.norm1 = SpatialNorm3D(in_features, zq_channels, groups, **kw)
+            self.norm2 = SpatialNorm3D(out_features, zq_channels, groups, **kw)
+        else:
+            self.norm1 = GroupNorm(groups, in_features, dtype=kw["dtype"])
+            self.norm2 = GroupNorm(groups, out_features, dtype=kw["dtype"])
+        self.conv1 = CausalConv3d(in_features, out_features, **kw)
+        self.conv2 = CausalConv3d(out_features, out_features, **kw)
+        self.conv_shortcut = (CausalConv3d(in_features, out_features, (1, 1, 1), **kw)
+                              if in_features != out_features else None)
+
+    def forward(self, x, zq=None):
+        norm = (lambda m, h: m(h, zq)) if self.zq else (lambda m, h: m(h))
+        h = self.conv1(F.silu(norm(self.norm1, x)))
+        h = self.conv2(F.silu(norm(self.norm2, h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+def _temporal_avg_pool(x):
+    """Causal temporal 2x pool (dim 2) with odd-first-frame passthrough."""
+    if x.shape[2] % 2 == 1:
+        first, rest = x[:, :, :1], x[:, :, 1:]
+        if rest.shape[2] > 0:
+            rest = 0.5 * (rest[:, :, 0::2] + rest[:, :, 1::2])
+        return torch.cat([first, rest], dim=2)
+    return 0.5 * (x[:, :, 0::2] + x[:, :, 1::2])
+
+
+class Downsample3D(nn.Module):
+    """Spatial stride-2 conv (pad right/bottom), optional temporal pool."""
+
+    def __init__(self, features: int, compress_time: bool = False, **kw):
+        super().__init__()
+        self.compress_time = compress_time
+        self.conv = _Conv(features, features, (1, 3, 3), stride=(1, 2, 2), **kw)
+
+    def forward(self, x):
+        if self.compress_time:
+            x = _temporal_avg_pool(x)
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample3D(nn.Module):
+    """Nearest 2x spatial (and causal 2t-1 temporal) upsample + conv."""
+
+    def __init__(self, features: int, compress_time: bool = False, **kw):
+        super().__init__()
+        self.compress_time = compress_time
+        self.conv = _Conv(features, features, (1, 3, 3), padding=(0, 1, 1), **kw)
+
+    def forward(self, x):
+        if self.compress_time and x.shape[2] > 1:
+            if x.shape[2] % 2 == 1:
+                x = torch.cat([x[:, :, :1], x[:, :, 1:].repeat_interleave(2, dim=2)], dim=2)
+            else:
+                x = x.repeat_interleave(2, dim=2)
+        x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
+        return self.conv(x)
+
+
+class Encoder3D(nn.Module):
+    def __init__(self, c: VAEConfig):
+        super().__init__()
+        kw = dict(compute_dtype=c.dtype, dtype=c.param_dtype)
+        levels = int(math.log2(c.temporal_compression_ratio))
+        boc, n = c.block_out_channels, len(c.block_out_channels)
+        self.conv_in = CausalConv3d(c.in_channels, boc[0], **kw)
+        self.order = []
+        cur = boc[0]
+        for i, ch in enumerate(boc):
+            for j in range(c.layers_per_block):
+                self._add(f"down_{i}_res_{j}", ResnetBlock3D(cur, ch, None, c.norm_num_groups, **kw))
+                cur = ch
+            if i < n - 1:
+                self._add(f"down_{i}_downsample", Downsample3D(ch, i < levels, **kw))
+        for j in range(2):
+            self._add(f"mid_res_{j}", ResnetBlock3D(cur, cur, None, c.norm_num_groups, **kw))
+        self.norm_out = GroupNorm(c.norm_num_groups, cur, dtype=c.param_dtype)
+        self.conv_out = CausalConv3d(cur, 2 * c.latent_channels, **kw)
+
+    def _add(self, name, mod):
+        self.add_module(name, mod)
+        self.order.append(name)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for name in self.order:
+            h = getattr(self, name)(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class Decoder3D(nn.Module):
+    def __init__(self, c: VAEConfig):
+        super().__init__()
+        kw = dict(compute_dtype=c.dtype, dtype=c.param_dtype)
+        levels = int(math.log2(c.temporal_compression_ratio))
+        rev = tuple(reversed(c.block_out_channels))
+        zc, groups = c.latent_channels, c.norm_num_groups
+        self.conv_in = CausalConv3d(zc, rev[0], **kw)
+        self.order = []
+        for j in range(2):
+            self._add(f"mid_res_{j}", ResnetBlock3D(rev[0], rev[0], zc, groups, **kw))
+        cur = rev[0]
+        for i, ch in enumerate(rev):
+            for j in range(c.layers_per_block + 1):
+                self._add(f"up_{i}_res_{j}", ResnetBlock3D(cur, ch, zc, groups, **kw))
+                cur = ch
+            if i < len(rev) - 1:
+                self._add(f"up_{i}_upsample", Upsample3D(ch, i < levels, **kw))
+        self.norm_out = SpatialNorm3D(rev[-1], zc, groups, **kw)
+        self.conv_out = CausalConv3d(rev[-1], c.out_channels, **kw)
+
+    _add = Encoder3D._add
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        for name in self.order:
+            mod = getattr(self, name)
+            h = mod(h, z) if isinstance(mod, ResnetBlock3D) else mod(h)
+        return self.conv_out(F.silu(self.norm_out(h, z)))
+
+
+class CausalVAE(nn.Module):
+    """Public API in the JAX layout ([B, T, C, H, W])."""
+
+    def __init__(self, cfg: VAEConfig = VAEConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder3D(cfg)
+        self.decoder = Decoder3D(cfg)
+
+    @classmethod
+    def create(cls, cfg: VAEConfig = VAEConfig(), device: torch.device | str = "cpu",
+               generator: Optional[torch.Generator] = None) -> "CausalVAE":
+        """Build on `device` without touching the global RNG; weights drawn
+        from `generator` when given, else left for `load_state_dict`."""
+        with torch.device("meta"):
+            model = cls(cfg)
+        model = model.to_empty(device=device)
+        if generator is not None:
+            init_random_(model, generator)
+        return model
+
+    @classmethod
+    def tiny(cls, device: torch.device | str = "cpu",
+             generator: Optional[torch.Generator] = None) -> "CausalVAE":
+        return cls.create(VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                                    latent_channels=4, norm_num_groups=4, dtype=torch.float32),
+                          device=device, generator=generator)
+
+    def encode(self, video: torch.Tensor) -> torch.Tensor:
+        """video [B, T, 3, H, W] in [-1, 1] -> scaled latent mode [B, T', C, H/8, W/8]."""
+        m = self.encoder(video.permute(0, 2, 1, 3, 4).to(self.cfg.dtype))
+        mean = m.permute(0, 2, 1, 3, 4).float().chunk(2, dim=2)[0]
+        return mean * self.cfg.scaling_factor
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        z = (latents / self.cfg.scaling_factor).permute(0, 2, 1, 3, 4).to(self.cfg.dtype)
+        return self.decoder(z).permute(0, 2, 1, 3, 4).float()
+
+    def decode(self, latents: torch.Tensor, temporal_chunk: Optional[int] = None) -> torch.Tensor:
+        """Scaled latents [B, T', C, h, w] -> video [B, T, 3, H, W].
+
+        `temporal_chunk`: decode that many latent frames at a time with one
+        latent frame of left context (the JAX `decode_stream` chunking; the
+        first chunk takes chunk+1 frames with no context).  Chunk joins are
+        approximate: group-norm statistics are per chunk."""
+        t_lat = latents.shape[1]
+        if temporal_chunk is None or t_lat <= temporal_chunk:
+            return self._decode(latents)
+        r, k = self.cfg.temporal_compression_ratio, temporal_chunk
+        first = min(k + 1, t_lat)
+        outs = [self._decode(latents[:, :first])[:, : r * (first - 1) + 1]]
+        i = first
+        while i < t_lat:
+            n = min(k, t_lat - i)
+            outs.append(self._decode(latents[:, i - 1:i + n])[:, 1:1 + r * n])
+            i += n
+        return torch.cat(outs, dim=1)

@@ -1,0 +1,62 @@
+"""Long-query / short-KV cross-attention with the identity combine: kernel B3.
+
+The kernel (`csrc/short_kv_attention.cu`) replaces the TPU kernel
+`_kernel_flat` of `bindyouravatar_tpu/ops/short_kv_attention.py`; its
+source note says what bounds it on the H100.  The audio cross-attention
+calls it once per layer: every latent frame's 1,350 video queries attend
+to that frame's 32 audio tokens of each identity, and the per-identity
+results are summed with the routing weights in the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import check, cuda_lib
+
+
+def short_kv_attention_combined_flat_plain(q: torch.Tensor, k: torch.Tensor,
+                                           v: torch.Tensor, w: torch.Tensor,
+                                           sm_scale: float) -> torch.Tensor:
+    """Plain version of B3 (the JAX `_spec_combined_flat`)."""
+    g, sq, hd = q.shape
+    h, d = k.shape[2], k.shape[4]
+    qh = q.reshape(g, sq, h, d)
+    s = torch.einsum("gqhd,gihkd->gihqk", qh.float(), k.float()) * sm_scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("gihqk,gihkd->giqhd", p.to(v.dtype), v)
+    out = torch.einsum("giqhd,gqi->gqhd", o, w.to(o.dtype))
+    return out.reshape(g, sq, hd)
+
+
+def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     w: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """q [G, Sq, H*D], k/v [G, I, H, K, D], w [G, Sq, I] ->
+    sum_i w_i * softmax(q k_i^T * sm_scale) v_i as [G, Sq, H*D].  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16, D = 64, K = 32 tokens per identity, I <= 4) or raises."""
+    if q.device.type == "cpu":
+        return short_kv_attention_combined_flat_plain(q, k, v, w, sm_scale)
+    g, sq, hd = q.shape
+    n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
+    ok = (q.device.type == "cuda" and d == 64 and hd == h * d and kk == 32
+          and 1 <= n_id <= 4 and k.shape == (g, n_id, h, kk, d) and v.shape == k.shape
+          and w.shape == (g, sq, n_id)
+          and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                  for t in (q, k, v, w)))
+    if not ok:
+        raise ValueError(
+            f"short_kv_attention kernel takes contiguous bf16 CUDA q [G,Sq,H*64], "
+            f"k/v [G,I,H,32,64] with I <= 4, w [G,Sq,I]; got "
+            f"q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, w {tuple(w.shape)} "
+            f"on {q.device}")
+    o = torch.empty_like(q)
+    err = cuda_lib().bya_short_kv_attention_combined_flat(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), o.data_ptr(),
+        g, sq, n_id, h, kk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "short_kv_attention_combined_flat (B3)")
+    short_kv_attention_combined_flat.launches += 1
+    return o
+
+
+short_kv_attention_combined_flat.launches = 0

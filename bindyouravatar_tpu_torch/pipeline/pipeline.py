@@ -1,0 +1,197 @@
+"""BindYourAvatar inference pipeline in torch (port of
+`bindyouravatar_tpu/pipeline/pipeline.py`).
+
+VAE encode of the conditioning image -> CFG denoise loop (batch-2 CFG by
+default, two sequential halves with `cfg_microbatch`) over `DiT.apply` with
+DPM++ or DDIM steps -> VAE decode.  The loop is a host loop over eagerly
+run modules; the audio context is computed once per clip, outside it.
+Randomness comes from an explicit `torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig, SchedulerConfig
+from ..models.dit import DiT
+from ..models.vae import CausalVAE
+from ..ops.scheduler import Schedule
+
+
+def cfg_double(x: Optional[torch.Tensor], zero_uncond: bool) -> Optional[torch.Tensor]:
+    """[B, ...] -> [2B, ...]: uncond half first (zeros if `zero_uncond`)."""
+    if x is None:
+        return None
+    return torch.cat([torch.zeros_like(x) if zero_uncond else x, x], dim=0)
+
+
+@dataclasses.dataclass
+class BindYourAvatarPipeline:
+    dit: DiT
+    vae: CausalVAE
+    schedule: Schedule
+    cfg: PipelineConfig = PipelineConfig()
+
+    @classmethod
+    def create(cls, dit: DiT, vae: CausalVAE, cfg: PipelineConfig = PipelineConfig(),
+               sched_cfg: SchedulerConfig = SchedulerConfig()) -> "BindYourAvatarPipeline":
+        return cls(dit=dit, vae=vae, schedule=Schedule.create(sched_cfg), cfg=cfg)
+
+    def prepare_image_latents(self, image: torch.Tensor, latent_frames: int) -> torch.Tensor:
+        """Encode the conditioning image and zero-pad to `latent_frames`."""
+        lat = self.vae.encode(image)                                  # [B,1,C,h,w]
+        pad = lat.new_zeros((lat.shape[0], latent_frames - lat.shape[1]) + lat.shape[2:])
+        return torch.cat([lat, pad], dim=1)
+
+    def prepare_denoise_inputs(self, prompt_embeds, image_latents, steps, *,
+                               generator: torch.Generator, bg_latents=None,
+                               audio_embeds=None, mute_embeds=None, af_matrix=None,
+                               latents=None) -> Dict[str, object]:
+        """CFG doubling, the per-clip audio context, RoPE tables, the
+        timestep schedule and the initial latents."""
+        c = self.cfg
+        b, t_lat, ch, h_lat, w_lat = image_latents.shape
+        dev = image_latents.device
+        ts = self.schedule.timesteps(steps)
+        prev_ts = ts - self.schedule.config.num_train_timesteps // steps
+        ts_back = np.concatenate([[ts[0]], ts[:-1]])
+        rope = self.dit.rope(h_lat * 8, w_lat * 8, t_lat, base_height_px=c.base_height,
+                             base_width_px=c.base_width, device=dev)
+        # raw inputs are doubled BEFORE the context precompute, so the uncond
+        # half sees zeroed audio (the projection of zeros is not zeros)
+        audio2 = cfg_double(audio_embeds, True)
+        _, actx2 = self.dit.prepare_conditioning(audio_embeds=audio2, mute_embeds=mute_embeds,
+                                                 num_pixel_frames=c.num_frames)
+        af2 = cfg_double(af_matrix, c.zero2cond_cfg)
+        if actx2 is not None and af2 is None:
+            af2 = torch.eye(self.dit.cfg.num_ids, device=dev)[None].repeat(2 * b, 1, 1)
+        if latents is None:
+            latents = torch.randn((b, t_lat, ch, h_lat, w_lat), generator=generator,
+                                  device=dev, dtype=torch.float32)
+        return dict(
+            pe=prompt_embeds, img=cfg_double(image_latents, c.zero2cond_cfg),
+            bg=None if bg_latents is None else torch.cat([bg_latents] * 2, dim=0),
+            actx=actx2, af=af2, rope=rope, latents=latents,
+            ts=[int(x) for x in ts], prev_ts=[int(x) for x in prev_ts],
+            ts_back=[int(x) for x in ts_back])
+
+    def _guided(self, inp, lat, t_cur):
+        """The CFG-guided model output for latents `lat` at timestep t_cur."""
+        c = self.cfg
+        b = lat.shape[0]
+
+        def fwd(sel, lat_in):
+            chans = [lat_in, sel(inp["img"])]
+            if inp["bg"] is not None:
+                chans.append(sel(inp["bg"]))
+            model_in = torch.cat(chans, dim=2)
+            tvec = torch.full((model_in.shape[0],), float(t_cur), device=lat.device)
+            pred, _ = self.dit.apply(model_in, sel(inp["pe"]), tvec, inp["rope"],
+                                     audio_ctx=sel(inp["actx"]), af_matrix=sel(inp["af"]))
+            return pred.float()
+
+        if c.cfg_microbatch:
+            half = lambda h: (lambda x: None if x is None else x[h * b:(h + 1) * b])
+            un, txt = fwd(half(0), lat), fwd(half(1), lat)
+        else:
+            un, txt = fwd(lambda x: x, torch.cat([lat, lat], dim=0)).chunk(2, dim=0)
+        g = c.guidance_scale
+        if c.use_dynamic_cfg:
+            # the reference formula mixes the timestep VALUE with the step
+            # count, so cos sees arguments near 1e14: computed in float32 as
+            # the JAX loop does, since the result depends on the precision
+            f32 = np.float32
+            x = f32(len(inp["ts"]) - t_cur) / f32(len(inp["ts"]))
+            g = float(1 + g * (1 - np.cos(f32(math.pi) * x ** f32(5))) / 2)
+        return un + g * (txt - un)
+
+    @torch.inference_mode()
+    def denoise(self, prompt_embeds, image_latents, generator: torch.Generator, *,
+                bg_latents=None, audio_embeds=None, mute_embeds=None, af_matrix=None,
+                num_inference_steps: Optional[int] = None, guidance_scale: Optional[float] = None,
+                latents: Optional[torch.Tensor] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The CFG denoise loop -> final latents [B, T, C, h, w].
+        `prompt_embeds` is CFG-doubled [2B, L, D] (uncond first).  `noise`:
+        one tensor per step for the DPM++ SDE term (drawn from `generator`
+        when None)."""
+        steps = num_inference_steps or self.cfg.num_inference_steps
+        pipe = self
+        if guidance_scale is not None:
+            pipe = dataclasses.replace(
+                self, cfg=dataclasses.replace(self.cfg, guidance_scale=guidance_scale))
+        inp = pipe.prepare_denoise_inputs(
+            prompt_embeds, image_latents, steps, generator=generator, bg_latents=bg_latents,
+            audio_embeds=audio_embeds, mute_embeds=mute_embeds, af_matrix=af_matrix,
+            latents=latents)
+        sched = self.schedule
+        lat = inp["latents"].float()
+        old_pred = torch.zeros_like(lat)
+        for i, t_cur in enumerate(inp["ts"]):
+            guided = pipe._guided(inp, lat, t_cur)
+            if self.cfg.scheduler_type == "ddim":
+                lat = sched.ddim_step(guided, t_cur, inp["prev_ts"][i], lat)
+                continue
+            step_noise = (noise[i] if noise is not None else
+                          torch.randn(lat.shape, generator=generator, device=lat.device))
+            lat, old_pred = sched.dpm_step_scan(guided, old_pred, t_cur, inp["ts_back"][i],
+                                                inp["prev_ts"][i], lat, i > 0, step_noise)
+        return lat
+
+    @torch.inference_mode()
+    def generate(self, prompt_embeds: torch.Tensor, negative_prompt_embeds: torch.Tensor,
+                 image: torch.Tensor, generator: torch.Generator,
+                 image_bg: Optional[torch.Tensor] = None, decode: bool = True,
+                 latents: Optional[torch.Tensor] = None,
+                 noise: Optional[Sequence[torch.Tensor]] = None,
+                 timings: Optional[Dict[str, float]] = None, **cond) -> torch.Tensor:
+        """prepare latents -> denoise -> decode: video [B, T, 3, H, W] in
+        [-1, 1] (or latents with decode=False).  Conditioning kwargs as in
+        `denoise`.  With a `timings` dict, the wall time of each stage
+        (encode_s, denoise_s, decode_s), measured after a device sync, is
+        stored in it."""
+        clock = _StageClock(image.device, timings)
+        t_lat = (self.cfg.num_frames - 1) // self.dit.cfg.temporal_compression_ratio + 1
+        img_lat = self.prepare_image_latents(image, t_lat)
+        bg_lat = None
+        n_blocks = self.dit.cfg.in_channels // self.vae.cfg.latent_channels
+        if image_bg is not None:
+            if n_blocks < 3:
+                raise ValueError(f"image_bg given but DiT in_channels={self.dit.cfg.in_channels} "
+                                 f"has no bg latent block")
+            bg_lat = self.prepare_image_latents(image_bg, t_lat)
+        elif n_blocks >= 3:
+            bg_lat = torch.zeros_like(img_lat)
+        clock.stage("encode_s")
+        pe = torch.cat([negative_prompt_embeds, prompt_embeds], dim=0)
+        lat = self.denoise(pe, img_lat, generator, bg_latents=bg_lat, latents=latents,
+                           noise=noise, **cond)
+        clock.stage("denoise_s")
+        if not decode:
+            return lat
+        video = self.vae.decode(lat, temporal_chunk=self.cfg.decode_temporal_chunk)
+        clock.stage("decode_s")
+        return video
+
+
+class _StageClock:
+    """Wall time per stage, synchronising the device at each stage end."""
+
+    def __init__(self, device: torch.device, out: Optional[Dict[str, float]]):
+        self.device, self.out = device, out
+        self.t = time.perf_counter()
+
+    def stage(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = now - self.t
+        self.t = now
