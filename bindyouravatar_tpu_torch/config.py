@@ -1,7 +1,8 @@
 """Configuration dataclasses of the port (torch dtypes, JAX defaults).
 
 Mirrors `bindyouravatar_tpu/config.py` field for field for the configs the
-serving slice needs; that module imports `jax.numpy` for its dtype fields,
+serving path needs (the DiT's TPU execution knobs, LoRA and the 2B
+position-table fields are left out); that module imports `jax.numpy` for its dtype fields,
 so it is re-stated here rather than imported.
 """
 
@@ -40,7 +41,9 @@ class DiTConfig:
 
     # --- conditioning subsystems ---
     is_train_face: bool = True
-    cross_attn_interval: int = 2
+    cross_attn_interval: int = 2        # 42 layers -> 21 face/router layers
+    local_face_scale: float = 1.0
+    lfe_num_tokens: int = 32
     is_train_audio: bool = True
     audio_attn_interval: int = 1
     num_ids: int = 2
@@ -51,6 +54,15 @@ class DiTConfig:
     @property
     def inner_dim(self) -> int:
         return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def num_ca(self) -> int:
+        return self.num_layers // self.cross_attn_interval
+
+    @property
+    def lfe_final_output_dim(self) -> int:
+        # reference `transformer.py:441`: int(inner_dim / 3 * 2)
+        return int(self.inner_dim / 3 * 2)
 
     @property
     def latent_frames(self) -> int:
@@ -69,6 +81,23 @@ class DiTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """MultiIPRouter config (reference `models/router.py:280-332`); the
+    (T, H, W) grid comes from the DiT's latent grid at call time."""
+    num_id_token: int = 32
+    num_heads: int = 16
+    num_layers: int = 21
+    q_k_dim: int = 2048
+    num_attention_layers: int = 4
+    attn_heads: int = 8
+    mlp_ratio: int = 1
+
+    @property
+    def feat_dim(self) -> int:
+        return self.num_id_token * self.num_heads  # 512
+
+
+@dataclasses.dataclass(frozen=True)
 class AudioConfig:
     """AudioAwareModel config (reference `models/audio_model.py:130-171`)."""
     dim: int = 3072
@@ -82,6 +111,22 @@ class AudioConfig:
     intermediate_dim: int = 512
     context_tokens: int = 32
     norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class LFEConfig:
+    """LocalFacialExtractor config (reference `models/router.py:78-155`)."""
+    dim: int = 1024
+    depth: int = 10
+    dim_head: int = 64
+    heads: int = 16
+    num_id_token: int = 5
+    num_queries: int = 32
+    output_dim: int = 2048
+    ff_mult: int = 4
+    id_embed_dim: int = 1280   # ArcFace 512 + CLIP pooled 768
+    vit_dim: int = 1024
+    num_scales: int = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,8 +184,9 @@ def tiny_dit_config(**overrides) -> DiTConfig:
     """A tiny DiT for fast tests: 2 groups of layers, 8x12 latent grid
     (the same shapes as the JAX package's `tiny_dit_config`)."""
     base = dict(
-        num_attention_heads=6,
+        num_attention_heads=6,   # inner 96: divisible by 3 (LFE dim contract)
         attention_head_dim=16,
+        lfe_num_tokens=8,
         in_channels=8,
         out_channels=4,
         time_embed_dim=32,

@@ -9,8 +9,12 @@ The JAX importers stay the only way in from reference checkpoints
     LayerNorm's);
   * the audio projection's `conv_w` [2C, C] / `conv_b` -> `conv.weight`
     [C, 2C] / `conv.bias`;
-  * the scan-stacked `blocks` and `audio_layers` [L, ...] leaves -> one
-    module per layer, `blocks.{i}.` / `audio_layers.{i}.`.
+  * the scan-stacked `blocks`, `audio_layers`, `perceiver` and
+    `router_layers` [L, ...] leaves -> one module per layer, `blocks.{i}.`,
+    `audio_layers.{i}.`, `perceivers.{i}.`, `router_layers.{i}.`;
+  * the trunk's `final_proj` kernel [d, 1] is a Dense kernel -> [1, d];
+  * the LFE's raw params `latents` [1, Q, dim] and `proj_out` [dim, out]
+    are not Dense kernels and keep the JAX orientation.
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
 """
 
@@ -21,7 +25,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_STACKED = ("blocks", "audio_layers")
+# scan-stacked subtrees -> the port's ModuleList names
+_STACKED = {"blocks": "blocks", "audio_layers": "audio_layers", "perceiver": "perceivers",
+            "router_layers": "router_layers"}
 
 
 def _leaf(path: tuple, arr: np.ndarray):
@@ -65,7 +71,7 @@ def jax_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for top, sub in params.items():
         if top in _STACKED:
             for i in range(_num_layers(sub)):
-                _walk(_layer(sub, i), (top, str(i)), flat)
+                _walk(_layer(sub, i), (_STACKED[top], str(i)), flat)
         elif isinstance(sub, Mapping):
             _walk(sub, (top,), flat)
         else:

@@ -65,15 +65,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [r0, r0 + rows) of a row-major matrix (row stride `ld`
-// elements, 64 bf16 per row read) into shared memory rows of `lds`
-// elements.  Rows at or past `r_lim` are zero-filled.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_rows64(bf16* sm, int lds, const bf16* base, long long ld,
-                                            int r0, int r_lim, int tid) {
+// Copy rows [r0, r0 + ROWS) of a row-major matrix (row stride `ld`
+// elements, D bf16 per row read, D a multiple of 8) into shared memory rows
+// of `lds` elements.  Rows at or past `r_lim` are zero-filled.
+template <int ROWS, int D, int NTHREADS>
+__device__ __forceinline__ void load_rows(bf16* sm, int lds, const bf16* base, long long ld,
+                                          int r0, int r_lim, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int i = tid; i < ROWS * 8; i += NTHREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
+  for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
     const int gr = r0 + r;
     const bool ok = gr < r_lim;
     const bf16* src = base + (ok ? (long long)gr * ld : 0) + c;
@@ -81,26 +82,38 @@ __device__ __forceinline__ void load_rows64(bf16* sm, int lds, const bf16* base,
   }
 }
 
-// The four A fragments (k = 0..63) of a warp's 16 rows of a [*, LDS] tile.
-template <int LDS>
-__device__ __forceinline__ void load_a_frags64(uint32_t (&f)[4][4], const bf16* tile_rows,
-                                               int lane) {
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_rows64(bf16* sm, int lds, const bf16* base, long long ld,
+                                            int r0, int r_lim, int tid) {
+  load_rows<ROWS, 64, NTHREADS>(sm, lds, base, ld, r0, r_lim, tid);
+}
+
+// The KS A fragments (k = 0..16*KS-1) of a warp's 16 rows of a [*, LDS] tile.
+template <int KS, int LDS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* tile_rows,
+                                             int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const bf16* p = tile_rows + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8;
     ldmatrix_x4(f[kk][0], f[kk][1], f[kk][2], f[kk][3], p);
   }
 }
 
-// s[nt] += A (16 x 64) * B^T for B rows nt*8..nt*8+7 of a [*, LDS] tile:
-// the score block of 16 query rows against NT*8 key rows.
-template <int NT, int LDS>
-__device__ __forceinline__ void qk_scores64(float (&s)[NT][4], const uint32_t (&qf)[4][4],
-                                            const bf16* ks, int lane) {
+template <int LDS>
+__device__ __forceinline__ void load_a_frags64(uint32_t (&f)[4][4], const bf16* tile_rows,
+                                               int lane) {
+  load_a_frags<4, LDS>(f, tile_rows, lane);
+}
+
+// s[nt] += A (16 x 16*KS) * B^T for B rows nt*8..nt*8+7 of a [*, LDS] tile:
+// the score block of 16 query rows against NT*8 key rows (KS even).
+template <int NT, int KS, int LDS>
+__device__ __forceinline__ void qk_scores(float (&s)[NT][4], const uint32_t (&qf)[KS][4],
+                                          const bf16* ks, int lane) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-    for (int kk = 0; kk < 4; kk += 2) {
+    for (int kk = 0; kk < KS; kk += 2) {
       uint32_t b0, b1, b2, b3;
       const bf16* p = ks + (nt * 8 + (lane & 7)) * LDS + kk * 16 + (lane >> 3) * 8;
       ldmatrix_x4(b0, b1, b2, b3, p);
@@ -110,11 +123,17 @@ __device__ __forceinline__ void qk_scores64(float (&s)[NT][4], const uint32_t (&
   }
 }
 
-// o[nd] += P (16 x NT*8, fp32 score fragments rounded to bf16) * V (NT*8 x 64)
-// with V row-major in a [*, LDS] tile.
 template <int NT, int LDS>
-__device__ __forceinline__ void pv_accumulate64(float (&o)[8][4], const float (&p)[NT][4],
-                                                const bf16* vs, int lane) {
+__device__ __forceinline__ void qk_scores64(float (&s)[NT][4], const uint32_t (&qf)[4][4],
+                                            const bf16* ks, int lane) {
+  qk_scores<NT, 4, LDS>(s, qf, ks, lane);
+}
+
+// o[nd] += P (16 x NT*8, fp32 score fragments rounded to bf16) * V
+// (NT*8 x 8*ND) with V row-major in a [*, LDS] tile (NT, ND even).
+template <int NT, int ND, int LDS>
+__device__ __forceinline__ void pv_accumulate(float (&o)[ND][4], const float (&p)[NT][4],
+                                              const bf16* vs, int lane) {
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
@@ -122,7 +141,7 @@ __device__ __forceinline__ void pv_accumulate64(float (&o)[8][4], const float (&
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-    for (int nd = 0; nd < 8; nd += 2) {
+    for (int nd = 0; nd < ND; nd += 2) {
       uint32_t b0, b1, b2, b3;
       const bf16* ptr = vs + (kk * 16 + (lane & 15)) * LDS + (nd + (lane >> 4)) * 8;
       ldmatrix_x4_trans(b0, b1, b2, b3, ptr);
@@ -130,6 +149,12 @@ __device__ __forceinline__ void pv_accumulate64(float (&o)[8][4], const float (&
       mma_bf16(o[nd + 1], a, b2, b3);
     }
   }
+}
+
+template <int NT, int LDS>
+__device__ __forceinline__ void pv_accumulate64(float (&o)[8][4], const float (&p)[NT][4],
+                                                const bf16* vs, int lane) {
+  pv_accumulate<NT, 8, LDS>(o, p, vs, lane);
 }
 
 }  // namespace bya

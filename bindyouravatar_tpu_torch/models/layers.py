@@ -52,7 +52,9 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics, output in the input dtype.
-    `fused=True` routes through kernel B6 (`ops.layernorm.fused_layernorm`)."""
+    `fused=True` routes rows of a width that is a multiple of 128 through
+    kernel B6 (`ops.layernorm.fused_layernorm`); other widths take the plain
+    math, as the JAX dispatch decides by shape (`ops/layernorm.py:62`)."""
 
     def __init__(self, dim: int, eps: float = 1e-5, fused: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -62,7 +64,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = fused_layernorm if self.fused else layernorm_plain
+        fn = fused_layernorm if self.fused and x.shape[-1] % 128 == 0 else layernorm_plain
         return fn(x, self.weight, self.bias, self.eps)
 
 

@@ -226,7 +226,7 @@ class CausalVAE(nn.Module):
         self.decoder = Decoder3D(cfg)
 
     @classmethod
-    def create(cls, cfg: VAEConfig = VAEConfig(), device: torch.device | str = "cpu",
+    def create(cls, cfg: VAEConfig = VAEConfig(), device: torch.device | str = "cuda",
                generator: Optional[torch.Generator] = None) -> "CausalVAE":
         """Build on `device` without touching the global RNG; weights drawn
         from `generator` when given, else left for `load_state_dict`."""
@@ -238,7 +238,7 @@ class CausalVAE(nn.Module):
         return model
 
     @classmethod
-    def tiny(cls, device: torch.device | str = "cpu",
+    def tiny(cls, device: torch.device | str = "cuda",
              generator: Optional[torch.Generator] = None) -> "CausalVAE":
         return cls.create(VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
                                     latent_channels=4, norm_num_groups=4, dtype=torch.float32),

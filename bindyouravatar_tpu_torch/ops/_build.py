@@ -1,7 +1,8 @@
 """Build and load the port's hand-written kernels.
 
-CUDA C++ (`csrc/*.cu`) is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`.  The library's file
+CUDA C++ (`csrc/*.cu`) is compiled by `nvcc` for `sm_90a`, one process per
+source, all started together, then linked into one shared library with a
+plain C interface, loaded with `ctypes`.  The library's file
 name carries a hash of the sources, so an edit rebuilds and an unchanged
 tree reuses the build.  Triton kernels compile on first launch into a cache
 that is also kept under `_build/`.  Nothing builds at import time: the first
@@ -21,9 +22,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-CUDA_SOURCES = ("flash_attention.cu", "short_kv_attention.cu")
+CUDA_SOURCES = ("flash_attention.cu", "short_kv_attention.cu", "packed_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (all return a cudaError_t)
@@ -32,6 +33,8 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _F, _P],
+    "bya_short_kv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "bya_tiny_seq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -50,8 +53,9 @@ def _nvcc() -> str:
 
 def build_cuda() -> Path:
     """Compile the CUDA sources (if this tree's build is missing) and return
-    the library path.  The compiler's per-kernel register and shared-memory
-    report is kept beside it in `nvcc.log`."""
+    the library path.  Each source compiles in its own `nvcc` process, all
+    at once; the compilers' per-kernel register and shared-memory reports
+    are kept beside the library in `nvcc.log`."""
     srcs = [CSRC_DIR / s for s in CUDA_SOURCES]
     digest = hashlib.sha256()
     for p in sorted(CSRC_DIR.glob("*.cu*")):
@@ -61,12 +65,27 @@ def build_cuda() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [(src.name, *proc.communicate(), proc.returncode)
+            for src, proc in zip(srcs, procs)]
+    (BUILD_DIR / "nvcc.log").write_text(
+        "".join(f"== {name} (exit {rc})\n{out}" for name, out, _, rc in logs))
+    failed = [(name, out) for name, out, _, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}:\n{out[-4000:]}" for name, out in failed))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -1,11 +1,15 @@
-"""Long-query / short-KV cross-attention with the identity combine: kernel B3.
+"""Long-query / short-KV cross-attention: kernels B2 and B3.
 
-The kernel (`csrc/short_kv_attention.cu`) replaces the TPU kernel
-`_kernel_flat` of `bindyouravatar_tpu/ops/short_kv_attention.py`; its
-source note says what bounds it on the H100.  The audio cross-attention
-calls it once per layer: every latent frame's 1,350 video queries attend
-to that frame's 32 audio tokens of each identity, and the per-identity
-results are summed with the routing weights in the kernel.
+Both kernels (`csrc/short_kv_attention.cu`) replace TPU kernels of
+`bindyouravatar_tpu/ops/short_kv_attention.py`; the source notes say what
+bounds them on the H100.
+  * B3 (`_kernel_flat`), with the identity combine: the audio
+    cross-attention calls it once per layer; every latent frame's 1,350
+    video queries attend to that frame's 32 audio tokens of each identity,
+    and the per-identity results are summed with the routing weights.
+  * B2 (`_kernel`, `combine=False`): the perceiver face injection calls it
+    once per face layer; all 17,550 video queries attend to each identity's
+    32 face tokens, one output per identity, combined later by the caller.
 """
 
 from __future__ import annotations
@@ -60,3 +64,46 @@ def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.
 
 
 short_kv_attention_combined_flat.launches = 0
+
+
+def short_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             sm_scale: float) -> torch.Tensor:
+    """Plain version of B2 (the JAX `_spec_attend`, with flat q and output)."""
+    b, sq, hd = q.shape
+    n_id, h, d = k.shape[1], k.shape[2], k.shape[4]
+    qh = q.reshape(b, sq, h, d)
+    s = torch.einsum("bqhd,bihkd->bihqk", qh.float(), k.float()) * sm_scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bihqk,bihkd->biqhd", p.to(v.dtype), v)
+    return o.reshape(b, n_id, sq, hd)
+
+
+def short_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       sm_scale: float) -> torch.Tensor:
+    """q [B, Sq, H*D], k/v [B, I, H, K, D] -> softmax(q k_i^T * sm_scale) v_i
+    per identity as [B, I, Sq, H*D].  A CPU tensor takes the plain version;
+    a CUDA tensor launches kernel B2 (bf16, D = 128, K = 32 tokens per
+    identity, I <= 4) or raises."""
+    if q.device.type == "cpu":
+        return short_kv_attention_plain(q, k, v, sm_scale)
+    b, sq, hd = q.shape
+    n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
+    ok = (q.device.type == "cuda" and d == 128 and hd == h * d and kk == 32
+          and 1 <= n_id <= 4 and k.shape == (b, n_id, h, kk, d) and v.shape == k.shape
+          and all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                  for t in (q, k, v)))
+    if not ok:
+        raise ValueError(
+            f"short_kv_attention kernel takes contiguous bf16 CUDA q [B,Sq,H*128], "
+            f"k/v [B,I,H,32,128] with I <= 4; got q {tuple(q.shape)} {q.dtype}, "
+            f"k {tuple(k.shape)} on {q.device}")
+    o = torch.empty((b, n_id, sq, hd), dtype=q.dtype, device=q.device)
+    err = cuda_lib().bya_short_kv_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, n_id, h, kk,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "short_kv_attention (B2)")
+    short_kv_attention.launches += 1
+    return o
+
+
+short_kv_attention.launches = 0

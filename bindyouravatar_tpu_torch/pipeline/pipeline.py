@@ -4,7 +4,8 @@
 VAE encode of the conditioning image -> CFG denoise loop (batch-2 CFG by
 default, two sequential halves with `cfg_microbatch`) over `DiT.apply` with
 DPM++ or DDIM steps -> VAE decode.  The loop is a host loop over eagerly
-run modules; the audio context is computed once per clip, outside it.
+run modules; the face tokens (LFE) and the audio context are computed once
+per clip, outside it.
 Randomness comes from an explicit `torch.Generator`.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,15 @@ def cfg_double(x: Optional[torch.Tensor], zero_uncond: bool) -> Optional[torch.T
     if x is None:
         return None
     return torch.cat([torch.zeros_like(x) if zero_uncond else x, x], dim=0)
+
+
+def temporal_or_routing(routing: torch.Tensor, grid: Tuple[int, int, int]) -> torch.Tensor:
+    """Forced/teacher masks are OR-reduced over time then repeated
+    (reference `transformer.py:747-749, 815-818`).  routing: [B, S, I]."""
+    t, h, w = grid
+    b, s, i = routing.shape
+    r = routing.reshape(b, t, h, w, i).amax(dim=1, keepdim=True)
+    return r.expand(b, t, h, w, i).reshape(b, s, i)
 
 
 @dataclasses.dataclass
@@ -50,11 +60,13 @@ class BindYourAvatarPipeline:
         return torch.cat([lat, pad], dim=1)
 
     def prepare_denoise_inputs(self, prompt_embeds, image_latents, steps, *,
-                               generator: torch.Generator, bg_latents=None,
-                               audio_embeds=None, mute_embeds=None, af_matrix=None,
+                               generator: torch.Generator, bg_latents=None, id_cond=None,
+                               id_vit_hidden=None, audio_embeds=None, mute_embeds=None,
+                               af_matrix=None, routing_forcing=None,
                                latents=None) -> Dict[str, object]:
-        """CFG doubling, the per-clip audio context, RoPE tables, the
-        timestep schedule and the initial latents."""
+        """CFG doubling, the per-clip face tokens and audio context, the
+        forced routing, RoPE tables, the timestep schedule and the initial
+        latents."""
         c = self.cfg
         b, t_lat, ch, h_lat, w_lat = image_latents.shape
         dev = image_latents.device
@@ -64,11 +76,19 @@ class BindYourAvatarPipeline:
         rope = self.dit.rope(h_lat * 8, w_lat * 8, t_lat, base_height_px=c.base_height,
                              base_width_px=c.base_width, device=dev)
         # raw inputs are doubled BEFORE the context precompute, so the uncond
-        # half sees zeroed audio (the projection of zeros is not zeros)
+        # half sees zeroed inputs (the LFE or projection of zeros is not zeros)
+        idc2 = cfg_double(id_cond, c.zero2cond_cfg)
+        vit2 = cfg_double(id_vit_hidden, c.zero2cond_cfg)
         audio2 = cfg_double(audio_embeds, True)
-        _, actx2 = self.dit.prepare_conditioning(audio_embeds=audio2, mute_embeds=mute_embeds,
-                                                 num_pixel_frames=c.num_frames)
+        face2, actx2 = self.dit.prepare_conditioning(
+            id_cond=idc2, id_vit_hidden=vit2, audio_embeds=audio2, mute_embeds=mute_embeds,
+            num_pixel_frames=c.num_frames)
         af2 = cfg_double(af_matrix, c.zero2cond_cfg)
+        force2 = None
+        if routing_forcing is not None:
+            p = self.dit.cfg.patch_size
+            force2 = temporal_or_routing(torch.cat([routing_forcing] * 2, dim=0),
+                                         (t_lat, h_lat // p, w_lat // p))
         if actx2 is not None and af2 is None:
             af2 = torch.eye(self.dit.cfg.num_ids, device=dev)[None].repeat(2 * b, 1, 1)
         if latents is None:
@@ -77,7 +97,7 @@ class BindYourAvatarPipeline:
         return dict(
             pe=prompt_embeds, img=cfg_double(image_latents, c.zero2cond_cfg),
             bg=None if bg_latents is None else torch.cat([bg_latents] * 2, dim=0),
-            actx=actx2, af=af2, rope=rope, latents=latents,
+            face=face2, actx=actx2, af=af2, force=force2, rope=rope, latents=latents,
             ts=[int(x) for x in ts], prev_ts=[int(x) for x in prev_ts],
             ts_back=[int(x) for x in ts_back])
 
@@ -93,7 +113,9 @@ class BindYourAvatarPipeline:
             model_in = torch.cat(chans, dim=2)
             tvec = torch.full((model_in.shape[0],), float(t_cur), device=lat.device)
             pred, _ = self.dit.apply(model_in, sel(inp["pe"]), tvec, inp["rope"],
-                                     audio_ctx=sel(inp["actx"]), af_matrix=sel(inp["af"]))
+                                     face_emb=sel(inp["face"]), audio_ctx=sel(inp["actx"]),
+                                     af_matrix=sel(inp["af"]),
+                                     routing_override=sel(inp["force"]))
             return pred.float()
 
         if c.cfg_microbatch:
@@ -113,14 +135,18 @@ class BindYourAvatarPipeline:
 
     @torch.inference_mode()
     def denoise(self, prompt_embeds, image_latents, generator: torch.Generator, *,
-                bg_latents=None, audio_embeds=None, mute_embeds=None, af_matrix=None,
+                bg_latents=None, id_cond=None, id_vit_hidden=None, audio_embeds=None,
+                mute_embeds=None, af_matrix=None, routing_forcing=None,
                 num_inference_steps: Optional[int] = None, guidance_scale: Optional[float] = None,
                 latents: Optional[torch.Tensor] = None,
                 noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """The CFG denoise loop -> final latents [B, T, C, h, w].
-        `prompt_embeds` is CFG-doubled [2B, L, D] (uncond first).  `noise`:
-        one tensor per step for the DPM++ SDE term (drawn from `generator`
-        when None)."""
+        `prompt_embeds` is CFG-doubled [2B, L, D] (uncond first); id_cond
+        [B, I, 1280], id_vit_hidden [B, I, 5, 577, 1024], audio_embeds
+        [B, tracks, A, 12, 768], af_matrix [B, I, I], routing_forcing
+        [B, S, I] (OR-reduced over time, then used in place of the
+        predicted routing).  `noise`: one tensor per step for the DPM++ SDE
+        term (drawn from `generator` when None)."""
         steps = num_inference_steps or self.cfg.num_inference_steps
         pipe = self
         if guidance_scale is not None:
@@ -128,7 +154,8 @@ class BindYourAvatarPipeline:
                 self, cfg=dataclasses.replace(self.cfg, guidance_scale=guidance_scale))
         inp = pipe.prepare_denoise_inputs(
             prompt_embeds, image_latents, steps, generator=generator, bg_latents=bg_latents,
-            audio_embeds=audio_embeds, mute_embeds=mute_embeds, af_matrix=af_matrix,
+            id_cond=id_cond, id_vit_hidden=id_vit_hidden, audio_embeds=audio_embeds,
+            mute_embeds=mute_embeds, af_matrix=af_matrix, routing_forcing=routing_forcing,
             latents=latents)
         sched = self.schedule
         lat = inp["latents"].float()

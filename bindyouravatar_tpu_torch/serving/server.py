@@ -27,6 +27,8 @@ class GenerationRequest:
     prompt_embeds: np.ndarray                 # [1, L, text_dim]
     image: np.ndarray                         # [1, 1, 3, H, W] in [-1, 1]
     negative_prompt_embeds: Optional[np.ndarray] = None
+    id_cond: Optional[np.ndarray] = None        # [1, I, 1280]
+    id_vit_hidden: Optional[np.ndarray] = None  # [1, I, 5, 577, 1024]
     audio_embeds: Optional[np.ndarray] = None  # [1, tracks, A, 12, 768]
     mute_embeds: Optional[np.ndarray] = None
     af_matrix: Optional[np.ndarray] = None
@@ -122,6 +124,9 @@ class InferenceServer:
         neg = (dev(req.negative_prompt_embeds) if req.negative_prompt_embeds is not None
                else torch.zeros_like(pe))
         cond = {}
+        if self.pipeline.dit.cfg.is_train_face and req.id_cond is not None:
+            cond["id_cond"] = dev(req.id_cond)
+            cond["id_vit_hidden"] = dev(req.id_vit_hidden)
         if self.pipeline.dit.cfg.is_train_audio and req.audio_embeds is not None:
             cond["audio_embeds"] = dev(req.audio_embeds)
             if req.mute_embeds is not None:

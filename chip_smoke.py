@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # 42 layers, 2 requests x 2 denoise steps
+    python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps each
 
 Phases (one line each; any failure exits non-zero and prints no result):
-  1. the card's `nvidia-smi` name and power limit; build every kernel.
-  2. each kernel (B1 flash attention, B3 short-KV attention, B6 LayerNorm)
-     against its plain PyTorch version on the card, at the serving path's
-     shapes and at a ragged shape, with the stated tolerance, and both timed.
-  3. a reduced audio-only DiT step on the card (kernels) against the same
-     weights on the CPU (plain versions, fp32).
-  4. the port's `InferenceServer` answers 2 requests through
-     `pipeline.generate` at the 5B audio-only geometry (dim 3072, 48 x 64
-     heads, 226 + 17,550 tokens, 49 x 480 x 720 video) with random weights
-     drawn on the card from a seed; output shape, finiteness and each
-     kernel's launch count are checked.
+  1. the card's `nvidia-smi` name and power limit; build every kernel (one
+     nvcc per CUDA source, all at once).
+  2. each kernel (B1 flash attention, fused and bare; B2 and B3 short-KV
+     attention; B4 pair-axis attention; B5 and B5' tiny-sequence attention;
+     B6 LayerNorm) against its plain PyTorch version on the card, at the
+     serving path's shapes and at a ragged shape, with the stated
+     tolerance; kernel, plain version and (where one PyTorch call computes
+     the same function) that library call timed, and the bound computed.
+  3. a reduced audio-only DiT step and a reduced fully conditioned one
+     (face + audio, 3 latent frames so B5' runs) on the card (kernels, bf16)
+     against the same weights on the CPU (plain versions, fp32); the face
+     step's kernel launches are counted.
+  4. the port's `InferenceServer` answers 2 face + audio requests and 1
+     audio-only request through `pipeline.generate` on one fully
+     conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
+     17,550 tokens, 21 face layers with the router, 49 x 480 x 720 video)
+     with random weights drawn on the card from a seed; output shape,
+     finiteness and each kernel's launch count are checked.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -52,6 +59,22 @@ def _time_ms(fn, runs: int, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
+# H100 SXM data-sheet peaks: HBM3 bandwidth and dense tensor-core/FP32 rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def _bound(nbytes: float, flops: float, kind: str):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _compare(got, want, atol: float, rtol: float):
     """(max |got - want|, max relative error, ok) with ok meaning
     |got - want| <= atol + rtol * |want| everywhere and all finite."""
@@ -66,8 +89,10 @@ def kernel_phase(results: dict) -> bool:
     """Kernels vs plain versions at the serving path's shapes and at one
     ragged shape each; records the serving-shape numbers in `results`."""
     import torch
+    import torch.nn.functional as F
     from bindyouravatar_tpu_torch.ops import flash_attention as fa
     from bindyouravatar_tpu_torch.ops import layernorm as ln
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
     from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
     from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
 
@@ -78,40 +103,82 @@ def kernel_phase(results: dict) -> bool:
     bf = torch.bfloat16
     ok_all = True
 
-    def report(name, tag, got, want, atol, rtol, kern, plain, runs):
+    def report(name, tag, got, want, atol, rtol, kern, plain, runs, library=None, work=None):
+        """Compare, time kernel / plain / library call; `work` = (bytes,
+        flops, peak kind) of the call for its bound."""
         nonlocal ok_all
         err, rel, ok = _compare(got, want, atol, rtol)
         ms, plain_ms = _time_ms(kern, runs), _time_ms(plain, max(1, runs // 2))
+        lib_ms = None if library is None else _time_ms(library, runs)
+        bound_ms, bound_by = _bound(*work) if work is not None else (None, None)
         ok_all &= ok
+        extra = "" if bound_ms is None else f" bound_ms={bound_ms:.4f} ({bound_by})"
+        extra += f" library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'}"
         print(f"kernel {name} {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"tol=|d|<={atol}+{rtol}*|ref| {'ok' if ok else 'FAILED'} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        return err, ms, plain_ms
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}", flush=True)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+    def bhsd(t, h):
+        """[B, S, H*D] -> contiguous [B, H, S, D]: the library call's layout
+        (made before timing, so the permute is not in library_ms)."""
+        b, s_, hd = t.shape
+        return t.reshape(b, s_, h, hd // h).transpose(1, 2).contiguous()
 
     # --- B1: joint self-attention, q/k/v [2, 17776, 48*64]; ragged S=1000 with
-    # a masked kv tail; the bare path (no LN, no RoPE) at S=777
+    # a masked kv tail; the bare path (no LN, no RoPE) of the STAB spatial
+    # attention at [52, 1350, 8*64] and at a ragged S=777.
     # tol: both sides round LN/RoPE outputs and p to bf16; the kernel also
-    # rounds the scaled q (one more bf16 ulp, ~0.4% of a logit)
+    # rounds the scaled q (one more bf16 ulp, ~0.4% of a logit).
+    # library: SDPA computes the bare function only (no QK-LN, no RoPE).
     for tag, b, s, h, text_len, grid, kv_len in (
             ("slice[2,17776,3072]", 2, 17776, 48, 226, (13, 30, 45), None),
             ("ragged[1,1000,512] kv_len=937", 1, 1000, 8, 10, (3, 18, 18), 937),
+            ("bare[52,1350,512] no LN/RoPE", 52, 1350, 8, 0, None, None),
             ("ragged[2,777,256] no LN/RoPE", 2, 777, 4, 0, None, None)):
         q, k, v = (rnd(b, s, h * 64).to(bf) for _ in range(3))
         kw = dict(kv_len=kv_len)
+        library = None
         if grid is not None:
             rope = get_3d_rotary_pos_embed(64, ((0, 0), grid[1:]), grid[1:], grid[0], device=dev)
             norm = (rnd(64, std=0.1, mean=1.0), rnd(64, std=0.1),
                     rnd(64, std=0.1, mean=1.0), rnd(64, std=0.1))
             kw.update(rope=rope, rope_start=text_len, qk_norm=norm)
+        else:
+            qb, kb, vb = bhsd(q, h), bhsd(k, h), bhsd(v, h)
+            library = lambda: F.scaled_dot_product_attention(qb, kb, vb)
         kern = lambda: fa.flash_attention(q, k, v, h, **kw)
         plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
-        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5)
-        if "slice" in tag:
-            results["B1"] = r
+        work = (_nbytes(q, k, v, q), 4.0 * b * h * s * (kv_len or s) * 64, "bf16")
+        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work)
+        if tag.startswith(("slice", "bare")):
+            results["B1" if tag.startswith("slice") else "B1 bare"] = r
+
+    # --- B2: perceiver face attention, q [2, 17550, 16*128], k/v [2, 2, 16, 32,
+    # 128], one output per identity; ragged Sq=1000.
+    # tol: the plain version rounds p and each output to bf16 as the kernel
+    # does; fp32 sums in another order.
+    # library: SDPA with the identities folded into the heads (q repeated
+    # per identity before timing), output [B, I*H, Sq, 128].
+    for tag, b, sq in (("slice[2,17550,2048] I=2 K=32", 2, 17550),
+                       ("ragged[1,1000,2048] I=2 K=32", 1, 1000)):
+        q = rnd(b, sq, 16 * 128).to(bf)
+        k, v = (rnd(b, 2, 16, 32, 128).to(bf) for _ in range(2))
+        kern = lambda: skv.short_kv_attention(q, k, v, 128 ** -0.5)
+        plain = lambda: skv.short_kv_attention_plain(q, k, v, 128 ** -0.5)
+        qi = bhsd(q, 16).unsqueeze(1).expand(b, 2, 16, sq, 128).reshape(b, 32, sq, 128)
+        ki, vi = k.reshape(b, 32, 32, 128), v.reshape(b, 32, 32, 128)
+        library = lambda: F.scaled_dot_product_attention(qi, ki, vi)
+        work = (_nbytes(q, k, v) + 2 * _nbytes(q), 4.0 * b * 2 * 16 * sq * 32 * 128, "bf16")
+        r = report("B2", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20, library, work)
+        if tag.startswith("slice"):
+            results["B2"] = r
 
     # --- B3: audio cross-attention, q [26, 1350, 3072], k/v [26, 2, 48, 32, 64]
     # tol: the plain version rounds each identity's output and the combine
-    # to bf16, the kernel sums in fp32 and rounds once
+    # to bf16, the kernel sums in fp32 and rounds once.
+    # library: none (no single call weights the identities' softmaxes).
     for tag, g, sq, w_uniform in (("slice[26,1350,3072] w=0.5", 26, 1350, True),
                                   ("slice[26,1350,3072] w~U(0,1)", 26, 1350, False),
                                   ("ragged[3,1000,3072]", 3, 1000, False)):
@@ -121,79 +188,189 @@ def kernel_phase(results: dict) -> bool:
              else torch.rand((g, sq, 2), generator=gen, device=dev)).to(bf)
         kern = lambda: skv.short_kv_attention_combined_flat(q, k, v, w, 0.125)
         plain = lambda: skv.short_kv_attention_combined_flat_plain(q, k, v, w, 0.125)
-        r = report("B3", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20)
+        work = (_nbytes(q, k, v, w, q), 4.0 * g * 2 * 48 * sq * 32 * 64, "bf16")
+        r = report("B3", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20, None, work)
         if tag.startswith("slice") and w_uniform:
             results["B3"] = r
 
-    # --- B6: audio norm_q rows [2*17550, 3072], AudioProjModel [2*2*13*32, 768]
+    # --- B4: multi-ID STAB attention, q/k/v [2, 2, 17550, 8*64]; ragged M=1001.
+    # tol: both sides compute in fp32 and round once (one bf16 ulp).
+    # library: SDPA over the pair axis on a [B*M, H, 2, 64] copy (permuted
+    # before timing).
+    for tag, b, m in (("slice[2,2,17550,512]", 2, 17550), ("ragged[1,2,1001,512]", 1, 1001)):
+        q, k, v = (rnd(b, 2, m, 512).to(bf) for _ in range(3))
+        kern = lambda: pa.pair_axis_attention(q, k, v, 8, 0.125)
+        plain = lambda: pa.pair_axis_attention_plain(q, k, v, 8, 0.125)
+        pairs = lambda t: t.reshape(b, 2, m, 8, 64).permute(0, 2, 3, 1, 4).reshape(
+            b * m, 8, 2, 64).contiguous()
+        qp, kp, vp = pairs(q), pairs(k), pairs(v)
+        library = lambda: F.scaled_dot_product_attention(qp, kp, vp, scale=0.125)
+        work = (_nbytes(q, k, v, q), 15.0 * b * m * 512, "fp32")
+        r = report("B4", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
+        if tag.startswith("slice"):
+            results["B4"] = r
+
+    # --- B5: temporal STAB attention [5400, 13, 8*64]; ragged M=1001.  B5':
+    # the same kernel for S < 8 through `packed_head_attention` on the
+    # packed [M, S*8, 64] view, at S = 3 (the reduced step's frames) and 2.
+    # tol: both sides round p to bf16; fp32 sums in another order.
+    # library: SDPA on a [M, 8, S, 64] copy (permuted before timing).
+    for name, tag, m, s in (("B5", "slice[5400,13,512]", 5400, 13),
+                            ("B5", "ragged[1001,13,512]", 1001, 13),
+                            ("B5'", "slice[5400,3,512]", 5400, 3),
+                            ("B5'", "slice[5400,2,512]", 5400, 2)):
+        q, k, v = (rnd(m, s, 512).to(bf) for _ in range(3))
+        if name == "B5":
+            kern = lambda: pa.tiny_seq_attention(q, k, v, 8, 0.125)
+            plain = lambda: pa.tiny_seq_attention_plain(q, k, v, 8, 0.125)
+        else:
+            packed = [t.reshape(m, s * 8, 64) for t in (q, k, v)]
+            kern = lambda: pa.packed_head_attention(*packed, 8, 0.125)
+            plain = lambda: pa.packed_head_attention_plain(*packed, 8, 0.125)
+        qh, kh, vh = bhsd(q, 8), bhsd(k, 8), bhsd(v, 8)
+        library = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
+        work = (_nbytes(q, k, v, q), 4.0 * m * 8 * s * s * 64, "bf16")
+        got = kern().reshape(m, s, 512)
+        r = report(name, tag, got, plain().reshape(m, s, 512), 1e-2, 2e-2, kern, plain, 20,
+                   library, work)
+        if tag.startswith("slice") and name not in results:
+            results[name] = r
+
+    # --- B6: audio norm_q rows [2*17550, 3072], AudioProjModel [2*2*13*32, 768];
+    # the face path's widths: router norms [35100, 2048], STAB/trunk [70200, 512]
     # tol: one bf16 rounding of the same fp32 value, summed in another order
+    # library: F.layer_norm (affine cast to bf16 before timing)
     for tag, rows, d in (("slice[35100,3072]", 35100, 3072), ("slice[1664,768]", 1664, 768),
+                         ("slice[35100,2048]", 35100, 2048), ("slice[70200,512]", 70200, 512),
                          ("ragged[1001,768]", 1001, 768)):
         x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
         sc, bi = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
+        scb, bib = sc.to(bf), bi.to(bf)
         kern = lambda: ln.fused_layernorm(x, sc, bi)
         plain = lambda: ln.layernorm_plain(x, sc, bi)
-        r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20)
+        library = lambda: F.layer_norm(x, (d,), scb, bib, 1e-5)
+        work = (_nbytes(x, sc, bi, x), 8.0 * rows * d, "fp32")
+        r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
         if tag == "slice[35100,3072]":
             results["B6"] = r
     return ok_all
 
 
-def reduced_step_phase() -> bool:
-    """A 2-layer audio-only DiT step at reduced widths on the card (kernels,
-    bf16) against the same weights on the CPU (plain versions, fp32)."""
+def _kernel_fns():
+    """name -> kernel wrapper (its `launches` counts the kernel's launches)."""
+    from bindyouravatar_tpu_torch.ops.flash_attention import flash_attention
+    from bindyouravatar_tpu_torch.ops.layernorm import fused_layernorm
+    from bindyouravatar_tpu_torch.ops.packed_attention import (packed_head_attention,
+                                                               pair_axis_attention,
+                                                               tiny_seq_attention)
+    from bindyouravatar_tpu_torch.ops.short_kv_attention import (
+        short_kv_attention, short_kv_attention_combined_flat)
+
+    return {"B1": flash_attention, "B2": short_kv_attention,
+            "B3": short_kv_attention_combined_flat, "B4": pair_axis_attention,
+            "B5": tiny_seq_attention, "B5'": packed_head_attention, "B6": fused_layernorm}
+
+
+def _reset_launches() -> None:
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
+
+
+def reduced_step_phase(launches: dict) -> bool:
+    """2-layer DiT steps at reduced widths on the card (kernels, bf16)
+    against the same weights on the CPU (plain versions, fp32): audio-only,
+    then fully conditioned (face + audio) at 3 latent frames, whose kernel
+    launches go into `launches`."""
     import numpy as np
     import torch
-    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, LFEConfig, RouterConfig
     from bindyouravatar_tpu_torch.models.dit import DiT
 
-    base = dict(num_attention_heads=4, attention_head_dim=64, in_channels=48,
-                out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
-                sample_width=24, sample_height=16, sample_frames=9, max_text_seq_length=16,
-                is_train_face=False)
-    acfg = AudioConfig(dim=256, audio_dim=128, num_attention_heads=4, attention_head_dim=64,
-                       num_layers=2, blocks=2, intermediate_dim=64, context_tokens=32)
-    ref = DiT.create(DiTConfig(dtype=torch.float32, param_dtype=torch.float32, **base), acfg,
-                     generator=torch.Generator().manual_seed(7))
-    gpu = DiT.create(DiTConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16, **base), acfg,
-                     device="cuda")
-    gpu.load_state_dict(ref.state_dict())
-    c = ref.cfg
-    rng = np.random.default_rng(7)
-    n_af = c.sample_frames + acfg.window_size - acfg.window_stride
-    inputs = dict(
-        latents=rng.normal(size=(2, c.latent_frames, 48, 16, 24)),
-        text_embeds=rng.normal(size=(2, 16, 128)),
-        timesteps=np.array([999.0, 499.0]),
-        audio_embeds=rng.normal(size=(2, 2, n_af, 2, 128)))
-    outs = []
-    with torch.inference_mode():
-        for model, dev in ((ref, "cpu"), (gpu, "cuda")):
-            t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in inputs.items()}
-            rope = model.rope(16 * 8, 24 * 8, c.latent_frames, device=dev)
-            out, _ = model.apply(t["latents"], t["text_embeds"], t["timesteps"], rope,
-                                 audio_embeds=t["audio_embeds"])
-            outs.append(out.float().cpu())
-    # tol: bf16 activations and weights through 2 blocks against fp32
-    scale = float(outs[0].abs().max())
-    err, rel, ok = _compare(outs[1], outs[0], 0.05 * scale, 0.05)
-    print(f"reduced step (2 layers, dim 256, 16 + 288 tokens): cuda-bf16 vs cpu-fp32 "
-          f"max_abs_err={err:.3e} (ref max {scale:.3e}) tol=|d|<={0.05 * scale:.3e}"
-          f"+0.05*|ref| {'ok' if ok else 'FAILED'}", flush=True)
+    ok = True
+    # face step widths the kernels take: inner 768 (12 x 64), router 4 heads
+    # x 128 (q_k_dim 512 = the LFE output), 32 face tokens, feat_dim 128
+    # (2 STAB heads x 64); a narrow LFE (it runs once per clip)
+    for face in (False, True):
+        heads = 12 if face else 4
+        base = dict(num_attention_heads=heads, attention_head_dim=64, in_channels=48,
+                    out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
+                    sample_width=24, sample_height=16, sample_frames=9, max_text_seq_length=16,
+                    is_train_face=face)
+        acfg = AudioConfig(dim=heads * 64, audio_dim=128, num_attention_heads=heads,
+                           attention_head_dim=64, num_layers=2, blocks=2, intermediate_dim=64,
+                           context_tokens=32)
+        rcfg = RouterConfig(num_layers=1, q_k_dim=512, num_heads=4, num_id_token=32,
+                            attn_heads=2)
+        lcfg = LFEConfig(dim=128, depth=5, dim_head=64, heads=2, num_id_token=2, num_queries=32,
+                         output_dim=512, id_embed_dim=64, vit_dim=64)
+        sub = (acfg, rcfg, lcfg)
+        ref = DiT.create(DiTConfig(dtype=torch.float32, param_dtype=torch.float32, **base), *sub,
+                         device="cpu", generator=torch.Generator().manual_seed(7))
+        # fp32 weights (the config default) computed in bf16: the routing is
+        # a sigmoid, and near 0.5 it passes on every rounding of the router
+        gpu = DiT.create(DiTConfig(dtype=torch.bfloat16, param_dtype=torch.float32, **base),
+                         *sub, device="cuda")
+        gpu.load_state_dict(ref.state_dict())
+        c = ref.cfg
+        rng = np.random.default_rng(7)
+        n_af = c.sample_frames + acfg.window_size - acfg.window_stride
+        inputs = dict(
+            latents=rng.normal(size=(2, c.latent_frames, 48, 16, 24)),
+            text_embeds=rng.normal(size=(2, 16, 128)),
+            timesteps=np.array([999.0, 499.0]),
+            audio_embeds=rng.normal(size=(2, 2, n_af, 2, 128)))
+        if face:
+            inputs.update(id_cond=rng.normal(size=(2, 2, 64)),
+                          id_vit_hidden=rng.normal(size=(2, 2, 5, 17, 64)))
+        outs = []
+        with torch.inference_mode():
+            for model, dev in ((ref, "cpu"), (gpu, "cuda")):
+                t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in inputs.items()}
+                rope = model.rope(16 * 8, 24 * 8, c.latent_frames, device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    _reset_launches()
+                out, routing = model.apply(t.pop("latents"), t.pop("text_embeds"),
+                                           t.pop("timesteps"), rope, **t)
+                if dev == "cuda" and face:
+                    torch.cuda.synchronize()
+                    launches.update(_read_launches())
+                outs.append((out.float().cpu(), None if routing is None else routing.float().cpu()))
+        # tol: bf16 activations and weights through 2 blocks against fp32
+        scale = float(outs[0][0].abs().max())
+        err, rel, step_ok = _compare(outs[1][0], outs[0][0], 0.05 * scale, 0.05)
+        what = ("fully conditioned (face + audio, 12 x 64 heads, router 4 x 128, "
+                "16 + 288 tokens, 3 frames)" if face else "audio-only (dim 256, 16 + 288 tokens)")
+        line = (f"reduced step {what}: cuda-bf16 vs cpu-fp32 max_abs_err={err:.3e} "
+                f"(ref max {scale:.3e}) tol=|d|<={0.05 * scale:.3e}+0.05*|ref|")
+        if face:
+            # tol: routing in [0, 1] through the bf16 router (logit rounded to bf16)
+            r_err = float((outs[1][1] - outs[0][1]).abs().max())
+            r_ok = bool(outs[1][1].isfinite().all()) and r_err <= 0.05
+            line += (f"; routing {tuple(outs[0][1].shape)} max_abs_err={r_err:.3e} tol=0.05 "
+                     f"{'ok' if r_ok else 'FAILED'}; launches "
+                     + " ".join(f"{k}={v}" for k, v in launches.items()))
+            # every kernel of this path ran (B5 needs >= 8 frames: B5' here)
+            ran = all(launches[k] > 0 for k in ("B1", "B2", "B3", "B4", "B5'", "B6"))
+            step_ok &= r_ok and ran and launches["B5"] == 0
+        print(f"{line} {'ok' if step_ok else 'FAILED'}", flush=True)
+        ok &= step_ok
     return ok
 
 
 def serving_phase(args, launches: dict) -> bool:
-    """Two requests through the port's InferenceServer at the 5B audio-only
-    geometry; fills `launches` with each kernel's count over the run."""
+    """Face + audio requests and one audio-only request through the port's
+    InferenceServer on one fully conditioned DiT at the 5B geometry; fills
+    `launches` with each kernel's count over the run."""
     import numpy as np
     import torch
     from bindyouravatar_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
     from bindyouravatar_tpu_torch.models.dit import DiT
     from bindyouravatar_tpu_torch.models.vae import CausalVAE
-    from bindyouravatar_tpu_torch.ops.flash_attention import flash_attention
-    from bindyouravatar_tpu_torch.ops.layernorm import fused_layernorm
-    from bindyouravatar_tpu_torch.ops.short_kv_attention import short_kv_attention_combined_flat
     from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
     from bindyouravatar_tpu_torch.serving import GenerationRequest, InferenceServer
 
@@ -201,43 +378,47 @@ def serving_phase(args, launches: dict) -> bool:
     bf = torch.bfloat16
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(args.seed)
-    dit = DiT.create(DiTConfig(is_train_face=False, is_train_audio=True, dtype=bf,
+    dit = DiT.create(DiTConfig(is_train_face=True, is_train_audio=True, dtype=bf,
                                param_dtype=bf), device=dev, generator=gen)
     vae = CausalVAE.create(VAEConfig(param_dtype=bf), device=dev, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in dit.parameters())
-    print(f"model: DiT {n_params / 1e9:.3f}B params ({dit.cfg.num_layers} layers), VAE "
-          f"{sum(p.numel() for p in vae.parameters()) / 1e6:.1f}M, bf16, drawn on the card "
-          f"in {time.perf_counter() - t0:.1f} s; weights "
+    n_face = sum(p.numel() for name in ("lfe", "perceivers", "router_norms", "router_layers",
+                                        "router_trunk") for p in getattr(dit, name).parameters())
+    print(f"model: DiT {n_params / 1e9:.3f}B params ({dit.cfg.num_layers} layers; face path "
+          f"{n_face / 1e9:.3f}B), VAE {sum(p.numel() for p in vae.parameters()) / 1e6:.1f}M, "
+          f"bf16, drawn on the card in {time.perf_counter() - t0:.1f} s; weights "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     pcfg = PipelineConfig(num_inference_steps=args.steps, decode_temporal_chunk=4)
     pipe = BindYourAvatarPipeline.create(dit, vae, pcfg)
-    c, a = dit.cfg, dit.audio_cfg
+    c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
     n_af = pcfg.num_frames + a.window_size - a.window_stride
     reqs = []
-    for i in range(args.requests):
+    for i in range(args.requests + 1):
+        face = i < args.requests              # the last request is audio-only
         rng = np.random.default_rng(args.seed + 1 + i)
+        f32 = lambda *shape, fn=rng.normal: fn(size=shape).astype(np.float32)
+        cond = dict(id_cond=f32(1, c.num_ids, lf.id_embed_dim),
+                    id_vit_hidden=f32(1, c.num_ids, lf.num_scales, 577, lf.vit_dim)) if face else {}
         reqs.append(GenerationRequest(
-            prompt_embeds=rng.normal(size=(1, c.max_text_seq_length, c.text_embed_dim)).astype(np.float32),
+            prompt_embeds=f32(1, c.max_text_seq_length, c.text_embed_dim),
             image=rng.uniform(-1, 1, (1, 1, 3, pcfg.height, pcfg.width)).astype(np.float32),
-            audio_embeds=rng.normal(size=(1, 2, n_af, a.blocks, a.audio_dim)).astype(np.float32),
-            seed=args.seed + i, request_id=f"r{i}"))
+            audio_embeds=f32(1, 2, n_af, a.blocks, a.audio_dim),
+            seed=args.seed + i, request_id=f"r{i}{' face+audio' if face else ' audio-only'}",
+            **cond))
 
-    kernels = (flash_attention, short_kv_attention_combined_flat, fused_layernorm)
     server = InferenceServer(pipe, dev)
     try:
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels:
-            fn.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         results = [f.result(timeout=1200) for f in [server.submit(r) for r in reqs]]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = [fn.launches for fn in kernels]
+        launches.update(_read_launches())
     finally:
         server.close()
-    launches.update(B1=counts[0], B3=counts[1], B6=counts[2])
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     ok = True
@@ -250,15 +431,25 @@ def serving_phase(args, launches: dict) -> bool:
         print(f"request {r.request_id}: video {tuple(r.video.shape)} "
               f"{'ok' if shape_ok else 'WRONG SHAPE'} finite={finite} "
               f"range=[{float(r.video.min()):.3f}, {float(r.video.max()):.3f}] {stages}", flush=True)
-    forwards = args.steps * args.requests * (2 if pcfg.cfg_microbatch else 1)
-    want = {"B1": c.num_layers * forwards, "B3": a.num_layers * forwards}
-    counts_ok = (launches["B1"] == want["B1"] and launches["B3"] == want["B3"]
-                 and launches["B6"] >= a.num_layers * forwards)
+    # per batch-2 CFG forward: face + audio runs B1 42 (blocks) + 4 per face
+    # layer (STAB spatial), B2 1 and B4, B5 4 per face layer, B3 42, B6 42
+    # (audio norm_q) + 21 per face layer; audio-only B1 = B3 = B6 = 42; plus
+    # one AudioProjModel B6 per clip
+    per = 2 if pcfg.cfg_microbatch else 1
+    fwd_face, fwd_audio = args.steps * args.requests * per, args.steps * per
+    n_ca, n_st = c.num_ca, dit.router_cfg.num_attention_layers
+    face_b6 = 2 + 2 + 1 + 4 * n_st                 # perceiver, router norms, trunk, STABs
+    want = {"B1": c.num_layers * (fwd_face + fwd_audio) + n_ca * n_st * fwd_face,
+            "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
+            "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
+            "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face
+            + len(reqs)}
+    counts_ok = launches == want
     ok &= counts_ok
-    print(f"serving: {args.requests} requests x {args.steps} steps in {wall:.2f} s wall, "
-          f"peak memory {peak:.2f} GiB; launches B1={launches['B1']} (want {want['B1']}) "
-          f"B3={launches['B3']} (want {want['B3']}) B6={launches['B6']} "
-          f"(want >= {a.num_layers * forwards}) {'ok' if counts_ok else 'FAILED'}", flush=True)
+    print(f"serving: {args.requests} face + audio and 1 audio-only requests x {args.steps} steps "
+          f"in {wall:.2f} s wall, peak memory {peak:.2f} GiB; launches "
+          + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
+          + f" {'ok' if counts_ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -294,16 +485,16 @@ def main(argv=None) -> int:
         _build.import_triton()
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
-    print(f"build: {lib.name} (nvcc sm_90a, B1 + B3) and triton import in "
+    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5) and triton import in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
         print(f"  ptxas: {line.strip()}", flush=True)
 
-    results, launches = {}, {}
+    results, launches, reduced_launches = {}, {}, {}
     ok = kernel_phase(results)
-    ok &= reduced_step_phase()
+    ok &= reduced_step_phase(reduced_launches)
     if args.requests > 0:
         ok &= serving_phase(args, launches)
     else:
@@ -312,20 +503,29 @@ def main(argv=None) -> int:
     if not ok:
         return _fail("a phase failed")
 
+    # B5' runs only below 8 latent frames: its launches are those of the
+    # reduced fully conditioned step (3 frames), every other kernel's those
+    # of the serving run
+    launches["B5'"] = reduced_launches["B5'"]
     meta = {
         "B1": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
                "bindyouravatar_tpu/ops/flash_attention.py:592"),
+        "B2": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+               "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
         "B3": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
                "bindyouravatar_tpu/ops/short_kv_attention.py:177"),
+        "B4": ("triton", "bindyouravatar_tpu_torch/ops/_pair_triton.py",
+               "bindyouravatar_tpu/ops/packed_attention.py:226"),
+        "B5": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+               "bindyouravatar_tpu/ops/packed_attention.py:139"),
+        "B5'": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+                "bindyouravatar_tpu/ops/packed_attention.py:47"),
         "B6": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
                "bindyouravatar_tpu/ops/layernorm.py:26"),
     }
-    kernels = []
-    for name, (route, source, replaces) in meta.items():
-        err, ms, plain_ms = results[name]
-        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+    kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches[name], **results[name]}
+               for name, (route, source, replaces) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,7 @@ def test_convert_roundtrip_tiny_dit():
     port's DiT (strict load) with the documented layout changes."""
     jd = JDiT.tiny(is_train_face=False)
     params = realistic(jax.eval_shape(jd.init, jax.random.key(0)))
-    model = _load(DiT.tiny(), params)
+    model = _load(DiT.tiny(device="cpu", is_train_face=False), params)
     sd = model.state_dict()
     np.testing.assert_array_equal(sd["blocks.3.attn1.to_q.weight"].numpy(),
                                   params["blocks"]["attn1"]["to_q"]["kernel"][3].T)
@@ -152,7 +152,7 @@ def test_causal_vae_encode_decode():
     jv = JCausalVAE(JVAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
                                latent_channels=4, norm_num_groups=4, dtype=jnp.float32))
     params = realistic(jax.eval_shape(jv.init, jax.random.key(5)))
-    tv = _load(CausalVAE.tiny(), params)
+    tv = _load(CausalVAE.tiny(device="cpu"), params)
     rng = np.random.default_rng(5)
     video = rng.uniform(-1, 1, (1, 9, 3, 32, 48)).astype(np.float32)
     latents = rng.standard_normal((1, 5, 4, 4, 6)).astype(np.float32)
@@ -165,7 +165,3 @@ def test_causal_vae_encode_decode():
     assert _rel(dec, jv.decode(params, jnp.asarray(latents))) < 1e-5
     assert _rel(dec_chunked, jv.decode(params, jnp.asarray(latents), temporal_chunk=2)) < 1e-5
 
-
-def test_face_path_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiT.tiny(is_train_face=True)

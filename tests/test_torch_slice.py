@@ -42,7 +42,8 @@ def models():
                                latent_channels=4, norm_num_groups=4, dtype=jnp.float32))
     dp = realistic(jax.eval_shape(jd.init, jax.random.key(0)), seed=1)
     vp = realistic(jax.eval_shape(jv.init, jax.random.key(1)), seed=2)
-    td, tv = DiT.tiny(), CausalVAE.tiny()
+    td = DiT.tiny(device="cpu", is_train_face=False)
+    tv = CausalVAE.tiny(device="cpu")
     td.load_state_dict(jax_params_to_torch(dp), strict=True)
     tv.load_state_dict(jax_params_to_torch(vp), strict=True)
     return jd, jv, dp, vp, td.eval(), tv.eval()
