@@ -1,14 +1,18 @@
 """Configuration dataclasses of the port (torch dtypes, JAX defaults).
 
 Mirrors `bindyouravatar_tpu/config.py` field for field for the configs the
-serving path needs (the DiT's TPU execution knobs, LoRA and the 2B
-position-table fields are left out); that module imports `jax.numpy` for its dtype fields,
-so it is re-stated here rather than imported.
+serving and training paths need: the DiT's LoRA fields and its execution
+knobs `fuse_qk_norm`, `remat` and `remat_policy` are here, as is
+`TrainConfig`; the 2B position-table fields and the TPU-only knobs
+(`use_flash_attention`, `ff_chunks`) are left out.  That module imports
+`jax.numpy` for its dtype fields, so it is re-stated here rather than
+imported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -48,8 +52,21 @@ class DiTConfig:
     audio_attn_interval: int = 1
     num_ids: int = 2
 
+    # --- LoRA on the joint self-attention's to_q/to_k ---
+    lora_rank: int = 0
+    lora_alpha: float = 128.0
+
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
+    # inference-configured (the pipeline sets it): the joint attention runs
+    # the QK-LN and RoPE inside kernel B1 and the router's spatial attention
+    # takes bare B1, neither with a backward; False is the training path
+    # (QK-LN through B10, attention through B7)
+    fuse_qk_norm: bool = False
+    remat: bool = False                 # checkpoint each layer group
+    # None: the group saves nothing; "nested": each block inside a group is
+    # checkpointed too, so the group's backward recomputes one block at a time
+    remat_policy: Optional[str] = None
 
     @property
     def inner_dim(self) -> int:
@@ -63,6 +80,19 @@ class DiTConfig:
     def lfe_final_output_dim(self) -> int:
         # reference `transformer.py:441`: int(inner_dim / 3 * 2)
         return int(self.inner_dim / 3 * 2)
+
+    @property
+    def group_size(self) -> int:
+        """Layers per group: the period of the face/audio injection schedule."""
+        g = 1
+        if self.is_train_face:
+            g = math.lcm(g, self.cross_attn_interval)
+        if self.is_train_audio:
+            g = math.lcm(g, self.audio_attn_interval)
+        if self.num_layers % g:
+            raise ValueError(f"num_layers={self.num_layers} not divisible by injection "
+                             f"period {g}")
+        return g
 
     @property
     def latent_frames(self) -> int:
@@ -178,6 +208,54 @@ class PipelineConfig:
     # One pass at 49 x 480 x 720 holds 128-channel activations of more than
     # 2^31 elements, so full-size decodes on the GPU set it.
     decode_temporal_chunk: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Stage-3 trainer config (the JAX `TrainConfig`, field for field)."""
+    learning_rate: float = 1e-5
+    optimizer: str = "adamw"
+    use_8bit_adam: bool = False
+    prodigy_beta3: Optional[float] = None
+    prodigy_decouple: bool = True
+    prodigy_use_bias_correction: bool = False
+    prodigy_safeguard_warmup: bool = False
+    is_diff_lr: bool = False
+    diff_lr_high: float = 10.0
+    diff_lr_low: float = 0.1
+    lr_scheduler: str = "cosine_with_restarts"
+    lr_warmup_steps: int = 100
+    lr_num_cycles: int = 1
+    max_train_steps: int = 10000
+    weight_decay: float = 1e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    grad_accum_steps: int = 2
+    lora_rank: int = 128
+    lora_alpha: int = 128
+    router_loss_weight: float = 1.0
+    consistency_loss_weight: float = 8.0
+    temporal_diff_loss_weight: float = 0.002
+    spatial_diff_loss_weight: float = 0.0009
+    spatial_dist_loss_weight: float = 10.0
+    id_dist_loss_weight: float = 10.0
+    enable_mask_loss: bool = True
+    mask_prob: float = 0.2
+    noised_image_dropout: float = 0.05
+    image_noise: bool = True
+    image_noise_mean: float = -1.0
+    image_noise_std: float = 0.5
+    stochastic_vae: bool = True
+    drop_inpaint_prob: float = 0.0
+    index_mask_drop_prob: float = 0.2
+    routing_logits_zeros_prob: float = 0.2
+    compat_transposed_grid_losses: bool = True
+    checkpointing_steps: int = 100
+    checkpoints_total_limit: Optional[int] = None
+    ema_decay: Optional[float] = None
+    seed: int = 42
 
 
 def tiny_dit_config(**overrides) -> DiTConfig:

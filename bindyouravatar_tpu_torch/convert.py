@@ -14,7 +14,9 @@ The JAX importers stay the only way in from reference checkpoints
     `audio_layers.{i}.`, `perceivers.{i}.`, `router_layers.{i}.`;
   * the trunk's `final_proj` kernel [d, 1] is a Dense kernel -> [1, d];
   * the LFE's raw params `latents` [1, Q, dim] and `proj_out` [dim, out]
-    are not Dense kernels and keep the JAX orientation.
+    are not Dense kernels and keep the JAX orientation, as do the LoRA
+    leaves `to_q_lora_A` [dim, r] / `to_q_lora_B` [r, inner] (and to_k's):
+    the port computes (x A) B as the flax module does.
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
 """
 
@@ -77,3 +79,17 @@ def jax_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             flat[top] = np.asarray(sub)
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def check_trainable_set(jax_trainable: Mapping[str, Any],
+                        torch_trainable: Mapping[str, torch.Tensor]) -> None:
+    """Raise unless the port's trainable parameters (name -> tensor) are
+    the converted image of the JAX trainable partition (the flax subtree
+    `partition_params` returns): the same names, the same element counts."""
+    want = {k: v.numel() for k, v in jax_params_to_torch(jax_trainable).items()}
+    got = {k: v.numel() for k, v in torch_trainable.items()}
+    if want != got:
+        missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        sizes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        raise ValueError(f"trainable sets differ: missing {missing[:5]}, extra {extra[:5]}, "
+                         f"sizes {sizes[:5]}")

@@ -1,7 +1,6 @@
-// B1: flat flash-attention forward with fused per-head QK LayerNorm and
-// rotate-half RoPE, for head dim 64.
+// B1 and B7: flat flash attention over [B, S, H*64] for head dim 64.
 //
-// Replaces the TPU kernel `_fwd_flat_t_kernel`
+// B1 replaces the TPU kernel `_fwd_flat_t_kernel`
 // (bindyouravatar_tpu/ops/flash_attention.py), reached through
 // `flash_attention(layout="flat", v_transposed=True)` from the DiT's joint
 // self-attention at inference.  Same math: per head, LN(eps, fp32 stats,
@@ -9,17 +8,29 @@
 // rope_rows) -> bf16, q scaled by scale*log2(e) in fp32 -> bf16, then
 // non-causal softmax(q k^T) v over kv rows < kv_len.
 //
-// What bounds it on the H100: the two matmuls, 4*S^2*D FLOP per head
-// (~7.8e12 per layer at B=2, S=17,776, 48 heads), against ~0.2 GB of q/k/v
-// traffic: compute bound, so the tensor cores (mma.sync m16n8k16, bf16 in,
-// fp32 accumulate) carry both matmuls.
+// B7 (forward) replaces `_fwd_flat_kernel` with `save_residuals` (reached
+// through the `_flash_flat` custom vjp from the DiT's training attention,
+// QK-LN applied outside, and the router's STAB spatial attention): the same
+// kernels with no LN, writing the per-row log-sum-exp (natural log, fp32,
+// [B, H, S]).  B7 (backward) replaces `_bwd_flat_kernel`: dq, dk, dv from
+// q, k, v, dO, the LSE and delta = rowsum(o * dO) (computed outside, as
+// the JAX package computes it in XLA), P recomputed from the LSE,
+// dS = P (dP - delta) rounded to bf16 before the dq/dk products, and the
+// RoPE adjoint (cos, -sin) on dq and dk over the RoPE rows only.
+//
+// What bounds them on the H100: the matmuls.  Forward 4*S^2*D FLOP per head
+// (~3.9e12 per layer at B=1, S=17,776, 48 heads) against ~0.1 GB of q/k/v
+// traffic; the backward's two kernels recompute the scores and dP, 14*S^2*D
+// FLOP per head.  Compute bound, so the tensor cores (mma.sync m16n8k16,
+// bf16 in, fp32 accumulate) carry every product.
 //
 // Design:
 //  * The TPU kernel prepares K once at grid step iq == 0 into scratch that
 //    later grid steps reuse; GPU blocks run in no order, so a pre-pass
 //    kernel (`prep_qk_kernel`) applies LN + RoPE (+ the q scale) to q and k
-//    once, into bf16 scratch, and the attention kernel reads the prepared
-//    tensors.  Nothing carries over between blocks.
+//    once, into bf16 scratch, and the attention kernels read the prepared
+//    tensors.  Nothing carries over between blocks.  The backward runs the
+//    same pre-pass, so it recomputes exactly the scores the forward saw.
 //  * The softmax keeps an fp32 online running max per row (the TPU kernel's
 //    static max is valid only behind the fused LN); masked scores are a
 //    large finite negative, so no row ever computes inf - inf.
@@ -27,8 +38,14 @@
 //    64 rows stream through a cp.async double buffer.  Rows past S (q) and
 //    past kv_len (k, v) are zero-filled on load; scores of kv rows >= kv_len
 //    are masked; q rows >= S are never stored.
-//  * q, k, v and the output keep the flat [B, S, H*64] layout: no transposed
-//    V, no padded sequence.
+//  * The backward needs no atomics and sums deterministically: one kernel
+//    per 64-row kv tile sweeps every q tile for dk and dv (its warps hold
+//    their 16 k and v rows as mma fragments), and one per 64-row q tile
+//    sweeps every kv tile for dq.  The tile staged first (K/V, or Q/dO) is
+//    read into fragments from the ring's second slot, which the stream then
+//    reuses, so each kernel stays within 48 KB of static shared memory.
+//  * q, k, v, the output and the gradients keep the flat [B, S, H*64]
+//    layout: no transposed V, no padded sequence.
 #include "mma_utils.cuh"
 
 namespace {
@@ -108,9 +125,11 @@ prep_qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, bf16* __r
 }
 
 // q is pre-scaled by scale*log2(e): scores are in log2 units, p = exp2(s - m).
+// `lse` (null for B1): the per-row natural log-sum-exp, fp32 [B, H, S].
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int kv_len) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int S, int H, int kv_len) {
   __shared__ __align__(128) bf16 sQ[BM * LDS];
   __shared__ __align__(128) bf16 sK[2][BN * LDS];
   __shared__ __align__(128) bf16 sV[2][BN * LDS];
@@ -208,6 +227,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv0 = 1.f / l_i[0], inv1 = 1.f / l_i[1];
   const int row0 = q0 + warp * 16 + (lane >> 2);
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lb = lse + ((long long)b * H + h) * S;
+    if (row0 < S) lb[row0] = m_i[0] * (1.0f / LOG2E) + logf(l_i[0]);
+    if (row0 + 8 < S) lb[row0 + 8] = m_i[1] * (1.0f / LOG2E) + logf(l_i[1]);
+  }
   bf16* ob = o + boff;
 #pragma unroll
   for (int nd = 0; nd < 8; ++nd) {
@@ -221,19 +245,257 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------- B7 bwd
 
-// q, k, v, o, q_prep, k_prep: [B, S, H*64] bf16, contiguous.  ln_*: [64]
-// fp32 or all null (no QK LayerNorm).  cos_t/sin_t: [rope_rows, 64] fp32 or
-// null (no RoPE).  Returns the cudaError_t of the launches.
-extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void* v, void* o,
-                                        void* q_prep, void* k_prep, const float* ln_q_w,
-                                        const float* ln_q_b, const float* ln_k_w,
-                                        const float* ln_k_b, const float* cos_t,
-                                        const float* sin_t, int rope_start, int rope_rows,
-                                        int B, int S, int H, int kv_len, float scale,
-                                        float ln_eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// g <- g*cos + rot(g)*(-sin), the adjoint of rotate-half RoPE (the JAX
+// kernel's `_rope_tile(g, cos, -sin)`), on the rows of a warp's [16, 64]
+// fp32 fragment tile (rows row0 and row0 + 8 of this lane) that lie in
+// [rope_start, rope_start + rope_rows).  Column c < 32 pairs with c + 32:
+// fragment nd with nd + 4 of the same lane.
+__device__ __forceinline__ void rope_adjoint(float (&g)[8][4], int row0, int lane,
+                                             const float* cos_t, const float* sin_t,
+                                             int rope_start, int rope_rows) {
+  if (cos_t == nullptr) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = row0 + half * 8;
+    if (s < rope_start || s >= rope_start + rope_rows) continue;
+    const float* cr = cos_t + (long long)(s - rope_start) * D;
+    const float* sr = sin_t + (long long)(s - rope_start) * D;
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = half * 2 + c;
+        const int col = nd * 8 + (lane & 3) * 2 + c;
+        const float g1 = g[nd][e], g2 = g[nd + 4][e];
+        g[nd][e] = g1 * cr[col] + g2 * sr[col];
+        g[nd + 4][e] = g2 * cr[col + 32] - g1 * sr[col + 32];
+      }
+  }
+}
+
+// Store a warp's [16, 64] fp32 fragment tile (rows row0, row0 + 8 of this
+// lane) as bf16 rows of a [*, ld] matrix; rows >= S are not stored.
+__device__ __forceinline__ void store_tile(bf16* base, long long ld, const float (&a)[8][4],
+                                           int row0, int S, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+    const int col = nd * 8 + (lane & 3) * 2;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(base + row0 * ld + col) = bya::pack_bf16(a[nd][0], a[nd][1]);
+    if (row0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(base + (row0 + 8) * ld + col) =
+          bya::pack_bf16(a[nd][2], a[nd][3]);
+  }
+}
+
+// Stage q tile `j` (prepared q and dO rows, and the rows' LSE in log2 units
+// and delta) into ring slot `slot`.  Rows >= S are zero-filled.
+__device__ __forceinline__ void stage_q_tile(bf16* sq, bf16* so, float* sl, float* sd,
+                                             const bf16* qb, const bf16* ob, const float* lb,
+                                             const float* db, long long ld, int j, int S,
+                                             int tid) {
+  const int r0 = j * BM;
+  bya::load_rows64<BM, NTHREADS>(sq, LDS, qb, ld, r0, S, tid);
+  bya::load_rows64<BM, NTHREADS>(so, LDS, ob, ld, r0, S, tid);
+  for (int i = tid; i < BM; i += NTHREADS) {
+    const int r = r0 + i;
+    sl[i] = r < S ? lb[r] * LOG2E : 0.f;
+    sd[i] = r < S ? db[r] : 0.f;
+  }
+}
+
+// dK, dV of one 64-row kv tile of one (batch, head): sweeps every q tile.
+// q is prepared (RoPE, scaled by scale*log2(e)), k prepared (RoPE).  Warp w
+// holds kv rows kv0 + 16w.. as fragments and accumulates, in fp32,
+//   dV += P^T dO and dK += dS^T q_s, with P^T = exp2(K q_s^T - lse2).
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                      int rope_start, int rope_rows, int S, int H, int kv_len) {
+  __shared__ __align__(128) bf16 sQ[2][BM * LDS];
+  __shared__ __align__(128) bf16 sO[2][BM * LDS];
+  __shared__ float sL[2][BM];
+  __shared__ float sD[2][BM];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv0 = blockIdx.x * BN;
+  const long long ld = (long long)H * D;
+  const long long boff = (long long)b * S * ld + (long long)h * D;
+  const float* lb = lse + ((long long)b * H + h) * S;
+  const float* db = delta + ((long long)b * H + h) * S;
+
+  // this block's K and V rows go through the ring's second slot into fragments
+  bya::load_rows64<BN, NTHREADS>(sQ[1], LDS, k + boff, ld, kv0, S, tid);
+  bya::load_rows64<BN, NTHREADS>(sO[1], LDS, v + boff, ld, kv0, S, tid);
+  stage_q_tile(sQ[0], sO[0], sL[0], sD[0], q + boff, dout + boff, lb, db, ld, 0, S, tid);
+  bya::cp_async_commit();
+  bya::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[4][4], vf[4][4];
+  bya::load_a_frags64<LDS>(kf, sQ[1] + warp * 16 * LDS, lane);
+  bya::load_a_frags64<LDS>(vf, sO[1] + warp * 16 * LDS, lane);
+  __syncthreads();
+
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  const int row0 = kv0 + warp * 16 + (lane >> 2);
+  const bool kv_ok[2] = {row0 < kv_len, row0 + 8 < kv_len};
+  const int n_q = (S + BM - 1) / BM;
+
+  for (int j = 0; j < n_q; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_q) {
+      stage_q_tile(sQ[buf ^ 1], sO[buf ^ 1], sL[buf ^ 1], sD[buf ^ 1], q + boff, dout + boff,
+                   lb, db, ld, j + 1, S, tid);
+      bya::cp_async_commit();
+      bya::cp_async_wait<1>();
+    } else {
+      bya::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = j * BM;
+
+    float pt[8][4];  // P^T: this warp's 16 kv rows x the tile's 64 q columns
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pt[i][0] = pt[i][1] = pt[i][2] = pt[i][3] = 0.f;
+    bya::qk_scores64<8, LDS>(pt, kf, sQ[buf], lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + (lane & 3) * 2 + (e & 1);
+        pt[nt][e] = (kv_ok[e >> 1] && q0 + c < S) ? exp2f(pt[nt][e] - sL[buf][c]) : 0.f;
+      }
+    bya::pv_accumulate<8, 8, LDS>(dv_acc, pt, sO[buf], lane);
+
+    float ds[8][4];  // dP^T = V dO^T, then dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
+    bya::qk_scores64<8, LDS>(ds, vf, sO[buf], lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + (lane & 3) * 2 + (e & 1);
+        ds[nt][e] = pt[nt][e] * (ds[nt][e] - sD[buf][c]);
+      }
+    bya::pv_accumulate<8, 8, LDS>(dk_acc, ds, sQ[buf], lane);
+    __syncthreads();
+  }
+
+  // unwind the q-scale fold: dk = dS^T (q * scale * log2 e) / log2 e
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] *= 1.0f / LOG2E;
+  rope_adjoint(dk_acc, row0, lane, cos_t, sin_t, rope_start, rope_rows);
+  store_tile(dk + boff, ld, dk_acc, row0, S, lane);
+  store_tile(dv + boff, ld, dv_acc, row0, S, lane);
+}
+
+// dQ of one 64-row q tile of one (batch, head): sweeps every kv tile.
+// Warp w holds q rows q0 + 16w.. (prepared q and dO) as fragments and
+// accumulates dQ += dS K in fp32, with P = exp2(q_s K^T - lse2).
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, const float* __restrict__ cos_t,
+                    const float* __restrict__ sin_t, int rope_start, int rope_rows, int S,
+                    int H, int kv_len, float scale) {
+  __shared__ __align__(128) bf16 sK[2][BN * LDS];
+  __shared__ __align__(128) bf16 sV[2][BN * LDS];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BM;
+  const long long ld = (long long)H * D;
+  const long long boff = (long long)b * S * ld + (long long)h * D;
+  const bf16* kb = k + boff;
+  const bf16* vb = v + boff;
+
+  // this block's q and dO rows go through the ring's second slot into fragments
+  bya::load_rows64<BM, NTHREADS>(sK[1], LDS, q + boff, ld, q0, S, tid);
+  bya::load_rows64<BM, NTHREADS>(sV[1], LDS, dout + boff, ld, q0, S, tid);
+  bya::load_rows64<BN, NTHREADS>(sK[0], LDS, kb, ld, 0, kv_len, tid);
+  bya::load_rows64<BN, NTHREADS>(sV[0], LDS, vb, ld, 0, kv_len, tid);
+  bya::cp_async_commit();
+  bya::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[4][4], of[4][4];
+  bya::load_a_frags64<LDS>(qf, sK[1] + warp * 16 * LDS, lane);
+  bya::load_a_frags64<LDS>(of, sV[1] + warp * 16 * LDS, lane);
+  __syncthreads();
+
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const float* lb = lse + ((long long)b * H + h) * S;
+  const float* db = delta + ((long long)b * H + h) * S;
+  const float lse2[2] = {row0 < S ? lb[row0] * LOG2E : 0.f,
+                         row0 + 8 < S ? lb[row0 + 8] * LOG2E : 0.f};
+  const float dl[2] = {row0 < S ? db[row0] : 0.f, row0 + 8 < S ? db[row0 + 8] : 0.f};
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int n_tiles = (kv_len + BN - 1) / BN;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      bya::load_rows64<BN, NTHREADS>(sK[buf ^ 1], LDS, kb, ld, (j + 1) * BN, kv_len, tid);
+      bya::load_rows64<BN, NTHREADS>(sV[buf ^ 1], LDS, vb, ld, (j + 1) * BN, kv_len, tid);
+      bya::cp_async_commit();
+      bya::cp_async_wait<1>();
+    } else {
+      bya::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kv0 = j * BN;
+
+    float p[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0.f;
+    bya::qk_scores64<8, LDS>(p, qf, sK[buf], lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = kv0 + nt * 8 + (lane & 3) * 2 + (e & 1);
+        p[nt][e] = c < kv_len ? exp2f(p[nt][e] - lse2[e >> 1]) : 0.f;
+      }
+    float ds[8][4];  // dP = dO V^T, then dS = P (dP - delta)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
+    bya::qk_scores64<8, LDS>(ds, of, sV[buf], lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (ds[nt][e] - dl[e >> 1]);
+    bya::pv_accumulate<8, 8, LDS>(acc, ds, sK[buf], lane);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] *= scale;
+  rope_adjoint(acc, row0, lane, cos_t, sin_t, rope_start, rope_rows);
+  store_tile(dq + boff, ld, acc, row0, S, lane);
+}
+
+cudaError_t launch_prep(const void* q, const void* k, void* q_prep, void* k_prep,
+                        const float* ln_q_w, const float* ln_q_b, const float* ln_k_w,
+                        const float* ln_k_b, const float* cos_t, const float* sin_t,
+                        int rope_start, int rope_rows, int B, int S, int H, float scale,
+                        float ln_eps, cudaStream_t st) {
   const long long n_rows = (long long)B * S;
   const long long threads = n_rows * H * 32;
   const int block = 256;
@@ -242,12 +504,62 @@ extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<bf16*>(q_prep),
       static_cast<bf16*>(k_prep), ln_q_w, ln_q_b, ln_k_w, ln_k_b, cos_t, sin_t, rope_start,
       rope_rows, n_rows, S, H, scale * LOG2E, ln_eps);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// B1 / B7 forward.  q, k, v, o, q_prep, k_prep: [B, S, H*64] bf16,
+// contiguous.  ln_*: [64] fp32 or all null (no QK LayerNorm).  cos_t/sin_t:
+// [rope_rows, 64] fp32 or null (no RoPE).  lse: [B, H, S] fp32 or null.
+// Returns the cudaError_t of the launches.
+extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void* v, void* o,
+                                        void* q_prep, void* k_prep, const float* ln_q_w,
+                                        const float* ln_q_b, const float* ln_k_w,
+                                        const float* ln_k_b, const float* cos_t,
+                                        const float* sin_t, int rope_start, int rope_rows,
+                                        int B, int S, int H, int kv_len, float scale,
+                                        float ln_eps, float* lse, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_prep(q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b, cos_t,
+                                sin_t, rope_start, rope_rows, B, S, H, scale, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BM - 1) / BM, H, B);
   flash_fwd_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(q_prep),
                                               static_cast<const bf16*>(k_prep),
                                               static_cast<const bf16*>(v),
-                                              static_cast<bf16*>(o), S, H, kv_len);
+                                              static_cast<bf16*>(o), lse, S, H, kv_len);
+  return (int)cudaGetLastError();
+}
+
+// B7 backward.  q, k, v, dout, dq, dk, dv, q_prep, k_prep: [B, S, H*64]
+// bf16, contiguous; lse (natural log) and delta = rowsum(o * dout): [B, H, S]
+// fp32; cos_t/sin_t as for the forward.  Returns the cudaError_t of the
+// launches.
+extern "C" int bya_flash_attention_flat_bwd(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse,
+                                            const float* delta, void* dq, void* dk, void* dv,
+                                            void* q_prep, void* k_prep, const float* cos_t,
+                                            const float* sin_t, int rope_start, int rope_rows,
+                                            int B, int S, int H, int kv_len, float scale,
+                                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_prep(q, k, q_prep, k_prep, nullptr, nullptr, nullptr, nullptr,
+                                cos_t, sin_t, rope_start, rope_rows, B, S, H, scale, 0.f, st);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qp = static_cast<const bf16*>(q_prep);
+  const bf16* kp = static_cast<const bf16*>(k_prep);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* op = static_cast<const bf16*>(dout);
+  dim3 grid_kv((S + BN - 1) / BN, H, B);
+  flash_bwd_dkdv_kernel<<<grid_kv, NTHREADS, 0, st>>>(
+      qp, kp, vp, op, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), cos_t, sin_t,
+      rope_start, rope_rows, S, H, kv_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_q((S + BM - 1) / BM, H, B);
+  flash_bwd_dq_kernel<<<grid_q, NTHREADS, 0, st>>>(qp, kp, vp, op, lse, delta,
+                                                   static_cast<bf16*>(dq), cos_t, sin_t,
+                                                   rope_start, rope_rows, S, H, kv_len, scale);
   return (int)cudaGetLastError();
 }

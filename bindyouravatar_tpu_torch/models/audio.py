@@ -123,6 +123,14 @@ class AudioCrossAttnLayer(nn.Module):
         return self.to_out(o.reshape(b, s, nh * dh), wk.sum(-1).reshape(b, s))
 
 
+def mute_dropout_keep(cfg: AudioConfig, device: torch.device,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The mute tokens' dropout keep mask (keep probability 0.9), bool
+    [1, ctx_tokens, audio_dim], drawn from `generator`."""
+    u = torch.rand((1, cfg.context_tokens, cfg.audio_dim), generator=generator, device=device)
+    return u < 0.9
+
+
 class AudioStatics(nn.Module):
     """Non-layer audio params: the projection, the mute tokens and the
     (unused in the forward, kept for checkpoint parity) learnable_scale."""
@@ -137,10 +145,15 @@ class AudioStatics(nn.Module):
         self.learnable_scale = nn.Parameter(torch.full((1,), 0.01, dtype=dtype))
 
     def forward(self, audio_embeds: torch.Tensor, num_pixel_frames: int,
-                mute_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mute_embeds: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                dropout_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, n_tracks, A, blocks, C] -> ctx [B, I, F_lat, ctx_tokens, audio_dim].
         With one track, the second identity's track is the mute fixture
-        projected the same way plus the learnable tokens."""
+        projected the same way plus the learnable tokens; with
+        `deterministic=False` the tokens go through dropout p = 0.1 (JAX
+        `audio.py:238-241`): kept where `dropout_keep` (bool [1, ctx_tokens,
+        audio_dim]) is set, which is drawn from `generator` when not given."""
         c = self.cfg
         b, n_tracks = audio_embeds.shape[0], audio_embeds.shape[1]
         flat = audio_embeds.reshape((b * n_tracks,) + tuple(audio_embeds.shape[2:]))
@@ -152,6 +165,11 @@ class AudioStatics(nn.Module):
                 raise ValueError("single-track audio requires mute_embeds fixture")
             mw = sliding_windows(mute_embeds[None], num_pixel_frames,
                                  c.window_size, c.window_stride)
-            mute_ctx = self.proj(mw) + self.mute_learnable_tokens.to(ctx.dtype)[None]
+            tok = self.mute_learnable_tokens.to(ctx.dtype)
+            if not deterministic:
+                if dropout_keep is None:
+                    dropout_keep = mute_dropout_keep(self.cfg, ctx.device, generator)
+                tok = torch.where(dropout_keep, tok / 0.9, torch.zeros_like(tok))
+            mute_ctx = self.proj(mw) + tok[None]
             ctx = torch.cat([ctx, mute_ctx[None].expand_as(ctx).to(ctx.dtype)], dim=1)
         return ctx

@@ -2,9 +2,13 @@
 
 The JAX package scans over layer groups with `[L, ...]`-stacked params; here
 each layer is its own module (`blocks`, `audio_layers`, `perceivers`,
-`router_layers` ModuleLists) and the scan is a Python loop.  Inside a layer
-the order is: block, then the face injection (every `cross_attn_interval`
-layers), then audio.  The face injection runs the perceiver (kernel B2),
+`router_layers` ModuleLists) and the scan is a Python loop over the same
+groups (`cfg.group_size` layers, the injection schedule's period).  With
+`cfg.remat` each group runs under `torch.utils.checkpoint` (non-reentrant),
+blocks, face injection and audio layers together, as JAX's `group_body`;
+`remat_policy="nested"` checkpoints each block inside it as well.  Inside a
+layer the order is: block, then the face injection (every
+`cross_attn_interval` layers), then audio.  The face injection runs the perceiver (kernel B2),
 the router (shared norms, the layer's projections, the shared trunk) and
 combines the identities' features with the routing before one `to_out`
 (JAX `dit.py:400-424`); the audio layer is weighted by the swap-and-inverted
@@ -14,10 +18,14 @@ tokens are given (JAX `dit.py:430-437, 449-451`).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
+
+import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import AudioConfig, DiTConfig, LFEConfig, RouterConfig, tiny_dit_config
 from ..ops.patch import patchify, unpatchify
@@ -28,7 +36,7 @@ from .layers import (AdaLayerNorm, CogVideoXBlock, Dense, LayerNorm, PatchEmbed,
                      TimestepEmbedding, init_random_)
 from .lfe import LocalFacialExtractor
 from .router import (MultiIPRouterLayerProj, MultiIPRouterTrunk, PerceiverCrossAttention,
-                     RouterNorms)
+                     RouterNorms, SelfAttention)
 
 
 class DiT(nn.Module):
@@ -49,7 +57,9 @@ class DiT(nn.Module):
         self.blocks = nn.ModuleList([
             CogVideoXBlock(dim, cfg.num_attention_heads, cfg.attention_head_dim,
                            cfg.time_embed_dim, eps=cfg.norm_eps, ff_mult=cfg.ff_mult,
-                           qk_norm=cfg.qk_norm, attention_bias=cfg.attention_bias, **kw)
+                           qk_norm=cfg.qk_norm, attention_bias=cfg.attention_bias,
+                           lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                           fuse_qk_norm=cfg.fuse_qk_norm, **kw)
             for _ in range(cfg.num_layers)])
         self.norm_final = LayerNorm(dim, eps=cfg.norm_eps, dtype=cfg.param_dtype)
         self.norm_out = AdaLayerNorm(cfg.time_embed_dim, dim, eps=cfg.norm_eps, **kw)
@@ -67,7 +77,7 @@ class DiT(nn.Module):
             self.router_layers = nn.ModuleList([
                 MultiIPRouterLayerProj(dh * router_cfg.num_heads, router_cfg.q_k_dim, **kw)
                 for _ in range(cfg.num_ca)])
-            self.router_trunk = MultiIPRouterTrunk(router_cfg, **kw)
+            self.router_trunk = MultiIPRouterTrunk(router_cfg, inference=cfg.fuse_qk_norm, **kw)
         if cfg.is_train_audio:
             self.audio_statics = AudioStatics(audio_cfg, **kw)
             self.audio_layers = nn.ModuleList(
@@ -133,6 +143,27 @@ class DiT(nn.Module):
             self.lfe.init_params_(generator)
         if self.cfg.is_train_audio:
             self.audio_statics.learnable_scale.fill_(0.01)
+        if self.cfg.lora_rank > 0:
+            # peft's LoRA: A he-uniform over its fan-in, B zero (the update
+            # starts at 0), as the flax initialisers
+            for blk in self.blocks:
+                for name in ("to_q", "to_k"):
+                    a = getattr(blk.attn1, f"{name}_lora_A")
+                    bound = math.sqrt(6.0 / a.shape[0])
+                    a.uniform_(-bound, bound, generator=generator)
+                    getattr(blk.attn1, f"{name}_lora_B").zero_()
+
+    def set_fuse_qk_norm(self, fuse: bool) -> None:
+        """Switch between the inference path (`fuse=True`: QK-LN and RoPE
+        inside kernel B1, bare B1 in the router, no backward) and the
+        training path (B10, B7) in place; the parameters are the same."""
+        self.cfg = dataclasses.replace(self.cfg, fuse_qk_norm=fuse)
+        for blk in self.blocks:
+            blk.attn1.fuse_qk_norm = fuse
+        if self.cfg.is_train_face:
+            for m in self.router_trunk.modules():
+                if isinstance(m, SelfAttention):
+                    m.inference = fuse
 
     def rope(self, height_px: int, width_px: int, latent_frames: int,
              base_height_px: int = 480, base_width_px: int = 720, vae_spatial: int = 8,
@@ -151,12 +182,16 @@ class DiT(nn.Module):
                              id_vit_hidden: Optional[torch.Tensor] = None,
                              audio_embeds: Optional[torch.Tensor] = None,
                              mute_embeds: Optional[torch.Tensor] = None,
-                             num_pixel_frames: Optional[int] = None):
+                             num_pixel_frames: Optional[int] = None,
+                             deterministic: bool = True,
+                             generator: Optional[torch.Generator] = None,
+                             dropout_keep: Optional[torch.Tensor] = None):
         """(face_emb [B, I, n_tok, q_k_dim], audio_ctx [B, I, F, 32, 768]),
         each None when its inputs are (id_cond [B, I, id_embed_dim],
         id_vit_hidden [B, I, scales, T, vit_dim]; audio as in `apply`).
         Depends only on the conditioning inputs, so callers compute it once
-        per clip and pass it to every `apply`."""
+        per clip and pass it to every `apply`.  `deterministic=False` turns
+        on the mute tokens' dropout (see `AudioStatics`)."""
         c = self.cfg
         face_emb = audio_ctx = None
         if c.is_train_face and id_cond is not None:
@@ -169,7 +204,7 @@ class DiT(nn.Module):
             if num_pixel_frames is None:
                 num_pixel_frames = c.sample_frames
             audio_ctx = self.audio_statics(audio_embeds.to(c.dtype), num_pixel_frames,
-                                           mute_embeds)
+                                           mute_embeds, deterministic, generator, dropout_keep)
         return face_emb, audio_ctx
 
     def _face_injection(self, pj: int, face_emb: torch.Tensor, hid: torch.Tensor,
@@ -188,6 +223,33 @@ class DiT(nn.Module):
                   for i in range(id_pre.shape[1])).to(c.dtype)
         return hid + c.local_face_scale * perceiver.to_out(pre), pred, used
 
+    def _group(self, gi: int, hid: torch.Tensor, enc: torch.Tensor, routing: torch.Tensor,
+               temb: torch.Tensor, rope, grid: Tuple[int, int, int],
+               face_emb: Optional[torch.Tensor], audio_ctx: Optional[torch.Tensor],
+               af_matrix: Optional[torch.Tensor], routing_override: Optional[torch.Tensor]):
+        """Layers [gi * g, (gi + 1) * g) (JAX `group_body`): each block, the
+        face injection and the audio layer of the layers that have one.
+        Returns (hid, enc, the routing used last, this group's predictions)."""
+        c = self.cfg
+        g = c.group_size
+        nested = c.remat and c.remat_policy == "nested" and torch.is_grad_enabled()
+        preds = []
+        for li in range(gi * g, (gi + 1) * g):
+            block = self.blocks[li]
+            if nested:
+                hid, enc = checkpoint(block, hid, enc, temb, rope, use_reentrant=False)
+            else:
+                hid, enc = block(hid, enc, temb, rope)
+            if face_emb is not None and li % c.cross_attn_interval == 0:
+                hid, pred, routing = self._face_injection(li // c.cross_attn_interval, face_emb,
+                                                          hid, grid, routing_override)
+                preds.append(pred)
+            if audio_ctx is not None and li % c.audio_attn_interval == 0:
+                av = torch.einsum("bij,bsj->bsi", af_matrix.to(c.dtype), routing)
+                inv = 1.0 - av.flip(-1)          # swap-and-invert
+                hid = hid + self.audio_layers[li // c.audio_attn_interval](hid, audio_ctx, inv)
+        return hid, enc, routing, preds
+
     def apply(self, latents: torch.Tensor, text_embeds: torch.Tensor,
               timesteps: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               *, id_cond: Optional[torch.Tensor] = None,
@@ -198,13 +260,17 @@ class DiT(nn.Module):
               routing_override: Optional[torch.Tensor] = None,
               num_pixel_frames: Optional[int] = None,
               face_emb: Optional[torch.Tensor] = None,
-              audio_ctx: Optional[torch.Tensor] = None):
+              audio_ctx: Optional[torch.Tensor] = None,
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None,
+              dropout_keep: Optional[torch.Tensor] = None):
         """One denoise step: latents [B, T, C_in, H, W], text [B, L, text_dim],
         timesteps [B] -> (output [B, T, C_out, H, W] fp32, routing_logits
         [num_ca, B, S, I] fp32, or None when the face path did not run).
         `routing_override` [B, S, I] replaces the predicted routing in the
         face combine and the audio weights (the predictions are still
-        returned)."""
+        returned).  `deterministic=False` (training) turns on the mute
+        tokens' dropout, from `dropout_keep` or else drawn from `generator`."""
         c = self.cfg
         b, t, _, h_px, w_px = latents.shape
         grid = (t, h_px // c.patch_size, w_px // c.patch_size)
@@ -223,24 +289,25 @@ class DiT(nn.Module):
         if audio_ctx is None and c.is_train_audio and audio_embeds is not None:
             _, audio_ctx = self.prepare_conditioning(
                 audio_embeds=audio_embeds, mute_embeds=mute_embeds,
-                num_pixel_frames=num_pixel_frames)
+                num_pixel_frames=num_pixel_frames, deterministic=deterministic,
+                generator=generator, dropout_keep=dropout_keep)
         if audio_ctx is not None and af_matrix is None:
             af_matrix = torch.eye(c.num_ids, dtype=c.dtype, device=latents.device)[None].repeat(b, 1, 1)
-        face = c.is_train_face and face_emb is not None
+        if not c.is_train_face:
+            face_emb = None
         # uniform routing until a face injection predicts one
         routing = torch.full((b, s, c.num_ids), 0.5, dtype=c.dtype, device=latents.device)
         preds = []
-
-        for li, block in enumerate(self.blocks):
-            hid, enc = block(hid, enc, temb, rope)
-            if face and li % c.cross_attn_interval == 0:
-                hid, pred, routing = self._face_injection(li // c.cross_attn_interval, face_emb,
-                                                          hid, grid, routing_override)
-                preds.append(pred)
-            if audio_ctx is not None and li % c.audio_attn_interval == 0:
-                av = torch.einsum("bij,bsj->bsi", af_matrix.to(c.dtype), routing)
-                inv = 1.0 - av.flip(-1)          # swap-and-invert
-                hid = hid + self.audio_layers[li // c.audio_attn_interval](hid, audio_ctx, inv)
+        remat = c.remat and torch.is_grad_enabled()
+        for gi in range(c.num_layers // c.group_size):
+            args = (gi, hid, enc, routing, temb, rope, grid, face_emb, audio_ctx, af_matrix,
+                    routing_override)
+            if remat:
+                hid, enc, routing, group_preds = checkpoint(self._group, *args,
+                                                            use_reentrant=False)
+            else:
+                hid, enc, routing, group_preds = self._group(*args)
+            preds += group_preds
 
         joint = self.norm_final(torch.cat([enc, hid], dim=1))
         hid = self.norm_out(joint[:, text_len:], temb)

@@ -16,7 +16,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import attention
-from ..ops.layernorm import fused_layernorm, layernorm_plain
+from ..ops.flash_attention import flash_attention_flat
+from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
 
 
 @torch.no_grad()
@@ -25,7 +26,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     matrices and conv kernels ~ N(0, 1/fan_in) (lecun normal), norm gains
     ~ N(1, 0.1), other vectors (biases, norm shifts) ~ N(0, 0.02)."""
     gains = {id(m.weight) for m in module.modules()
-             if isinstance(m, (LayerNorm, nn.GroupNorm)) and m.weight is not None}
+             if isinstance(m, (LayerNorm, HeadLayerNorm, nn.GroupNorm)) and m.weight is not None}
     for p in module.parameters():
         if p.ndim >= 2:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
@@ -66,6 +67,22 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = fused_layernorm if self.fused and x.shape[-1] % 128 == 0 else layernorm_plain
         return fn(x, self.weight, self.bias, self.eps)
+
+
+class HeadLayerNorm(nn.Module):
+    """LayerNorm over the dh-wide head segments of a flat [..., H*dh]
+    tensor with the affine shared across heads (the per-head QK norms;
+    `ops.layernorm.head_layernorm`, kernel B10 on the card).  Params as a
+    [dh] `LayerNorm`'s, so the converter maps the flax tree unchanged."""
+
+    def __init__(self, head_dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(head_dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(head_dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return head_layernorm(x, self.weight, self.bias, self.eps)
 
 
 class LayerNormZero(nn.Module):
@@ -136,37 +153,65 @@ class FeedForward(nn.Module):
 
 
 class JointSelfAttention(nn.Module):
-    """CogVideoX joint text+video self-attention, flat inference path.
+    """CogVideoX joint text+video self-attention over flat [B, S, H*D]
+    q/k/v (JAX `layers.py:264-381`), with LoRA on to_q/to_k when
+    `lora_rank > 0`: base + (x A) B * alpha/r, A [dim, r] and B [r, inner]
+    named `to_q_lora_A`/`to_q_lora_B` as the flax leaves.
 
-    q/k/v stay in the projections' [B, S, H*D] layout; the per-head QK
-    LayerNorm (eps 1e-6) and the video-only RoPE run inside kernel B1 (JAX
-    `layers.py:276-304`).  `norm_q`/`norm_k` only hold the affine params."""
+    Two paths, as the JAX module decides by `fuse_qk_norm`:
+      * inference (`fuse_qk_norm=True`): the per-head QK LayerNorm (eps
+        1e-6) and the video-only RoPE run inside kernel B1 (no backward);
+      * training: `norm_q`/`norm_k` (kernel B10) on the projections, then
+        the differentiable attention, kernel B7, with RoPE from row
+        `text_len` inside it."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,
-                 bias: bool = True, out_bias: bool = True,
+                 bias: bool = True, out_bias: bool = True, lora_rank: int = 0,
+                 lora_alpha: float = 128.0, fuse_qk_norm: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.heads, self.head_dim = heads, head_dim
+        self.heads, self.head_dim, self.fuse_qk_norm = heads, head_dim, fuse_qk_norm
+        self.compute_dtype = compute_dtype
         inner = heads * head_dim
         kw = dict(compute_dtype=compute_dtype, dtype=dtype)
         self.to_q = Dense(dim, inner, bias=bias, **kw)
         self.to_k = Dense(dim, inner, bias=bias, **kw)
         self.to_v = Dense(dim, inner, bias=bias, **kw)
-        self.norm_q = LayerNorm(head_dim, eps=1e-6, dtype=dtype) if qk_norm else None
-        self.norm_k = LayerNorm(head_dim, eps=1e-6, dtype=dtype) if qk_norm else None
+        self.norm_q = HeadLayerNorm(head_dim, eps=1e-6, dtype=dtype) if qk_norm else None
+        self.norm_k = HeadLayerNorm(head_dim, eps=1e-6, dtype=dtype) if qk_norm else None
         self.to_out = Dense(inner, dim, bias=out_bias, **kw)
+        self.lora_scaling = lora_alpha / lora_rank if lora_rank > 0 else 0.0
+        if lora_rank > 0:
+            for name in ("to_q", "to_k"):
+                self.register_parameter(f"{name}_lora_A", nn.Parameter(
+                    torch.zeros(dim, lora_rank, dtype=dtype)))
+                self.register_parameter(f"{name}_lora_B", nn.Parameter(
+                    torch.zeros(lora_rank, inner, dtype=dtype)))
+
+    def _proj(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        out = getattr(self, name)(x)
+        if self.lora_scaling:
+            cd = self.compute_dtype
+            a, b = getattr(self, f"{name}_lora_A"), getattr(self, f"{name}_lora_B")
+            out = out + (x.to(cd) @ a.to(cd)) @ b.to(cd) * self.lora_scaling
+        return out
 
     def forward(self, hidden, encoder_hidden,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
         text_len = encoder_hidden.shape[1]
         x = torch.cat([encoder_hidden, hidden], dim=1)
-        qk_norm = None
-        if self.norm_q is not None:
-            qk_norm = (self.norm_q.weight, self.norm_q.bias,
-                       self.norm_k.weight, self.norm_k.bias)
-        o = attention(self.to_q(x), self.to_k(x), self.to_v(x), self.heads,
-                      rope=rope, rope_start=text_len, qk_norm=qk_norm)
+        q, k, v = self._proj("to_q", x), self._proj("to_k", x), self.to_v(x)
+        if self.fuse_qk_norm:
+            qk_norm = None
+            if self.norm_q is not None:
+                qk_norm = (self.norm_q.weight, self.norm_q.bias,
+                           self.norm_k.weight, self.norm_k.bias)
+            o = attention(q, k, v, self.heads, rope=rope, rope_start=text_len, qk_norm=qk_norm)
+        else:
+            if self.norm_q is not None:
+                q, k = self.norm_q(q), self.norm_k(k)
+            o = flash_attention_flat(q, k, v, self.heads, rope=rope, rope_start=text_len)
         o = self.to_out(o)
         return o[:, text_len:], o[:, :text_len]
 
@@ -176,14 +221,16 @@ class CogVideoXBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  eps: float = 1e-5, ff_mult: int = 4, qk_norm: bool = True,
-                 attention_bias: bool = True,
+                 attention_bias: bool = True, lora_rank: int = 0, lora_alpha: float = 128.0,
+                 fuse_qk_norm: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, dtype=dtype)
         self.norm1 = LayerNormZero(time_embed_dim, dim, eps=eps, **kw)
         self.attn1 = JointSelfAttention(dim, heads, head_dim, qk_norm=qk_norm,
-                                        bias=attention_bias, **kw)
+                                        bias=attention_bias, lora_rank=lora_rank,
+                                        lora_alpha=lora_alpha, fuse_qk_norm=fuse_qk_norm, **kw)
         self.norm2 = LayerNormZero(time_embed_dim, dim, eps=eps, **kw)
         self.ff = FeedForward(dim, mult=ff_mult, **kw)
 

@@ -8,9 +8,10 @@
   * `RouterNorms` (shared), `MultiIPRouterLayerProj` (one per face layer).
   * `MultiIPRouterTrunk` (shared): per-head re-attention features, LayerNorm,
     the 3D sincos pos-emb on the canonical (T, H, W) grid, 4 STABs
-    (spatial attention through B1 without LN or RoPE, temporal through
-    B5/B5', multi-ID through B4, MLP) and `MulReduceDense` -> routing
-    [B, S, I] in [0, 1].
+    (spatial attention through B7 -- or bare B1 when the DiT is
+    inference-configured -- without LN or RoPE, temporal through B5/B5',
+    multi-ID through B4, MLP) and `MulReduceDense` -> routing [B, S, I] in
+    [0, 1].
 Every LayerNorm the JAX package marks `fused=True` is one here (kernel B6
 for widths that are multiples of 128).  Parameter names follow the flax
 tree, so `convert.jax_params_to_torch` maps them one to one.
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import RouterConfig
 from ..ops.attention import attention, sdpa
+from ..ops.flash_attention import flash_attention_flat
 from ..ops.packed_attention import pair_axis_attention, tiny_seq_attention
 from ..ops.short_kv_attention import short_kv_attention
 from .layers import Dense, LayerNorm
@@ -72,14 +74,16 @@ class PerceiverCrossAttention(nn.Module):
 
 class SelfAttention(nn.Module):
     """MHA with biases over [B, S, dim] (the STAB spatial attention): with
-    S >= 1024 and dh = 64 kernel B1 without QK-LN or RoPE, otherwise the
-    plain attention (the JAX dispatch, `ops/attention.py:144`, takes XLA
-    SDPA there)."""
+    S >= 1024 and dh = 64 the differentiable kernel B7 without RoPE, or
+    with `inference` (the DiT's `fuse_qk_norm`, JAX `inference_vt`) bare
+    B1; otherwise the plain attention (the JAX dispatch,
+    `ops/attention.py:144`, takes XLA SDPA there)."""
 
-    def __init__(self, dim: int, heads: int = 8, compute_dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, dim: int, heads: int = 8, inference: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.heads = heads
+        self.heads, self.inference = heads, inference
         kw = dict(compute_dtype=compute_dtype, dtype=dtype)
         self.to_q = Dense(dim, dim, **kw)
         self.to_k = Dense(dim, dim, **kw)
@@ -91,7 +95,7 @@ class SelfAttention(nn.Module):
         dh = dim // self.heads
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if s >= 1024 and dh == 64:
-            o = attention(q, k, v, self.heads)
+            o = (attention if self.inference else flash_attention_flat)(q, k, v, self.heads)
         else:
             split = lambda t: t.reshape(b, s, self.heads, dh).transpose(1, 2)
             o = sdpa(split(q), split(k), split(v)).transpose(1, 2).reshape(b, s, dim)
@@ -136,12 +140,12 @@ class SpatialTemporalAttentionBlock(nn.Module):
     """Spatial, temporal and multi-ID self-attentions + MLP over
     [B, I, T, H, W, C] (reference `models/router.py:425-493`)."""
 
-    def __init__(self, dim: int, heads: int = 8, mlp_ratio: int = 1,
+    def __init__(self, dim: int, heads: int = 8, mlp_ratio: int = 1, inference: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, dtype=dtype)
-        self.spatial_attn = SelfAttention(dim, heads, **kw)
+        self.spatial_attn = SelfAttention(dim, heads, inference=inference, **kw)
         self.temporal_attn = AxisAttention(dim, axis=2, heads=heads, **kw)
         self.multi_id_attn = AxisAttention(dim, axis=1, heads=heads, **kw)
         self.norm1, self.norm2, self.norm3, self.norm4 = (
@@ -219,7 +223,7 @@ class MultiIPRouterTrunk(nn.Module):
     q_k_dim] (layer-projected) and the (T, H, W) grid -> routing [B, S, I]
     in [0, 1], fp32."""
 
-    def __init__(self, cfg: RouterConfig = RouterConfig(),
+    def __init__(self, cfg: RouterConfig = RouterConfig(), inference: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -228,7 +232,7 @@ class MultiIPRouterTrunk(nn.Module):
         self.norm = LayerNorm(cfg.feat_dim, fused=True, dtype=dtype)
         for li in range(cfg.num_attention_layers):
             self.add_module(f"st_{li}", SpatialTemporalAttentionBlock(
-                cfg.feat_dim, cfg.attn_heads, cfg.mlp_ratio, **kw))
+                cfg.feat_dim, cfg.attn_heads, cfg.mlp_ratio, inference=inference, **kw))
         self.final_proj = MulReduceDense(cfg.feat_dim, **kw)
         self._pos = {}      # (grid, device, dtype) -> the pos-emb table on the device
 

@@ -30,11 +30,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (all return a cudaError_t)
 _SIGNATURES = {
     "bya_flash_attention_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                                 _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    "bya_flash_attention_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _F, _P],
     "bya_short_kv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "bya_tiny_seq_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

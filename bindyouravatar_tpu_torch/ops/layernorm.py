@@ -1,14 +1,25 @@
-"""Fused single-pass row LayerNorm: kernel B6 (Triton) and its plain version.
+"""LayerNorm kernels: B6 and B9 (row LayerNorm forward and backward), B10
+(per-head LayerNorm forward and backward), all Triton, and their plain
+versions.
 
-Replaces the TPU kernel `_ln_kernel` (bindyouravatar_tpu/ops/layernorm.py),
-reached through `fused_layernorm` from `LayerNorm(fused=True)`: the audio
-`norm_q` over [B*S, 3072] in every audio layer and the `AudioProjModel`
-norm over [.., 768] once per clip.
+  * `fused_layernorm` (B6 forward, B9 backward) replaces the TPU kernels
+    `_ln_kernel` and `_ln_bwd_kernel` (bindyouravatar_tpu/ops/layernorm.py),
+    reached from `LayerNorm(fused=True)`: the audio `norm_q` over
+    [B*S, 3072] in every audio layer, the perceiver norms, the router norms
+    and the trunk/STAB norms, and the `AudioProjModel` norm once per clip.
+  * `head_layernorm` (B10) replaces `_hln_fwd_kernel` and `_hln_bwd_kernel`:
+    LN over 64-wide head segments of a flat [.., H*64] row with the affine
+    shared across heads, the training path's QK norms ([17776, 3072] per
+    block at the 5B geometry).
 
-What bounds it on the H100: memory.  It reads and writes each bf16 element
-once (4 B/element) for ~8 FLOP/element, far below the card's ~295 FLOP/B
-ridge; the kernel (`_ln_triton.ln_fwd_kernel`) keeps the whole row in
-registers, so the fp32 statistics and the affine cost no extra traffic.
+What bounds them on the H100: memory.  The forward reads and writes each
+bf16 element once (4 B/element) for ~8 FLOP/element; the backward reads x
+and g and writes dx (6 B/element) for ~20 FLOP/element: both far below the
+card's ~295 FLOP/B ridge.  The kernels (`_ln_triton.py`) keep whole rows in
+registers, so the fp32 statistics, xhat and the affine never touch device
+memory; the backward's dscale/dbias are per-program partial sums over the
+program's rows (a [programs, D] fp32 buffer, ~2 MB) and a second pass (a
+torch sum, as the JAX package sums its partials in XLA) folds them.
 """
 
 from __future__ import annotations
@@ -17,8 +28,10 @@ import torch
 
 from ._build import import_triton
 
-# widths the kernel takes: whole rows in registers, 128-element multiples
+# widths the kernels take: whole rows in registers, 128-element multiples
 _MAX_D = 8192
+HEAD_DIM = 64           # the segment width of the per-head kernels
+_BWD_PROGRAMS = 528     # backward programs: 4 per SM of the H100
 
 
 def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -32,18 +45,55 @@ def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
-    """Row LayerNorm of `x` ([..., D]).  A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel B6 (bf16, D % 128 == 0,
-    D <= 8192) or raises.  Triton raises itself if a launch fails."""
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
+def layernorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                        eps: float = 1e-5):
+    """Closed-form LayerNorm backward (the JAX `_ln_closed_bwd`) over the
+    last dim: (dx in x.dtype, dscale, dbias fp32, summed over all rows)."""
+    x32, g32 = x.float(), g.float()
+    mu = x32.mean(-1, keepdim=True)
+    r = torch.rsqrt((x32 - mu).square().mean(-1, keepdim=True) + eps)
+    xhat = (x32 - mu) * r
+    gy = g32 * scale.float()
+    mg = gy.mean(-1, keepdim=True)
+    mgx = (gy * xhat).mean(-1, keepdim=True)
+    dx = (r * (gy - mg - xhat * mgx)).to(x.dtype)
+    rows = tuple(range(x.ndim - 1))
+    return dx, (g32 * xhat).sum(rows), g32.sum(rows)
+
+
+def head_layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Per-head LayerNorm of a flat [..., H*dh] tensor (dh = scale's size,
+    affine shared across heads): the row LayerNorm of the [..., H, dh] view
+    (the JAX `_hln_ref`)."""
+    dh = scale.shape[0]
+    return layernorm_plain(x.reshape(*x.shape[:-1], -1, dh), scale, bias, eps).reshape(x.shape)
+
+
+def head_layernorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                             eps: float = 1e-6):
+    """Backward of `head_layernorm_plain`: the closed form on the [..., H,
+    dh] view, dscale/dbias summed over rows and heads."""
+    dh = scale.shape[0]
+    view = lambda t: t.reshape(*t.shape[:-1], -1, dh)
+    dx, ds, db = layernorm_bwd_plain(view(x), scale, view(g), eps)
+    return dx.reshape(x.shape), ds, db
+
+
+def _check(x: torch.Tensor, what: str, seg: int) -> int:
     d = x.shape[-1]
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or d % 128 or d > _MAX_D:
-        raise ValueError(f"fused_layernorm kernel takes bf16 CUDA rows with "
-                         f"D % 128 == 0 and D <= {_MAX_D}; got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or d % 128 or d > _MAX_D \
+            or d % seg:
+        raise ValueError(f"{what} kernel takes bf16 CUDA rows with D % 128 == 0 and "
+                         f"D <= {_MAX_D}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return d
+
+
+def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float, seg: int,
+            what: str) -> torch.Tensor:
+    """The forward kernel over rows of `x` ([..., D]), statistics per
+    `seg`-wide segment (seg = D: the whole row)."""
+    d = _check(x, what, seg)
     import_triton()
     from ._ln_triton import ln_fwd_kernel
 
@@ -51,10 +101,122 @@ def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x2)
     block = 1 << (d - 1).bit_length()
     ln_fwd_kernel[(x2.shape[0],)](
-        x2, scale.float().contiguous(), bias.float().contiguous(), y, d, eps,
-        BLOCK=block, num_warps=8 if block >= 4096 else 4)
-    fused_layernorm.launches += 1
+        x2, scale.float().contiguous(), bias.float().contiguous(), y, d, seg, eps,
+        BLOCK=block, SEG=block if seg == d else seg, num_warps=8 if block >= 4096 else 4)
     return y.view(x.shape)
 
 
+def _ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float, seg: int,
+            what: str):
+    """The backward kernel: (dx in x.dtype, per-column partial-sum totals of
+    g * xhat and g, fp32 [D])."""
+    d = _check(x, what, seg)
+    import_triton()
+    from ._ln_triton import ln_bwd_kernel
+
+    x2, g2 = x.reshape(-1, d).contiguous(), g.reshape(-1, d).contiguous().to(x.dtype)
+    m = x2.shape[0]
+    rows_per_prog = max(1, -(-m // _BWD_PROGRAMS))
+    progs = -(-m // rows_per_prog)
+    dx = torch.empty_like(x2)
+    dw = torch.empty((progs, d), dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dw)
+    block = 1 << (d - 1).bit_length()
+    ln_bwd_kernel[(progs,)](
+        x2, scale.float().contiguous(), g2, dx, dw, db, m, d, seg, rows_per_prog, eps,
+        BLOCK=block, SEG=block if seg == d else seg, num_warps=8 if block >= 2048 else 4)
+    return dx.view(x.shape), dw.sum(0), db.sum(0)
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        y = _ln_fwd(x, scale, bias, eps, x.shape[-1], "fused_layernorm (B6)")
+        fused_layernorm.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, ds, db = layernorm_bwd(x, scale, g, ctx.eps)
+        return dx, ds.to(scale.dtype), db.to(scale.dtype), None
+
+
+def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Row LayerNorm of `x` ([..., D]).  A CPU tensor takes the plain
+    version (autograd differentiates it); a CUDA tensor launches kernel B6
+    (bf16, D % 128 == 0, D <= 8192) or raises, and its backward launches
+    kernel B9.  Triton raises itself if a launch fails."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, scale, bias, eps)
+    return _FusedLayerNorm.apply(x, scale, bias, eps)
+
+
+def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-5):
+    """Kernel B9 on its own (what `fused_layernorm`'s backward launches):
+    (dx, dscale, dbias) of the row LayerNorm for output gradient `g`.  A
+    CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_plain(x, scale, g, eps)
+    out = _ln_bwd(x, scale, g, eps, x.shape[-1], "layernorm backward (B9)")
+    layernorm_bwd.launches += 1
+    return out
+
+
+class _HeadLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return head_layernorm_fwd(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, ds, db = head_layernorm_bwd(x, scale, g, ctx.eps)
+        return dx, ds.to(scale.dtype), db.to(scale.dtype), None
+
+
+def head_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Per-head LayerNorm of a flat [..., H*dh] tensor, dh = scale's size,
+    affine shared across heads.  A CPU tensor takes the plain version
+    (autograd differentiates it); a CUDA tensor launches kernel B10's
+    forward (bf16, dh = 64) or raises, and its backward B10's backward."""
+    if x.device.type == "cpu":
+        return head_layernorm_plain(x, scale, bias, eps)
+    return _HeadLayerNorm.apply(x, scale, bias, eps)
+
+
+def head_layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """Kernel B10's forward on its own (CPU tensors: the plain version)."""
+    if x.device.type == "cpu":
+        return head_layernorm_plain(x, scale, bias, eps)
+    if scale.shape[0] != HEAD_DIM:
+        raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
+    y = _ln_fwd(x, scale, bias, eps, HEAD_DIM, "head_layernorm (B10)")
+    head_layernorm_fwd.launches += 1
+    return y
+
+
+def head_layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                       eps: float = 1e-6):
+    """Kernel B10's backward on its own: (dx, dscale, dbias), the partial
+    sums folded over rows and then heads (CPU tensors: the plain version)."""
+    if x.device.type == "cpu":
+        return head_layernorm_bwd_plain(x, scale, g, eps)
+    if scale.shape[0] != HEAD_DIM:
+        raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
+    dx, ds, db = _ln_bwd(x, scale, g, eps, HEAD_DIM, "head_layernorm backward (B10)")
+    head_layernorm_bwd.launches += 1
+    return dx, ds.reshape(-1, HEAD_DIM).sum(0), db.reshape(-1, HEAD_DIM).sum(0)
+
+
 fused_layernorm.launches = 0
+layernorm_bwd.launches = 0
+head_layernorm_fwd.launches = 0
+head_layernorm_bwd.launches = 0

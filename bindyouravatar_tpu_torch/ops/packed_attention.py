@@ -15,6 +15,12 @@ rows, multi-ID over the S = 2 identities for 2 x 17,550 rows (dim 512,
     o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`).
 Each has its plain PyTorch version, which a CPU tensor takes; a CUDA tensor
 launches the kernel or raises.  The source notes say what bounds them.
+
+Gradients, as the JAX custom vjps decide: `tiny_seq_attention` at S >= 8
+runs kernel B8 (`_slice_bwd_kernel`, CUDA C++ in `csrc/packed_attention.cu`,
+standalone as `tiny_seq_attention_bwd`); below 8 it takes the vjp of the
+plain version, as do `pair_axis_attention` and `packed_head_attention`
+(the JAX package has no Pallas backward for them).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, cuda_lib, import_triton
+from .autograd import kernel_with_plain_vjp
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _MAX_S = 16          # sequence lengths the B5 kernel is instantiated for
@@ -55,6 +62,22 @@ def tiny_seq_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("mhab,mbhd->mahd", p.to(vs.dtype), vs)
     return o.reshape(m, s, c)
+
+
+def tiny_seq_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 g: torch.Tensor, heads: int, sm_scale: float):
+    """Plain version of B8 (the JAX `_slice_bwd_kernel`): the fp32 softmax
+    vjp per (row, head), scores recomputed -> (dq, dk, dv) in q's dtype."""
+    m, s, c = q.shape
+    dh = c // heads
+    qs, ks, vs, gs = (t.reshape(m, s, heads, dh).float() for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("mahd,mbhd->mhab", qs, ks) * sm_scale, dim=-1)
+    dv = torch.einsum("mhab,mahd->mbhd", p, gs)
+    dp = torch.einsum("mahd,mbhd->mhab", gs, vs)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * sm_scale
+    dq = torch.einsum("mhab,mbhd->mahd", ds, ks)
+    dk = torch.einsum("mhab,mahd->mbhd", ds, qs)
+    return tuple(t.reshape(m, s, c).to(q.dtype) for t in (dq, dk, dv))
 
 
 def pair_axis_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,6 +118,11 @@ def packed_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel B5' (bf16, D = 64, S <= 16) or raises."""
     if q.device.type == "cpu":
         return packed_head_attention_plain(q, k, v, heads, sm_scale)
+    return kernel_with_plain_vjp(_packed_head_kernel, packed_head_attention_plain, (q, k, v),
+                                 (heads, sm_scale))
+
+
+def _packed_head_kernel(q, k, v, heads: int, sm_scale: float) -> torch.Tensor:
     m, sh, d = q.shape
     if not (q.device.type == "cuda" and d == 64 and sh % heads == 0
             and 1 <= sh // heads <= _MAX_S and k.shape == q.shape and v.shape == q.shape):
@@ -113,26 +141,71 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head self-attention over a tiny sequence, channel-packed IO:
     q/k/v [M, S, C] (C = heads * dh, h-major) -> [M, S, C].  A CPU tensor
     takes the plain version; on a CUDA tensor S < 8 goes to
-    `packed_head_attention` (B5', as the JAX dispatch does), S >= 8
-    launches kernel B5 (bf16, dh = 64, S <= 16), and anything else raises."""
+    `packed_head_attention` (B5', as the JAX dispatch does) with the plain
+    version's vjp as its gradient, S >= 8 launches kernel B5 (bf16, dh = 64,
+    S <= 16) with kernel B8 as its gradient, and anything else raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_plain(q, k, v, heads, sm_scale)
     m, s, c = q.shape
     if s < 8:
         dh = c // heads
-        o = packed_head_attention(q.reshape(m, s * heads, dh), k.reshape(m, s * heads, dh),
-                                  v.reshape(m, s * heads, dh), heads, sm_scale)
-        return o.reshape(m, s, c)
+        packed = lambda q_, k_, v_, h_, sc_: _packed_head_kernel(
+            *(t.reshape(m, s * h_, dh) for t in (q_, k_, v_)), h_, sc_).reshape(m, s, c)
+        return kernel_with_plain_vjp(packed, tiny_seq_attention_plain, (q, k, v),
+                                     (heads, sm_scale))
     if not (q.device.type == "cuda" and c == heads * 64 and s <= _MAX_S
             and k.shape == q.shape and v.shape == q.shape):
         raise ValueError(f"tiny_seq_attention kernel takes CUDA [M, S, H*64] with "
                          f"S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
-    o = _launch_tiny(q, k, v, m, s, heads, 64, sm_scale, "tiny_seq_attention (B5)")
-    tiny_seq_attention.launches += 1
-    return o
+    return _TinySeq.apply(q, k, v, heads, sm_scale)
+
+
+class _TinySeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (heads, sm_scale)
+        m, s, _ = q.shape
+        o = _launch_tiny(q, k, v, m, s, heads, 64, sm_scale, "tiny_seq_attention (B5)")
+        tiny_seq_attention.launches += 1
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*tiny_seq_attention_bwd(q, k, v, g, *ctx.args), None, None)
+
+
+def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                           heads: int, sm_scale: float):
+    """Kernel B8 on its own (what `tiny_seq_attention`'s backward launches
+    at S >= 8): (dq, dk, dv), each [M, S, C] in q's dtype, for output
+    gradient `g`.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (bf16, dh = 64, 8 <= S <= 16) or raises."""
+    if q.device.type == "cpu":
+        return tiny_seq_attention_bwd_plain(q, k, v, g, heads, sm_scale)
+    m, s, c = q.shape
+    g = g.to(q.dtype).contiguous()
+    if not (q.device.type == "cuda" and c == heads * 64 and 8 <= s <= _MAX_S
+            and k.shape == q.shape and v.shape == q.shape and g.shape == q.shape):
+        raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*64] with "
+                         f"8 <= S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
+    for t in (q, k, v):
+        if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            raise ValueError("tiny_seq_attention backward kernel takes contiguous 16-byte "
+                             "aligned bf16 tensors")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = cuda_lib().bya_tiny_seq_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), m, s, heads, 64, float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "tiny_seq_attention backward (B8)")
+    tiny_seq_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 tiny_seq_attention.launches = 0
+tiny_seq_attention_bwd.launches = 0
 
 
 def pair_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,6 +217,11 @@ def pair_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises itself if a launch fails."""
     if q.device.type == "cpu":
         return pair_axis_attention_plain(q, k, v, heads, sm_scale)
+    return kernel_with_plain_vjp(_pair_kernel, pair_axis_attention_plain, (q, k, v),
+                                 (heads, sm_scale))
+
+
+def _pair_kernel(q, k, v, heads: int, sm_scale: float) -> torch.Tensor:
     b, s, m, c = q.shape
     pow2 = lambda n: n > 0 and n & (n - 1) == 0
     ok = (q.device.type == "cuda" and s == 2 and c <= 1024 and pow2(c) and c % heads == 0

@@ -4,7 +4,9 @@ Port of `bindyouravatar_tpu/ops/scheduler.py`.  Tables are computed in
 float64 numpy and stored as float32, as there.  The denoise loop here is a
 host loop, so timesteps arrive as Python ints and each step's coefficients
 are float32 scalars computed on the host with the JAX version's formulas;
-the noise of a stochastic step comes in as an argument.
+the noise of a stochastic step comes in as an argument.  The training
+functions (`add_noise`, `get_velocity`, `loss_weight`) take a timestep
+tensor and index the table on its device.
 """
 
 from __future__ import annotations
@@ -73,6 +75,34 @@ class Schedule:
             return np.float32(self.final_alpha_cumprod)
         return self.alphas_cumprod[min(int(t), self.config.num_train_timesteps - 1)]
 
+    # --------------------------- training ----------------------------- #
+    def _alpha_t(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """alphas_cumprod[t] for an int tensor t [B] (negative: the final
+        alpha), fp32 on t's device, shaped [B, 1, ...] to `ndim` dims."""
+        table = torch.from_numpy(self.alphas_cumprod).to(t.device)
+        a = table[t.long().clamp(0, self.config.num_train_timesteps - 1)]
+        a = torch.where(t < 0, torch.full_like(a, self.final_alpha_cumprod), a)
+        return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """sqrt(a_t) x + sqrt(1 - a_t) noise, in fp32, returned in x's dtype."""
+        a = self._alpha_t(t, sample.ndim)
+        return (torch.sqrt(a) * sample.float()
+                + torch.sqrt(1.0 - a) * noise.float()).to(sample.dtype)
+
+    def get_velocity(self, model_output_or_noise: torch.Tensor, sample: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """sqrt(a_t) * first - sqrt(1 - a_t) * sample, fp32 (the v-prediction
+        transform; the JAX package's argument order)."""
+        a = self._alpha_t(t, sample.ndim)
+        return torch.sqrt(a) * model_output_or_noise.float() - torch.sqrt(1.0 - a) * sample.float()
+
+    def loss_weight(self, t: torch.Tensor) -> torch.Tensor:
+        """The SNR-style weight 1 / (1 - a_t), fp32 [B]."""
+        return 1.0 / (1.0 - self._alpha_t(t, 1))
+
+    # --------------------------- inference ---------------------------- #
     def ddim_step(self, model_output: torch.Tensor, t: int, prev_t: int,
                   sample: torch.Tensor) -> torch.Tensor:
         """CogVideoX DDIM update (a_t/b_t form, eta=0), fp32."""

@@ -10,6 +10,9 @@ bounds them on the H100.
   * B2 (`_kernel`, `combine=False`): the perceiver face injection calls it
     once per face layer; all 17,550 video queries attend to each identity's
     32 face tokens, one output per identity, combined later by the caller.
+Their gradients take the vjp of the plain versions, recomputed from the
+saved inputs (B3's routing weights `w` included), as the JAX custom vjps
+`_bwd_a` and `_bwd_cf` do: the JAX package has no Pallas backward here.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, cuda_lib
+from .autograd import kernel_with_plain_vjp
 
 
 def short_kv_attention_combined_flat_plain(q: torch.Tensor, k: torch.Tensor,
@@ -41,6 +45,11 @@ def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.
     (bf16, D = 64, K = 32 tokens per identity, I <= 4) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_combined_flat_plain(q, k, v, w, sm_scale)
+    return kernel_with_plain_vjp(_combined_flat_kernel, short_kv_attention_combined_flat_plain,
+                                 (q, k, v, w), (sm_scale,))
+
+
+def _combined_flat_kernel(q, k, v, w, sm_scale: float) -> torch.Tensor:
     g, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
     ok = (q.device.type == "cuda" and d == 64 and hd == h * d and kk == 32
@@ -86,6 +95,11 @@ def short_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     identity, I <= 4) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_plain(q, k, v, sm_scale)
+    return kernel_with_plain_vjp(_short_kv_kernel, short_kv_attention_plain, (q, k, v),
+                                 (sm_scale,))
+
+
+def _short_kv_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     b, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
     ok = (q.device.type == "cuda" and d == 128 and hd == h * d and kk == 32

@@ -51,6 +51,11 @@ class BindYourAvatarPipeline:
     @classmethod
     def create(cls, dit: DiT, vae: CausalVAE, cfg: PipelineConfig = PipelineConfig(),
                sched_cfg: SchedulerConfig = SchedulerConfig()) -> "BindYourAvatarPipeline":
+        """The pipeline only runs the DiT forward, so it switches the DiT to
+        the inference path (`fuse_qk_norm`: QK-LN and RoPE inside kernel B1),
+        as the JAX `create` does; the switch is made in place."""
+        if dit.cfg.qk_norm and not dit.cfg.fuse_qk_norm:
+            dit.set_fuse_qk_norm(True)
         return cls(dit=dit, vae=vae, schedule=Schedule.create(sched_cfg), cfg=cfg)
 
     def prepare_image_latents(self, image: torch.Tensor, latent_frames: int) -> torch.Tensor:

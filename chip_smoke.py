@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps each
+    python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps
+                              # each; then 2 optimizer steps of the Stage-3 train step
 
 Phases (one line each; any failure exits non-zero and prints no result):
   1. the card's `nvidia-smi` name and power limit; build every kernel (one
      nvcc per CUDA source, all at once).
   2. each kernel (B1 flash attention, fused and bare; B2 and B3 short-KV
      attention; B4 pair-axis attention; B5 and B5' tiny-sequence attention;
-     B6 LayerNorm) against its plain PyTorch version on the card, at the
-     serving path's shapes and at a ragged shape, with the stated
-     tolerance; kernel, plain version and (where one PyTorch call computes
-     the same function) that library call timed, and the bound computed.
+     B6 LayerNorm; and the training path's B7 flash attention forward and
+     backward, B8 tiny-sequence backward, B9 LayerNorm backward, B10
+     per-head LayerNorm forward and backward) against its plain PyTorch
+     version on the card, at the serving or train step's shapes and at a
+     ragged shape, with the stated tolerance; kernel, plain version and
+     (where one PyTorch call computes the same function) that library call
+     timed, and the bound computed.
   3. a reduced audio-only DiT step and a reduced fully conditioned one
      (face + audio, 3 latent frames so B5' runs) on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, fp32); the face
      step's kernel launches are counted.
+  3b. a reduced train step (2 layers, dim 768, 8 frames, 1,040 tokens):
+     `Trainer.loss_and_metrics` forward and backward on the card against
+     the CPU in fp32, loss, metrics and every trainable gradient compared,
+     launch counts checked.
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
      17,550 tokens, 21 face layers with the router, 49 x 480 x 720 video)
      with random weights drawn on the card from a seed; output shape,
      finiteness and each kernel's launch count are checked.
+  5. 2 optimizer steps (2 micro-batches each) of `Trainer.train_step` on the
+     default configuration at full width (LoRA r128, nested per-group
+     checkpointing, 42 layers): finite metrics, moved trainable and
+     bit-identical frozen tensors, exact launch counts, peak memory.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -30,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -253,22 +266,180 @@ def kernel_phase(results: dict) -> bool:
         r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
         if tag == "slice[35100,3072]":
             results["B6"] = r
+    # report() clears kernel_phase's ok_all itself; the train phase's
+    # further outputs come back in its return value
+    ok_all = train_kernel_phase(results, rnd, report, bhsd) and ok_all
+    return ok_all
+
+
+def _rel_compare(got, want, rel: float) -> float:
+    """The absolute tolerance `rel` times the reference's largest magnitude
+    (for gradients, whose scale depends on the shape)."""
+    return rel * float(want.float().abs().max())
+
+
+def train_kernel_phase(results: dict, rnd, report, bhsd) -> bool:
+    """The training path's kernels (B7 forward and backward, B8, B9, B10
+    forward and backward) against their plain versions, at the train
+    step's shapes (batch 1 per micro-batch) and one ragged shape each."""
+    import torch
+    import torch.nn.functional as F
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops import layernorm as ln
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+    from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    ok_all = True
+
+    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
+        """One line per output (first one timed); ok only if all agree."""
+        nonlocal ok_all
+        r = None
+        for i, (got, want, rel) in enumerate(zip(gots, wants, rels)):
+            sub = f"{tag} out{i}"
+            if i == 0:
+                r = report(name, sub, got, want, _rel_compare(got, want, rel), rel, kern, plain,
+                           runs, library, work)
+            else:
+                err, relerr, ok = _compare(got, want, _rel_compare(got, want, rel), rel)
+                ok_all &= ok
+                print(f"kernel {name} {sub}: max_abs_err={err:.3e} max_rel_err={relerr:.3e} "
+                      f"tol=|d|<={_rel_compare(got, want, rel):.3e}+{rel}*|ref| "
+                      f"{'ok' if ok else 'FAILED'}", flush=True)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        return r
+
+    # --- B7: the training attention.  DiT blocks q/k/v [1, 17776, 48*64] with
+    # RoPE on rows 226..17775; STAB spatial [26, 1350, 8*64] without; ragged
+    # [1, 1000, 8*64] with a masked kv tail (937) and RoPE from row 10.
+    # tol (forward): as B1, one more bf16 ulp on the scaled q; the LSE to
+    # 3e-2 absolute (logits rounded to bf16, values ~10).
+    # tol (backward): 2% of each gradient's largest magnitude (+2% relative):
+    # both sides round P and dS to bf16; the kernel's P comes from the
+    # bf16-rounded scaled q, and its sums over 17,776 kv rows run in
+    # another order.
+    # library: SDPA (forward; forward + autograd backward timed as the
+    # backward alone) at the bare shape only: no PyTorch call applies RoPE.
+    for tag, b, s, h, text_len, grid, kv_len in (
+            ("train[1,17776,3072] rope", 1, 17776, 48, 226, (13, 30, 45), None),
+            ("bare[26,1350,512]", 26, 1350, 8, 0, None, None),
+            ("ragged[1,1000,512] kv_len=937 rope", 1, 1000, 8, 10, (3, 18, 18), 937)):
+        q, k, v, do = (rnd(b, s, h * 64).to(bf) for _ in range(4))
+        kw = dict(kv_len=kv_len)
+        lib_f = lib_b = None
+        if grid is not None:
+            kw.update(rope=get_3d_rotary_pos_embed(64, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                                   device=dev), rope_start=text_len)
+        else:
+            qb, kb, vb = (bhsd(t, h).requires_grad_() for t in (q, k, v))
+            ob = F.scaled_dot_product_attention(qb, kb, vb)
+            dob = bhsd(do, h)
+            lib_f = lambda: F.scaled_dot_product_attention(qb, kb, vb)
+            lib_b = lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True)
+        kv = kv_len or s
+        fwd = lambda: fa.flash_attention_flat_fwd(q, k, v, h, **kw)
+        fwd_plain = lambda: fa.flash_attention_flat_fwd_plain(q, k, v, h, block_q=512, **kw)
+        o, lse = fwd()
+        o_p, lse_p = fwd_plain()
+        work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * 64, "bf16")
+        r = report_all("B7 fwd", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain,
+                       3, lib_f, work)
+        delta = fa.attention_delta(o, do, h)
+        bwd = lambda: fa.flash_attention_flat_bwd(q, k, v, do, lse, delta, h, **kw)
+        bwd_plain = lambda: fa.flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, h,
+                                                              block_q=512, **kw)
+        work = (_nbytes(q, k, v, do, lse, delta, q, k, v), 10.0 * b * h * s * kv * 64, "bf16")
+        r_b = report_all("B7 bwd", tag, bwd(), bwd_plain(), (2e-2, 2e-2, 2e-2), bwd, bwd_plain,
+                         3, lib_b, work)
+        if tag.startswith("train"):
+            results["B7 fwd"], results["B7 bwd"] = r, r_b
+        del q, k, v, do, o, lse, o_p, lse_p, delta
+
+    # --- B8: temporal STAB attention backward [2700, 13, 8*64] (batch 1:
+    # M = 2 identities x 30 x 45); ragged M = 1001.
+    # tol: both sides compute the softmax vjp in fp32 from the same bf16
+    # inputs and round once: 1e-2 of each gradient's largest magnitude.
+    # library: SDPA at S = 13 on [M, 8, 13, 64] copies, its autograd
+    # backward timed alone.
+    for tag, m in (("train[2700,13,512]", 2700), ("ragged[1001,13,512]", 1001)):
+        q, k, v, g = (rnd(m, 13, 512).to(bf) for _ in range(4))
+        qh, kh, vh = (bhsd(t, 8).requires_grad_() for t in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
+        gh = bhsd(g, 8)
+        lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)
+        kern = lambda: pa.tiny_seq_attention_bwd(q, k, v, g, 8, 0.125)
+        plain = lambda: pa.tiny_seq_attention_bwd_plain(q, k, v, g, 8, 0.125)
+        work = (_nbytes(q, k, v, g, q, k, v), 10.0 * m * 8 * 13 * 13 * 64, "fp32")
+        r = report_all("B8", tag, kern(), plain(), (1e-2,) * 3, kern, plain, 20, lib, work)
+        if tag.startswith("train"):
+            results["B8"] = r
+
+    # --- B9: row LayerNorm backward.  Audio norm_q and perceiver norm2
+    # [17550, 3072], router norm_q [17550, 2048], trunk/STAB norms
+    # [35100, 512], perceiver norm1 on the face tokens [64, 2048]; ragged
+    # [1001, 768].  B10: per-head LayerNorm of q/k [17776, 48 x 64],
+    # forward and backward; ragged [1001, 8 x 64].
+    # tol: dx one bf16 rounding of the same fp32 value (1e-2 of the largest
+    # |dx|); dscale/dbias fp32 sums over the rows in another order (1e-3).
+    # library: F.layer_norm's autograd backward (B9), F.layer_norm on the
+    # [M, H, 64] view forward and its backward (B10), timed alone.
+    for name, tag, rows, d in (("B9", "train[17550,3072]", 17550, 3072),
+                               ("B9", "train[17550,2048]", 17550, 2048),
+                               ("B9", "train[35100,512]", 35100, 512),
+                               ("B9", "train[64,2048]", 64, 2048),
+                               ("B9", "ragged[1001,768]", 1001, 768),
+                               ("B10", "train[17776,3072]", 17776, 3072),
+                               ("B10", "ragged[1001,512]", 1001, 512)):
+        x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
+        g = rnd(rows, d).to(bf)
+        w_d = 64 if name == "B10" else d
+        sc, bi = rnd(w_d, std=0.1, mean=1.0), rnd(w_d, std=0.1)
+        view = (lambda t: t.reshape(rows, d // 64, 64)) if name == "B10" else (lambda t: t)
+        xl = view(x).detach().requires_grad_()
+        scl, bil = sc.to(bf).requires_grad_(), bi.to(bf).requires_grad_()
+        yl = F.layer_norm(xl, (w_d,), scl, bil, 1e-6 if name == "B10" else 1e-5)
+        lib_b = lambda: torch.autograd.grad(yl, (xl, scl, bil), view(g), retain_graph=True)
+        if name == "B10":
+            eps = 1e-6
+            fk = lambda: ln.head_layernorm_fwd(x, sc, bi, eps)
+            fp = lambda: ln.head_layernorm_plain(x, sc, bi, eps)
+            lib_f = lambda: F.layer_norm(view(x), (64,), sc.to(bf), bi.to(bf), eps)
+            r = report("B10 fwd", tag, fk(), fp(), 1e-2, 1e-2, fk, fp, 20, lib_f,
+                       (_nbytes(x, sc, bi, x), 8.0 * rows * d, "fp32"))
+            if tag.startswith("train"):
+                results["B10 fwd"] = r
+            kern = lambda: ln.head_layernorm_bwd(x, sc, g, eps)
+            plain = lambda: ln.head_layernorm_bwd_plain(x, sc, g, eps)
+        else:
+            kern = lambda: ln.layernorm_bwd(x, sc, g)
+            plain = lambda: ln.layernorm_bwd_plain(x, sc, g)
+        work = (_nbytes(x, sc, g, x, sc, bi), 12.0 * rows * d, "fp32")
+        key = "B10 bwd" if name == "B10" else "B9"
+        r = report_all(key, tag, kern(), plain(), (1e-2, 1e-3, 1e-3), kern, plain, 20, lib_b,
+                       work)
+        if tag in ("train[17550,3072]", "train[17776,3072]"):
+            results[key] = r
     return ok_all
 
 
 def _kernel_fns():
     """name -> kernel wrapper (its `launches` counts the kernel's launches)."""
-    from bindyouravatar_tpu_torch.ops.flash_attention import flash_attention
-    from bindyouravatar_tpu_torch.ops.layernorm import fused_layernorm
-    from bindyouravatar_tpu_torch.ops.packed_attention import (packed_head_attention,
-                                                               pair_axis_attention,
-                                                               tiny_seq_attention)
-    from bindyouravatar_tpu_torch.ops.short_kv_attention import (
-        short_kv_attention, short_kv_attention_combined_flat)
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops import layernorm as ln
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
 
-    return {"B1": flash_attention, "B2": short_kv_attention,
-            "B3": short_kv_attention_combined_flat, "B4": pair_axis_attention,
-            "B5": tiny_seq_attention, "B5'": packed_head_attention, "B6": fused_layernorm}
+    return {"B1": fa.flash_attention, "B2": skv.short_kv_attention,
+            "B3": skv.short_kv_attention_combined_flat, "B4": pa.pair_axis_attention,
+            "B5": pa.tiny_seq_attention, "B5'": pa.packed_head_attention,
+            "B6": ln.fused_layernorm, "B7 fwd": fa.flash_attention_flat_fwd,
+            "B7 bwd": fa.flash_attention_flat_bwd, "B8": pa.tiny_seq_attention_bwd,
+            "B9": ln.layernorm_bwd, "B10 fwd": ln.head_layernorm_fwd,
+            "B10 bwd": ln.head_layernorm_bwd}
+
+TRAIN_KERNELS = ("B7 fwd", "B7 bwd", "B8", "B9", "B10 fwd", "B10 bwd")
 
 
 def _reset_launches() -> None:
@@ -299,7 +470,7 @@ def reduced_step_phase(launches: dict) -> bool:
         base = dict(num_attention_heads=heads, attention_head_dim=64, in_channels=48,
                     out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
                     sample_width=24, sample_height=16, sample_frames=9, max_text_seq_length=16,
-                    is_train_face=face)
+                    is_train_face=face, fuse_qk_norm=True)
         acfg = AudioConfig(dim=heads * 64, audio_dim=128, num_attention_heads=heads,
                            attention_head_dim=64, num_layers=2, blocks=2, intermediate_dim=64,
                            context_tokens=32)
@@ -359,6 +530,161 @@ def reduced_step_phase(launches: dict) -> bool:
             step_ok &= r_ok and ran and launches["B5"] == 0
         print(f"{line} {'ok' if step_ok else 'FAILED'}", flush=True)
         ok &= step_ok
+    return ok
+
+
+def train_launches(dit, micro_batches: int) -> dict:
+    """Each kernel's launches over `micro_batches` forward + backward passes
+    of `Trainer.loss_and_metrics` (face + audio, two audio tracks), from the
+    DiT's configuration.  Per micro-batch, with per-group checkpointing a
+    group's face injection and audio layers run forward twice (the forward
+    and the group's recompute) and with the nested policy each block three
+    times (and the block's own recompute); every backward runs once.
+      blocks: B7 fwd and 2 x B10 fwd per block forward, B7 bwd and 2 x B10
+        bwd per block;
+      face layer: B2; per STAB: B7 (spatial, when H*W >= 1024; else the
+        plain attention), B5 + B8 (temporal, T >= 8; else B5' and the plain
+        vjp), B4 (multi-ID); fused LayerNorms (B6 forward, B9 backward):
+        perceiver 2, router norms 2, trunk 1, 4 per STAB;
+      audio layer: B3 and the norm_q LayerNorm (B6, B9);
+      once: the audio projection's LayerNorm (B6, no backward: frozen)."""
+    c, r = dit.cfg, dit.router_cfg
+    t, h, w = c.latent_grid
+    g_mult = 2 if c.remat else 1
+    b_mult = 3 if c.remat and c.remat_policy == "nested" else g_mult
+    n_st = r.num_attention_layers
+    stabs = c.num_ca * n_st
+    spatial = stabs if h * w >= 1024 else 0
+    temporal = t >= 8
+    face_ln = c.num_ca * (2 + 2 + 1 + 4 * n_st)
+    n_audio = dit.audio_cfg.num_layers
+    per = {"B1": 0, "B2": c.num_ca * g_mult, "B3": n_audio * g_mult, "B4": stabs * g_mult,
+           "B5": stabs * g_mult if temporal else 0, "B5'": 0 if temporal else stabs * g_mult,
+           "B6": (n_audio + face_ln) * g_mult + 1,
+           "B7 fwd": c.num_layers * b_mult + spatial * g_mult, "B7 bwd": c.num_layers + spatial,
+           "B8": stabs if temporal else 0, "B9": n_audio + face_ln,
+           "B10 fwd": 2 * c.num_layers * b_mult, "B10 bwd": 2 * c.num_layers}
+    return {k: v * micro_batches for k, v in per.items()}
+
+
+def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
+    """A batch of `prepare_batch`'s schema on `dev` from `gen`: noise, image
+    (first frame) and background latents, text, the face inputs
+    (`id_cond`, `id_vit_hidden`), 2 audio tracks and the mute fixture, the
+    identity matrix as the audio-face map, teacher routings from a
+    left/right two-person mask (clean; noisy = clean + 0.1 N(0, 1) clipped)
+    and a dense face mask at latent resolution."""
+    import torch
+
+    c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
+    t, gh, gw = c.latent_grid
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    lat = lambda: rnd(b, t, c.out_channels, c.sample_height, c.sample_width)
+    image = torch.zeros(b, t, c.out_channels, c.sample_height, c.sample_width, device=dev)
+    image[:, :1] = rnd(b, 1, c.out_channels, c.sample_height, c.sample_width)
+    col = torch.arange(gw, device=dev)
+    left = (col < gw // 2).float().expand(t, gh, gw)
+    right = (col > gw // 2).float().expand(t, gh, gw)
+    clean = torch.stack([left, right], -1).reshape(1, t * gh * gw, 2).repeat(b, 1, 1)
+    dense = torch.zeros(b, t, c.sample_height, c.sample_width, device=dev)
+    hh, ww = c.sample_height, c.sample_width
+    dense[..., hh // 6:hh // 2, ww // 10:ww * 2 // 5] = 1.0
+    dense[..., hh // 6:hh // 2, ww * 3 // 5:ww * 9 // 10] = 1.0
+    n_af = c.sample_frames + a.window_size - a.window_stride
+    batch = dict(
+        video_latents=lat(), image_latents=image, bg_latents=lat(),
+        prompt_embeds=rnd(b, c.max_text_seq_length, c.text_embed_dim),
+        id_cond=rnd(b, c.num_ids, lf.id_embed_dim),
+        id_vit_hidden=rnd(b, c.num_ids, lf.num_scales, vit_tokens, lf.vit_dim),
+        audio_embeds=rnd(b, 2, n_af, a.blocks, a.audio_dim),
+        mute_embeds=rnd(n_af, a.blocks, a.audio_dim),
+        af_matrix=torch.eye(c.num_ids, device=dev)[None].repeat(b, 1, 1),
+        teacher_clean=clean, teacher_noisy=(clean + 0.1 * rnd(*clean.shape)).clamp(0, 1),
+        dense_mask=dense)
+    if c.in_channels < 3 * c.out_channels:
+        del batch["bg_latents"]
+    return batch
+
+
+def reduced_train_phase(launches: dict) -> bool:
+    """One micro-batch of `Trainer.loss_and_metrics` forward and backward at
+    reduced widths (2 layers, dim 768, 8 latent frames so B8 runs, 16 + 1024
+    joint tokens so the blocks' attention is B7 at a realistic length) on
+    the card (kernels, bf16, nested per-group checkpointing) against the
+    same weights and draws on the CPU (plain versions, fp32): the loss,
+    each metric and each trainable gradient; fills `launches`."""
+    import torch
+    from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
+                                                 RouterConfig, SchedulerConfig, TrainConfig)
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
+    from bindyouravatar_tpu_torch.training.trainer import Trainer
+
+    base = dict(num_attention_heads=12, attention_head_dim=64, in_channels=48, out_channels=16,
+                time_embed_dim=64, text_embed_dim=128, num_layers=2, sample_width=32,
+                sample_height=16, sample_frames=29, max_text_seq_length=16, lora_rank=8,
+                lora_alpha=8.0)
+    sub = (AudioConfig(dim=768, audio_dim=128, num_attention_heads=12, attention_head_dim=64,
+                       num_layers=2, blocks=2, intermediate_dim=64, context_tokens=32),
+           RouterConfig(num_layers=1, q_k_dim=512, num_heads=4, num_id_token=32, attn_heads=2),
+           LFEConfig(dim=128, depth=5, dim_head=64, heads=2, num_id_token=2, num_queries=32,
+                     output_dim=512, id_embed_dim=64, vit_dim=64))
+    gen = torch.Generator().manual_seed(11)
+    ref = DiT.create(DiTConfig(dtype=torch.float32, **base), *sub, device="cpu", generator=gen)
+    with torch.no_grad():            # LoRA B off zero, so LoRA A takes gradients too
+        for blk in ref.blocks:
+            for name in ("to_q_lora_B", "to_k_lora_B"):
+                getattr(blk.attn1, name).normal_(0.0, 0.02, generator=gen)
+    gpu = DiT.create(DiTConfig(dtype=torch.bfloat16, remat=True, remat_policy="nested", **base),
+                     *sub, device="cuda")
+    gpu.load_state_dict(ref.state_dict())
+    tcfg = TrainConfig(grad_accum_steps=1)
+    trainers = [Trainer(m, Schedule.create(SchedulerConfig()), tcfg) for m in (ref, gpu)]
+    for tr in trainers:
+        tr.init_state()
+    batch = _train_batch(ref, 1, gen, "cpu", vit_tokens=17)
+    draws = trainers[0].draw(batch, gen)
+    # keep the teacher mask (its dropout, p = 0.2, would zero the injected
+    # routing and with it every perceiver gradient), so those are compared
+    draws["keep_mask"][:] = True
+    to_gpu = lambda d: {k: None if v is None else v.cuda() for k, v in d.items()}
+    grads_c, m_c = trainers[0].grads_and_metrics(batch, [draws])
+    torch.cuda.synchronize()
+    _reset_launches()
+    grads_g, m_g = trainers[1].grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
+    torch.cuda.synchronize()
+    launches.update(_read_launches())
+
+    # tol: bf16 activations, and weights rounded to bf16 in every product,
+    # through 2 blocks, the router and 2 audio layers against fp32: metrics
+    # within 5% (+1e-3), gradients within 10% relative L2 error.  A wrong
+    # adjoint or a dropped term gives errors of order 1.  The attention key
+    # biases are left out: their true gradient is 0 (softmax is invariant
+    # to them), so both sides hold rounding noise.
+    ok = True
+    m_err = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_c}
+    m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
+    g_err = {}
+    for k, gc in grads_c.items():
+        if k.endswith("to_k.bias"):
+            continue
+        norm = float(gc.norm())
+        diff = float((grads_g[k].float().cpu() - gc).norm())
+        g_err[k] = diff / norm if norm > 0 else diff
+    worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
+    g_ok = all(e <= 0.1 for e in g_err.values())
+    want = train_launches(gpu, 1)
+    counts_ok = all(launches[k] == want[k] for k in want)
+    ok = m_ok and g_ok and counts_ok
+    print("reduced train step (face + audio, 2 layers, 12 x 64 heads, 16 + 1024 tokens, "
+          f"8 frames, LoRA r8): cuda-bf16 vs cpu-fp32 loss {float(m_g['loss']):.5f} / "
+          f"{float(m_c['loss']):.5f}; metrics max |d| "
+          + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
+          + f" tol=1e-3+0.05*|ref| {'ok' if m_ok else 'FAILED'}; {len(g_err)} trainable "
+          f"gradients, worst relative L2 " + " ".join(f"{k}={v:.3e}" for k, v in worst)
+          + f" tol=0.1 {'ok' if g_ok else 'FAILED'}; launches "
+          + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -443,7 +769,7 @@ def serving_phase(args, launches: dict) -> bool:
             "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
             "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
             "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face
-            + len(reqs)}
+            + len(reqs), **{k: 0 for k in TRAIN_KERNELS}}     # no backward when serving
     counts_ok = launches == want
     ok &= counts_ok
     print(f"serving: {args.requests} face + audio and 1 audio-only requests x {args.steps} steps "
@@ -453,11 +779,120 @@ def serving_phase(args, launches: dict) -> bool:
     return ok
 
 
+def _fingerprint(t) -> tuple:
+    """An exact, order-independent fingerprint of a tensor's bits (two int64
+    sums over its 32- or 16-bit words; wrap-around is deterministic)."""
+    import torch
+
+    w = t.detach().contiguous()
+    w = w.view(torch.int32 if w.element_size() == 4 else torch.int16).long()
+    return int(w.sum()), int((w * (w & 0xFFFF)).sum())
+
+
+def train_phase(args, launches: dict) -> bool:
+    """`args.train_steps` optimizer steps of `Trainer.train_step` (2
+    micro-batches each, batch 1 per micro-batch) on the repo's default
+    configuration at full width: `DiTConfig(lora_rank=128, remat=True,
+    remat_policy="nested")` (42 layers unless `--train-layers` cuts depth,
+    dim 3072, 226 + 17,550 tokens, face + audio), fp32 weights drawn on the
+    card from a seed, bf16 compute.  Checks finite loss and metrics, moved
+    trainable and bit-identical frozen tensors, and each kernel's launch
+    count; fills `launches`."""
+    import gc
+
+    import torch
+    from bindyouravatar_tpu_torch.config import DiTConfig, SchedulerConfig, TrainConfig
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
+    from bindyouravatar_tpu_torch.training.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(args.seed + 100)
+    cfg = DiTConfig(lora_rank=128, remat=True, remat_policy="nested",
+                    num_layers=args.train_layers)
+    dit = DiT.create(cfg, device=dev, generator=gen)
+    tr = Trainer(dit, Schedule.create(SchedulerConfig()), TrainConfig(lr_warmup_steps=1))
+    state = tr.init_state()
+    batch = _train_batch(dit, tr.cfg.grad_accum_steps, gen, dev)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in tr.trainable.values())
+    n_all = sum(p.numel() for p in dit.parameters())
+    print(f"train model: DiT {n_all / 1e9:.3f}B params ({cfg.num_layers} layers"
+          f"{'' if cfg.num_layers == 42 else ', depth cut from 42'}), trainable "
+          f"{n_train / 1e9:.3f}B in {len(tr.trainable)} tensors, fp32 weights drawn on the card "
+          f"in {time.perf_counter() - t0:.1f} s; weights + AdamW state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    before_t = {k: _fingerprint(p) for k, p in tr.trainable.items()}
+    before_f = {k: _fingerprint(p) for k, p in tr.frozen.items()}
+
+    ok = True
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    gen_step = torch.Generator(dev).manual_seed(args.seed + 200)
+    accum = tr.cfg.grad_accum_steps
+    for i in range(args.train_steps):
+        t0 = time.perf_counter()
+        # Trainer.draw per micro-batch, as train_step would, so they can be shown
+        draws = [tr.draw({"video_latents": batch["video_latents"][j:j + 1]}, gen_step)
+                 for j in range(accum)]
+        shown = "; ".join(f"t={int(d['t'][0])} keep image/teacher mask="
+                          f"{bool(d['keep_img'].all())}/{bool(d['keep_mask'].all())} "
+                          f"mask loss={bool(d['use_mask_loss'])}" for d in draws)
+        state, m = tr.train_step(state, batch, draws=draws)
+        vals = {k: float(v) for k, v in m.items()}
+        wall = time.perf_counter() - t0
+        finite = all(math.isfinite(v) for v in vals.values())
+        ok &= finite
+        print(f"train step {i + 1}: {wall:.2f} s wall ({accum} micro-batches: {shown}; "
+              f"lr {tr.lr(state.count - 1):.2e}); "
+              + " ".join(f"{k}={v:.5g}" for k, v in vals.items())
+              + f" finite={finite}", flush=True)
+    torch.cuda.synchronize()
+    launches.update(_read_launches())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    moved = sum(_fingerprint(p) != before_t[k] for k, p in tr.trainable.items())
+    frozen_same = all(_fingerprint(p) == before_f[k] for k, p in tr.frozen.items())
+    # every trainable that received a gradient moves.  AdamW's first moment
+    # is zero exactly where every gradient was: the mute tokens (unused with
+    # two audio tracks), LoRA A while B is zero (peft's init; dL/dA = x^T g
+    # B^T), and the perceivers in a step whose micro-batches all drew the
+    # teacher-mask dropout (p = 0.2: the injected routing is then zero).
+    # There weight decay alone (lr * 1e-4 * p) is under half an fp32 ulp.
+    # The attention key biases are the other exception: their true gradient
+    # is 0 (softmax is invariant to them), so they hold rounding noise that
+    # clipping leaves below an ulp's worth of update.
+    still = [k for k, p in tr.trainable.items() if _fingerprint(p) == before_t[k]]
+    with torch.no_grad():
+        no_grad = [k for k in still if not bool(state.mu[k].any())]
+    still_ok = all(k in no_grad or k.endswith("to_k.bias") for k in still)
+    want = train_launches(dit, args.train_steps * tr.cfg.grad_accum_steps)
+    counts_ok = all(launches[k] == want[k] for k in want)
+    ok &= still_ok and frozen_same and counts_ok
+    print(f"train: {args.train_steps} steps; trainable moved {moved}/{len(tr.trainable)} "
+          f"(unmoved: {len(no_grad)} with no gradient in any step, of them "
+          f"{sum(k.endswith('lora_A') for k in no_grad)} LoRA A and "
+          f"{sum(k.startswith('perceivers.') for k in no_grad)} perceiver tensors; "
+          f"{sum(k.endswith('to_k.bias') and k not in no_grad for k in still)} key biases; "
+          f"others: {[k for k in still if k not in no_grad and not k.endswith('to_k.bias')]}) "
+          f"{'ok' if still_ok else 'FAILED'}; frozen "
+          f"{len(tr.frozen)} tensors bit-identical={frozen_same}; peak memory {peak:.2f} GiB; "
+          "launches " + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=2, help="denoise steps per request")
     p.add_argument("--requests", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--train-steps", type=int, default=2, help="optimizer steps of phase 5")
+    p.add_argument("--train-layers", type=int, default=42,
+                   help="depth of the phase-5 DiT (widths stay full)")
     args = p.parse_args(argv)
 
     import torch
@@ -485,21 +920,27 @@ def main(argv=None) -> int:
         _build.import_triton()
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
-    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5) and triton import in "
+    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 + B8) and triton import in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
         print(f"  ptxas: {line.strip()}", flush=True)
 
-    results, launches, reduced_launches = {}, {}, {}
+    results, launches, reduced_launches, train_launches_ = {}, {}, {}, {}
     ok = kernel_phase(results)
     ok &= reduced_step_phase(reduced_launches)
+    ok &= reduced_train_phase({})
     if args.requests > 0:
         ok &= serving_phase(args, launches)
     else:
         ok = False
         print("serving phase skipped (--requests 0): no launch counts", flush=True)
+    if args.train_steps > 0:
+        ok &= train_phase(args, train_launches_)
+    else:
+        ok = False
+        print("train phase skipped (--train-steps 0): no launch counts", flush=True)
     if not ok:
         return _fail("a phase failed")
 
@@ -507,6 +948,9 @@ def main(argv=None) -> int:
     # reduced fully conditioned step (3 frames), every other kernel's those
     # of the serving run
     launches["B5'"] = reduced_launches["B5'"]
+    # the training kernels' launches are those of the full-width train step
+    for name in TRAIN_KERNELS:
+        launches[name] = train_launches_[name]
     meta = {
         "B1": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
                "bindyouravatar_tpu/ops/flash_attention.py:592"),
@@ -522,6 +966,18 @@ def main(argv=None) -> int:
                 "bindyouravatar_tpu/ops/packed_attention.py:47"),
         "B6": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
                "bindyouravatar_tpu/ops/layernorm.py:26"),
+        "B7 fwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                   "bindyouravatar_tpu/ops/flash_attention.py:352"),
+        "B7 bwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                   "bindyouravatar_tpu/ops/flash_attention.py:1050"),
+        "B8": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+               "bindyouravatar_tpu/ops/packed_attention.py:351"),
+        "B9": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+               "bindyouravatar_tpu/ops/layernorm.py:199"),
+        "B10 fwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+                    "bindyouravatar_tpu/ops/layernorm.py:272"),
+        "B10 bwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+                    "bindyouravatar_tpu/ops/layernorm.py:285"),
     }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}
