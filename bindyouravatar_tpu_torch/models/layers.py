@@ -162,8 +162,11 @@ class JointSelfAttention(nn.Module):
       * inference (`fuse_qk_norm=True`): the per-head QK LayerNorm (eps
         1e-6) and the video-only RoPE run inside kernel B1 (no backward);
       * training: `norm_q`/`norm_k` (kernel B10) on the projections, then
-        the differentiable attention, kernel B7, with RoPE from row
-        `text_len` inside it."""
+        the differentiable attention with RoPE from row `text_len` inside
+        it: kernel B7 on the flat projections when the heads pack into
+        128 lanes (`heads % max(1, 128 // head_dim) == 0`, JAX
+        `layers.py:354-367`), else kernels B11/B12/B13 on the [B, S, H, D]
+        view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,
                  bias: bool = True, out_bias: bool = True, lora_rank: int = 0,
@@ -207,11 +210,18 @@ class JointSelfAttention(nn.Module):
             if self.norm_q is not None:
                 qk_norm = (self.norm_q.weight, self.norm_q.bias,
                            self.norm_k.weight, self.norm_k.bias)
-            o = attention(q, k, v, self.heads, rope=rope, rope_start=text_len, qk_norm=qk_norm)
+            o = attention(q, k, v, rope=rope, rope_start=text_len, layout="flat",
+                          qk_norm=qk_norm, heads=self.heads)
         else:
             if self.norm_q is not None:
                 q, k = self.norm_q(q), self.norm_k(k)
-            o = flash_attention_flat(q, k, v, self.heads, rope=rope, rope_start=text_len)
+            if self.heads % max(1, 128 // self.head_dim) == 0:
+                o = flash_attention_flat(q, k, v, self.heads, rope=rope, rope_start=text_len)
+            else:
+                b, s, inner = q.shape
+                bshd = lambda t: t.reshape(b, s, self.heads, self.head_dim)   # a free view
+                o = attention(bshd(q), bshd(k), bshd(v), rope=rope, rope_start=text_len,
+                              layout="bshd").reshape(b, s, inner)
         o = self.to_out(o)
         return o[:, text_len:], o[:, :text_len]
 

@@ -31,7 +31,7 @@ from ..config import RouterConfig
 from ..ops.attention import attention, sdpa
 from ..ops.flash_attention import flash_attention_flat
 from ..ops.packed_attention import pair_axis_attention, tiny_seq_attention
-from ..ops.short_kv_attention import short_kv_attention
+from ..ops.short_kv_attention import short_kv_attention_flat
 from .layers import Dense, LayerNorm
 
 
@@ -66,7 +66,8 @@ class PerceiverCrossAttention(nn.Module):
         k_flat, v_flat = self.to_k(x), self.to_v(x)
         heads = lambda t: (t.reshape(b, n_id, n_tok, self.heads, self.dim_head)
                            .transpose(2, 3).contiguous())             # [B, I, H, n_tok, dh]
-        o = short_kv_attention(q_flat, heads(k_flat), heads(v_flat), self.dim_head ** -0.5)
+        o = short_kv_attention_flat(q_flat, heads(k_flat), heads(v_flat),
+                                    self.dim_head ** -0.5)
         if not self.return_pre_out:
             o = self.to_out(o)
         return o, q_flat.detach(), k_flat.detach()
@@ -95,7 +96,10 @@ class SelfAttention(nn.Module):
         dh = dim // self.heads
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if s >= 1024 and dh == 64:
-            o = (attention if self.inference else flash_attention_flat)(q, k, v, self.heads)
+            if self.inference:
+                o = attention(q, k, v, layout="flat", heads=self.heads)
+            else:
+                o = flash_attention_flat(q, k, v, self.heads)
         else:
             split = lambda t: t.reshape(b, s, self.heads, dh).transpose(1, 2)
             o = sdpa(split(q), split(k), split(v)).transpose(1, 2).reshape(b, s, dim)

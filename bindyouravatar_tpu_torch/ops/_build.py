@@ -33,6 +33,12 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "bya_flash_attention_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _F, _P],
+    "bya_flash_layout_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    "bya_flash_layout_rope": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bya_flash_layout_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "bya_short_kv_layout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _F, _P],
     "bya_short_kv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

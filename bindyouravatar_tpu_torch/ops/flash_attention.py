@@ -1,14 +1,24 @@
-"""Flat flash attention: kernels B1 (inference forward with fused QK-LN and
-RoPE) and B7 (the differentiable training attention: forward saving the
-LSE, and the dq/dk/dv backward).
+"""Flash attention: the flat kernels B1 (inference forward with fused QK-LN
+and RoPE) and B7 (the differentiable training attention: forward saving
+the LSE, and the dq/dk/dv backward), and the general-layout kernels B11
+(forward over [B, H, S, D] or [B, S, H, D]), B12 (dk, dv) and B13 (dq).
 
-The kernels (`csrc/flash_attention.cu`) replace the TPU kernels
-`_fwd_flat_t_kernel` (B1), `_fwd_flat_kernel` and `_bwd_flat_kernel` (B7,
-the `_flash_flat` custom vjp) of `bindyouravatar_tpu/ops/flash_attention.py`;
-the source note says what bounds them on the H100 and how they are built.
-Unlike the TPU path, V arrives in the projections' own [B, S, H*D] layout,
-the output and the gradients leave in it, and the sequence is not padded:
-the kernels mask the ragged tail themselves.
+All five come from one source, `csrc/flash_attention.cu`, whose forward
+and backward bodies are templated on the head dim and on the flat kernels'
+math (each kernel its own instantiation).  The flat kernels replace the TPU
+kernels `_fwd_flat_t_kernel` (B1), `_fwd_flat_kernel` and
+`_bwd_flat_kernel` (B7, the `_flash_flat` custom vjp) of
+`bindyouravatar_tpu/ops/flash_attention.py`; B11-B13 replace `_fwd_kernel`,
+`_dkv_kernel` and `_dq_kernel` (the `_flash` custom vjp and the fused QK-LN
+inference form of `flash_attention(layout="bhsd" | "bshd")`); the source
+note says what bounds them on the H100 and how they are built.  Unlike the
+TPU path, V arrives in the caller's own layout, the output and the
+gradients leave in it, and the sequence is not padded: the kernels mask
+the ragged tail themselves.  The port does not mirror the JAX switch
+`COMBINED_BWD`, which sends bhsd/bshd gradients through the combined flat
+backward (B7's body) for TPU VMEM and layout reasons: here B12/B13 are the
+backward of every general-layout call, as B7's own backward is the same
+dk/dv-per-kv-tile plus dq-per-q-tile pair for the flat layout.
 """
 
 from __future__ import annotations
@@ -18,7 +28,6 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import check, cuda_lib
-from .attention import sdpa
 from .rope import apply_rotary_emb
 
 QK_NORM_EPS = 1e-6
@@ -39,37 +48,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hea
                           qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
                           block_q: int = 1024) -> torch.Tensor:
     """Plain version of B1 (the JAX package's XLA fallback math): per-head
-    LN -> dtype, RoPE -> dtype, fp32-softmax attention, flat out."""
+    LN -> dtype, RoPE -> dtype, fp32-softmax attention, flat out; B11's
+    plain version on the [B, S, H, D] view."""
     b, s, hd = q.shape
-    d = hd // heads
-    split = lambda x: x.reshape(b, s, heads, d).transpose(1, 2)    # [B,H,S,D]
-    q, k, v = split(q), split(k), split(v)
-    if qk_norm is not None:
-        qs, qb, ks, kb = qk_norm
-        q, k = _head_layernorm(q, qs, qb), _head_layernorm(k, ks, kb)
-    if rope is not None:
-        cos, sin = rope
-        end = rope_start + cos.shape[0]
-        rot = lambda x: torch.cat([x[..., :rope_start, :],
-                                   apply_rotary_emb(x[..., rope_start:end, :], cos, sin),
-                                   x[..., end:, :]], dim=-2)
-        q, k = rot(q), rot(k)
-    out = sdpa(q, k, v, scale=scale, kv_len=kv_len, block_q=block_q)
-    return out.transpose(1, 2).reshape(b, s, hd)
+    view = lambda t: t.reshape(b, s, heads, hd // heads)
+    o, _ = flash_attention_fwd_plain(view(q), view(k), view(v), "bshd", scale, kv_len, rope,
+                                     rope_start, qk_norm, block_q)
+    return o.reshape(b, s, hd)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
-                    scale: Optional[float] = None, kv_len: Optional[int] = None,
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: Optional[int] = None, scale: Optional[float] = None,
+                    kv_len: Optional[int] = None,
                     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     rope_start: int = 0,
-                    qk_norm: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
-    """Non-causal attention over flat q/k/v [B, S, H*D] -> [B, S, H*D].
+                    qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
+                    layout: Optional[str] = None) -> torch.Tensor:
+    """Non-causal self-attention (the JAX `flash_attention`).
+
+    `layout="flat"` (the default when `heads` is given): q/k/v [B, S, H*D]
+    -> [B, S, H*D] through kernel B1, inference only.  `layout="bhsd"`
+    (the default otherwise, as in JAX) or `"bshd"`: q/k/v [B, H, S, D] or
+    [B, S, H, D], output in the same layout, through `flash_attention_layout`
+    (B11, and B12/B13 for its gradient).
 
     `qk_norm=(q_scale, q_bias, k_scale, k_bias)` ([D] each) applies the
     per-head LayerNorm (eps 1e-6, fp32 stats); `rope=(cos, sin)` ([R, D])
     rotates rows [rope_start, rope_start + R) after it; kv rows >= kv_len
     are masked.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16, D = 64) or raises."""
+    launches the kernel (bf16; flat: D = 64) or raises."""
+    if layout is None:
+        layout = "flat" if heads is not None else "bhsd"
+    if layout != "flat":
+        return flash_attention_layout(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)
+    _require(heads is not None, "layout='flat' requires heads")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, heads, scale, kv_len, rope, rope_start, qk_norm)
     b, s, hd = q.shape
@@ -127,17 +139,20 @@ def _check_flat(q, k, v, heads: int, kv_len: int) -> None:
                  and t.data_ptr() % 16 == 0, "q, k, v must be contiguous 16-byte aligned bf16")
 
 
-def _rope_qk(q: torch.Tensor, k: torch.Tensor, rope, rope_start: int, sign: float = 1.0):
-    """Rotate rows [rope_start, rope_start + R) of [B, H, S, D] q and k
-    (`sign=-1`: the adjoint rotation, sin negated); other rows unchanged."""
+def _rope(x: torch.Tensor, rope, rope_start: int, sign: float = 1.0) -> torch.Tensor:
+    """Rotate rows [rope_start, rope_start + R) of [..., S, D] x (`sign=-1`:
+    the adjoint rotation, sin negated); other rows unchanged."""
     if rope is None:
-        return q, k
+        return x
     cos, sin = rope
     end = rope_start + cos.shape[0]
-    rot = lambda x: torch.cat([x[..., :rope_start, :],
-                               apply_rotary_emb(x[..., rope_start:end, :], cos, sign * sin),
-                               x[..., end:, :]], dim=-2)
-    return rot(q), rot(k)
+    return torch.cat([x[..., :rope_start, :],
+                      apply_rotary_emb(x[..., rope_start:end, :], cos, sign * sin),
+                      x[..., end:, :]], dim=-2)
+
+
+def _rope_qk(q: torch.Tensor, k: torch.Tensor, rope, rope_start: int, sign: float = 1.0):
+    return _rope(q, rope, rope_start, sign), _rope(k, rope, rope_start, sign)
 
 
 def flash_attention_flat_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -147,24 +162,13 @@ def flash_attention_flat_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
                                    rope_start: int = 0, block_q: int = 1024):
     """Plain version of B7's forward: RoPE -> dtype, fp32-softmax attention
     (p rounded to v's dtype for the PV product), flat out, and the per-row
-    natural LSE of the scaled scores, fp32 [B, H, S]."""
+    natural LSE of the scaled scores, fp32 [B, H, S]; B11's plain version
+    on the [B, S, H, D] view."""
     b, s, hd = q.shape
-    d = hd // heads
-    scale = d ** -0.5 if scale is None else scale
-    split = lambda x: x.reshape(b, s, heads, d).transpose(1, 2)    # [B,H,S,D]
-    qh, kh = _rope_qk(split(q), split(k), rope, rope_start)
-    vh = split(v)
-    kf = kh.float().transpose(-1, -2)
-    valid = torch.arange(s, device=q.device) < (s if kv_len is None else kv_len)
-    outs, lses = [], []
-    for i in range(0, s, block_q):
-        sc = torch.matmul(qh[..., i:i + block_q, :].float(), kf) * scale
-        sc = sc.masked_fill(~valid, float("-inf"))
-        lse = torch.logsumexp(sc, dim=-1)
-        outs.append(torch.matmul(torch.exp(sc - lse[..., None]).to(v.dtype), vh))
-        lses.append(lse)
-    o = torch.cat(outs, dim=-2).transpose(1, 2).reshape(b, s, hd)
-    return o, torch.cat(lses, dim=-1)
+    view = lambda t: t.reshape(b, s, heads, hd // heads)
+    o, lse = flash_attention_fwd_plain(view(q), view(k), view(v), "bshd", scale, kv_len, rope,
+                                       rope_start, None, block_q)
+    return o.reshape(b, s, hd), lse
 
 
 def flash_attention_flat_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,3 +315,265 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
                                               rope_start)[0]
     return _FlashFlat.apply(q.contiguous(), k.contiguous(), v.contiguous(), heads, scale,
                             kv_len, rope, rope_start)
+
+
+# ------------------------------------------------ bhsd / bshd: B11, B12, B13
+
+LAYOUTS = ("bhsd", "bshd")
+
+
+def _heads_major(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """[B, H, S, D] view of a `layout` tensor (and back: the swap is its own
+    inverse)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: expected one of {LAYOUTS} or 'flat'")
+    return x if layout == "bhsd" else x.transpose(1, 2)
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              layout: str = "bhsd", scale: Optional[float] = None,
+                              kv_len: Optional[int] = None,
+                              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                              rope_start: int = 0,
+                              qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
+                              block_q: int = 1024):
+    """Plain version of B11 (the JAX package's XLA fallback math): per-head
+    LN -> dtype, RoPE -> dtype, fp32 scores * scale with kv rows >= kv_len
+    masked, fp32 softmax with p rounded to v's dtype for the PV product.
+    Returns (o in `layout`, the per-row natural LSE, fp32 [B, H, S])."""
+    qh, kh, vh = (_heads_major(t, layout) for t in (q, k, v))
+    s, d = qh.shape[-2:]
+    scale = d ** -0.5 if scale is None else scale
+    if qk_norm is not None:
+        qs, qb, ks, kb = qk_norm
+        qh, kh = _head_layernorm(qh, qs, qb), _head_layernorm(kh, ks, kb)
+    qh, kh = _rope_qk(qh, kh, rope, rope_start)
+    kf = kh.float().transpose(-1, -2)
+    valid = torch.arange(s, device=q.device) < (s if kv_len is None else kv_len)
+    outs, lses = [], []
+    for i in range(0, s, block_q):
+        sc = torch.matmul(qh[..., i:i + block_q, :].float(), kf) * scale
+        sc = sc.masked_fill(~valid, float("-inf"))
+        lse = torch.logsumexp(sc, dim=-1)
+        outs.append(torch.matmul(torch.exp(sc - lse[..., None]).to(v.dtype), vh))
+        lses.append(lse)
+    return _heads_major(torch.cat(outs, dim=-2), layout), torch.cat(lses, dim=-1)
+
+
+def _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, block_q,
+               want_dq: bool):
+    """The math of `_dkv_kernel` (want_dq=False: (dk, dv)) and `_dq_kernel`
+    (dq): P = exp(s * scale - lse) with the masked kv columns exactly 0,
+    delta = rowsum(o * dO), dS = P (dO V^T - delta) * scale rounded to q's
+    dtype, dV = P^T dO with P rounded to dO's dtype, dK = dS^T q, dQ = dS k
+    on the rotated q and k, then the RoPE adjoint (cos, -sin)."""
+    qh, kh, vh, oh, doh = (_heads_major(t, layout) for t in (q, k, v, o, do))
+    s, d = qh.shape[-2:]
+    scale = d ** -0.5 if scale is None else scale
+    qh, kh = _rope_qk(qh, kh, rope, rope_start)
+    kf, vf, dof = kh.float(), vh.float(), doh.float()
+    delta = (oh.float() * dof).sum(-1)
+    valid = torch.arange(s, device=q.device) < (s if kv_len is None else kv_len)
+    dq_parts, dk, dv = [], torch.zeros_like(kf), torch.zeros_like(vf)
+    for i in range(0, s, block_q):
+        sl = slice(i, i + block_q)
+        qb = qh[..., sl, :].float()
+        p = torch.exp(torch.matmul(qb, kf.transpose(-1, -2)) * scale - lse[..., sl, None])
+        p = p.masked_fill(~valid, 0.0)
+        dp = torch.matmul(dof[..., sl, :], vf.transpose(-1, -2))
+        ds = (p * (dp - delta[..., sl, None]) * scale).to(q.dtype).float()
+        if want_dq:
+            dq_parts.append(torch.matmul(ds, kf))
+        else:
+            dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof[..., sl, :])
+            dk += torch.matmul(ds.transpose(-1, -2), qb)
+    out = lambda g: _heads_major(g, layout).to(q.dtype)
+    if want_dq:
+        return out(_rope(torch.cat(dq_parts, dim=-2), rope, rope_start, sign=-1.0))
+    return out(_rope(dk, rope, rope_start, sign=-1.0)), out(dv)
+
+
+def flash_attention_dkv_plain(q, k, v, o, do, lse, layout: str = "bhsd",
+                              scale: Optional[float] = None, kv_len: Optional[int] = None,
+                              rope=None, rope_start: int = 0, block_q: int = 1024):
+    """Plain version of B12: (dk, dv) in `layout` (see `_bwd_plain`)."""
+    return _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, block_q,
+                      want_dq=False)
+
+
+def flash_attention_dq_plain(q, k, v, o, do, lse, layout: str = "bhsd",
+                             scale: Optional[float] = None, kv_len: Optional[int] = None,
+                             rope=None, rope_start: int = 0, block_q: int = 1024):
+    """Plain version of B13: dq in `layout` (see `_bwd_plain`)."""
+    return _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, block_q,
+                      want_dq=True)
+
+
+def _layout_dims(q: torch.Tensor, layout: str):
+    """(B, S, H, D) of a `layout` tensor."""
+    b, h, s, d = _heads_major(q, layout).shape
+    return b, s, h, d
+
+
+def _check_layout(layout: str, *tensors) -> None:
+    """The general-layout kernels' contract: CUDA bf16 tensors of one shape,
+    contiguous in their layout, D = 64 or 128.  Rows are read as 16-byte
+    vectors, bhsd rows D apart and bshd rows H*D apart, which needs D % 8
+    == 0 and 16-byte aligned tensors."""
+    q = tensors[0]
+    d = q.shape[-1]
+    _require(q.device.type == "cuda", f"tensors on {q.device}")
+    _require(d in (64, 128), f"head dim {d}: the {layout} kernels take 64 or 128")
+    for t in tensors:
+        _require(t.shape == q.shape, f"shapes {tuple(t.shape)} and {tuple(q.shape)} differ")
+        _require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "tensors must be contiguous 16-byte aligned bf16")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        layout: str = "bhsd", scale: Optional[float] = None,
+                        kv_len: Optional[int] = None,
+                        rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        rope_start: int = 0,
+                        qk_norm: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Kernel B11: (o in `layout`, lse fp32 [B, H, S]) over q/k/v [B, H, S, D]
+    (`layout="bhsd"`) or [B, S, H, D] (`"bshd"`), with the options of
+    `flash_attention`.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (bf16, D = 64 or 128) or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start,
+                                         qk_norm)
+    b, s, h, d = _layout_dims(q, layout)
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = s if kv_len is None else kv_len
+    _check_layout(layout, q, k, v)
+    _require(0 < kv_len <= s, f"kv_len {kv_len} outside (0, {s}]")
+    f32 = lambda t: t.to(device=q.device, dtype=torch.float32).contiguous()
+    ln = [None] * 4 if qk_norm is None else [f32(a) for a in qk_norm]
+    _require(all(a is None or a.shape == (d,) for a in ln), "qk_norm affines must be [D]")
+    cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
+    prep = qk_norm is not None or rope is not None
+    q_prep, k_prep = (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = cuda_lib().bya_flash_layout_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(q_prep), ptr(k_prep),
+        *[ptr(a) for a in ln], ptr(cos), ptr(sin), rope_start, rope_rows, b, s, h, d,
+        int(layout == "bshd"), kv_len, float(scale), QK_NORM_EPS, lse.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_attention_fwd (B11)")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start):
+    """Check the backward's inputs and rotate q and k once (the RoPE
+    pre-pass that B12 and B13 share); returns `launch(dkv)`, which runs B12
+    (dkv=True: (dk, dv)) or B13 (dq) on the rotated rows and counts it."""
+    b, s, h, d = _layout_dims(q, layout)
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = s if kv_len is None else kv_len
+    do = do.to(q.dtype).contiguous()
+    _check_layout(layout, q, k, v, o, do)
+    _require(0 < kv_len <= s, f"kv_len {kv_len} outside (0, {s}]")
+    _require(lse.shape == (b, h, s) and lse.dtype == torch.float32 and lse.is_contiguous(),
+             "lse must be contiguous fp32 [B, H, S]")
+    cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bshd = int(layout == "bshd")
+    q_rot, k_rot = q, k
+    if rope is not None:
+        q_rot, k_rot = torch.empty_like(q), torch.empty_like(k)
+        err = cuda_lib().bya_flash_layout_rope(
+            q.data_ptr(), k.data_ptr(), q_rot.data_ptr(), k_rot.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), rope_start, rope_rows, b, s, h, d, bshd, stream)
+        check(err, "flash_attention backward RoPE pre-pass (B12/B13)")
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def launch(dkv: bool):
+        grads = (torch.empty_like(k), torch.empty_like(v)) if dkv else (torch.empty_like(q),)
+        err = cuda_lib().bya_flash_layout_bwd(
+            int(dkv), q_rot.data_ptr(), k_rot.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), grads[0].data_ptr(), ptr(grads[1] if dkv else None),
+            ptr(cos), ptr(sin), rope_start, rope_rows, b, s, h, d, bshd, kv_len, float(scale),
+            stream)
+        if dkv:
+            check(err, "flash_attention backward (B12)")
+            flash_attention_dkv.launches += 1
+            return grads
+        check(err, "flash_attention backward (B13)")
+        flash_attention_dq.launches += 1
+        return grads[0]
+
+    return launch
+
+
+def flash_attention_dkv(q, k, v, o, do, lse, layout: str = "bhsd",
+                        scale: Optional[float] = None, kv_len: Optional[int] = None,
+                        rope=None, rope_start: int = 0):
+    """Kernel B12: (dk, dv) in `layout` from q, k, v, the forward's o and
+    LSE and dO (delta = rowsum(o * dO) is computed inside).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
+                                         rope_start)
+    return _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start)(True)
+
+
+def flash_attention_dq(q, k, v, o, do, lse, layout: str = "bhsd",
+                       scale: Optional[float] = None, kv_len: Optional[int] = None,
+                       rope=None, rope_start: int = 0):
+    """Kernel B13: dq in `layout` (inputs as `flash_attention_dkv`)."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
+                                        rope_start)
+    return _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start)(False)
+
+
+flash_attention_fwd.launches = 0
+flash_attention_dkv.launches = 0
+flash_attention_dq.launches = 0
+
+
+class _FlashLayout(torch.autograd.Function):
+    """The JAX `_flash` custom vjp: B11 forward saving the LSE, B12 and B13
+    backward (on a CUDA tensor, after one shared RoPE pre-pass)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, scale, kv_len, rope, rope_start):
+        o, lse = flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (layout, scale, kv_len, rope, rope_start)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dk, dv = flash_attention_dkv_plain(q, k, v, o, do, lse, *ctx.args)
+            dq = flash_attention_dq_plain(q, k, v, o, do, lse, *ctx.args)
+        else:
+            launch = _layout_bwd(q, k, v, o, do, lse, *ctx.args)
+            (dk, dv), dq = launch(True), launch(False)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           layout: str = "bhsd", scale: Optional[float] = None,
+                           kv_len: Optional[int] = None,
+                           rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           rope_start: int = 0,
+                           qk_norm: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+    """Non-causal self-attention over q/k/v [B, H, S, D] (`layout="bhsd"`)
+    or [B, S, H, D] (`"bshd"`), output in the same layout (the bhsd/bshd
+    branch of the JAX `flash_attention`).  With `qk_norm` the call is
+    inference only (B11 with the LN fused; no backward), as in JAX.
+    Without, it is differentiable: B11 forward, B12 and B13 backward.  A
+    CPU tensor takes the plain version (autograd differentiates it)."""
+    if qk_norm is not None:
+        return flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)[0]
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start)[0]
+    return _FlashLayout.apply(q.contiguous(), k.contiguous(), v.contiguous(), layout, scale,
+                              kv_len, rope, rope_start)

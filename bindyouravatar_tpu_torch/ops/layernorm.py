@@ -180,13 +180,23 @@ class _HeadLayerNorm(torch.autograd.Function):
         return dx, ds.to(scale.dtype), db.to(scale.dtype), None
 
 
+def _hln_kernel_shape(x: torch.Tensor, dh: int) -> bool:
+    """The JAX op's shape rule for its kernel (`_hln_pallas_ok`): rows of
+    a multiple of 128 wide holding at most 128 whole heads.  Other shapes
+    take the plain math there and here."""
+    c = x.shape[-1]
+    return x.ndim >= 2 and c % 128 == 0 and c % dh == 0 and c // dh <= 128
+
+
 def head_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """Per-head LayerNorm of a flat [..., H*dh] tensor, dh = scale's size,
-    affine shared across heads.  A CPU tensor takes the plain version
-    (autograd differentiates it); a CUDA tensor launches kernel B10's
-    forward (bf16, dh = 64) or raises, and its backward B10's backward."""
-    if x.device.type == "cpu":
+    affine shared across heads.  A CPU tensor, or a shape outside the JAX
+    op's kernel rule (`_hln_kernel_shape`: e.g. 15 heads of 64), takes the
+    plain version (autograd differentiates it); otherwise a CUDA tensor
+    launches kernel B10's forward (bf16, dh = 64) or raises, and its
+    backward B10's backward."""
+    if x.device.type == "cpu" or not _hln_kernel_shape(x, scale.shape[0]):
         return head_layernorm_plain(x, scale, bias, eps)
     return _HeadLayerNorm.apply(x, scale, bias, eps)
 

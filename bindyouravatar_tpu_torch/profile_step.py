@@ -16,7 +16,7 @@ weights drawn on the card, batch 1, face + audio): one warm-up and then
 under the profiler, then one AdamW update timed on its own.
 
 Prints the wall time per forward (micro-batch), the device time per kernel
-group (B1 to B10, the router's matrix products, the other matrix products,
+group (B1 to B14, the router's matrix products, the other matrix products,
 the rest) and its share, the device-busy share of the wall time, the
 launches, the top kernels by device time and the peak memory.  A matrix
 product counts as the router's when it was launched inside the router's
@@ -47,6 +47,11 @@ GROUPS = (("B1 flash_attention", ("flash_fwd_kernel", "prep_qk_kernel")),
           ("B5 tiny_seq_attention", ("tiny_seq_kernel",)),
           ("B6 / B10 LayerNorm forward", ("ln_fwd_kernel",)),
           ("B9 / B10 LayerNorm backward", ("ln_bwd_kernel",)),
+          ("B11 flash forward (bhsd/bshd) and the B11-B13 pre-pass",
+           ("mha_fwd_layout_kernel", "layout_prep_kernel")),
+          ("B12 / B13 flash backward (bhsd/bshd)", ("mha_bwd_dkv_layout_kernel",
+                                                    "mha_bwd_dq_layout_kernel")),
+          ("B14 / B2c / B2h short-KV attention (JAX layouts)", ("skv_layout_kernel",)),
           ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "sm90")))
 TRAIN_GROUPS = (("B7 flash forward", ("flash_fwd_kernel",)),
                 ("B7 flash backward", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),

@@ -9,13 +9,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
      nvcc per CUDA source, all at once).
   2. each kernel (B1 flash attention, fused and bare; B2 and B3 short-KV
      attention; B4 pair-axis attention; B5 and B5' tiny-sequence attention;
-     B6 LayerNorm; and the training path's B7 flash attention forward and
+     B6 LayerNorm; the training path's B7 flash attention forward and
      backward, B8 tiny-sequence backward, B9 LayerNorm backward, B10
-     per-head LayerNorm forward and backward) against its plain PyTorch
-     version on the card, at the serving or train step's shapes and at a
-     ragged shape, with the stated tolerance; kernel, plain version and
-     (where one PyTorch call computes the same function) that library call
-     timed, and the bound computed.
+     per-head LayerNorm forward and backward; and the general-layout
+     kernels: B11 flash attention forward over [B, H, S, D] / [B, S, H, D]
+     (QK-LN + RoPE, RoPE, bare, D = 128), its backward B12 (dk, dv) and B13
+     (dq) in both layouts, B14 q-major short-KV attention (combined and
+     per identity), B2c and B2h head-major short-KV attention (combined,
+     per identity)) against its plain PyTorch version on the card, at the
+     serving or train step's shapes and at a ragged shape, with the stated
+     tolerance; kernel, plain version and (where one PyTorch call computes
+     the same function) that library call timed, and the bound computed.
   3. a reduced audio-only DiT step and a reduced fully conditioned one
      (face + audio, 3 latent frames so B5' runs) on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, fp32); the face
@@ -24,6 +28,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      `Trainer.loss_and_metrics` forward and backward on the card against
      the CPU in fp32, loss, metrics and every trainable gradient compared,
      launch counts checked.
+  3c. the same with 15 x 64 heads (dim 960, audio only), heads that do not
+     pair in 128 lanes: the blocks' attention goes through
+     `attention(layout="bshd")`, B11 forward and B12 + B13 backward.
+  3d. the general-layout entry points once each at the 5B geometries
+     (`attention(layout="bshd", qk_norm=...)`, `flash_attention(layout=
+     "bhsd")` forward and backward, the four JAX-layout short-KV entry
+     points), outputs against the plain versions, exact launch counts.
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
@@ -133,6 +144,26 @@ def kernel_phase(results: dict) -> bool:
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
 
+    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
+        """One line per output (first one timed), each within `rel` of the
+        reference's largest magnitude (+ `rel` relative); ok only if all
+        agree."""
+        nonlocal ok_all
+        r = None
+        for i, (got, want, rel) in enumerate(zip(gots, wants, rels)):
+            sub = f"{tag} out{i}"
+            if i == 0:
+                r = report(name, sub, got, want, _rel_compare(got, want, rel), rel, kern, plain,
+                           runs, library, work)
+            else:
+                err, relerr, ok = _compare(got, want, _rel_compare(got, want, rel), rel)
+                ok_all &= ok
+                print(f"kernel {name} {sub}: max_abs_err={err:.3e} max_rel_err={relerr:.3e} "
+                      f"tol=|d|<={_rel_compare(got, want, rel):.3e}+{rel}*|ref| "
+                      f"{'ok' if ok else 'FAILED'}", flush=True)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        return r
+
     def bhsd(t, h):
         """[B, S, H*D] -> contiguous [B, H, S, D]: the library call's layout
         (made before timing, so the permute is not in library_ms)."""
@@ -178,8 +209,8 @@ def kernel_phase(results: dict) -> bool:
                        ("ragged[1,1000,2048] I=2 K=32", 1, 1000)):
         q = rnd(b, sq, 16 * 128).to(bf)
         k, v = (rnd(b, 2, 16, 32, 128).to(bf) for _ in range(2))
-        kern = lambda: skv.short_kv_attention(q, k, v, 128 ** -0.5)
-        plain = lambda: skv.short_kv_attention_plain(q, k, v, 128 ** -0.5)
+        kern = lambda: skv.short_kv_attention_flat(q, k, v, 128 ** -0.5)
+        plain = lambda: skv.short_kv_attention_flat_plain(q, k, v, 128 ** -0.5)
         qi = bhsd(q, 16).unsqueeze(1).expand(b, 2, 16, sq, 128).reshape(b, 32, sq, 128)
         ki, vi = k.reshape(b, 32, 32, 128), v.reshape(b, 32, 32, 128)
         library = lambda: F.scaled_dot_product_attention(qi, ki, vi)
@@ -266,9 +297,9 @@ def kernel_phase(results: dict) -> bool:
         r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
         if tag == "slice[35100,3072]":
             results["B6"] = r
-    # report() clears kernel_phase's ok_all itself; the train phase's
-    # further outputs come back in its return value
-    ok_all = train_kernel_phase(results, rnd, report, bhsd) and ok_all
+    # report() and report_all() clear ok_all themselves
+    train_kernel_phase(results, rnd, report, report_all, bhsd)
+    layout_kernel_phase(results, rnd, report, report_all)
     return ok_all
 
 
@@ -278,7 +309,7 @@ def _rel_compare(got, want, rel: float) -> float:
     return rel * float(want.float().abs().max())
 
 
-def train_kernel_phase(results: dict, rnd, report, bhsd) -> bool:
+def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     """The training path's kernels (B7 forward and backward, B8, B9, B10
     forward and backward) against their plain versions, at the train
     step's shapes (batch 1 per micro-batch) and one ragged shape each."""
@@ -291,25 +322,6 @@ def train_kernel_phase(results: dict, rnd, report, bhsd) -> bool:
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    ok_all = True
-
-    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
-        """One line per output (first one timed); ok only if all agree."""
-        nonlocal ok_all
-        r = None
-        for i, (got, want, rel) in enumerate(zip(gots, wants, rels)):
-            sub = f"{tag} out{i}"
-            if i == 0:
-                r = report(name, sub, got, want, _rel_compare(got, want, rel), rel, kern, plain,
-                           runs, library, work)
-            else:
-                err, relerr, ok = _compare(got, want, _rel_compare(got, want, rel), rel)
-                ok_all &= ok
-                print(f"kernel {name} {sub}: max_abs_err={err:.3e} max_rel_err={relerr:.3e} "
-                      f"tol=|d|<={_rel_compare(got, want, rel):.3e}+{rel}*|ref| "
-                      f"{'ok' if ok else 'FAILED'}", flush=True)
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-        return r
 
     # --- B7: the training attention.  DiT blocks q/k/v [1, 17776, 48*64] with
     # RoPE on rows 226..17775; STAB spatial [26, 1350, 8*64] without; ragged
@@ -421,7 +433,225 @@ def train_kernel_phase(results: dict, rnd, report, bhsd) -> bool:
                        work)
         if tag in ("train[17550,3072]", "train[17776,3072]"):
             results[key] = r
-    return ok_all
+
+
+def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
+    """The general-layout kernels (B11 forward, B12 + B13 backward, B14,
+    B2c and B2h short-KV attention) against their plain versions at the 5B
+    geometries and at ragged shapes."""
+    import torch
+    import torch.nn.functional as F
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+    from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    # --- B11, B12, B13: the joint-attention geometry in both layouts.  bshd
+    # [2, 17776, 48, 64] with QK-LN and RoPE (rows 226..17775: B1's work);
+    # bhsd [1, 48, 17776, 64] and bshd [1, 17776, 48, 64] with RoPE (the
+    # train step's); bare bhsd [2, 48, 17776, 64]; D = 128 at the same width
+    # [1, 24, 17776, 128] with RoPE; phase 3c's unpaired heads, bshd
+    # [1, 1040, 15, 64] with RoPE from row 16; ragged S = 1000 with kv_len
+    # 937 in both layouts (bshd with and without QK-LN).  The backward runs
+    # on every case without QK-LN, so both row strides (bhsd rows D apart,
+    # bshd rows H*D apart) are held against the plain versions.
+    # tol (forward): one bf16 rounding of LN and RoPE outputs and of p on
+    # both sides, fp32 sums in another order: 2% of the output's largest
+    # magnitude (+2% relative); the LSE 3e-3 of its largest magnitude.
+    # tol (backward): as B7, 2% of each gradient's largest magnitude: both
+    # sides round P and dS to bf16, sums over 17,776 rows in another order.
+    # library: SDPA (forward; forward + autograd backward timed as the
+    # backward alone) at the bare shape only: no PyTorch call applies RoPE
+    # or the QK-LN.
+    cases = (("bshd[2,17776,48,64] LN+RoPE", "bshd", 2, 17776, 48, 64, 226, (13, 30, 45), True,
+              None),
+             ("bhsd[1,48,17776,64] RoPE", "bhsd", 1, 17776, 48, 64, 226, (13, 30, 45), False,
+              None),
+             ("bshd[1,17776,48,64] RoPE", "bshd", 1, 17776, 48, 64, 226, (13, 30, 45), False,
+              None),
+             ("unpaired bshd[1,1040,15,64] RoPE", "bshd", 1, 1040, 15, 64, 16, (8, 8, 16), False,
+              None),
+             ("bare bhsd[2,48,17776,64]", "bhsd", 2, 17776, 48, 64, 0, None, False, None),
+             ("D=128 bhsd[1,24,17776,128] RoPE", "bhsd", 1, 17776, 24, 128, 226, (13, 30, 45),
+              False, None),
+             ("ragged bshd[1,1000,8,64] kv_len=937 LN+RoPE", "bshd", 1, 1000, 8, 64, 10,
+              (3, 18, 18), True, 937),
+             ("ragged bshd[1,1000,8,64] kv_len=937 RoPE", "bshd", 1, 1000, 8, 64, 10,
+              (3, 18, 18), False, 937),
+             ("ragged bhsd[1,8,1000,64] kv_len=937 RoPE", "bhsd", 1, 1000, 8, 64, 10,
+              (3, 18, 18), False, 937))
+    for tag, layout, b, s, h, d, text_len, grid, ln_on, kv_len in cases:
+        shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+        q, k, v = (rnd(*shape).to(bf) for _ in range(3))
+        kw = dict(layout=layout, kv_len=kv_len)
+        if grid is not None:
+            kw.update(rope=get_3d_rotary_pos_embed(d, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                                   device=dev), rope_start=text_len)
+        if ln_on:
+            kw["qk_norm"] = (rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1),
+                             rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1))
+        kv = kv_len or s
+        lib_f = lib_b = None
+        if tag.startswith("bare"):
+            qb, kb, vb = (t.detach().requires_grad_() for t in (q, k, v))
+            ob = F.scaled_dot_product_attention(qb, kb, vb)
+            lib_f = lambda: F.scaled_dot_product_attention(qb, kb, vb)
+            dob = rnd(*shape).to(bf)
+            lib_b = lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True)
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, **kw)
+        fwd_plain = lambda: fa.flash_attention_fwd_plain(q, k, v, block_q=512, **kw)
+        o, lse = fwd()
+        o_p, lse_p = fwd_plain()
+        work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * d, "bf16")
+        r = report_all("B11", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain, 3, lib_f,
+                       work)
+        if tag.startswith("bshd[2"):
+            results["B11"] = r
+        del o_p, lse_p
+        if ln_on:
+            continue
+        do = rnd(*shape).to(bf)
+        bw = {key: val for key, val in kw.items() if key != "qk_norm"}
+        dkv = lambda: fa.flash_attention_dkv(q, k, v, o, do, lse, **bw)
+        dkv_plain = lambda: fa.flash_attention_dkv_plain(q, k, v, o, do, lse, block_q=512, **bw)
+        dq = lambda: fa.flash_attention_dq(q, k, v, o, do, lse, **bw)
+        dq_plain = lambda: fa.flash_attention_dq_plain(q, k, v, o, do, lse, block_q=512, **bw)
+        (dk_k, dv_k), (dk_p, dv_p) = dkv(), dkv_plain()
+        work = (_nbytes(q, k, v, o, do, lse, k, v), 8.0 * b * h * s * kv * d, "bf16")
+        r12 = report_all("B12", tag, (dk_k, dv_k), (dk_p, dv_p), (2e-2, 2e-2), dkv, dkv_plain, 3,
+                         lib_b, work)
+        del dk_k, dv_k, dk_p, dv_p
+        dq_k, dq_p = dq(), dq_plain()
+        work = (_nbytes(q, k, v, o, do, lse, q), 6.0 * b * h * s * kv * d, "bf16")
+        r13 = report_all("B13", tag, (dq_k,), (dq_p,), (2e-2,), dq, dq_plain, 3, lib_b, work)
+        if tag.startswith("bhsd[1,48"):
+            results["B12"], results["B13"] = r12, r13
+        del q, k, v, o, lse, do, dq_k, dq_p
+
+    # --- B14: the audio geometry combined, q [26, 1350, 48, 64], k/v [26, 2,
+    # 48, 32, 64], w [26, 1350, 2]; the perceiver geometry per identity, q
+    # [2, 17550, 16, 128]; ragged Sq = 1001 combined.  B2c: head-major
+    # combined [26, 48, 1350, 64].  B2h (B2's body head-major) per identity
+    # [2, 16, 17550, 128].
+    # tol: the plain versions round each identity's output (and the
+    # combine) to bf16, the kernels sum in fp32 and round once.
+    # library: none for the combined calls (no single call weights the
+    # identities' softmaxes); SDPA with the identities folded into the heads
+    # for the per-identity call (q repeated before timing).
+    for name, tag, g, sq, h, d, combine, qmajor in (
+            ("B14", "combined[26,1350,48,64] I=2 K=32", 26, 1350, 48, 64, True, True),
+            ("B14", "per-id[2,17550,16,128] I=2 K=32", 2, 17550, 16, 128, False, True),
+            ("B14", "ragged combined[3,1001,48,64]", 3, 1001, 48, 64, True, True),
+            ("B2c", "head-major combined[26,48,1350,64] I=2 K=32", 26, 1350, 48, 64, True,
+             False),
+            ("B2h", "head-major per-id[2,16,17550,128] I=2 K=32", 2, 17550, 16, 128, False,
+             False)):
+        q = rnd(*((g, sq, h, d) if qmajor else (g, h, sq, d))).to(bf)
+        k, v = (rnd(g, 2, h, 32, d).to(bf) for _ in range(2))
+        w = rnd(g, sq, 2).sigmoid().to(bf)
+        fn = {(True, True): "short_kv_attention_combined_qmajor",
+              (False, True): "short_kv_attention_qmajor",
+              (True, False): "short_kv_attention_combined",
+              (False, False): "short_kv_attention"}[(combine, qmajor)]
+        args = (q, k, v, w) if combine else (q, k, v)
+        kern = lambda: getattr(skv, fn)(*args, d ** -0.5)
+        plain = lambda: getattr(skv, f"{fn}_plain")(*args, d ** -0.5)
+        library = None
+        if not combine:
+            qh = q.transpose(1, 2) if qmajor else q
+            qi = qh.unsqueeze(1).expand(g, 2, h, sq, d).reshape(g, 2 * h, sq, d).contiguous()
+            ki, vi = k.reshape(g, 2 * h, 32, d), v.reshape(g, 2 * h, 32, d)
+            library = lambda: F.scaled_dot_product_attention(qi, ki, vi)
+        out_bytes = _nbytes(q) * (1 if combine else 2)
+        work = (_nbytes(*args) + out_bytes, 4.0 * g * 2 * h * sq * 32 * d, "bf16")
+        r = report(name, tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20, library, work)
+        if name not in results:
+            results[name] = r
+
+
+def entry_point_phase(launches: dict) -> bool:
+    """The general-layout entry points a user calls, once each at the 5B
+    geometries, forward and (where differentiable) backward, launches
+    counted from 0: `attention(layout="bshd", qk_norm=...)` (inference,
+    B11), `flash_attention(layout="bhsd")` with RoPE forward and backward
+    (B11, B12, B13), `short_kv_attention_combined_qmajor` (audio geometry)
+    and `short_kv_attention_qmajor` (perceiver geometry; B14),
+    `short_kv_attention_combined` (B2c) and `short_kv_attention` (B2h);
+    outputs against the plain versions, gradients finite; fills
+    `launches`."""
+    import torch
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+    from bindyouravatar_tpu_torch.ops.attention import attention
+    from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(4321)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    rope = get_3d_rotary_pos_embed(64, ((0, 0), (30, 45)), (30, 45), 13, device=dev)
+    norm = tuple(1.0 + 0.1 * torch.randn(64, generator=gen, device=dev) if i % 2 == 0
+                 else 0.1 * torch.randn(64, generator=gen, device=dev) for i in range(4))
+    q_bshd, k_bshd, v_bshd = (rnd(2, 17776, 48, 64) for _ in range(3))
+    qkv = [rnd(1, 48, 17776, 64).requires_grad_() for _ in range(3)]
+    do = rnd(1, 48, 17776, 64)
+    q_a, q_p, q_h = rnd(26, 1350, 48, 64), rnd(2, 17550, 16, 128), rnd(26, 48, 1350, 64)
+    kv_a = [rnd(26, 2, 48, 32, 64).requires_grad_() for _ in range(2)]
+    kv_p = [rnd(2, 2, 16, 32, 128) for _ in range(2)]
+    w = torch.rand((26, 1350, 2), generator=gen, device=dev).to(torch.bfloat16)
+    calls = (
+        ("attention bshd LN+RoPE", lambda: attention(q_bshd, k_bshd, v_bshd, rope=rope,
+                                                     rope_start=226, layout="bshd",
+                                                     qk_norm=norm),
+         lambda: fa.flash_attention_fwd_plain(q_bshd, k_bshd, v_bshd, "bshd", rope=rope,
+                                              rope_start=226, qk_norm=norm, block_q=512)[0],
+         None),
+        ("flash_attention bhsd RoPE", lambda: fa.flash_attention(*qkv, rope=rope,
+                                                                 rope_start=226, layout="bhsd"),
+         lambda: fa.flash_attention_fwd_plain(*qkv, "bhsd", rope=rope, rope_start=226,
+                                              block_q=512)[0], (qkv, do)),
+        ("short_kv_attention_combined_qmajor", lambda: skv.short_kv_attention_combined_qmajor(
+            q_a, *kv_a, w, 0.125), lambda: skv.short_kv_attention_combined_qmajor_plain(
+            q_a, *kv_a, w, 0.125), (kv_a, None)),
+        ("short_kv_attention_qmajor",
+         lambda: skv.short_kv_attention_qmajor(q_p, *kv_p, 128 ** -0.5),
+         lambda: skv.short_kv_attention_qmajor_plain(q_p, *kv_p, 128 ** -0.5), None),
+        ("short_kv_attention_combined", lambda: skv.short_kv_attention_combined(
+            q_h, *kv_a, w, 0.125), lambda: skv.short_kv_attention_combined_plain(
+            q_h, *kv_a, w, 0.125), (kv_a, None)),
+        ("short_kv_attention", lambda: skv.short_kv_attention(q_h, *kv_a, 0.125),
+         lambda: skv.short_kv_attention_plain(q_h, *kv_a, 0.125), None))
+    ok = True
+    outs = []
+    torch.cuda.synchronize()
+    _reset_launches()
+    for name, call, _, grad in calls:
+        out = call()
+        finite = True
+        if grad is not None:
+            leaves, g = grad
+            gs = torch.autograd.grad(out, leaves, out.detach() if g is None else g)
+            finite = all(bool(t.isfinite().all()) for t in gs)
+        outs.append((out.detach(), finite))
+    torch.cuda.synchronize()
+    launches.update(_read_launches())
+    want = {k: 0 for k in _kernel_fns()}
+    want.update({"B11": 2, "B12": 1, "B13": 1, "B14": 2, "B2c": 1, "B2h": 1})
+    for (name, _, plain, _), (out, finite) in zip(calls, outs):
+        with torch.no_grad():
+            ref = plain()
+        # tol: as phase 2 (bf16 roundings of the same fp32 values)
+        err, _, match = _compare(out, ref, _rel_compare(out, ref, 2e-2), 2e-2)
+        ok &= match and finite
+        print(f"entry point {name}: output {tuple(out.shape)} max_abs_err={err:.3e} "
+              f"gradients finite={finite} {'ok' if match and finite else 'FAILED'}", flush=True)
+    counts_ok = launches == want
+    ok &= counts_ok
+    print("entry points: launches " + " ".join(f"{k}={launches[k]} (want {want[k]})"
+                                                for k in want if want[k] or launches[k])
+          + f" {'ok' if counts_ok else 'FAILED'}", flush=True)
+    return ok
 
 
 def _kernel_fns():
@@ -431,15 +661,19 @@ def _kernel_fns():
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
     from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
 
-    return {"B1": fa.flash_attention, "B2": skv.short_kv_attention,
+    return {"B1": fa.flash_attention, "B2": skv.short_kv_attention_flat,
             "B3": skv.short_kv_attention_combined_flat, "B4": pa.pair_axis_attention,
             "B5": pa.tiny_seq_attention, "B5'": pa.packed_head_attention,
             "B6": ln.fused_layernorm, "B7 fwd": fa.flash_attention_flat_fwd,
             "B7 bwd": fa.flash_attention_flat_bwd, "B8": pa.tiny_seq_attention_bwd,
             "B9": ln.layernorm_bwd, "B10 fwd": ln.head_layernorm_fwd,
-            "B10 bwd": ln.head_layernorm_bwd}
+            "B10 bwd": ln.head_layernorm_bwd, "B11": fa.flash_attention_fwd,
+            "B12": fa.flash_attention_dkv, "B13": fa.flash_attention_dq,
+            "B14": skv.short_kv_attention_qmajor, "B2c": skv.short_kv_attention_combined,
+            "B2h": skv.short_kv_attention}
 
 TRAIN_KERNELS = ("B7 fwd", "B7 bwd", "B8", "B9", "B10 fwd", "B10 bwd")
+LAYOUT_KERNELS = ("B11", "B12", "B13", "B14", "B2c", "B2h")
 
 
 def _reset_launches() -> None:
@@ -535,35 +769,45 @@ def reduced_step_phase(launches: dict) -> bool:
 
 def train_launches(dit, micro_batches: int) -> dict:
     """Each kernel's launches over `micro_batches` forward + backward passes
-    of `Trainer.loss_and_metrics` (face + audio, two audio tracks), from the
-    DiT's configuration.  Per micro-batch, with per-group checkpointing a
-    group's face injection and audio layers run forward twice (the forward
-    and the group's recompute) and with the nested policy each block three
-    times (and the block's own recompute); every backward runs once.
-      blocks: B7 fwd and 2 x B10 fwd per block forward, B7 bwd and 2 x B10
-        bwd per block;
+    of `Trainer.loss_and_metrics` (two audio tracks; face + audio unless the
+    DiT's face path is off), from the DiT's configuration.  Per
+    micro-batch, with per-group checkpointing a group's face injection and
+    audio layers run forward twice (the forward and the group's recompute)
+    and with the nested policy each block three times (and the block's own
+    recompute); every backward runs once.
+      blocks: 2 x B10 fwd per block forward and 2 x B10 bwd per block (an
+        inner width that is a multiple of 128, else the plain math); the
+        attention is B7 (forward, backward) when the heads pair in 128
+        lanes, else B11 forward and B12 + B13 backward;
       face layer: B2; per STAB: B7 (spatial, when H*W >= 1024; else the
         plain attention), B5 + B8 (temporal, T >= 8; else B5' and the plain
         vjp), B4 (multi-ID); fused LayerNorms (B6 forward, B9 backward):
         perceiver 2, router norms 2, trunk 1, 4 per STAB;
-      audio layer: B3 and the norm_q LayerNorm (B6, B9);
+      audio layer: B3 and the norm_q LayerNorm (B6, B9; a width that is a
+        multiple of 128, else the plain math);
       once: the audio projection's LayerNorm (B6, no backward: frozen)."""
-    c, r = dit.cfg, dit.router_cfg
+    c, r, a = dit.cfg, dit.router_cfg, dit.audio_cfg
     t, h, w = c.latent_grid
     g_mult = 2 if c.remat else 1
     b_mult = 3 if c.remat and c.remat_policy == "nested" else g_mult
+    n_ca = c.num_ca if c.is_train_face else 0
     n_st = r.num_attention_layers
-    stabs = c.num_ca * n_st
+    stabs = n_ca * n_st
     spatial = stabs if h * w >= 1024 else 0
     temporal = t >= 8
-    face_ln = c.num_ca * (2 + 2 + 1 + 4 * n_st)
-    n_audio = dit.audio_cfg.num_layers
-    per = {"B1": 0, "B2": c.num_ca * g_mult, "B3": n_audio * g_mult, "B4": stabs * g_mult,
+    face_ln = n_ca * (2 + 2 + 1 + 4 * n_st)
+    n_audio = a.num_layers if c.is_train_audio else 0
+    audio_ln = n_audio if a.dim % 128 == 0 else 0
+    paired = c.num_attention_heads % max(1, 128 // c.attention_head_dim) == 0
+    flat, layout = (c.num_layers, 0) if paired else (0, c.num_layers)
+    hln = c.num_layers if c.inner_dim % 128 == 0 else 0   # B10 takes rows of 128k
+    per = {"B1": 0, "B2": n_ca * g_mult, "B3": n_audio * g_mult, "B4": stabs * g_mult,
            "B5": stabs * g_mult if temporal else 0, "B5'": 0 if temporal else stabs * g_mult,
-           "B6": (n_audio + face_ln) * g_mult + 1,
-           "B7 fwd": c.num_layers * b_mult + spatial * g_mult, "B7 bwd": c.num_layers + spatial,
-           "B8": stabs if temporal else 0, "B9": n_audio + face_ln,
-           "B10 fwd": 2 * c.num_layers * b_mult, "B10 bwd": 2 * c.num_layers}
+           "B6": (audio_ln + face_ln) * g_mult + int(n_audio > 0 and a.audio_dim % 128 == 0),
+           "B7 fwd": flat * b_mult + spatial * g_mult, "B7 bwd": flat + spatial,
+           "B8": stabs if temporal else 0, "B9": audio_ln + face_ln,
+           "B10 fwd": 2 * hln * b_mult, "B10 bwd": 2 * hln,
+           "B11": layout * b_mult, "B12": layout, "B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
     return {k: v * micro_batches for k, v in per.items()}
 
 
@@ -606,13 +850,22 @@ def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
     return batch
 
 
-def reduced_train_phase(launches: dict) -> bool:
+def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
     """One micro-batch of `Trainer.loss_and_metrics` forward and backward at
-    reduced widths (2 layers, dim 768, 8 latent frames so B8 runs, 16 + 1024
-    joint tokens so the blocks' attention is B7 at a realistic length) on
-    the card (kernels, bf16, nested per-group checkpointing) against the
-    same weights and draws on the CPU (plain versions, fp32): the loss,
-    each metric and each trainable gradient; fills `launches`."""
+    reduced widths on the card (kernels, bf16, nested per-group
+    checkpointing) against the same weights and draws on the CPU (plain
+    versions, fp32): the loss, each metric and each trainable gradient;
+    fills `launches`.
+      phase 3b: 2 layers, dim 768 (12 x 64 heads), face + audio, 8 latent
+        frames so B8 runs, 16 + 1024 joint tokens so the blocks' attention
+        is B7 at a realistic length;
+      phase 3c (`unpaired`): the same with 15 x 64 heads (dim 960), whose
+        heads do not pair in 128 lanes, so the blocks' attention is B11
+        forward and B12 + B13 backward on the [B, S, H, D] view.  Audio
+        only: with 64-wide heads an odd head count fixes the LFE output and
+        the router width at 2/3 of 960 = 640 = 5 perceiver heads of 128,
+        so the router's feat_dim is 32 x 5 = 160, which neither B4 (a power
+        of two) nor B5 (64-wide heads) takes."""
     import torch
     from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
                                                  RouterConfig, SchedulerConfig, TrainConfig)
@@ -620,12 +873,14 @@ def reduced_train_phase(launches: dict) -> bool:
     from bindyouravatar_tpu_torch.ops.scheduler import Schedule
     from bindyouravatar_tpu_torch.training.trainer import Trainer
 
-    base = dict(num_attention_heads=12, attention_head_dim=64, in_channels=48, out_channels=16,
-                time_embed_dim=64, text_embed_dim=128, num_layers=2, sample_width=32,
-                sample_height=16, sample_frames=29, max_text_seq_length=16, lora_rank=8,
-                lora_alpha=8.0)
-    sub = (AudioConfig(dim=768, audio_dim=128, num_attention_heads=12, attention_head_dim=64,
-                       num_layers=2, blocks=2, intermediate_dim=64, context_tokens=32),
+    heads = 15 if unpaired else 12
+    base = dict(num_attention_heads=heads, attention_head_dim=64, in_channels=48,
+                out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
+                sample_width=32, sample_height=16, sample_frames=29, max_text_seq_length=16,
+                lora_rank=8, lora_alpha=8.0, is_train_face=not unpaired)
+    sub = (AudioConfig(dim=heads * 64, audio_dim=128, num_attention_heads=heads,
+                       attention_head_dim=64, num_layers=2, blocks=2, intermediate_dim=64,
+                       context_tokens=32),
            RouterConfig(num_layers=1, q_k_dim=512, num_heads=4, num_id_token=32, attn_heads=2),
            LFEConfig(dim=128, depth=5, dim_head=64, heads=2, num_id_token=2, num_queries=32,
                      output_dim=512, id_embed_dim=64, vit_dim=64))
@@ -643,6 +898,9 @@ def reduced_train_phase(launches: dict) -> bool:
     for tr in trainers:
         tr.init_state()
     batch = _train_batch(ref, 1, gen, "cpu", vit_tokens=17)
+    if unpaired:                      # no face path: no face inputs, no teacher routings
+        for key in ("id_cond", "id_vit_hidden", "teacher_clean", "teacher_noisy"):
+            del batch[key]
     draws = trainers[0].draw(batch, gen)
     # keep the teacher mask (its dropout, p = 0.2, would zero the injected
     # routing and with it every perceiver gradient), so those are compared
@@ -674,11 +932,13 @@ def reduced_train_phase(launches: dict) -> bool:
     worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
     g_ok = all(e <= 0.1 for e in g_err.values())
     want = train_launches(gpu, 1)
-    counts_ok = all(launches[k] == want[k] for k in want)
+    ran = all(launches[k] > 0 for k in (("B11", "B12", "B13") if unpaired else ("B7 fwd",)))
+    counts_ok = all(launches[k] == want[k] for k in want) and ran
     ok = m_ok and g_ok and counts_ok
-    print("reduced train step (face + audio, 2 layers, 12 x 64 heads, 16 + 1024 tokens, "
-          f"8 frames, LoRA r8): cuda-bf16 vs cpu-fp32 loss {float(m_g['loss']):.5f} / "
-          f"{float(m_c['loss']):.5f}; metrics max |d| "
+    what = ("audio only, 2 layers, 15 x 64 heads (unpaired), 16 + 1024 tokens" if unpaired
+            else "face + audio, 2 layers, 12 x 64 heads, 16 + 1024 tokens")
+    print(f"reduced train step ({what}, 8 frames, LoRA r8): cuda-bf16 vs cpu-fp32 loss "
+          f"{float(m_g['loss']):.5f} / {float(m_c['loss']):.5f}; metrics max |d| "
           + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
           + f" tol=1e-3+0.05*|ref| {'ok' if m_ok else 'FAILED'}; {len(g_err)} trainable "
           f"gradients, worst relative L2 " + " ".join(f"{k}={v:.3e}" for k, v in worst)
@@ -769,7 +1029,7 @@ def serving_phase(args, launches: dict) -> bool:
             "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
             "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
             "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face
-            + len(reqs), **{k: 0 for k in TRAIN_KERNELS}}     # no backward when serving
+            + len(reqs), **{k: 0 for k in TRAIN_KERNELS + LAYOUT_KERNELS}}   # no backward
     counts_ok = launches == want
     ok &= counts_ok
     print(f"serving: {args.requests} face + audio and 1 audio-only requests x {args.steps} steps "
@@ -920,17 +1180,20 @@ def main(argv=None) -> int:
         _build.import_triton()
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
-    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 + B8) and triton import in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 + B8 + B11-B14 + B2c "
+          f"+ B2h) and triton import in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
         print(f"  ptxas: {line.strip()}", flush=True)
 
     results, launches, reduced_launches, train_launches_ = {}, {}, {}, {}
+    unpaired_launches, entry_launches = {}, {}
     ok = kernel_phase(results)
     ok &= reduced_step_phase(reduced_launches)
     ok &= reduced_train_phase({})
+    ok &= reduced_train_phase(unpaired_launches, unpaired=True)
+    ok &= entry_point_phase(entry_launches)
     if args.requests > 0:
         ok &= serving_phase(args, launches)
     else:
@@ -948,9 +1211,15 @@ def main(argv=None) -> int:
     # reduced fully conditioned step (3 frames), every other kernel's those
     # of the serving run
     launches["B5'"] = reduced_launches["B5'"]
-    # the training kernels' launches are those of the full-width train step
+    # the training kernels' launches are those of the full-width train step;
+    # B11-B13 run in the unpaired-head train step (phase 3c), B14, B2c and
+    # B2h through the entry points (phase 3d)
     for name in TRAIN_KERNELS:
         launches[name] = train_launches_[name]
+    for name in ("B11", "B12", "B13"):
+        launches[name] = unpaired_launches[name]
+    for name in ("B14", "B2c", "B2h"):
+        launches[name] = entry_launches[name]
     meta = {
         "B1": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
                "bindyouravatar_tpu/ops/flash_attention.py:592"),
@@ -978,6 +1247,18 @@ def main(argv=None) -> int:
                     "bindyouravatar_tpu/ops/layernorm.py:272"),
         "B10 bwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
                     "bindyouravatar_tpu/ops/layernorm.py:285"),
+        "B11": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                "bindyouravatar_tpu/ops/flash_attention.py:75"),
+        "B12": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                "bindyouravatar_tpu/ops/flash_attention.py:919"),
+        "B13": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                "bindyouravatar_tpu/ops/flash_attention.py:981"),
+        "B14": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+                "bindyouravatar_tpu/ops/short_kv_attention.py:71"),
+        "B2c": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+                "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
+        "B2h": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+                "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
     }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}

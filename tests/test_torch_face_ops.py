@@ -44,7 +44,7 @@ def test_b2_plain_matches_spec_attend(n_id, sq):
     want = jskv._spec_attend(jnp.asarray(q.reshape(b, sq, h, d).transpose(0, 2, 1, 3)),
                              jnp.asarray(k), jnp.asarray(v), 0.17)              # [B,I,H,Sq,D]
     want = np.asarray(want).transpose(0, 1, 3, 2, 4).reshape(b, n_id, sq, h * d)
-    got = tskv.short_kv_attention(*to_torch(q, k, v), 0.17)
+    got = tskv.short_kv_attention_flat(*to_torch(q, k, v), 0.17)
     assert got.shape == (b, n_id, sq, h * d)
     assert _rel(got, want) < 1e-5
 
@@ -64,8 +64,8 @@ def test_b2_plain_matches_kernel_interpret():
         out_shape=jax.ShapeDtypeStruct((g, n_id, h, sq, d), jnp.float32),
         interpret=True)(*map(jnp.asarray, (q, k, v)))
     want = np.asarray(want).transpose(0, 1, 3, 2, 4).reshape(g, n_id, sq, h * d)
-    got = tskv.short_kv_attention(*to_torch(q.transpose(0, 2, 1, 3).reshape(g, sq, h * d), k, v),
-                                  0.21)
+    got = tskv.short_kv_attention_flat(
+        *to_torch(q.transpose(0, 2, 1, 3).reshape(g, sq, h * d), k, v), 0.21)
     assert _rel(got, want) < 1e-5
 
 
@@ -155,12 +155,12 @@ def test_b5p_plain_matches_packed_kernel_interpret():
 # ---------------------------------------------------------------- dispatch
 def test_face_kernel_wrappers_count_no_cpu_launch():
     """CPU tensors take the plain versions: no wrapper counts a launch."""
-    fns = (tskv.short_kv_attention, tpa.pair_axis_attention, tpa.tiny_seq_attention,
+    fns = (tskv.short_kv_attention_flat, tpa.pair_axis_attention, tpa.tiny_seq_attention,
            tpa.packed_head_attention)
     before = [fn.launches for fn in fns]
     rng = np.random.default_rng(29)
-    tskv.short_kv_attention(*to_torch(_normal(rng, 1, 8, 256), _normal(rng, 1, 2, 2, 32, 128),
-                                      _normal(rng, 1, 2, 2, 32, 128)), 0.1)
+    tskv.short_kv_attention_flat(*to_torch(_normal(rng, 1, 8, 256), _normal(rng, 1, 2, 2, 32, 128),
+                                           _normal(rng, 1, 2, 2, 32, 128)), 0.1)
     tpa.pair_axis_attention(*to_torch(*(_normal(rng, 1, 2, 8, 128) for _ in range(3))), 2, 0.1)
     for s in (13, 3):
         tpa.tiny_seq_attention(*to_torch(*(_normal(rng, 4, s, 128) for _ in range(3))), 2, 0.1)
@@ -172,8 +172,8 @@ def test_face_kernel_wrappers_raise_off_cpu():
     meta tensors, which no kernel takes)."""
     meta = lambda *shape: torch.empty(shape, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        tskv.short_kv_attention(meta(2, 64, 256), meta(2, 2, 2, 32, 128),
-                                meta(2, 2, 2, 32, 128), 0.1)
+        tskv.short_kv_attention_flat(meta(2, 64, 256), meta(2, 2, 2, 32, 128),
+                                     meta(2, 2, 2, 32, 128), 0.1)
     with pytest.raises(ValueError):
         tpa.pair_axis_attention(meta(2, 2, 64, 512), meta(2, 2, 64, 512), meta(2, 2, 64, 512),
                                 8, 0.125)
