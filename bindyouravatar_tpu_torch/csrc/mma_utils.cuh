@@ -82,12 +82,6 @@ __device__ __forceinline__ void load_rows(bf16* sm, int lds, const bf16* base, l
   }
 }
 
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_rows64(bf16* sm, int lds, const bf16* base, long long ld,
-                                            int r0, int r_lim, int tid) {
-  load_rows<ROWS, 64, NTHREADS>(sm, lds, base, ld, r0, r_lim, tid);
-}
-
 // The KS A fragments (k = 0..16*KS-1) of a warp's 16 rows of a [*, LDS] tile.
 template <int KS, int LDS>
 __device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* tile_rows,
@@ -97,12 +91,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* t
     const bf16* p = tile_rows + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8;
     ldmatrix_x4(f[kk][0], f[kk][1], f[kk][2], f[kk][3], p);
   }
-}
-
-template <int LDS>
-__device__ __forceinline__ void load_a_frags64(uint32_t (&f)[4][4], const bf16* tile_rows,
-                                               int lane) {
-  load_a_frags<4, LDS>(f, tile_rows, lane);
 }
 
 // s[nt] += A (16 x 16*KS) * B^T for B rows nt*8..nt*8+7 of a [*, LDS] tile:
@@ -121,12 +109,6 @@ __device__ __forceinline__ void qk_scores(float (&s)[NT][4], const uint32_t (&qf
       mma_bf16(s[nt], qf[kk + 1], b2, b3);
     }
   }
-}
-
-template <int NT, int LDS>
-__device__ __forceinline__ void qk_scores64(float (&s)[NT][4], const uint32_t (&qf)[4][4],
-                                            const bf16* ks, int lane) {
-  qk_scores<NT, 4, LDS>(s, qf, ks, lane);
 }
 
 // o[nd] += P (16 x NT*8, fp32 score fragments rounded to bf16) * V
@@ -149,12 +131,6 @@ __device__ __forceinline__ void pv_accumulate(float (&o)[ND][4], const float (&p
       mma_bf16(o[nd + 1], a, b2, b3);
     }
   }
-}
-
-template <int NT, int LDS>
-__device__ __forceinline__ void pv_accumulate64(float (&o)[8][4], const float (&p)[NT][4],
-                                                const bf16* vs, int lane) {
-  pv_accumulate<NT, 8, LDS>(o, p, vs, lane);
 }
 
 }  // namespace bya

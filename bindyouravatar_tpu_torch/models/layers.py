@@ -165,7 +165,7 @@ class JointSelfAttention(nn.Module):
         the differentiable attention with RoPE from row `text_len` inside
         it: kernel B7 on the flat projections when the heads pack into
         128 lanes (`heads % max(1, 128 // head_dim) == 0`, JAX
-        `layers.py:354-367`), else kernels B11/B12/B13 on the [B, S, H, D]
+        `layers.py:354-367`), else kernels B11 and B12 + B13 on the [B, S, H, D]
         view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,

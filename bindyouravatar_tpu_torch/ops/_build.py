@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-CUDA_SOURCES = ("flash_attention.cu", "short_kv_attention.cu", "packed_attention.cu")
+CUDA_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "short_kv_attention.cu",
+                "packed_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -31,13 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "bya_flash_attention_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
-    "bya_flash_attention_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_flash_layout_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
-    "bya_flash_layout_rope": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bya_flash_layout_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "bya_flash_bwd": [_I, *[_P] * 17, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_layout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _F, _P],

@@ -4,7 +4,7 @@ Port of `bindyouravatar_tpu/ops/attention.py`: `attention` takes JAX's
 `layout` argument.  The projections' flat [B, S, H*D] layout (`"flat"`,
 with `heads`) goes to kernel B1 (`flash_attention`, inference only);
 [B, H, S, D] (`"bhsd"`, the default) and [B, S, H, D] (`"bshd"`) go to
-`flash_attention_layout` (B11, differentiable through B12/B13 unless the
+`flash_attention_layout` (B11, differentiable through B12 + B13 unless the
 QK LayerNorm is fused).  Each computes on the CPU through its plain
 version; `sdpa` is that plain math, chunked over queries so full
 sequences fit in memory.

@@ -1,24 +1,27 @@
 """Flash attention: the flat kernels B1 (inference forward with fused QK-LN
 and RoPE) and B7 (the differentiable training attention: forward saving
 the LSE, and the dq/dk/dv backward), and the general-layout kernels B11
-(forward over [B, H, S, D] or [B, S, H, D]), B12 (dk, dv) and B13 (dq).
+(forward over [B, H, S, D] or [B, S, H, D]) and B12 + B13 (its dq/dk/dv
+backward).
 
-All five come from one source, `csrc/flash_attention.cu`, whose forward
-and backward bodies are templated on the head dim and on the flat kernels'
-math (each kernel its own instantiation).  The flat kernels replace the TPU
-kernels `_fwd_flat_t_kernel` (B1), `_fwd_flat_kernel` and
-`_bwd_flat_kernel` (B7, the `_flash_flat` custom vjp) of
-`bindyouravatar_tpu/ops/flash_attention.py`; B11-B13 replace `_fwd_kernel`,
-`_dkv_kernel` and `_dq_kernel` (the `_flash` custom vjp and the fused QK-LN
-inference form of `flash_attention(layout="bhsd" | "bshd")`); the source
-note says what bounds them on the H100 and how they are built.  Unlike the
-TPU path, V arrives in the caller's own layout, the output and the
-gradients leave in it, and the sequence is not padded: the kernels mask
-the ragged tail themselves.  The port does not mirror the JAX switch
-`COMBINED_BWD`, which sends bhsd/bshd gradients through the combined flat
-backward (B7's body) for TPU VMEM and layout reasons: here B12/B13 are the
-backward of every general-layout call, as B7's own backward is the same
-dk/dv-per-kv-tile plus dq-per-q-tile pair for the flat layout.
+The forwards come from `csrc/flash_attention.cu` (one body templated on
+the head dim and the scale mode), the backwards from
+`csrc/flash_attention_bwd.cu`: one fused wgmma + TMA kernel that computes
+dq, dk and dv in one pass over the tiles, beside a pre-pass and a dq
+post-pass, instantiated for B7 (flat, the scale folded into the prepared
+q, delta given) and for B12 + B13 (the scale on the scores, delta
+computed).  The flat kernels replace the TPU kernels `_fwd_flat_t_kernel`
+(B1), `_fwd_flat_kernel` and `_bwd_flat_kernel` (B7, the `_flash_flat`
+custom vjp) of `bindyouravatar_tpu/ops/flash_attention.py`; B11 replaces
+`_fwd_kernel` and the fused backward `_dkv_kernel` and `_dq_kernel` (the
+`_flash` custom vjp and the fused QK-LN inference form of
+`flash_attention(layout="bhsd" | "bshd")`); the source notes say what
+bounds them on the H100 and how they are built.  Unlike the TPU path, V
+arrives in the caller's own layout, the output and the gradients leave in
+it, and the sequence is not padded: the kernels mask the ragged tail
+themselves.  The port does not mirror the JAX switch `COMBINED_BWD`, which
+picks between the combined and the two-kernel TPU backward for VMEM and
+layout reasons: on the GPU every backward is the one fused kernel.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> [B, S, H*D] through kernel B1, inference only.  `layout="bhsd"`
     (the default otherwise, as in JAX) or `"bshd"`: q/k/v [B, H, S, D] or
     [B, S, H, D], output in the same layout, through `flash_attention_layout`
-    (B11, and B12/B13 for its gradient).
+    (B11, and the fused B12 + B13 for its gradient).
 
     `qk_norm=(q_scale, q_bias, k_scale, k_bias)` ([D] each) applies the
     per-head LayerNorm (eps 1e-6, fp32 stats); `rope=(cos, sin)` ([R, D])
@@ -245,7 +248,7 @@ def flash_attention_flat_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rope_start: int = 0):
     """Kernel B7's backward on its own: (dq, dk, dv), each [B, S, H*D] in
     q's dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernels (bf16, D = 64) or raises."""
+    the fused kernel (bf16, D = 64) or raises."""
     if q.device.type == "cpu":
         return flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, heads, scale, kv_len,
                                               rope, rope_start)
@@ -259,16 +262,35 @@ def flash_attention_flat_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              "dO, lse or delta shape")
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    q_prep, k_prep = torch.empty_like(q), torch.empty_like(k)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = cuda_lib().bya_flash_attention_flat_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_prep.data_ptr(),
-        k_prep.data_ptr(), ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, kv_len,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_attention_flat backward (B7)")
+    grads = _fused_bwd(True, q, k, v, None, do, lse, delta, (b, s, heads, d), True, kv_len,
+                       scale, cos, sin, rope_start, rope_rows, "flash_attention_flat backward (B7)")
     flash_attention_flat_bwd.launches += 1
+    return grads
+
+
+def _fused_bwd(flat: bool, q, k, v, o, do, lse, delta, dims, bshd: bool, kv_len: int,
+               scale: float, cos, sin, rope_start: int, rope_rows: int, what: str):
+    """Launch the fused backward (`csrc/flash_attention_bwd.cu`: pre-pass,
+    the dq/dk/dv kernel, dq post-pass) on checked CUDA tensors; returns (dq,
+    dk, dv).  The wrapper allocates the workspaces: the prepared q and k
+    (B7's q scale, RoPE), lse2 and delta per row, the fp32 dq accumulator."""
+    b, s, h, d = dims
+    s_pad = -(-s // 64) * 64
+    dev = q.device
+    prep = flat or cos is not None
+    q_prep, k_prep = (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.empty(b * h * s_pad * d, dtype=torch.float32, device=dev)
+    lse2, delta_ws = (torch.empty(b * h * s_pad, dtype=torch.float32, device=dev)
+                      for _ in range(2))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = cuda_lib().bya_flash_bwd(
+        int(flat), q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), do.data_ptr(),
+        lse.data_ptr(), ptr(delta), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(q_prep),
+        ptr(k_prep), dq_acc.data_ptr(), lse2.data_ptr(), delta_ws.data_ptr(), ptr(cos), ptr(sin),
+        rope_start, rope_rows, b, s, h, d, int(bshd), kv_len, float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, what)
     return dq, dk, dv
 
 
@@ -317,7 +339,7 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head
                             kv_len, rope, rope_start)
 
 
-# ------------------------------------------------ bhsd / bshd: B11, B12, B13
+# ------------------------------------------------ bhsd / bshd: B11, B12 + B13
 
 LAYOUTS = ("bhsd", "bshd")
 
@@ -396,7 +418,7 @@ def _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, blo
 def flash_attention_dkv_plain(q, k, v, o, do, lse, layout: str = "bhsd",
                               scale: Optional[float] = None, kv_len: Optional[int] = None,
                               rope=None, rope_start: int = 0, block_q: int = 1024):
-    """Plain version of B12: (dk, dv) in `layout` (see `_bwd_plain`)."""
+    """Plain version of the B12 half, (dk, dv) in `layout` (see `_bwd_plain`)."""
     return _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, block_q,
                       want_dq=False)
 
@@ -404,7 +426,7 @@ def flash_attention_dkv_plain(q, k, v, o, do, lse, layout: str = "bhsd",
 def flash_attention_dq_plain(q, k, v, o, do, lse, layout: str = "bhsd",
                              scale: Optional[float] = None, kv_len: Optional[int] = None,
                              rope=None, rope_start: int = 0, block_q: int = 1024):
-    """Plain version of B13: dq in `layout` (see `_bwd_plain`)."""
+    """Plain version of the B13 half, dq in `layout` (see `_bwd_plain`)."""
     return _bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start, block_q,
                       want_dq=True)
 
@@ -467,10 +489,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start):
-    """Check the backward's inputs and rotate q and k once (the RoPE
-    pre-pass that B12 and B13 share); returns `launch(dkv)`, which runs B12
-    (dkv=True: (dk, dv)) or B13 (dq) on the rotated rows and counts it."""
+def flash_attention_bwd_plain(q, k, v, o, do, lse, layout: str = "bhsd",
+                              scale: Optional[float] = None, kv_len: Optional[int] = None,
+                              rope=None, rope_start: int = 0, block_q: int = 1024):
+    """Plain version of the fused B12 + B13 backward: (dq, dk, dv) in
+    `layout`, composed of `flash_attention_dq_plain` and
+    `flash_attention_dkv_plain` (see `_bwd_plain`)."""
+    dq = flash_attention_dq_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start,
+                                  block_q)
+    return (dq, *flash_attention_dkv_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
+                                           rope_start, block_q))
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, layout: str = "bhsd",
+                        scale: Optional[float] = None, kv_len: Optional[int] = None,
+                        rope=None, rope_start: int = 0):
+    """The B12 + B13 backward: (dq, dk, dv) in `layout` from q, k, v, the
+    forward's o and LSE and dO (delta = rowsum(o * dO) is computed in the
+    pre-pass), one fused launch (`csrc/flash_attention_bwd.cu`).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
+                                         rope_start)
     b, s, h, d = _layout_dims(q, layout)
     scale = d ** -0.5 if scale is None else scale
     kv_len = s if kv_len is None else kv_len
@@ -480,65 +521,19 @@ def _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start):
     _require(lse.shape == (b, h, s) and lse.dtype == torch.float32 and lse.is_contiguous(),
              "lse must be contiguous fp32 [B, H, S]")
     cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    bshd = int(layout == "bshd")
-    q_rot, k_rot = q, k
-    if rope is not None:
-        q_rot, k_rot = torch.empty_like(q), torch.empty_like(k)
-        err = cuda_lib().bya_flash_layout_rope(
-            q.data_ptr(), k.data_ptr(), q_rot.data_ptr(), k_rot.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), rope_start, rope_rows, b, s, h, d, bshd, stream)
-        check(err, "flash_attention backward RoPE pre-pass (B12/B13)")
-    ptr = lambda t: None if t is None else t.data_ptr()
-
-    def launch(dkv: bool):
-        grads = (torch.empty_like(k), torch.empty_like(v)) if dkv else (torch.empty_like(q),)
-        err = cuda_lib().bya_flash_layout_bwd(
-            int(dkv), q_rot.data_ptr(), k_rot.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), grads[0].data_ptr(), ptr(grads[1] if dkv else None),
-            ptr(cos), ptr(sin), rope_start, rope_rows, b, s, h, d, bshd, kv_len, float(scale),
-            stream)
-        if dkv:
-            check(err, "flash_attention backward (B12)")
-            flash_attention_dkv.launches += 1
-            return grads
-        check(err, "flash_attention backward (B13)")
-        flash_attention_dq.launches += 1
-        return grads[0]
-
-    return launch
-
-
-def flash_attention_dkv(q, k, v, o, do, lse, layout: str = "bhsd",
-                        scale: Optional[float] = None, kv_len: Optional[int] = None,
-                        rope=None, rope_start: int = 0):
-    """Kernel B12: (dk, dv) in `layout` from q, k, v, the forward's o and
-    LSE and dO (delta = rowsum(o * dO) is computed inside).  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
-    if q.device.type == "cpu":
-        return flash_attention_dkv_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
-                                         rope_start)
-    return _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start)(True)
-
-
-def flash_attention_dq(q, k, v, o, do, lse, layout: str = "bhsd",
-                       scale: Optional[float] = None, kv_len: Optional[int] = None,
-                       rope=None, rope_start: int = 0):
-    """Kernel B13: dq in `layout` (inputs as `flash_attention_dkv`)."""
-    if q.device.type == "cpu":
-        return flash_attention_dq_plain(q, k, v, o, do, lse, layout, scale, kv_len, rope,
-                                        rope_start)
-    return _layout_bwd(q, k, v, o, do, lse, layout, scale, kv_len, rope, rope_start)(False)
+    grads = _fused_bwd(False, q, k, v, o, do, lse, None, (b, s, h, d), layout == "bshd", kv_len,
+                       scale, cos, sin, rope_start, rope_rows, "flash_attention backward (B12+B13)")
+    flash_attention_bwd.launches += 1
+    return grads
 
 
 flash_attention_fwd.launches = 0
-flash_attention_dkv.launches = 0
-flash_attention_dq.launches = 0
+flash_attention_bwd.launches = 0
 
 
 class _FlashLayout(torch.autograd.Function):
-    """The JAX `_flash` custom vjp: B11 forward saving the LSE, B12 and B13
-    backward (on a CUDA tensor, after one shared RoPE pre-pass)."""
+    """The JAX `_flash` custom vjp: B11 forward saving the LSE, the fused
+    B12 + B13 backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout, scale, kv_len, rope, rope_start):
@@ -550,12 +545,7 @@ class _FlashLayout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dk, dv = flash_attention_dkv_plain(q, k, v, o, do, lse, *ctx.args)
-            dq = flash_attention_dq_plain(q, k, v, o, do, lse, *ctx.args)
-        else:
-            launch = _layout_bwd(q, k, v, o, do, lse, *ctx.args)
-            (dk, dv), dq = launch(True), launch(False)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -569,7 +559,7 @@ def flash_attention_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or [B, S, H, D] (`"bshd"`), output in the same layout (the bhsd/bshd
     branch of the JAX `flash_attention`).  With `qk_norm` the call is
     inference only (B11 with the LN fused; no backward), as in JAX.
-    Without, it is differentiable: B11 forward, B12 and B13 backward.  A
+    Without, it is differentiable: B11 forward, the fused B12 + B13 backward.  A
     CPU tensor takes the plain version (autograd differentiates it)."""
     if qk_norm is not None:
         return flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)[0]

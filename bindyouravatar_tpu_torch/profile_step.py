@@ -47,15 +47,16 @@ GROUPS = (("B1 flash_attention", ("flash_fwd_kernel", "prep_qk_kernel")),
           ("B5 tiny_seq_attention", ("tiny_seq_kernel",)),
           ("B6 / B10 LayerNorm forward", ("ln_fwd_kernel",)),
           ("B9 / B10 LayerNorm backward", ("ln_bwd_kernel",)),
-          ("B11 flash forward (bhsd/bshd) and the B11-B13 pre-pass",
+          ("B11 flash forward (bhsd/bshd) and its pre-pass",
            ("mha_fwd_layout_kernel", "layout_prep_kernel")),
-          ("B12 / B13 flash backward (bhsd/bshd)", ("mha_bwd_dkv_layout_kernel",
-                                                    "mha_bwd_dq_layout_kernel")),
+          ("B12 + B13 fused flash backward (bhsd/bshd), its pre- and post-pass",
+           ("mha_bwd_kernel", "mha_bwd_pre_kernel", "mha_bwd_post_kernel")),
           ("B14 / B2c / B2h short-KV attention (JAX layouts)", ("skv_layout_kernel",)),
           ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "sm90")))
 TRAIN_GROUPS = (("B7 flash forward", ("flash_fwd_kernel",)),
-                ("B7 flash backward", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
-                ("B7 q/k pre-pass (forward and backward)", ("prep_qk_kernel",))) + GROUPS[1:]
+                ("B7 flash backward (fused kernel, pre- and post-pass)",
+                 ("flash_bwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_post_kernel")),
+                ("B7 q/k pre-pass (forward)", ("prep_qk_kernel",))) + GROUPS[1:]
 ROUTER = "router"
 
 

@@ -13,8 +13,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      backward, B8 tiny-sequence backward, B9 LayerNorm backward, B10
      per-head LayerNorm forward and backward; and the general-layout
      kernels: B11 flash attention forward over [B, H, S, D] / [B, S, H, D]
-     (QK-LN + RoPE, RoPE, bare, D = 128), its backward B12 (dk, dv) and B13
-     (dq) in both layouts, B14 q-major short-KV attention (combined and
+     (QK-LN + RoPE, RoPE, bare, D = 128), its fused backward B12 + B13 (dq,
+     dk, dv in one launch, the kernel B7's backward shares) in both layouts, B14 q-major short-KV attention (combined and
      per identity), B2c and B2h head-major short-KV attention (combined,
      per identity)) against its plain PyTorch version on the card, at the
      serving or train step's shapes and at a ragged shape, with the stated
@@ -331,7 +331,8 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     # tol (backward): 2% of each gradient's largest magnitude (+2% relative):
     # both sides round P and dS to bf16; the kernel's P comes from the
     # bf16-rounded scaled q, and its sums over 17,776 kv rows run in
-    # another order.
+    # another order (dq's across kv tiles by fp32 atomic adds, in no fixed
+    # order).
     # library: SDPA (forward; forward + autograd backward timed as the
     # backward alone) at the bare shape only: no PyTorch call applies RoPE.
     for tag, b, s, h, text_len, grid, kv_len in (
@@ -448,7 +449,7 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
     dev = torch.device("cuda")
     bf = torch.bfloat16
 
-    # --- B11, B12, B13: the joint-attention geometry in both layouts.  bshd
+    # --- B11 and B12 + B13: the joint-attention geometry in both layouts.  bshd
     # [2, 17776, 48, 64] with QK-LN and RoPE (rows 226..17775: B1's work);
     # bhsd [1, 48, 17776, 64] and bshd [1, 17776, 48, 64] with RoPE (the
     # train step's); bare bhsd [2, 48, 17776, 64]; D = 128 at the same width
@@ -461,7 +462,8 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
     # both sides, fp32 sums in another order: 2% of the output's largest
     # magnitude (+2% relative); the LSE 3e-3 of its largest magnitude.
     # tol (backward): as B7, 2% of each gradient's largest magnitude: both
-    # sides round P and dS to bf16, sums over 17,776 rows in another order.
+    # sides round P and dS to bf16, sums over 17,776 rows in another order
+    # (dq's across kv tiles by fp32 atomic adds, in no fixed order).
     # library: SDPA (forward; forward + autograd backward timed as the
     # backward alone) at the bare shape only: no PyTorch call applies RoPE
     # or the QK-LN.
@@ -514,21 +516,14 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
             continue
         do = rnd(*shape).to(bf)
         bw = {key: val for key, val in kw.items() if key != "qk_norm"}
-        dkv = lambda: fa.flash_attention_dkv(q, k, v, o, do, lse, **bw)
-        dkv_plain = lambda: fa.flash_attention_dkv_plain(q, k, v, o, do, lse, block_q=512, **bw)
-        dq = lambda: fa.flash_attention_dq(q, k, v, o, do, lse, **bw)
-        dq_plain = lambda: fa.flash_attention_dq_plain(q, k, v, o, do, lse, block_q=512, **bw)
-        (dk_k, dv_k), (dk_p, dv_p) = dkv(), dkv_plain()
-        work = (_nbytes(q, k, v, o, do, lse, k, v), 8.0 * b * h * s * kv * d, "bf16")
-        r12 = report_all("B12", tag, (dk_k, dv_k), (dk_p, dv_p), (2e-2, 2e-2), dkv, dkv_plain, 3,
-                         lib_b, work)
-        del dk_k, dv_k, dk_p, dv_p
-        dq_k, dq_p = dq(), dq_plain()
-        work = (_nbytes(q, k, v, o, do, lse, q), 6.0 * b * h * s * kv * d, "bf16")
-        r13 = report_all("B13", tag, (dq_k,), (dq_p,), (2e-2,), dq, dq_plain, 3, lib_b, work)
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, **bw)
+        bwd_plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse, block_q=512, **bw)
+        work = (_nbytes(q, k, v, o, do, lse, q, k, v), 10.0 * b * h * s * kv * d, "bf16")
+        r_b = report_all("B12+B13", tag, bwd(), bwd_plain(), (2e-2, 2e-2, 2e-2), bwd, bwd_plain,
+                         3, lib_b, work)
         if tag.startswith("bhsd[1,48"):
-            results["B12"], results["B13"] = r12, r13
-        del q, k, v, o, lse, do, dq_k, dq_p
+            results["B12+B13"] = r_b
+        del q, k, v, o, lse, do
 
     # --- B14: the audio geometry combined, q [26, 1350, 48, 64], k/v [26, 2,
     # 48, 32, 64], w [26, 1350, 2]; the perceiver geometry per identity, q
@@ -576,7 +571,7 @@ def entry_point_phase(launches: dict) -> bool:
     geometries, forward and (where differentiable) backward, launches
     counted from 0: `attention(layout="bshd", qk_norm=...)` (inference,
     B11), `flash_attention(layout="bhsd")` with RoPE forward and backward
-    (B11, B12, B13), `short_kv_attention_combined_qmajor` (audio geometry)
+    (B11, B12 + B13), `short_kv_attention_combined_qmajor` (audio geometry)
     and `short_kv_attention_qmajor` (perceiver geometry; B14),
     `short_kv_attention_combined` (B2c) and `short_kv_attention` (B2h);
     outputs against the plain versions, gradients finite; fills
@@ -637,7 +632,7 @@ def entry_point_phase(launches: dict) -> bool:
     torch.cuda.synchronize()
     launches.update(_read_launches())
     want = {k: 0 for k in _kernel_fns()}
-    want.update({"B11": 2, "B12": 1, "B13": 1, "B14": 2, "B2c": 1, "B2h": 1})
+    want.update({"B11": 2, "B12+B13": 1, "B14": 2, "B2c": 1, "B2h": 1})
     for (name, _, plain, _), (out, finite) in zip(calls, outs):
         with torch.no_grad():
             ref = plain()
@@ -668,12 +663,12 @@ def _kernel_fns():
             "B7 bwd": fa.flash_attention_flat_bwd, "B8": pa.tiny_seq_attention_bwd,
             "B9": ln.layernorm_bwd, "B10 fwd": ln.head_layernorm_fwd,
             "B10 bwd": ln.head_layernorm_bwd, "B11": fa.flash_attention_fwd,
-            "B12": fa.flash_attention_dkv, "B13": fa.flash_attention_dq,
+            "B12+B13": fa.flash_attention_bwd,
             "B14": skv.short_kv_attention_qmajor, "B2c": skv.short_kv_attention_combined,
             "B2h": skv.short_kv_attention}
 
 TRAIN_KERNELS = ("B7 fwd", "B7 bwd", "B8", "B9", "B10 fwd", "B10 bwd")
-LAYOUT_KERNELS = ("B11", "B12", "B13", "B14", "B2c", "B2h")
+LAYOUT_KERNELS = ("B11", "B12+B13", "B14", "B2c", "B2h")
 
 
 def _reset_launches() -> None:
@@ -807,7 +802,7 @@ def train_launches(dit, micro_batches: int) -> dict:
            "B7 fwd": flat * b_mult + spatial * g_mult, "B7 bwd": flat + spatial,
            "B8": stabs if temporal else 0, "B9": audio_ln + face_ln,
            "B10 fwd": 2 * hln * b_mult, "B10 bwd": 2 * hln,
-           "B11": layout * b_mult, "B12": layout, "B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
+           "B11": layout * b_mult, "B12+B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
     return {k: v * micro_batches for k, v in per.items()}
 
 
@@ -932,7 +927,7 @@ def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
     worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
     g_ok = all(e <= 0.1 for e in g_err.values())
     want = train_launches(gpu, 1)
-    ran = all(launches[k] > 0 for k in (("B11", "B12", "B13") if unpaired else ("B7 fwd",)))
+    ran = all(launches[k] > 0 for k in (("B11", "B12+B13") if unpaired else ("B7 fwd",)))
     counts_ok = all(launches[k] == want[k] for k in want) and ran
     ok = m_ok and g_ok and counts_ok
     what = ("audio only, 2 layers, 15 x 64 heads (unpaired), 16 + 1024 tokens" if unpaired
@@ -1180,8 +1175,9 @@ def main(argv=None) -> int:
         _build.import_triton()
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
-    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 + B8 + B11-B14 + B2c "
-          f"+ B2h) and triton import in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 forward + B8 + B11 + B14 + "
+          f"B2c + B2h, the fused flash backward of B7 and B12 + B13) and triton import in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
@@ -1212,11 +1208,11 @@ def main(argv=None) -> int:
     # of the serving run
     launches["B5'"] = reduced_launches["B5'"]
     # the training kernels' launches are those of the full-width train step;
-    # B11-B13 run in the unpaired-head train step (phase 3c), B14, B2c and
-    # B2h through the entry points (phase 3d)
+    # B11 and B12 + B13 run in the unpaired-head train step (phase 3c), B14,
+    # B2c and B2h through the entry points (phase 3d)
     for name in TRAIN_KERNELS:
         launches[name] = train_launches_[name]
-    for name in ("B11", "B12", "B13"):
+    for name in ("B11", "B12+B13"):
         launches[name] = unpaired_launches[name]
     for name in ("B14", "B2c", "B2h"):
         launches[name] = entry_launches[name]
@@ -1237,7 +1233,7 @@ def main(argv=None) -> int:
                "bindyouravatar_tpu/ops/layernorm.py:26"),
         "B7 fwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
                    "bindyouravatar_tpu/ops/flash_attention.py:352"),
-        "B7 bwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+        "B7 bwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
                    "bindyouravatar_tpu/ops/flash_attention.py:1050"),
         "B8": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
                "bindyouravatar_tpu/ops/packed_attention.py:351"),
@@ -1249,10 +1245,8 @@ def main(argv=None) -> int:
                     "bindyouravatar_tpu/ops/layernorm.py:285"),
         "B11": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
                 "bindyouravatar_tpu/ops/flash_attention.py:75"),
-        "B12": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
-                "bindyouravatar_tpu/ops/flash_attention.py:919"),
-        "B13": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
-                "bindyouravatar_tpu/ops/flash_attention.py:981"),
+        "B12+B13": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "bindyouravatar_tpu/ops/flash_attention.py:919, :981"),
         "B14": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
                 "bindyouravatar_tpu/ops/short_kv_attention.py:71"),
         "B2c": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",

@@ -4,10 +4,11 @@ fp32.
 Each plain version (the path a CPU tensor takes) is held against the
 Pallas body its kernel replaces, run in interpret mode as the JAX
 package's own tests run it: B11 through `_fwd_impl(interpret=True,
-save_residuals=True)`, B12 and B13 through `_bwd_impl(interpret=True)`
-(the two-kernel backward) fed that forward's output and LSE, B14 and B2c
-(and B2h, B2's body in the head-major layout) through `pl.pallas_call` of
-`_kernel_qmajor` and `_kernel`.  Both layouts, head dims 64 and 128, with
+save_residuals=True)`, the fused B12 + B13 backward through
+`_bwd_impl(interpret=True)` (the two-kernel TPU backward) fed that
+forward's output and LSE, B14 and B2c (and B2h, B2's body in the
+head-major layout) through `pl.pallas_call` of `_kernel_qmajor` and
+`_kernel`.  Both layouts, head dims 64 and 128, with
 and without RoPE and the fused QK LayerNorm, and a ragged sequence (200
 rows in 128-row blocks, a masked kv tail).  Then the entry points: the
 port's `flash_attention(layout=...)` autograd against `jax.vjp` of the
@@ -45,7 +46,7 @@ def _normal(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-# ----------------------------------------------------------- B11, B12, B13
+# ----------------------------------------------------------- B11, B12 + B13
 def _case(layout, d, rope, ln, ragged, h=2, seed=0):
     """q/k/v in `layout`, S = 200 (ragged: kv_len 190) or 256; RoPE over
     rows 8..187 (3 x 6 x 10 video tokens after 8 text tokens); QK-LN
@@ -114,7 +115,7 @@ BWD_CASES = [cs for cs in LAYOUT_CASES if not cs[3]] + [("bshd", 64, True, False
 
 @pytest.mark.parametrize("layout,d,rope,ln,ragged", BWD_CASES)
 def test_b12_b13_plain_match_bwd_kernels_interpret(layout, d, rope, ln, ragged):
-    """B12's (dk, dv) and B13's dq plain versions vs `_bwd_impl` in
+    """The B12 + B13 entry's plain path (dq, dk, dv) vs `_bwd_impl` in
     interpret mode (`_dkv_kernel`, `_dq_kernel`), both fed `_fwd_impl`'s
     output and LSE (padded to the backward's blocks as `_flash_bwd` does)."""
     c = _case(layout, d, rope, ln, ragged, seed=1)
@@ -129,11 +130,25 @@ def test_b12_b13_plain_match_bwd_kernels_interpret(layout, d, rope, ln, ragged):
                                      128, 128, True, bshd=bshd)
     args = to_torch(c["q"], c["k"], c["v"], np.asarray(o), c["do"],
                     np.asarray(lse4)[..., 0])
-    dk, dv = tfa.flash_attention_dkv(*args, **_port_kw(c))
-    dq = tfa.flash_attention_dq(*args, **_port_kw(c))
+    dq, dk, dv = tfa.flash_attention_bwd(*args, **_port_kw(c))
     for got, want in ((dq, dq_w), (dk, dk_w), (dv, dv_w)):
         assert got.shape == c["q"].shape
         assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("layout,d,rope,ln,ragged", BWD_CASES)
+def test_fused_bwd_entry_is_the_plain_pair(layout, d, rope, ln, ragged):
+    """The fused backward's entry point on CPU tensors returns exactly
+    (`flash_attention_dq_plain`, `flash_attention_dkv_plain`), the pair the
+    test above holds against `_bwd_impl`."""
+    c = _case(layout, d, rope, ln, ragged, seed=2)
+    o, lse = tfa.flash_attention_fwd(*to_torch(c["q"], c["k"], c["v"]), **_port_kw(c))
+    args = (*to_torch(c["q"], c["k"], c["v"]), o, torch.from_numpy(c["do"]), lse)
+    got = tfa.flash_attention_bwd(*args, **_port_kw(c))
+    parts = (tfa.flash_attention_dq_plain(*args, **_port_kw(c)),
+             *tfa.flash_attention_dkv_plain(*args, **_port_kw(c)))
+    for g, p in zip(got, parts):
+        assert g.shape == c["q"].shape and torch.equal(g, p)
 
 
 @pytest.mark.parametrize("layout,d,ragged,h", [("bhsd", 64, True, 2), ("bshd", 64, True, 3),
@@ -165,7 +180,7 @@ def test_flash_attention_layout_grads_match_jax(layout, d, ragged, h):
 
 def test_layout_autograd_function_matches_autograd_of_plain_forward():
     """`_FlashLayout` (the CUDA path's wiring: B11 forward with the LSE,
-    B12 and B13 backward computing delta inside) run on CPU tensors, where
+    the fused B12 + B13 backward computing delta) run on CPU tensors, where
     each part takes its plain version, against autograd through the plain
     forward."""
     c = _case("bshd", 64, True, False, True, h=3, seed=3)
@@ -282,9 +297,9 @@ def test_short_kv_flat_and_head_major_agree():
 
 
 # ---------------------------------------------------------------- dispatch
-LAYOUT_FNS = (tfa.flash_attention_fwd, tfa.flash_attention_dkv, tfa.flash_attention_dq,
-              tskv.short_kv_attention_qmajor, tskv.short_kv_attention_combined,
-              tskv.short_kv_attention, tskv.short_kv_attention_flat)
+LAYOUT_FNS = (tfa.flash_attention_fwd, tfa.flash_attention_bwd, tskv.short_kv_attention_qmajor,
+              tskv.short_kv_attention_combined, tskv.short_kv_attention,
+              tskv.short_kv_attention_flat)
 
 
 def test_layout_wrappers_count_no_cpu_launch():
@@ -312,9 +327,7 @@ def test_layout_wrappers_raise_off_cpu():
         with pytest.raises(ValueError):
             tfa.flash_attention(x, x, x, layout=layout)
         with pytest.raises(ValueError):
-            tfa.flash_attention_dkv(x, x, x, x, x, lse, layout)
-        with pytest.raises(ValueError):
-            tfa.flash_attention_dq(x, x, x, x, x, lse, layout)
+            tfa.flash_attention_bwd(x, x, x, x, x, lse, layout)
     kv, w = meta(1, 2, 4, 32, 64), meta(1, 128, 2)
     for fn, args in ((tskv.short_kv_attention, (x, kv, kv)),
                      (tskv.short_kv_attention_combined, (x, kv, kv, w)),
