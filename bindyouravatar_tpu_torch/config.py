@@ -65,7 +65,8 @@ class DiTConfig:
     fuse_qk_norm: bool = False
     remat: bool = False                 # checkpoint each layer group
     # None: the group saves nothing; "nested": each block inside a group is
-    # checkpointed too, so the group's backward recomputes one block at a time
+    # checkpointed too, so the group's backward recomputes one block at a
+    # time; JAX's "save_attn" is not ported (`DiT` raises on it)
     remat_policy: Optional[str] = None
 
     @property

@@ -1,78 +1,104 @@
-// Flash attention forward: kernels B1 and B7's forward over the flat
-// [B, S, H*64] layout, and B11 over [B, H, S, D] ("bhsd") or [B, S, H, D]
-// ("bshd") for head dims 64 and 128.  One source: a pre-pass body and a
-// forward body templated on the head dim and on the scale mode, each
-// instantiated under its own kernel name.  The backward of B7 and of B11
-// (B12 + B13) is one fused kernel in flash_attention_bwd.cu.
+// Flash attention forward for Hopper: one wgmma + TMA body computes B1 and
+// B7's forward over the flat [B, S, H*64] layout, and B11 over [B, H, S, D]
+// ("bhsd") or [B, S, H, D] ("bshd") for head dims 64 and 128.  The backward
+// of B7 and of B11 (B12 + B13) is one fused kernel in flash_attention_bwd.cu;
+// both sources take their Hopper building blocks from hopper.cuh.
 //
 // B1 replaces the TPU kernel `_fwd_flat_t_kernel`
 // (bindyouravatar_tpu/ops/flash_attention.py), reached through
-// `flash_attention(layout="flat", v_transposed=True)` from the DiT's joint
-// self-attention at inference.  Same math: per head, LN(eps, fp32 stats,
-// fp32 affine) -> bf16, rotate-half RoPE on rows [rope_start, rope_start +
-// rope_rows) -> bf16, q scaled by scale*log2(e) in fp32 -> bf16, then
-// non-causal softmax(q k^T) v over kv rows < kv_len.
+// `flash_attention(layout="flat")` from the DiT's joint self-attention at
+// inference (QK-LN and RoPE fused) and from the router's STAB spatial
+// attention (bare).  Same math: per head, LN(eps, fp32 stats, fp32 affine)
+// -> bf16, rotate-half RoPE on rows [rope_start, rope_start + rope_rows) ->
+// bf16, then non-causal softmax(q k^T * scale) v over kv rows < kv_len.
 //
-// B7 (forward) replaces `_fwd_flat_kernel` with `save_residuals` (reached
-// through the `_flash_flat` custom vjp from the DiT's training attention,
-// QK-LN applied outside, and the router's STAB spatial attention): the same
-// kernels with no LN, writing the per-row log-sum-exp (natural log, fp32,
-// [B, H, S]).
+// B7's forward replaces `_fwd_flat_kernel` with `save_residuals` (the
+// `_flash_flat` custom vjp: the DiT's training attention, QK-LN applied
+// outside, and the STAB spatial attention): the same with no LN, writing the
+// per-row log-sum-exp (natural log, fp32, [B, H, S]) that the backward reads.
 //
 // B11 replaces `_fwd_kernel`, reached through `flash_attention(layout=
 // "bhsd" | "bshd")`: the differentiable `_flash` custom vjp (saving the
-// LSE) and the inference form with the QK LayerNorm fused.  Same math as
-// B1 up to the scale: the TPU body's tricks (scale and log2 e folded into a
-// rounded q, a ones column for the row sum, the eye-matmul LSE store) are
-// not copied, the scale multiplies the fp32 scores.
+// LSE) and the inference form with the QK LayerNorm fused.
 //
-// What bounds them on the H100: the matmuls, 4*S^2*D FLOP per head (~3.9e12
-// per layer at B=1, S=17,776, 48 heads of 64) against ~0.1-0.4 GB of
-// q/k/v/o traffic.  Compute bound, so the tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate) carry every product.
+// What bounds it on the H100: the two products per (q tile, kv tile),
+// S = Q K^T and O += P V, 4 S^2 D FLOP per head (3.9 ms at B = 1, S = 17,776,
+// 48 heads of 64 on 989 TFLOP/s bf16) against 0.1-0.4 GB of q/k/v/o
+// traffic; and at D = 64 the softmax's one 2^x per score, which the
+// special-function unit issues at about the rate the tensor cores finish
+// the score's 256 FLOP, so the two have to overlap.
 //
 // Design:
-//  * The kernels take the batch, head and row strides of a [B, H, S, D]
-//    view (`Layout`), so flat (bshd at D = 64), bhsd and bshd come from one
-//    body; rows are 16-byte vector loads (D % 8 == 0).
-//  * The TPU kernels prepare K once at grid step iq == 0 into scratch that
-//    later grid steps reuse; GPU blocks run in no order, so a pre-pass
-//    (`prep_qk`) applies LN + RoPE (+ B1/B7's q scale) to q and k once, into
-//    bf16 scratch of the input's layout, and the attention kernels read the
-//    prepared tensors.  Without LN, RoPE or a q scale (B11 with no options)
-//    the kernel reads q and k directly.
-//  * The softmax keeps an fp32 online running max per row (the TPU kernel's
-//    static max is valid only behind the fused LN); masked scores are a
-//    large finite negative, so no row ever computes inf - inf.  A row with
-//    no kv gets the LSE +big, so the backward's P is 0 there.
-//  * One block = 4 warps = 64 query rows of one (batch, head); kv tiles of
-//    64 rows stream through a cp.async double buffer; a warp keeps its q
-//    fragments in registers.  Rows past S (q) and kv_len (k, v) are
-//    zero-filled on load and masked; q rows >= S are never stored.
-//  * Shared memory: 46 KB at D = 64, static in B1/B7's kernel; B11's is
-//    dynamic, and its launcher raises the kernel's limit.
-#include "flash_common.cuh"
+//  * A pre-pass (`prep_qk`, one warp per row) applies LN and RoPE to q and k
+//    where a call has either, into bf16 scratch of the input's layout; B1
+//    and B7 fold scale * log2 e into the prepared q there and round it to
+//    bf16, as the JAX kernels do.  A call with neither (B11 bare, the bare
+//    STAB attention of B1 and B7) skips it: the kernel reads q and k and
+//    multiplies the fp32 scores by scale * log2 e in the exponent's FFMA.
+//  * One CTA per 128-row q tile of one (batch, head), 384 threads: warp
+//    group 0 is the producer (one thread issues every TMA load; setmaxnreg
+//    drops the group to 24 registers), warp groups 1 and 2 each own 64 q
+//    rows (setmaxnreg 240).  The q tile is loaded once; K and V tiles of
+//    128 rows stream through a ring of 4 stages at D = 64, 2 at D = 128
+//    (shared memory 148,584 and 164,920 bytes), K and V on barriers of
+//    their own so S can start before V lands.  One 4-D tensor map [B, H,
+//    S, D] with the layout's strides serves flat, bhsd and bshd; the TMA
+//    unit zero-fills rows past S.  Tiles are 64-column panels of 128-byte
+//    rows in the 128-byte swizzle.
+//  * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//    memory.  Its accumulator is already the A-fragment layout, so P goes
+//    from registers to O += P V (wgmma m64n64k16 per 64-column panel of V,
+//    V read through a transposed, MN-major descriptor).
+//  * Softmax: an fp32 online running max per row (the TPU kernel's static
+//    max is valid only behind the fused LN; the bare STAB calls come here
+//    too), scores in log2 units, P and the rescale factor on `ex2.approx`.
+//    Columns >= kv_len are masked (a large finite negative) only on the
+//    tile that reaches past it (a branch, skipped on the other tiles); a
+//    row's max and sum run over four partial values each (chains of eight
+//    dependent instructions, not 32: the scaled calls' exponent FFMA waits
+//    on the max, and this took B11 bare from 16.9 to 15.6-15.8 ms), and
+//    the sum stays per thread until the end.
+//  * What bounds it in practice at D = 64: per 128 x 128 tile pair of the
+//    two groups the tensor cores need ~1,024 cycles and the special-
+//    function unit ~1,056 (16 results a cycle per SM), so the kernel is
+//    near its limit only if the two overlap perfectly; it takes about
+//    twice its 4 S^2 D bound (B1 fused, B11 bare, B7's forward).
+//  * Overlap at D = 64, the two kept together because together they
+//    measured faster (`bench_flash_fwd.py` on an H100 80GB HBM3 at 700 W,
+//    kernel times, before the partial sums): each consumer issues tile
+//    j's S product together with tile j-1's P V and runs S_j's softmax
+//    while they execute (alone this was slower than the plain order, 19.2
+//    against 17.0-17.9 ms for B11 bare); and the two consumers take turns
+//    to issue their products (named barriers), so one group's softmax runs
+//    under the other's products (with both: 16.9-17.0 ms for B11 bare,
+//    15.4-15.5 for B1 fused against 18.4).  At D = 128 the pipeline's S, P
+//    and O need more than the 168 registers ptxas allots (it serialised
+//    the products and spilled 192 bytes: 13.4 ms against 6.7), so each
+//    tile runs in order.  ptxas: 168 registers, no spill, for every
+//    instance; setmaxnreg does not raise the 168 it compiles for.
+//  * Epilogue: O normalised in registers, written as bf16 into the group's
+//    own rows of the q tile in shared memory and stored by TMA in the
+//    caller's layout (rows >= S are not written); the LSE when asked.
+#include "hopper.cuh"
 
 namespace {
 
-using bya::bf16;
-using bya::Layout;
-using bya::LOG2E;
-using bya::LSE_EMPTY;
-using bya::MASKED;
-using bya::FULL;
-using bya::make_layout;
+using namespace bya;
 
-constexpr int BM = 64;  // query rows per block (16 per warp)
-constexpr int BN = 64;  // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int BM = 128;  // q rows per CTA: two consumer warp groups of 64
+constexpr int BN = 128;  // kv rows per streamed tile
+constexpr int NTHREADS = 384;
 
 template <int D>
-__device__ __forceinline__ void zero(float (&a)[D / 8][4]) {
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-}
+struct FwdSmem {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int NST = D == 64 ? 4 : 2;   // kv ring stages
+  static constexpr int Q_TILE = BM * D * 2;     // bytes of the q tile
+  static constexpr int KV_TILE = BN * D * 2;    // bytes of one K (or V) tile
+  static constexpr int Q_OFF = 0, K_OFF = Q_TILE, V_OFF = K_OFF + NST * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + NST * KV_TILE;
+  static constexpr int BYTES = BAR_OFF + (3 * NST + 1) * 8 + 1024;  // + base alignment
+};
 
 // ---------------------------------------------------------------- pre-pass
 
@@ -90,8 +116,8 @@ __device__ __forceinline__ void prep_qk(const bf16* q, const bf16* k, bf16* qo, 
   const int h = (int)(warp % H);
   const long long bs = warp / H;
   const int s = (int)(bs % S), b = (int)(bs / S);
-  bya::prep_qk_row<D>(q, k, qo, ko, lnqw, lnqb, lnkw, lnkb, cos_t, sin_t, rope_start,
-                      rope_rows, b, s, h, L, q_scale, eps, lane);
+  prep_qk_row<D>(q, k, qo, ko, lnqw, lnqb, lnkw, lnkb, cos_t, sin_t, rope_start, rope_rows, b, s,
+                 h, L, q_scale, eps, lane);
 }
 
 #define PREP_PARAMS                                                                        \
@@ -113,166 +139,269 @@ __global__ void __launch_bounds__(256) layout_prep_kernel(PREP_PARAMS) { prep_qk
 
 // ---------------------------------------------------------------- forward
 
-// SCALE: multiply the fp32 scores by scale_log2 (B11); B1/B7 fold the scale
-// and log2 e into the prepared q.  Scores are in log2 units, p = exp2(s - m).
-// `lse` (null for B1): the per-row natural log-sum-exp, fp32 [B, H, S].
-// smem: 5 [64, D + 8] bf16 tiles (q; k and v double-buffered).
-template <int D, bool SCALE>
-__device__ __forceinline__ void fwd_body(bf16* smem, const bf16* __restrict__ q,
-                                         const bf16* __restrict__ k, const bf16* __restrict__ v,
-                                         bf16* __restrict__ o, float* __restrict__ lse, Layout L,
-                                         int S, int H, int kv_len, float scale_log2) {
-  constexpr int LDS = D + 8, KS = D / 16, ND = D / 8;
-  bf16* sQ = smem;
-  bf16* sK = sQ + BM * LDS;      // two slots
-  bf16* sV = sK + 2 * BN * LDS;  // two slots
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * BM;
-  const long long base = L.off(b, h), ld = L.ss;
-
-  bya::load_rows<BM, D, NTHREADS>(sQ, LDS, q + base, ld, q0, S, tid);
-  bya::load_rows<BN, D, NTHREADS>(sK, LDS, k + base, ld, 0, kv_len, tid);
-  bya::load_rows<BN, D, NTHREADS>(sV, LDS, v + base, ld, 0, kv_len, tid);
-  bya::cp_async_commit();
-
-  const int n_tiles = (kv_len + BN - 1) / BN;
-  float acc[ND][4];
-  zero<D>(acc);
-  float m_i[2] = {MASKED, MASKED};
-  float l_i[2] = {0.f, 0.f};
-  uint32_t qf[KS][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      bya::load_rows<BN, D, NTHREADS>(sK + (buf ^ 1) * BN * LDS, LDS, k + base, ld,
-                                      (j + 1) * BN, kv_len, tid);
-      bya::load_rows<BN, D, NTHREADS>(sV + (buf ^ 1) * BN * LDS, LDS, v + base, ld,
-                                      (j + 1) * BN, kv_len, tid);
-      bya::cp_async_commit();
-      bya::cp_async_wait<1>();
-    } else {
-      bya::cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) bya::load_a_frags<KS, LDS>(qf, sQ + warp * 16 * LDS, lane);
-
-    float s[8][4];
+// The online softmax of one 64 x 128 score tile in log2 units: columns >=
+// kv_len masked (only on a tile that reaches past it), the running row max
+// m and this lane's share of the row sum l updated, alpha the factor that
+// rescales what O holds, and s overwritten by P = 2^(s * sl - m * sl).
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int kv0, int kv_len, float sl,
+                                             int lane) {
+  if (kv0 + BN > kv_len) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    bya::qk_scores<8, KS, LDS>(s, qf, sK + buf * BN * LDS, lane);
-
-    if (SCALE) {
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2;
-    }
-    const int kv0 = j * BN;
-    if (kv0 + BN > kv_len) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + nt * 8 + (lane & 3) * 2 + (e & 1) >= kv_len) s[nt][e] = MASKED;
-    }
-
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-    }
-    const float alpha0 = exp2f(m_i[0] - mx[0]), alpha1 = exp2f(m_i[1] - mx[1]);
-    m_i[0] = mx[0];
-    m_i[1] = mx[1];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mx[0]);
-      s[nt][1] = exp2f(s[nt][1] - mx[0]);
-      s[nt][2] = exp2f(s[nt][2] - mx[1]);
-      s[nt][3] = exp2f(s[nt][3] - mx[1]);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l_i[0] = l_i[0] * alpha0 + rs0;
-    l_i[1] = l_i[1] * alpha1 + rs1;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha0;
-      acc[nd][1] *= alpha0;
-      acc[nd][2] *= alpha1;
-      acc[nd][3] *= alpha1;
-    }
-    bya::pv_accumulate<8, ND, LDS>(acc, s, sV + buf * BN * LDS, lane);
-    __syncthreads();
+      for (int e = 0; e < 4; ++e)
+        if (kv0 + 8 * i + 2 * (lane & 3) + (e & 1) >= kv_len) s[i][e] = MASKED;
   }
-
+  // row max and row sum over four partial values per row, so that no chain
+  // of dependent instructions is longer than eight
+  float mx[2][4], rs[2][4], mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mx[r][c] = fmaxf(s[c][2 * r], s[c][2 * r + 1]);
+      rs[r][c] = 0.f;
+    }
+#pragma unroll
+  for (int i = 4; i < 16; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r][i % 4] = fmaxf(mx[r][i % 4], fmaxf(s[i][2 * r], s[i][2 * r + 1]));
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(FULL, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(FULL, l_i[r], 2);
+    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], fmaxf(mx[r][3], m[r])));
+    x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+    alpha[r] = fast_exp2((m[r] - x) * sl);
+    m[r] = x;
+    mb[r] = x * sl;
   }
-  const float inv0 = l_i[0] > 0.f ? 1.f / l_i[0] : 0.f;
-  const float inv1 = l_i[1] > 0.f ? 1.f / l_i[1] : 0.f;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[i][e] = fast_exp2(fmaf(s[i][e], sl, -mb[e >> 1]));
+      rs[e >> 1][i % 4] += s[i][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+}
+
+// O (and the LSE, if `lse`) of one 128-row q tile of one (batch, head).
+// SCALE: the scores are multiplied by scale_log2 in the exponent (q, k as
+// given); else q arrives scaled by scale * log2 e.  Scores are in log2
+// units: P = 2^(s * sl - m * sl), m the running row max of s.
+template <int D, bool SCALE>
+__device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensorMap* tq,
+                                         const CUtensorMap* tk, const CUtensorMap* tv,
+                                         const CUtensorMap* to, float* __restrict__ lse, int S,
+                                         int H, int kv_len, float scale_log2) {
+  using SM = FwdSmem<D>;
+  constexpr int NP = SM::NP, NST = SM::NST;
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::Q_OFF);  // [NP][BM][64], swizzled
+  bf16* sK = reinterpret_cast<bf16*>(smem + SM::K_OFF);  // [NST][NP][BN][64]
+  bf16* sV = reinterpret_cast<bf16*>(smem + SM::V_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + NST;
+  uint64_t* empty = v_full + NST;
+
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BM;
+  const int n_kv = (kv_len + BN - 1) / BN;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warp group: one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(q_full, SM::Q_TILE);
+      for (int p = 0; p < NP; ++p) tma_load_4d(sQ + p * BM * 64, tq, 64 * p, q0, h, b, q_full);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % NST, f = j / NST;
+        if (f > 0) mbar_wait(&empty[st], (f - 1) & 1);
+        mbar_expect_tx(&k_full[st], SM::KV_TILE);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sK + (st * NP + p) * BN * 64, tk, 64 * p, j * BN, h, b, &k_full[st]);
+        mbar_expect_tx(&v_full[st], SM::KV_TILE);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sV + (st * NP + p) * BN * 64, tv, 64 * p, j * BN, h, b, &v_full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumer warp groups 1 and 2: q rows 64 w .. 64 w + 63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int w = tid / 128 - 1, tw = tid % 128, lane = tid & 31;
+  const int r_loc = (tw >> 5) * 16 + (lane >> 2);  // this lane's rows r_loc, r_loc + 8
+  const float sl = SCALE ? scale_log2 : 1.0f;
+  const bf16* qw = sQ + w * 64 * 64;
+  float o[D / 8][4], s[16][4], m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+
+  // S = Q K^T of kv tile j, both operands K-major in shared memory
+  auto issue_s = [&](int j) {
+    const bf16* kt = sK + (j % NST) * NP * BN * 64;
+    mbar_wait(&k_full[j % NST], (j / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(&s[0][0], desc_kmajor(qw + (kk / 4) * BM * 64 + (kk % 4) * 16),
+                    desc_kmajor(kt + (kk / 4) * BN * 64 + (kk % 4) * 16), kk > 0);
+    wg_commit();
+  };
+  // O += P V of kv tile j, P from registers, V read transposed, one
+  // 64-column panel at a time
+  auto issue_pv = [&](int j) {
+    const bf16* vt = sV + (j % NST) * NP * BN * 64;
+    mbar_wait(&v_full[j % NST], (j / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs<1>(&o[p * 8][0], pa[kk], desc_mnmajor(vt + p * BN * 64 + kk * 16 * 64));
+    wg_commit();
+  };
+
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
+  };
+
+  mbar_wait(q_full, 0);
+  if constexpr (D == 64) {
+    // Software pipeline: tile j's S product is issued with tile j-1's P V,
+    // and S_j's softmax runs while the tensor cores finish P_{j-1} V_{j-1};
+    // O is rescaled once that product has completed.  The two consumer
+    // groups take turns to issue (named barriers 3 and 4, group 0 first),
+    // so one group's softmax runs under the other's products.
+    const int turn = 3 + w, other = 4 - w;
+    if (w == 1) named_arrive(3, 256);
+    named_sync(turn, 256);
+    issue_s(0);
+    named_arrive(other, 256);
+    wg_wait<0>();
+    fence_regs<64>(&s[0][0]);
+    softmax_tile(s, m, l, alpha, 0, kv_len, sl, lane);
+    acc_to_a_frags<8>(pa, s);
+    for (int j = 1; j < n_kv; ++j) {
+      named_sync(turn, 256);
+      issue_s(j);
+      issue_pv(j - 1);
+      named_arrive(other, 256);
+      wg_wait<1>();
+      fence_regs<64>(&s[0][0]);
+      softmax_tile(s, m, l, alpha, j * BN, kv_len, sl, lane);
+      wg_wait<0>();
+      fence_regs<D / 2>(&o[0][0]);
+      mbar_arrive(&empty[(j - 1) % NST]);
+      rescale_o();
+      acc_to_a_frags<8>(pa, s);
+    }
+    named_sync(turn, 256);
+    issue_pv(n_kv - 1);
+    if (w == 0) named_arrive(other, 256);  // every sync has its arrival
+  } else {
+    // D = 128: S, P and O do not fit beside each other in 168 registers
+    // (ptxas serialises the products and spills), so each tile runs in order
+    for (int j = 0; j < n_kv; ++j) {
+      issue_s(j);
+      wg_wait<0>();
+      fence_regs<64>(&s[0][0]);
+      softmax_tile(s, m, l, alpha, j * BN, kv_len, sl, lane);
+      rescale_o();
+      acc_to_a_frags<8>(pa, s);
+      if (j + 1 < n_kv) {
+        issue_pv(j);
+        wg_wait<0>();
+        fence_regs<D / 2>(&o[0][0]);
+        mbar_arrive(&empty[j % NST]);
+      }
+    }
+    issue_pv(n_kv - 1);
+  }
+  wg_wait<0>();
+  fence_regs<D / 2>(&o[0][0]);
+  mbar_arrive(&empty[(n_kv - 1) % NST]);
+
+  // epilogue: the row sums across the quad, the LSE, O / l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+  }
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+  const int row0 = q0 + 64 * w + r_loc;
   if (lse != nullptr && (lane & 3) == 0) {
     float* lb = lse + ((long long)b * H + h) * S;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row0 + 8 * r < S)
-        lb[row0 + 8 * r] =
-            l_i[r] > 0.f ? m_i[r] * (1.0f / LOG2E) + logf(l_i[r]) : LSE_EMPTY;
+        lb[row0 + 8 * r] = l[r] > 0.f ? m[r] * sl * (1.0f / LOG2E) + logf(l[r]) : LSE_EMPTY;
   }
-  bf16* ob = o + base;
+  // O as bf16 into this group's rows of the q tile (every S product that
+  // read them has completed), swizzled as TMA reads it, then one TMA store
+  // per panel
+  unsigned char* ob = reinterpret_cast<unsigned char*>(sQ);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + (lane & 3) * 2;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(ob + row0 * ld + col) =
-          bya::pack_bf16(acc[nd][0] * inv0, acc[nd][1] * inv0);
-    if (row0 + 8 < S)
-      *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * ld + col) =
-          bya::pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 64 * w + r_loc + 8 * hf, c = i % 8;
+      *reinterpret_cast<uint32_t*>(ob + (i / 8) * BM * 128 + r * 128 + ((c ^ (r & 7)) << 4) +
+                                   (lane & 3) * 4) =
+          pack_bf16(o[i][2 * hf] * inv[hf], o[i][2 * hf + 1] * inv[hf]);
+    }
+  fence_async_shared();
+  named_sync(1 + w, 128);
+  if (tw == 0 && q0 + 64 * w < S) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      tma_store_4d(to, sQ + p * BM * 64 + w * 64 * 64, 64 * p, q0 + 64 * w, h, b);
+    bulk_wait_read();
   }
 }
 
-constexpr int FWD_SMEM64 = 5 * BM * (64 + 8) * (int)sizeof(bf16);  // 46,080 B
+#define FWD_PARAMS                                                                         \
+  const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,          \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,      \
+      float *__restrict__ lse, int S, int H, int kv_len, float scale_log2
 
-// B1 and B7's forward: q prepared and pre-scaled, flat [B, S, H*64]
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 Layout L, int S, int H, int kv_len) {
-  __shared__ __align__(128) bf16 smem[FWD_SMEM64 / sizeof(bf16)];
-  fwd_body<64, false>(smem, q, k, v, o, lse, L, S, H, kv_len, 1.f);
+// B1 and B7's forward, flat [B, S, H*64]: SCALE = false behind the pre-pass
+// (q prepared and pre-scaled), true for the bare calls
+template <bool SCALE>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(FWD_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_body<64, SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
 }
 
-// B11
+// B11: bhsd / bshd, D = 64 or 128, the scale on the scores
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-mha_fwd_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                      Layout L, int S, int H, int kv_len, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  fwd_body<D, true>(reinterpret_cast<bf16*>(smem_raw), q, k, v, o, lse, L, S, H, kv_len,
-                    scale_log2);
+__global__ void __launch_bounds__(NTHREADS, 1) mha_fwd_layout_kernel(FWD_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_body<D, true>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
 }
 
 // ---------------------------------------------------------------- launchers
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
 
 template <typename K>
 cudaError_t launch_prep(K kernel, const void* q, const void* k, void* q_prep, void* k_prep,
@@ -289,6 +418,21 @@ cudaError_t launch_prep(K kernel, const void* q, const void* k, void* q_prep, vo
   return cudaGetLastError();
 }
 
+template <int D, typename K>
+int launch_fwd(K kernel, const void* q, const void* k, const void* v, void* o, float* lse,
+               Layout L, int B, int S, int H, int kv_len, float scale_log2, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, L, B, H, S, D, BM) || !make_map(&tk, k, L, B, H, S, D, BN) ||
+      !make_map(&tv, v, L, B, H, S, D, BN) || !make_map(&to, o, L, B, H, S, D, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = FwdSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + BM - 1) / BM, H, B);
+  kernel<<<grid, NTHREADS, smem, st>>>(tq, tk, tv, to, lse, S, H, kv_len, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int run_layout_fwd(const void* q, const void* k, const void* v, void* o, void* q_prep,
                    void* k_prep, const float* ln_q_w, const float* ln_q_b, const float* ln_k_w,
@@ -296,29 +440,24 @@ int run_layout_fwd(const void* q, const void* k, const void* v, void* o, void* q
                    int rope_rows, int B, int S, int H, int bshd, int kv_len, float scale,
                    float ln_eps, float* lse, cudaStream_t st) {
   const Layout L = make_layout(S, H, D, bshd);
-  cudaError_t err;
   if (q_prep != nullptr) {
-    err = launch_prep(layout_prep_kernel<D>, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w,
-                      ln_k_b, cos_t, sin_t, rope_start, rope_rows, B, S, H, L, 1.0f, ln_eps, st);
+    const cudaError_t err =
+        launch_prep(layout_prep_kernel<D>, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b,
+                    cos_t, sin_t, rope_start, rope_rows, B, S, H, L, 1.0f, ln_eps, st);
     if (err != cudaSuccess) return (int)err;
     q = q_prep;
     k = k_prep;
   }
-  const int smem = 5 * BM * (D + 8) * (int)sizeof(bf16);
-  err = allow_smem(mha_fwd_layout_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BM - 1) / BM, H, B);
-  mha_fwd_layout_kernel<D><<<grid, NTHREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, L, S, H, kv_len, scale * LOG2E);
-  return (int)cudaGetLastError();
+  return launch_fwd<D>(mha_fwd_layout_kernel<D>, q, k, v, o, lse, L, B, S, H, kv_len,
+                       scale * LOG2E, st);
 }
 
 }  // namespace
 
-// B1 / B7 forward.  q, k, v, o, q_prep, k_prep: [B, S, H*64] bf16,
-// contiguous.  ln_*: [64] fp32 or all null (no QK LayerNorm).  cos_t/sin_t:
-// [rope_rows, 64] fp32 or null (no RoPE).  lse: [B, H, S] fp32 or null.
+// B1 / B7 forward.  q, k, v, o: [B, S, H*64] bf16, contiguous.  ln_*: [64]
+// fp32 or all null (no QK LayerNorm).  cos_t/sin_t: [rope_rows, 64] fp32 or
+// null (no RoPE).  q_prep, k_prep: scratch of q's shape, required when there
+// is LN or RoPE, else unused (may be null).  lse: [B, H, S] fp32 or null.
 // Returns the cudaError_t of the launches.
 extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void* v, void* o,
                                         void* q_prep, void* k_prep, const float* ln_q_w,
@@ -329,16 +468,16 @@ extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void
                                         float ln_eps, float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout L = make_layout(S, H, 64, 1);
-  cudaError_t err = launch_prep(prep_qk_kernel, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w,
-                                ln_k_b, cos_t, sin_t, rope_start, rope_rows, B, S, H, L,
-                                scale * LOG2E, ln_eps, st);
+  if (ln_q_w == nullptr && cos_t == nullptr)
+    return launch_fwd<64>(flash_fwd_kernel<true>, q, k, v, o, lse, L, B, S, H, kv_len,
+                          scale * LOG2E, st);
+  if (q_prep == nullptr || k_prep == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_prep(prep_qk_kernel, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b, cos_t,
+                  sin_t, rope_start, rope_rows, B, S, H, L, scale * LOG2E, ln_eps, st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BM - 1) / BM, H, B);
-  flash_fwd_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(q_prep),
-                                              static_cast<const bf16*>(k_prep),
-                                              static_cast<const bf16*>(v),
-                                              static_cast<bf16*>(o), lse, L, S, H, kv_len);
-  return (int)cudaGetLastError();
+  return launch_fwd<64>(flash_fwd_kernel<false>, q_prep, k_prep, v, o, lse, L, B, S, H, kv_len,
+                        1.0f, st);
 }
 
 // B11.  q, k, v, o: [B, H, S, D] (bshd = 0) or [B, S, H, D] (bshd = 1) bf16,

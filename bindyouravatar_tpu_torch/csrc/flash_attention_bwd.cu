@@ -66,17 +66,11 @@
 //    have one owning CTA each and are.  Within a 64-column row the
 //    workspace's 16-byte chunks are XOR-swizzled by the row index, so the
 //    staging writes hit distinct banks.
-#include <cuda.h>
-
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using bya::bf16;
-using bya::Layout;
-using bya::LOG2E;
-using bya::make_layout;
-using bya::smem_addr;
+using namespace bya;
 
 constexpr int BQ = 64;    // q rows per streamed tile
 constexpr int BN = 128;   // kv rows per CTA: two consumer warp groups of 64
@@ -97,148 +91,6 @@ struct BwdSmem {
   static constexpr int BAR_OFF = ROW_OFF + NST * 2 * BQ * 4;
   static constexpr int BYTES = BAR_OFF + (2 * NST + 1) * 8 + 1024;  // + base alignment
 };
-
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.  A wait
-// that never ends (a lost arrival) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 22)) __trap();
-  }
-}
-
-// TMA: the box at (c0, c1, c2, c3) (innermost first) of a 4-D tensor map.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src, uint32_t bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy shared-memory writes -> visible to wgmma and bulk copies
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across a wgmma wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptors, 128-byte swizzle, for tiles of 128-byte
-// rows whose 8-row groups are 1024 bytes apart.  K-major (the operand's K
-// runs along the row): SBO = 1024, LBO unused; the K step moves the start
-// address 32 bytes within the swizzle atom.  MN-major (K runs down the
-// rows; the operand is exactly one 64-element atom wide): the 8-row K
-// groups are 1024 bytes apart, given as both SBO and LBO.
-__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], fp32 accumulators (the m16n8
-// C-fragment layout per warp: d[4i..4i+1] row g, cols 8i + 2t..; d[4i+2..3]
-// row g + 8), bf16 operands from shared memory.  TA / TB: the operand is
-// MN-major (read transposed).  accumulate = 0 overwrites d.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// The same with A from registers (the m16n8k16 A-fragment layout per warp).
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
-}
 
 // --------------------------------------------------------------- pre-pass
 
@@ -350,12 +202,6 @@ __device__ __forceinline__ void post_body(const float* __restrict__ dq_acc, bf16
     reinterpret_cast<__nv_bfloat162*>(out)[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
 }
 
-// 2^x on the special-function unit (about 2 ulp; P is rounded to bf16)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // -------------------------------------------------------- the fused kernel
 
@@ -400,7 +246,7 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
       mbar_init(&empty[s], 256);
     }
     mbar_init(kv_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -479,13 +325,7 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
           const float x = FLAT ? sT[i][e] : sT[i][e] * scale_log2;
           sT[i][e] = ok[e >> 1] ? fast_exp2(x - lt[c]) : 0.f;
         }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = bya::pack_bf16(sT[2 * kk][0], sT[2 * kk][1]);
-        pa[kk][1] = bya::pack_bf16(sT[2 * kk][2], sT[2 * kk][3]);
-        pa[kk][2] = bya::pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]);
-        pa[kk][3] = bya::pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3]);
-      }
+      acc_to_a_frags<4>(pa, sT);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -507,13 +347,7 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
           const float x = sT[i][e] * (dpT[i][e] - dt[c]);
           dpT[i][e] = FLAT ? x : x * scale;
         }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        da[kk][0] = bya::pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]);
-        da[kk][1] = bya::pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]);
-        da[kk][2] = bya::pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]);
-        da[kk][3] = bya::pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3]);
-      }
+      acc_to_a_frags<4>(da, dpT);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -632,39 +466,6 @@ __global__ void __launch_bounds__(256) mha_bwd_post_kernel(POST_PARAMS) {
 }
 
 // ---------------------------------------------------------------- host
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// The driver's tensor-map encoder, reached through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return EncodeTiled(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A [B, H, S, D] bf16 tensor map over `ptr` with the strides of L: boxes of
-// 64 columns x `rows` rows in the 128-byte swizzle; rows past S read as 0.
-bool make_map(CUtensorMap* map, const void* ptr, Layout L, int B, int H, int S, int D,
-              int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)L.ss * 2, (cuuint64_t)L.sh * 2,
-                                 (cuuint64_t)L.sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, bool FLAT, typename PreK, typename MainK, typename PostK>
 int run_bwd(PreK pre, MainK fused, PostK post, const void* q, const void* k, const void* v,

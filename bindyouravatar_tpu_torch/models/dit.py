@@ -39,6 +39,10 @@ from .router import (MultiIPRouterLayerProj, MultiIPRouterTrunk, PerceiverCrossA
                      RouterNorms, SelfAttention)
 
 
+# the checkpointing policies the port implements (`DiTConfig.remat_policy`)
+REMAT_POLICIES = (None, "nested")
+
+
 class DiT(nn.Module):
     """Denoiser with per-layer modules.  Build it with `create` (or `tiny`),
     then load a converted state dict or draw weights with `init_weights`."""
@@ -48,6 +52,11 @@ class DiT(nn.Module):
         super().__init__()
         if not cfg.use_rotary_positional_embeddings:
             raise NotImplementedError("the 2B sincos position table is not ported")
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: the port checkpoints with "
+                f"{REMAT_POLICIES}; JAX's 'save_attn' (keep the joint attention's output "
+                "across the group backward) is not ported yet (ROADMAP.md, queue A, item 2)")
         self.cfg, self.audio_cfg = cfg, audio_cfg
         self.router_cfg, self.lfe_cfg = router_cfg, lfe_cfg
         kw = dict(compute_dtype=cfg.dtype, dtype=cfg.param_dtype)

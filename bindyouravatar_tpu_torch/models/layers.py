@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import attention
-from ..ops.flash_attention import flash_attention_flat
+from ..ops.flash_attention import flash_attention, flash_attention_flat
 from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
 
 
@@ -166,7 +166,8 @@ class JointSelfAttention(nn.Module):
         it: kernel B7 on the flat projections when the heads pack into
         128 lanes (`heads % max(1, 128 // head_dim) == 0`, JAX
         `layers.py:354-367`), else kernels B11 and B12 + B13 on the [B, S, H, D]
-        view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`)."""
+        view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`;
+        below 1,024 rows `sdpa`, as JAX's dispatch rule decides)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,
                  bias: bool = True, out_bias: bool = True, lora_rank: int = 0,
@@ -210,8 +211,11 @@ class JointSelfAttention(nn.Module):
             if self.norm_q is not None:
                 qk_norm = (self.norm_q.weight, self.norm_q.bias,
                            self.norm_k.weight, self.norm_k.bias)
-            o = attention(q, k, v, rope=rope, rope_start=text_len, layout="flat",
-                          qk_norm=qk_norm, heads=self.heads)
+            # the fused flat form at every length: JAX pads the sequence to
+            # 2,048 rows and takes it from 1,024 on, below that its XLA path
+            # computes the same function
+            o = flash_attention(q, k, v, self.heads, rope=rope, rope_start=text_len,
+                                qk_norm=qk_norm, layout="flat")
         else:
             if self.norm_q is not None:
                 q, k = self.norm_q(q), self.norm_k(k)

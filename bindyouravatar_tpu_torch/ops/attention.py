@@ -1,13 +1,15 @@
 """Attention: plain scaled-dot-product attention and the layout dispatcher.
 
 Port of `bindyouravatar_tpu/ops/attention.py`: `attention` takes JAX's
-`layout` argument.  The projections' flat [B, S, H*D] layout (`"flat"`,
-with `heads`) goes to kernel B1 (`flash_attention`, inference only);
-[B, H, S, D] (`"bhsd"`, the default) and [B, S, H, D] (`"bshd"`) go to
-`flash_attention_layout` (B11, differentiable through B12 + B13 unless the
-QK LayerNorm is fused).  Each computes on the CPU through its plain
-version; `sdpa` is that plain math, chunked over queries so full
-sequences fit in memory.
+`layout` argument and JAX's dispatch rule.  A sequence of at least 1,024
+rows with as many kv rows as q rows goes to `flash_attention`: the
+projections' flat [B, S, H*D] layout (`"flat"`, with `heads`) to kernel B1
+(B7 under grad), [B, H, S, D] (`"bhsd"`, the default) and [B, S, H, D]
+(`"bshd"`) to `flash_attention_layout` (B11, differentiable through
+B12 + B13 unless the QK LayerNorm is fused).  Anything else takes `sdpa`,
+JAX's XLA math, after the QK LayerNorm and RoPE, as JAX's fallback does.
+Each kernel path computes on the CPU through its plain version; `sdpa` is
+that plain math, chunked over queries so full sequences fit in memory.
 """
 
 from __future__ import annotations
@@ -45,14 +47,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               rope_start: int = 0, layout: str = "bhsd",
               qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
               heads: Optional[int] = None) -> torch.Tensor:
-    """Non-causal self-attention over [B, H, S, D] (`layout="bhsd"`),
-    [B, S, H, D] (`"bshd"`) or flat [B, S, H*D] (`"flat"`, pass `heads`)
-    q/k/v, output in the input's layout, with optional fused per-head QK
-    LayerNorm and rotate-half RoPE on the rows [rope_start, rope_start +
-    len(table)); see `flash_attention`.  The JAX keywords that only choose
-    between its TPU kernel and its XLA fallback (`use_flash`,
-    `v_transposed`, `out_transposed`) have no counterpart here."""
-    from .flash_attention import flash_attention
+    """Self/cross attention over [B, H, S, D] (`layout="bhsd"`), [B, S, H,
+    D] (`"bshd"`) or flat [B, S, H*D] (`"flat"`, pass `heads`) q/k/v,
+    output in the input's layout, with optional per-head QK LayerNorm and
+    rotate-half RoPE on the rows [rope_start, rope_start + len(table)) of q
+    and of k.  The flash kernels take the call when the sequence axis has
+    at least 1,024 rows and q and k have as many (see `flash_attention`),
+    as in JAX; otherwise `sdpa` (any head dim, Sq != Skv allowed).  The JAX
+    keywords that only choose between its TPU kernel and its XLA fallback
+    (`use_flash`, `v_transposed`, `out_transposed`) have no counterpart
+    here."""
+    from .flash_attention import _head_layernorm, _rope_qk, flash_attention
 
-    return flash_attention(q, k, v, heads, scale=scale, kv_len=kv_len, rope=rope,
-                           rope_start=rope_start, qk_norm=qk_norm, layout=layout)
+    if layout not in ("flat", "bhsd", "bshd"):
+        raise ValueError(f"layout {layout!r}: expected 'flat', 'bhsd' or 'bshd'")
+    seq = 2 if layout == "bhsd" else 1
+    if q.shape[seq] >= 1024 and q.shape[seq] == k.shape[seq]:
+        return flash_attention(q, k, v, heads, scale=scale, kv_len=kv_len, rope=rope,
+                               rope_start=rope_start, qk_norm=qk_norm, layout=layout)
+    if layout == "flat":
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
+        out = attention(split(q), split(k), split(v), scale, kv_len, rope, rope_start, "bhsd",
+                        qk_norm)
+        return out.transpose(1, 2).reshape(q.shape[0], q.shape[1], -1)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if qk_norm is not None:
+        qs, qb, ks, kb = qk_norm
+        q, k = _head_layernorm(q, qs, qb), _head_layernorm(k, ks, kb)
+    q, k = _rope_qk(q, k, rope, rope_start)
+    out = sdpa(q, k, v, scale, kv_len)
+    return out.transpose(1, 2) if layout == "bshd" else out

@@ -4,8 +4,10 @@ the LSE, and the dq/dk/dv backward), and the general-layout kernels B11
 (forward over [B, H, S, D] or [B, S, H, D]) and B12 + B13 (its dq/dk/dv
 backward).
 
-The forwards come from `csrc/flash_attention.cu` (one body templated on
-the head dim and the scale mode), the backwards from
+Every forward comes from `csrc/flash_attention.cu`: one wgmma + TMA body
+(two consumer warp groups over a 128-row q tile, K and V streamed by TMA,
+an online max, P on the special-function unit), beside a q/k pre-pass
+where LN or RoPE needs one.  The backwards come from
 `csrc/flash_attention_bwd.cu`: one fused wgmma + TMA kernel that computes
 dq, dk and dv in one pass over the tiles, beside a pre-pass and a dq
 post-pass, instantiated for B7 (flat, the scale folded into the prepared
@@ -22,6 +24,11 @@ it, and the sequence is not padded: the kernels mask the ragged tail
 themselves.  The port does not mirror the JAX switch `COMBINED_BWD`, which
 picks between the combined and the two-kernel TPU backward for VMEM and
 layout reasons: on the GPU every backward is the one fused kernel.
+
+On the card, flat attention under grad goes through B7 (as JAX sends
+`qk_norm=None` through `_flash_flat`), and the fused QK-LN forms, which
+have no backward here or in JAX, raise under grad instead of returning a
+detached tensor (`kernel_path`).
 """
 
 from __future__ import annotations
@@ -70,16 +77,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Non-causal self-attention (the JAX `flash_attention`).
 
     `layout="flat"` (the default when `heads` is given): q/k/v [B, S, H*D]
-    -> [B, S, H*D] through kernel B1, inference only.  `layout="bhsd"`
-    (the default otherwise, as in JAX) or `"bshd"`: q/k/v [B, H, S, D] or
-    [B, S, H, D], output in the same layout, through `flash_attention_layout`
-    (B11, and the fused B12 + B13 for its gradient).
+    -> [B, S, H*D]; on the card through kernel B1 (inference) or, under
+    grad without `qk_norm`, through the differentiable B7
+    (`flash_attention_flat`).  `layout="bhsd"` (the default otherwise, as
+    in JAX) or `"bshd"`: q/k/v [B, H, S, D] or [B, S, H, D], output in the
+    same layout, through `flash_attention_layout` (B11, and the fused
+    B12 + B13 for its gradient).
 
     `qk_norm=(q_scale, q_bias, k_scale, k_bias)` ([D] each) applies the
-    per-head LayerNorm (eps 1e-6, fp32 stats); `rope=(cos, sin)` ([R, D])
-    rotates rows [rope_start, rope_start + R) after it; kv rows >= kv_len
-    are masked.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16; flat: D = 64) or raises."""
+    per-head LayerNorm (eps 1e-6, fp32 stats), inference only on the card;
+    `rope=(cos, sin)` ([R, D]) rotates rows [rope_start, rope_start + R)
+    after it; kv rows >= kv_len are masked.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (bf16; flat: D = 64) or
+    raises."""
     if layout is None:
         layout = "flat" if heads is not None else "bhsd"
     if layout != "flat":
@@ -87,6 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(heads is not None, "layout='flat' requires heads")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, heads, scale, kv_len, rope, rope_start, qk_norm)
+    if kernel_path(wants_grad(q, k, v, *(qk_norm or ())), qk_norm, "flat") == "B7":
+        return flash_attention_flat(q, k, v, heads, scale, kv_len, rope, rope_start)
     b, s, hd = q.shape
     d = hd // heads
     if scale is None:
@@ -99,19 +111,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ln = [None] * 4 if qk_norm is None else [f32(a) for a in qk_norm]
     cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, dev)
     o = torch.empty_like(q)
-    q_prep, k_prep = torch.empty_like(q), torch.empty_like(k)
+    q_prep, k_prep = _prep_scratch(q, k, qk_norm is not None or rope is not None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = cuda_lib().bya_flash_attention_flat(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_prep.data_ptr(),
-        k_prep.data_ptr(), *[ptr(a) for a in ln], ptr(cos), ptr(sin), rope_start,
-        rope_rows, b, s, heads, kv_len, float(scale), QK_NORM_EPS, None,
-        torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(q_prep), ptr(k_prep),
+        *[ptr(a) for a in ln], ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, kv_len,
+        float(scale), QK_NORM_EPS, None, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "flash_attention (B1)")
     flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd would record a call on `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def kernel_path(grad: bool, qk_norm, layout: str) -> str:
+    """The kernel a call on the card goes to: "B1" (flat inference), "B7"
+    (flat, differentiable) or "B11" (bhsd / bshd; differentiable through
+    B12 + B13 unless the QK-LN is fused).  With `qk_norm` fused there is
+    no backward (none in JAX either): under grad that raises."""
+    if grad and qk_norm is not None:
+        raise ValueError("flash_attention with a fused qk_norm is inference only: call it "
+                         "under torch.no_grad(), or apply the QK LayerNorm outside "
+                         "(HeadLayerNorm) and call it without qk_norm")
+    if layout != "flat":
+        return "B11"
+    return "B7" if grad else "B1"
+
+
+def _prep_scratch(q: torch.Tensor, k: torch.Tensor, prep: bool):
+    """The pre-pass's prepared q and k (LN, RoPE), or (None, None) for a
+    call with neither, which the forward reads directly."""
+    return (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -228,13 +264,12 @@ def flash_attention_flat_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, heads, s), dtype=torch.float32, device=q.device)
-    q_prep, k_prep = torch.empty_like(q), torch.empty_like(k)
+    q_prep, k_prep = _prep_scratch(q, k, rope is not None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = cuda_lib().bya_flash_attention_flat(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_prep.data_ptr(),
-        k_prep.data_ptr(), None, None, None, None, ptr(cos), ptr(sin), rope_start, rope_rows,
-        b, s, heads, kv_len, float(scale), 0.0, lse.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(q_prep), ptr(k_prep),
+        None, None, None, None, ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, kv_len,
+        float(scale), 0.0, lse.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention_flat forward (B7)")
     flash_attention_flat_fwd.launches += 1
     return o, lse
@@ -474,8 +509,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ln = [None] * 4 if qk_norm is None else [f32(a) for a in qk_norm]
     _require(all(a is None or a.shape == (d,) for a in ln), "qk_norm affines must be [D]")
     cos, sin, rope_rows = _rope_tables(rope, rope_start, s, d, q.device)
-    prep = qk_norm is not None or rope is not None
-    q_prep, k_prep = (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
+    q_prep, k_prep = _prep_scratch(q, k, qk_norm is not None or rope is not None)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -558,12 +592,15 @@ def flash_attention_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Non-causal self-attention over q/k/v [B, H, S, D] (`layout="bhsd"`)
     or [B, S, H, D] (`"bshd"`), output in the same layout (the bhsd/bshd
     branch of the JAX `flash_attention`).  With `qk_norm` the call is
-    inference only (B11 with the LN fused; no backward), as in JAX.
-    Without, it is differentiable: B11 forward, the fused B12 + B13 backward.  A
-    CPU tensor takes the plain version (autograd differentiates it)."""
-    if qk_norm is not None:
-        return flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)[0]
+    inference only (B11 with the LN fused; no backward, as in JAX): on the
+    card it raises under grad.  Without, it is differentiable: B11
+    forward, the fused B12 + B13 backward.  A CPU tensor takes the plain
+    version (autograd differentiates it)."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start)[0]
+        return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start,
+                                         qk_norm)[0]
+    if qk_norm is not None:
+        kernel_path(wants_grad(q, k, v, *qk_norm), qk_norm, layout)
+        return flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)[0]
     return _FlashLayout.apply(q.contiguous(), k.contiguous(), v.contiguous(), layout, scale,
                               kv_len, rope, rope_start)

@@ -29,8 +29,10 @@ those groups.
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
@@ -83,6 +85,32 @@ def _mark_router(dit: DiT) -> None:
     for m in (dit.router_norms, dit.router_trunk, *dit.router_layers):
         m.register_forward_pre_hook(enter)
         m.register_forward_hook(leave)
+
+
+def kernel_ms(fn, runs: int = 5) -> Optional[float]:
+    """Device time of the kernels that `fn` launches, in ms per call, from
+    the profiler's device records of `runs` calls (after one warm-up
+    call): for each kernel name the median record times its launches per
+    call (records / runs, rounded), summed.  Unlike CUDA events around
+    `fn`, it leaves out the host time of the wrapper while the card waits;
+    a record the profiler misses (it can drop some at the edge of a short
+    window) changes neither the median nor the rounded count.  None when
+    the window holds no device record at all."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    per_name = defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            per_name[e.name()].append(e.duration_ns())
+    if not per_name:
+        return None
+    return sum(statistics.median(ns) * max(1, round(len(ns) / runs))
+               for ns in per_name.values()) / 1e6
 
 
 def _report(prof, wall: float, steps: int, what: str, groups) -> None:

@@ -18,8 +18,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      per identity), B2c and B2h head-major short-KV attention (combined,
      per identity)) against its plain PyTorch version on the card, at the
      serving or train step's shapes and at a ragged shape, with the stated
-     tolerance; kernel, plain version and (where one PyTorch call computes
-     the same function) that library call timed, and the bound computed.
+     tolerance (the flash forward also at S = 1,350 with kv_len = 1,000,
+     whole kv tiles past it, and with logits of several hundred, which only
+     an online max keeps finite); kernel, plain version and (where one
+     PyTorch call computes the same function) that library call timed with
+     CUDA events, the forwards also from profiler device records, and the
+     bound computed.
   3. a reduced audio-only DiT step and a reduced fully conditioned one
      (face + audio, 3 latent frames so B5' runs) on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, fp32); the face
@@ -34,7 +38,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
   3d. the general-layout entry points once each at the 5B geometries
      (`attention(layout="bshd", qk_norm=...)`, `flash_attention(layout=
      "bhsd")` forward and backward, the four JAX-layout short-KV entry
-     points), outputs against the plain versions, exact launch counts.
+     points), outputs against the plain versions; flat
+     `flash_attention` under grad (B7 forward and backward, q's gradient
+     against the plain backward) and the fused QK-LN forms under grad
+     (they must raise); exact launch counts.
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
@@ -119,6 +126,7 @@ def kernel_phase(results: dict) -> bool:
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
     from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
     from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
+    from bindyouravatar_tpu_torch.profile_step import kernel_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(1234)
@@ -127,24 +135,36 @@ def kernel_phase(results: dict) -> bool:
     bf = torch.bfloat16
     ok_all = True
 
-    def report(name, tag, got, want, atol, rtol, kern, plain, runs, library=None, work=None):
+    def report(name, tag, got, want, atol, rtol, kern, plain, runs, library=None, work=None,
+               records=False):
         """Compare, time kernel / plain / library call; `work` = (bytes,
-        flops, peak kind) of the call for its bound."""
+        flops, peak kind) of the call for its bound.  `records`: also the
+        kernels' own time from profiler device records (`kernel_ms`), which
+        leaves out the wrapper's host time that CUDA events around a
+        sub-millisecond call take in."""
         nonlocal ok_all
         err, rel, ok = _compare(got, want, atol, rtol)
         ms, plain_ms = _time_ms(kern, runs), _time_ms(plain, max(1, runs // 2))
         lib_ms = None if library is None else _time_ms(library, runs)
+        # at least 10 calls in the profiler's window: a short one can miss records
+        rec_ms = kernel_ms(kern, max(runs, 10)) if records else None
         bound_ms, bound_by = _bound(*work) if work is not None else (None, None)
         ok_all &= ok
         extra = "" if bound_ms is None else f" bound_ms={bound_ms:.4f} ({bound_by})"
         extra += f" library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'}"
+        if records:
+            extra += f" kernel_records_ms={'none' if rec_ms is None else f'{rec_ms:.4f}'}"
         print(f"kernel {name} {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"tol=|d|<={atol}+{rtol}*|ref| {'ok' if ok else 'FAILED'} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}", flush=True)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+        if records:
+            r["kernel_records_ms"] = rec_ms
+        return r
 
-    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
+    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work,
+                   records=False):
         """One line per output (first one timed), each within `rel` of the
         reference's largest magnitude (+ `rel` relative); ok only if all
         agree."""
@@ -154,7 +174,7 @@ def kernel_phase(results: dict) -> bool:
             sub = f"{tag} out{i}"
             if i == 0:
                 r = report(name, sub, got, want, _rel_compare(got, want, rel), rel, kern, plain,
-                           runs, library, work)
+                           runs, library, work, records)
             else:
                 err, relerr, ok = _compare(got, want, _rel_compare(got, want, rel), rel)
                 ok_all &= ok
@@ -172,16 +192,22 @@ def kernel_phase(results: dict) -> bool:
 
     # --- B1: joint self-attention, q/k/v [2, 17776, 48*64]; ragged S=1000 with
     # a masked kv tail; the bare path (no LN, no RoPE) of the STAB spatial
-    # attention at [52, 1350, 8*64] and at a ragged S=777.
-    # tol: both sides round LN/RoPE outputs and p to bf16; the kernel also
-    # rounds the scaled q (one more bf16 ulp, ~0.4% of a logit).
+    # attention at [52, 1350, 8*64], at a ragged S=777, at S=1350 with
+    # kv_len=1000 (a part-masked kv tile, whole tiles past kv_len never
+    # read) and with q and k scaled by 8 (logits of several hundred, so only
+    # an online max keeps 2^s finite).
+    # tol: both sides round LN/RoPE outputs and p to bf16; behind LN/RoPE the
+    # kernel also rounds the scaled q (one more bf16 ulp, ~0.4% of a logit);
+    # the bare calls scale the fp32 scores, as the plain version does.
     # library: SDPA computes the bare function only (no QK-LN, no RoPE).
-    for tag, b, s, h, text_len, grid, kv_len in (
-            ("slice[2,17776,3072]", 2, 17776, 48, 226, (13, 30, 45), None),
-            ("ragged[1,1000,512] kv_len=937", 1, 1000, 8, 10, (3, 18, 18), 937),
-            ("bare[52,1350,512] no LN/RoPE", 52, 1350, 8, 0, None, None),
-            ("ragged[2,777,256] no LN/RoPE", 2, 777, 4, 0, None, None)):
-        q, k, v = (rnd(b, s, h * 64).to(bf) for _ in range(3))
+    for tag, b, s, h, text_len, grid, kv_len, mag in (
+            ("slice[2,17776,3072]", 2, 17776, 48, 226, (13, 30, 45), None, 1.0),
+            ("ragged[1,1000,512] kv_len=937", 1, 1000, 8, 10, (3, 18, 18), 937, 1.0),
+            ("bare[52,1350,512] no LN/RoPE", 52, 1350, 8, 0, None, None, 1.0),
+            ("ragged[2,777,256] no LN/RoPE", 2, 777, 4, 0, None, None, 1.0),
+            ("ragged[2,1350,512] kv_len=1000 no LN/RoPE", 2, 1350, 8, 0, None, 1000, 1.0),
+            ("large[4,1350,512] q,k x8 no LN/RoPE", 4, 1350, 8, 0, None, None, 8.0)):
+        q, k, v = (rnd(b, s, h * 64, std=mag if i < 2 else 1.0).to(bf) for i in range(3))
         kw = dict(kv_len=kv_len)
         library = None
         if grid is not None:
@@ -195,7 +221,8 @@ def kernel_phase(results: dict) -> bool:
         kern = lambda: fa.flash_attention(q, k, v, h, **kw)
         plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
         work = (_nbytes(q, k, v, q), 4.0 * b * h * s * (kv_len or s) * 64, "bf16")
-        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work)
+        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work,
+                   records=True)
         if tag.startswith(("slice", "bare")):
             results["B1" if tag.startswith("slice") else "B1 bare"] = r
 
@@ -338,14 +365,15 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     for tag, b, s, h, text_len, grid, kv_len in (
             ("train[1,17776,3072] rope", 1, 17776, 48, 226, (13, 30, 45), None),
             ("bare[26,1350,512]", 26, 1350, 8, 0, None, None),
-            ("ragged[1,1000,512] kv_len=937 rope", 1, 1000, 8, 10, (3, 18, 18), 937)):
+            ("ragged[1,1000,512] kv_len=937 rope", 1, 1000, 8, 10, (3, 18, 18), 937),
+            ("ragged bare[2,1350,512] kv_len=1000", 2, 1350, 8, 0, None, 1000)):
         q, k, v, do = (rnd(b, s, h * 64).to(bf) for _ in range(4))
         kw = dict(kv_len=kv_len)
         lib_f = lib_b = None
         if grid is not None:
             kw.update(rope=get_3d_rotary_pos_embed(64, ((0, 0), grid[1:]), grid[1:], grid[0],
                                                    device=dev), rope_start=text_len)
-        else:
+        elif kv_len is None:
             qb, kb, vb = (bhsd(t, h).requires_grad_() for t in (q, k, v))
             ob = F.scaled_dot_product_attention(qb, kb, vb)
             dob = bhsd(do, h)
@@ -358,7 +386,7 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
         o_p, lse_p = fwd_plain()
         work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * 64, "bf16")
         r = report_all("B7 fwd", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain,
-                       3, lib_f, work)
+                       3, lib_f, work, records=True)
         delta = fa.attention_delta(o, do, h)
         bwd = lambda: fa.flash_attention_flat_bwd(q, k, v, do, lse, delta, h, **kw)
         bwd_plain = lambda: fa.flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, h,
@@ -483,10 +511,17 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
              ("ragged bshd[1,1000,8,64] kv_len=937 RoPE", "bshd", 1, 1000, 8, 64, 10,
               (3, 18, 18), False, 937),
              ("ragged bhsd[1,8,1000,64] kv_len=937 RoPE", "bhsd", 1, 1000, 8, 64, 10,
-              (3, 18, 18), False, 937))
+              (3, 18, 18), False, 937),
+             ("ragged bare bhsd[2,8,1350,64] kv_len=1000", "bhsd", 2, 1350, 8, 64, 0, None,
+              False, 1000),
+             ("ragged bare D=128 bshd[1,1350,4,128] kv_len=1000", "bshd", 1, 1350, 4, 128, 0,
+              None, False, 1000),
+             ("large bare bhsd[2,8,1350,64] q,k x8", "bhsd", 2, 1350, 8, 64, 0, None, False,
+              None))
     for tag, layout, b, s, h, d, text_len, grid, ln_on, kv_len in cases:
         shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
-        q, k, v = (rnd(*shape).to(bf) for _ in range(3))
+        mag = 8.0 if tag.startswith("large") else 1.0   # logits of several hundred
+        q, k, v = (rnd(*shape, std=mag if i < 2 else 1.0).to(bf) for i in range(3))
         kw = dict(layout=layout, kv_len=kv_len)
         if grid is not None:
             kw.update(rope=get_3d_rotary_pos_embed(d, ((0, 0), grid[1:]), grid[1:], grid[0],
@@ -508,11 +543,11 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
         o_p, lse_p = fwd_plain()
         work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * d, "bf16")
         r = report_all("B11", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain, 3, lib_f,
-                       work)
+                       work, records=True)
         if tag.startswith("bshd[2"):
             results["B11"] = r
         del o_p, lse_p
-        if ln_on:
+        if ln_on or mag != 1.0:
             continue
         do = rnd(*shape).to(bf)
         bw = {key: val for key, val in kw.items() if key != "qk_norm"}
@@ -574,7 +609,10 @@ def entry_point_phase(launches: dict) -> bool:
     (B11, B12 + B13), `short_kv_attention_combined_qmajor` (audio geometry)
     and `short_kv_attention_qmajor` (perceiver geometry; B14),
     `short_kv_attention_combined` (B2c) and `short_kv_attention` (B2h);
-    outputs against the plain versions, gradients finite; fills
+    outputs against the plain versions, gradients finite.  Then flat
+    `flash_attention` with RoPE under grad, which must take B7 (a tracked
+    output, q's gradient against the plain B7 backward), and its fused
+    QK-LN forms under grad, flat and bhsd, which must raise.  Fills
     `launches`."""
     import torch
     from bindyouravatar_tpu_torch.ops import flash_attention as fa
@@ -617,6 +655,11 @@ def entry_point_phase(launches: dict) -> bool:
             q_h, *kv_a, w, 0.125), (kv_a, None)),
         ("short_kv_attention", lambda: skv.short_kv_attention(q_h, *kv_a, 0.125),
          lambda: skv.short_kv_attention_plain(q_h, *kv_a, 0.125), None))
+    # flat attention under grad: the differentiable B7 (forward and
+    # backward), as JAX's `_flash_flat`; the fused QK-LN forms, which have
+    # no backward, raise instead of returning a detached tensor
+    q_f, k_f, v_f = (rnd(1, 17776, 3072).requires_grad_() for _ in range(3))
+    do_f = rnd(1, 17776, 3072)
     ok = True
     outs = []
     torch.cuda.synchronize()
@@ -629,10 +672,23 @@ def entry_point_phase(launches: dict) -> bool:
             gs = torch.autograd.grad(out, leaves, out.detach() if g is None else g)
             finite = all(bool(t.isfinite().all()) for t in gs)
         outs.append((out.detach(), finite))
+    o_f = fa.flash_attention(q_f, k_f, v_f, 48, rope=rope, rope_start=226)
+    tracked = o_f.requires_grad and o_f.grad_fn is not None
+    dq_f = torch.autograd.grad(o_f, q_f, do_f)[0] if tracked else None
+    raised = []
+    for fused in (lambda: fa.flash_attention(q_f, k_f, v_f, 48, rope=rope, rope_start=226,
+                                             qk_norm=norm),
+                  lambda: fa.flash_attention(*qkv, layout="bhsd", qk_norm=norm)):
+        try:
+            fused()
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
     torch.cuda.synchronize()
     launches.update(_read_launches())
     want = {k: 0 for k in _kernel_fns()}
-    want.update({"B11": 2, "B12+B13": 1, "B14": 2, "B2c": 1, "B2h": 1})
+    want.update({"B7 fwd": 1, "B7 bwd": 1, "B11": 2, "B12+B13": 1, "B14": 2, "B2c": 1,
+                 "B2h": 1})
     for (name, _, plain, _), (out, finite) in zip(calls, outs):
         with torch.no_grad():
             ref = plain()
@@ -641,6 +697,23 @@ def entry_point_phase(launches: dict) -> bool:
         ok &= match and finite
         print(f"entry point {name}: output {tuple(out.shape)} max_abs_err={err:.3e} "
               f"gradients finite={finite} {'ok' if match and finite else 'FAILED'}", flush=True)
+    grad_ok = tracked and all(raised)
+    if tracked:
+        with torch.no_grad():
+            o_p, lse_p = fa.flash_attention_flat_fwd_plain(q_f, k_f, v_f, 48, rope=rope,
+                                                           rope_start=226, block_q=512)
+            dq_p = fa.flash_attention_flat_bwd_plain(
+                q_f, k_f, v_f, do_f, lse_p, fa.attention_delta(o_p, do_f, 48), 48, rope=rope,
+                rope_start=226, block_q=512)[0]
+        # tol: phase 2's B7 backward tolerance, 2% of the largest |dq|
+        err, _, match = _compare(dq_f, dq_p, _rel_compare(dq_f, dq_p, 2e-2), 2e-2)
+        grad_ok &= match
+        print(f"entry point flash_attention flat [1,17776,3072] RoPE under grad: grad_fn "
+              f"{type(o_f.grad_fn).__name__}, q.grad vs the plain B7 backward "
+              f"max_abs_err={err:.3e} {'ok' if match else 'FAILED'}", flush=True)
+    print(f"entry point flash_attention under grad: output tracked={tracked}; fused QK-LN "
+          f"flat / bhsd raise={raised} {'ok' if grad_ok else 'FAILED'}", flush=True)
+    ok &= grad_ok
     counts_ok = launches == want
     ok &= counts_ok
     print("entry points: launches " + " ".join(f"{k}={launches[k]} (want {want[k]})"
@@ -1175,8 +1248,9 @@ def main(argv=None) -> int:
         _build.import_triton()
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
-    print(f"build: {lib.name} (nvcc sm_90a, B1 + B2 + B3 + B5 + B7 forward + B8 + B11 + B14 + "
-          f"B2c + B2h, the fused flash backward of B7 and B12 + B13) and triton import in "
+    print(f"build: {lib.name} (nvcc sm_90a: the flash forward of B1, B7 and B11, the fused "
+          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8) and triton "
+          f"import in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]

@@ -63,7 +63,9 @@ def unpaired():
 def test_unpaired_heads_take_the_bshd_attention(unpaired, monkeypatch):
     """3 heads of 64 do not pair in 128 lanes: the training path calls the
     general-layout attention with the [B, S, H, D] view, never the flat B7
-    attention; 12 heads of 64 stay flat."""
+    attention; 12 heads of 64 stay flat.  At 16 + 1,024 rows, so that
+    `attention`'s dispatch rule (flash from 1,024 rows) takes the kernel
+    path."""
     calls = []
     real = tfa.flash_attention_layout
     monkeypatch.setattr(tfa, "flash_attention_layout",
@@ -72,7 +74,7 @@ def test_unpaired_heads_take_the_bshd_attention(unpaired, monkeypatch):
                         lambda *a, **k: calls.append("flat") or tfa.flash_attention_flat(*a, **k))
     for heads in (3, 12):
         tm = JointSelfAttention(unpaired["dim"], heads, 64, compute_dtype=torch.float32)
-        tm(*to_torch(unpaired["hidden"][:, :8], unpaired["enc"][:, :4]), None)
+        tm(*to_torch(unpaired["hidden"], unpaired["enc"]), None)
     assert calls == ["bshd", "flat"]
 
 
