@@ -1,5 +1,5 @@
 // Long-query / short-KV cross-attention: kernels B2, B3, B14, B2c and B2h,
-// one body templated on the head dim, the mode and the layout:
+// one body templated on the head dim and the mode:
 //
 //   per identity:  o[g, i, ., h] = softmax_k(q . k_i^T * scale) . v_i
 //   combined:      o[g, ., h]    = sum_i w[g, ., i] * softmax_k(q . k_i^T * scale) . v_i
@@ -24,9 +24,11 @@
 //       (`short_kv_attention`: [G, H, Sq, D] -> [G, I, H, Sq, D]).
 // Each has its own kernel name (B2 and B3 keep theirs, B14/B2c/B2h are the
 // instantiations of `skv_layout_kernel`), so device time groups by body.
+// The layout lives in the tensor maps only: the body reads and writes
+// (column, row, head, batch) boxes, whatever the strides.
 //
 // Same math and roundings as the TPU bodies: fp32 scores in log2 units
-// (q.k * scale * log2 e), one fp32 exp2 softmax per identity normalised
+// (q.k * scale * log2 e), one exp2 softmax per identity normalised in fp32
 // before p is rounded to bf16, fp32 P.V, the combine an fp32 weighted sum,
 // one bf16 store.
 //
@@ -36,82 +38,320 @@
 // identity, far below the ~295 FLOP/B ridge.  At the 5B path B2 moves
 // ~144 MB of q and ~288 MB of output per call (~0.13 ms at 3.35 TB/s).
 //
-// Design: one block = 4 warps for one (g, head) and 256 query rows.  The
-// block stages every identity's K and V for its head in shared memory once
-// (I * 32 rows of D: 16 KB at I = 2, D = 64; 32 KB at D = 128) and streams
-// 64-row query tiles past them.  A warp keeps its 16 rows' q fragments in
-// registers and computes each identity's [16, 32] scores, softmax and
-// [16, D] output in registers, then stores it (per identity) or adds it,
-// weighted, to an fp32 accumulator (combined).  Query rows past Sq are
-// zero-filled on load and never stored.  Shared memory is dynamic (~51 KB
-// at I = 2, D = 128), so the launcher raises each kernel's limit.
-#include "mma_utils.cuh"
+// Design: a persistent kernel that keeps the q stream and the output
+// stream in flight and never waits on either.
+//  * Work: a block keeps one head.  The grid is m blocks per head (as many
+//    as fit on the card at once); a head's G x ceil(Sq / 64) q tiles of 64
+//    rows are cut into m equal contiguous shares, and share s of every
+//    head goes to blocks s H .. s H + H - 1, which start together and so
+//    read and write the heads of the same rows side by side (in the
+//    q-major layout those are neighbours in memory; B3 0.250 ms with each
+//    block's share taken from one list of all heads' tiles, 0.212 so).  A
+//    block loads its head's K and V (I x 2 x 32 x D) once per batch g, by
+//    TMA (two K/V buffers at D = 64, so the next batch's load overlaps the
+//    last tiles of this one; one at D = 128).
+//  * One producer warp keeps a ring of q tiles in flight by TMA with
+//    mbarriers (3 at D = 64, 4 at D = 128; rows past Sq are zero-filled by
+//    the copy).  In combined mode the tile's [64, I] slice of w comes with
+//    it: the producer's 32 lanes load it while the tile's copy is in flight
+//    and store it into the ring slot before the producer next waits (a
+//    wait first could deadlock: with one K/V buffer the consumers free it
+//    only after the tile that needs this slice).  A TMA box must start on a
+//    16-byte boundary, and the slice starts at (g Sq + q0) I elements,
+//    which at Sq = 1,350 is not one for odd g.  Loaded by each consumer
+//    thread for its own rows instead, the weights' latency stood in the
+//    way of every tile (B3 0.212 ms, 0.178 with constant weights; times
+//    here are kernel records on an H100 80GB HBM3 at 700 W).
+//  * Four consumer warps take 16 rows each.  A warp copies its q fragments
+//    into registers and frees the ring slot at once, then per identity
+//    computes the [16, 32] scores (mma.sync: at 64-85 FLOP/B the tensor
+//    cores are idle either way), the softmax with ex2.approx, and P.V one
+//    64-column panel at a time.  A wgmma form of this body (one warp group
+//    a block, the scores of two identities per m64n64k16 product) was
+//    slower at D = 64 (B3 0.292 against 0.238 ms): the block's only
+//    consumers then wait on each product in turn, where four independent
+//    warps overlap one another's latencies.
+//  * The output leaves through shared memory: each warp writes a [16, 64]
+//    bf16 panel into its own staging buffers (two, in the 128-byte swizzle)
+//    and one lane stores it by TMA (rows >= Sq are clipped), so a panel's
+//    store overlaps the next panel's math; a buffer is rewritten only after
+//    the store that read it has left shared memory.  No barrier spans
+//    warps except the ring's and the K/V buffers' mbarriers.
+// Shared memory is dynamic (`SkvSmem`); the launcher raises each kernel's
+// limit.
+#include "hopper.cuh"
 
 namespace {
 
-using bya::bf16;
+using namespace bya;
 
-constexpr int BM = 64;  // query rows per tile (16 per warp)
-constexpr int ROWS_PER_BLOCK = 256;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int KT = 32;  // tokens per identity
+constexpr int BM = 64;   // q rows per tile (16 per consumer warp)
+constexpr int KT = 32;   // tokens per identity
 constexpr int MAX_ID = 4;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int NCW = 4;   // consumer warps
+constexpr int NTHREADS = (NCW + 1) * 32;
+constexpr int NSB = 2;   // staging buffers per consumer warp
+constexpr int PANEL_ROWS = 16;
+constexpr int OUT_PANEL = PANEL_ROWS * 128;  // bytes of one [16, 64] bf16 panel
 
-template <int D, bool COMBINE, bool QMAJOR>
-__device__ __forceinline__ void skv_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                         const bf16* __restrict__ v, const bf16* __restrict__ w,
-                                         bf16* __restrict__ o, int Sq, int I, int H,
+// Shared memory of one block, from a 1024-aligned base: the q ring, the
+// consumers' staging buffers, the barriers and the ring of routing-weight
+// slices (combined), then the K/V buffers: at I = 2, 74 KB at D = 64
+// (three blocks an SM) and 114 KB at D = 128 (one; four q stages in one
+// block measured faster than three in each of two).
+template <int D>
+struct SkvSmem {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int NST = D == 64 ? 3 : 4;   // q ring stages
+  static constexpr int KVB = D == 64 ? 2 : 1;   // K/V buffers
+  static constexpr int Q_TILE = BM * D * 2;     // bytes of a q tile
+  static constexpr int KV_PANEL = KT * 128;     // bytes of one identity's [32, 64] panel
+  static constexpr int Q_OFF = 0;
+  static constexpr int OUT_OFF = Q_OFF + NST * Q_TILE;
+  static constexpr int BAR_OFF = OUT_OFF + NCW * NSB * OUT_PANEL;
+  static constexpr int W_OFF = BAR_OFF + 128;   // [NST][BM][I] bf16, combined only
+  // the K/V buffers start at the next 1024 bytes past the w ring
+  __host__ __device__ static int kv_off(int I, bool combine) {
+    return (W_OFF + (combine ? NST * BM * I * 2 : 0) + 1023) / 1024 * 1024;
+  }
+  // one K/V buffer: K as [I][NP][32][64], then V the same
+  __host__ __device__ static int kv_buffer(int I) { return 2 * I * NP * KV_PANEL; }
+  // + 1024 for the base alignment
+  static int bytes(int I, bool combine) {
+    return kv_off(I, combine) + KVB * kv_buffer(I) + 1024;
+  }
+};
+
+// The (batch, first row) of position j of a head's tile list (j = g tiles
+// + q0 / BM), advanced without divisions.
+struct TileCursor {
+  int q0, g;
+  __device__ __forceinline__ void seek(long long j, int tiles) {
+    g = (int)(j / tiles);
+    q0 = (int)(j - (long long)g * tiles) * BM;
+  }
+  __device__ __forceinline__ void next(int Sq) {
+    q0 += BM;
+    if (q0 >= Sq) {
+      q0 = 0;
+      ++g;
+    }
+  }
+};
+
+// Wait until all but the newest N bulk groups of this thread have read
+// their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_but() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// c = a * b (m16n8k16, bf16 x bf16 -> fp32) from a zero accumulator, which
+// costs no instructions to clear
+__device__ __forceinline__ void mma_bf16_first(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a 128-byte-swizzled
+// panel of 128-byte rows.
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+template <int D, bool COMBINE>
+__device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensorMap* tq,
+                                         const CUtensorMap* tk, const CUtensorMap* tv,
+                                         const CUtensorMap* to, const bf16* __restrict__ w,
+                                         int Sq, int I, int H, int tiles, long long total,
                                          float scale_log2) {
-  constexpr int LDS = D + 8, KS = D / 16, ND = D / 8, NT = KT / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM * LDS;
-  bf16* sV = sK + I * KT * LDS;
+  using SM = SkvSmem<D>;
+  constexpr int NP = SM::NP, NST = SM::NST, KVB = SM::KVB, KS = D / 16;  // KS: k steps of 16
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem + SM::Q_OFF;                     // [NST][NP][BM][64], swizzled
+  unsigned char* sOut = smem + SM::OUT_OFF;                 // [NCW][NSB][16][64], swizzled
+  unsigned char* sKV = smem + SM::kv_off(I, COMBINE);       // [KVB] K/V buffers
+  bf16* sW = reinterpret_cast<bf16*>(smem + SM::W_OFF);     // [NST][BM][I]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
+  uint64_t* empty = full + NST;
+  uint64_t* kv_full = empty + NST;
+  uint64_t* kv_empty = kv_full + KVB;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.y, g = blockIdx.z;
-  // q (and the combined output): rows H * D apart (q-major) or D apart
-  const long long ld = QMAJOR ? (long long)H * D : (long long)D;
-  const bf16* qb =
-      q + (QMAJOR ? ((long long)g * Sq * H + h) * D : ((long long)g * H + h) * Sq * D);
+  // this block's head and its share of that head's G * tiles tiles (the
+  // grid is a multiple of H: the blocks of one share run the heads of the
+  // same rows side by side)
+  const int h = (int)(blockIdx.x % H), m = (int)(gridDim.x / H), share = (int)(blockIdx.x / H);
+  const long long t_begin = total * share / m, t_end = total * (share + 1) / m;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], COMBINE ? 2 : 1);  // the q copy, and the w slice
+      mbar_init(&empty[s], NCW);
+    }
+    for (int b = 0; b < KVB; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], NCW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int i = 0; i < I; ++i) {
-    const long long kv_off = (((long long)g * I + i) * H + h) * KT * D;
-    bya::load_rows<KT, D, NTHREADS>(sK + i * KT * LDS, LDS, k + kv_off, D, 0, KT, tid);
-    bya::load_rows<KT, D, NTHREADS>(sV + i * KT * LDS, LDS, v + kv_off, D, 0, KT, tid);
+  if (warp == NCW) {  // producer: one lane issues the copies; in combined
+                      // mode the warp also copies each tile's w slice
+    // w[g, q0 .. q0 + 63, :] (zeros past Sq): element lane + 32 k of the
+    // slice, loaded while the tile's copy is in flight and stored into the
+    // ring at the top of the next iteration
+    unsigned short wr[2 * MAX_ID] = {};
+    auto load_w = [&](const TileCursor& c) {
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(w) +
+                                  ((long long)c.g * Sq + c.q0) * I;
+#pragma unroll
+      for (int k = 0; k < 2 * MAX_ID; ++k) {
+        const int e = lane + 32 * k;
+        wr[k] = k < 2 * I && c.q0 + e / I < Sq ? src[e] : 0;
+      }
+    };
+    auto store_w = [&](int st) {
+      unsigned short* dst = reinterpret_cast<unsigned short*>(sW + st * BM * I);
+#pragma unroll
+      for (int k = 0; k < 2 * MAX_ID; ++k)
+        if (k < 2 * I) dst[lane + 32 * k] = wr[k];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[st]);
+    };
+    TileCursor c;
+    c.seek(t_begin, tiles);
+    int n_kv = 0, n = 0;
+    for (long long t = t_begin; t < t_end; ++t, ++n, c.next(Sq)) {
+      // the last tile's w slice goes in before any wait: the consumers free
+      // a K/V buffer only once they have finished that tile, which needs it
+      if (COMBINE && n > 0) store_w((n - 1) % NST);
+      if (lane == 0 && (t == t_begin || c.q0 == 0)) {  // a new batch: this head's K, V
+        const int b = n_kv % KVB;
+        if (n_kv >= KVB) mbar_wait(&kv_empty[b], (n_kv / KVB - 1) & 1);
+        mbar_expect_tx(&kv_full[b], SM::kv_buffer(I));
+        unsigned char* kb = sKV + b * SM::kv_buffer(I);
+        for (int i = 0; i < I; ++i)
+          for (int p = 0; p < NP; ++p) {
+            tma_load_4d(kb + (i * NP + p) * SM::KV_PANEL, tk, 64 * p, 0, h, c.g * I + i,
+                        &kv_full[b]);
+            tma_load_4d(kb + ((I + i) * NP + p) * SM::KV_PANEL, tv, 64 * p, 0, h, c.g * I + i,
+                        &kv_full[b]);
+          }
+        ++n_kv;
+      }
+      const int st = n % NST;
+      if (n >= NST) mbar_wait(&empty[st], (n / NST - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], SM::Q_TILE);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sQ + st * SM::Q_TILE + p * BM * 128, tq, 64 * p, c.q0, h, c.g, &full[st]);
+      }
+      if constexpr (COMBINE) load_w(c);  // stored into the ring next iteration
+    }
+    if (COMBINE && n > 0) store_w((n - 1) % NST);
+    return;
   }
 
-  const int row_end = min(Sq, (int)(blockIdx.x + 1) * ROWS_PER_BLOCK);
-  for (int q0 = blockIdx.x * ROWS_PER_BLOCK; q0 < row_end; q0 += BM) {
-    bya::load_rows<BM, D, NTHREADS>(sQ, LDS, qb, ld, q0, Sq, tid);
-    bya::cp_async_commit();
-    bya::cp_async_wait<0>();
-    __syncthreads();
-
-    uint32_t qf[KS][4];
-    bya::load_a_frags<KS, LDS>(qf, sQ + warp * 16 * LDS, lane);
-    const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
-
-    float acc[COMBINE ? ND : 1][4];  // the weighted sum (combined only)
-    if constexpr (COMBINE) {
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  // consumer warp `warp`: rows 16 warp .. 16 warp + 15 of each tile; this
+  // lane's fragment rows are rl and rl + 8
+  const int rl = warp * 16 + (lane >> 2);
+  TileCursor cur, nxt;
+  nxt.seek(t_begin, tiles);
+  int n_kv = 0, n = 0, sb = 0;
+  for (long long t = t_begin; t < t_end; ++t, ++n) {
+    cur = nxt;
+    nxt.next(Sq);
+    const int q0 = cur.q0, g = cur.g;
+    if (t == t_begin || q0 == 0) {  // a new batch: free the last one's K/V buffer
+      if (n_kv > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kv_empty[(n_kv - 1) % KVB]);
+      }
+      mbar_wait(&kv_full[n_kv % KVB], (n_kv / KVB) & 1);
+      ++n_kv;
     }
+    const unsigned char* kb = sKV + ((n_kv - 1) % KVB) * SM::kv_buffer(I);
+    const int st = n % NST;
+    mbar_wait(&full[st], (n / NST) & 1);
 
-    for (int i = 0; i < I; ++i) {
-      float s[NT][4];
+    // q fragments (A of m16n8k16, k = 16 kk ..) of this warp's 16 rows
+    uint32_t qf[KS][4];
+    {
+      const unsigned char* qt = sQ + st * SM::Q_TILE;
+      const int r = warp * 16 + (lane & 15);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      bya::qk_scores<NT, KS, LDS>(s, qf, sK + i * KT * LDS, lane);
+      for (int kk = 0; kk < KS; ++kk) {
+        const int cc = kk * 2 + (lane >> 4);
+        ldmatrix_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
+                    qt + (cc >> 3) * BM * 128 + swz(r, cc & 7));
+      }
+    }
+    // combined: the routing weights of rows rl, rl + 8 (registers: read by
+    // a select on the identity, never by a runtime index)
+    float wv[MAX_ID][2] = {};
+    if constexpr (COMBINE) {
+      const bf16* ws = sW + st * BM * I;
+#pragma unroll
+      for (int i = 0; i < MAX_ID; ++i)
+        if (i < I) {
+          wv[i][0] = __bfloat162float(ws[rl * I + i]);
+          wv[i][1] = __bfloat162float(ws[(rl + 8) * I + i]);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the slot is free: q and w live in registers
+    const int row0 = q0 + warp * 16;
+    if (row0 >= Sq) continue;                // a ragged last tile: no row of this warp
 
+    // one [16, 64] panel of output from fp32 fragments a (8 column blocks
+    // of 4), through the warp's next staging buffer
+    auto store_panel = [&](const float* a, int p, int b_out) {
+      if (lane == 0) bulk_wait_read_but<NSB - 1>();
+      __syncwarp();
+      unsigned char* buf = sOut + (warp * NSB + sb) * OUT_PANEL;
+      const int r = lane >> 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(buf + swz(r, j) + (lane & 3) * 4) =
+            pack_bf16(a[4 * j], a[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(buf + swz(r + 8, j) + (lane & 3) * 4) =
+            pack_bf16(a[4 * j + 2], a[4 * j + 3]);
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) tma_store_4d(to, buf, 64 * p, row0, h, b_out);
+      sb = (sb + 1) % NSB;
+    };
+
+    float acc[COMBINE ? D / 8 : 1][4];  // the weighted sum, set by identity 0
+    for (int i = 0; i < I; ++i) {
+      const unsigned char* ks = kb + i * NP * SM::KV_PANEL;
+      const unsigned char* vs = kb + (I + i) * NP * SM::KV_PANEL;
+      // S = Q K_i^T: [16, 32] as 4 column blocks of 8 keys
+      float s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = nt * 8 + (lane & 7);
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 2) {
+          const int cc = kk * 2 + (lane >> 3);
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(b0, b1, b2, b3, ks + (cc >> 3) * SM::KV_PANEL + swz(r, cc & 7));
+          if (kk == 0)
+            mma_bf16_first(s[nt], qf[0], b0, b1);
+          else
+            mma_bf16(s[nt], qf[kk], b0, b1);
+          mma_bf16(s[nt], qf[kk + 1], b2, b3);
+        }
+      }
+      // softmax over the 32 keys of each row (4 lanes hold a row), in log2
+      // units: 2^(s sl - max(s) sl), the scale folded into one FMA
       float mx0 = -1e30f, mx1 = -1e30f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2;
+      for (int nt = 0; nt < 4; ++nt) {
         mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
         mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
       }
@@ -119,13 +359,14 @@ __device__ __forceinline__ void skv_body(const bf16* __restrict__ q, const bf16*
       mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+      const float m0 = mx0 * scale_log2, m1 = mx1 * scale_log2;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        s[nt][0] = exp2f(s[nt][0] - mx0);
-        s[nt][1] = exp2f(s[nt][1] - mx0);
-        s[nt][2] = exp2f(s[nt][2] - mx1);
-        s[nt][3] = exp2f(s[nt][3] - mx1);
+      for (int nt = 0; nt < 4; ++nt) {
+        s[nt][0] = fast_exp2(fmaf(s[nt][0], scale_log2, -m0));
+        s[nt][1] = fast_exp2(fmaf(s[nt][1], scale_log2, -m0));
+        s[nt][2] = fast_exp2(fmaf(s[nt][2], scale_log2, -m1));
+        s[nt][3] = fast_exp2(fmaf(s[nt][3], scale_log2, -m1));
         sum0 += s[nt][0] + s[nt][1];
         sum1 += s[nt][2] + s[nt][3];
       }
@@ -133,94 +374,147 @@ __device__ __forceinline__ void skv_body(const bf16* __restrict__ q, const bf16*
       sum0 += __shfl_xor_sync(FULL, sum0, 2);
       sum1 += __shfl_xor_sync(FULL, sum1, 1);
       sum1 += __shfl_xor_sync(FULL, sum1, 2);
-      const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+      const float inv0 = __fdividef(1.f, sum0), inv1 = __fdividef(1.f, sum1);
+      // P (normalised, then bf16) as the A fragments of keys 0..15, 16..31
+      uint32_t pa[2][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        s[nt][0] *= inv0;
-        s[nt][1] *= inv0;
-        s[nt][2] *= inv1;
-        s[nt][3] *= inv1;
+      for (int kk = 0; kk < 2; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0);
+        pa[kk][1] = pack_bf16(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1);
       }
-
-      float oi[ND][4];
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) oi[nd][0] = oi[nd][1] = oi[nd][2] = oi[nd][3] = 0.f;
-      bya::pv_accumulate<NT, ND, LDS>(oi, s, sV + i * KT * LDS, lane);
-
+      float w0 = 0.f, w1 = 0.f;
       if constexpr (COMBINE) {
-        const long long wrow = (long long)g * Sq;
-        const float w0 = r0 < Sq ? __bfloat162float(w[(wrow + r0) * I + i]) : 0.f;
-        const float w1 = r1 < Sq ? __bfloat162float(w[(wrow + r1) * I + i]) : 0.f;
+        w0 = wv[0][0];
+        w1 = wv[0][1];
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          acc[nd][0] += w0 * oi[nd][0];
-          acc[nd][1] += w0 * oi[nd][1];
-          acc[nd][2] += w1 * oi[nd][2];
-          acc[nd][3] += w1 * oi[nd][3];
+        for (int c = 1; c < MAX_ID; ++c)
+          if (i == c) {
+            w0 = wv[c][0];
+            w1 = wv[c][1];
+          }
+      }
+      // O_i = P V_i, one 64-column panel at a time
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float o[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const int r = kk * 16 + (lane & 15), c = j + (lane >> 4);
+            uint32_t b0, b1, b2, b3;
+            ldmatrix_x4_trans(b0, b1, b2, b3, vs + p * SM::KV_PANEL + swz(r, c));
+            if (kk == 0) {
+              mma_bf16_first(o[j], pa[0], b0, b1);
+              mma_bf16_first(o[j + 1], pa[0], b2, b3);
+            } else {
+              mma_bf16(o[j], pa[1], b0, b1);
+              mma_bf16(o[j + 1], pa[1], b2, b3);
+            }
+          }
         }
-      } else {
-        // q-major [G, I, Sq, H, D], head-major [G, I, H, Sq, D]
-        bf16* ob = o + (QMAJOR ? (((long long)g * I + i) * Sq * H + h) * D
-                               : (((long long)g * I + i) * H + h) * Sq * D);
+        if constexpr (COMBINE) {
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          const int col = nd * 8 + (lane & 3) * 2;
-          if (r0 < Sq)
-            *reinterpret_cast<uint32_t*>(ob + r0 * ld + col) = bya::pack_bf16(oi[nd][0], oi[nd][1]);
-          if (r1 < Sq)
-            *reinterpret_cast<uint32_t*>(ob + r1 * ld + col) = bya::pack_bf16(oi[nd][2], oi[nd][3]);
+          for (int j = 0; j < 8; ++j) {
+            float* a = acc[p * 8 + j];
+            if (i == 0) {
+              a[0] = w0 * o[j][0];
+              a[1] = w0 * o[j][1];
+              a[2] = w1 * o[j][2];
+              a[3] = w1 * o[j][3];
+            } else {
+              a[0] += w0 * o[j][0];
+              a[1] += w0 * o[j][1];
+              a[2] += w1 * o[j][2];
+              a[3] += w1 * o[j][3];
+            }
+          }
+        } else {
+          store_panel(&o[0][0], p, g * I + i);
         }
       }
     }
-
     if constexpr (COMBINE) {
-      bf16* ob = o + (qb - q);
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        const int col = nd * 8 + (lane & 3) * 2;
-        if (r0 < Sq)
-          *reinterpret_cast<uint32_t*>(ob + r0 * ld + col) = bya::pack_bf16(acc[nd][0], acc[nd][1]);
-        if (r1 < Sq)
-          *reinterpret_cast<uint32_t*>(ob + r1 * ld + col) = bya::pack_bf16(acc[nd][2], acc[nd][3]);
-      }
+      for (int p = 0; p < NP; ++p) store_panel(&acc[p * 8][0], p, g);
     }
-    __syncthreads();
   }
+  if (lane == 0) bulk_wait_all();  // the stores have left before the block ends
 }
 
-#define SKV_PARAMS                                                                     \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,  \
-      const bf16 *__restrict__ w, bf16 *__restrict__ o, int Sq, int I, int H, float scale_log2
-#define SKV_ARGS q, k, v, w, o, Sq, I, H, scale_log2
+#define SKV_PARAMS                                                                        \
+  const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,         \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,     \
+      const bf16* __restrict__ w, int Sq, int I, int H, int tiles, long long total,       \
+      float scale_log2
+#define SKV_ARGS(D, COMBINE)                                                              \
+  extern __shared__ unsigned char smem_raw[];                                             \
+  skv_body<D, COMBINE>(smem_raw, &tq, &tk, &tv, &to, w, Sq, I, H, tiles, total, scale_log2)
+
+// blocks an SM the compiler should leave registers for (as shared memory
+// allows at I = 2)
+template <int D>
+constexpr int min_blocks() { return D == 64 ? 3 : 1; }
 
 // B3
-__global__ void __launch_bounds__(NTHREADS) short_kv_kernel(SKV_PARAMS) {
-  skv_body<64, true, true>(SKV_ARGS);
+__global__ void __launch_bounds__(NTHREADS, min_blocks<64>()) short_kv_kernel(SKV_PARAMS) {
+  SKV_ARGS(64, true);
 }
 
 // B2
-__global__ void __launch_bounds__(NTHREADS) short_kv_attend_kernel(SKV_PARAMS) {
-  skv_body<128, false, true>(SKV_ARGS);
+__global__ void __launch_bounds__(NTHREADS, min_blocks<128>())
+    short_kv_attend_kernel(SKV_PARAMS) {
+  SKV_ARGS(128, false);
 }
 
-// B14 (QMAJOR), B2c (COMBINE, head-major), B2h (head-major per identity)
+// B14 (QMAJOR), B2c (COMBINE, head-major), B2h (head-major per identity):
+// QMAJOR changes only the host's tensor maps; it keeps the instances apart
+// by name
 template <int D, bool COMBINE, bool QMAJOR>
-__global__ void __launch_bounds__(NTHREADS) skv_layout_kernel(SKV_PARAMS) {
-  skv_body<D, COMBINE, QMAJOR>(SKV_ARGS);
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) skv_layout_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, COMBINE);
 }
 
-template <typename K>
-int launch(K kernel, int D, const void* q, const void* k, const void* v, const void* w, void* o,
+// The grid: as many blocks as fit on the card at once (the occupancy query
+// is made once per kernel and identity count), at most one per tile.
+template <auto KERNEL, int D, bool COMBINE>
+int launch(bool qmajor, const void* q, const void* k, const void* v, const void* w, void* o,
            int G, int Sq, int I, int H, int K_tokens, float scale, void* stream) {
-  if (K_tokens != KT || I < 1 || I > MAX_ID) return (int)cudaErrorInvalidValue;
-  const int smem = (BM + 2 * I * KT) * (D + 8) * (int)sizeof(bf16);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, H, G);
-  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(w), static_cast<bf16*>(o), Sq, I, H, scale * LOG2E);
+  if (K_tokens != KT || I < 1 || I > MAX_ID || G < 0 || Sq < 0 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (Sq + BM - 1) / BM;
+  const long long total = (long long)G * tiles;  // tiles of one head
+  if (total == 0) return 0;
+  const Layout lq = make_layout(Sq, H, D, qmajor ? 1 : 0);
+  const Layout lkv = make_layout(KT, H, D, 0);
+  CUtensorMap tq, tk, tv, to;
+  // per identity, o is [G * I] batches of q's layout
+  if (!make_map(&tq, q, lq, G, H, Sq, D, BM) || !make_map(&tk, k, lkv, G * I, H, KT, D, KT) ||
+      !make_map(&tv, v, lkv, G * I, H, KT, D, KT) ||
+      !make_map(&to, o, lq, COMBINE ? G : G * I, H, Sq, D, PANEL_ROWS))
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0, per_sm[MAX_ID + 1] = {};
+  const int smem = SkvSmem<D>::bytes(I, COMBINE);
+  if (per_sm[I] == 0) {
+    int dev = 0, n = 0;
+    cudaError_t err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SkvSmem<D>::bytes(MAX_ID, COMBINE));
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, KERNEL, NTHREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (n == 0) return (int)cudaErrorInvalidConfiguration;
+    per_sm[I] = n;
+  }
+  // blocks per head: as many as fit on the card beside the other heads'
+  const long long per_head = (long long)sms * per_sm[I] / H;
+  const long long m = per_head < 1 ? 1 : (per_head < total ? per_head : total);
+  KERNEL<<<(unsigned)(m * H), NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, static_cast<const bf16*>(w), Sq, I, H, tiles, total, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -228,42 +522,42 @@ template <int D>
 int launch_layout(const void* q, const void* k, const void* v, const void* w, void* o, int G,
                   int Sq, int I, int H, int K, int qmajor, float scale, void* stream) {
   if (qmajor)
-    return w != nullptr
-               ? launch(skv_layout_kernel<D, true, true>, D, q, k, v, w, o, G, Sq, I, H, K, scale,
-                        stream)
-               : launch(skv_layout_kernel<D, false, true>, D, q, k, v, w, o, G, Sq, I, H, K,
-                        scale, stream);
-  return w != nullptr
-             ? launch(skv_layout_kernel<D, true, false>, D, q, k, v, w, o, G, Sq, I, H, K, scale,
-                      stream)
-             : launch(skv_layout_kernel<D, false, false>, D, q, k, v, w, o, G, Sq, I, H, K, scale,
-                      stream);
+    return w != nullptr ? launch<skv_layout_kernel<D, true, true>, D, true>(
+                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream)
+                        : launch<skv_layout_kernel<D, false, true>, D, false>(
+                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
+  return w != nullptr ? launch<skv_layout_kernel<D, true, false>, D, true>(
+                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream)
+                      : launch<skv_layout_kernel<D, false, false>, D, false>(
+                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
 }
 
 }  // namespace
 
 // B2.  q: [B, Sq, H*128]; k, v: [B, I, H, 32, 128]; o: [B, I, Sq, H*128]; all
-// bf16 and contiguous; 1 <= I <= 4.  Returns the cudaError_t of the launch,
-// or cudaErrorInvalidValue for a K or I it does not take.
+// bf16, contiguous and 16-byte aligned; 1 <= I <= 4.  Returns the
+// cudaError_t of the launch, or cudaErrorInvalidValue for a K or I it does
+// not take.
 extern "C" int bya_short_kv_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int I, int H, int K, float scale,
                                       void* stream) {
-  return launch(short_kv_attend_kernel, 128, q, k, v, nullptr, o, B, Sq, I, H, K, scale, stream);
+  return launch<short_kv_attend_kernel, 128, false>(true, q, k, v, nullptr, o, B, Sq, I, H, K,
+                                                    scale, stream);
 }
 
-// B3.  q, o: [G, Sq, H*64]; k, v: [G, I, H, 32, 64]; w: [G, Sq, I]; all bf16
-// and contiguous; 1 <= I <= 4.
+// B3.  q, o: [G, Sq, H*64]; k, v: [G, I, H, 32, 64]; w: [G, Sq, I]; all bf16,
+// contiguous and 16-byte aligned; 1 <= I <= 4.
 extern "C" int bya_short_kv_attention_combined_flat(const void* q, const void* k,
                                                     const void* v, const void* w, void* o,
                                                     int G, int Sq, int I, int H, int K,
                                                     float scale, void* stream) {
-  return launch(short_kv_kernel, 64, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
+  return launch<short_kv_kernel, 64, true>(true, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
 }
 
 // B14, B2c, B2h.  q: [G, Sq, H, D] (qmajor = 1) or [G, H, Sq, D]; k, v:
 // [G, I, H, 32, D]; w: [G, Sq, I] or null (per identity); o: q's layout
-// (combined) or [G, I, Sq, H, D] / [G, I, H, Sq, D] (per identity); all bf16
-// and contiguous; D = 64 or 128, 1 <= I <= 4.
+// (combined) or [G, I, Sq, H, D] / [G, I, H, Sq, D] (per identity); all bf16,
+// contiguous and 16-byte aligned; D = 64 or 128, 1 <= I <= 4.
 extern "C" int bya_short_kv_layout(const void* q, const void* k, const void* v, const void* w,
                                    void* o, int G, int Sq, int I, int H, int K, int D,
                                    int qmajor, float scale, void* stream) {

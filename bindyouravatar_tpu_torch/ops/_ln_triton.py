@@ -1,11 +1,11 @@
-"""Triton sources of kernels B6, B10 forward (LayerNorm forward) and B9,
-B10 backward (LayerNorm backward).
+"""Triton sources of kernel B10's forward (per-head LayerNorm forward) and
+of B9 and B10's backward (LayerNorm backward).  B6, the row LayerNorm
+forward, is CUDA C++ (`csrc/layernorm.cu`).
 
-One forward source serves the row LayerNorm (B6: a segment is the whole
-row) and the per-head LayerNorm (B10 forward: statistics over SEG-wide
-segments of a flat row, affine shared across segments); one backward
-source, templated the same way, serves both backwards (B9: whole rows;
-B10: 64-wide head segments).
+The forward computes statistics over SEG-wide segments of a flat row with
+the affine shared across segments (B10: 64-wide heads); the backward
+source, templated on the segment width, serves both backwards (B9: whole
+rows; B10: 64-wide head segments).
 
 Imported only by `layernorm.py` when it launches on a CUDA tensor: this
 module imports `triton`, which only the GPU machine has.
@@ -16,29 +16,22 @@ import triton.language as tl
 
 
 @triton.jit
-def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_cols, seg_len, eps, BLOCK: tl.constexpr,
+def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_cols, eps, BLOCK: tl.constexpr,
                   SEG: tl.constexpr):
     """One program per row: bf16 row in registers, fp32 mean and centred
-    variance per segment (SEG = BLOCK: over the row's n_cols elements, as
-    a 1-D vector; else over `seg_len` elements of each row of the
-    [BLOCK // SEG, SEG] view), affine in fp32 (element c takes w[c % SEG]),
-    one bf16 write."""
+    variance over each row of its [BLOCK // SEG, SEG] view (whole SEG-wide
+    segments: n_cols is a multiple of SEG), affine in fp32 (element c takes
+    w[c % SEG]), one bf16 write."""
     row = tl.program_id(0).to(tl.int64)
     cols = tl.arange(0, BLOCK)
     mask = cols < n_cols
     x = tl.load(x_ptr + row * n_cols + cols, mask=mask, other=0.0).to(tl.float32)
-    if SEG == BLOCK:
-        # the whole row (B6): 1-D statistics, no segment view
-        mean = tl.sum(x, axis=0) / n_cols
-        xc = tl.where(mask, x - mean, 0.0)
-        y = xc * tl.rsqrt(tl.sum(xc * xc, axis=0) / n_cols + eps)
-    else:
-        xs = tl.reshape(x, (BLOCK // SEG, SEG))
-        ms = tl.reshape(mask, (BLOCK // SEG, SEG))
-        mean = tl.sum(xs, axis=1) / seg_len
-        xc = tl.where(ms, xs - mean[:, None], 0.0)
-        rstd = tl.rsqrt(tl.sum(xc * xc, axis=1) / seg_len + eps)
-        y = tl.reshape(xc * rstd[:, None], (BLOCK,))
+    xs = tl.reshape(x, (BLOCK // SEG, SEG))
+    ms = tl.reshape(mask, (BLOCK // SEG, SEG))
+    mean = tl.sum(xs, axis=1) / SEG
+    xc = tl.where(ms, xs - mean[:, None], 0.0)
+    rstd = tl.rsqrt(tl.sum(xc * xc, axis=1) / SEG + eps)
+    y = tl.reshape(xc * rstd[:, None], (BLOCK,))
     w = tl.load(w_ptr + cols % SEG, mask=mask, other=0.0)
     b = tl.load(b_ptr + cols % SEG, mask=mask, other=0.0)
     tl.store(y_ptr + row * n_cols + cols, (y * w + b).to(y_ptr.dtype.element_ty), mask=mask)

@@ -1,32 +1,36 @@
-"""LayerNorm kernels: B6 and B9 (row LayerNorm forward and backward), B10
-(per-head LayerNorm forward and backward), all Triton, and their plain
-versions.
+"""LayerNorm kernels: B6 (row LayerNorm forward, CUDA C++), B9 (its
+backward, Triton) and B10 (per-head LayerNorm forward and backward,
+Triton), and their plain versions.
 
   * `fused_layernorm` (B6 forward, B9 backward) replaces the TPU kernels
     `_ln_kernel` and `_ln_bwd_kernel` (bindyouravatar_tpu/ops/layernorm.py),
     reached from `LayerNorm(fused=True)`: the audio `norm_q` over
     [B*S, 3072] in every audio layer, the perceiver norms, the router norms
     and the trunk/STAB norms, and the `AudioProjModel` norm once per clip.
+    The forward is `csrc/layernorm.cu` (persistent blocks, rows as 16-byte
+    vectors in registers, the affine read once per block; its source note
+    says what bounds it); the backward is `ln_bwd_kernel` in
+    `_ln_triton.py`.
   * `head_layernorm` (B10) replaces `_hln_fwd_kernel` and `_hln_bwd_kernel`:
     LN over 64-wide head segments of a flat [.., H*64] row with the affine
     shared across heads, the training path's QK norms ([17776, 3072] per
-    block at the 5B geometry).
+    block at the 5B geometry).  Both directions are `_ln_triton.py`.
 
 What bounds them on the H100: memory.  The forward reads and writes each
 bf16 element once (4 B/element) for ~8 FLOP/element; the backward reads x
 and g and writes dx (6 B/element) for ~20 FLOP/element: both far below the
-card's ~295 FLOP/B ridge.  The kernels (`_ln_triton.py`) keep whole rows in
-registers, so the fp32 statistics, xhat and the affine never touch device
-memory; the backward's dscale/dbias are per-program partial sums over the
-program's rows (a [programs, D] fp32 buffer, ~2 MB) and a second pass (a
-torch sum, as the JAX package sums its partials in XLA) folds them.
+card's ~295 FLOP/B ridge.  The kernels keep whole rows in registers, so the
+fp32 statistics, xhat and the affine never touch device memory; the
+backward's dscale/dbias are per-program partial sums over the program's
+rows (a [programs, D] fp32 buffer, ~2 MB) and a second pass (a torch sum,
+as the JAX package sums its partials in XLA) folds them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._build import import_triton
+from ._build import check, cuda_lib, import_triton
 
 # widths the kernels take: whole rows in registers, 128-element multiples
 _MAX_D = 8192
@@ -89,20 +93,37 @@ def _check(x: torch.Tensor, what: str, seg: int) -> int:
     return d
 
 
-def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float, seg: int,
-            what: str) -> torch.Tensor:
-    """The forward kernel over rows of `x` ([..., D]), statistics per
-    `seg`-wide segment (seg = D: the whole row)."""
-    d = _check(x, what, seg)
+def _row_ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """Kernel B6 over the rows of `x` ([..., D]): the CUDA kernel of
+    `csrc/layernorm.cu`, which takes 16-byte-aligned rows and affine (a
+    misaligned input is copied first)."""
+    d = _check(x, "fused_layernorm (B6)", x.shape[-1])
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    x2 = aligned(x.reshape(-1, d).contiguous())
+    sc, bi = (aligned(t.float().contiguous()) for t in (scale, bias))
+    y = torch.empty_like(x2)
+    err = cuda_lib().bya_layernorm_fwd(x2.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+                                       y.data_ptr(), x2.shape[0], d, float(eps),
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "fused_layernorm (B6)")
+    return y.view(x.shape)
+
+
+def _hln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """B10's forward (Triton) over rows of `x` ([..., D]), statistics per
+    64-wide head segment."""
+    d = _check(x, "head_layernorm (B10)", HEAD_DIM)
     import_triton()
     from ._ln_triton import ln_fwd_kernel
 
     x2 = x.reshape(-1, d).contiguous()
     y = torch.empty_like(x2)
-    block = 1 << (d - 1).bit_length()
+    block = 1 << (d - 1).bit_length()      # Triton blocks are powers of two
     ln_fwd_kernel[(x2.shape[0],)](
-        x2, scale.float().contiguous(), bias.float().contiguous(), y, d, seg, eps,
-        BLOCK=block, SEG=block if seg == d else seg, num_warps=8 if block >= 4096 else 4)
+        x2, scale.float().contiguous(), bias.float().contiguous(), y, d, eps,
+        BLOCK=block, SEG=HEAD_DIM, num_warps=8 if block >= 4096 else 4)
     return y.view(x.shape)
 
 
@@ -133,7 +154,7 @@ class _FusedLayerNorm(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        y = _ln_fwd(x, scale, bias, eps, x.shape[-1], "fused_layernorm (B6)")
+        y = _row_ln_fwd(x, scale, bias, eps)
         fused_layernorm.launches += 1
         return y
 
@@ -149,7 +170,7 @@ def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Row LayerNorm of `x` ([..., D]).  A CPU tensor takes the plain
     version (autograd differentiates it); a CUDA tensor launches kernel B6
     (bf16, D % 128 == 0, D <= 8192) or raises, and its backward launches
-    kernel B9.  Triton raises itself if a launch fails."""
+    kernel B9 (Triton, which raises itself if a launch fails)."""
     if x.device.type == "cpu":
         return layernorm_plain(x, scale, bias, eps)
     return _FusedLayerNorm.apply(x, scale, bias, eps)
@@ -208,7 +229,7 @@ def head_layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return head_layernorm_plain(x, scale, bias, eps)
     if scale.shape[0] != HEAD_DIM:
         raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
-    y = _ln_fwd(x, scale, bias, eps, HEAD_DIM, "head_layernorm (B10)")
+    y = _hln_fwd(x, scale, bias, eps)
     head_layernorm_fwd.launches += 1
     return y
 

@@ -80,6 +80,10 @@ class BindYourAvatarPipeline:
         ts_back = np.concatenate([[ts[0]], ts[:-1]])
         rope = self.dit.rope(h_lat * 8, w_lat * 8, t_lat, base_height_px=c.base_height,
                              base_width_px=c.base_width, device=dev)
+        force2 = None
+        if routing_forcing is not None:
+            force2 = temporal_or_routing(torch.cat([routing_forcing] * 2, dim=0),
+                                         self._forcing_grid(t_lat, h_lat, w_lat))
         # raw inputs are doubled BEFORE the context precompute, so the uncond
         # half sees zeroed inputs (the LFE or projection of zeros is not zeros)
         idc2 = cfg_double(id_cond, c.zero2cond_cfg)
@@ -89,11 +93,6 @@ class BindYourAvatarPipeline:
             id_cond=idc2, id_vit_hidden=vit2, audio_embeds=audio2, mute_embeds=mute_embeds,
             num_pixel_frames=c.num_frames)
         af2 = cfg_double(af_matrix, c.zero2cond_cfg)
-        force2 = None
-        if routing_forcing is not None:
-            p = self.dit.cfg.patch_size
-            force2 = temporal_or_routing(torch.cat([routing_forcing] * 2, dim=0),
-                                         (t_lat, h_lat // p, w_lat // p))
         if actx2 is not None and af2 is None:
             af2 = torch.eye(self.dit.cfg.num_ids, device=dev)[None].repeat(2 * b, 1, 1)
         if latents is None:
@@ -105,6 +104,19 @@ class BindYourAvatarPipeline:
             face=face2, actx=actx2, af=af2, force=force2, rope=rope, latents=latents,
             ts=[int(x) for x in ts], prev_ts=[int(x) for x in prev_ts],
             ts_back=[int(x) for x in ts_back])
+
+    def _forcing_grid(self, t_lat: int, h_lat: int, w_lat: int) -> Tuple[int, int, int]:
+        """The grid a forced routing is OR-reduced on: the DiT config's
+        `latent_grid`, as in the JAX pipeline.  Latents whose (t, h*w) differ
+        from it raise: there JAX's reshape fails or, at the same token count
+        with another t, mixes frames."""
+        grid = self.dit.cfg.latent_grid
+        p = self.dit.cfg.patch_size
+        got = (t_lat, (h_lat // p) * (w_lat // p))
+        if got != (grid[0], grid[1] * grid[2]):
+            raise ValueError(f"routing_forcing needs latents on the DiT config's latent grid "
+                             f"(t, h*w) = ({grid[0]}, {grid[1] * grid[2]}); got {got}")
+        return grid
 
     def _guided(self, inp, lat, t_cur):
         """The CFG-guided model output for latents `lat` at timestep t_cur."""

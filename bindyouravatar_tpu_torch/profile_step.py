@@ -21,9 +21,10 @@ the rest) and its share, the device-busy share of the wall time, the
 launches, the top kernels by device time and the peak memory.  A matrix
 product counts as the router's when it was launched inside the router's
 modules (norms, layer projections, trunk), which run inside a
-`record_function("router")` range during the profile.  B10's LayerNorm
-kernels share B6's and B9's Triton sources and names, so they count in
-those groups.
+`record_function("router")` range during the profile.  B6, the row
+LayerNorm forward, is its own CUDA kernel (`layernorm_rows_kernel`); B10's
+forward is the Triton `ln_fwd_kernel` and B9's and B10's backwards share
+the Triton `ln_bwd_kernel`, so those two count in one group.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ GROUPS = (("B1 flash_attention", ("flash_fwd_kernel", "prep_qk_kernel")),
           ("B4 pair_axis_attention", ("pair_attention_kernel",)),
           ("B8 tiny_seq_attention backward", ("tiny_seq_bwd_kernel",)),
           ("B5 tiny_seq_attention", ("tiny_seq_kernel",)),
-          ("B6 / B10 LayerNorm forward", ("ln_fwd_kernel",)),
+          ("B6 LayerNorm forward", ("layernorm_rows_kernel",)),
+          ("B10 LayerNorm forward", ("ln_fwd_kernel",)),
           ("B9 / B10 LayerNorm backward", ("ln_bwd_kernel",)),
           ("B11 flash forward (bhsd/bshd) and its pre-pass",
            ("mha_fwd_layout_kernel", "layout_prep_kernel")),
@@ -87,15 +89,9 @@ def _mark_router(dit: DiT) -> None:
         m.register_forward_hook(leave)
 
 
-def kernel_ms(fn, runs: int = 5) -> Optional[float]:
-    """Device time of the kernels that `fn` launches, in ms per call, from
-    the profiler's device records of `runs` calls (after one warm-up
-    call): for each kernel name the median record times its launches per
-    call (records / runs, rounded), summed.  Unlike CUDA events around
-    `fn`, it leaves out the host time of the wrapper while the card waits;
-    a record the profiler misses (it can drop some at the edge of a short
-    window) changes neither the median nor the rounded count.  None when
-    the window holds no device record at all."""
+def kernel_records(fn, runs: int = 5) -> dict:
+    """The profiler's device records of `runs` calls of `fn` (after one
+    warm-up call): kernel name -> (records, median ms of one record)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -107,10 +103,22 @@ def kernel_ms(fn, runs: int = 5) -> Optional[float]:
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
             per_name[e.name()].append(e.duration_ns())
+    return {name: (len(ns), statistics.median(ns) / 1e6) for name, ns in per_name.items()}
+
+
+def kernel_ms(fn, runs: int = 5, records: Optional[dict] = None) -> Optional[float]:
+    """Device time of the kernels that `fn` launches, in ms per call, from
+    `kernel_records` of `runs` calls (or the `records` given): for each
+    kernel name the median record times its launches per call (records /
+    runs, rounded), summed.  Unlike CUDA events around `fn`, it leaves out
+    the host time of the wrapper while the card waits; a record the
+    profiler misses (it can drop some at the edge of a short window)
+    changes neither the median nor, mostly, the rounded count.  None when
+    the window holds no device record at all."""
+    per_name = kernel_records(fn, runs) if records is None else records
     if not per_name:
         return None
-    return sum(statistics.median(ns) * max(1, round(len(ns) / runs))
-               for ns in per_name.values()) / 1e6
+    return sum(ms * max(1, round(n / runs)) for n, ms in per_name.values())
 
 
 def _report(prof, wall: float, steps: int, what: str, groups) -> None:

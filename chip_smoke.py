@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps
                               # each; then 2 optimizer steps of the Stage-3 train step
+    python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
 
 Phases (one line each; any failure exits non-zero and prints no result):
   1. the card's `nvidia-smi` name and power limit; build every kernel (one
      nvcc per CUDA source, all at once).
   2. each kernel (B1 flash attention, fused and bare; B2 and B3 short-KV
      attention; B4 pair-axis attention; B5 and B5' tiny-sequence attention;
-     B6 LayerNorm; the training path's B7 flash attention forward and
+     B6 LayerNorm forward; the training path's B7 flash attention forward and
      backward, B8 tiny-sequence backward, B9 LayerNorm backward, B10
      per-head LayerNorm forward and backward; and the general-layout
      kernels: B11 flash attention forward over [B, H, S, D] / [B, S, H, D]
@@ -20,10 +21,15 @@ Phases (one line each; any failure exits non-zero and prints no result):
      serving or train step's shapes and at a ragged shape, with the stated
      tolerance (the flash forward also at S = 1,350 with kv_len = 1,000,
      whole kv tiles past it, and with logits of several hundred, which only
-     an online max keeps finite); kernel, plain version and (where one
+     an online max keeps finite; the short-KV body and B6 at their hazards,
+     untimed: Sq = 1,000 over 3 batches at I = 1, 2, 4, D = 64 and 128 in
+     both layouts and modes, and combined at [26, 1350, 16, 128], so that
+     persistent blocks' shares cross a change of batch; 1,001 rows at every
+     B6 width from 128 to 8192); kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
-     CUDA events, the forwards also from profiler device records, and the
-     bound computed.
+     CUDA events and, kernel and library call, from profiler device records
+     (a window that reads less than the bound is printed kernel by kernel
+     and taken again), and the bound computed.
   3. a reduced audio-only DiT step and a reduced fully conditioned one
      (face + audio, 3 latent frames so B5' runs) on the card (kernels, bf16)
      against the same weights on the CPU (plain versions, fp32); the face
@@ -116,9 +122,11 @@ def _compare(got, want, atol: float, rtol: float):
     return float(diff.max()), rel, ok
 
 
-def kernel_phase(results: dict) -> bool:
+def kernel_phase(results: dict, only=None) -> bool:
     """Kernels vs plain versions at the serving path's shapes and at one
-    ragged shape each; records the serving-shape numbers in `results`."""
+    ragged shape each; records the serving-shape numbers in `results`.
+    `only`: the kernel names to run (a name or its first word, "B7" for
+    both of B7's rows); all when None."""
     import torch
     import torch.nn.functional as F
     from bindyouravatar_tpu_torch.ops import flash_attention as fa
@@ -126,7 +134,7 @@ def kernel_phase(results: dict) -> bool:
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
     from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
     from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
-    from bindyouravatar_tpu_torch.profile_step import kernel_ms
+    from bindyouravatar_tpu_torch.profile_step import kernel_ms, kernel_records
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(1234)
@@ -135,36 +143,70 @@ def kernel_phase(results: dict) -> bool:
     bf = torch.bfloat16
     ok_all = True
 
-    def report(name, tag, got, want, atol, rtol, kern, plain, runs, library=None, work=None,
-               records=False):
+    fmt = lambda ms: "none" if ms is None else f"{ms:.4f}"
+
+    def pick(rows, names=None):
+        """The rows to run: all of them when one of `names` is asked for,
+        or (names None) those whose first field names a kernel asked for
+        (names match by their first word)."""
+        wanted = lambda n: only is None or n.split()[0] in {o.split()[0] for o in only}
+        if names is None:
+            return [r for r in rows if wanted(r[0])]
+        return rows if any(wanted(n) for n in names) else ()
+
+    def report(name, tag, got, want, atol, rtol, kern, plain, runs, library=None, work=None):
         """Compare, time kernel / plain / library call; `work` = (bytes,
-        flops, peak kind) of the call for its bound.  `records`: also the
-        kernels' own time from profiler device records (`kernel_ms`), which
-        leaves out the wrapper's host time that CUDA events around a
-        sub-millisecond call take in."""
+        flops, peak kind) of the call for its bound.  The kernel and the
+        library call are timed twice: CUDA events around the call (`ms`,
+        `library_ms`) and the kernels' own time from profiler device
+        records (`kernel_ms`: `kernel_records_ms`, `library_records_ms`),
+        which leaves out the host time that events around a
+        sub-millisecond call take in while the card waits."""
         nonlocal ok_all
         err, rel, ok = _compare(got, want, atol, rtol)
         ms, plain_ms = _time_ms(kern, runs), _time_ms(plain, max(1, runs // 2))
         lib_ms = None if library is None else _time_ms(library, runs)
-        # at least 10 calls in the profiler's window: a short one can miss records
-        rec_ms = kernel_ms(kern, max(runs, 10)) if records else None
         bound_ms, bound_by = _bound(*work) if work is not None else (None, None)
+
+        def records(fn, what):
+            """kernel_ms over at least 10 calls (a short window can miss
+            records).  A window with no record, or with less device time
+            than the bound allows (a missed record can round a kernel's
+            launches per call down), is printed kernel by kernel and taken
+            again 50 calls long; the second reading stands (inputs that fit
+            in L2 can beat the bound, which counts HBM bytes)."""
+            for n in (max(runs, 10), 50):
+                recs = kernel_records(fn, n)
+                rec = kernel_ms(fn, n, recs)
+                if rec is not None and (bound_ms is None or rec >= bound_ms):
+                    break
+                seen = "; ".join(f"{k[:70]} x{c} median {m:.4f}" for k, (c, m) in recs.items())
+                print(f"  {what} records of {name} {tag}, {n} calls: {fmt(rec)} ms against "
+                      f"the bound {fmt(bound_ms)}: {seen or 'no record'}", flush=True)
+            return rec
+
+        rec_ms = records(kern, "kernel")
+        lib_rec_ms = None if library is None else records(library, "library")
         ok_all &= ok
         extra = "" if bound_ms is None else f" bound_ms={bound_ms:.4f} ({bound_by})"
-        extra += f" library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'}"
-        if records:
-            extra += f" kernel_records_ms={'none' if rec_ms is None else f'{rec_ms:.4f}'}"
         print(f"kernel {name} {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"tol=|d|<={atol}+{rtol}*|ref| {'ok' if ok else 'FAILED'} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}", flush=True)
-        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
-        if records:
-            r["kernel_records_ms"] = rec_ms
-        return r
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra} library_ms={fmt(lib_ms)} "
+              f"kernel_records_ms={fmt(rec_ms)} library_records_ms={fmt(lib_rec_ms)}",
+              flush=True)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, kernel_records_ms=rec_ms,
+                    library_records_ms=lib_rec_ms)
 
-    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work,
-                   records=False):
+    def check(name, tag, got, want, atol, rtol):
+        """Compare only (the hazard shapes, which are not timed)."""
+        nonlocal ok_all
+        err, rel, ok = _compare(got, want, atol, rtol)
+        ok_all &= ok
+        print(f"kernel {name} {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+              f"tol=|d|<={atol}+{rtol}*|ref| {'ok' if ok else 'FAILED'}", flush=True)
+
+    def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
         """One line per output (first one timed), each within `rel` of the
         reference's largest magnitude (+ `rel` relative); ok only if all
         agree."""
@@ -174,7 +216,7 @@ def kernel_phase(results: dict) -> bool:
             sub = f"{tag} out{i}"
             if i == 0:
                 r = report(name, sub, got, want, _rel_compare(got, want, rel), rel, kern, plain,
-                           runs, library, work, records)
+                           runs, library, work)
             else:
                 err, relerr, ok = _compare(got, want, _rel_compare(got, want, rel), rel)
                 ok_all &= ok
@@ -200,13 +242,13 @@ def kernel_phase(results: dict) -> bool:
     # kernel also rounds the scaled q (one more bf16 ulp, ~0.4% of a logit);
     # the bare calls scale the fp32 scores, as the plain version does.
     # library: SDPA computes the bare function only (no QK-LN, no RoPE).
-    for tag, b, s, h, text_len, grid, kv_len, mag in (
+    for tag, b, s, h, text_len, grid, kv_len, mag in pick((
             ("slice[2,17776,3072]", 2, 17776, 48, 226, (13, 30, 45), None, 1.0),
             ("ragged[1,1000,512] kv_len=937", 1, 1000, 8, 10, (3, 18, 18), 937, 1.0),
             ("bare[52,1350,512] no LN/RoPE", 52, 1350, 8, 0, None, None, 1.0),
             ("ragged[2,777,256] no LN/RoPE", 2, 777, 4, 0, None, None, 1.0),
             ("ragged[2,1350,512] kv_len=1000 no LN/RoPE", 2, 1350, 8, 0, None, 1000, 1.0),
-            ("large[4,1350,512] q,k x8 no LN/RoPE", 4, 1350, 8, 0, None, None, 8.0)):
+            ("large[4,1350,512] q,k x8 no LN/RoPE", 4, 1350, 8, 0, None, None, 8.0)), ["B1"]):
         q, k, v = (rnd(b, s, h * 64, std=mag if i < 2 else 1.0).to(bf) for i in range(3))
         kw = dict(kv_len=kv_len)
         library = None
@@ -221,8 +263,7 @@ def kernel_phase(results: dict) -> bool:
         kern = lambda: fa.flash_attention(q, k, v, h, **kw)
         plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
         work = (_nbytes(q, k, v, q), 4.0 * b * h * s * (kv_len or s) * 64, "bf16")
-        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work,
-                   records=True)
+        r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work)
         if tag.startswith(("slice", "bare")):
             results["B1" if tag.startswith("slice") else "B1 bare"] = r
 
@@ -232,8 +273,8 @@ def kernel_phase(results: dict) -> bool:
     # does; fp32 sums in another order.
     # library: SDPA with the identities folded into the heads (q repeated
     # per identity before timing), output [B, I*H, Sq, 128].
-    for tag, b, sq in (("slice[2,17550,2048] I=2 K=32", 2, 17550),
-                       ("ragged[1,1000,2048] I=2 K=32", 1, 1000)):
+    for tag, b, sq in pick((("slice[2,17550,2048] I=2 K=32", 2, 17550),
+                            ("ragged[1,1000,2048] I=2 K=32", 1, 1000)), ["B2"]):
         q = rnd(b, sq, 16 * 128).to(bf)
         k, v = (rnd(b, 2, 16, 32, 128).to(bf) for _ in range(2))
         kern = lambda: skv.short_kv_attention_flat(q, k, v, 128 ** -0.5)
@@ -250,9 +291,9 @@ def kernel_phase(results: dict) -> bool:
     # tol: the plain version rounds each identity's output and the combine
     # to bf16, the kernel sums in fp32 and rounds once.
     # library: none (no single call weights the identities' softmaxes).
-    for tag, g, sq, w_uniform in (("slice[26,1350,3072] w=0.5", 26, 1350, True),
-                                  ("slice[26,1350,3072] w~U(0,1)", 26, 1350, False),
-                                  ("ragged[3,1000,3072]", 3, 1000, False)):
+    for tag, g, sq, w_uniform in pick((("slice[26,1350,3072] w=0.5", 26, 1350, True),
+                                       ("slice[26,1350,3072] w~U(0,1)", 26, 1350, False),
+                                       ("ragged[3,1000,3072]", 3, 1000, False)), ["B3"]):
         q = rnd(g, sq, 48 * 64).to(bf)
         k, v = (rnd(g, 2, 48, 32, 64).to(bf) for _ in range(2))
         w = (torch.full((g, sq, 2), 0.5, device=dev) if w_uniform
@@ -268,7 +309,8 @@ def kernel_phase(results: dict) -> bool:
     # tol: both sides compute in fp32 and round once (one bf16 ulp).
     # library: SDPA over the pair axis on a [B*M, H, 2, 64] copy (permuted
     # before timing).
-    for tag, b, m in (("slice[2,2,17550,512]", 2, 17550), ("ragged[1,2,1001,512]", 1, 1001)):
+    for tag, b, m in pick((("slice[2,2,17550,512]", 2, 17550), ("ragged[1,2,1001,512]", 1, 1001)),
+                          ["B4"]):
         q, k, v = (rnd(b, 2, m, 512).to(bf) for _ in range(3))
         kern = lambda: pa.pair_axis_attention(q, k, v, 8, 0.125)
         plain = lambda: pa.pair_axis_attention_plain(q, k, v, 8, 0.125)
@@ -286,10 +328,10 @@ def kernel_phase(results: dict) -> bool:
     # packed [M, S*8, 64] view, at S = 3 (the reduced step's frames) and 2.
     # tol: both sides round p to bf16; fp32 sums in another order.
     # library: SDPA on a [M, 8, S, 64] copy (permuted before timing).
-    for name, tag, m, s in (("B5", "slice[5400,13,512]", 5400, 13),
-                            ("B5", "ragged[1001,13,512]", 1001, 13),
-                            ("B5'", "slice[5400,3,512]", 5400, 3),
-                            ("B5'", "slice[5400,2,512]", 5400, 2)):
+    for name, tag, m, s in pick((("B5", "slice[5400,13,512]", 5400, 13),
+                                 ("B5", "ragged[1001,13,512]", 1001, 13),
+                                 ("B5'", "slice[5400,3,512]", 5400, 3),
+                                 ("B5'", "slice[5400,2,512]", 5400, 2))):
         q, k, v = (rnd(m, s, 512).to(bf) for _ in range(3))
         if name == "B5":
             kern = lambda: pa.tiny_seq_attention(q, k, v, 8, 0.125)
@@ -311,9 +353,9 @@ def kernel_phase(results: dict) -> bool:
     # the face path's widths: router norms [35100, 2048], STAB/trunk [70200, 512]
     # tol: one bf16 rounding of the same fp32 value, summed in another order
     # library: F.layer_norm (affine cast to bf16 before timing)
-    for tag, rows, d in (("slice[35100,3072]", 35100, 3072), ("slice[1664,768]", 1664, 768),
-                         ("slice[35100,2048]", 35100, 2048), ("slice[70200,512]", 70200, 512),
-                         ("ragged[1001,768]", 1001, 768)):
+    for tag, rows, d in pick((("slice[35100,3072]", 35100, 3072), ("slice[1664,768]", 1664, 768),
+                              ("slice[35100,2048]", 35100, 2048), ("slice[70200,512]", 70200, 512),
+                              ("ragged[1001,768]", 1001, 768)), ["B6"]):
         x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
         sc, bi = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
         scb, bib = sc.to(bf), bi.to(bf)
@@ -324,9 +366,56 @@ def kernel_phase(results: dict) -> bool:
         r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
         if tag == "slice[35100,3072]":
             results["B6"] = r
+    # B6 hazards, not timed: a ragged row count (1,001) at every width above,
+    # at the wrapper's extremes (D = 128, 8192) and at widths whose 16-byte
+    # chunks do not fill the threads of a row (640, 1152)
+    for d in pick((128, 512, 640, 768, 1152, 2048, 3072, 8192), ["B6"]):
+        x = rnd(1001, d, std=2.3, mean=0.7).to(bf)
+        sc, bi = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
+        check("B6", f"ragged[1001,{d}]", ln.fused_layernorm(x, sc, bi),
+              ln.layernorm_plain(x, sc, bi), 1e-2, 1e-2)
+
+    # --- short-KV hazards (B2, B3, B14, B2c, B2h run one body), not timed:
+    # Sq = 1,000 (a ragged last 64-row tile) at I = 1, 2 and 4 identities, D =
+    # 64 and 128, q-major and head-major, combined and per identity, through
+    # each entry point that takes the case (B3 and B2: their flat entries at
+    # D = 64 / 128; B14: q-major; B2c, B2h: head-major); then the combined
+    # calls at [26, 1350, 16, 128], I = 2, in both layouts.  A persistent
+    # block takes one share of its head's G x 16 tiles (G x 22 at 1,350
+    # rows): total / m tiles, m = 132 SMs x blocks per SM / H on the H100,
+    # i.e. 8 (D = 64 at I = 1, 2; D = 128 at I = 2, 4), 5 (D = 64 at I = 4),
+    # and 16 or 8 (D = 128 at I = 1, by registers).  At G = 3 the shares are
+    # 6, 9-10 and 3 tiles, and some start before tile 16 or 32 and end
+    # after it: they cross a change of batch, where the block loads the
+    # next batch's K/V (at G = 2 every change of batch fell on a share's
+    # start).  At [26, 1350] the shares of 71-72 tiles cross three each.
+    # tol: as the main shapes.
+    def skv_cases(g, sq, h, d, n_id, combined_only=False):
+        k, v = (rnd(g, n_id, h, 32, d).to(bf) for _ in range(2))
+        w = torch.rand((g, sq, n_id), generator=gen, device=dev).to(bf)
+        q_q, q_h = rnd(g, sq, h, d).to(bf), rnd(g, h, sq, d).to(bf)
+        cases = [("B14", "combined", skv.short_kv_attention_combined_qmajor, (q_q, k, v, w)),
+                 ("B2c", "head-major combined", skv.short_kv_attention_combined,
+                  (q_h, k, v, w))]
+        if not combined_only:
+            cases += [("B14", "per-id", skv.short_kv_attention_qmajor, (q_q, k, v)),
+                      ("B2h", "head-major per-id", skv.short_kv_attention, (q_h, k, v))]
+            flat = q_q.reshape(g, sq, h * d)
+            cases.append(("B3", "flat combined", skv.short_kv_attention_combined_flat,
+                          (flat, k, v, w)) if d == 64 else
+                         ("B2", "flat per-id", skv.short_kv_attention_flat, (flat, k, v)))
+        return pick(cases)
+
+    hazards = [(3, 1000, 48 if d == 64 else 16, d, n_id, False)
+               for d in (64, 128) for n_id in (1, 2, 4)] + [(26, 1350, 16, 128, 2, True)]
+    for g, sq, h, d, n_id, combined_only in hazards:
+        for name, what, fn, args in skv_cases(g, sq, h, d, n_id, combined_only):
+            plain = getattr(skv, f"{fn.__name__}_plain")
+            check(name, f"ragged {what} [G={g},Sq={sq},H={h},D={d}] I={n_id}",
+                  fn(*args, d ** -0.5), plain(*args, d ** -0.5), 1e-2, 2e-2)
     # report() and report_all() clear ok_all themselves
-    train_kernel_phase(results, rnd, report, report_all, bhsd)
-    layout_kernel_phase(results, rnd, report, report_all)
+    train_kernel_phase(results, rnd, report, report_all, bhsd, pick)
+    layout_kernel_phase(results, rnd, report, report_all, pick)
     return ok_all
 
 
@@ -336,7 +425,7 @@ def _rel_compare(got, want, rel: float) -> float:
     return rel * float(want.float().abs().max())
 
 
-def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
+def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick) -> None:
     """The training path's kernels (B7 forward and backward, B8, B9, B10
     forward and backward) against their plain versions, at the train
     step's shapes (batch 1 per micro-batch) and one ragged shape each."""
@@ -362,11 +451,12 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     # order).
     # library: SDPA (forward; forward + autograd backward timed as the
     # backward alone) at the bare shape only: no PyTorch call applies RoPE.
-    for tag, b, s, h, text_len, grid, kv_len in (
+    for tag, b, s, h, text_len, grid, kv_len in pick((
             ("train[1,17776,3072] rope", 1, 17776, 48, 226, (13, 30, 45), None),
             ("bare[26,1350,512]", 26, 1350, 8, 0, None, None),
             ("ragged[1,1000,512] kv_len=937 rope", 1, 1000, 8, 10, (3, 18, 18), 937),
-            ("ragged bare[2,1350,512] kv_len=1000", 2, 1350, 8, 0, None, 1000)):
+            ("ragged bare[2,1350,512] kv_len=1000", 2, 1350, 8, 0, None, 1000)),
+            ["B7 fwd", "B7 bwd"]):
         q, k, v, do = (rnd(b, s, h * 64).to(bf) for _ in range(4))
         kw = dict(kv_len=kv_len)
         lib_f = lib_b = None
@@ -386,7 +476,7 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
         o_p, lse_p = fwd_plain()
         work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * 64, "bf16")
         r = report_all("B7 fwd", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain,
-                       3, lib_f, work, records=True)
+                       3, lib_f, work)
         delta = fa.attention_delta(o, do, h)
         bwd = lambda: fa.flash_attention_flat_bwd(q, k, v, do, lse, delta, h, **kw)
         bwd_plain = lambda: fa.flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, h,
@@ -404,7 +494,7 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     # inputs and round once: 1e-2 of each gradient's largest magnitude.
     # library: SDPA at S = 13 on [M, 8, 13, 64] copies, its autograd
     # backward timed alone.
-    for tag, m in (("train[2700,13,512]", 2700), ("ragged[1001,13,512]", 1001)):
+    for tag, m in pick((("train[2700,13,512]", 2700), ("ragged[1001,13,512]", 1001)), ["B8"]):
         q, k, v, g = (rnd(m, 13, 512).to(bf) for _ in range(4))
         qh, kh, vh = (bhsd(t, 8).requires_grad_() for t in (q, k, v))
         oh = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
@@ -426,13 +516,13 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
     # |dx|); dscale/dbias fp32 sums over the rows in another order (1e-3).
     # library: F.layer_norm's autograd backward (B9), F.layer_norm on the
     # [M, H, 64] view forward and its backward (B10), timed alone.
-    for name, tag, rows, d in (("B9", "train[17550,3072]", 17550, 3072),
+    for name, tag, rows, d in pick((("B9", "train[17550,3072]", 17550, 3072),
                                ("B9", "train[17550,2048]", 17550, 2048),
                                ("B9", "train[35100,512]", 35100, 512),
                                ("B9", "train[64,2048]", 64, 2048),
                                ("B9", "ragged[1001,768]", 1001, 768),
                                ("B10", "train[17776,3072]", 17776, 3072),
-                               ("B10", "ragged[1001,512]", 1001, 512)):
+                               ("B10", "ragged[1001,512]", 1001, 512))):
         x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
         g = rnd(rows, d).to(bf)
         w_d = 64 if name == "B10" else d
@@ -464,7 +554,7 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd) -> None:
             results[key] = r
 
 
-def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
+def layout_kernel_phase(results: dict, rnd, report, report_all, pick) -> None:
     """The general-layout kernels (B11 forward, B12 + B13 backward, B14,
     B2c and B2h short-KV attention) against their plain versions at the 5B
     geometries and at ragged shapes."""
@@ -518,7 +608,8 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
               None, False, 1000),
              ("large bare bhsd[2,8,1350,64] q,k x8", "bhsd", 2, 1350, 8, 64, 0, None, False,
               None))
-    for tag, layout, b, s, h, d, text_len, grid, ln_on, kv_len in cases:
+    for tag, layout, b, s, h, d, text_len, grid, ln_on, kv_len in pick(cases,
+                                                                         ["B11", "B12+B13"]):
         shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
         mag = 8.0 if tag.startswith("large") else 1.0   # logits of several hundred
         q, k, v = (rnd(*shape, std=mag if i < 2 else 1.0).to(bf) for i in range(3))
@@ -543,7 +634,7 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
         o_p, lse_p = fwd_plain()
         work = (_nbytes(q, k, v, o, lse), 4.0 * b * h * s * kv * d, "bf16")
         r = report_all("B11", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd, fwd_plain, 3, lib_f,
-                       work, records=True)
+                       work)
         if tag.startswith("bshd[2"):
             results["B11"] = r
         del o_p, lse_p
@@ -570,14 +661,14 @@ def layout_kernel_phase(results: dict, rnd, report, report_all) -> None:
     # library: none for the combined calls (no single call weights the
     # identities' softmaxes); SDPA with the identities folded into the heads
     # for the per-identity call (q repeated before timing).
-    for name, tag, g, sq, h, d, combine, qmajor in (
+    for name, tag, g, sq, h, d, combine, qmajor in pick((
             ("B14", "combined[26,1350,48,64] I=2 K=32", 26, 1350, 48, 64, True, True),
             ("B14", "per-id[2,17550,16,128] I=2 K=32", 2, 17550, 16, 128, False, True),
             ("B14", "ragged combined[3,1001,48,64]", 3, 1001, 48, 64, True, True),
             ("B2c", "head-major combined[26,48,1350,64] I=2 K=32", 26, 1350, 48, 64, True,
              False),
             ("B2h", "head-major per-id[2,16,17550,128] I=2 K=32", 2, 17550, 16, 128, False,
-             False)):
+             False))):
         q = rnd(*((g, sq, h, d) if qmajor else (g, h, sq, d))).to(bf)
         k, v = (rnd(g, 2, h, 32, d).to(bf) for _ in range(2))
         w = rnd(g, sq, 2).sigmoid().to(bf)
@@ -1213,6 +1304,48 @@ def train_phase(args, launches: dict) -> bool:
     return ok
 
 
+# Every kernel of the port: (route, source, the TPU kernel it replaces);
+# the kernels line lists them in this order
+KERNELS = {
+    "B1": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+           "bindyouravatar_tpu/ops/flash_attention.py:592"),
+    "B2": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+           "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
+    "B3": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+           "bindyouravatar_tpu/ops/short_kv_attention.py:177"),
+    "B4": ("triton", "bindyouravatar_tpu_torch/ops/_pair_triton.py",
+           "bindyouravatar_tpu/ops/packed_attention.py:226"),
+    "B5": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+           "bindyouravatar_tpu/ops/packed_attention.py:139"),
+    "B5'": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+            "bindyouravatar_tpu/ops/packed_attention.py:47"),
+    "B6": ("cuda", "bindyouravatar_tpu_torch/csrc/layernorm.cu",
+           "bindyouravatar_tpu/ops/layernorm.py:26"),
+    "B7 fwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+               "bindyouravatar_tpu/ops/flash_attention.py:352"),
+    "B7 bwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
+               "bindyouravatar_tpu/ops/flash_attention.py:1050"),
+    "B8": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+           "bindyouravatar_tpu/ops/packed_attention.py:351"),
+    "B9": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+           "bindyouravatar_tpu/ops/layernorm.py:199"),
+    "B10 fwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+                "bindyouravatar_tpu/ops/layernorm.py:272"),
+    "B10 bwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+                "bindyouravatar_tpu/ops/layernorm.py:285"),
+    "B11": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+            "bindyouravatar_tpu/ops/flash_attention.py:75"),
+    "B12+B13": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                "bindyouravatar_tpu/ops/flash_attention.py:919, :981"),
+    "B14": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+            "bindyouravatar_tpu/ops/short_kv_attention.py:71"),
+    "B2c": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+            "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
+    "B2h": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
+            "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
+}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=2, help="denoise steps per request")
@@ -1221,7 +1354,18 @@ def main(argv=None) -> int:
     p.add_argument("--train-steps", type=int, default=2, help="optimizer steps of phase 5")
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
+    p.add_argument("--only-kernels", metavar="NAMES",
+                   help="run phase 2 for these kernels only (comma-separated names of the "
+                        "kernels line, or their first word: 'B2,B3,B7'), then stop; fails on "
+                        "purpose (no launch counts).  Run in two unpacked trees, it times two "
+                        "versions of the kernels in one call")
     args = p.parse_args(argv)
+    only = None
+    if args.only_kernels:
+        only = {n.strip() for n in args.only_kernels.split(",") if n.strip()}
+        known = {n.split()[0] for n in KERNELS}
+        if not only or not {n.split()[0] for n in only} <= known:
+            p.error(f"--only-kernels: names among {sorted(known)}")
 
     import torch
 
@@ -1249,9 +1393,8 @@ def main(argv=None) -> int:
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
     print(f"build: {lib.name} (nvcc sm_90a: the flash forward of B1, B7 and B11, the fused "
-          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8) and triton "
-          f"import in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, B6) and "
+          f"triton import in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
@@ -1259,7 +1402,10 @@ def main(argv=None) -> int:
 
     results, launches, reduced_launches, train_launches_ = {}, {}, {}, {}
     unpaired_launches, entry_launches = {}, {}
-    ok = kernel_phase(results)
+    ok = kernel_phase(results, only)
+    if only is not None:
+        return _fail(f"--only-kernels: phase 2 of {sorted(only)} {'passed' if ok else 'FAILED'}, "
+                     f"no other phase run")
     ok &= reduced_step_phase(reduced_launches)
     ok &= reduced_train_phase({})
     ok &= reduced_train_phase(unpaired_launches, unpaired=True)
@@ -1290,47 +1436,9 @@ def main(argv=None) -> int:
         launches[name] = unpaired_launches[name]
     for name in ("B14", "B2c", "B2h"):
         launches[name] = entry_launches[name]
-    meta = {
-        "B1": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
-               "bindyouravatar_tpu/ops/flash_attention.py:592"),
-        "B2": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
-               "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
-        "B3": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
-               "bindyouravatar_tpu/ops/short_kv_attention.py:177"),
-        "B4": ("triton", "bindyouravatar_tpu_torch/ops/_pair_triton.py",
-               "bindyouravatar_tpu/ops/packed_attention.py:226"),
-        "B5": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
-               "bindyouravatar_tpu/ops/packed_attention.py:139"),
-        "B5'": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
-                "bindyouravatar_tpu/ops/packed_attention.py:47"),
-        "B6": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
-               "bindyouravatar_tpu/ops/layernorm.py:26"),
-        "B7 fwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
-                   "bindyouravatar_tpu/ops/flash_attention.py:352"),
-        "B7 bwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                   "bindyouravatar_tpu/ops/flash_attention.py:1050"),
-        "B8": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
-               "bindyouravatar_tpu/ops/packed_attention.py:351"),
-        "B9": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
-               "bindyouravatar_tpu/ops/layernorm.py:199"),
-        "B10 fwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
-                    "bindyouravatar_tpu/ops/layernorm.py:272"),
-        "B10 bwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
-                    "bindyouravatar_tpu/ops/layernorm.py:285"),
-        "B11": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
-                "bindyouravatar_tpu/ops/flash_attention.py:75"),
-        "B12+B13": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "bindyouravatar_tpu/ops/flash_attention.py:919, :981"),
-        "B14": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
-                "bindyouravatar_tpu/ops/short_kv_attention.py:71"),
-        "B2c": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
-                "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
-        "B2h": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
-                "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
-    }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}
-               for name, (route, source, replaces) in meta.items()]
+               for name, (route, source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

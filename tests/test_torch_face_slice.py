@@ -118,6 +118,38 @@ def test_temporal_or_routing_matches(models):
     assert max_err(got, jtemporal_or_routing(jnp.asarray(r), grid)) == 0.0
 
 
+@pytest.mark.parametrize("grid", ["config", "other t, same tokens", "other h*w"])
+def test_forced_routing_is_reduced_on_the_config_grid(models, grid):
+    """A forced routing is OR-reduced over time on the DiT config's
+    `latent_grid`, as JAX does; latents with another (t, h*w) raise, where
+    JAX's reshape fails or, at the same token count, mixes frames."""
+    jd, _, _, _, td, tv = models
+    c = jd.cfg
+    t, h, w = c.latent_grid
+    p = c.patch_size
+    lat_t, lat_h, lat_w = c.latent_frames, c.sample_height, c.sample_width
+    if grid == "other t, same tokens":           # one frame of t times the rows
+        lat_t, lat_h = 1, t * lat_h
+    elif grid == "other h*w":
+        lat_h += p
+    n_tok = lat_t * (lat_h // p) * (lat_w // p)
+    rng = np.random.default_rng(8)
+    force = (rng.uniform(0, 1, (1, n_tok, c.num_ids)) > 0.7).astype(np.float32)
+    tp = BindYourAvatarPipeline.create(td, tv, PipelineConfig())
+    kw = dict(generator=torch.Generator().manual_seed(0), routing_forcing=torch.from_numpy(force))
+    prompt = torch.zeros(1, c.max_text_seq_length, c.text_embed_dim)
+    image_lat = torch.zeros(1, lat_t, 4, lat_h, lat_w)
+    if grid != "config":
+        with pytest.raises(ValueError, match="latent grid"):
+            tp.prepare_denoise_inputs(prompt, image_lat, STEPS, **kw)
+        return
+    with torch.no_grad():
+        got = tp.prepare_denoise_inputs(prompt, image_lat, STEPS, **kw)["force"]
+    want = jtemporal_or_routing(jnp.concatenate([jnp.asarray(force)] * 2, axis=0), (t, h, w))
+    assert got.shape == (2, n_tok, c.num_ids)
+    assert max_err(got, want) == 0.0
+
+
 @pytest.mark.parametrize("options", [{}, dict(zero2cond_cfg=True, forcing=True)])
 def test_generate_face_matches_jax_pipeline(models, options):
     """2 DPM++ steps, face + audio, batch-2 CFG; with zero2cond the uncond
