@@ -22,13 +22,14 @@
 //
 // B8, `tiny_seq_attention`'s backward at S >= 8, replaces `_slice_bwd_kernel`
 // (reached through `_tiny_bwd_pallas` from the custom vjp `_tiny_bwd`): the
-// softmax vjp per (row, head) in fp32, scores recomputed,
+// softmax vjp per (row, head) in fp32, scores recomputed (P and dS rounded
+// to bf16 as operands of the last three products: see its design below),
 //   dv_b = sum_a p_ab g_a,  dp_ab = g_a . v_b,
 //   ds_ab = p_ab (dp_ab - sum_b' p_ab' dp_ab') * scale,
 //   dq_a = sum_b ds_ab k_b,  dk_b = sum_a ds_ab q_a,
 // written flat [M, S, H*64] in the input dtype.  Memory bound as the
-// forward: 4 tensors read, 3 written (~504 MB at [5400, 13, 512]) against
-// ~10 S^2 * 64 FLOP per (row, head).
+// forward: 4 tensors read, 3 written (~252 MB at [2700, 13, 512], 0.075 ms
+// at 3.35 TB/s) against ~10 S^2 * 64 FLOP per (row, head).
 //
 // Design: one warp per (m, head); lane l owns channels 2l, 2l+1 of the
 // head, so each of the S rows of q, k, v is one coalesced 128-byte load per
@@ -37,10 +38,18 @@
 // the softmax runs redundantly in every lane, and the lane writes its two
 // output channels.  Warps of one block take consecutive (m, head) items, so
 // rows of different m never share a score, and warps past M*H return
-// before loading anything (the ragged last block).  The backward keeps k and
-// v (and the dk, dv sums) in registers, streams the query rows a with their
-// output gradients g_a, and reduces each score and each dp_ab across the
-// warp with shuffles; S is a template parameter (8..16) as in the forward.
+// before loading anything (the ragged last block).
+//
+// The backward is a different design (below): one (row, head) is exactly
+// one 16-row tile padded from S, so its five products run on the tensor
+// cores.  Its first version kept the forward's warp-per-item layout and
+// reduced each score and each dP entry across the warp with 5 xor
+// shuffles, 2 S^2 * 5 = 1,690 a (row, head) at S = 13, the query rows one
+// after another: 20% of its bound.  Now a persistent kernel of 4-warp
+// blocks: each warp walks its items with the next item's q, k, v and g in
+// flight by cp.async into the second of two shared-memory buffers while it
+// computes on the first; S is a template parameter (8..16) as in the
+// forward.
 #include "mma_utils.cuh"
 
 namespace {
@@ -126,86 +135,227 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, 
   return cudaGetLastError();
 }
 
+// B8 on the tensor cores: a warp takes one (m, head) item at a time, a
+// [S, 64] tile of each of q, k, v and g padded to 16 rows, in shared
+// memory rows of LDS elements.  Per item, with A from ldmatrix (or from
+// the fp32 score fragments), B from ldmatrix (.trans where the operand is
+// row-major along n) and mma.sync m16n8k16 bf16 -> fp32:
+//   S = Q K^T, dP = G V^T          (2 x 8 products)
+//   P = softmax(S * scale) in fp32 in the fragments, key columns >= S and
+//   query rows >= S zeroed; delta = rowsum(P o dP); dS = P o (dP - delta) * scale
+//   dV = P^T G, dQ = dS K, dK = dS^T Q   (3 x 8 products; P and dS rounded
+//   to bf16 as their A operand, P^T and dS^T by movmatrix)
+// 40 products an item, where the warp-shuffle version reduced ~1,690
+// scores and dP entries across the warp.  The outputs leave through the
+// item's own tiles (dV over g, dQ over k, dK over q, each once its
+// operand is read) as 16-byte rows.
+constexpr int BWD_WARPS = 4;
+constexpr int LDS = DH + 8;            // padded smem row: conflict-free ldmatrix
+constexpr int TILE = 16 * LDS;         // one [16, 64] operand tile, bf16 elements
+constexpr int ITEM = 4 * TILE;         // q, k, v, g of one item
+constexpr int BWD_SMEM = BWD_WARPS * 2 * ITEM * (int)sizeof(bf16);  // double-buffered
+
+// movmatrix: the transpose of the 8x8 bf16 matrix whose fragment (lane
+// holds row lane / 4, columns 2 (lane % 4) + 0, 1) is x, in the same layout
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// acc[nd] = A (16 x 16) * T (16 x 64) for T row-major in a [16, LDS] tile
+__device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&a)[4],
+                                           const bf16* tile, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+#pragma unroll
+  for (int nd = 0; nd < 8; nd += 2) {
+    uint32_t b0, b1, b2, b3;
+    bya::ldmatrix_x4_trans(b0, b1, b2, b3, tile + (lane & 15) * LDS + (nd + (lane >> 4)) * 8);
+    bya::mma_bf16(acc[nd], a, b0, b1);
+    bya::mma_bf16(acc[nd + 1], a, b2, b3);
+  }
+}
+
+// the rows < S of a [16, 64] fp32 result into a tile, as bf16
 template <int S>
-__global__ void __launch_bounds__(NTHREADS)
+__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[8][4], int lane) {
+  const int r = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+    if (r < S)
+      *reinterpret_cast<uint32_t*>(tile + r * LDS + nd * 8 + c) =
+          bya::pack_bf16(acc[nd][0], acc[nd][1]);
+    if (r + 8 < S)
+      *reinterpret_cast<uint32_t*>(tile + (r + 8) * LDS + nd * 8 + c) =
+          bya::pack_bf16(acc[nd][2], acc[nd][3]);
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(BWD_WARPS * 32)
 tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
                     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                     long long n_items, int H, float scale) {
-  const long long item = ((long long)blockIdx.x * NTHREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (item >= n_items) return;
-  const long long m = item / H;
-  const int h = (int)(item % H);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * ITEM;  // this warp's two items
   const long long ld = (long long)H * DH;
-  const long long base = m * S * ld + (long long)h * DH + 2 * lane;
+  const long long step = (long long)gridDim.x * BWD_WARPS;
+  const float scale_log2 = scale * LOG2E;
 
-  float kx[S], ky[S], vx[S], vy[S], dkx[S], dky[S], dvx[S], dvy[S];
-#pragma unroll
-  for (int b = 0; b < S; ++b) {
-    const __nv_bfloat162 kb = *reinterpret_cast<const __nv_bfloat162*>(k + base + b * ld);
-    const __nv_bfloat162 vb = *reinterpret_cast<const __nv_bfloat162*>(v + base + b * ld);
-    kx[b] = __low2float(kb);
-    ky[b] = __high2float(kb);
-    vx[b] = __low2float(vb);
-    vy[b] = __high2float(vb);
-    dkx[b] = dky[b] = dvx[b] = dvy[b] = 0.f;
+  // rows S..15 of every tile stay zero: loads and staged outputs touch rows < S only
+  if constexpr (S < 16) {
+    for (int i = lane; i < 2 * 4 * 16 * 8; i += 32) {
+      const int r = (i >> 3) & 15;
+      if (r >= S)
+        *reinterpret_cast<uint4*>(sm + (i >> 7) * TILE + r * LDS + (i & 7) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
   }
+  const bf16* const srcs[4] = {q, k, v, g};
+  auto base_of = [&](long long it) {
+    return (it / H) * S * ld + (long long)(it % H) * DH;
+  };
+  // item `it`'s rows of q, k, v and g into buffer `buf` (an empty group past the end)
+  auto load = [&](int buf, long long it) {
+    if (it < n_items) {
+      const long long base = base_of(it);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        for (int i = lane; i < S * 8; i += 32)
+          bya::cp_async16(sm + buf * ITEM + t * TILE + (i >> 3) * LDS + (i & 7) * 8,
+                          srcs[t] + base + (i >> 3) * ld + (i & 7) * 8, 16);
+    }
+    bya::cp_async_commit();
+  };
 
-#pragma unroll 1
-  for (int a = 0; a < S; ++a) {
-    const __nv_bfloat162 qa = *reinterpret_cast<const __nv_bfloat162*>(q + base + a * ld);
-    const __nv_bfloat162 ga = *reinterpret_cast<const __nv_bfloat162*>(g + base + a * ld);
-    const float qx = __low2float(qa), qy = __high2float(qa);
-    const float gx = __low2float(ga), gy = __high2float(ga);
-    float p[S], dp[S];
-    float mx = -1e30f;
+  long long item = (long long)blockIdx.x * BWD_WARPS + warp;
+  int buf = 0;
+  load(0, item);
+  for (; item < n_items; item += step, buf ^= 1) {
+    load(buf ^ 1, item + step);
+    bya::cp_async_wait<1>();
+    __syncwarp();
+    bf16* qs = sm + buf * ITEM;
+    bf16* ks = qs + TILE;
+    bf16* vs = ks + TILE;
+    bf16* gs = vs + TILE;
+
+    // S = Q K^T and dP = G V^T; fragment element (nt, e) is row
+    // r0 + 8 (e >> 1), column nt * 8 + c0 + (e & 1)
+    uint32_t af[4][4];
+    float s[2][4] = {}, dp[2][4] = {};
+    bya::load_a_frags<4, LDS>(af, qs, lane);
+    bya::qk_scores<2, 4, LDS>(s, af, ks, lane);
+    bya::load_a_frags<4, LDS>(af, gs, lane);
+    bya::qk_scores<2, 4, LDS>(dp, af, vs, lane);
+
+    const int r0 = lane >> 2, c0 = 2 * (lane & 3);
+    float mx[2] = {-1e30f, -1e30f};
 #pragma unroll
-    for (int b = 0; b < S; ++b) {
-      p[b] = warp_sum(qx * kx[b] + qy * ky[b]) * scale;
-      mx = fmaxf(mx, p[b]);
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nt * 8 + c0 + (e & 1) < S) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
     }
-    float sum = 0.f;
 #pragma unroll
-    for (int b = 0; b < S; ++b) {
-      p[b] = expf(p[b] - mx);
-      sum += p[b];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = nt * 8 + c0 + (e & 1) < S ? exp2f((s[nt][e] - mx[e >> 1]) * scale_log2)
+                                                   : 0.f;
+        s[nt][e] = p;
+        sum[e >> 1] += p;
+      }
+    float delta[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
+      sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
+      inv[i] = r0 + 8 * i < S ? 1.f / sum[i] : 0.f;  // query rows >= S: p = 0
     }
-    const float inv = 1.f / sum;
-    float rowdot = 0.f;
 #pragma unroll
-    for (int b = 0; b < S; ++b) {
-      p[b] *= inv;
-      dp[b] = warp_sum(gx * vx[b] + gy * vy[b]);
-      rowdot += p[b] * dp[b];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] *= inv[e >> 1];
+        delta[e >> 1] += s[nt][e] * dp[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      delta[i] += __shfl_xor_sync(FULL, delta[i], 1);
+      delta[i] += __shfl_xor_sync(FULL, delta[i], 2);
     }
-    float dqx = 0.f, dqy = 0.f;
 #pragma unroll
-    for (int b = 0; b < S; ++b) {
-      const float ds = p[b] * (dp[b] - rowdot) * scale;
-      dqx += ds * kx[b];
-      dqy += ds * ky[b];
-      dkx[b] += ds * qx;
-      dky[b] += ds * qy;
-      dvx[b] += p[b] * gx;
-      dvy[b] += p[b] * gy;
-    }
-    *reinterpret_cast<uint32_t*>(dq + base + a * ld) = bya::pack_bf16(dqx, dqy);
-  }
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-  for (int b = 0; b < S; ++b) {
-    *reinterpret_cast<uint32_t*>(dk + base + b * ld) = bya::pack_bf16(dkx[b], dky[b]);
-    *reinterpret_cast<uint32_t*>(dv + base + b * ld) = bya::pack_bf16(dvx[b], dvy[b]);
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - delta[e >> 1]) * scale;
+
+    // A operands: dS as it lies in the fragments, P^T and dS^T transposed
+    // 8x8 block by block
+    const uint32_t ds_a[4] = {
+        bya::pack_bf16(dp[0][0], dp[0][1]), bya::pack_bf16(dp[0][2], dp[0][3]),
+        bya::pack_bf16(dp[1][0], dp[1][1]), bya::pack_bf16(dp[1][2], dp[1][3])};
+    const uint32_t pt_a[4] = {transpose8(bya::pack_bf16(s[0][0], s[0][1])),
+                              transpose8(bya::pack_bf16(s[1][0], s[1][1])),
+                              transpose8(bya::pack_bf16(s[0][2], s[0][3])),
+                              transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
+    const uint32_t dst_a[4] = {transpose8(ds_a[0]), transpose8(ds_a[2]), transpose8(ds_a[1]),
+                               transpose8(ds_a[3])};
+    float acc[8][4];
+    mma_a_tile(acc, pt_a, gs, lane);  // dV = P^T G, staged over g
+    __syncwarp();
+    stage<S>(gs, acc, lane);
+    mma_a_tile(acc, ds_a, ks, lane);  // dQ = dS K, over k
+    __syncwarp();
+    stage<S>(ks, acc, lane);
+    mma_a_tile(acc, dst_a, qs, lane);  // dK = dS^T Q, over q
+    __syncwarp();
+    stage<S>(qs, acc, lane);
+    __syncwarp();
+
+    const long long base = base_of(item);
+    bf16* const outs[3] = {dk, dq, dv};
+    const bf16* const tiles[3] = {qs, ks, gs};
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      for (int i = lane; i < S * 8; i += 32)
+        *reinterpret_cast<uint4*>(outs[t] + base + (i >> 3) * ld + (i & 7) * 8) =
+            *reinterpret_cast<const uint4*>(tiles[t] + (i >> 3) * LDS + (i & 7) * 8);
+    __syncwarp();
   }
 }
 
 template <int S>
 cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g, bf16* dq,
                        bf16* dk, bf16* dv, int M, int H, float scale, cudaStream_t st) {
+  static int fit = 0;  // blocks resident on the card at once
+  if (fit == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(tiny_seq_bwd_kernel<S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tiny_seq_bwd_kernel<S>,
+                                                          BWD_WARPS * 32, BWD_SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    fit = sms * per_sm;
+  }
   const long long n_items = (long long)M * H;
-  const unsigned blocks = (unsigned)((n_items + NWARPS - 1) / NWARPS);
-  tiny_seq_bwd_kernel<S><<<blocks, NTHREADS, 0, st>>>(q, k, v, g, dq, dk, dv, n_items, H,
-                                                      scale);
+  const long long need = (n_items + BWD_WARPS - 1) / BWD_WARPS;
+  const unsigned blocks = (unsigned)(need < fit ? need : fit);
+  tiny_seq_bwd_kernel<S><<<blocks, BWD_WARPS * 32, BWD_SMEM, st>>>(q, k, v, g, dq, dk, dv,
+                                                                  n_items, H, scale);
   return cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "bya_tiny_seq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "bya_layernorm_fwd": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "bya_layernorm_bwd_blocks": [_I, _I, _P],
+    "bya_layernorm_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,9 @@
-"""Triton sources of kernel B10's forward (per-head LayerNorm forward) and
-of B9 and B10's backward (LayerNorm backward).  B6, the row LayerNorm
-forward, is CUDA C++ (`csrc/layernorm.cu`).
+"""Triton sources of kernel B10, the per-head LayerNorm forward and
+backward.  B6 and B9, the row LayerNorm forward and backward, are CUDA C++
+(`csrc/layernorm.cu`).
 
-The forward computes statistics over SEG-wide segments of a flat row with
-the affine shared across segments (B10: 64-wide heads); the backward
-source, templated on the segment width, serves both backwards (B9: whole
-rows; B10: 64-wide head segments).
+Both compute statistics over SEG-wide segments of a flat row with the
+affine shared across segments (B10: 64-wide heads).
 
 Imported only by `layernorm.py` when it launches on a CUDA tensor: this
 module imports `triton`, which only the GPU machine has.
@@ -38,8 +36,8 @@ def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, n_cols, eps, BLOCK: tl.constexpr,
 
 
 @triton.jit
-def ln_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, dw_ptr, db_ptr, n_rows, n_cols, seg_len,
-                  rows_per_prog, eps, BLOCK: tl.constexpr, SEG: tl.constexpr):
+def ln_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, dw_ptr, db_ptr, n_rows, n_cols, rows_per_prog,
+                  eps, BLOCK: tl.constexpr, SEG: tl.constexpr):
     """Rows [pid * rows_per_prog, +rows_per_prog) of one program, one at a
     time: statistics recomputed per segment as in the forward, then
         xhat = (x - mu) r,  gy = g w
@@ -64,13 +62,13 @@ def ln_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, dw_ptr, db_ptr, n_rows, n_cols, s
                        (BLOCK // SEG, SEG))
         g = tl.reshape(tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32),
                        (BLOCK // SEG, SEG))
-        mean = tl.sum(x, axis=1) / seg_len
+        mean = tl.sum(x, axis=1) / SEG
         xc = tl.where(ms, x - mean[:, None], 0.0)
-        r = tl.rsqrt(tl.sum(xc * xc, axis=1) / seg_len + eps)
+        r = tl.rsqrt(tl.sum(xc * xc, axis=1) / SEG + eps)
         xhat = xc * r[:, None]
         gy = g * w
-        mg = tl.sum(gy, axis=1) / seg_len
-        mgx = tl.sum(gy * xhat, axis=1) / seg_len
+        mg = tl.sum(gy, axis=1) / SEG
+        mgx = tl.sum(gy * xhat, axis=1) / SEG
         dx = r[:, None] * (gy - mg[:, None] - xhat * mgx[:, None])
         tl.store(dx_ptr + off, tl.reshape(dx, (BLOCK,)).to(dx_ptr.dtype.element_ty), mask=mask)
         dw_acc += g * xhat

@@ -1,16 +1,15 @@
-"""LayerNorm kernels: B6 (row LayerNorm forward, CUDA C++), B9 (its
-backward, Triton) and B10 (per-head LayerNorm forward and backward,
-Triton), and their plain versions.
+"""LayerNorm kernels: B6 (row LayerNorm forward) and B9 (its backward),
+CUDA C++, and B10 (per-head LayerNorm forward and backward, Triton), and
+their plain versions.
 
   * `fused_layernorm` (B6 forward, B9 backward) replaces the TPU kernels
     `_ln_kernel` and `_ln_bwd_kernel` (bindyouravatar_tpu/ops/layernorm.py),
     reached from `LayerNorm(fused=True)`: the audio `norm_q` over
     [B*S, 3072] in every audio layer, the perceiver norms, the router norms
     and the trunk/STAB norms, and the `AudioProjModel` norm once per clip.
-    The forward is `csrc/layernorm.cu` (persistent blocks, rows as 16-byte
+    Both are `csrc/layernorm.cu` (persistent blocks, rows as 16-byte
     vectors in registers, the affine read once per block; its source note
-    says what bounds it); the backward is `ln_bwd_kernel` in
-    `_ln_triton.py`.
+    says what bounds them and how).
   * `head_layernorm` (B10) replaces `_hln_fwd_kernel` and `_hln_bwd_kernel`:
     LN over 64-wide head segments of a flat [.., H*64] row with the affine
     shared across heads, the training path's QK norms ([17776, 3072] per
@@ -18,15 +17,19 @@ Triton), and their plain versions.
 
 What bounds them on the H100: memory.  The forward reads and writes each
 bf16 element once (4 B/element) for ~8 FLOP/element; the backward reads x
-and g and writes dx (6 B/element) for ~20 FLOP/element: both far below the
+and g and writes dx (6 B/element) for ~12 FLOP/element: both far below the
 card's ~295 FLOP/B ridge.  The kernels keep whole rows in registers, so the
-fp32 statistics, xhat and the affine never touch device memory; the
-backward's dscale/dbias are per-program partial sums over the program's
-rows (a [programs, D] fp32 buffer, ~2 MB) and a second pass (a torch sum,
-as the JAX package sums its partials in XLA) folds them.
+fp32 statistics, xhat and the affine never touch device memory.  B9 adds
+each thread's dscale/dbias partial sums across its rows in shared memory,
+writes one [2, D] fp32 partial row per block and folds those rows in the
+same launch, in a fixed order (cooperative launch, a grid barrier).  B10's
+backward writes per-program partial sums (a [programs, D] fp32 buffer,
+~2 MB) that torch sums fold, as the JAX package sums its partials in XLA.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,7 +38,11 @@ from ._build import check, cuda_lib, import_triton
 # widths the kernels take: whole rows in registers, 128-element multiples
 _MAX_D = 8192
 HEAD_DIM = 64           # the segment width of the per-head kernels
-_BWD_PROGRAMS = 528     # backward programs: 4 per SM of the H100
+_BWD_PROGRAMS = 528     # B10 backward programs: 4 per SM of the H100
+# (device, stream) -> B9's grid-barrier counter: zeroed once, then kept by
+# the kernel (each barrier leaves it as it found it); one per stream, since
+# launches that share a counter must not run at the same time
+_BARRIERS: dict = {}
 
 
 def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -127,11 +134,42 @@ def _hln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.view(x.shape)
 
 
-def _ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float, seg: int,
-            what: str):
-    """The backward kernel: (dx in x.dtype, per-column partial-sum totals of
-    g * xhat and g, fp32 [D])."""
-    d = _check(x, what, seg)
+def _row_ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
+    """Kernel B9 over the rows of `x` ([..., D]): the CUDA kernel of
+    `csrc/layernorm.cu` -> (dx in x.dtype, dscale, dbias fp32 [D]).  It
+    takes 16-byte-aligned rows and scale (a misaligned input is copied
+    first), a [blocks, 2, D] fp32 scratch of partial rows, and the
+    stream's grid-barrier counter (`_BARRIERS`)."""
+    d = _check(x, "layernorm backward (B9)", x.shape[-1])
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    x2 = aligned(x.reshape(-1, d).contiguous())
+    g2 = aligned(g.reshape(-1, d).contiguous().to(x.dtype))
+    sc = aligned(scale.float().contiguous())
+    m, lib = x2.shape[0], cuda_lib()
+    if m == 0:
+        zero = torch.zeros(d, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), zero, zero.clone()
+    stream = torch.cuda.current_stream(x.device)
+    blocks = ctypes.c_int(0)
+    check(lib.bya_layernorm_bwd_blocks(m, d, ctypes.byref(blocks)), "layernorm backward (B9)")
+    bar = _BARRIERS.get((x.device, stream.cuda_stream))
+    if bar is None:
+        bar = _BARRIERS[(x.device, stream.cuda_stream)] = torch.zeros(
+            1, dtype=torch.int32, device=x.device)
+    dx = torch.empty_like(x2)
+    part = torch.empty((blocks.value, 2, d), dtype=torch.float32, device=x.device)
+    dsb = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    err = lib.bya_layernorm_bwd(x2.data_ptr(), sc.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                                part.data_ptr(), blocks.value, dsb.data_ptr(), bar.data_ptr(),
+                                m, d, float(eps), stream.cuda_stream)
+    check(err, "layernorm backward (B9)")
+    return dx.view(x.shape), dsb[0], dsb[1]
+
+
+def _hln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
+    """B10's backward kernel (Triton): (dx in x.dtype, per-column
+    partial-sum totals of g * xhat and g over the rows, fp32 [D])."""
+    d = _check(x, "head_layernorm backward (B10)", HEAD_DIM)
     import_triton()
     from ._ln_triton import ln_bwd_kernel
 
@@ -144,8 +182,8 @@ def _ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float, s
     db = torch.empty_like(dw)
     block = 1 << (d - 1).bit_length()
     ln_bwd_kernel[(progs,)](
-        x2, scale.float().contiguous(), g2, dx, dw, db, m, d, seg, rows_per_prog, eps,
-        BLOCK=block, SEG=block if seg == d else seg, num_warps=8 if block >= 2048 else 4)
+        x2, scale.float().contiguous(), g2, dx, dw, db, m, d, rows_per_prog, eps,
+        BLOCK=block, SEG=HEAD_DIM, num_warps=8 if block >= 2048 else 4)
     return dx.view(x.shape), dw.sum(0), db.sum(0)
 
 
@@ -170,7 +208,7 @@ def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Row LayerNorm of `x` ([..., D]).  A CPU tensor takes the plain
     version (autograd differentiates it); a CUDA tensor launches kernel B6
     (bf16, D % 128 == 0, D <= 8192) or raises, and its backward launches
-    kernel B9 (Triton, which raises itself if a launch fails)."""
+    kernel B9 (the same shapes) or raises."""
     if x.device.type == "cpu":
         return layernorm_plain(x, scale, bias, eps)
     return _FusedLayerNorm.apply(x, scale, bias, eps)
@@ -179,10 +217,11 @@ def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-5):
     """Kernel B9 on its own (what `fused_layernorm`'s backward launches):
     (dx, dscale, dbias) of the row LayerNorm for output gradient `g`.  A
-    CPU tensor takes the plain version."""
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16, D % 128 == 0, D <= 8192) or raises."""
     if x.device.type == "cpu":
         return layernorm_bwd_plain(x, scale, g, eps)
-    out = _ln_bwd(x, scale, g, eps, x.shape[-1], "layernorm backward (B9)")
+    out = _row_ln_bwd(x, scale, g, eps)
     layernorm_bwd.launches += 1
     return out
 
@@ -242,7 +281,7 @@ def head_layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         return head_layernorm_bwd_plain(x, scale, g, eps)
     if scale.shape[0] != HEAD_DIM:
         raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
-    dx, ds, db = _ln_bwd(x, scale, g, eps, HEAD_DIM, "head_layernorm backward (B10)")
+    dx, ds, db = _hln_bwd(x, scale, g, eps)
     head_layernorm_bwd.launches += 1
     return dx, ds.reshape(-1, HEAD_DIM).sum(0), db.reshape(-1, HEAD_DIM).sum(0)
 

@@ -17,10 +17,10 @@ Each has its plain PyTorch version, which a CPU tensor takes; a CUDA tensor
 launches the kernel or raises.  The source notes say what bounds them.
 
 Gradients, as the JAX custom vjps decide: `tiny_seq_attention` at S >= 8
-runs kernel B8 (`_slice_bwd_kernel`, CUDA C++ in `csrc/packed_attention.cu`,
-standalone as `tiny_seq_attention_bwd`); below 8 it takes the vjp of the
-plain version, as do `pair_axis_attention` and `packed_head_attention`
-(the JAX package has no Pallas backward for them).
+runs kernel B8 (`_slice_bwd_kernel`, CUDA C++ on the tensor cores in
+`csrc/packed_attention.cu`, standalone as `tiny_seq_attention_bwd`); below
+8 it takes the vjp of the plain version, as do `pair_axis_attention` and
+`packed_head_attention` (the JAX package has no Pallas backward for them).
 """
 
 from __future__ import annotations
@@ -190,7 +190,7 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
             and k.shape == q.shape and v.shape == q.shape and g.shape == q.shape):
         raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*64] with "
                          f"8 <= S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
-    for t in (q, k, v):
+    for t in (q, k, v, g):
         if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
             raise ValueError("tiny_seq_attention backward kernel takes contiguous 16-byte "
                              "aligned bf16 tensors")

@@ -21,10 +21,12 @@ the rest) and its share, the device-busy share of the wall time, the
 launches, the top kernels by device time and the peak memory.  A matrix
 product counts as the router's when it was launched inside the router's
 modules (norms, layer projections, trunk), which run inside a
-`record_function("router")` range during the profile.  B6, the row
-LayerNorm forward, is its own CUDA kernel (`layernorm_rows_kernel`); B10's
-forward is the Triton `ln_fwd_kernel` and B9's and B10's backwards share
-the Triton `ln_bwd_kernel`, so those two count in one group.
+`record_function("router")` range during the profile.  B6 and B9, the row
+LayerNorm forward and backward, are CUDA kernels of their own
+(`layernorm_rows_kernel`, `layernorm_bwd_kernel`, which folds its dscale
+and dbias partials in the same launch); B10's forward and backward are the
+Triton `ln_fwd_kernel` and `ln_bwd_kernel` (its torch sums count as
+"other").
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ GROUPS = (("B1 flash_attention", ("flash_fwd_kernel", "prep_qk_kernel")),
           ("B5 tiny_seq_attention", ("tiny_seq_kernel",)),
           ("B6 LayerNorm forward", ("layernorm_rows_kernel",)),
           ("B10 LayerNorm forward", ("ln_fwd_kernel",)),
-          ("B9 / B10 LayerNorm backward", ("ln_bwd_kernel",)),
+          ("B9 LayerNorm backward", ("layernorm_bwd_kernel",)),
+          ("B10 LayerNorm backward", ("ln_bwd_kernel",)),
           ("B11 flash forward (bhsd/bshd) and its pre-pass",
            ("mha_fwd_layout_kernel", "layout_prep_kernel")),
           ("B12 + B13 fused flash backward (bhsd/bshd), its pre- and post-pass",

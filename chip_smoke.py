@@ -21,11 +21,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      serving or train step's shapes and at a ragged shape, with the stated
      tolerance (the flash forward also at S = 1,350 with kv_len = 1,000,
      whole kv tiles past it, and with logits of several hundred, which only
-     an online max keeps finite; the short-KV body and B6 at their hazards,
-     untimed: Sq = 1,000 over 3 batches at I = 1, 2, 4, D = 64 and 128 in
-     both layouts and modes, and combined at [26, 1350, 16, 128], so that
-     persistent blocks' shares cross a change of batch; 1,001 rows at every
-     B6 width from 128 to 8192); kernel, plain version and (where one
+     an online max keeps finite; the short-KV body, B6, B8 and B9 at their
+     hazards, untimed: Sq = 1,000 over 3 batches at I = 1, 2, 4, D = 64 and
+     128 in both layouts and modes, and combined at [26, 1350, 16, 128], so
+     that persistent blocks' shares cross a change of batch; 1,001 rows at
+     every B6 and B9 width from 128 to 8192, B9 also at 64 and 5 rows; B8
+     at M = 1,001 for S = 8, 13, 16; B8 and B9 run twice, bitwise equal);
+     kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
      (a window that reads less than the bound is printed kernel by kernel
@@ -205,6 +207,12 @@ def kernel_phase(results: dict, only=None) -> bool:
         ok_all &= ok
         print(f"kernel {name} {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"tol=|d|<={atol}+{rtol}*|ref| {'ok' if ok else 'FAILED'}", flush=True)
+
+    def check_ok(name, tag, ok):
+        """A check that is true or false (a bitwise repeat)."""
+        nonlocal ok_all
+        ok_all &= ok
+        print(f"kernel {name} {tag}: {'ok' if ok else 'FAILED'}", flush=True)
 
     def report_all(name, tag, gots, wants, rels, kern, plain, runs, library, work):
         """One line per output (first one timed), each within `rel` of the
@@ -414,7 +422,7 @@ def kernel_phase(results: dict, only=None) -> bool:
             check(name, f"ragged {what} [G={g},Sq={sq},H={h},D={d}] I={n_id}",
                   fn(*args, d ** -0.5), plain(*args, d ** -0.5), 1e-2, 2e-2)
     # report() and report_all() clear ok_all themselves
-    train_kernel_phase(results, rnd, report, report_all, bhsd, pick)
+    train_kernel_phase(results, rnd, report, report_all, bhsd, pick, check, check_ok)
     layout_kernel_phase(results, rnd, report, report_all, pick)
     return ok_all
 
@@ -425,7 +433,8 @@ def _rel_compare(got, want, rel: float) -> float:
     return rel * float(want.float().abs().max())
 
 
-def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick) -> None:
+def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check,
+                       check_ok) -> None:
     """The training path's kernels (B7 forward and backward, B8, B9, B10
     forward and backward) against their plain versions, at the train
     step's shapes (batch 1 per micro-batch) and one ragged shape each."""
@@ -552,6 +561,35 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick) -> No
                        work)
         if tag in ("train[17550,3072]", "train[17776,3072]"):
             results[key] = r
+
+    # B8 and B9 hazards, not timed; each call is run twice and must repeat
+    # itself bit for bit (B9 folds its partial rows in a fixed order, B8
+    # has no sums across items).  B8: M = 1,001 (a persistent warp's last
+    # items ragged) at S = 8, 13 and 16 (pad rows 8, 3 and 0 of the 16-row
+    # tile).  B9: 1,001 rows at every width (D = 640 and 1,152 leave a
+    # thread's last chunk empty, 8,192 takes four chunks a thread), and
+    # fewer rows than the card holds blocks ([64, 2048], [5, 3072]: a grid
+    # of row steps, no block without rows).
+    # tol: as the timed rows.
+    def check_twice(name, tag, fn, want, rels):
+        first, again = fn(), fn()
+        for i, (got, ref, rel) in enumerate(zip(first, want, rels)):
+            check(name, f"{tag} out{i}", got, ref, _rel_compare(got, ref, rel), rel)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        check_ok(name, f"{tag} run twice: bitwise equal", same)
+
+    for s_ in pick((8, 13, 16), ["B8"]):
+        q, k, v, g = (rnd(1001, s_, 512).to(bf) for _ in range(4))
+        check_twice("B8", f"ragged[1001,{s_},512]",
+                    lambda: pa.tiny_seq_attention_bwd(q, k, v, g, 8, 0.125),
+                    pa.tiny_seq_attention_bwd_plain(q, k, v, g, 8, 0.125), (1e-2,) * 3)
+    for rows, d in pick([(1001, d) for d in (128, 512, 640, 768, 1152, 2048, 3072, 8192)]
+                        + [(64, 2048), (5, 3072)], ["B9"]):
+        x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
+        g = rnd(rows, d).to(bf)
+        sc = rnd(d, std=0.1, mean=1.0)
+        check_twice("B9", f"ragged[{rows},{d}]", lambda: ln.layernorm_bwd(x, sc, g),
+                    ln.layernorm_bwd_plain(x, sc, g), (1e-2, 1e-3, 1e-3))
 
 
 def layout_kernel_phase(results: dict, rnd, report, report_all, pick) -> None:
@@ -1327,7 +1365,7 @@ KERNELS = {
                "bindyouravatar_tpu/ops/flash_attention.py:1050"),
     "B8": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
            "bindyouravatar_tpu/ops/packed_attention.py:351"),
-    "B9": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
+    "B9": ("cuda", "bindyouravatar_tpu_torch/csrc/layernorm.cu",
            "bindyouravatar_tpu/ops/layernorm.py:199"),
     "B10 fwd": ("triton", "bindyouravatar_tpu_torch/ops/_ln_triton.py",
                 "bindyouravatar_tpu/ops/layernorm.py:272"),
@@ -1393,7 +1431,7 @@ def main(argv=None) -> int:
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
     print(f"build: {lib.name} (nvcc sm_90a: the flash forward of B1, B7 and B11, the fused "
-          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, B6) and "
+          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, B6 + B9) and "
           f"triton import in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
