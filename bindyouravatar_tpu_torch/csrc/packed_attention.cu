@@ -17,8 +17,9 @@
 //
 // What bounds it on the H100: memory.  Per (row, head) it reads 3 * S * 128 B
 // and writes S * 128 B against 4 * S^2 * 64 FLOP: at S = 13, 6.5 FLOP/B.  At
-// [5400, 13, 8*64] a call moves ~288 MB: ~0.086 ms at 3.35 TB/s.  The [S, S]
-// scores are too small for the tensor cores to matter.
+// [5400, 13, 8*64] a call moves ~288 MB: ~0.086 ms at 3.35 TB/s.  On the
+// tensor cores an item's products take a few instructions a warp, so the
+// loads and stores, not the arithmetic, set its time.
 //
 // B8, `tiny_seq_attention`'s backward at S >= 8, replaces `_slice_bwd_kernel`
 // (reached through `_tiny_bwd_pallas` from the custom vjp `_tiny_bwd`): the
@@ -31,25 +32,25 @@
 // forward: 4 tensors read, 3 written (~252 MB at [2700, 13, 512], 0.075 ms
 // at 3.35 TB/s) against ~10 S^2 * 64 FLOP per (row, head).
 //
-// Design: one warp per (m, head); lane l owns channels 2l, 2l+1 of the
-// head, so each of the S rows of q, k, v is one coalesced 128-byte load per
-// warp.  k and v stay in registers (4*S floats a lane); for each query row
-// the S scores are partial dots reduced across the warp with xor shuffles,
-// the softmax runs redundantly in every lane, and the lane writes its two
-// output channels.  Warps of one block take consecutive (m, head) items, so
-// rows of different m never share a score, and warps past M*H return
-// before loading anything (the ragged last block).
+// Design (B5, B5'): one (m, head) item is one tile of S rows padded to 16,
+// so its two products run on the tensor cores.  A persistent kernel of
+// 4-warp blocks, sized by occupancy; each warp walks its tiles with the
+// next tile's q, k and v in flight by cp.async into the second of two
+// shared-memory buffers while it computes on the first.  Per tile, with A
+// from ldmatrix (or from the fp32 score fragments) and B from ldmatrix
+// (.trans for V), mma.sync m16n8k16 bf16 -> fp32:
+//   S = Q K^T                           (8 products)
+//   P = softmax(S * scale) in fp32 in the fragments, the key columns of
+//   other items and past the tile's rows masked, row max and row sum by 2
+//   xor shuffles each; P is normalised in fp32 before it is rounded to
+//   bf16 as the A operand, as `_slice_kernel` rounds p / sum
+//   O = P V                             (8 products)
+// O is staged over the q tile and leaves as 16-byte rows.  Below S = 9 a
+// tile packs 16 / S consecutive items (the block-diagonal mask of B5''s
+// packed-head fold, `_kernel`), so short sequences do not pad 16 rows an
+// item.  S is a template parameter (1..16).
 //
-// The backward is a different design (below): one (row, head) is exactly
-// one 16-row tile padded from S, so its five products run on the tensor
-// cores.  Its first version kept the forward's warp-per-item layout and
-// reduced each score and each dP entry across the warp with 5 xor
-// shuffles, 2 S^2 * 5 = 1,690 a (row, head) at S = 13, the query rows one
-// after another: 20% of its bound.  Now a persistent kernel of 4-warp
-// blocks: each warp walks its items with the next item's q, k, v and g in
-// flight by cp.async into the second of two shared-memory buffers while it
-// computes on the first; S is a template parameter (8..16) as in the
-// forward.
+// B8 is the same design with four tiles an item (q, k, v, g) and S >= 8.
 #include "mma_utils.cuh"
 
 namespace {
@@ -57,83 +58,9 @@ namespace {
 using bya::bf16;
 
 constexpr int DH = 64;
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_S = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int S>
-__global__ void __launch_bounds__(NTHREADS)
-tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, long long n_items, int H,
-                float scale_log2) {
-  const long long item = ((long long)blockIdx.x * NTHREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (item >= n_items) return;
-  const long long m = item / H;
-  const int h = (int)(item % H);
-  const long long ld = (long long)H * DH;
-  const long long base = m * S * ld + (long long)h * DH + 2 * lane;
-
-  float kx[S], ky[S], vx[S], vy[S];
-#pragma unroll
-  for (int b = 0; b < S; ++b) {
-    const __nv_bfloat162 kb = *reinterpret_cast<const __nv_bfloat162*>(k + base + b * ld);
-    const __nv_bfloat162 vb = *reinterpret_cast<const __nv_bfloat162*>(v + base + b * ld);
-    kx[b] = __low2float(kb);
-    ky[b] = __high2float(kb);
-    vx[b] = __low2float(vb);
-    vy[b] = __high2float(vb);
-  }
-
-#pragma unroll 1
-  for (int a = 0; a < S; ++a) {
-    const __nv_bfloat162 qa = *reinterpret_cast<const __nv_bfloat162*>(q + base + a * ld);
-    const float qx = __low2float(qa), qy = __high2float(qa);
-    float sc[S];
-    float mx = -1e30f;
-#pragma unroll
-    for (int b = 0; b < S; ++b) {
-      sc[b] = warp_sum(qx * kx[b] + qy * ky[b]) * scale_log2;
-      mx = fmaxf(mx, sc[b]);
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int b = 0; b < S; ++b) {
-      sc[b] = exp2f(sc[b] - mx);
-      sum += sc[b];
-    }
-    const float inv = 1.f / sum;
-    float ox = 0.f, oy = 0.f;
-#pragma unroll
-    for (int b = 0; b < S; ++b) {
-      const float p = bf16_round(sc[b] * inv);
-      ox += p * vx[b];
-      oy += p * vy[b];
-    }
-    *reinterpret_cast<uint32_t*>(o + base + a * ld) = bya::pack_bf16(ox, oy);
-  }
-}
-
-template <int S>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int H,
-                   float scale, cudaStream_t st) {
-  const long long n_items = (long long)M * H;
-  const unsigned blocks = (unsigned)((n_items + NWARPS - 1) / NWARPS);
-  tiny_seq_kernel<S><<<blocks, NTHREADS, 0, st>>>(q, k, v, o, n_items, H, scale * LOG2E);
-  return cudaGetLastError();
-}
 
 // B8 on the tensor cores: a warp takes one (m, head) item at a time, a
 // [S, 64] tile of each of q, k, v and g padded to 16 rows, in shared
@@ -189,6 +116,151 @@ __device__ __forceinline__ void stage(bf16* tile, const float (&acc)[8][4], int 
     if (r + 8 < S)
       *reinterpret_cast<uint32_t*>(tile + (r + 8) * LDS + nd * 8 + c) =
           bya::pack_bf16(acc[nd][2], acc[nd][3]);
+  }
+}
+
+// B5 / B5': a warp takes one tile at a time, PACK = 16 / S consecutive
+// (m, head) items of S rows each ([PACK * S, 64] of q, k and v, padded to
+// 16 rows); see the design at the top.
+constexpr int FWD_WARPS = 4;
+constexpr int FWD_TILES = 3 * TILE;                                     // q, k, v
+constexpr int FWD_SMEM = FWD_WARPS * 2 * FWD_TILES * (int)sizeof(bf16);  // double-buffered
+
+template <int S>
+__global__ void __launch_bounds__(FWD_WARPS * 32)
+tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, long long n_items, int H,
+                float scale) {
+  constexpr int PACK = 16 / S;
+  constexpr int ROWS = PACK * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * FWD_TILES;  // this warp's two tiles
+  const long long ld = (long long)H * DH;
+  const long long n_tiles = (n_items + PACK - 1) / PACK;
+  const long long step = (long long)gridDim.x * FWD_WARPS;
+  const float scale_log2 = scale * LOG2E;
+
+  // rows ROWS..15 of every tile stay zero: loads and the staged output
+  // touch rows < ROWS only
+  if constexpr (ROWS < 16) {
+    for (int i = lane; i < 2 * 3 * 16 * 8; i += 32) {
+      const int r = (i >> 3) & 15;
+      if (r >= ROWS)
+        *reinterpret_cast<uint4*>(sm + (i >> 7) * TILE + r * LDS + (i & 7) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // a tile's first item and its (m, head): one division a tile
+  struct First {
+    long long item, m;
+    int h;
+  };
+  auto first_of = [&](long long tile) {
+    const long long item = tile * PACK, m = item / H;
+    return First{item, m, (int)(item - m * H)};
+  };
+  // the offset in [M, S, H*64] of the tile's 16-byte chunk i (row i / 8 of
+  // the tile: row (i / 8) % S of its item (i / 8) / S), or -1 for an item
+  // past the end
+  auto chunk_offset = [&](const First& f, int i) -> long long {
+    const int r = i >> 3, j = r / S;
+    if (f.item + j >= n_items) return -1;
+    long long m = f.m;
+    int h = f.h + j;
+    for (; h >= H; h -= H) ++m;
+    return m * S * ld + (long long)h * DH + (long long)(r - j * S) * ld + (i & 7) * 8;
+  };
+  const bf16* const srcs[3] = {q, k, v};
+  // tile `tile`'s rows of q, k and v into buffer `buf`, the rows of items
+  // past the end zero-filled (an empty group past the last tile)
+  auto load = [&](int buf, long long tile) {
+    if (tile < n_tiles) {
+      const First f = first_of(tile);
+      for (int i = lane; i < ROWS * 8; i += 32) {
+        const long long off = chunk_offset(f, i);
+        const int dst = (i >> 3) * LDS + (i & 7) * 8;
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+          bya::cp_async16(sm + buf * FWD_TILES + t * TILE + dst, srcs[t] + (off < 0 ? 0 : off),
+                          off < 0 ? 0 : 16);
+      }
+    }
+    bya::cp_async_commit();
+  };
+
+  long long tile = (long long)blockIdx.x * FWD_WARPS + warp;
+  int buf = 0;
+  load(0, tile);
+  for (; tile < n_tiles; tile += step, buf ^= 1) {
+    load(buf ^ 1, tile + step);
+    bya::cp_async_wait<1>();
+    __syncwarp();
+    bf16* qs = sm + buf * FWD_TILES;
+    const bf16* ks = qs + TILE;
+    const bf16* vs = ks + TILE;
+
+    // S = Q K^T; fragment element (nt, e) is row r0 + 8 (e >> 1), column
+    // nt * 8 + c0 + (e & 1)
+    uint32_t af[4][4];
+    float s[2][4] = {};
+    bya::load_a_frags<4, LDS>(af, qs, lane);
+    bya::qk_scores<2, 4, LDS>(s, af, ks, lane);
+
+    // a key column counts for a row of the same item (block-diagonal when
+    // PACK > 1); the rows past ROWS get p = 0
+    const int r0 = lane >> 2, c0 = 2 * (lane & 3);
+    auto keep = [&](int nt, int e) {
+      const int r = r0 + 8 * (e >> 1), c = nt * 8 + c0 + (e & 1);
+      return c < ROWS && (PACK == 1 || r / S == c / S);
+    };
+    float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (keep(nt, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = keep(nt, e) ? exp2f((s[nt][e] - mx[e >> 1]) * scale_log2) : 0.f;
+        s[nt][e] = p;
+        sum[e >> 1] += p;
+      }
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
+      sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
+      inv[i] = r0 + 8 * i < ROWS ? 1.f / sum[i] : 0.f;
+    }
+    // P normalised in fp32, then rounded to bf16 as the A operand of O = P V
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
+    const uint32_t p_a[4] = {bya::pack_bf16(s[0][0], s[0][1]), bya::pack_bf16(s[0][2], s[0][3]),
+                             bya::pack_bf16(s[1][0], s[1][1]), bya::pack_bf16(s[1][2], s[1][3])};
+    float acc[8][4];
+    mma_a_tile(acc, p_a, vs, lane);
+    __syncwarp();  // every lane's q fragments are read: O goes over q
+    stage<ROWS>(qs, acc, lane);
+    __syncwarp();
+    const First f = first_of(tile);
+    for (int i = lane; i < ROWS * 8; i += 32) {
+      const long long off = chunk_offset(f, i);
+      if (off >= 0)
+        *reinterpret_cast<uint4*>(o + off) =
+            *reinterpret_cast<const uint4*>(qs + (i >> 3) * LDS + (i & 7) * 8);
+    }
+    __syncwarp();
   }
 }
 
@@ -333,24 +405,44 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) resident on the card at once, computed on first use into `*fit`
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* fit) {
+  if (*fit > 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  *fit = sms * per_sm;
+  return cudaSuccess;
+}
+
+template <int S>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int H,
+                   float scale, cudaStream_t st) {
+  static int fit = 0;
+  cudaError_t err = resident_blocks(tiny_seq_kernel<S>, FWD_WARPS * 32, FWD_SMEM, &fit);
+  if (err != cudaSuccess) return err;
+  constexpr int PACK = 16 / S;
+  const long long n_items = (long long)M * H;
+  const long long need = ((n_items + PACK - 1) / PACK + FWD_WARPS - 1) / FWD_WARPS;
+  const unsigned blocks = (unsigned)(need < fit ? need : fit);
+  tiny_seq_kernel<S><<<blocks, FWD_WARPS * 32, FWD_SMEM, st>>>(q, k, v, o, n_items, H, scale);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g, bf16* dq,
                        bf16* dk, bf16* dv, int M, int H, float scale, cudaStream_t st) {
-  static int fit = 0;  // blocks resident on the card at once
-  if (fit == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(tiny_seq_bwd_kernel<S>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tiny_seq_bwd_kernel<S>,
-                                                          BWD_WARPS * 32, BWD_SMEM);
-    if (err != cudaSuccess) return err;
-    if (per_sm == 0) return cudaErrorInvalidConfiguration;
-    fit = sms * per_sm;
-  }
+  static int fit = 0;
+  cudaError_t err = resident_blocks(tiny_seq_bwd_kernel<S>, BWD_WARPS * 32, BWD_SMEM, &fit);
+  if (err != cudaSuccess) return err;
   const long long n_items = (long long)M * H;
   const long long need = (n_items + BWD_WARPS - 1) / BWD_WARPS;
   const unsigned blocks = (unsigned)(need < fit ? need : fit);

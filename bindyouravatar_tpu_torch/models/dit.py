@@ -6,7 +6,10 @@ each layer is its own module (`blocks`, `audio_layers`, `perceivers`,
 groups (`cfg.group_size` layers, the injection schedule's period).  With
 `cfg.remat` each group runs under `torch.utils.checkpoint` (non-reentrant),
 blocks, face injection and audio layers together, as JAX's `group_body`;
-`remat_policy="nested"` checkpoints each block inside it as well.  Inside a
+`remat_policy="save_attn"` keeps the joint attention's forward outputs
+(o and the LSE) across the group recompute (`keep_attention` on the calls
+tagged `ATTN_OUT`), so that forward runs once per block; `"nested"`
+checkpoints each block inside the group as well.  Inside a
 layer the order is: block, then the face injection (every
 `cross_attn_interval` layers), then audio.  The face injection runs the perceiver (kernel B2),
 the router (shared norms, the layer's projections, the shared trunk) and
@@ -21,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import functools
 import math
 
 import torch
@@ -28,11 +32,12 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import AudioConfig, DiTConfig, LFEConfig, RouterConfig, tiny_dit_config
+from ..ops.flash_attention import keep_attention
 from ..ops.patch import patchify, unpatchify
 from ..ops.rope import (get_3d_rotary_pos_embed, get_resize_crop_region_for_grid,
                         timestep_embedding)
 from .audio import AudioCrossAttnLayer, AudioStatics
-from .layers import (AdaLayerNorm, CogVideoXBlock, Dense, LayerNorm, PatchEmbed,
+from .layers import (ATTN_OUT, AdaLayerNorm, CogVideoXBlock, Dense, LayerNorm, PatchEmbed,
                      TimestepEmbedding, init_random_)
 from .lfe import LocalFacialExtractor
 from .router import (MultiIPRouterLayerProj, MultiIPRouterTrunk, PerceiverCrossAttention,
@@ -40,7 +45,7 @@ from .router import (MultiIPRouterLayerProj, MultiIPRouterTrunk, PerceiverCrossA
 
 
 # the checkpointing policies the port implements (`DiTConfig.remat_policy`)
-REMAT_POLICIES = (None, "nested")
+REMAT_POLICIES = (None, "save_attn", "nested")
 
 
 class DiT(nn.Module):
@@ -55,8 +60,7 @@ class DiT(nn.Module):
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat_policy={cfg.remat_policy!r}: the port checkpoints with "
-                f"{REMAT_POLICIES}; JAX's 'save_attn' (keep the joint attention's output "
-                "across the group backward) is not ported yet (ROADMAP.md, queue A, item 2)")
+                f"{REMAT_POLICIES}")
         self.cfg, self.audio_cfg = cfg, audio_cfg
         self.router_cfg, self.lfe_cfg = router_cfg, lfe_cfg
         kw = dict(compute_dtype=cfg.dtype, dtype=cfg.param_dtype)
@@ -312,8 +316,14 @@ class DiT(nn.Module):
             args = (gi, hid, enc, routing, temb, rope, grid, face_emb, audio_ctx, af_matrix,
                     routing_override)
             if remat:
+                kw = {}
+                if c.remat_policy == "save_attn":
+                    # JAX's save_only_these_names("attn_out"), the LSE kept
+                    # too so the forward never reruns; the router's STAB
+                    # attentions recompute, as in JAX
+                    kw["context_fn"] = functools.partial(keep_attention, ATTN_OUT)
                 hid, enc, routing, group_preds = checkpoint(self._group, *args,
-                                                            use_reentrant=False)
+                                                            use_reentrant=False, **kw)
             else:
                 hid, enc, routing, group_preds = self._group(*args)
             preds += group_preds

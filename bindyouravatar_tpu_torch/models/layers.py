@@ -19,6 +19,11 @@ from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention, flash_attention_flat
 from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
 
+# The tag of the joint attention's differentiable forward (the JAX
+# `checkpoint_name(o, "attn_out")`), whose outputs remat_policy="save_attn"
+# keeps across the group recompute (`models/dit.py`)
+ATTN_OUT = "attn_out"
+
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
@@ -167,7 +172,8 @@ class JointSelfAttention(nn.Module):
         128 lanes (`heads % max(1, 128 // head_dim) == 0`, JAX
         `layers.py:354-367`), else kernels B11 and B12 + B13 on the [B, S, H, D]
         view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`;
-        below 1,024 rows `sdpa`, as JAX's dispatch rule decides)."""
+        below 1,024 rows `sdpa`, as JAX's dispatch rule decides).  The kernels'
+        forward is tagged `ATTN_OUT` for remat_policy="save_attn"."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,
                  bias: bool = True, out_bias: bool = True, lora_rank: int = 0,
@@ -220,12 +226,13 @@ class JointSelfAttention(nn.Module):
             if self.norm_q is not None:
                 q, k = self.norm_q(q), self.norm_k(k)
             if self.heads % max(1, 128 // self.head_dim) == 0:
-                o = flash_attention_flat(q, k, v, self.heads, rope=rope, rope_start=text_len)
+                o = flash_attention_flat(q, k, v, self.heads, rope=rope, rope_start=text_len,
+                                         name=ATTN_OUT)
             else:
                 b, s, inner = q.shape
                 bshd = lambda t: t.reshape(b, s, self.heads, self.head_dim)   # a free view
                 o = attention(bshd(q), bshd(k), bshd(v), rope=rope, rope_start=text_len,
-                              layout="bshd").reshape(b, s, inner)
+                              layout="bshd", name=ATTN_OUT).reshape(b, s, inner)
         o = self.to_out(o)
         return o[:, text_len:], o[:, :text_len]
 

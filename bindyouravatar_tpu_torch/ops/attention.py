@@ -46,7 +46,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               rope_start: int = 0, layout: str = "bhsd",
               qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
-              heads: Optional[int] = None) -> torch.Tensor:
+              heads: Optional[int] = None, name: str = "") -> torch.Tensor:
     """Self/cross attention over [B, H, S, D] (`layout="bhsd"`), [B, S, H,
     D] (`"bshd"`) or flat [B, S, H*D] (`"flat"`, pass `heads`) q/k/v,
     output in the input's layout, with optional per-head QK LayerNorm and
@@ -56,7 +56,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as in JAX; otherwise `sdpa` (any head dim, Sq != Skv allowed).  The JAX
     keywords that only choose between its TPU kernel and its XLA fallback
     (`use_flash`, `v_transposed`, `out_transposed`) have no counterpart
-    here."""
+    here.  `name` tags the flash kernels' differentiable forward for
+    `keep_attention` (`flash_attention`)."""
     from .flash_attention import _head_layernorm, _rope_qk, flash_attention
 
     if layout not in ("flat", "bhsd", "bshd"):
@@ -64,7 +65,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seq = 2 if layout == "bhsd" else 1
     if q.shape[seq] >= 1024 and q.shape[seq] == k.shape[seq]:
         return flash_attention(q, k, v, heads, scale=scale, kv_len=kv_len, rope=rope,
-                               rope_start=rope_start, qk_norm=qk_norm, layout=layout)
+                               rope_start=rope_start, qk_norm=qk_norm, layout=layout,
+                               name=name)
     if layout == "flat":
         split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
         out = attention(split(q), split(k), split(v), scale, kv_len, rope, rope_start, "bhsd",

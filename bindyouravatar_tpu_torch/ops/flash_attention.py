@@ -33,6 +33,7 @@ detached tensor (`kernel_path`).
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -73,7 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     rope_start: int = 0,
                     qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
-                    layout: Optional[str] = None) -> torch.Tensor:
+                    layout: Optional[str] = None, name: str = "") -> torch.Tensor:
     """Non-causal self-attention (the JAX `flash_attention`).
 
     `layout="flat"` (the default when `heads` is given): q/k/v [B, S, H*D]
@@ -89,16 +90,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `rope=(cos, sin)` ([R, D]) rotates rows [rope_start, rope_start + R)
     after it; kv rows >= kv_len are masked.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (bf16; flat: D = 64) or
-    raises."""
+    raises.  `name` tags a differentiable call's forward for
+    `keep_attention` (the JAX `checkpoint_name`)."""
     if layout is None:
         layout = "flat" if heads is not None else "bhsd"
     if layout != "flat":
-        return flash_attention_layout(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)
+        return flash_attention_layout(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm,
+                                      name)
     _require(heads is not None, "layout='flat' requires heads")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, heads, scale, kv_len, rope, rope_start, qk_norm)
     if kernel_path(wants_grad(q, k, v, *(qk_norm or ())), qk_norm, "flat") == "B7":
-        return flash_attention_flat(q, k, v, heads, scale, kv_len, rope, rope_start)
+        return flash_attention_flat(q, k, v, heads, scale, kv_len, rope, rope_start, name)
     b, s, hd = q.shape
     d = hd // heads
     if scale is None:
@@ -340,10 +343,65 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor, heads: int) -> torch.Tens
     return (o.float() * do.float()).reshape(b, s, heads, hd // heads).sum(-1).transpose(1, 2)
 
 
+# ------------------------------------------- outputs kept across a recompute
+# `keep_attention` gives `torch.utils.checkpoint.checkpoint` (use_reentrant=
+# False) its `context_fn`: in the checkpointed forward the differentiable
+# attention forwards (B7's, B11's) whose call carries the given name (the
+# JAX package's `checkpoint_name`) record their (o, lse); in each recompute
+# they hand them back in the same order instead of running again.
+# Everything else in the region recomputes.  A thread-local holds the
+# state: the recompute runs on the autograd engine's thread.
+_kept = threading.local()
+
+
+class _Keeping:
+    """One side of `keep_attention`: recording (the forward) or replaying
+    (a recompute).  Each entry starts at the first kept output, so a
+    second backward through the region (`retain_graph=True`) replays
+    them again."""
+
+    def __init__(self, name: str, outputs: list, record: bool):
+        self.name, self.outputs, self.record = name, outputs, record
+
+    def __enter__(self):
+        self.prev = getattr(_kept, "state", None)
+        if self.record:
+            self.outputs.clear()
+        self.cursor = 0
+        _kept.state = self
+
+    def __exit__(self, *exc):
+        _kept.state = self.prev
+
+    def forward(self, fwd, args):
+        if not self.record:
+            self.cursor += 1
+            return self.outputs[self.cursor - 1]
+        o, lse = fwd(*args)
+        self.outputs.append((o.detach(), lse))
+        return o, lse
+
+
+def keep_attention(name: str):
+    """(forward context, recompute context) for one checkpointed call: the
+    attention forwards named `name` run in the forward only."""
+    outputs = []
+    return _Keeping(name, outputs, True), _Keeping(name, outputs, False)
+
+
+def _attention_forward(fwd, name: str, *args):
+    """fwd(*args) -> (o, lse), or what a `keep_attention` forward recorded."""
+    state = getattr(_kept, "state", None)
+    if state is None or name != state.name:
+        return fwd(*args)
+    return state.forward(fwd, args)
+
+
 class _FlashFlat(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, heads, scale, kv_len, rope, rope_start):
-        o, lse = flash_attention_flat_fwd(q, k, v, heads, scale, kv_len, rope, rope_start)
+    def forward(ctx, q, k, v, heads, scale, kv_len, rope, rope_start, name=""):
+        o, lse = _attention_forward(flash_attention_flat_fwd, name, q, k, v, heads, scale,
+                                    kv_len, rope, rope_start)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (heads, scale, kv_len, rope, rope_start)
         return o
@@ -354,24 +412,24 @@ class _FlashFlat(torch.autograd.Function):
         heads = ctx.args[0]
         dq, dk, dv = flash_attention_flat_bwd(q, k, v, do, lse, attention_delta(o, do, heads),
                                               *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        # no gradient for the static arguments (`name` among them when given)
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                          scale: Optional[float] = None, kv_len: Optional[int] = None,
                          rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                         rope_start: int = 0) -> torch.Tensor:
+                         rope_start: int = 0, name: str = "") -> torch.Tensor:
     """Differentiable non-causal attention over flat q/k/v [B, S, H*D] ->
     [B, S, H*D] with optional rotate-half RoPE on rows [rope_start,
     rope_start + R) and kv rows >= kv_len masked (no QK LayerNorm: the
-    training path applies it outside, as the JAX `_flash_flat` does).  A
-    CPU tensor takes the plain version (autograd differentiates it); a CUDA
-    tensor launches kernel B7's forward, and its backward B7's backward."""
-    if q.device.type == "cpu":
-        return flash_attention_flat_fwd_plain(q, k, v, heads, scale, kv_len, rope,
-                                              rope_start)[0]
+    training path applies it outside, as the JAX `_flash_flat` does).  The
+    forward saves the LSE for the backward; `name` tags it for
+    `keep_attention`.  A CPU tensor takes the plain versions of both; a
+    CUDA tensor launches kernel B7's forward, and its backward B7's
+    backward, or raises."""
     return _FlashFlat.apply(q.contiguous(), k.contiguous(), v.contiguous(), heads, scale,
-                            kv_len, rope, rope_start)
+                            kv_len, rope, rope_start, name)
 
 
 # ------------------------------------------------ bhsd / bshd: B11, B12 + B13
@@ -570,8 +628,9 @@ class _FlashLayout(torch.autograd.Function):
     B12 + B13 backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, layout, scale, kv_len, rope, rope_start):
-        o, lse = flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start)
+    def forward(ctx, q, k, v, layout, scale, kv_len, rope, rope_start, name=""):
+        o, lse = _attention_forward(flash_attention_fwd, name, q, k, v, layout, scale, kv_len,
+                                    rope, rope_start)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (layout, scale, kv_len, rope, rope_start)
         return o
@@ -580,7 +639,7 @@ class _FlashLayout(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 def flash_attention_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -588,19 +647,18 @@ def flash_attention_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_len: Optional[int] = None,
                            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                            rope_start: int = 0,
-                           qk_norm: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                           qk_norm: Optional[Tuple[torch.Tensor, ...]] = None,
+                           name: str = "") -> torch.Tensor:
     """Non-causal self-attention over q/k/v [B, H, S, D] (`layout="bhsd"`)
     or [B, S, H, D] (`"bshd"`), output in the same layout (the bhsd/bshd
     branch of the JAX `flash_attention`).  With `qk_norm` the call is
     inference only (B11 with the LN fused; no backward, as in JAX): on the
     card it raises under grad.  Without, it is differentiable: B11
-    forward, the fused B12 + B13 backward.  A CPU tensor takes the plain
-    version (autograd differentiates it)."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start,
-                                         qk_norm)[0]
+    forward (tagged `name` for `keep_attention`), the fused B12 + B13
+    backward.  A CPU tensor takes the plain versions."""
     if qk_norm is not None:
-        kernel_path(wants_grad(q, k, v, *qk_norm), qk_norm, layout)
+        if q.device.type != "cpu":
+            kernel_path(wants_grad(q, k, v, *qk_norm), qk_norm, layout)
         return flash_attention_fwd(q, k, v, layout, scale, kv_len, rope, rope_start, qk_norm)[0]
     return _FlashLayout.apply(q.contiguous(), k.contiguous(), v.contiguous(), layout, scale,
-                              kv_len, rope, rope_start)
+                              kv_len, rope, rope_start, name)

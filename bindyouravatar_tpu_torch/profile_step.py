@@ -1,7 +1,7 @@
 """Where a denoise step's or a train step's device time goes, on one GPU.
 
     python -m bindyouravatar_tpu_torch.profile_step [--steps 2] [--face]
-    python -m bindyouravatar_tpu_torch.profile_step --train [--steps 2]
+    python -m bindyouravatar_tpu_torch.profile_step --train [--steps 2] [--policy nested,save_attn]
 
 Serving: builds the DiT at the 5B serving geometry (random bf16 weights
 drawn on the card): audio-only, or with `--face` fully conditioned (face +
@@ -10,10 +10,13 @@ clip's audio context (and face tokens), runs one warm-up forward and then
 `--steps` batch-2 CFG forwards under `torch.profiler`.
 
 `--train`: the Stage-3 train step's micro-batch at full width
-(`DiTConfig(lora_rank=128, remat=True, remat_policy="nested")`, fp32
-weights drawn on the card, batch 1, face + audio): one warm-up and then
+(`DiTConfig(lora_rank=128, remat=True)`, fp32 weights drawn on the card,
+batch 1, face + audio): for each checkpointing policy of `--policy` in
+turn (the default "nested"; "save_attn" keeps the joint attention's
+forward outputs), on the same model and batch, one warm-up and then
 `--steps` micro-batches of `Trainer.loss_and_metrics` forward + backward
-under the profiler, then one AdamW update timed on its own.
+under the profiler and the policy's peak memory; then one AdamW update
+timed on its own.
 
 Prints the wall time per forward (micro-batch), the device time per kernel
 group (B1 to B14, the router's matrix products, the other matrix products,
@@ -21,7 +24,11 @@ the rest) and its share, the device-busy share of the wall time, the
 launches, the top kernels by device time and the peak memory.  A matrix
 product counts as the router's when it was launched inside the router's
 modules (norms, layer projections, trunk), which run inside a
-`record_function("router")` range during the profile.  B6 and B9, the row
+`record_function("router")` range during the profile.  The other kernels
+launched inside the temporal STAB attentions (the router's
+`AxisAttention(axis=2)`: the permute copy of its input to [M, T, C] and,
+in training, the fp32 -> bf16 weight casts; forwards and recomputes only,
+not their backward) are their own group.  B6 and B9, the row
 LayerNorm forward and backward, are CUDA kernels of their own
 (`layernorm_rows_kernel`, `layernorm_bwd_kernel`, which folds its dscale
 and dbias partials in the same launch); B10's forward and backward are the
@@ -40,7 +47,7 @@ from typing import Optional
 import torch
 
 from .config import DiTConfig
-from .models.dit import DiT
+from .models.dit import REMAT_POLICIES, DiT
 
 # kernel-name substrings per group, first match wins (the serving step
 # launches the flash kernels as B1, the train step as B7)
@@ -65,6 +72,8 @@ TRAIN_GROUPS = (("B7 flash forward", ("flash_fwd_kernel",)),
                  ("flash_bwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_post_kernel")),
                 ("B7 q/k pre-pass (forward)", ("prep_qk_kernel",))) + GROUPS[1:]
 ROUTER = "router"
+TEMPORAL = "temporal STAB attention"
+TEMPORAL_COPIES = "temporal STAB: permute copy, casts (other)"
 
 
 def _group(name: str, groups=GROUPS) -> str:
@@ -75,21 +84,31 @@ def _group(name: str, groups=GROUPS) -> str:
     return "other (elementwise, norms, copies)"
 
 
-def _mark_router(dit: DiT) -> None:
-    """Run every router module inside `record_function("router")`."""
+def _mark(modules, name: str) -> None:
+    """Run each of `modules` inside `record_function(name)`."""
     open_ranges = []
 
     def enter(module, inputs):
-        rf = torch.profiler.record_function(ROUTER)
+        rf = torch.profiler.record_function(name)
         rf.__enter__()
         open_ranges.append(rf)
 
     def leave(module, inputs, output):
         open_ranges.pop().__exit__(None, None, None)
 
-    for m in (dit.router_norms, dit.router_trunk, *dit.router_layers):
+    for m in modules:
         m.register_forward_pre_hook(enter)
         m.register_forward_hook(leave)
+
+
+def _mark_router(dit: DiT) -> None:
+    """The router's modules in a "router" range, its temporal STAB
+    attentions in one of their own."""
+    from .models.router import AxisAttention
+
+    _mark((dit.router_norms, dit.router_trunk, *dit.router_layers), ROUTER)
+    _mark([m for m in dit.router_trunk.modules()
+           if isinstance(m, AxisAttention) and m.axis == 2], TEMPORAL)
 
 
 def kernel_records(fn, runs: int = 5) -> dict:
@@ -129,26 +148,29 @@ def _report(prof, wall: float, steps: int, what: str, groups) -> None:
     `wall` and the launches, per step."""
     # every device activity record once (kernels launched through ctypes or
     # Triton have no aten op above them, so op-level sums would miss them);
-    # a kernel is the router's when the CPU op it is linked to started
-    # inside a router range
+    # a kernel is the router's (the temporal STAB's) when the CPU op it is
+    # linked to started inside such a range
     events = list(prof.profiler.kineto_results.events())
     cpu = [e for e in events if e.device_type() == torch.autograd.DeviceType.CPU]
-    ranges = sorted((e.start_ns(), e.end_ns()) for e in cpu if e.name() == ROUTER)
+    ranges = {n: sorted((e.start_ns(), e.end_ns()) for e in cpu if e.name() == n)
+              for n in (ROUTER, TEMPORAL)}
     cpu_start = {e.correlation_id(): e.start_ns() for e in cpu if e.correlation_id()}
-    in_router = lambda ns: any(s0 <= ns <= s1 for s0, s1 in ranges)
+    inside = lambda ns, n: ns is not None and any(s0 <= ns <= s1 for s0, s1 in ranges[n])
     per_group = defaultdict(float)
     per_kernel = defaultdict(float)
     spans = []
     for e in events:
-        # the router range's device-side copy is an annotation, not a kernel
+        # a range's device-side copy is an annotation, not a kernel
         if (e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation()
-                or e.name() == ROUTER):
+                or e.name() in ranges):
             continue
         us = e.duration_ns() / 1e3
         group = _group(e.name(), groups)
         launched = cpu_start.get(e.linked_correlation_id())
-        if group == "matrix products" and launched is not None and in_router(launched):
+        if group == "matrix products" and inside(launched, ROUTER):
             group = "router matrix products"
+        elif group.startswith("other") and inside(launched, TEMPORAL):
+            group = TEMPORAL_COPIES
         per_group[group] += us
         per_kernel[e.name()] += us
         spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
@@ -174,6 +196,8 @@ def _report(prof, wall: float, steps: int, what: str, groups) -> None:
 
 def train_profile(args) -> None:
     """The `--train` profile (see the module docstring)."""
+    import dataclasses
+
     from .config import SchedulerConfig, TrainConfig
     from .ops.scheduler import Schedule
     from .training.trainer import Trainer
@@ -201,20 +225,26 @@ def train_profile(args) -> None:
                      1, t, c.sample_height, c.sample_width, device=dev))
     _mark_router(dit)
     micro = lambda: tr.grads_and_metrics(batch, generator=gen)
-    grads, _ = micro()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            grads, _ = micro()
+    for policy in args.policy.split(","):
+        dit.cfg = dataclasses.replace(dit.cfg, remat_policy=policy)
+        # a micro-batch's peak: the previous one's gradients are freed first
+        grads = None
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    _report(prof, wall, args.steps,
-            f"train micro-batch (forward + backward, batch 1, face + audio, LoRA r128, nested "
-            f"checkpointing), {c.num_layers} layers, {c.max_text_seq_length} + {t * hg * wg} "
-            f"tokens", TRAIN_GROUPS)
+        torch.cuda.reset_peak_memory_stats()
+        grads, _ = micro()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                grads = None
+                grads, _ = micro()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report(prof, wall, args.steps,
+                f"train micro-batch (forward + backward, batch 1, face + audio, LoRA r128, "
+                f"remat_policy={policy!r}), {c.num_layers} layers, {c.max_text_seq_length} + "
+                f"{t * hg * wg} tokens", TRAIN_GROUPS)
     t0 = time.perf_counter()
     tr.apply_gradients(state, grads)
     torch.cuda.synchronize()
@@ -231,7 +261,13 @@ def main(argv=None) -> None:
                    help="the fully conditioned (face + audio) forward")
     p.add_argument("--train", action="store_true",
                    help="the Stage-3 train step's micro-batch, forward + backward")
+    p.add_argument("--policy", default="nested",
+                   help="--train: the checkpointing policies to profile in turn, "
+                        "comma-separated (nested, save_attn)")
     args = p.parse_args(argv)
+    for policy in args.policy.split(","):
+        if policy not in REMAT_POLICIES:
+            p.error(f"--policy {policy!r}: not one of {', '.join(filter(None, REMAT_POLICIES))}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     if args.train:

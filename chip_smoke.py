@@ -26,7 +26,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      128 in both layouts and modes, and combined at [26, 1350, 16, 128], so
      that persistent blocks' shares cross a change of batch; 1,001 rows at
      every B6 and B9 width from 128 to 8192, B9 also at 64 and 5 rows; B8
-     at M = 1,001 for S = 8, 13, 16; B8 and B9 run twice, bitwise equal);
+     at M = 1,001 for S = 8, 13, 16; B8 and B9 run twice, bitwise equal;
+     B5 and B5', timed, at M = 1,001 for S = 1, 2, 7, 8, 9, 13, 16 and at
+     M = 5, and B5 run twice at its main shape, bitwise equal);
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -60,6 +62,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      default configuration at full width (LoRA r128, nested per-group
      checkpointing, 42 layers): finite metrics, moved trainable and
      bit-identical frozen tensors, exact launch counts, peak memory.
+  5b. the same model, weights and batch: one optimizer step's
+     micro-batches (gradients, no update) under remat_policy="save_attn"
+     against "nested" with the same draws: loss within 1e-3 relative,
+     every trainable gradient within 10% relative L2, exact launch counts
+     of both (the joint attention's forward once per block under
+     "save_attn"), peak memory and wall of both.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -334,12 +342,18 @@ def kernel_phase(results: dict, only=None) -> bool:
     # --- B5: temporal STAB attention [5400, 13, 8*64]; ragged M=1001.  B5':
     # the same kernel for S < 8 through `packed_head_attention` on the
     # packed [M, S*8, 64] view, at S = 3 (the reduced step's frames) and 2.
+    # Then every kind of tile the kernel makes: at M = 1,001 S = 1, 2, 7
+    # (16 / S items packed in a tile, the last tile part empty) and 8, 9, 16
+    # (one item a tile: 8 or 7 pad rows, none); and M = 5 (fewer tiles than
+    # resident warps) at S = 13 and 3.
     # tol: both sides round p to bf16; fp32 sums in another order.
     # library: SDPA on a [M, 8, S, 64] copy (permuted before timing).
-    for name, tag, m, s in pick((("B5", "slice[5400,13,512]", 5400, 13),
-                                 ("B5", "ragged[1001,13,512]", 1001, 13),
-                                 ("B5'", "slice[5400,3,512]", 5400, 3),
-                                 ("B5'", "slice[5400,2,512]", 5400, 2))):
+    b5_rows = [("B5", "slice[5400,13,512]", 5400, 13), ("B5", "ragged[1001,13,512]", 1001, 13),
+               ("B5'", "slice[5400,3,512]", 5400, 3), ("B5'", "slice[5400,2,512]", 5400, 2)]
+    b5_rows += [("B5" if s >= 8 else "B5'", f"ragged[1001,{s},512]", 1001, s)
+                for s in (1, 2, 7, 8, 9, 16)]
+    b5_rows += [("B5", "tiny[5,13,512]", 5, 13), ("B5'", "tiny[5,3,512]", 5, 3)]
+    for name, tag, m, s in pick(b5_rows):
         q, k, v = (rnd(m, s, 512).to(bf) for _ in range(3))
         if name == "B5":
             kern = lambda: pa.tiny_seq_attention(q, k, v, 8, 0.125)
@@ -356,6 +370,9 @@ def kernel_phase(results: dict, only=None) -> bool:
                    library, work)
         if tag.startswith("slice") and name not in results:
             results[name] = r
+        if tag == "slice[5400,13,512]":
+            # no sums across items, so a second call repeats the first bit for bit
+            check_ok(name, f"{tag} run twice: bitwise equal", torch.equal(got, kern()))
 
     # --- B6: audio norm_q rows [2*17550, 3072], AudioProjModel [2*2*13*32, 768];
     # the face path's widths: router norms [35100, 2048], STAB/trunk [70200, 512]
@@ -971,7 +988,9 @@ def train_launches(dit, micro_batches: int) -> dict:
     micro-batch, with per-group checkpointing a group's face injection and
     audio layers run forward twice (the forward and the group's recompute)
     and with the nested policy each block three times (and the block's own
-    recompute); every backward runs once.
+    recompute); under "save_attn" each block runs twice but the joint
+    attention's forward (B7 or B11) once, its outputs kept across the
+    recompute; every backward runs once.
       blocks: 2 x B10 fwd per block forward and 2 x B10 bwd per block (an
         inner width that is a multiple of 128, else the plain math); the
         attention is B7 (forward, backward) when the heads pair in 128
@@ -987,6 +1006,7 @@ def train_launches(dit, micro_batches: int) -> dict:
     t, h, w = c.latent_grid
     g_mult = 2 if c.remat else 1
     b_mult = 3 if c.remat and c.remat_policy == "nested" else g_mult
+    a_mult = 1 if c.remat and c.remat_policy == "save_attn" else b_mult  # joint attention fwd
     n_ca = c.num_ca if c.is_train_face else 0
     n_st = r.num_attention_layers
     stabs = n_ca * n_st
@@ -1001,10 +1021,10 @@ def train_launches(dit, micro_batches: int) -> dict:
     per = {"B1": 0, "B2": n_ca * g_mult, "B3": n_audio * g_mult, "B4": stabs * g_mult,
            "B5": stabs * g_mult if temporal else 0, "B5'": 0 if temporal else stabs * g_mult,
            "B6": (audio_ln + face_ln) * g_mult + int(n_audio > 0 and a.audio_dim % 128 == 0),
-           "B7 fwd": flat * b_mult + spatial * g_mult, "B7 bwd": flat + spatial,
+           "B7 fwd": flat * a_mult + spatial * g_mult, "B7 bwd": flat + spatial,
            "B8": stabs if temporal else 0, "B9": audio_ln + face_ln,
            "B10 fwd": 2 * hln * b_mult, "B10 bwd": 2 * hln,
-           "B11": layout * b_mult, "B12+B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
+           "B11": layout * a_mult, "B12+B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
     return {k: v * micro_batches for k, v in per.items()}
 
 
@@ -1338,6 +1358,70 @@ def train_phase(args, launches: dict) -> bool:
           f"{'ok' if still_ok else 'FAILED'}; frozen "
           f"{len(tr.frozen)} tensors bit-identical={frozen_same}; peak memory {peak:.2f} GiB; "
           "launches " + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok & save_attn_phase(args, tr, batch)
+
+
+def save_attn_phase(args, tr, batch) -> bool:
+    """Phase 5b: one optimizer step's micro-batches (`grads_and_metrics`,
+    forward + backward, no update) of the phase-5 model, weights and batch
+    under `remat_policy="save_attn"`, against the same under "nested" with
+    the same draws: the loss within 1e-3 relative, each trainable gradient
+    within 10% relative L2 (dq's sums run in no fixed order, so the two
+    are not bitwise equal; an attention key bias's true gradient is 0,
+    softmax being invariant to it, so its rounding noise is held to 10% of
+    its query bias's gradient instead); the launches of both runs (the
+    joint attention's forward once per block under "save_attn"), their
+    peak memory and walls."""
+    import dataclasses
+
+    import torch
+
+    dit = tr.dit
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(args.seed + 300)
+    accum = tr.cfg.grad_accum_steps
+    draws = [tr.draw({"video_latents": batch["video_latents"][j:j + 1]}, gen)
+             for j in range(accum)]
+    runs = {}
+    for policy in ("nested", "save_attn"):
+        dit.cfg = dataclasses.replace(dit.cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        grads, metrics = tr.grads_and_metrics(batch, draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the reference's gradients wait on the host, so the device holds one set
+        runs[policy] = (wall, peak, counts, train_launches(dit, accum), float(metrics["loss"]),
+                        {k: g.detach().float().cpu() for k, g in grads.items()})
+        del grads
+    dit.cfg = dataclasses.replace(dit.cfg, remat_policy="nested")
+    (w_n, p_n, counts_n, want_n, loss_n, g_n) = runs["nested"]
+    (w_s, p_s, counts, want, loss_s, g_s) = runs["save_attn"]
+    loss_ok = abs(loss_s - loss_n) <= 1e-3 * abs(loss_n)
+    def rel_l2(k):
+        ref = g_n[k[:-len("to_k.bias")] + "to_q.bias"] if k.endswith("to_k.bias") else g_n[k]
+        d = float((g_s[k] - g_n[k]).norm())
+        return d / float(ref.norm()) if float(ref.norm()) > 0 else d
+
+    rel = {k: rel_l2(k) for k in g_n}
+    worst = sorted(rel, key=rel.get)[-3:][::-1]
+    grads_ok = rel[worst[0]] <= 0.1
+    counts_ok = (all(counts[k] == want[k] for k in want)
+                 and all(counts_n[k] == want_n[k] for k in want_n))
+    ok = loss_ok and grads_ok and counts_ok
+    print(f"train save_attn ({dit.cfg.num_layers} layers, {accum} micro-batches, the phase-5 "
+          f"weights and batch): loss {loss_s:.6g} vs nested {loss_n:.6g} (tol 1e-3 rel) "
+          f"{'ok' if loss_ok else 'FAILED'}; {len(rel)} trainable gradients, worst relative L2 "
+          + " ".join(f"{k}={rel[k]:.3e}" for k in worst)
+          + f" tol=0.1 {'ok' if grads_ok else 'FAILED'}; wall "
+          f"{w_s:.2f} s vs nested {w_n:.2f} s; peak memory {p_s:.2f} GiB vs nested "
+          f"{p_n:.2f} GiB; launches "
+          + " ".join(f"{k}={counts[k]} (want {want[k]}; nested {counts_n[k]})" for k in want)
           + f" {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 

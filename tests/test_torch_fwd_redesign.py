@@ -8,7 +8,7 @@ the CPU, in fp32.
   `kernel_path` makes for a call on the card; the CPU's plain versions
   cannot show it, so it is checked by name.
 - `DiT` raises on a checkpointing policy the port does not implement
-  (JAX's "save_attn") instead of running it as no policy.
+  instead of running it as no policy.
 - `attention` follows JAX's rule: the flash kernels from 1,024 rows with
   as many kv rows as q rows, else the XLA math (`sdpa` after the QK-LN
   and RoPE).  Held against JAX `attention` at Sq != Skv and at S < 1,024
@@ -97,10 +97,11 @@ def test_flat_grad_path_matches_jax_attention_gradients():
 
 
 # ------------------------------------------------------------ remat policy
-@pytest.mark.parametrize("policy", ["save_attn", "dots"])
+@pytest.mark.parametrize("policy", ["dots"])
 def test_unported_remat_policy_raises(policy):
-    """JAX's "save_attn" (and any other name) under remat raises, naming
-    what is ported; without remat the policy is not read, as in JAX."""
+    """A policy the port does not implement raises under remat, naming
+    what is ported ("save_attn" among them); without remat the policy is
+    not read, as in JAX."""
     with pytest.raises(NotImplementedError, match="save_attn"):
         DiT.tiny(device="cpu", remat=True, remat_policy=policy)
     DiT.tiny(device="cpu", remat=False, remat_policy=policy)

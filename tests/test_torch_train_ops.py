@@ -119,8 +119,8 @@ def test_b7_autograd_function_matches_autograd_of_plain_forward():
     w = torch.from_numpy(_normal(np.random.default_rng(32), c["b"], c["s"], h * c["d"]))
     grads = []
     for fn in (lambda *a: tfa._FlashFlat.apply(*a, h, None, s_real, rope, text_len),
-               lambda *a: tfa.flash_attention_flat(*a, h, kv_len=s_real, rope=rope,
-                                                   rope_start=text_len)):
+               lambda *a: tfa.flash_attention_flat_fwd_plain(*a, h, kv_len=s_real, rope=rope,
+                                                             rope_start=text_len)[0]):
         qkv = [t.requires_grad_() for t in to_torch(c["q"], c["k"], c["v"])]
         grads.append(torch.autograd.grad((fn(*qkv) * w).sum(), qkv))
     for g, want in zip(*grads):

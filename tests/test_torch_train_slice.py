@@ -176,12 +176,13 @@ def test_grad_accumulation_is_the_mean_of_micro_batches(setup):
 
 
 def test_remat_groups_give_the_same_gradients(setup):
-    """Per-group checkpointing (and the nested per-block one) recomputes
-    the forward in the backward: the same loss and gradients as without."""
+    """Per-group checkpointing (with the joint attention's outputs kept,
+    "save_attn", or the nested per-block one) recomputes the forward in the
+    backward: the same loss and gradients as without."""
     jd, params, _ = setup
     batch = {k: torch.from_numpy(v) for k, v in _batch(jd, seed=13).items()}
     results = []
-    for remat, policy in ((False, None), (True, None), (True, "nested")):
+    for remat, policy in ((False, None), (True, None), (True, "save_attn"), (True, "nested")):
         td = DiT.tiny(device="cpu", lora_rank=4, remat=remat, remat_policy=policy)
         td.load_state_dict(jax_params_to_torch(params), strict=True)
         tr = Trainer(td, Schedule.create(SchedulerConfig()), TrainConfig(**CFG))
