@@ -64,9 +64,10 @@ class DiTConfig:
     # (QK-LN through B10, attention through B7)
     fuse_qk_norm: bool = False
     remat: bool = False                 # checkpoint each layer group
-    # None: the group saves nothing; "nested": each block inside a group is
-    # checkpointed too, so the group's backward recomputes one block at a
-    # time; JAX's "save_attn" is not ported (`DiT` raises on it)
+    # None: the group saves nothing; "save_attn": the joint attention's
+    # outputs are kept across the group's recompute; "nested": each block
+    # inside a group is checkpointed too, so the group's backward recomputes
+    # one block at a time
     remat_policy: Optional[str] = None
 
     @property

@@ -18,11 +18,13 @@ The JAX importers stay the only way in from reference checkpoints
     leaves `to_q_lora_A` [dim, r] / `to_q_lora_B` [r, inner] (and to_k's):
     the port computes (x A) B as the flax module does.
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
+`jax_train_state_to_torch` carries a JAX train state (trainable params,
+AdamW moments and count, step, EMA) across the same way.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -93,3 +95,19 @@ def check_trainable_set(jax_trainable: Mapping[str, Any],
         sizes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
         raise ValueError(f"trainable sets differ: missing {missing[:5]}, extra {extra[:5]}, "
                          f"sizes {sizes[:5]}")
+
+
+def jax_train_state_to_torch(params: Mapping[str, Any], mu: Mapping[str, Any],
+                             nu: Mapping[str, Any], count: int, step: int,
+                             ema_params: Optional[Mapping[str, Any]] = None):
+    """A JAX `TrainState` (as numpy: the trainable params, AdamW's `mu`,
+    `nu` and `count`, the step, the EMA params or None) -> (the trainable
+    tensors by the port's names, the port's `TrainState`).  The moments
+    have the params' tree, so `jax_params_to_torch`'s rules convert them
+    too.  Copy the tensors into the trainer's `trainable` to continue a JAX
+    fine-tune in the port."""
+    from .training.trainer import TrainState
+
+    return jax_params_to_torch(params), TrainState(
+        step=int(step), count=int(count), mu=jax_params_to_torch(mu), nu=jax_params_to_torch(nu),
+        ema=None if ema_params is None else jax_params_to_torch(ema_params))

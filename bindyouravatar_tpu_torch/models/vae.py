@@ -6,6 +6,14 @@ with the odd first frame passed through, nearest 2t-1 temporal / 2x spatial
 upsampling.  Internally NCDHW (torch's conv layout); the public tensors keep
 the JAX layout: video [B, T, 3, H, W], latents [B, T', C, H/8, W/8].
 Module names follow the flax tree (`down_0_res_0`, `norm_layer.gn`, ...).
+
+Without autograd (encode and decode run under `no_grad`), group norms and
+causal convs over more than `SLICE_ELEMENTS` elements compute the same
+function a slice at a time (group norms by groups, convs by output frames
+with their causal context) into one output, and the resnet blocks' SiLU and
+residual add run in place: a whole 49 x 480 x 720 clip then encodes in
+about a third of the memory of the one-pass ops (each 128-channel
+activation there is 4 GiB in bf16).
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import torch.nn.functional as F
 
 from ..config import VAEConfig
 from .layers import init_random_
+
+# without autograd, ops over more elements than this run a slice at a time
+SLICE_ELEMENTS = 1 << 27
 
 
 class _Conv(nn.Conv3d):
@@ -45,9 +56,26 @@ class CausalConv3d(nn.Module):
 
     def forward(self, x):
         kt, kh, kw = self.kernel
-        if kt > 1:
-            x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
-        return self.conv(F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2)))
+        if torch.is_grad_enabled() or x.numel() <= SLICE_ELEMENTS:
+            if kt > 1:
+                x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
+            return self.conv(F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2)))
+        # output frames [a, b) read input frames [a - kt + 1, b), frame 0
+        # repeated before the start; the spatial zero padding is the conv's
+        c, t = self.conv, x.shape[2]
+        w, bias = c.weight.to(c.compute_dtype), c.bias.to(c.compute_dtype)
+        step = max(1, SLICE_ELEMENTS // x[:, :, :1].numel())
+        out = None
+        for a in range(0, t, step):
+            b, lo = min(t, a + step), a - (kt - 1)
+            xs = x[:, :, max(lo, 0):b]
+            if lo < 0:
+                xs = torch.cat([x[:, :, :1].expand(-1, -1, -lo, -1, -1), xs], dim=2)
+            ys = F.conv3d(xs.to(c.compute_dtype), w, bias, 1, (0, kh // 2, kw // 2))
+            if out is None:
+                out = ys.new_empty(ys.shape[:2] + (t,) + ys.shape[3:])
+            out[:, :, a:b] = ys
+        return out
 
 
 class GroupNorm(nn.Module):
@@ -59,8 +87,25 @@ class GroupNorm(nn.Module):
 
     def forward(self, x):
         g = self.gn
-        return F.group_norm(x.float(), g.num_groups, g.weight.float(), g.bias.float(),
-                            g.eps).to(x.dtype)
+        if torch.is_grad_enabled() or x.numel() <= SLICE_ELEMENTS:
+            return F.group_norm(x.float(), g.num_groups, g.weight.float(), g.bias.float(),
+                                g.eps).to(x.dtype)
+        # each group's statistics are its own: a few groups at a time, the
+        # statistics by a reduction over the whole device (F.group_norm
+        # gives each (sample, group) row one block: ten times slower here)
+        out = torch.empty_like(x)
+        n, cpg = x.shape[0], x.shape[1] // g.num_groups
+        per = max(1, SLICE_ELEMENTS // (x.numel() // g.num_groups))     # groups a slice
+        bshape = (n, -1) + (1,) * (x.dim() - 2)
+        for g0 in range(0, g.num_groups, per):
+            k = min(per, g.num_groups - g0)
+            c0, c1 = g0 * cpg, (g0 + k) * cpg
+            xf = x[:, c0:c1].to(torch.float32, copy=True)
+            var, mean = torch.var_mean(xf.view(n, k, -1), dim=2, unbiased=False)
+            scale = torch.rsqrt(var + g.eps)[..., None] * g.weight[c0:c1].float().view(1, k, cpg)
+            shift = g.bias[c0:c1].float().view(1, k, cpg) - mean[..., None] * scale
+            out[:, c0:c1] = xf.mul_(scale.reshape(bshape)).add_(shift.reshape(bshape))
+        return out
 
 
 class SpatialNorm3D(nn.Module):
@@ -105,11 +150,12 @@ class ResnetBlock3D(nn.Module):
 
     def forward(self, x, zq=None):
         norm = (lambda m, h: m(h, zq)) if self.zq else (lambda m, h: m(h))
-        h = self.conv1(F.silu(norm(self.norm1, x)))
-        h = self.conv2(F.silu(norm(self.norm2, h)))
+        inplace = not torch.is_grad_enabled()      # the norms' outputs are fresh
+        h = self.conv1(F.silu(norm(self.norm1, x), inplace=inplace))
+        h = self.conv2(F.silu(norm(self.norm2, h), inplace=inplace))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
-        return x + h
+        return h.add_(x) if inplace else x + h
 
 
 def _temporal_avg_pool(x):
@@ -244,11 +290,44 @@ class CausalVAE(nn.Module):
                                     latent_channels=4, norm_num_groups=4, dtype=torch.float32),
                           device=device, generator=generator)
 
-    def encode(self, video: torch.Tensor) -> torch.Tensor:
-        """video [B, T, 3, H, W] in [-1, 1] -> scaled latent mode [B, T', C, H/8, W/8]."""
+    def encode_moments(self, video: torch.Tensor) -> torch.Tensor:
+        """video [B, T, 3, H, W] in [-1, 1] -> moments [B, T', 2C, H/8, W/8]
+        (mean, then logvar), fp32."""
         m = self.encoder(video.permute(0, 2, 1, 3, 4).to(self.cfg.dtype))
-        mean = m.permute(0, 2, 1, 3, 4).float().chunk(2, dim=2)[0]
-        return mean * self.cfg.scaling_factor
+        return m.permute(0, 2, 1, 3, 4).float()
+
+    def encode(self, video: torch.Tensor, sample: bool = False,
+               generator: Optional[torch.Generator] = None,
+               temporal_chunk: Optional[int] = None) -> torch.Tensor:
+        """Scaled latents [B, T', C, H/8, W/8]: the posterior's mode, or with
+        `sample` a draw mean + exp(logvar / 2) * eps, logvar clipped to
+        [-30, 20], eps from `generator` (on the video's device).
+
+        `temporal_chunk`: encode that many latent frames at a time with 2
+        latent frames (their pixel frames) of left context, keeping the
+        chunk's own frames (the JAX chunking; approximate at the joins:
+        group-norm statistics are per chunk)."""
+        r = self.cfg.temporal_compression_ratio
+        t_px = video.shape[1]
+        t_lat = (t_px - 1) // r + 1
+        if temporal_chunk is None or t_lat <= temporal_chunk:
+            mean, logvar = self.encode_moments(video).chunk(2, dim=2)
+            if sample:
+                if generator is None:
+                    raise ValueError("sampling the posterior needs a generator")
+                eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+                mean = mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * eps
+            return mean * self.cfg.scaling_factor
+        outs, i, ctx = [], 0, 2
+        while i < t_lat:
+            k = min(temporal_chunk, t_lat - i)
+            lo = max(0, i - ctx)
+            # latent j > 0 owns pixel frames 4j-3 .. 4j; latent 0 owns frame 0
+            px_lo = 0 if lo == 0 else r * lo - (r - 1)
+            px_hi = min(t_px, r * (i + k - 1) + 1)
+            outs.append(self.encode(video[:, px_lo:px_hi], sample, generator)[:, -k:])
+            i += k
+        return torch.cat(outs, dim=1)
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         z = (latents / self.cfg.scaling_factor).permute(0, 2, 1, 3, 4).to(self.cfg.dtype)

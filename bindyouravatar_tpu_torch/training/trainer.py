@@ -13,8 +13,12 @@ tokens' dropout mask) comes out of `Trainer.draw`, from an explicit
 `torch.Generator`; `loss_and_metrics` and `train_step` also take the draws
 ready-made, which is how the tests feed the port JAX's own draws.
 
-Not ported here: adafactor, prodigy and 8-bit Adam, the two-group LR
-(`is_diff_lr`) and EMA; the trainer raises on them.
+With `is_diff_lr` the perceivers (names starting with `perceiver`) step at
+`lr * diff_lr_high` and every other trainable tensor at `lr * diff_lr_low`,
+weight decay scaled with them (JAX's `optax.multi_transform` of two AdamWs
+under one clip).  With `ema_decay` an EMA copy of the trainable tensors
+follows each update.  Not ported: adafactor, prodigy and 8-bit Adam; the
+trainer raises on them.
 """
 
 from __future__ import annotations
@@ -92,12 +96,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count and AdamW's state (optax `ScaleByAdamState`: the
-    count and the first and second moments of each trainable tensor)."""
+    """The step count, AdamW's state (optax `ScaleByAdamState`: the count
+    and the first and second moments of each trainable tensor) and the EMA
+    copy of the trainable tensors when `ema_decay` is set.  The trainable
+    tensors themselves are the model's."""
     step: int
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    ema: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Trainer:
@@ -105,23 +112,54 @@ class Trainer:
 
     def __init__(self, dit: DiT, schedule: Schedule, cfg: TrainConfig = TrainConfig(),
                  trainable_patterns: Sequence[str] = DEFAULT_TRAINABLE_PATTERNS):
-        if cfg.optimizer != "adamw" or cfg.use_8bit_adam or cfg.is_diff_lr or cfg.ema_decay:
-            raise NotImplementedError("the port's trainer runs AdamW with one learning rate "
-                                      "and no EMA")
+        if cfg.optimizer != "adamw" or cfg.use_8bit_adam:
+            raise NotImplementedError("the port's trainer runs AdamW (adafactor, prodigy and "
+                                      "8-bit AdamW: ROADMAP.md A 5)")
         self.dit, self.schedule, self.cfg = dit, schedule, cfg
         self.trainable, self.frozen = partition_params(dict(dit.named_parameters()),
                                                        trainable_patterns)
         self.lr = make_lr_schedule(cfg)
 
+    def lr_mult(self, name: str) -> float:
+        """The learning-rate factor of a trainable tensor (`is_diff_lr`)."""
+        if not self.cfg.is_diff_lr:
+            return 1.0
+        return self.cfg.diff_lr_high if name.startswith("perceiver") else self.cfg.diff_lr_low
+
     def init_state(self) -> TrainState:
-        """Mark the trainable partition (only it takes gradients) and zero
-        AdamW's moments."""
+        """Mark the trainable partition (only it takes gradients), zero
+        AdamW's moments and copy the EMA's start (with `ema_decay`)."""
         for p in self.frozen.values():
             p.requires_grad_(False)
         for p in self.trainable.values():
             p.requires_grad_(True)
         zeros = lambda: {k: torch.zeros_like(p) for k, p in self.trainable.items()}
-        return TrainState(step=0, count=0, mu=zeros(), nu=zeros())
+        ema = ({k: p.detach().clone() for k, p in self.trainable.items()}
+               if self.cfg.ema_decay else None)
+        return TrainState(step=0, count=0, mu=zeros(), nu=zeros(), ema=ema)
+
+    def state_dict(self, state: TrainState) -> Dict[str, object]:
+        """What a checkpoint holds of the training state: the step, AdamW's
+        count and moments, the trainable tensors and the EMA copy."""
+        return {"step": state.step, "count": state.count,
+                "params": {k: p.detach() for k, p in self.trainable.items()},
+                "mu": state.mu, "nu": state.nu, "ema": state.ema}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Mapping[str, object], state: TrainState) -> TrainState:
+        """Copy a `state_dict` (tensors on any device) into the model's
+        trainable tensors and into `state`'s tensors (as `init_state` made
+        them); raise unless the names and shapes are the trainable set's."""
+        params = saved["params"]
+        if set(params) != set(self.trainable) or (saved["ema"] is None) != (state.ema is None):
+            raise ValueError("the checkpoint's trainable set (or its EMA) is not this "
+                             "trainer's")
+        for name, dst in (("params", self.trainable), ("mu", state.mu), ("nu", state.nu),
+                          ("ema", state.ema)):
+            for k, t in (dst or {}).items():
+                t.copy_(saved[name][k])
+        return TrainState(step=int(saved["step"]), count=int(saved["count"]), mu=state.mu,
+                          nu=state.nu, ema=state.ema)
 
     # ------------------------------------------------------------------ #
     def draw(self, batch: Mapping[str, torch.Tensor],
@@ -237,7 +275,8 @@ class Trainer:
         """optax.chain(clip_by_global_norm, adamw) on the trainable tensors,
         in place (the gradients are clipped in place too): mu/nu moments,
         bias correction, the update mu_hat / (sqrt(nu_hat) + eps) plus
-        weight decay, times -lr(count)."""
+        weight decay, times -lr(count) (and the tensor's `lr_mult`); then
+        the EMA, ema = d * ema + (1 - d) * p."""
         c = self.cfg
         g_norm = global_norm(grads.values())
         if not bool(g_norm < c.max_grad_norm):
@@ -252,8 +291,13 @@ class Trainer:
             nu.mul_(b2).add_(g.square().mul_(1.0 - b2))
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + c.adam_epsilon)
             update.add_(p.float(), alpha=c.weight_decay)
-            p.add_((-lr * update).to(p.dtype))
-        return TrainState(step=state.step + 1, count=count, mu=state.mu, nu=state.nu)
+            p.add_((-lr * self.lr_mult(k) * update).to(p.dtype))
+        if state.ema is not None:
+            d = c.ema_decay
+            for k, e in state.ema.items():
+                e.mul_(d).add_(self.trainable[k], alpha=1.0 - d)
+        return TrainState(step=state.step + 1, count=count, mu=state.mu, nu=state.nu,
+                          ema=state.ema)
 
     def train_step(self, state: TrainState, batch: Mapping[str, torch.Tensor],
                    draws: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps
-                              # each; then 2 optimizer steps of the Stage-3 train step
+                              # each; 2 optimizer steps of the Stage-3 train step; then the
+                              # sft launcher: 2 steps, a checkpoint, a resume and a third step
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
 
 Phases (one line each; any failure exits non-zero and prints no result):
@@ -68,6 +69,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
      every trainable gradient within 10% relative L2, exact launch counts
      of both (the joint attention's forward once per block under
      "save_attn"), peak memory and wall of both.
+  6. the port's training entry point at the 5B geometry, after phase 5's
+     model is freed: `training.sft.main` in this process, `--model_size
+     5b --remat_policy nested`, 16 layers with widths full
+     (`--driver-layers`; a save at 42 layers writes 32.4 GB of state and
+     sub-modules, and the phase saves twice), synthetic 49 x 480 x 720
+     clips encoded by the VAE, teacher masks, the driver: 2 optimizer
+     steps and a checkpoint into a temporary directory, then `--max_train_steps 3
+     --resume latest`: the restored trainable tensors, AdamW moments,
+     sampler and generator states equal the saved ones, step 3 runs,
+     `metrics.jsonl` holds 3 finite rows, the frozen tensors are
+     bit-identical and each run's launch counts are exact; per step the
+     `prepare_batch` and step seconds and peak memory, the checkpoint's
+     bytes and its save and restore seconds, and the free disk.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -1029,12 +1043,15 @@ def train_launches(dit, micro_batches: int) -> dict:
 
 
 def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
-    """A batch of `prepare_batch`'s schema on `dev` from `gen`: noise, image
-    (first frame) and background latents, text, the face inputs
-    (`id_cond`, `id_vit_hidden`), 2 audio tracks and the mute fixture, the
-    identity matrix as the audio-face map, teacher routings from a
-    left/right two-person mask (clean; noisy = clean + 0.1 N(0, 1) clipped)
-    and a dense face mask at latent resolution."""
+    """A batch with the keys of `TrainDriver.prepare_batch`'s on `dev`,
+    drawn from `gen` with no VAE: noise as video latents, image (first
+    frame) latents, text, the face inputs (`id_cond`, `id_vit_hidden`), 2
+    audio tracks and the mute fixture, the identity matrix as the
+    audio-face map, teacher routings from a left/right two-person mask and
+    a dense face mask at latent resolution.  Where it differs from
+    `prepare_batch`'s: the background latents are drawn (the driver's are
+    zeros) and the noisy teacher is clean + 0.1 N(0, 1) clipped, without
+    the 10% of entries replaced by uniforms."""
     import torch
 
     c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
@@ -1426,6 +1443,104 @@ def save_attn_phase(args, tr, batch) -> bool:
     return ok
 
 
+def driver_phase(args) -> bool:
+    """Phase 6: `training.sft.main` at `--model_size 5b` (`--driver-layers`
+    deep, widths full), 2 steps and a checkpoint, then a resumed run to
+    step 3; checks the restore, the rows of `metrics.jsonl`, the frozen
+    tensors and each run's launch counts against `train_launches`."""
+    import gc
+    import shutil
+    import tempfile
+    import traceback
+
+    import torch
+    from bindyouravatar_tpu_torch.training import sft
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="bya_sft_")
+    argv = ["--model_size", "5b", "--output_dir", out, "--checkpointing_steps", "2",
+            "--checkpoints_total_limit", "1", "--remat_policy", "nested",
+            "--seed", str(args.seed), "--num_layers", str(args.driver_layers)]
+
+    def digest(driver, state):
+        tr = driver.trainer
+        host = driver.host_state()
+        return dict(params={k: _fingerprint(p) for k, p in tr.trainable.items()},
+                    mu={k: _fingerprint(t) for k, t in state.mu.items()},
+                    nu={k: _fingerprint(t) for k, t in state.nu.items()},
+                    frozen={k: _fingerprint(p) for k, p in tr.frozen.items()},
+                    sampler=host["sampler"], np_rng=host["np_rng"],
+                    torch_rng=host["torch_rng"].tolist(), step=state.step)
+
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        first = sft.main(argv + ["--max_train_steps", "2", "--resume", "none"])
+        torch.cuda.synchronize()
+        wall1, counts1 = time.perf_counter() - t0, _read_launches()
+        dit, accum = first.driver.trainer.dit, first.driver.cfg.grad_accum_steps
+        want1, want2 = train_launches(dit, 2 * accum), train_launches(dit, accum)
+        n_layers = dit.cfg.num_layers
+        saved, log = digest(first.driver, first.state), list(first.driver.checkpoint_log)
+        del first, dit
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+
+        restored = {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        second = sft.main(argv + ["--max_train_steps", "3", "--resume", "latest"],
+                          resume_fn=lambda d, s: restored.update(digest(d, s)))
+        torch.cuda.synchronize()
+        wall2, counts2 = time.perf_counter() - t0, _read_launches()
+        final = digest(second.driver, second.state)
+        log += second.driver.checkpoint_log
+        del second
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        free = shutil.disk_usage(out).free
+    except Exception as e:
+        traceback.print_exc()
+        print(f"driver (sft 5b): FAILED with {type(e).__name__}: {e}", flush=True)
+        return False
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    same = {k: restored.get(k) == saved[k]
+            for k in ("params", "mu", "nu", "sampler", "np_rng", "torch_rng", "step")}
+    rows_ok = ([r["step"] for r in rows] == [1, 2, 3]
+               and all(math.isfinite(v) for r in rows for v in r.values()))
+    frozen_ok = final["frozen"] == saved["frozen"]
+    counts_ok = ({k: counts1[k] for k in want1} == want1
+                 and {k: counts2[k] for k in want2} == want2)
+    ok = all(same.values()) and final["step"] == 3 and rows_ok and frozen_ok and counts_ok
+    for r in rows:
+        print(f"driver step {r['step']}: prepare_batch {r['prepare_batch_s']:.2f} s (peak "
+              f"{r['prepare_batch_peak_gib']:.2f} GiB), step {r['step_time_s']:.2f} s (peak "
+              f"{r['step_peak_gib']:.2f} GiB); loss {r['loss']:.5g} grad_norm "
+              f"{r['grad_norm']:.5g}", flush=True)
+    for e in log:
+        extra = (f" (+ sub-modules {e['modules_bytes'] / 1e9:.3f} GB in "
+                 f"{e['modules_seconds']:.2f} s)" if e["event"] == "save" else "")
+        print(f"driver checkpoint {e['event']} step {e['step']}: {e['bytes'] / 1e9:.3f} GB"
+              f"{extra} in {e['seconds']:.2f} s", flush=True)
+    print(f"driver (sft 5b, {n_layers} layers{'' if n_layers == 42 else ', depth cut from 42'}, "
+          f"{accum} micro-batches a step): run 1 (2 steps) {wall1:.1f} s, run 2 (restore + "
+          f"step 3) {wall2:.1f} s; {left:.2f} GiB left between runs; restored == saved "
+          + " ".join(f"{k}={v}" for k, v in same.items())
+          + f"; final step {final['step']}; metrics rows {len(rows)} finite={rows_ok}; frozen "
+          f"{len(saved['frozen'])} tensors bit-identical={frozen_ok}; free disk "
+          f"{free / 1e9:.1f} GB; launches run 1 "
+          + " ".join(f"{k}={counts1[k]} (want {want1[k]})" for k in want1)
+          + "; run 2 " + " ".join(f"{k}={counts2[k]} (want {want2[k]})" for k in want2)
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 # Every kernel of the port: (route, source, the TPU kernel it replaces);
 # the kernels line lists them in this order
 KERNELS = {
@@ -1476,6 +1591,9 @@ def main(argv=None) -> int:
     p.add_argument("--train-steps", type=int, default=2, help="optimizer steps of phase 5")
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
+    p.add_argument("--driver-layers", type=int, default=16,
+                   help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
+                        "layers writes 32.4 GB, and the phase saves twice)")
     p.add_argument("--only-kernels", metavar="NAMES",
                    help="run phase 2 for these kernels only (comma-separated names of the "
                         "kernels line, or their first word: 'B2,B3,B7'), then stop; fails on "
@@ -1542,6 +1660,7 @@ def main(argv=None) -> int:
     else:
         ok = False
         print("train phase skipped (--train-steps 0): no launch counts", flush=True)
+    ok &= driver_phase(args)
     if not ok:
         return _fail("a phase failed")
 

@@ -4,7 +4,9 @@ on the tiny DiT with LoRA r4 (`DiT.tiny(lora_rank=4)`, face + audio).
 Same realistic-scale weights (LoRA B non-zero, so LoRA A takes gradients),
 the same batch (the `tests/test_training.py` schema, made with numpy) and
 JAX's own random draws (timesteps, noise, dropout keeps, the mask-loss
-coin) handed to the port's `loss_and_metrics`.  fp32 on both sides.
+coin) handed to the port's `loss_and_metrics`.  fp32 on both sides.  JAX's
+steps for the optimizer options (AdamW, EMA, the two-group learning rate)
+share one jitted forward and backward (`jax_run`).
 Tolerances: the loss and each metric 1e-4 relative (a 4-layer forward and
 backward, sums in another order); the updated trainable parameters within
 5e-4 of the learning rate of JAX's (AdamW's first steps move each element
@@ -18,6 +20,7 @@ rate (each moved by at most a few thousandths of a step in all).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -27,7 +30,8 @@ from bindyouravatar_tpu.models.dit import DiT as JDiT
 from bindyouravatar_tpu.ops.scheduler import Schedule as JSchedule
 from bindyouravatar_tpu.training import trainer as jtrainer
 from bindyouravatar_tpu_torch.config import SchedulerConfig, TrainConfig
-from bindyouravatar_tpu_torch.convert import check_trainable_set, jax_params_to_torch
+from bindyouravatar_tpu_torch.convert import (check_trainable_set, jax_params_to_torch,
+                                               jax_train_state_to_torch)
 from bindyouravatar_tpu_torch.models.dit import DiT
 from bindyouravatar_tpu_torch.ops.scheduler import Schedule
 from bindyouravatar_tpu_torch.training.trainer import Trainer, make_lr_schedule
@@ -121,37 +125,147 @@ def test_lr_schedule_matches_optax(warmup, scheduler):
         assert abs(got(count) - float(want(count))) <= 1e-9
 
 
-def test_two_train_steps_match_jax(setup):
+# the optimizer configurations whose JAX steps `jax_run` takes
+OPTIMIZERS = {"adamw": {}, "ema": dict(ema_decay=0.9), "diff_lr": dict(is_diff_lr=True)}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def jax_run(setup):
+    """JAX's two train steps (keys 5 and 6) on `_batch(jd)` for each of
+    `OPTIMIZERS`, from the same params.  JAX's forward and backward
+    (`Trainer._grads_and_metrics`, CFG's loss, which every configuration
+    shares) is jitted once; each configuration's `Trainer.train_step` runs
+    JAX's own optimizer and EMA code around it."""
+    jd, params, _ = setup
+    base = jtrainer.Trainer(dit=jd, schedule=JSchedule.create(JSchedulerConfig()),
+                            cfg=JTrainConfig(**CFG))
+    grads_fn = jax.jit(base._grads_and_metrics)
+
+    class SharedGrads(jtrainer.Trainer):
+        def _grads_and_metrics(self, p, frozen, batch, rng):
+            return grads_fn(p, frozen, batch, rng)
+
+    batch = _batch(jd)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    runs = {}
+    for name, extra in OPTIMIZERS.items():
+        jtr = SharedGrads(dit=jd, schedule=base.schedule, cfg=JTrainConfig(**CFG, **extra))
+        state, frozen = jtr.init_state(jax.tree.map(jnp.asarray, params))
+        states, metrics = [state], []
+        for key in (5, 6):
+            state, m = jtr.train_step(state, frozen, jbatch, jax.random.key(key))
+            states.append(state)
+            metrics.append(m)
+        runs[name] = (states, metrics)
+    return batch, runs
+
+
+def _port_trainer(params, **extra):
+    td = DiT.tiny(device="cpu", lora_rank=4)
+    td.load_state_dict(jax_params_to_torch(params), strict=True)
+    return Trainer(td, Schedule.create(SchedulerConfig()), TrainConfig(**CFG, **extra))
+
+
+def _assert_params_close(tr, got, jax_tree):
+    """`got` (name -> tensor) against a JAX trainable tree: within 5e-4 of
+    the tensor's learning rate (5e-3 for the attention key biases)."""
+    want = jax_params_to_torch(_np(jax_tree))
+    assert set(want) == set(got)
+    for k, w in want.items():
+        tol = (5e-3 if k.endswith("to_k.bias") else 5e-4) * LR * tr.lr_mult(k)
+        assert float((got[k].detach() - w).abs().max()) < tol, k
+
+
+def _adam(opt_state):
+    """The (first) optax `ScaleByAdamState` of an optimizer state."""
+    return next(x for x in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(x, optax.ScaleByAdamState))
+
+
+def test_two_train_steps_match_jax(setup, jax_run):
     """Two optimizer steps of 2 micro-batches each (grad_accum_steps=2):
     loss, every metric, grad_norm and every updated trainable parameter."""
     jd, params, td = setup
-    td = DiT.tiny(device="cpu", lora_rank=4)
-    td.load_state_dict(jax_params_to_torch(params), strict=True)
+    batch, runs = jax_run
+    (_, _, state), jms = runs["adamw"]
     jcfg = JTrainConfig(**CFG)
-    jtr = jtrainer.Trainer(dit=jd, schedule=JSchedule.create(JSchedulerConfig()), cfg=jcfg)
-    state, frozen = jtr.init_state(jax.tree.map(jnp.asarray, params))
-    batch = _batch(jd)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tr = Trainer(td, Schedule.create(SchedulerConfig()), TrainConfig(**CFG))
+    tr = _port_trainer(params)
     tstate = tr.init_state()
-    step = jax.jit(jtr.train_step)
-    for key in (5, 6):
+    for key, jm in zip((5, 6), jms):
         rng = jax.random.key(key)
-        state, jm = step(state, frozen, jbatch, rng)
         tstate, tm = tr.train_step(tstate, tbatch, draws=jax_draws(jcfg, batch, rng, 2))
         assert set(tm) == set(jm)
         for k in jm:
             assert _rel(tm[k], jm[k]) < 1e-4, (key, k, float(tm[k]), float(jm[k]))
     assert tstate.step == int(state.step) == 2
-    want = jax_params_to_torch(jax.tree.map(np.asarray, state.params))
-    assert set(want) == set(tr.trainable)
-    for k, w in want.items():
-        tol = (5e-3 if k.endswith("to_k.bias") else 5e-4) * LR
-        assert float((tr.trainable[k].detach() - w).abs().max()) < tol, k
+    _assert_params_close(tr, tr.trainable, state.params)
+    want = jax_params_to_torch(_np(state.params))
     moved = [k for k, w in want.items()
              if not torch.equal(w, jax_params_to_torch(jtrainer.partition_params(params)[0])[k])]
     assert len(moved) > 0.9 * len(want)
+
+
+@pytest.mark.parametrize("name", ["ema", "diff_lr"])
+def test_ema_and_two_group_lr_steps_match_jax(setup, jax_run, name):
+    """`ema_decay=0.9` (the EMA copy after each update) and `is_diff_lr`
+    (the perceivers at 10x the learning rate, every other tensor at 0.1x,
+    weight decay with them): the second step (the first with a non-zero
+    learning rate) against JAX's, params and EMA within the file's
+    tolerance of each tensor's learning rate."""
+    _, params, _ = setup
+    batch, runs = jax_run
+    (_, _, state), _ = runs[name]
+    jcfg = JTrainConfig(**CFG)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tr = _port_trainer(params, **OPTIMIZERS[name])
+    tstate = tr.init_state()
+    for key in (5, 6):
+        tstate, _ = tr.train_step(tstate, tbatch,
+                                  draws=jax_draws(jcfg, batch, jax.random.key(key), 2))
+    _assert_params_close(tr, tr.trainable, state.params)
+    if name == "ema":
+        _assert_params_close(tr, tstate.ema, state.ema_params)
+        assert not torch.equal(tstate.ema["perceivers.0.to_q.weight"],
+                               tr.trainable["perceivers.0.to_q.weight"])
+    else:
+        assert tstate.ema is None
+        assert tr.lr_mult("perceivers.0.to_q.weight") == 10.0
+        assert tr.lr_mult("blocks.0.attn1.to_q_lora_A") == 0.1
+        assert sum(tr.lr_mult(k) == 10.0 for k in tr.trainable) == sum(
+            k.startswith("perceivers.") for k in tr.trainable) > 0
+
+
+@pytest.mark.parametrize("name", ["adamw", "ema"])
+def test_port_continues_a_converted_jax_train_state(setup, jax_run, name):
+    """JAX's state after step 1 (trainable params, AdamW mu / nu / count,
+    step, EMA) through `jax_train_state_to_torch`; the port's step 2 from
+    it against JAX's step 2."""
+    _, params, _ = setup
+    batch, runs = jax_run
+    (_, s1, s2), _ = runs[name]
+    adam = _adam(s1.opt_state)
+    got_params, tstate = jax_train_state_to_torch(
+        _np(s1.params), _np(adam.mu), _np(adam.nu), int(adam.count), int(s1.step),
+        None if s1.ema_params is None else _np(s1.ema_params))
+    assert tstate.step == tstate.count == 1 and (tstate.ema is None) == (name == "adamw")
+    tr = _port_trainer(params, **OPTIMIZERS[name])
+    tr.init_state()
+    assert set(got_params) == set(tstate.mu) == set(tstate.nu) == set(tr.trainable)
+    with torch.no_grad():
+        for k, v in got_params.items():
+            tr.trainable[k].copy_(v)
+    tstate, _ = tr.train_step(tstate, {k: torch.from_numpy(v) for k, v in batch.items()},
+                              draws=jax_draws(JTrainConfig(**CFG), batch, jax.random.key(6), 2))
+    assert tstate.step == int(s2.step) == 2
+    _assert_params_close(tr, tr.trainable, s2.params)
+    if name == "ema":
+        _assert_params_close(tr, tstate.ema, s2.ema_params)
 
 
 def test_grad_accumulation_is_the_mean_of_micro_batches(setup):
