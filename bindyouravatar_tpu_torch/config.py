@@ -206,10 +206,6 @@ class PipelineConfig:
     # run the uncond/cond CFG halves as two sequential batch-B forwards
     # instead of one batch-2B forward: same FLOPs, half the activations
     cfg_microbatch: bool = False
-    # VAE decode in chunks of this many latent frames (None = one pass).
-    # One pass at 49 x 480 x 720 holds 128-channel activations of more than
-    # 2^31 elements, so full-size decodes on the GPU set it.
-    decode_temporal_chunk: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

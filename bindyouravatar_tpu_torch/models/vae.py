@@ -7,19 +7,21 @@ upsampling.  Internally NCDHW (torch's conv layout); the public tensors keep
 the JAX layout: video [B, T, 3, H, W], latents [B, T', C, H/8, W/8].
 Module names follow the flax tree (`down_0_res_0`, `norm_layer.gn`, ...).
 
-Without autograd (encode and decode run under `no_grad`), group norms and
-causal convs over more than `SLICE_ELEMENTS` elements compute the same
-function a slice at a time (group norms by groups, convs by output frames
-with their causal context) into one output, and the resnet blocks' SiLU and
-residual add run in place: a whole 49 x 480 x 720 clip then encodes in
-about a third of the memory of the one-pass ops (each 128-channel
-activation there is 4 GiB in bf16).
+Without autograd (the decode always; the encode under `no_grad`), group
+norms, causal convs and the spatial upsamples over more than
+`SLICE_ELEMENTS` elements compute the same function a slice at a time
+(group norms by groups, convs and upsamples by output frames, causal convs
+with their causal context) into one output, and the SiLUs, the spatial
+norm's modulation and the residual adds run in place: a whole 49 x 480 x
+720 clip then encodes in about a third of the memory of the one-pass ops
+(each 128-channel activation there is 4 GiB in bf16), and decodes whole
+(its 128-channel activations exceed 2^31 elements).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -129,7 +131,10 @@ class SpatialNorm3D(nn.Module):
                 zq = zq[:, :, torch.arange(t, device=dev) * zt // t]
         if zq.shape[3] != h:
             zq = F.interpolate(zq, size=(zq.shape[2], h, w), mode="nearest")
-        return self.norm_layer(x) * self.conv_y(zq) + self.conv_b(zq)
+        out = self.norm_layer(x)                    # a fresh tensor
+        if torch.is_grad_enabled():
+            return out * self.conv_y(zq) + self.conv_b(zq)
+        return out.mul_(self.conv_y(zq)).add_(self.conv_b(zq))
 
 
 class ResnetBlock3D(nn.Module):
@@ -196,8 +201,20 @@ class Upsample3D(nn.Module):
                 x = torch.cat([x[:, :, :1], x[:, :, 1:].repeat_interleave(2, dim=2)], dim=2)
             else:
                 x = x.repeat_interleave(2, dim=2)
-        x = F.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
-        return self.conv(x)
+        up = lambda v: self.conv(F.interpolate(v, scale_factor=(1, 2, 2), mode="nearest"))
+        if torch.is_grad_enabled() or 4 * x.numel() <= SLICE_ELEMENTS:
+            return up(x)
+        # the spatial upsample and the (1, 3, 3) conv are per frame: a few
+        # frames at a time into one output
+        t = x.shape[2]
+        step = max(1, SLICE_ELEMENTS // (4 * x[:, :, :1].numel()))
+        out = None
+        for a in range(0, t, step):
+            ys = up(x[:, :, a:a + step])
+            if out is None:
+                out = ys.new_empty(ys.shape[:2] + (t,) + ys.shape[3:])
+            out[:, :, a:a + step] = ys
+        return out
 
 
 class Encoder3D(nn.Module):
@@ -228,7 +245,7 @@ class Encoder3D(nn.Module):
         h = self.conv_in(x)
         for name in self.order:
             h = getattr(self, name)(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(F.silu(self.norm_out(h), inplace=not torch.is_grad_enabled()))
 
 
 class Decoder3D(nn.Module):
@@ -259,7 +276,7 @@ class Decoder3D(nn.Module):
         for name in self.order:
             mod = getattr(self, name)
             h = mod(h, z) if isinstance(mod, ResnetBlock3D) else mod(h)
-        return self.conv_out(F.silu(self.norm_out(h, z)))
+        return self.conv_out(F.silu(self.norm_out(h, z), inplace=not torch.is_grad_enabled()))
 
 
 class CausalVAE(nn.Module):
@@ -329,6 +346,7 @@ class CausalVAE(nn.Module):
             i += k
         return torch.cat(outs, dim=1)
 
+    @torch.inference_mode()
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         z = (latents / self.cfg.scaling_factor).permute(0, 2, 1, 3, 4).to(self.cfg.dtype)
         return self.decoder(z).permute(0, 2, 1, 3, 4).float()
@@ -336,19 +354,29 @@ class CausalVAE(nn.Module):
     def decode(self, latents: torch.Tensor, temporal_chunk: Optional[int] = None) -> torch.Tensor:
         """Scaled latents [B, T', C, h, w] -> video [B, T, 3, H, W].
 
-        `temporal_chunk`: decode that many latent frames at a time with one
-        latent frame of left context (the JAX `decode_stream` chunking; the
-        first chunk takes chunk+1 frames with no context).  Chunk joins are
-        approximate: group-norm statistics are per chunk."""
+        `temporal_chunk`: the concatenation of `decode_stream`'s chunks
+        (approximate at the joins: group-norm statistics are per chunk)."""
+        if temporal_chunk is None or latents.shape[1] <= temporal_chunk:
+            return self._decode(latents)
+        return torch.cat([c for _, c in self.decode_stream(latents, temporal_chunk)], dim=1)
+
+    def decode_stream(self, latents: torch.Tensor, temporal_chunk: Optional[int] = None
+                      ) -> Iterator[Tuple[int, torch.Tensor]]:
+        """Chunked `decode` as a generator (JAX `decode_stream`): yields
+        `(start_pixel_frame, chunk [B, t, 3, H, W])` as each chunk of
+        `temporal_chunk` latent frames finishes, with one latent frame of
+        left context (dropped from the output); the first chunk takes
+        `temporal_chunk + 1` frames and no context."""
         t_lat = latents.shape[1]
         if temporal_chunk is None or t_lat <= temporal_chunk:
-            return self._decode(latents)
+            yield 0, self._decode(latents)
+            return
         r, k = self.cfg.temporal_compression_ratio, temporal_chunk
         first = min(k + 1, t_lat)
-        outs = [self._decode(latents[:, :first])[:, : r * (first - 1) + 1]]
-        i = first
+        # an even-length first chunk decodes to 4t frames: keep the 4(t-1)+1 it owns
+        yield 0, self._decode(latents[:, :first])[:, : r * (first - 1) + 1]
+        pos, i = r * (first - 1) + 1, first
         while i < t_lat:
             n = min(k, t_lat - i)
-            outs.append(self._decode(latents[:, i - 1:i + n])[:, 1:1 + r * n])
-            i += n
-        return torch.cat(outs, dim=1)
+            yield pos, self._decode(latents[:, i - 1:i + n])[:, 1:1 + r * n]
+            pos, i = pos + r * n, i + n

@@ -119,7 +119,8 @@ class BindYourAvatarPipeline:
         return grid
 
     def _guided(self, inp, lat, t_cur):
-        """The CFG-guided model output for latents `lat` at timestep t_cur."""
+        """(The CFG-guided model output for latents `lat` at timestep t_cur,
+        the cond half's routing predictions [num_ca, B, S, I] or None)."""
         c = self.cfg
         b = lat.shape[0]
 
@@ -129,17 +130,19 @@ class BindYourAvatarPipeline:
                 chans.append(sel(inp["bg"]))
             model_in = torch.cat(chans, dim=2)
             tvec = torch.full((model_in.shape[0],), float(t_cur), device=lat.device)
-            pred, _ = self.dit.apply(model_in, sel(inp["pe"]), tvec, inp["rope"],
-                                     face_emb=sel(inp["face"]), audio_ctx=sel(inp["actx"]),
-                                     af_matrix=sel(inp["af"]),
-                                     routing_override=sel(inp["force"]))
-            return pred.float()
+            pred, routing = self.dit.apply(model_in, sel(inp["pe"]), tvec, inp["rope"],
+                                           face_emb=sel(inp["face"]), audio_ctx=sel(inp["actx"]),
+                                           af_matrix=sel(inp["af"]),
+                                           routing_override=sel(inp["force"]))
+            return pred.float(), routing
 
         if c.cfg_microbatch:
             half = lambda h: (lambda x: None if x is None else x[h * b:(h + 1) * b])
-            un, txt = fwd(half(0), lat), fwd(half(1), lat)
+            (un, _), (txt, routing) = fwd(half(0), lat), fwd(half(1), lat)
         else:
-            un, txt = fwd(lambda x: x, torch.cat([lat, lat], dim=0)).chunk(2, dim=0)
+            pred, routing = fwd(lambda x: x, torch.cat([lat, lat], dim=0))
+            un, txt = pred.chunk(2, dim=0)
+            routing = None if routing is None else routing[:, b:]
         g = c.guidance_scale
         if c.use_dynamic_cfg:
             # the reference formula mixes the timestep VALUE with the step
@@ -148,7 +151,7 @@ class BindYourAvatarPipeline:
             f32 = np.float32
             x = f32(len(inp["ts"]) - t_cur) / f32(len(inp["ts"]))
             g = float(1 + g * (1 - np.cos(f32(math.pi) * x ** f32(5))) / 2)
-        return un + g * (txt - un)
+        return un + g * (txt - un), routing
 
     @torch.inference_mode()
     def denoise(self, prompt_embeds, image_latents, generator: torch.Generator, *,
@@ -156,14 +159,17 @@ class BindYourAvatarPipeline:
                 mute_embeds=None, af_matrix=None, routing_forcing=None,
                 num_inference_steps: Optional[int] = None, guidance_scale: Optional[float] = None,
                 latents: Optional[torch.Tensor] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                noise: Optional[Sequence[torch.Tensor]] = None, return_routing: bool = False):
         """The CFG denoise loop -> final latents [B, T, C, h, w].
         `prompt_embeds` is CFG-doubled [2B, L, D] (uncond first); id_cond
         [B, I, 1280], id_vit_hidden [B, I, 5, 577, 1024], audio_embeds
         [B, tracks, A, 12, 768], af_matrix [B, I, I], routing_forcing
         [B, S, I] (OR-reduced over time, then used in place of the
         predicted routing).  `noise`: one tensor per step for the DPM++ SDE
-        term (drawn from `generator` when None)."""
+        term (drawn from `generator` when None).  With `return_routing`
+        (the `--draw_routing_logits` debug surface) returns (latents,
+        routing [steps, num_ca, B, S, I] bf16 of the cond CFG half, or None
+        when the face path did not run)."""
         steps = num_inference_steps or self.cfg.num_inference_steps
         pipe = self
         if guidance_scale is not None:
@@ -177,8 +183,11 @@ class BindYourAvatarPipeline:
         sched = self.schedule
         lat = inp["latents"].float()
         old_pred = torch.zeros_like(lat)
+        routing = []
         for i, t_cur in enumerate(inp["ts"]):
-            guided = pipe._guided(inp, lat, t_cur)
+            guided, r = pipe._guided(inp, lat, t_cur)
+            if return_routing and r is not None:
+                routing.append(r.to(torch.bfloat16))
             if self.cfg.scheduler_type == "ddim":
                 lat = sched.ddim_step(guided, t_cur, inp["prev_ts"][i], lat)
                 continue
@@ -186,20 +195,24 @@ class BindYourAvatarPipeline:
                           torch.randn(lat.shape, generator=generator, device=lat.device))
             lat, old_pred = sched.dpm_step_scan(guided, old_pred, t_cur, inp["ts_back"][i],
                                                 inp["prev_ts"][i], lat, i > 0, step_noise)
+        if return_routing:
+            return lat, torch.stack(routing) if routing else None
         return lat
 
     @torch.inference_mode()
     def generate(self, prompt_embeds: torch.Tensor, negative_prompt_embeds: torch.Tensor,
                  image: torch.Tensor, generator: torch.Generator,
                  image_bg: Optional[torch.Tensor] = None, decode: bool = True,
-                 latents: Optional[torch.Tensor] = None,
+                 return_routing: bool = False, latents: Optional[torch.Tensor] = None,
                  noise: Optional[Sequence[torch.Tensor]] = None,
-                 timings: Optional[Dict[str, float]] = None, **cond) -> torch.Tensor:
+                 timings: Optional[Dict[str, float]] = None, **cond):
         """prepare latents -> denoise -> decode: video [B, T, 3, H, W] in
-        [-1, 1] (or latents with decode=False).  Conditioning kwargs as in
-        `denoise`.  With a `timings` dict, the wall time of each stage
-        (encode_s, denoise_s, decode_s), measured after a device sync, is
-        stored in it."""
+        [-1, 1] (or latents with decode=False); the decode takes the whole
+        clip at once, as JAX's does (chunked decode: `vae.decode_stream`).
+        With `return_routing`, (video, routing) as `denoise` gives it.
+        Conditioning kwargs as in `denoise`.  With a `timings` dict, the
+        wall time of each stage (encode_s, denoise_s, decode_s), measured
+        after a device sync, is stored in it."""
         clock = _StageClock(image.device, timings)
         t_lat = (self.cfg.num_frames - 1) // self.dit.cfg.temporal_compression_ratio + 1
         img_lat = self.prepare_image_latents(image, t_lat)
@@ -214,14 +227,15 @@ class BindYourAvatarPipeline:
             bg_lat = torch.zeros_like(img_lat)
         clock.stage("encode_s")
         pe = torch.cat([negative_prompt_embeds, prompt_embeds], dim=0)
-        lat = self.denoise(pe, img_lat, generator, bg_latents=bg_lat, latents=latents,
-                           noise=noise, **cond)
+        out = self.denoise(pe, img_lat, generator, bg_latents=bg_lat, latents=latents,
+                           noise=noise, return_routing=return_routing, **cond)
+        lat, routing = out if return_routing else (out, None)
         clock.stage("denoise_s")
-        if not decode:
-            return lat
-        video = self.vae.decode(lat, temporal_chunk=self.cfg.decode_temporal_chunk)
-        clock.stage("decode_s")
-        return video
+        video = lat
+        if decode:
+            video = self.vae.decode(lat)
+            clock.stage("decode_s")
+        return (video, routing) if return_routing else video
 
 
 class _StageClock:

@@ -1,3 +1,3 @@
-from .server import GenerationRequest, GenerationResult, InferenceServer
+from .server import GenerationRequest, GenerationResult, InferenceServer, serve_http
 
-__all__ = ["GenerationRequest", "GenerationResult", "InferenceServer"]
+__all__ = ["GenerationRequest", "GenerationResult", "InferenceServer", "serve_http"]

@@ -1,21 +1,29 @@
 """Request-level serving around the pipeline (port of
-`bindyouravatar_tpu/serving/server.py`, one request per launch).
+`bindyouravatar_tpu/serving/server.py`).
 
 `InferenceServer` owns one pipeline and runs two threads over a request
 queue: a PREP thread stages request n+1's tensors on the device while the
-COMPUTE thread runs request n's `generate`.  Every result carries per-stage
-wall timings.  Cross-clip batching, streaming decode and the HTTP front end
-are not ported yet (ROADMAP queue A).
+COMPUTE thread runs request n's `generate`.  With `batch_max > 1`
+co-batchable requests (same shapes, same conditioning, same decode flag)
+are stacked into one denoise.  A request with `stream_chunk_frames`
+decodes through `CausalVAE.decode_stream` and hands each chunk to its
+`on_chunk` as it lands; a request's `forced_routing` replaces the
+predicted routing (`pipeline.denoise(routing_forcing=...)`).  Every result
+carries per-stage wall timings and its batch size.  `serve_http` puts a
+stdlib HTTP/JSON front end on a server (arrays travel as `.npy` paths).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import queue
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,9 +40,14 @@ class GenerationRequest:
     audio_embeds: Optional[np.ndarray] = None  # [1, tracks, A, 12, 768]
     mute_embeds: Optional[np.ndarray] = None
     af_matrix: Optional[np.ndarray] = None
+    forced_routing: Optional[np.ndarray] = None   # [1, S, I]
     seed: int = 0
     decode: bool = True
     request_id: str = ""
+    # streaming decode: chunks of this many LATENT frames, each handed to
+    # `on_chunk(start_pixel_frame, chunk [1, t, 3, H, W])` as it lands
+    stream_chunk_frames: Optional[int] = None
+    on_chunk: Optional[Callable[[int, np.ndarray], Any]] = None
 
 
 @dataclasses.dataclass
@@ -45,13 +58,31 @@ class GenerationResult:
 
 
 class InferenceServer:
-    """Double-buffered request server over one pipeline on one device."""
+    """Double-buffered request server over one pipeline on one device.
 
-    def __init__(self, pipeline, device: torch.device | str):
+    `batch_max > 1` enables cross-clip batching: the compute thread waits
+    up to `batch_wait_s` after a request for co-batchable ones and stacks
+    them into ONE denoise.  Seeds: a request alone draws its initial
+    latents and then its per-step SDE noise from `torch.Generator(device)
+    .manual_seed(seed)`.  In a batch each request's initial latents are
+    that generator's first draw, as alone; the batch's SDE noise continues
+    the first request's generator at the batch's shape, so it is shared
+    across the batch and differs from the requests' solo runs (JAX shares
+    its loop key the same way).  Each clip of a batch then decodes on its
+    own: streamed when it asks for that, else whole (one clip's decode
+    activations at a time).
+    """
+
+    def __init__(self, pipeline, device: torch.device | str, max_queue: int = 64,
+                 batch_max: int = 1, batch_wait_s: float = 0.25):
         self.pipeline = pipeline
         self.device = torch.device(device)
-        self._submit_q: "queue.Queue" = queue.Queue(maxsize=64)
-        self._ready_q: "queue.Queue" = queue.Queue(maxsize=1)
+        self.batch_max = max(1, batch_max)
+        self.batch_wait_s = batch_wait_s
+        self._submit_q: "queue.Queue" = queue.Queue(maxsize=max_queue)
+        # depth batch_max: prepared requests pool up for a batch (depth 1 is
+        # the classic double buffer)
+        self._ready_q: "queue.Queue" = queue.Queue(maxsize=self.batch_max)
         self._stop = threading.Event()
         self._served_lock = threading.Lock()
         self.requests_served = 0
@@ -133,31 +164,229 @@ class InferenceServer:
                 cond["mute_embeds"] = dev(req.mute_embeds)
         if req.af_matrix is not None:
             cond["af_matrix"] = dev(req.af_matrix)
+        if req.forced_routing is not None:
+            cond["routing_forcing"] = dev(req.forced_routing)
         staged = dict(prompt_embeds=pe, negative_prompt_embeds=neg, image=dev(req.image),
                       cond=cond)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return staged
 
+    @staticmethod
+    def _batchable(a, b) -> bool:
+        """Same tensor shapes, same conditioning keys, same decode flag
+        (streaming requests co-batch: only their decode is their own)."""
+        sa, sb = a[2], b[2]
+        if a[0].decode != b[0].decode or set(sa["cond"]) != set(sb["cond"]):
+            return False
+        if any(sa[k].shape != sb[k].shape
+               for k in ("prompt_embeds", "negative_prompt_embeds", "image")):
+            return False
+        return all(sa["cond"][k].shape == sb["cond"][k].shape for k in sa["cond"])
+
     def _compute_loop(self) -> None:
+        pending = None    # taken while gathering a batch, but not co-batchable: runs next
         while True:
-            item = self._ready_q.get()
+            item, pending = (pending if pending is not None else self._ready_q.get()), None
             if item is None:
                 return
-            req, fut, staged, prep_s = item
-            timings: Dict[str, float] = {"prep_s": prep_s}
+            items, stop = [item], False
+            deadline = time.perf_counter() + self.batch_wait_s
+            while len(items) < self.batch_max:
+                try:
+                    nxt = self._ready_q.get(timeout=max(deadline - time.perf_counter(), 0.0))
+                except queue.Empty:
+                    break
+                if nxt is None:          # closing: finish this batch, then stop
+                    stop = True
+                    break
+                if not self._batchable(item, nxt):
+                    pending = nxt
+                    break
+                items.append(nxt)
             t0 = time.perf_counter()
+            timings: Dict[str, float] = {}
             try:
-                gen = torch.Generator(self.device).manual_seed(req.seed)
-                out = self.pipeline.generate(
-                    staged["prompt_embeds"], staged["negative_prompt_embeds"], staged["image"],
-                    gen, decode=req.decode, timings=timings, **staged["cond"])
-                video = out.cpu().numpy()
-            except Exception as e:   # noqa: BLE001 - surfaced through the future
-                fut.set_exception(e)
-                continue
-            timings["compute_s"] = time.perf_counter() - t0
-            with self._served_lock:
-                self.requests_served += 1
-            fut.set_result(GenerationResult(request_id=req.request_id, video=video,
-                                            timings=timings))
+                videos = self._run(items, timings)
+            except Exception as e:   # noqa: BLE001 - surfaced through the futures
+                for it in items:
+                    it[1].set_exception(e)
+            else:
+                timings["compute_s"] = time.perf_counter() - t0
+                timings["batch_size"] = float(len(items))
+                with self._served_lock:
+                    self.requests_served += len(items)
+                for (req, fut, _, prep_s), video in zip(items, videos):
+                    fut.set_result(GenerationResult(request_id=req.request_id, video=video,
+                                                    timings={"prep_s": prep_s, **timings}))
+            if stop:
+                return
+
+    @torch.inference_mode()
+    def _run(self, items, timings: Dict[str, float]) -> List[np.ndarray]:
+        """One `generate` over the stacked requests of `items`; one video
+        (or latents) per request, decoded as the docstring of the class
+        says; the stage seconds go into `timings`."""
+        pipe = self.pipeline
+        reqs, staged = [it[0] for it in items], [it[2] for it in items]
+        cat = lambda xs: torch.cat(xs, dim=0)
+        gens = [torch.Generator(self.device).manual_seed(r.seed) for r in reqs]
+        latents = None
+        if len(reqs) > 1:
+            c, vae = pipe.cfg, pipe.vae.cfg
+            img = staged[0]["image"]
+            shape = (1, (c.num_frames - 1) // pipe.dit.cfg.temporal_compression_ratio + 1,
+                     vae.latent_channels, img.shape[-2] // vae.spatial_compression_ratio,
+                     img.shape[-1] // vae.spatial_compression_ratio)
+            latents = cat([torch.randn(shape, generator=g, device=self.device,
+                                       dtype=torch.float32) for g in gens])
+        whole = len(reqs) == 1 and reqs[0].decode and not reqs[0].stream_chunk_frames
+        out = pipe.generate(
+            cat([s["prompt_embeds"] for s in staged]),
+            cat([s["negative_prompt_embeds"] for s in staged]),
+            cat([s["image"] for s in staged]), gens[0], decode=whole, latents=latents,
+            timings=timings, **{k: cat([s["cond"][k] for s in staged]) for k in staged[0]["cond"]})
+        if whole or not reqs[0].decode:
+            stacked = out.cpu().numpy()
+            return [stacked[i:i + 1] for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        videos = []
+        for i, r in enumerate(reqs):
+            chunks = []
+            for start, chunk in pipe.vae.decode_stream(out[i:i + 1], r.stream_chunk_frames):
+                chunk = chunk.cpu().numpy()
+                if r.stream_chunk_frames and r.on_chunk is not None:
+                    r.on_chunk(int(start), chunk)
+                chunks.append(chunk)
+            videos.append(np.concatenate(chunks, axis=1))
+        timings["decode_s"] = time.perf_counter() - t0
+        return videos
+
+
+# ---------------------------------------------------------------- HTTP
+def serve_http(server: InferenceServer, host: str = "127.0.0.1", port: int = 8976,
+               block: bool = True, data_root: Optional[str] = None):
+    """Minimal stdlib HTTP front end (JAX `serve_http`).
+
+    POST /generate with JSON {"prompt_embeds": "<path.npy>", "image":
+    "<path.npy>", optional conditioning paths, "seed": int, "output":
+    "<path.npy>"} -> {"request_id", "output", "timings"}; with
+    "stream_chunk_frames": n the reply is NDJSON, one line per decoded
+    chunk (saved as `<output>.chunkNNN.npy`) and a final {"done": true}
+    line.  GET /healthz -> {"ok": true, "served": n}.
+
+    Requests name filesystem paths, so by default only loopback binds are
+    safe.  With `data_root` every request path (inputs and the output) must
+    resolve inside it: set it before binding another address.
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    array_fields = ("prompt_embeds", "negative_prompt_embeds", "image", "id_cond",
+                    "id_vit_hidden", "audio_embeds", "mute_embeds", "af_matrix",
+                    "forced_routing")
+    root = os.path.realpath(data_root) if data_root else None
+    default_out = (os.path.join(tempfile.gettempdir(), "bya_out.npy") if root is None
+                   else "bya_out.npy")
+
+    def _check_path(p: str) -> str:
+        if root is None:
+            return p
+        rp = os.path.realpath(os.path.join(root, p))
+        if not (rp == root or rp.startswith(root + os.sep)):
+            raise PermissionError(f"path escapes data_root: {p}")
+        return rp
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):   # quiet
+            pass
+
+        def _reply(self, code, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"ok": True, "served": server.requests_served})
+            else:
+                self._reply(404, {"error": "not found"})
+
+        def _stream(self, spec, req: GenerationRequest):
+            """NDJSON reply: one line per decoded chunk as it lands, then a
+            final {"done": true} line; close-delimited (no Content-Length)."""
+            out_base = spec.get("output", default_out)
+            chunk_q: "queue.Queue" = queue.Queue()
+            req.stream_chunk_frames = int(spec["stream_chunk_frames"])
+            req.on_chunk = lambda start, arr: chunk_q.put((start, arr))
+            fut = server.submit(req)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Connection", "close")
+            self.end_headers()
+
+            def _line(payload):
+                self.wfile.write((json.dumps(payload) + "\n").encode())
+                self.wfile.flush()
+
+            # the headers are out: from here an error is an NDJSON error line
+            try:
+                idx = 0
+                deadline = time.monotonic() + float(spec.get("timeout_s", 3600))
+                while True:
+                    try:
+                        start, arr = chunk_q.get(timeout=0.2)
+                    except queue.Empty:
+                        if fut.done() and chunk_q.empty():
+                            break
+                        if time.monotonic() > deadline:
+                            fut.cancel()
+                            _line({"error": "timeout"})
+                            return
+                        continue
+                    path = _check_path(f"{out_base}.chunk{idx:03d}.npy")
+                    np.save(path, arr)
+                    _line({"chunk": idx, "start_frame": int(start), "frames": int(arr.shape[1]),
+                           "path": path})
+                    idx += 1
+                result = fut.result(timeout=0)
+                _line({"done": True, "request_id": result.request_id, "chunks": idx,
+                       "timings": result.timings})
+            except BrokenPipeError:
+                fut.cancel()
+            except Exception as e:   # noqa: BLE001 - the NDJSON error line
+                try:
+                    _line({"error": f"{type(e).__name__}: {e}"})
+                except OSError:
+                    pass
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._reply(404, {"error": "not found"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                spec = json.loads(self.rfile.read(n) or b"{}")
+                kw = {f: np.load(_check_path(spec[f])) for f in array_fields if f in spec}
+                req = GenerationRequest(seed=int(spec.get("seed", 0)),
+                                        request_id=str(spec.get("request_id", "")),
+                                        decode=bool(spec.get("decode", True)), **kw)
+                if spec.get("stream_chunk_frames"):
+                    self._stream(spec, req)
+                    return
+                result = server.submit(req).result(timeout=float(spec.get("timeout_s", 3600)))
+                out_path = _check_path(spec.get("output", default_out))
+                np.save(out_path, result.video)
+                self._reply(200, {"request_id": result.request_id, "output": out_path,
+                                  "timings": result.timings})
+            except Exception as e:   # noqa: BLE001 - the JSON error reply
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    if block:
+        httpd.serve_forever()
+    else:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd

@@ -6,7 +6,8 @@ index mask (-1 background / 0 id 1 / 1 id 2), the clean teacher routing
 (one-hot, OR-reduced over time) and the noisy teacher that is injected
 during training.  The functions take a `numpy.random.Generator` and draw
 from it in the JAX package's order, so both give the same teacher masks
-from the same seed.
+from the same seed.  The CLI's `--tracking_mask_dir` turns SAM2 mask
+files into a forced routing (`masks_to_routing_logits`).
 
 The resize is the JAX package's numpy formula, operation for operation: a
 binary mask's edges land exactly on 0.5 when it is downsampled (720 -> 45
@@ -17,6 +18,7 @@ float operations could flip those cells.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -74,6 +76,24 @@ def index_mask_to_routing(index_mask: np.ndarray, num_ids: int = 2) -> np.ndarra
     for i in range(num_ids):
         out[0, index_mask == i, i] = 1.0
     return out
+
+
+def masks_to_routing_logits(mask_dir: str, latent_frames: int = 13, grid_h: int = 30,
+                            grid_w: int = 45) -> np.ndarray:
+    """A SAM2 tracking-mask directory (`{1,2}/annotated_frame_%05d.png`,
+    reference `tools/sam2_tools.py`) -> one-hot routing [1, S, 2] on the
+    latent grid."""
+    from PIL import Image
+
+    def load_dir(d):
+        files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        return np.stack([np.asarray(Image.open(os.path.join(d, f)).convert("L"),
+                                    dtype=np.float32) / 255.0 for f in files])
+
+    idx = masks_to_index_mask(load_dir(os.path.join(mask_dir, "1")),
+                              load_dir(os.path.join(mask_dir, "2")),
+                              latent_frames, grid_h, grid_w)
+    return index_mask_to_routing(idx)
 
 
 def noisy_teacher_routing(index_mask: np.ndarray, grid: Tuple[int, int, int],

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py     # 42 layers; 2 face + audio requests and 1 audio-only, 2 steps
-                              # each; 2 optimizer steps of the Stage-3 train step; then the
-                              # sft launcher: 2 steps, a checkpoint, a resume and a third step
+    python3 chip_smoke.py     # 42 layers; serving requests of 2 steps each; 2 optimizer steps
+                              # of the Stage-3 train step; the sft launcher: 2 steps, a
+                              # checkpoint, a resume and a third step; a 50-step clip; the CLI
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
 
 Phases (one line each; any failure exits non-zero and prints no result):
@@ -56,9 +56,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
-     17,550 tokens, 21 face layers with the router, 49 x 480 x 720 video)
-     with random weights drawn on the card from a seed; output shape,
-     finiteness and each kernel's launch count are checked.
+     17,550 tokens, 21 face layers with the router, 49 x 480 x 720 video,
+     decoded whole) with random weights drawn on the card from a seed;
+     then a request streamed in chunks of 4 latent frames (its chunks equal
+     `decode(temporal_chunk=4)` of its latents bit for bit; the whole and
+     the chunked decode timed), a forced-routing request (equal to a
+     direct `generate(routing_forcing=...)` bit for bit, whose
+     `return_routing` is [2, 21, 1, 17550, 2] bf16), one request through
+     `serve_http` on 127.0.0.1 (equal to the first request's clip), and two
+     co-batchable requests on a `batch_max=2` server (one denoise, batch
+     size 2); output shape, finiteness and each run's launch counts are
+     checked.
   5. 2 optimizer steps (2 micro-batches each) of `Trainer.train_step` on the
      default configuration at full width (LoRA r128, nested per-group
      checkpointing, 42 layers): finite metrics, moved trainable and
@@ -82,6 +90,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
      bit-identical and each run's launch counts are exact; per step the
      `prepare_batch` and step seconds and peak memory, the checkpoint's
      bytes and its save and restore seconds, and the free disk.
+  7. after phase 6 frees its model: one face + audio request through the
+     `InferenceServer` on a new 42-layer 5B model, `--clip-steps` (50)
+     DPM++ steps, guidance 6, 49 x 480 x 720, whole decode, weights and
+     conditioning drawn on the card: finite [1, 49, 3, 480, 720], exact
+     launch counts, `prep_s`, `encode_s`, `denoise_s`, `decode_s`,
+     `compute_s`, seconds a step, peak memory.
+  7b. the CLI (`infer.run(infer.get_args([...]))`) at `--model_size 5b
+     --num_layers 42 --num_inference_steps 2`, two audio tracks at the 5B
+     contract and the mute track as .pt, prompt embeddings as .npy: the
+     clip, its meta line and the launch counts; then the mp4 export
+     (`main`'s), which writes the file or, without OpenCV, must raise.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -1182,17 +1201,15 @@ def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
     return ok
 
 
-def serving_phase(args, launches: dict) -> bool:
-    """Face + audio requests and one audio-only request through the port's
-    InferenceServer on one fully conditioned DiT at the 5B geometry; fills
-    `launches` with each kernel's count over the run."""
-    import numpy as np
+def _serving_model(args, steps: int):
+    """The 5B DiT (42 layers, face + audio) and the VAE with bf16 weights
+    drawn on the card from `--seed`, in a pipeline of `steps` denoise steps
+    (DPM++, guidance 6, 49 x 480 x 720)."""
     import torch
     from bindyouravatar_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
     from bindyouravatar_tpu_torch.models.dit import DiT
     from bindyouravatar_tpu_torch.models.vae import CausalVAE
     from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
-    from bindyouravatar_tpu_torch.serving import GenerationRequest, InferenceServer
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -1209,25 +1226,93 @@ def serving_phase(args, launches: dict) -> bool:
           f"{n_face / 1e9:.3f}B), VAE {sum(p.numel() for p in vae.parameters()) / 1e6:.1f}M, "
           f"bf16, drawn on the card in {time.perf_counter() - t0:.1f} s; weights "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return BindYourAvatarPipeline.create(dit, vae, PipelineConfig(num_inference_steps=steps))
 
-    pcfg = PipelineConfig(num_inference_steps=args.steps, decode_temporal_chunk=4)
-    pipe = BindYourAvatarPipeline.create(dit, vae, pcfg)
-    c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
-    n_af = pcfg.num_frames + a.window_size - a.window_stride
-    reqs = []
-    for i in range(args.requests + 1):
-        face = i < args.requests              # the last request is audio-only
-        rng = np.random.default_rng(args.seed + 1 + i)
-        f32 = lambda *shape, fn=rng.normal: fn(size=shape).astype(np.float32)
-        cond = dict(id_cond=f32(1, c.num_ids, lf.id_embed_dim),
-                    id_vit_hidden=f32(1, c.num_ids, lf.num_scales, 577, lf.vit_dim)) if face else {}
-        reqs.append(GenerationRequest(
-            prompt_embeds=f32(1, c.max_text_seq_length, c.text_embed_dim),
-            image=rng.uniform(-1, 1, (1, 1, 3, pcfg.height, pcfg.width)).astype(np.float32),
-            audio_embeds=f32(1, 2, n_af, a.blocks, a.audio_dim),
-            seed=args.seed + i, request_id=f"r{i}{' face+audio' if face else ' audio-only'}",
-            **cond))
 
+def _serving_request(pipe, seed: int, rid: str, face: bool = True, **kw):
+    """A request at the pipeline's geometry, its arrays drawn from `seed`."""
+    import numpy as np
+    from bindyouravatar_tpu_torch.serving import GenerationRequest
+
+    c, a, lf, pc = pipe.dit.cfg, pipe.dit.audio_cfg, pipe.dit.lfe_cfg, pipe.cfg
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape, fn=rng.normal: fn(size=shape).astype(np.float32)
+    cond = dict(id_cond=f32(1, c.num_ids, lf.id_embed_dim),
+                id_vit_hidden=f32(1, c.num_ids, lf.num_scales, 577, lf.vit_dim)) if face else {}
+    n_af = pc.num_frames + a.window_size - a.window_stride
+    return GenerationRequest(
+        prompt_embeds=f32(1, c.max_text_seq_length, c.text_embed_dim),
+        image=rng.uniform(-1, 1, (1, 1, 3, pc.height, pc.width)).astype(np.float32),
+        audio_embeds=f32(1, 2, n_af, a.blocks, a.audio_dim), seed=seed, request_id=rid,
+        **cond, **kw)
+
+
+def _serving_want(dit, fwd_face: int, fwd_audio: int, preps: int) -> dict:
+    """Each kernel's launches over `fwd_face` face + audio and `fwd_audio`
+    audio-only CFG forwards (batch-2 CFG: one a step, whatever the batch)
+    and `preps` once-per-clip conditioning preps.  A face + audio forward
+    runs B1 42 (blocks) + 4 per face layer (STAB spatial), B2 1 and B4, B5
+    4 per face layer, B3 42, B6 42 (audio norm_q) + 21 per face layer; an
+    audio-only one B1 = B3 = B6 = 42; a prep one AudioProjModel B6."""
+    c, a = dit.cfg, dit.audio_cfg
+    n_ca, n_st = c.num_ca, dit.router_cfg.num_attention_layers
+    face_b6 = 2 + 2 + 1 + 4 * n_st                 # perceiver, router norms, trunk, STABs
+    return {"B1": c.num_layers * (fwd_face + fwd_audio) + n_ca * n_st * fwd_face,
+            "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
+            "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
+            "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face + preps,
+            **{k: 0 for k in TRAIN_KERNELS + LAYOUT_KERNELS}}   # no backward
+
+
+def _counts_ok(what: str, got: dict, want: dict) -> bool:
+    ok = {k: got[k] for k in want} == want
+    print(f"  {what} launches " + " ".join(f"{k}={got[k]} (want {want[k]})" for k in want
+                                           if want[k] or got[k])
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _video_ok(what: str, video, shape) -> bool:
+    import numpy as np
+
+    ok = tuple(video.shape) == tuple(shape) and bool(np.isfinite(video).all())
+    print(f"  {what}: video {tuple(video.shape)} finite={bool(np.isfinite(video).all())} "
+          f"range=[{float(video.min()):.3f}, {float(video.max()):.3f}] "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def serving_phase(args) -> bool:
+    """Phase 4 on one fully conditioned DiT at the 5B geometry, each run's
+    launch counts exact: `--requests` face + audio requests and 1
+    audio-only request through the port's InferenceServer (whole decode);
+    a request streamed in chunks of 4 latent frames against
+    `decode(temporal_chunk=4)` of its latents, and the whole decode's and
+    the chunked decode's seconds and peak; a forced-routing request against
+    a direct `generate(routing_forcing=..., return_routing=True)` (bit for
+    bit; the routing [steps, 21, 1, 17550, 2] bf16); one request through
+    `serve_http` on 127.0.0.1; two co-batchable requests on a server with
+    `batch_max=2`: one denoise, batch size 2."""
+    import json as _json
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.serving import InferenceServer, serve_http
+
+    dev = torch.device("cuda")
+    pipe = _serving_model(args, args.steps)
+    dit, pc = pipe.dit, pipe.cfg
+    per = 2 if pc.cfg_microbatch else 1
+    fwd = args.steps * per                          # CFG forwards per request
+    shape = (1, pc.num_frames, 3, pc.height, pc.width)
+    want = lambda face, audio, preps: _serving_want(dit, face * fwd, audio * fwd, preps)
+    reqs = [_serving_request(pipe, args.seed + i, f"r{i} face+audio") for i in
+            range(args.requests)]
+    reqs.append(_serving_request(pipe, args.seed + args.requests, f"r{args.requests} audio-only",
+                                 face=False))
+    ok = True
     server = InferenceServer(pipe, dev)
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1236,40 +1321,249 @@ def serving_phase(args, launches: dict) -> bool:
         results = [f.result(timeout=1200) for f in [server.submit(r) for r in reqs]]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serving: {args.requests} face + audio and 1 audio-only requests x {args.steps} "
+              f"steps, whole decode, in {wall:.2f} s wall, peak memory {peak:.2f} GiB", flush=True)
+        for r in results:
+            ok &= _video_ok(f"request {r.request_id} "
+                            + " ".join(f"{k}={v:.3f}" for k, v in r.timings.items()), r.video, shape)
+        ok &= _counts_ok("requests", counts, want(args.requests, 1, len(reqs)))
+
+        # streaming: the latents of the request (decode=False), then the
+        # same request streamed; the chunks against decode(temporal_chunk=4)
+        chunks = []
+        _reset_launches()
+        lat = server.submit(_serving_request(pipe, args.seed + 20, "lat", decode=False)
+                            ).result(timeout=1200).video
+        streamed = server.submit(_serving_request(
+            pipe, args.seed + 20, "stream", stream_chunk_frames=4,
+            on_chunk=lambda start, arr: chunks.append((start, arr)))).result(timeout=1200)
+        counts = _read_launches()
+        lat_t = torch.from_numpy(lat).to(dev)
+        decodes = {}
+        with torch.inference_mode():
+            for name, chunk in (("whole", None), ("chunk-4", 4)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = pipe.vae.decode(lat_t, temporal_chunk=chunk).cpu().numpy()
+                decodes[name] = (out, time.perf_counter() - t0,
+                                 (torch.cuda.max_memory_allocated() - base) / 2**30)
+        starts = [s for s, _ in chunks]
+        want_starts = [0] + list(np.cumsum([c.shape[1] for _, c in chunks[:-1]]))
+        joined = np.concatenate([c for _, c in chunks], axis=1)
+        s_ok = (starts == want_starts and np.array_equal(joined, streamed.video)
+                and np.array_equal(joined, decodes["chunk-4"][0]))
+        ok &= s_ok and _video_ok("streamed request", streamed.video, shape)
+        print(f"  streaming (4 latent frames a chunk): starts {starts}, chunks == result == "
+              f"decode(temporal_chunk=4) of its latents bit for bit: {s_ok}; "
+              + "; ".join(f"{k} decode {v[1]:.3f} s, peak {v[2]:.2f} GiB above weights and "
+                          f"latents" for k, v in decodes.items()), flush=True)
+        ok &= _counts_ok("latents + streamed", counts, want(2, 0, 2))
+        del decodes, lat_t
+
+        # forced routing: the server against a direct generate
+        t = pipe.dit.cfg.video_seq_len
+        rng = np.random.default_rng(args.seed + 30)
+        force = np.zeros((1, t, dit.cfg.num_ids), np.float32)
+        force[0, np.arange(t), rng.integers(0, dit.cfg.num_ids, t)] = 1.0
+        freq = _serving_request(pipe, args.seed + 30, "forced", forced_routing=force)
+        _reset_launches()
+        forced = server.submit(freq).result(timeout=1200)
+        g = lambda x: torch.from_numpy(x).to(dev)
+        video, routing = pipe.generate(
+            g(freq.prompt_embeds), torch.zeros_like(g(freq.prompt_embeds)), g(freq.image),
+            torch.Generator(dev).manual_seed(freq.seed), return_routing=True,
+            id_cond=g(freq.id_cond), id_vit_hidden=g(freq.id_vit_hidden),
+            audio_embeds=g(freq.audio_embeds), routing_forcing=g(force))
+        counts = _read_launches()
+        same = np.array_equal(forced.video, video.cpu().numpy())
+        r_shape = (args.steps, dit.cfg.num_ca, 1, t, dit.cfg.num_ids)
+        r_ok = (tuple(routing.shape) == r_shape and routing.dtype == torch.bfloat16
+                and bool(routing.isfinite().all()))
+        ok &= same and r_ok and _video_ok("forced-routing request", forced.video, shape)
+        print(f"  forced routing: server == direct generate(routing_forcing=...) bit for bit: "
+              f"{same}; return_routing {tuple(routing.shape)} {routing.dtype} (want {r_shape} "
+              f"bf16) {'ok' if r_ok else 'FAILED'}", flush=True)
+        ok &= _counts_ok("forced (server + direct)", counts, want(2, 0, 2))
+        del video, routing
+
+        # HTTP: request r0's arrays as .npy paths; its clip again, bit for bit
+        with tempfile.TemporaryDirectory(prefix="bya_http_") as tmp:
+            spec = {"seed": reqs[0].seed, "request_id": "http", "output": f"{tmp}/out.npy"}
+            for f in ("prompt_embeds", "image", "id_cond", "id_vit_hidden", "audio_embeds"):
+                np.save(f"{tmp}/{f}.npy", getattr(reqs[0], f))
+                spec[f] = f"{tmp}/{f}.npy"
+            httpd = serve_http(server, host="127.0.0.1", port=0, block=False)
+            try:
+                port = httpd.server_address[1]
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+                    health = _json.loads(r.read())
+                _reset_launches()
+                body = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                              data=_json.dumps(spec).encode(),
+                                              headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(body, timeout=1200) as r:
+                    reply = _json.loads(r.read())
+                counts = _read_launches()
+                video = np.load(reply["output"])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        single = reply["timings"]                  # a warm request alone
+        h_ok = health["ok"] is True and np.array_equal(video, results[0].video)
+        ok &= h_ok and _video_ok("HTTP request", video, shape)
+        print(f"  serve_http on 127.0.0.1:{port}: healthz {health}, POST /generate -> "
+              f"{reply['request_id']} timings {reply['timings']}; == request r0 bit for bit: "
+              f"{np.array_equal(video, results[0].video)}", flush=True)
+        ok &= _counts_ok("HTTP", counts, want(1, 0, 1))
+    finally:
+        server.close()
+
+    # two co-batchable requests: one denoise at batch 2
+    denoises = []
+    real = pipe.denoise
+    pipe.denoise = lambda *a, **kw: denoises.append(a[0].shape[0] // 2) or real(*a, **kw)
+    server = InferenceServer(pipe, dev, batch_max=2, batch_wait_s=60.0)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        pair = [f.result(timeout=1200) for f in [
+            server.submit(_serving_request(pipe, args.seed + 40 + i, f"pair{i}")) for i in (0, 1)]]
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        server.close()
+        del pipe.denoise
+    b_ok = denoises == [2] and all(r.timings["batch_size"] == 2.0 for r in pair)
+    ok &= b_ok
+    for r in pair:
+        ok &= _video_ok(f"co-batched {r.request_id} "
+                        + " ".join(f"{k}={v:.3f}" for k, v in r.timings.items()), r.video, shape)
+    tp = pair[0].timings
+    print(f"  co-batched pair: denoise calls at batch {denoises} (want [2]), batch_size 2: "
+          f"{'ok' if b_ok else 'FAILED'}; a request {tp['compute_s'] / 2:.3f} s (denoise "
+          f"{tp['denoise_s'] / 2:.3f} s) against {single['compute_s']:.3f} s ("
+          f"{single['denoise_s']:.3f} s) alone (the HTTP request); peak {peak:.2f} GiB",
+          flush=True)
+    ok &= _counts_ok("co-batched pair", counts, want(1, 0, 1))
+    print(f"serving phase {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def clip_phase(args, launches: dict) -> bool:
+    """Phase 7: one face + audio request through the InferenceServer at
+    `--clip-steps` denoise steps (50: a clip) on the 42-layer 5B model,
+    weights and conditioning drawn on the card from `--seed`, whole decode;
+    fills `launches` with the run's counts."""
+    import gc
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.serving import GenerationRequest, InferenceServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    pipe = _serving_model(args, args.clip_steps)
+    c, a, lf, pc = pipe.dit.cfg, pipe.dit.audio_cfg, pipe.dit.lfe_cfg, pipe.cfg
+    gen = torch.Generator(dev).manual_seed(args.seed + 100)
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev).cpu().numpy()
+    req = GenerationRequest(
+        prompt_embeds=draw(1, c.max_text_seq_length, c.text_embed_dim),
+        negative_prompt_embeds=draw(1, c.max_text_seq_length, c.text_embed_dim),
+        image=(torch.rand((1, 1, 3, pc.height, pc.width), generator=gen, device=dev) * 2 - 1
+               ).cpu().numpy(),
+        id_cond=draw(1, c.num_ids, lf.id_embed_dim),
+        id_vit_hidden=draw(1, c.num_ids, lf.num_scales, 577, lf.vit_dim),
+        audio_embeds=draw(1, 2, pc.num_frames + a.window_size - a.window_stride, a.blocks,
+                          a.audio_dim),
+        seed=args.seed + 100, request_id="clip")
+    server = InferenceServer(pipe, dev)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        res = server.submit(req).result(timeout=3000)
+        torch.cuda.synchronize()
         launches.update(_read_launches())
     finally:
         server.close()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = args.clip_steps
+    ok = _video_ok("clip", res.video, (1, pc.num_frames, 3, pc.height, pc.width))
+    ok &= _counts_ok("clip", launches, _serving_want(pipe.dit, steps, 0, 1))
+    tm = res.timings
+    print(f"clip (face + audio, {c.num_layers} layers, {steps} DPM++ steps, guidance "
+          f"{pc.guidance_scale}, {pc.num_frames} x {pc.height} x {pc.width}, whole decode): "
+          + " ".join(f"{k}={tm[k]:.3f}" for k in ("prep_s", "encode_s", "denoise_s", "decode_s",
+                                                   "compute_s"))
+          + f"; {tm['denoise_s'] / steps:.4f} s a denoise step; peak {peak:.2f} GiB; launches a "
+          f"step " + " ".join(f"{k}={launches[k] / steps:g}" for k in ("B1", "B2", "B3", "B4",
+                                                                       "B5", "B6"))
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
 
-    ok = True
-    want_shape = (1, pcfg.num_frames, 3, pcfg.height, pcfg.width)
-    for r in results:
-        shape_ok = tuple(r.video.shape) == want_shape
-        finite = bool(np.isfinite(r.video).all())
-        ok &= shape_ok and finite
-        stages = " ".join(f"{k}={v:.3f}" for k, v in r.timings.items())
-        print(f"request {r.request_id}: video {tuple(r.video.shape)} "
-              f"{'ok' if shape_ok else 'WRONG SHAPE'} finite={finite} "
-              f"range=[{float(r.video.min()):.3f}, {float(r.video.max()):.3f}] {stages}", flush=True)
-    # per batch-2 CFG forward: face + audio runs B1 42 (blocks) + 4 per face
-    # layer (STAB spatial), B2 1 and B4, B5 4 per face layer, B3 42, B6 42
-    # (audio norm_q) + 21 per face layer; audio-only B1 = B3 = B6 = 42; plus
-    # one AudioProjModel B6 per clip
-    per = 2 if pcfg.cfg_microbatch else 1
-    fwd_face, fwd_audio = args.steps * args.requests * per, args.steps * per
-    n_ca, n_st = c.num_ca, dit.router_cfg.num_attention_layers
-    face_b6 = 2 + 2 + 1 + 4 * n_st                 # perceiver, router norms, trunk, STABs
-    want = {"B1": c.num_layers * (fwd_face + fwd_audio) + n_ca * n_st * fwd_face,
-            "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
-            "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
-            "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face
-            + len(reqs), **{k: 0 for k in TRAIN_KERNELS + LAYOUT_KERNELS}}   # no backward
-    counts_ok = launches == want
-    ok &= counts_ok
-    print(f"serving: {args.requests} face + audio and 1 audio-only requests x {args.steps} steps "
-          f"in {wall:.2f} s wall, peak memory {peak:.2f} GiB; launches "
-          + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
-          + f" {'ok' if counts_ok else 'FAILED'}", flush=True)
+
+def cli_phase(args) -> bool:
+    """Phase 7b: the CLI's `run` in this process at `--model_size 5b
+    --num_layers 42 --num_inference_steps 2` with two audio tracks at the
+    5B contract [53, 12, 768] and the mute track as .pt, and prompt
+    embeddings as .npy; then `main`'s mp4 export of the clip, which must
+    write the file or, without OpenCV, raise."""
+    import gc
+    import importlib.util
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
+    from bindyouravatar_tpu_torch.utils import media
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(args.seed + 200)
+    with tempfile.TemporaryDirectory(prefix="bya_cli_") as tmp:
+        paths = {}
+        for name in ("a0", "a1", "mute"):
+            paths[name] = f"{tmp}/{name}.pt"
+            torch.save(torch.randn(53, 12, 768, generator=gen), paths[name])
+        for name in ("pe", "ne"):
+            paths[name] = f"{tmp}/{name}.npy"
+            np.save(paths[name], torch.randn(1, 226, 4096, generator=gen).numpy())
+        argv = ["--model_size", "5b", "--num_layers", "42", "--num_inference_steps", "2",
+                "--audio_path", paths["a0"], paths["a1"], "--mute_audio_path", paths["mute"],
+                "--prompt_embeds", paths["pe"], "--negative_prompt_embeds", paths["ne"],
+                "--output_dir", f"{tmp}/out", "--seed", str(args.seed)]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = infer.run(infer.get_args(argv))
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # main's export: the mp4, or an ImportError where OpenCV is missing
+        mp4 = f"{tmp}/out/output.mp4"
+        try:
+            media.export_to_video(res.video[0], mp4)
+            cv2_ok = os.path.getsize(mp4) > 0
+            cv2_line = f"export_to_video wrote {os.path.getsize(mp4)} bytes"
+        except ImportError as e:
+            cv2_ok = importlib.util.find_spec("cv2") is None
+            cv2_line = f"export_to_video raises {type(e).__name__} ({e})"
+    meta_ok = res.meta["frames"] == 49 and res.meta["steps"] == 2
+    ok = _video_ok("CLI run", res.video, (1, 49, 3, 480, 720)) and meta_ok and cv2_ok
+    five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
+                                   router_cfg=RouterConfig())
+    ok &= _counts_ok("CLI (audio only: the CLI takes no face arrays)", counts,
+                     _serving_want(five_b, 0, 2, 1))
+    print(f"cli: python -m bindyouravatar_tpu_torch.infer {' '.join(argv[:6])} ... -> run() in "
+          f"{wall:.1f} s (weights drawn in fp32 and cast to bf16 included), peak {peak:.2f} GiB, "
+          f"meta {res.meta}; {cv2_line} {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -1591,6 +1885,8 @@ def main(argv=None) -> int:
     p.add_argument("--train-steps", type=int, default=2, help="optimizer steps of phase 5")
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
+    p.add_argument("--clip-steps", type=int, default=50,
+                   help="denoise steps of phase 7's clip (0 skips phases 7 and 7b)")
     p.add_argument("--driver-layers", type=int, default=16,
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
                         "layers writes 32.4 GB, and the phase saves twice)")
@@ -1651,7 +1947,7 @@ def main(argv=None) -> int:
     ok &= reduced_train_phase(unpaired_launches, unpaired=True)
     ok &= entry_point_phase(entry_launches)
     if args.requests > 0:
-        ok &= serving_phase(args, launches)
+        ok &= serving_phase(args)
     else:
         ok = False
         print("serving phase skipped (--requests 0): no launch counts", flush=True)
@@ -1661,12 +1957,18 @@ def main(argv=None) -> int:
         ok = False
         print("train phase skipped (--train-steps 0): no launch counts", flush=True)
     ok &= driver_phase(args)
+    if args.clip_steps > 0:
+        ok &= clip_phase(args, launches)
+        ok &= cli_phase(args)
+    else:
+        ok = False
+        print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)
     if not ok:
         return _fail("a phase failed")
 
-    # B5' runs only below 8 latent frames: its launches are those of the
-    # reduced fully conditioned step (3 frames), every other kernel's those
-    # of the serving run
+    # B1-B6: the launches of the clip (phase 7); B5' runs only below 8
+    # latent frames: its launches are those of the reduced fully
+    # conditioned step (3 frames)
     launches["B5'"] = reduced_launches["B5'"]
     # the training kernels' launches are those of the full-width train step;
     # B11 and B12 + B13 run in the unpaired-head train step (phase 3c), B14,

@@ -320,11 +320,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "flax", "optax", "bindyouravatar_tpu")
     files = sorted((ROOT / "bindyouravatar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    # the training entry point's modules are among them
+    # the training and serving entry points' modules are among them
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {f"bindyouravatar_tpu_torch/{m}.py" for m in (
         "utils/masks", "training/data", "training/checkpoint", "training/train_loop",
-        "training/sft", "training/trainer", "models/vae", "convert")} <= names
+        "training/sft", "training/trainer", "models/vae", "convert", "infer",
+        "serving/server", "pipeline/pipeline", "utils/media", "preprocess/audio")} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

@@ -1,6 +1,9 @@
 """Shared helpers of the `test_torch_*` files: numpy-made inputs and
 realistic-scale weights handed to both the JAX package and the torch port."""
 
+import contextlib
+import os
+
 import jax
 import numpy as np
 import torch
@@ -33,3 +36,18 @@ def to_torch(*arrays):
 def max_err(got, want) -> float:
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     return float(np.abs(got.astype(np.float64) - np.asarray(want, np.float64)).max())
+
+
+@contextlib.contextmanager
+def threads_per_worker():
+    """Torch's intra-op threads at this pytest-xdist worker's share of the
+    cores, for a test module of small ops: with every worker's pool at all
+    cores they spin against each other (a tiny CLI run beside two busy
+    workers took 72 s instead of 10)."""
+    n = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
