@@ -3,7 +3,9 @@
 Mirrors `bindyouravatar_tpu/config.py` field for field for the configs the
 serving and training paths need: the DiT's LoRA fields and its execution
 knobs `fuse_qk_norm`, `remat` and `remat_policy` are here, as is
-`TrainConfig`; the 2B position-table fields and the TPU-only knobs
+`TrainConfig`, and the conditioning encoders' `T5Config` (with
+`from_dir`, the shapes of an HF T5 directory) and `EVACLIPConfig`; the 2B
+position-table fields and the TPU-only knobs
 (`use_flash_attention`, `ff_chunks`) are left out.  That module imports
 `jax.numpy` for its dtype fields, so it is re-stated here rather than
 imported.
@@ -175,6 +177,59 @@ class VAEConfig:
     scaling_factor: float = 1.15258426
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    """T5-v1.1 encoder config; defaults = t5-xxl (the reference text encoder)."""
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def from_dir(cls, path: str, **overrides) -> "T5Config":
+        """The shapes of an HF T5 directory's `config.json` (t5-xxl's
+        defaults where a field is missing)."""
+        import json
+        import os
+
+        with open(os.path.join(path, "config.json")) as f:
+            hf = json.load(f)
+        fields = {f.name for f in dataclasses.fields(cls)} - {"dtype", "param_dtype"}
+        return cls(**{k: hf[k] for k in fields if k in hf}, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class EVACLIPConfig:
+    """EVA02-CLIP-L-14-336 visual tower (reference `models/eva_clip/`)."""
+    image_size: int = 336
+    patch_size: int = 14
+    width: int = 1024
+    depth: int = 24
+    heads: int = 16
+    mlp_ratio: float = 2.6667   # SwiGLU
+    out_dim: int = 768          # pooled projection
+    hidden_taps: Tuple[int, ...] = (4, 8, 12, 16, 20)
+    use_rope: bool = True
+    pt_hw_seq_len: int = 16
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size  # 24
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1  # 577
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 The JAX importers stay the only way in from reference checkpoints
 (importer -> flax tree -> this converter).  Rules:
   * Dense `kernel` [in, out] -> `weight` [out, in]; conv `kernel`
-    [kt, kh, kw, in, out] -> `weight` [out, in, kt, kh, kw];
+    [kt, kh, kw, in, out] -> `weight` [out, in, kt, kh, kw] ([kh, kw, in,
+    out] -> [out, in, kh, kw] in 2-D);
   * LayerNorm / GroupNorm `scale` -> `weight`, `bias` -> `bias` (this covers
     the fused-QK-norm `_Affine` `norm_q`/`norm_k` params, whose tree is the
     LayerNorm's);
@@ -17,6 +18,12 @@ The JAX importers stay the only way in from reference checkpoints
     are not Dense kernels and keep the JAX orientation, as do the LoRA
     leaves `to_q_lora_A` [dim, r] / `to_q_lora_B` [r, inner] (and to_k's):
     the port computes (x A) B as the flax module does.
+The same rules take `T5TextEncoder.init` and `EVACLIPVision.init`, whose
+names the port keeps (`token_embedding`, `relative_attention_bias`,
+`cls_token` and `pos_embed` are raw params and stay as they are).  The
+face stack's networks (`ArcFaceEmbedder`, `RetinaFace`, `BiSeNet`) keep the
+reference checkpoints' names instead: `jax_face_net_to_torch` undoes the
+JAX importers' renames and reshapes.
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
 `jax_train_state_to_torch` carries a JAX train state (trainable params,
 AdamW moments and count, step, EMA) across the same way.
@@ -24,6 +31,7 @@ AdamW moments and count, step, EMA) across the same way.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -37,7 +45,8 @@ _STACKED = {"blocks": "blocks", "audio_layers": "audio_layers", "perceiver": "pe
 def _leaf(path: tuple, arr: np.ndarray):
     *parents, name = path
     if name == "kernel":
-        arr = arr.T if arr.ndim == 2 else arr.transpose(4, 3, 0, 1, 2)
+        arr = {2: lambda a: a.T, 4: lambda a: a.transpose(3, 2, 0, 1),
+               5: lambda a: a.transpose(4, 3, 0, 1, 2)}[arr.ndim](arr)
         name = "weight"
     elif name == "scale":
         name = "weight"
@@ -80,6 +89,53 @@ def jax_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             _walk(sub, (top,), flat)
         else:
             flat[top] = np.asarray(sub)
+    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+# the JAX importers' names -> the reference checkpoints' (`preprocess/*.py`)
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_FACE_RENAMES = {
+    "common": [(r"layer(\d)_(\d+)", r"layer\1.\2"), (r"downsample_conv", "downsample.0"),
+               (r"downsample_bn", "downsample.1")],
+    "arcface": [(r"^prelu1\.", "prelu.")],
+    "retinaface": [(r"^(fpn|ssh\d)\.(\w+)\.conv\.", r"\1.\2.0."),
+                   (r"^(fpn|ssh\d)\.(\w+)\.bn\.", r"\1.\2.1."),
+                   (r"^(BboxHead|ClassHead|LandmarkHead)_(\d)\.", r"\1.\2.conv1x1.")],
+    "bisenet": [],
+}
+
+
+def jax_face_net_to_torch(params: Mapping[str, Any], net: str) -> Dict[str, torch.Tensor]:
+    """A (numpy) flax tree of `ArcFaceEmbedder.init` (`net="arcface"`),
+    `RetinaFace` (`"retinaface"`) or `BiSeNet` (`"bisenet"`) -> the port's
+    `state_dict` under the reference checkpoint's names: conv kernels to
+    [out, in, kh, kw], Dense kernels transposed, BN `scale`/`bias`/`mean`/
+    `var` to `weight`/`bias`/`running_mean`/`running_var`, PReLU `alpha` to
+    `weight`, `layer1_0` to `layer1.0`, and ArcFace's fc rows from JAX's
+    NHWC flatten back to the NCHW flatten the reference's fc reads."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for key, sub in tree.items():
+            path = prefix + (str(key),)
+            if isinstance(sub, Mapping):
+                walk(sub, path)
+                continue
+            *parents, name = path
+            arr = np.asarray(sub)
+            if name == "kernel":
+                if net == "arcface" and parents == ["fc"]:
+                    c, hw = 512, 7
+                    arr = arr.reshape(hw, hw, c, -1).transpose(2, 0, 1, 3).reshape(c * hw * hw, -1)
+                name, arr = "weight", arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            else:
+                name = "weight" if name == "alpha" else _BN_LEAVES.get(name, name)
+            key = ".".join(parents + [name])
+            for pat, rep in _FACE_RENAMES["common"] + _FACE_RENAMES[net]:
+                key = re.sub(pat, rep, key)
+            flat[key] = arr
+
+    walk(params, ())
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
 
 

@@ -5,19 +5,31 @@ flags and defaults, plus `--device`):
         --prompt_embeds pe.npy --output_dir out
     python -m bindyouravatar_tpu_torch.infer --model_size tiny --device cpu --audio_path a.pt b.pt \\
         --num_frames 9 --height 128 --width 192 --num_inference_steps 2
+    python -m bindyouravatar_tpu_torch.infer --img_file_path a.png b.png --t5_dir t5 \\
+        --prompt "two people talking" --audio_path a.pt b.pt \\
+        [--retinaface_checkpoint r.pth --bisenet_checkpoint b.pth --arcface_checkpoint a.pth]
 
-Flow: build the pipeline -> its weights -> the conditioning image (a white
-canvas, or the `--inpaintingframe_path` background frame) -> the audio
-tracks -> the text embeddings -> the forced routing from
-`--tracking_mask_dir` -> `generate` (`run`) -> the mp4 and the a/v mux
-(`main`).  Weights are drawn from `--seed` the way `training.sft` draws
-them (fp32, the DiT then the VAE; cast to `--dtype` afterwards), so
-`--checkpoint_dir` serves a run of the port's trainer with the same
-`--model_size` and `--seed`: its trainable tensors (the EMA copy when the
-run kept one) replace the drawn ones.  `--module_dir` loads the port's
-sub-module files.  Reference checkpoints come in through the JAX package's
-importers and `bindyouravatar_tpu_torch.convert`.  Flags that need what the
-port lacks raise `NotImplementedError` naming their `ROADMAP.md` item.
+Flow: the conditioning encoders (`encode_conditioning`: the face stack on
+the two `--img_file_path` images gives `id_cond`, `id_vit_hidden` and the
+composite canvas; T5 from `--t5_dir` gives the prompt and negative
+embeddings), which are freed before the DiT is built -> the pipeline -> its
+weights -> the conditioning image (the `--inpaintingframe_path` background
+frame, else the canvas, else a white frame) -> the audio tracks -> the
+forced routing from `--tracking_mask_dir` -> `generate` (`run`) -> the mp4
+and the a/v mux (`main`).  The face stack reads facexlib's and
+insightface's reference files and the T5 directory itself; each face
+backend falls back without its file as JAX's does, and EVA-CLIP is drawn
+from seed 0 on the device (`preprocess/face.py`).  At `--model_size tiny`
+the face stack takes the tiny EVA-CLIP and the DiT's LFE is sized for it,
+and T5 runs in fp32.  DiT weights are drawn from `--seed` the way
+`training.sft` draws them (fp32, the DiT then the VAE; cast to `--dtype`
+afterwards), so `--checkpoint_dir` serves a run of the port's trainer with
+the same `--model_size` and `--seed`: its trainable tensors (the EMA copy
+when the run kept one) replace the drawn ones.  `--module_dir` loads the
+port's sub-module files.  The DiT's reference checkpoints come in through
+the JAX package's importers and `bindyouravatar_tpu_torch.convert`.  Flags
+that need what the port lacks raise `NotImplementedError` naming their
+`ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -103,19 +115,16 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+# the DiT's reference checkpoints (the face stack's and T5's files are read
+# by the port itself: `preprocess/`, `models/t5.py`)
 _REFERENCE = ("reference-format files come in through the JAX package's importers and "
               "bindyouravatar_tpu_torch.convert by design, ROADMAP.md north star")
 
 
 def check_supported(args) -> None:
     unsupported = {
-        "--img_file_path": (args.img_file_path, "the face stack, ROADMAP.md A 11"),
-        "--retinaface_checkpoint": (args.retinaface_checkpoint, "the face stack, ROADMAP.md A 11"),
-        "--bisenet_checkpoint": (args.bisenet_checkpoint, "the face stack, ROADMAP.md A 11"),
-        "--arcface_checkpoint": (args.arcface_checkpoint, "the face stack, ROADMAP.md A 11"),
-        "--t5_dir": (args.t5_dir, "T5, ROADMAP.md A 11; pass --prompt_embeds"),
         "--two_stage_generate": (args.two_stage_generate and not args.tracking_mask_dir,
-                                 "stage 2's masks need SAM2, ROADMAP.md A 11; pass "
+                                 "stage 2's masks need SAM2, ROADMAP.md A 11b; pass "
                                  "--tracking_mask_dir"),
         "--tp": (args.tp > 1, "distribution, ROADMAP.md A 12"),
         "--sp": (args.sp > 1, "distribution, ROADMAP.md A 12"),
@@ -140,9 +149,69 @@ def restore_trainable(checkpoint_dir: str):
     return state["ema"] if state["ema"] is not None else state["params"]
 
 
-def build_models(args, device: torch.device, lora_rank: int = 0):
+def tiny_eva(device: torch.device):
+    """The tiny tier's EVA-CLIP: the JAX `EVACLIPVision.tiny` shapes drawn
+    from seed 0 on `device`."""
+    from .models.eva_clip import EVAVisionTower
+
+    return EVAVisionTower.tiny(device, torch.Generator(device).manual_seed(0))
+
+
+def _free(device: torch.device) -> None:
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def encode_conditioning(args, device: torch.device) -> dict:
+    """The encoders' outputs, computed before the DiT is built and freed
+    after: from `--img_file_path` (exactly 2 images) `id_cond` [1, 2,
+    512 + pooled], `id_vit_hidden` [1, 2, 5, S, width] and the `canvas`
+    [H, W, 3] uint8 through the face stack (`build_default_processor` with
+    the three checkpoint flags), and from `--t5_dir` the prompt and
+    negative embeddings `pe`, `ne` [1, L, d_model] (float32 numpy)."""
+    from .config import DiTConfig, tiny_dit_config
+
+    out = {}
+    if args.img_file_path:
+        if len(args.img_file_path) != 2:
+            raise ValueError(f"--img_file_path: expected exactly 2 face images, got "
+                             f"{len(args.img_file_path)}")
+        import cv2
+
+        from .preprocess.face import build_default_processor
+
+        proc = build_default_processor(
+            eva=tiny_eva(device) if args.model_size == "tiny" else None,
+            retinaface_checkpoint=args.retinaface_checkpoint,
+            bisenet_checkpoint=args.bisenet_checkpoint,
+            arcface_checkpoint=args.arcface_checkpoint, device=device)
+        imgs = [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB) for p in args.img_file_path]
+        out.update(proc.process_split(imgs, (args.height, args.width)))
+        del proc
+        _free(device)
+    if args.t5_dir and not args.prompt_embeds:
+        from .models.t5 import encode_prompts, load_t5_encoder
+
+        tiny = args.model_size == "tiny"
+        max_len = (tiny_dit_config() if tiny else DiTConfig()).max_text_seq_length
+        t5 = load_t5_encoder(args.t5_dir, device, **({"dtype": torch.float32} if tiny else {}))
+        out["pe"], out["ne"] = (
+            encode_prompts(t5, [p], args.t5_dir, max_length=max_len).float().cpu().numpy()
+            for p in (args.prompt, args.negative_prompt))
+        del t5
+        _free(device)
+    return out
+
+
+def build_models(args, device: torch.device, lora_rank: int = 0,
+                 face_dims: Optional[dict] = None):
     """The pipeline on the inference path, weights drawn from `--seed` as
-    `training.sft` draws them (see the module docstring)."""
+    `training.sft` draws them (see the module docstring).  At tiny,
+    `face_dims` (the face stack's `id_embed_dim` and `vit_dim`) size the
+    LFE."""
     from .config import DiTConfig, PipelineConfig, VAEConfig
     from .models.dit import DiT
     from .models.vae import CausalVAE
@@ -154,7 +223,8 @@ def build_models(args, device: torch.device, lora_rank: int = 0):
         # a bg inpainting frame takes a third latent block (reference
         # `infer.py:48`: 16 noise + 16 image + 16 bg); the tiny VAE has 4
         in_ch = 12 if args.inpaintingframe_path else 8
-        dit = DiT.tiny(device=device, generator=gen, in_channels=in_ch, out_channels=4, **lora)
+        dit = DiT.tiny(device=device, generator=gen, lfe=face_dims, in_channels=in_ch,
+                       out_channels=4, **lora)
         vae = CausalVAE.tiny(device=device, generator=gen)
     else:
         dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -235,21 +305,28 @@ def run(args) -> InferRun:
     from .utils.masks import masks_to_routing_logits
 
     t0 = time.time()
+    enc = encode_conditioning(args, dev)
+    face_dims = None
+    if "id_cond" in enc and args.model_size == "tiny":
+        face_dims = dict(id_embed_dim=enc["id_cond"].shape[-1],
+                         vit_dim=enc["id_vit_hidden"].shape[-1])
     trainable = restore_trainable(args.checkpoint_dir) if args.checkpoint_dir else None
     lora_rank = next((t.shape[1] for k, t in (trainable or {}).items()
                       if k.endswith("to_q_lora_A")), 0)
-    pipe = build_models(args, dev, lora_rank)
+    pipe = build_models(args, dev, lora_rank, face_dims)
     load_params(pipe, args, trainable)
     c = pipe.dit.cfg
 
-    # the conditioning image: the bg frame if given, else a white canvas
-    # (the face stack's composite canvas waits for A 11)
+    # the conditioning image: the bg frame if given, else the face stack's
+    # composite canvas, else a white frame
     image_bg = None
     if args.inpaintingframe_path:
         import cv2
 
         bg = cv2.cvtColor(cv2.imread(args.inpaintingframe_path), cv2.COLOR_BGR2RGB)
         image_np = cv2.resize(bg, (args.width, args.height))
+    elif "canvas" in enc:
+        image_np = enc["canvas"]
     else:
         image_np = np.full((args.height, args.width, 3), 255, np.uint8)
     to_model = lambda a: torch.from_numpy(
@@ -259,6 +336,9 @@ def run(args) -> InferRun:
         image_bg = image
 
     cond = {}
+    if "id_cond" in enc:
+        cond["id_cond"] = torch.from_numpy(enc["id_cond"]).to(dev)
+        cond["id_vit_hidden"] = torch.from_numpy(enc["id_vit_hidden"]).to(dev)
     if args.audio_path:
         need = args.num_frames + AUDIO_WINDOW_SLACK
 
@@ -288,8 +368,10 @@ def run(args) -> InferRun:
                   "reference encodes a real negative prompt: CFG quality differs)",
                   file=sys.stderr)
             ne = np.zeros_like(pe)
+    elif "pe" in enc:
+        pe, ne = enc["pe"], enc["ne"]
     else:
-        print("[warn] no --prompt_embeds: using ZERO text embeddings: the output is "
+        print("[warn] no --prompt_embeds / --t5_dir: using ZERO text embeddings: the output is "
               "UNCONDITIONED on the prompt (smoke / perf runs only)", file=sys.stderr)
         pe = np.zeros((1, c.max_text_seq_length, c.text_embed_dim), np.float32)
         ne = np.zeros_like(pe)

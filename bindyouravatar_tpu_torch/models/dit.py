@@ -126,9 +126,11 @@ class DiT(nn.Module):
 
     @classmethod
     def tiny(cls, device: torch.device | str = "cuda",
-             generator: Optional[torch.Generator] = None, **overrides) -> "DiT":
+             generator: Optional[torch.Generator] = None, lfe: Optional[dict] = None,
+             **overrides) -> "DiT":
         """The JAX `DiT.tiny` shapes and sub-configs (face path on unless
-        `is_train_face=False` is passed)."""
+        `is_train_face=False` is passed); `lfe` overrides LFEConfig fields
+        (the CLI's tiny tier sizes the LFE for its face stack)."""
         cfg = tiny_dit_config(**overrides)
         router_cfg = RouterConfig(
             num_layers=cfg.num_ca, q_k_dim=cfg.lfe_final_output_dim,
@@ -143,6 +145,8 @@ class DiT(nn.Module):
             dim=32, depth=5, dim_head=8, heads=4, num_id_token=2,
             num_queries=cfg.lfe_num_tokens, output_dim=cfg.lfe_final_output_dim,
             id_embed_dim=24, vit_dim=16)
+        if lfe:
+            lfe_cfg = dataclasses.replace(lfe_cfg, **lfe)
         return cls.create(cfg, audio_cfg, router_cfg, lfe_cfg, device=device,
                           generator=generator)
 

@@ -71,6 +71,31 @@ def merge_audio_files(paths: Sequence[str], out_path: str) -> str:
     return out_path
 
 
+KPS_COLORS = [(255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0), (255, 0, 255)]
+KPS_LIMBS = [(0, 2), (1, 2), (3, 2), (4, 2)]
+
+
+def draw_kps(height: int, width: int, kps_list, radius: int = 4) -> np.ndarray:
+    """5-point facial keypoints on black (reference `draw_kps`): limb
+    ellipses at 0.6 of the joint colour, then the coloured joints.
+    kps_list: one [5, 2] array per face."""
+    import cv2
+
+    canvas = np.zeros((height, width, 3), np.uint8)
+    for kps in kps_list:
+        kps = np.asarray(kps, np.float32)
+        for a, b in KPS_LIMBS:
+            x, y = kps[[a, b], 0], kps[[a, b], 1]
+            length = float(np.hypot(x[0] - x[1], y[0] - y[1]))
+            angle = float(np.degrees(np.arctan2(y[0] - y[1], x[0] - x[1])))
+            poly = cv2.ellipse2Poly((int(x.mean()), int(y.mean())), (int(length / 2), radius),
+                                    int(angle), 0, 360, 1)
+            cv2.fillConvexPoly(canvas, poly, [c * 0.6 for c in KPS_COLORS[a]])
+        for i, (px, py) in enumerate(kps):
+            cv2.circle(canvas, (int(px), int(py)), radius + 2, KPS_COLORS[i], -1)
+    return canvas
+
+
 def save_routing_video(routing: np.ndarray, grid, path: str, fps: int = 25) -> str:
     """Router mask visualisation (reference `draw_routing_logit`): routing
     [S, I] on the (t, h, w) grid, per-identity masks upscaled 8x into one

@@ -101,6 +101,21 @@ Phases (one line each; any failure exits non-zero and prints no result):
      contract and the mute track as .pt, prompt embeddings as .npy: the
      clip, its meta line and the launch counts; then the mp4 export
      (`main`'s), which writes the file or, without OpenCV, must raise.
+  7c. the CLI's `run` as 7b, but from two face images
+     (`--img_file_path assets/faces/000_0.png assets/faces/000_1.png`)
+     through `--retinaface_checkpoint`, `--bisenet_checkpoint` and
+     `--arcface_checkpoint` (files written with `torch.save` of drawn port
+     networks, which carry the reference checkpoints' names): `id_cond`
+     [1, 2, 1280] and `id_vit_hidden` [1, 2, 5, 577, 1024] reach the DiT
+     with the composite canvas, face + audio launch counts, the peak
+     within 1 GiB of 7b's.  `--t5_dir` is not run: it needs a tokenizer
+     directory, which the card's machine lacks (phase 8 runs T5 itself).
+  8. the conditioning encoders at full size, bf16 weights drawn on the
+     card: T5-XXL's encoder on 2 x 226 tokens, EVA02-CLIP-L-336, IR-100,
+     RetinaFace-R50 on a 480 x 720 image, BiSeNet at 512: shapes,
+     finiteness, ms and peak; at 2 blocks (T5, EVA-CLIP) or whole (the
+     CNNs) against the CPU in fp32 on the same weights.  None of them
+     launches a kernel: JAX's twins reach no Pallas kernel.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -1507,18 +1522,39 @@ def clip_phase(args, launches: dict) -> bool:
     return ok
 
 
-def cli_phase(args) -> bool:
+def _cli_inputs(tmp: str, seed: int) -> list:
+    """Phase 7b's CLI arguments: two audio tracks at the 5B contract [53,
+    12, 768] and the mute track as .pt, prompt embeddings as .npy, all
+    written into `tmp` from `seed`."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    paths = {}
+    for name in ("a0", "a1", "mute"):
+        paths[name] = f"{tmp}/{name}.pt"
+        torch.save(torch.randn(53, 12, 768, generator=gen), paths[name])
+    for name in ("pe", "ne"):
+        paths[name] = f"{tmp}/{name}.npy"
+        np.save(paths[name], torch.randn(1, 226, 4096, generator=gen).numpy())
+    return ["--model_size", "5b", "--num_layers", "42", "--num_inference_steps", "2",
+            "--audio_path", paths["a0"], paths["a1"], "--mute_audio_path", paths["mute"],
+            "--prompt_embeds", paths["pe"], "--negative_prompt_embeds", paths["ne"],
+            "--output_dir", f"{tmp}/out"]
+
+
+def cli_phase(args, peaks: dict) -> bool:
     """Phase 7b: the CLI's `run` in this process at `--model_size 5b
     --num_layers 42 --num_inference_steps 2` with two audio tracks at the
     5B contract [53, 12, 768] and the mute track as .pt, and prompt
     embeddings as .npy; then `main`'s mp4 export of the clip, which must
-    write the file or, without OpenCV, raise."""
+    write the file or, without OpenCV, raise.  Its peak goes into
+    `peaks["7b"]`."""
     import gc
     import importlib.util
     import tempfile
     import types
 
-    import numpy as np
     import torch
     from bindyouravatar_tpu_torch import infer
     from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
@@ -1526,26 +1562,15 @@ def cli_phase(args) -> bool:
 
     gc.collect()
     torch.cuda.empty_cache()
-    gen = torch.Generator().manual_seed(args.seed + 200)
     with tempfile.TemporaryDirectory(prefix="bya_cli_") as tmp:
-        paths = {}
-        for name in ("a0", "a1", "mute"):
-            paths[name] = f"{tmp}/{name}.pt"
-            torch.save(torch.randn(53, 12, 768, generator=gen), paths[name])
-        for name in ("pe", "ne"):
-            paths[name] = f"{tmp}/{name}.npy"
-            np.save(paths[name], torch.randn(1, 226, 4096, generator=gen).numpy())
-        argv = ["--model_size", "5b", "--num_layers", "42", "--num_inference_steps", "2",
-                "--audio_path", paths["a0"], paths["a1"], "--mute_audio_path", paths["mute"],
-                "--prompt_embeds", paths["pe"], "--negative_prompt_embeds", paths["ne"],
-                "--output_dir", f"{tmp}/out", "--seed", str(args.seed)]
+        argv = _cli_inputs(tmp, args.seed + 200) + ["--seed", str(args.seed)]
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
         res = infer.run(infer.get_args(argv))
         torch.cuda.synchronize()
         wall, counts = time.perf_counter() - t0, _read_launches()
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = peaks["7b"] = torch.cuda.max_memory_allocated() / 2**30
         # main's export: the mp4, or an ImportError where OpenCV is missing
         mp4 = f"{tmp}/out/output.mp4"
         try:
@@ -1559,11 +1584,209 @@ def cli_phase(args) -> bool:
     ok = _video_ok("CLI run", res.video, (1, 49, 3, 480, 720)) and meta_ok and cv2_ok
     five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
                                    router_cfg=RouterConfig())
-    ok &= _counts_ok("CLI (audio only: the CLI takes no face arrays)", counts,
+    ok &= _counts_ok("CLI (audio only: no --img_file_path)", counts,
                      _serving_want(five_b, 0, 2, 1))
     print(f"cli: python -m bindyouravatar_tpu_torch.infer {' '.join(argv[:6])} ... -> run() in "
           f"{wall:.1f} s (weights drawn in fp32 and cast to bf16 included), peak {peak:.2f} GiB, "
           f"meta {res.meta}; {cv2_line} {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _face_checkpoints(tmp: str, seed: int) -> list:
+    """The face stack's checkpoint flags, each naming a file in `tmp` that
+    `torch.save` wrote from a port network drawn from `seed` (its
+    `state_dict` has the reference checkpoint's names and layouts).  Drawn
+    detection heads find no face or thousands, so RetinaFace's heads are
+    set: a face at every stride-32 anchor and none at the others, its 5
+    landmarks on the ArcFace template scaled to the anchor."""
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.preprocess import arcface, bisenet, retinaface
+    from bindyouravatar_tpu_torch.preprocess.face import ARCFACE_DST
+
+    gen = torch.Generator().manual_seed(seed)
+    flags = []
+    for name, cls in (("arcface", arcface.IResNet100), ("retinaface", retinaface.RetinaFace),
+                      ("bisenet", bisenet.BiSeNet)):
+        net = arcface.build(cls, "cpu", gen)
+        if name == "retinaface":
+            lm = torch.from_numpy(np.tile(((ARCFACE_DST / 112.0 - 0.5) / 0.1).reshape(-1), 2))
+            with torch.no_grad():
+                for i in range(3):
+                    for head in (net.ClassHead[i], net.BboxHead[i], net.LandmarkHead[i]):
+                        head.conv1x1.weight.zero_()
+                    net.ClassHead[i].conv1x1.bias.copy_(
+                        torch.tensor([-4.0, 4.0] * 2 if i == 2 else [4.0, -4.0] * 2))
+                    net.BboxHead[i].conv1x1.bias.zero_()
+                    net.LandmarkHead[i].conv1x1.bias.copy_(lm)
+        path = f"{tmp}/{name}.pth"
+        torch.save(net.state_dict(), path)
+        flags += [f"--{name}_checkpoint", path]
+    return flags
+
+
+def cli_face_phase(args, peaks: dict) -> bool:
+    """Phase 7c: the CLI's `run` from two face images
+    (`assets/faces/000_{0,1}.png`) through the three face checkpoint flags
+    (`_face_checkpoints`) at `--model_size 5b --num_layers 42
+    --num_inference_steps 2`, with phase 7b's audio and prompt files (T5
+    from `--t5_dir` needs a tokenizer directory, which the card's machine
+    does not have: phase 8 runs the T5 encoder itself).  The face stack
+    (EVA-CLIP-L drawn from seed 0) runs and is freed before the DiT is
+    built: `id_cond` [1, 2, 1280] and `id_vit_hidden` [1, 2, 5, 577, 1024]
+    reach `generate` with the composite canvas (not the white frame), the
+    clip has 2 face + audio forwards' launches, and the peak stays within
+    1 GiB of phase 7b's."""
+    import gc
+    import tempfile
+    import types
+
+    import torch
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
+    from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    faces = [os.path.join(here, "assets", "faces", f"000_{i}.png") for i in (0, 1)]
+    seen = {}
+    generate = BindYourAvatarPipeline.generate
+
+    def recording(self, pe, ne, image, gen, **kw):
+        seen.update(image=image, **{k: kw.get(k) for k in ("id_cond", "id_vit_hidden")})
+        return generate(self, pe, ne, image, gen, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="bya_cli_face_") as tmp:
+        argv = (_cli_inputs(tmp, args.seed + 200) + ["--seed", str(args.seed), "--img_file_path",
+                                                     *faces] + _face_checkpoints(tmp, args.seed))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        BindYourAvatarPipeline.generate = recording
+        try:
+            t0 = time.perf_counter()
+            res = infer.run(infer.get_args(argv))
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - t0, _read_launches()
+        finally:
+            BindYourAvatarPipeline.generate = generate
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    shape = lambda t: None if t is None else list(t.shape)
+    ok = _video_ok("CLI from images", res.video, (1, 49, 3, 480, 720))
+    cond_ok = (shape(seen.get("id_cond")) == [1, 2, 1280]
+               and shape(seen.get("id_vit_hidden")) == [1, 2, 5, 577, 1024]
+               and bool(seen["id_cond"].isfinite().all())
+               and bool(seen["id_vit_hidden"].isfinite().all()))
+    white = float((seen["image"] == 1.0).float().mean())
+    peak_ok = abs(peak - peaks["7b"]) <= 1.0
+    five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
+                                   router_cfg=RouterConfig())
+    ok &= _counts_ok("CLI from images (face + audio)", counts, _serving_want(five_b, 2, 0, 1))
+    ok &= cond_ok and white < 1.0 and peak_ok
+    print(f"cli from images: --img_file_path assets/faces/000_0.png 000_1.png "
+          f"--retinaface_checkpoint --bisenet_checkpoint --arcface_checkpoint (drawn nets, "
+          f"reference names) -> id_cond {shape(seen.get('id_cond'))}, id_vit_hidden "
+          f"{shape(seen.get('id_vit_hidden'))} {'ok' if cond_ok else 'FAILED'}; the canvas "
+          f"{100 * white:.1f}% white pixels (not the white frame); run() in {wall:.1f} s, peak "
+          f"{peak:.2f} GiB against phase 7b's {peaks['7b']:.2f} (within 1 GiB: {peak_ok}) "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def encoder_phase(args) -> bool:
+    """Phase 8: each conditioning encoder at full size with bf16 weights
+    drawn on the card from `--seed`: T5-XXL's encoder on 2 x 226 tokens (the
+    prompt and the negative, the second padded after 100), EVA02-CLIP-L on
+    [2, 3, 336, 336], IR-100 on [2, 3, 112, 112], RetinaFace-R50 on one
+    480 x 720 image (padded to 480 x 736 as the detector pads it), BiSeNet
+    on [2, 3, 512, 512]: shapes, finiteness, CUDA-event ms (median of 5)
+    and peak memory.  Then on the card in bf16 against the same weights on
+    the CPU in fp32: T5 and EVA-CLIP at 2 blocks of their full widths, the
+    three networks whole (RetinaFace's raw loc / conf / landm heads)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.config import EVACLIPConfig, T5Config
+    from bindyouravatar_tpu_torch.models.eva_clip import EVAVisionTower
+    from bindyouravatar_tpu_torch.models.t5 import T5Encoder
+    from bindyouravatar_tpu_torch.preprocess import arcface, bisenet, retinaface
+
+    dev, bf, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(dev).manual_seed(args.seed + 300)
+    rng = np.random.default_rng(args.seed + 300)
+    mask = np.ones((2, 226), bool)
+    mask[1, 100:] = False
+    text = (torch.from_numpy(rng.integers(0, 32128, (2, 226))), torch.from_numpy(mask))
+    img = rng.integers(0, 256, (480, 720, 3), dtype=np.uint8)
+    bgr = np.zeros((480, 736, 3), np.float32)
+    bgr[:, :720] = img[..., ::-1] - np.asarray(retinaface.MEAN_BGR, np.float32)
+    inputs = {
+        "t5": text,
+        "eva": (torch.from_numpy(rng.normal(size=(2, 3, 336, 336)).astype(np.float32)),),
+        "arcface": (torch.from_numpy(rng.uniform(-1, 1, (2, 3, 112, 112)).astype(np.float32)),),
+        "retinaface": (torch.from_numpy(bgr.transpose(2, 0, 1)[None].copy()),),
+        "bisenet": (torch.from_numpy(rng.normal(size=(2, 3, 512, 512)).astype(np.float32)),),
+    }
+    cnn = {"arcface": arcface.IResNet100, "retinaface": retinaface.RetinaFace,
+           "bisenet": bisenet.BiSeNet}
+
+    def build(name, depth=None, device=dev, dtype=bf):
+        """(the network, its reduced-depth twin or None) at `dtype`."""
+        if name == "t5":
+            kw = {} if depth is None else {"num_layers": depth}
+            return T5Encoder.create(T5Config(dtype=dtype, param_dtype=dtype, **kw), device,
+                                    gen if device == dev else None)
+        if name == "eva":
+            kw = {} if depth is None else {"depth": depth, "hidden_taps": (0, 1)}
+            return EVAVisionTower.create(EVACLIPConfig(dtype=dtype, param_dtype=dtype, **kw),
+                                         device, gen if device == dev else None)
+        return arcface.build(cnn[name], device, gen if device == dev else None).to(dtype)
+
+    # tol: relative L2 of the card's bf16 output against the CPU's fp32 on
+    # the same (bf16-rounded) weights.  T5 and EVA-CLIP, 2 blocks: bf16
+    # activations and products round to 2^-9 relative, fp32 sums; the CNNs
+    # carry bf16 rounding through every conv and BN (IR-100: 100 convs)
+    tol = {"t5": 2e-2, "eva": 2e-2, "arcface": 5e-2, "retinaface": 5e-2, "bisenet": 5e-2}
+    desc = {"t5": "T5-XXL encoder 24 x 4096, 64 heads, d_ff 10240, [2, 226] tokens",
+            "eva": "EVA02-CLIP-L-336 24 x 1024, 16 heads, [2, 3, 336, 336]",
+            "arcface": "IR-100 [2, 3, 112, 112]", "retinaface": "RetinaFace-R50 [1, 3, 480, 736]",
+            "bisenet": "BiSeNet [2, 3, 512, 512]"}
+    ok = True
+    for name, x in inputs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            net = build(name)
+            n_params = sum(p.numel() for p in net.parameters())
+            weights = torch.cuda.memory_allocated() / 2**30
+            xd = tuple(t.to(dev) for t in x)
+            outs = net(*xd)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.cuda.synchronize()
+            ms = _time_ms(lambda: net(*xd), runs=5)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            shapes = [list(o.shape) for o in outs]
+            finite = all(bool(o.float().isfinite().all()) for o in outs)
+            del net, outs
+            reduced = 2 if name in ("t5", "eva") else None
+            gpu = build(name, reduced) if reduced else build(name)
+            cpu = build(name, reduced, "cpu", f32) if reduced else build(name, None, "cpu", f32)
+            cpu.load_state_dict({k: v.float().cpu() for k, v in gpu.state_dict().items()})
+            got, want = gpu(*xd), cpu(*x)
+            got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+            rels = [float((g.float().cpu() - w).norm() / w.norm()) for g, w in zip(got, want)]
+            del gpu, cpu, got, want
+        agree = max(rels) <= tol[name]
+        ok &= finite and agree
+        what = f"{reduced} blocks, widths full" if reduced else "whole"
+        print(f"encoder {desc[name]}: {n_params / 1e6:.1f}M params bf16 ({weights:.2f} GiB), "
+              f"outputs {shapes} finite={finite}; {ms:.3f} ms (CUDA events), peak {peak:.2f} "
+              f"GiB; {what}: cuda-bf16 vs cpu-fp32 relative L2 "
+              f"{' / '.join(f'{r:.2e}' for r in rels)} (tol {tol[name]:g}) "
+              f"{'ok' if finite and agree else 'FAILED'}", flush=True)
+    print(f"encoder phase {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -1886,7 +2109,7 @@ def main(argv=None) -> int:
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
     p.add_argument("--clip-steps", type=int, default=50,
-                   help="denoise steps of phase 7's clip (0 skips phases 7 and 7b)")
+                   help="denoise steps of phase 7's clip (0 skips phases 7, 7b and 7c)")
     p.add_argument("--driver-layers", type=int, default=16,
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
                         "layers writes 32.4 GB, and the phase saves twice)")
@@ -1958,11 +2181,14 @@ def main(argv=None) -> int:
         print("train phase skipped (--train-steps 0): no launch counts", flush=True)
     ok &= driver_phase(args)
     if args.clip_steps > 0:
+        peaks = {}
         ok &= clip_phase(args, launches)
-        ok &= cli_phase(args)
+        ok &= cli_phase(args, peaks)
+        ok &= cli_face_phase(args, peaks)
     else:
         ok = False
         print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)
+    ok &= encoder_phase(args)
     if not ok:
         return _fail("a phase failed")
 

@@ -40,7 +40,7 @@ from bindyouravatar_tpu.ops.flash_attention import flash_attention as jflash_att
 from bindyouravatar_tpu_torch.convert import jax_params_to_torch
 from bindyouravatar_tpu_torch.models.dit import DiT
 from bindyouravatar_tpu_torch.ops import flash_attention as tfa
-from torch_port_utils import realistic, to_torch
+from torch_port_utils import realistic, threads_per_worker, to_torch
 
 # attention path -> tiny DiT overrides
 PATHS = {
@@ -48,6 +48,13 @@ PATHS = {
     "flat": dict(num_attention_heads=2, attention_head_dim=48),
     "bshd": dict(sample_height=32, sample_width=48),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    """Torch's threads at this xdist worker's share of the cores."""
+    with threads_per_worker():
+        yield
 
 
 def _inputs(jd, seed):

@@ -38,7 +38,14 @@ from bindyouravatar_tpu_torch.training import sft
 from bindyouravatar_tpu_torch.training import train_loop as tloop
 from bindyouravatar_tpu_torch.training.data import SyntheticAvatarDataset, collate
 from bindyouravatar_tpu_torch.training.trainer import Trainer
-from torch_port_utils import max_err, realistic
+from torch_port_utils import max_err, realistic, threads_per_worker
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    """Torch's threads at this xdist worker's share of the cores."""
+    with threads_per_worker():
+        yield
 
 
 def _rel(got, want) -> float:

@@ -35,10 +35,17 @@ from bindyouravatar_tpu_torch.convert import (check_trainable_set, jax_params_to
 from bindyouravatar_tpu_torch.models.dit import DiT
 from bindyouravatar_tpu_torch.ops.scheduler import Schedule
 from bindyouravatar_tpu_torch.training.trainer import Trainer, make_lr_schedule
-from torch_port_utils import realistic
+from torch_port_utils import realistic, threads_per_worker
 
 LR = 1e-3
 CFG = dict(learning_rate=LR, lr_warmup_steps=1, max_train_steps=10)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    """Torch's threads at this xdist worker's share of the cores."""
+    with threads_per_worker():
+        yield
 
 
 def _rel(got, want) -> float:
