@@ -24,6 +24,8 @@ names the port keeps (`token_embedding`, `relative_attention_bias`,
 face stack's networks (`ArcFaceEmbedder`, `RetinaFace`, `BiSeNet`) keep the
 reference checkpoints' names instead: `jax_face_net_to_torch` undoes the
 JAX importers' renames and reshapes.
+`jax_sam2_to_torch` and `jax_rrdbnet_to_torch` do the same for SAM2
+(sam2.1's names) and RRDBNet (Real-ESRGAN's).
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
 `jax_train_state_to_torch` carries a JAX train state (trainable params,
 AdamW moments and count, step, EMA) across the same way.
@@ -167,3 +169,93 @@ def jax_train_state_to_torch(params: Mapping[str, Any], mu: Mapping[str, Any],
     return jax_params_to_torch(params), TrainState(
         step=int(step), count=int(count), mu=jax_params_to_torch(mu), nu=jax_params_to_torch(nu),
         ema=None if ema_params is None else jax_params_to_torch(ema_params))
+
+
+def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(sub, Mapping):
+            out.update(_flat(sub, path + "."))
+        else:
+            out[path] = np.asarray(sub)
+    return out
+
+
+def _torch_leaf(key: str, arr: np.ndarray):
+    """A flax leaf -> (torch name, array): Dense kernels transposed, conv
+    kernels [kh, kw, in, out] -> [out, in, kh, kw], LayerNorm `scale` ->
+    `weight`."""
+    parent, _, name = key.rpartition(".")
+    if name == "kernel":
+        return f"{parent}.weight", arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+    if name == "scale":
+        return f"{parent}.weight", arr
+    return key, arr
+
+
+# the JAX SAM2 tree's names -> sam2.1's (`models/sam2.py`); the
+# mask_downsampler entries are numbered in `jax_sam2_to_torch`
+_SAM2_RENAMES = [(r"blocks_(\d+)", r"blocks.\1"), (r"mlp_layers_(\d+)", r"mlp.layers.\1"),
+                 (r"(^|\.)layers_(\d+)", r"\1layers.\2"),
+                 (r"neck\.convs_(\d+)", r"neck.convs.\1.conv"),
+                 (r"output_upscaling_0", "output_upscaling.0"),
+                 (r"output_upscaling_ln", "output_upscaling.1"),
+                 (r"output_upscaling_3", "output_upscaling.3"),
+                 (r"output_hypernetworks_mlps_(\d+)", r"output_hypernetworks_mlps.\1"),
+                 (r"fuser_layers_(\d+)", r"fuser.layers.\1"),
+                 (r"trunk\.patch_embed\.", "trunk.patch_embed.proj."),
+                 (r"^conv_s([01])\.", r"sam_mask_decoder.conv_s\1.")]
+
+
+def jax_sam2_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A (numpy) flax tree of the JAX `SAM2Model` -> the port's
+    `SAM2Model.state_dict()` under sam2.1's names: Dense kernels
+    transposed, conv (and the decoder's transposed-conv) kernels to [out,
+    in, kh, kw], the trunk's NHWC position embeddings to NCHW, the prompt
+    encoder's and decoder's raw embeddings to `nn.Embedding` rows, the
+    mask downsampler's conv / LN pairs to `encoder.{3i, 3i + 1}` and its
+    final conv to `encoder.{3n}`, `maskmem_tpos_enc` to [n, 1, 1, mem_dim]."""
+    flat = _flat(params.get("params", params))
+    n_down = sum(1 for k in flat if re.search(r"mask_downsampler_ln_\d+\.bias$", k))
+    out: Dict[str, np.ndarray] = {}
+    for key, arr in flat.items():
+        if key.endswith(("trunk.pos_embed", "trunk.pos_embed_window")):
+            out[key] = arr.transpose(0, 3, 1, 2)
+            continue
+        if key == "sam_prompt_encoder.pe_gaussian":
+            out["sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = arr
+            continue
+        if key == "sam_prompt_encoder.point_embeddings":
+            for i, row in enumerate(arr):
+                out[f"sam_prompt_encoder.point_embeddings.{i}.weight"] = row[None]
+            continue
+        if key in ("sam_prompt_encoder.not_a_point_embed", "sam_prompt_encoder.no_mask_embed",
+                   "sam_mask_decoder.iou_token", "sam_mask_decoder.obj_score_token",
+                   "sam_mask_decoder.mask_tokens"):
+            out[f"{key}.weight"] = arr.reshape(-1, arr.shape[-1])
+            continue
+        if key == "maskmem_tpos_enc":
+            out[key] = arr.reshape(arr.shape[0], 1, 1, arr.shape[-1])
+            continue
+        name, arr = _torch_leaf(key, arr)
+        for pat, rep in _SAM2_RENAMES:
+            name = re.sub(pat, rep, name)
+        name = re.sub(r"mask_downsampler_ln_(\d+)",
+                      lambda m: f"mask_downsampler.encoder.{3 * int(m.group(1)) + 1}", name)
+        name = re.sub(r"mask_downsampler_(\d+)",
+                      lambda m: f"mask_downsampler.encoder.{3 * int(m.group(1))}", name)
+        name = name.replace("mask_downsampler_final", f"mask_downsampler.encoder.{3 * n_down}")
+        out[name] = arr
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def jax_rrdbnet_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A (numpy) flax tree of the JAX `RRDBNet` (with or without its
+    "params" wrapper) -> the port's `RRDBNet.state_dict()` under
+    Real-ESRGAN's names (`conv_first`, `body.{i}.rdb{m}.conv{k}`, ...)."""
+    out = {}
+    for key, arr in _flat(params.get("params", params)).items():
+        name, arr = _torch_leaf(key, arr)
+        out[re.sub(r"^body_(\d+)", r"body.\1", name)] = arr
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

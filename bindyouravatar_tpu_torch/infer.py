@@ -8,6 +8,8 @@ flags and defaults, plus `--device`):
     python -m bindyouravatar_tpu_torch.infer --img_file_path a.png b.png --t5_dir t5 \\
         --prompt "two people talking" --audio_path a.pt b.pt \\
         [--retinaface_checkpoint r.pth --bisenet_checkpoint b.pth --arcface_checkpoint a.pth]
+    BYA_SAM2_CKPT=sam2.1_hiera_large.pt python -m bindyouravatar_tpu_torch.infer \\
+        --img_file_path a.png b.png --audio_path a.pt b.pt --two_stage_generate
 
 Flow: the conditioning encoders (`encode_conditioning`: the face stack on
 the two `--img_file_path` images gives `id_cond`, `id_vit_hidden` and the
@@ -15,8 +17,15 @@ composite canvas; T5 from `--t5_dir` gives the prompt and negative
 embeddings), which are freed before the DiT is built -> the pipeline -> its
 weights -> the conditioning image (the `--inpaintingframe_path` background
 frame, else the canvas, else a white frame) -> the audio tracks -> the
-forced routing from `--tracking_mask_dir` -> `generate` (`run`) -> the mp4
-and the a/v mux (`main`).  The face stack reads facexlib's and
+forced routing from `--tracking_mask_dir` (`prepare`) -> `generate`
+(`denoise`; `run` is both) -> the mp4 and the a/v mux (`main`).  With
+`--two_stage_generate` and no `--tracking_mask_dir`, `main` runs the mask
+tool (`tools/sam2_tools.py`, in this process: SAM2 from `$BYA_SAM2_CKPT`,
+else its coarse masks) over stage 1's mp4 into
+`{output_dir}/tracking_mask_results`, turns the masks into the forced
+routing and denoises again on the same pipeline with a generator seeded
+with the same `--seed` (JAX `infer.py:346-364`); a failing tool raises,
+where JAX keeps the stage-1 clip.  The face stack reads facexlib's and
 insightface's reference files and the T5 directory itself; each face
 backend falls back without its file as JAX's does, and EVA-CLIP is drawn
 from seed 0 on the device (`preprocess/face.py`).  At `--model_size tiny`
@@ -123,9 +132,6 @@ _REFERENCE = ("reference-format files come in through the JAX package's importer
 
 def check_supported(args) -> None:
     unsupported = {
-        "--two_stage_generate": (args.two_stage_generate and not args.tracking_mask_dir,
-                                 "stage 2's masks need SAM2, ROADMAP.md A 11b; pass "
-                                 "--tracking_mask_dir"),
         "--tp": (args.tp > 1, "distribution, ROADMAP.md A 12"),
         "--sp": (args.sp > 1, "distribution, ROADMAP.md A 12"),
         "--reference_transformer": (args.reference_transformer, _REFERENCE),
@@ -283,19 +289,36 @@ def save_routing_debug(routing, grid, output_dir: str, fps: int) -> None:
 
 
 @dataclasses.dataclass
+class Prepared:
+    """What `prepare` built: the pipeline with its weights and `generate`'s
+    inputs on the device (`cond` holds the face, audio and forced-routing
+    keyword arguments), and the clock's start."""
+    args: argparse.Namespace
+    pipe: object
+    pe: torch.Tensor
+    ne: torch.Tensor
+    image: torch.Tensor
+    image_bg: Optional[torch.Tensor]
+    cond: dict
+    t0: float
+
+
+@dataclasses.dataclass
 class InferRun:
     """What `run` made: the clip [1, T, 3, H, W] in [-1, 1] (numpy), the
     routing [steps, num_ca, 1, S, I] when `--draw_routing_logits` asked for
     it (None when the face path did not run), the latent grid and the
-    meta line's fields."""
+    meta line's fields; `prep` keeps the pipeline for a second denoise."""
     video: np.ndarray
     routing: Optional[np.ndarray]
     grid: tuple
     meta: dict
+    prep: Optional[Prepared] = None
 
 
-def run(args) -> InferRun:
-    """Everything up to and including `generate`."""
+def prepare(args) -> Prepared:
+    """Everything before `generate`: the encoders, the pipeline and its
+    weights, the inputs."""
     check_supported(args)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -381,20 +404,68 @@ def run(args) -> InferRun:
         cond["routing_forcing"] = torch.from_numpy(
             masks_to_routing_logits(args.tracking_mask_dir, t_lat, gh, gw)).to(dev)
 
-    gen = torch.Generator(dev).manual_seed(args.seed)
-    out = pipe.generate(torch.from_numpy(pe).to(dev), torch.from_numpy(ne).to(dev), image, gen,
-                        image_bg=image_bg, return_routing=args.draw_routing_logits, **cond)
-    video, routing = out if args.draw_routing_logits else (out, None)
-    meta = {"seconds": round(time.time() - t0, 1), "frames": args.num_frames,
+    return Prepared(args=args, pipe=pipe, pe=torch.from_numpy(pe).to(dev),
+                    ne=torch.from_numpy(ne).to(dev), image=image, image_bg=image_bg, cond=cond,
+                    t0=t0)
+
+
+def denoise(prep: Prepared, routing_forcing: Optional[torch.Tensor] = None,
+            return_routing: bool = False) -> InferRun:
+    """`generate` on the prepared pipeline and inputs with a generator
+    seeded with `--seed`; `routing_forcing` replaces `--tracking_mask_dir`'s."""
+    args, pipe = prep.args, prep.pipe
+    cond = dict(prep.cond)
+    if routing_forcing is not None:
+        cond["routing_forcing"] = routing_forcing
+    gen = torch.Generator(prep.pe.device).manual_seed(args.seed)
+    out = pipe.generate(prep.pe, prep.ne, prep.image, gen, image_bg=prep.image_bg,
+                        return_routing=return_routing, **cond)
+    video, routing = out if return_routing else (out, None)
+    meta = {"seconds": round(time.time() - prep.t0, 1), "frames": args.num_frames,
             "steps": args.num_inference_steps}
     return InferRun(video=video.float().cpu().numpy(),
                     routing=None if routing is None else routing.float().cpu().numpy(),
-                    grid=c.latent_grid, meta=meta)
+                    grid=pipe.dit.cfg.latent_grid, meta=meta, prep=prep)
+
+
+def run(args) -> InferRun:
+    """Everything up to and including `generate` (`prepare`, `denoise`)."""
+    return denoise(prepare(args), return_routing=args.draw_routing_logits)
+
+
+def second_stage(res: InferRun, video_path: str) -> InferRun:
+    """Stage 2 of `--two_stage_generate` (JAX `infer.py:346-364`): the mask
+    tool over stage 1's clip into `{output_dir}/tracking_mask_results`, the
+    masks as the forced routing, and the denoise again on the same pipeline
+    and seed.  A failing tool raises (JAX keeps the stage-1 clip)."""
+    from .tools.sam2_tools import make_masks
+    from .utils.masks import masks_to_routing_logits
+
+    args = res.prep.args
+    mask_dir = os.path.join(args.output_dir, "tracking_mask_results")
+    t0 = time.time()
+    try:
+        make_masks(video_path, mask_dir, device=args.device)
+    except Exception as e:
+        raise RuntimeError(f"--two_stage_generate: the mask tool failed on {video_path}: "
+                           f"{type(e).__name__}: {e}") from e
+    if not os.path.isdir(os.path.join(mask_dir, "1")):
+        raise RuntimeError(f"--two_stage_generate: the mask tool wrote no masks to {mask_dir}")
+    tool_s = time.time() - t0
+    dev = res.prep.pe.device
+    _free(dev)
+    forcing = torch.from_numpy(masks_to_routing_logits(mask_dir, *res.grid)).to(dev)
+    t1 = time.time()
+    out = denoise(res.prep, routing_forcing=forcing)
+    out.meta.update(mask_dir=mask_dir, mask_tool_seconds=round(tool_s, 1),
+                    stage2_seconds=round(time.time() - t1, 1))
+    return out
 
 
 def main(argv=None) -> str:
-    """`run`, then the mp4, the `--draw_routing_logits` videos, the
-    `--wav_path` mux and the meta line; returns the output path."""
+    """`run`, then the mp4, the `--draw_routing_logits` videos, stage 2 of
+    `--two_stage_generate` (which overwrites the mp4), the `--wav_path` mux
+    and the meta line; returns the output path."""
     args = get_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     from .utils.media import export_to_video, merge_audio_files, merge_audio_video
@@ -405,6 +476,11 @@ def main(argv=None) -> str:
                                fps=args.fps)
     if args.draw_routing_logits:
         save_routing_debug(res.routing, res.grid, args.output_dir, args.fps)
+    if args.two_stage_generate and not args.tracking_mask_dir:
+        stage1_s = round(time.time() - t0, 1)
+        res = second_stage(res, out_path)
+        res.meta["stage1_seconds"] = stage1_s
+        export_to_video(res.video[0], out_path, fps=args.fps)
     if args.wav_path:
         wav = args.wav_path[0]
         if len(args.wav_path) > 1:

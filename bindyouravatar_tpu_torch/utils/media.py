@@ -1,5 +1,6 @@
-"""Video export and audio/video muxing (the port's copy of the JAX
-package's `utils/media.py`, host-side numpy).
+"""Video export, frame decoding and audio/video muxing (the port's copy of
+the JAX package's `utils/media.py` and of `training/data.py`'s
+`read_video_frames`, host-side numpy).
 
 Frames are written with OpenCV (mp4v): no ffmpeg binary is needed for the
 video.  The a/v mux keeps the reference's ffmpeg contract (skip 0.08 s of
@@ -113,3 +114,28 @@ def save_routing_video(routing: np.ndarray, grid, path: str, fps: int = 25) -> s
         frames.append(cv2.resize((img * 255).astype(np.uint8), (w * 8, h * 8),
                                  interpolation=cv2.INTER_NEAREST))
     return export_to_video(np.stack(frames), path, fps)
+
+
+def read_video_frames(path: str, indices: Sequence[int]) -> np.ndarray:
+    """Decode the given frame indices with OpenCV -> [T, H, W, 3] uint8 RGB
+    (the port's copy of JAX `training/data.py:read_video_frames`)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video {path}")
+    want = sorted(set(int(i) for i in indices))
+    got = {}
+    pos, last = 0, want[-1]
+    while pos <= last:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if pos in want:
+            got[pos] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        pos += 1
+    cap.release()
+    missing = [i for i in indices if i not in got]
+    if missing:
+        raise IOError(f"missing frames {missing[:4]}... in {path}")
+    return np.stack([got[int(i)] for i in indices])

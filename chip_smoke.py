@@ -4,6 +4,7 @@
     python3 chip_smoke.py     # 42 layers; serving requests of 2 steps each; 2 optimizer steps
                               # of the Stage-3 train step; the sft launcher: 2 steps, a
                               # checkpoint, a resume and a third step; a 50-step clip; the CLI
+                              # (also two-stage); SAM2 and the upscaler
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
 
 Phases (one line each; any failure exits non-zero and prints no result):
@@ -110,12 +111,25 @@ Phases (one line each; any failure exits non-zero and prints no result):
      with the composite canvas, face + audio launch counts, the peak
      within 1 GiB of 7b's.  `--t5_dir` is not run: it needs a tokenizer
      directory, which the card's machine lacks (phase 8 runs T5 itself).
+  7d. the CLI's `main` with `--two_stage_generate` from 7c's inputs: SAM2
+     from a sam2.1-keyed `sam2.1_hiera_large` checkpoint drawn on the card
+     (`$BYA_SAM2_CKPT`), the mask tool in the process over stage 1's mp4
+     (49 frames per identity), stage 2 forced on the same pipeline; launch
+     counts twice 7c's, the mp4, finite clips; `main`'s wall, the tool's
+     seconds, the peak beside 7c's.
   8. the conditioning encoders at full size, bf16 weights drawn on the
      card: T5-XXL's encoder on 2 x 226 tokens, EVA02-CLIP-L-336, IR-100,
      RetinaFace-R50 on a 480 x 720 image, BiSeNet at 512: shapes,
      finiteness, ms and peak; at 2 blocks (T5, EVA-CLIP) or whole (the
      CNNs) against the CPU in fp32 on the same weights.  None of them
      launches a kernel: JAX's twins reach no Pallas kernel.
+  9. SAM2 at `sam2.1_hiera_large` (image 1024) and RRDBNet at
+     `RealESRGAN_x4plus`, fp32 weights drawn on the card: the image
+     encoder's ms a frame, `propagate_in_video` over 49 x 480 x 720 with 2
+     objects (the bank full at 7 memories + 16 pointers), `tiled_scale`
+     (512 tiles, overlap 32) on one 480 x 720 frame, peaks; each against
+     the CPU in fp32 at reduced depth.  Neither launches a kernel: JAX's
+     SAM2 and RRDBNet reach no Pallas kernel.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -1670,7 +1684,7 @@ def cli_face_phase(args, peaks: dict) -> bool:
             wall, counts = time.perf_counter() - t0, _read_launches()
         finally:
             BindYourAvatarPipeline.generate = generate
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = peaks["7c"] = torch.cuda.max_memory_allocated() / 2**30
     shape = lambda t: None if t is None else list(t.shape)
     ok = _video_ok("CLI from images", res.video, (1, 49, 3, 480, 720))
     cond_ok = (shape(seen.get("id_cond")) == [1, 2, 1280]
@@ -1690,6 +1704,102 @@ def cli_face_phase(args, peaks: dict) -> bool:
           f"{100 * white:.1f}% white pixels (not the white frame); run() in {wall:.1f} s, peak "
           f"{peak:.2f} GiB against phase 7b's {peaks['7b']:.2f} (within 1 GiB: {peak_ok}) "
           f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def cli_two_stage_phase(args, peaks: dict) -> bool:
+    """Phase 7d: the CLI's `main` with `--two_stage_generate` from phase
+    7c's inputs (two faces through the three face checkpoint flags, two
+    audio tracks, prompt embeddings) at `--model_size 5b --num_layers 42
+    --num_inference_steps 2`, 49 x 480 x 720.  SAM2 comes from a sam2.1-keyed
+    checkpoint file of the `sam2.1_hiera_large` geometry drawn on the card
+    (`$BYA_SAM2_CKPT`), the tool's frame-0 faces from 7c's RetinaFace file
+    (`$BYA_RETINAFACE_CKPT`).  Both stages run on one pipeline: stage 1
+    unforced, the mask tool over its mp4 (49 frames per identity), stage 2
+    forced by a routing that is not all one value; launches are twice 7c's,
+    exact; the mp4 exists and both clips are finite.  Prints `main`'s wall,
+    the tool's seconds and the peak beside 7c's."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
+    from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
+    from bindyouravatar_tpu_torch.preprocess.sam2_video import build_sam2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    faces = [os.path.join(here, "assets", "faces", f"000_{i}.png") for i in (0, 1)]
+    stages = []
+    generate = BindYourAvatarPipeline.generate
+
+    def recording(self, *a, **kw):
+        out = generate(self, *a, **kw)
+        f = kw.get("routing_forcing")
+        stages.append({"forcing": None if f is None else f.float().cpu().numpy(),
+                       "shape": list(out.shape), "finite": bool(out.float().isfinite().all())})
+        return out
+
+    env = {k: os.environ.get(k) for k in ("BYA_SAM2_CKPT", "BYA_RETINAFACE_CKPT")}
+    with tempfile.TemporaryDirectory(prefix="bya_cli_2stage_") as tmp:
+        sam = build_sam2(None, "cuda", torch.Generator("cuda").manual_seed(args.seed + 500))
+        ckpt = f"{tmp}/sam2.1_hiera_large_drawn.pt"
+        torch.save({"model": {k: v.cpu() for k, v in sam.state_dict().items()}}, ckpt)
+        del sam
+        gc.collect()
+        torch.cuda.empty_cache()
+        face_flags = _face_checkpoints(tmp, args.seed)
+        argv = (_cli_inputs(tmp, args.seed + 200) + ["--seed", str(args.seed), "--img_file_path",
+                                                     *faces, "--two_stage_generate"] + face_flags)
+        os.environ["BYA_SAM2_CKPT"] = ckpt
+        os.environ["BYA_RETINAFACE_CKPT"] = face_flags[face_flags.index(
+            "--retinaface_checkpoint") + 1]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        BindYourAvatarPipeline.generate = recording
+        out = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                path = infer.main(argv)
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - t0, _read_launches()
+        finally:
+            BindYourAvatarPipeline.generate = generate
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        meta = json.loads(out.getvalue().strip().splitlines()[-1])
+        per_id = [len(os.listdir(os.path.join(meta["mask_dir"], i))) for i in ("1", "2")]
+        mp4 = os.path.getsize(path) if os.path.isfile(path) else 0
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+    forcing = stages[-1]["forcing"] if len(stages) == 2 else None
+    values = np.unique(forcing) if forcing is not None else np.zeros(0)
+    forced_ok = (len(stages) == 2 and stages[0]["forcing"] is None and forcing is not None
+                 and len(values) > 1 and per_id == [49, 49])
+    finite = all(st["finite"] for st in stages)
+    video_ok = finite and all(st["shape"] == [1, 49, 3, 480, 720] for st in stages)
+    five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
+                                   router_cfg=RouterConfig())
+    ok = _counts_ok("two-stage CLI (twice 7c's)", counts, _serving_want(five_b, 4, 0, 2))
+    ok &= forced_ok and video_ok and mp4 > 0
+    print(f"cli two-stage: --two_stage_generate (SAM2 sam2.1_hiera_large drawn, {ckpt_gb:.2f} GB "
+          f"checkpoint; RetinaFace prompts) -> masks {per_id} frames per identity, stage 2 forcing "
+          f"{list(forcing.shape) if forcing is not None else None} with {len(values)} values "
+          f"{'ok' if forced_ok else 'FAILED'}; clips {[st['shape'] for st in stages]} finite="
+          f"{finite}; mp4 {mp4} bytes; main() in {wall:.1f} s (stage 1 "
+          f"{meta.get('stage1_seconds')} s, mask tool {meta.get('mask_tool_seconds')} s, stage 2 "
+          f"{meta.get('stage2_seconds')} s), peak {peak:.2f} GiB against phase 7c's "
+          f"{peaks.get('7c', float('nan')):.2f} {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -1787,6 +1897,151 @@ def encoder_phase(args) -> bool:
               f"{' / '.join(f'{r:.2e}' for r in rels)} (tol {tol[name]:g}) "
               f"{'ok' if finite and agree else 'FAILED'}", flush=True)
     print(f"encoder phase {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _sam2_frames(t: int, h: int, w: int, seed: int):
+    """A synthetic clip [t, h, w, 3] uint8: two bright discs drifting over a
+    noisy background."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    out = rng.integers(0, 60, (t, h, w, 3)).astype(np.uint8)
+    for i in range(t):
+        for cx, col in ((0.3 * w + 2 * i, (220, 180, 160)), (0.7 * w - 2 * i, (160, 200, 230))):
+            out[i][(xx - cx) ** 2 + (yy - 0.45 * h) ** 2 < (0.15 * h) ** 2] = col
+    return out
+
+
+def _sam2_track(predictor, frames):
+    """Two objects prompted on frame 0 at the mask tool's default points,
+    then propagated: ([T, 2, h4, w4] mask logits (numpy), the state,
+    `init_state`'s seconds, `propagate_in_video`'s seconds)."""
+    import numpy as np
+    import torch
+
+    h, w = frames.shape[1:3]
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    state = predictor.init_state(frames)
+    sync()
+    init_s = time.perf_counter() - t0
+    for oid, pt in ((1, (0.3 * w, 0.4 * h)), (2, (0.7 * w, 0.4 * h))):
+        predictor.add_new_points(state, 0, oid, np.array([pt], np.float32), np.array([1]))
+    t0 = time.perf_counter()
+    masks = np.stack([m for _, _, m in predictor.propagate_in_video(state)])
+    sync()
+    return masks, state, init_s, time.perf_counter() - t0
+
+
+def sam2_upscaler_phase(args) -> bool:
+    """Phase 9: SAM2 and the upscaler at their published sizes, weights
+    drawn on the card from `--seed`, fp32 weights and activations as JAX's
+    (matrix products in fp32; cuDNN's convolutions may take TF32, PyTorch's
+    default).  SAM2 at `sam2.1_hiera_large` (`SAM2Config()`, image 1024):
+    the image encoder's ms a frame (CUDA events, median of 5); then the
+    video predictor over a 49 x 480 x 720 clip with 2 objects:
+    `init_state`'s and `propagate_in_video`'s seconds, the bank full at 7
+    memories + 16 pointers, the peak.  RRDBNet at `RealESRGAN_x4plus` (23
+    RRDBs, 64 features, grow 32, x4) through `tiled_scale` (512 tiles,
+    overlap 32) on one 480 x 720 frame: ms (median of 3) and peak.  Each
+    against the CPU in fp32 on the same weights at reduced depth: SAM2 with
+    one block a stage and one memory-attention layer, at image 1024, 3
+    frames; RRDBNet with 2 RRDBs on a 120 x 180 frame in 64 tiles, overlap
+    8; relative L2 of every mask logit / of the output within the stated
+    bound."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.models.rrdbnet import build_rrdbnet
+    from bindyouravatar_tpu_torch.models.sam2 import HieraConfig, SAM2Config
+    from bindyouravatar_tpu_torch.preprocess.sam2_video import SAM2VideoPredictor, build_sam2
+    from bindyouravatar_tpu_torch.utils.upscale import tiled_scale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(args.seed + 600)
+    rel = lambda g, w: float(np.linalg.norm(np.asarray(g, np.float64) - w)
+                             / np.linalg.norm(np.asarray(w, np.float64)))
+    # tol: relative L2 against the CPU's fp32 on the same weights.  TF32
+    # convolutions round their inputs to 10 mantissa bits (~5e-4 relative
+    # a product); the bound leaves that a factor 10
+    tol = {"sam2": 5e-3, "rrdbnet": 5e-3}
+    ok = True
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SAM2Config()
+    with torch.no_grad():
+        model = build_sam2(cfg, dev, gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        x = torch.randn(1, 3, cfg.image_size, cfg.image_size, generator=gen, device=dev)
+        enc_ms = _time_ms(lambda: model.encode_image(x), runs=5)
+    frames = _sam2_frames(49, 480, 720, args.seed)
+    pred = SAM2VideoPredictor(model)
+    masks, state, init_s, prop_s = _sam2_track(pred, frames)
+    obj = state["objs"][1]
+    bank = pred._memory_bank(obj)[0].shape[1]
+    full = len(obj.memories) == cfg.num_maskmem - 1 and len(obj.obj_ptrs) == cfg.max_obj_ptrs
+    sam_peak = torch.cuda.max_memory_allocated() / 2**30
+    sam_ok = masks.shape == (49, 2, 256, 256) and bool(np.isfinite(masks).all()) and full
+    fg = float((masks > 0).mean())
+    del model, pred, state, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    red = dataclasses.replace(cfg, hiera=dataclasses.replace(
+        HieraConfig.large(), stages=(1, 1, 1, 1), global_att_blocks=(2,)), memory_attn_layers=1)
+    gpu = build_sam2(red, dev, gen)
+    cpu = build_sam2(red, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    got = _sam2_track(SAM2VideoPredictor(gpu), frames[:3])[0]
+    want = _sam2_track(SAM2VideoPredictor(cpu), frames[:3])[0]
+    sam_rel = max(rel(got[t, o], want[t, o]) for t in range(3) for o in range(2))
+    sam_ok &= sam_rel <= tol["sam2"]
+    del gpu, cpu
+    ok &= sam_ok
+    print(f"sam2 sam2.1_hiera_large fp32 ({n_params / 1e6:.1f}M params, image "
+          f"{cfg.image_size}): image encoder {enc_ms:.3f} ms a frame (CUDA events); 49 x 480 x "
+          f"720 x 2 objects: init_state {init_s:.2f} s, propagate_in_video {prop_s:.2f} s "
+          f"({1e3 * prop_s / 49:.1f} ms a frame), bank {len(obj.memories) + 1} memories + "
+          f"{len(obj.obj_ptrs)} pointers = {bank} rows (full: {full}), foreground "
+          f"{100 * fg:.1f}%, peak {sam_peak:.2f} GiB; 1 block a stage, 1 memory layer, 3 frames: "
+          f"cuda vs cpu-fp32 relative L2 {sam_rel:.2e} (tol {tol['sam2']:g}) "
+          f"{'ok' if sam_ok else 'FAILED'}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        net = build_rrdbnet(23, dev, gen)
+        n_params = sum(p.numel() for p in net.parameters())
+        frame = torch.rand(1, 3, 480, 720, generator=gen, device=dev)
+        run = lambda: tiled_scale(frame, net, tile_x=512, tile_y=512, overlap=32,
+                                  upscale_amount=4)
+        up = run()
+        torch.cuda.synchronize()
+        rr_ms = _time_ms(run, runs=3)
+        rr_peak = torch.cuda.max_memory_allocated() / 2**30
+        rr_shape, rr_finite = list(up.shape), bool(up.isfinite().all())
+        del net, up
+        small = torch.rand(1, 3, 120, 180, generator=gen, device=dev)
+        gnet = build_rrdbnet(2, dev, gen)
+        cnet = build_rrdbnet(2, "cpu")
+        cnet.load_state_dict({k: v.cpu() for k, v in gnet.state_dict().items()})
+        tile = dict(tile_x=64, tile_y=64, overlap=8, upscale_amount=4)
+        rr_rel = rel(tiled_scale(small, gnet, **tile).cpu().numpy(),
+                     tiled_scale(small.cpu(), cnet, **tile).numpy())
+    rr_ok = rr_shape == [1, 3, 1920, 2880] and rr_finite and rr_rel <= tol["rrdbnet"]
+    ok &= rr_ok
+    print(f"rrdbnet RealESRGAN_x4plus fp32 ({n_params / 1e6:.2f}M params, 23 RRDBs) through "
+          f"tiled_scale (512 tiles, overlap 32, 2 tiles) on [1, 3, 480, 720] -> {rr_shape} "
+          f"finite={rr_finite}: {rr_ms:.1f} ms (CUDA events), peak {rr_peak:.2f} GiB; 2 RRDBs on "
+          f"[1, 3, 120, 180] in 64 tiles: cuda vs cpu-fp32 relative L2 {rr_rel:.2e} (tol "
+          f"{tol['rrdbnet']:g}) {'ok' if rr_ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -2109,7 +2364,7 @@ def main(argv=None) -> int:
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
     p.add_argument("--clip-steps", type=int, default=50,
-                   help="denoise steps of phase 7's clip (0 skips phases 7, 7b and 7c)")
+                   help="denoise steps of phase 7's clip (0 skips phases 7 to 7d)")
     p.add_argument("--driver-layers", type=int, default=16,
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
                         "layers writes 32.4 GB, and the phase saves twice)")
@@ -2185,10 +2440,12 @@ def main(argv=None) -> int:
         ok &= clip_phase(args, launches)
         ok &= cli_phase(args, peaks)
         ok &= cli_face_phase(args, peaks)
+        ok &= cli_two_stage_phase(args, peaks)
     else:
         ok = False
         print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)
     ok &= encoder_phase(args)
+    ok &= sam2_upscaler_phase(args)
     if not ok:
         return _fail("a phase failed")
 

@@ -300,7 +300,6 @@ def test_cli_takes_the_face_and_t5_flags(flag, face_files):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--two_stage_generate"], "SAM2, ROADMAP.md A 11"),
     (["--tp", "2"], "A 12"), (["--sp", "2"], "A 12"),
     (["--reference_transformer", "x.safetensors"], "JAX package's importers"),
     (["--reference_audio_modules", "a.pt"], "JAX package's importers"),
@@ -311,6 +310,60 @@ def test_cli_takes_the_face_and_t5_flags(flag, face_files):
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         infer.main(TINY + ["--output_dir", str(tmp_path)] + flags)
+
+
+def _recorded_generate(monkeypatch):
+    """Record each `generate` call's pipeline, arguments and output."""
+    calls, generate = [], BindYourAvatarPipeline.generate
+
+    def recording(self, *a, **kw):
+        out = generate(self, *a, **kw)
+        calls.append((self, a, kw, out))
+        return out
+
+    monkeypatch.setattr(BindYourAvatarPipeline, "generate", recording)
+    return calls
+
+
+def test_two_stage_cli_forces_stage_2_with_the_tools_masks(tmp_path, capsys, monkeypatch):
+    """`--two_stage_generate` without `--tracking_mask_dir` (no SAM2
+    checkpoint: the tool's coarse masks) from two faces: the mask directory
+    holds 9 frames per identity; stage 2 runs on stage 1's pipeline and
+    equals, bit for bit, its own `generate` given the forcing read from
+    those masks and a generator seeded with the same `--seed`."""
+    monkeypatch.delenv("BYA_SAM2_CKPT", raising=False)
+    calls = _recorded_generate(monkeypatch)
+    out = tmp_path / "out"
+    path = infer.main(TINY + ["--output_dir", str(out), "--audio_path"] + AUDIO +
+                      ["--img_file_path"] + FACE_IMGS + ["--two_stage_generate", "--seed", "7"])
+    meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    mask_dir = out / "tracking_mask_results"
+    assert meta["mask_dir"] == str(mask_dir) and meta["mask_tool_seconds"] >= 0
+    assert sorted(os.listdir(mask_dir)) == ["1", "2", "valid_frame.json"]
+    assert all(len(os.listdir(mask_dir / i)) == 9 for i in ("1", "2"))
+    assert os.path.getsize(path) > 0 and len(calls) == 2
+    (pipe1, a1, kw1, stage1), (pipe2, a2, kw2, stage2) = calls
+    assert pipe2 is pipe1 and "routing_forcing" not in kw1 and kw2["id_cond"] is not None
+    forcing = tmasks.masks_to_routing_logits(str(mask_dir), *pipe1.dit.cfg.latent_grid)
+    assert np.array_equal(kw2["routing_forcing"].numpy(), forcing)
+    assert len(np.unique(forcing)) > 1
+    pe, ne, image, _ = a2
+    monkeypatch.undo()
+    direct = pipe1.generate(pe, ne, image, torch.Generator().manual_seed(7),
+                            **{**kw2, "routing_forcing": torch.from_numpy(forcing)})
+    assert torch.equal(direct, stage2)
+    assert not torch.equal(stage1, stage2)
+
+
+def test_two_stage_cli_raises_when_the_mask_tool_fails(tmp_path, monkeypatch):
+    """A mask tool that fails (here `$BYA_SAM2_CKPT` names a missing
+    file) fails the run with its error, after stage 1's clip was written."""
+    monkeypatch.setenv("BYA_SAM2_CKPT", str(tmp_path / "missing_sam2.pt"))
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="mask tool failed .*FileNotFoundError"):
+        infer.main(TINY + ["--output_dir", str(out), "--audio_path"] + AUDIO +
+                   ["--two_stage_generate"])
+    assert (out / "output.mp4").is_file()
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

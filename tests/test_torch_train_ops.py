@@ -328,7 +328,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "serving/server", "pipeline/pipeline", "utils/media", "preprocess/audio",
         # the conditioning encoders and the face stack
         "models/t5", "models/eva_clip", "preprocess/arcface", "preprocess/retinaface",
-        "preprocess/bisenet", "preprocess/face")} <= names
+        "preprocess/bisenet", "preprocess/face",
+        # the two-stage generate, the upscaler and the batch front end
+        "models/sam2", "preprocess/sam2_video", "tools/sam2_tools", "models/rrdbnet",
+        "utils/upscale", "utils/cfg_files", "tools/batch_run_samples")} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
