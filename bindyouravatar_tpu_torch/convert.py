@@ -1,7 +1,9 @@
 """Flax parameter tree (as numpy) -> the port's `state_dict`.
 
-The JAX importers stay the only way in from reference checkpoints
-(importer -> flax tree -> this converter).  Rules:
+Carries a JAX parameter tree across (the tests hand both packages the
+same weights this way); reference-format files are read by the port
+itself (`training/checkpoint.py`, `training/import_submodules.py`,
+`training/import_encoders.py`).  Rules:
   * Dense `kernel` [in, out] -> `weight` [out, in]; conv `kernel`
     [kt, kh, kw, in, out] -> `weight` [out, in, kt, kh, kw] ([kh, kw, in,
     out] -> [out, in, kh, kw] in 2-D);

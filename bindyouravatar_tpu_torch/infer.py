@@ -35,10 +35,20 @@ and T5 runs in fp32.  DiT weights are drawn from `--seed` the way
 afterwards), so `--checkpoint_dir` serves a run of the port's trainer with
 the same `--model_size` and `--seed`: its trainable tensors (the EMA copy
 when the run kept one) replace the drawn ones.  `--module_dir` loads the
-port's sub-module files.  The DiT's reference checkpoints come in through
-the JAX package's importers and `bindyouravatar_tpu_torch.convert`.  Flags
-that need what the port lacks raise `NotImplementedError` naming their
-`ROADMAP.md` item.
+port's sub-module files.  The reference's own files load over the draw
+(`load_params`, JAX `infer.py:131-161`'s order): `--reference_transformer`
+(the base transformer's safetensors shards, bf16 or fp32), the three
+`--reference_{audio,face,router}_modules` `.pt` files, and `--lora_path`
+peft LoRA files fused into the base q/k weights with `--lora_alpha`:
+
+    python -m bindyouravatar_tpu_torch.infer --reference_transformer \
+        diffusion_pytorch_model-0000{1,2,3}-of-00003.safetensors \
+        --reference_audio_modules audio_modules.pt --reference_face_modules face_modules.pt \
+        --reference_router_modules router_modules.pt --lora_path lora.safetensors \
+        --img_file_path a.png b.png --audio_path a.pt b.pt --prompt_embeds pe.npy
+
+Flags that need what the port lacks raise `NotImplementedError` naming
+their `ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -124,21 +134,10 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-# the DiT's reference checkpoints (the face stack's and T5's files are read
-# by the port itself: `preprocess/`, `models/t5.py`)
-_REFERENCE = ("reference-format files come in through the JAX package's importers and "
-              "bindyouravatar_tpu_torch.convert by design, ROADMAP.md north star")
-
-
 def check_supported(args) -> None:
     unsupported = {
         "--tp": (args.tp > 1, "distribution, ROADMAP.md A 12"),
         "--sp": (args.sp > 1, "distribution, ROADMAP.md A 12"),
-        "--reference_transformer": (args.reference_transformer, _REFERENCE),
-        "--reference_audio_modules": (args.reference_audio_modules, _REFERENCE),
-        "--reference_face_modules": (args.reference_face_modules, _REFERENCE),
-        "--reference_router_modules": (args.reference_router_modules, _REFERENCE),
-        "--lora_path": (args.lora_path, _REFERENCE),
     }
     for flag, (given, item) in unsupported.items():
         if given:
@@ -246,25 +245,45 @@ def build_models(args, device: torch.device, lora_rank: int = 0,
 
 
 @torch.no_grad()
-def load_params(pipe, args, trainable=None) -> None:
-    """Restore into the pipeline's DiT in place: the checkpoint's trainable
-    tensors, then `--module_dir`'s sub-module files; then cast the 5b DiT to
-    `--dtype` (JAX's `param_dtype`)."""
-    from .training.checkpoint import load_submodules
+def load_params(pipe, args, trainable=None) -> dict:
+    """Load into the pipeline's DiT in place, in JAX `load_params`' order:
+    `--reference_transformer`'s base weights, the checkpoint's trainable
+    tensors, `--module_dir`'s sub-module files, the reference sub-module
+    files, then `--lora_path` fused with `--lora_alpha`; then cast the 5b
+    DiT to `--dtype` (JAX's `param_dtype`).  Returns the seconds each group
+    took to read and load."""
+    from .training.checkpoint import (fuse_lora_files, import_reference_dit, load_named,
+                                      load_submodules)
+    from .training.import_submodules import import_all_submodules
 
-    dit = pipe.dit
+    dit, seconds = pipe.dit, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        if dit.patch_embed.proj.weight.is_cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    if args.reference_transformer:
+        timed("transformer", lambda: import_reference_dit(args.reference_transformer, dit))
     if trainable is not None:
-        params = dict(dit.named_parameters())
-        for name, t in trainable.items():
-            if name not in params or params[name].shape != t.shape:
-                raise ValueError(f"{args.checkpoint_dir}: {name} {tuple(t.shape)} does not fit "
-                                 f"the model (same --model_size and --inpaintingframe_path?)")
-            params[name].copy_(t)
+        load_named(dit, trainable.items(), source=f"{args.checkpoint_dir} (same --model_size "
+                                                  f"and --inpaintingframe_path?)")
     if args.module_dir:
-        dit.load_state_dict(load_submodules(dit.state_dict(), args.module_dir))
+        load_submodules(dit, args.module_dir)
+    for group in ("audio", "face", "router"):
+        path = getattr(args, f"reference_{group}_modules")
+        if path:
+            timed(group, lambda: import_all_submodules(dit, **{group: path}))
+    if args.lora_path:
+        timed("lora", lambda: fuse_lora_files(args.lora_path, dit, lora_alpha=args.lora_alpha))
+        print(f"[lora] fused {len(args.lora_path)} LoRA file(s) (alpha={args.lora_alpha}) into "
+              f"the base q/k weights")
     if args.model_size == "5b" and args.dtype == "bf16":
         dit.to(torch.bfloat16)
         dit.cfg = dataclasses.replace(dit.cfg, param_dtype=torch.bfloat16)
+    return seconds
 
 
 def save_routing_debug(routing, grid, output_dir: str, fps: int) -> None:
@@ -301,6 +320,7 @@ class Prepared:
     image_bg: Optional[torch.Tensor]
     cond: dict
     t0: float
+    load_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -337,7 +357,7 @@ def prepare(args) -> Prepared:
     lora_rank = next((t.shape[1] for k, t in (trainable or {}).items()
                       if k.endswith("to_q_lora_A")), 0)
     pipe = build_models(args, dev, lora_rank, face_dims)
-    load_params(pipe, args, trainable)
+    load_seconds = load_params(pipe, args, trainable)
     c = pipe.dit.cfg
 
     # the conditioning image: the bg frame if given, else the face stack's
@@ -406,7 +426,7 @@ def prepare(args) -> Prepared:
 
     return Prepared(args=args, pipe=pipe, pe=torch.from_numpy(pe).to(dev),
                     ne=torch.from_numpy(ne).to(dev), image=image, image_bg=image_bg, cond=cond,
-                    t0=t0)
+                    t0=t0, load_seconds=load_seconds)
 
 
 def denoise(prep: Prepared, routing_forcing: Optional[torch.Tensor] = None,

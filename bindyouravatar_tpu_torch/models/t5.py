@@ -184,7 +184,7 @@ def encode_prompts(model: T5Encoder, prompts: Sequence[str], tokenizer_dir: str,
 
 def _load_file(path: str) -> Dict[str, torch.Tensor]:
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+        from ..utils.safetensors import load_file
 
         return load_file(path)
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -6,8 +6,11 @@
 
 Synthetic data at the configuration's frames and size, the VAE, the DiT
 with LoRA, the trainer and the driver with auto-resume.  Weights are drawn
-from `--seed` (reference weights come in through the JAX package's
-importers and `convert.py`).  `--model_size 5b` is the 42-layer DiT (dim
+from `--seed`; `--reference_transformer` (the reference's safetensors
+shards) then replaces the base transformer's, its patch embed grown with
+zero channels to the DiT's (48 at 5b), while the LoRA slots and the
+conditioning modules keep their draw (JAX `scripts/sft.py:138-142`), and
+`--module_dir` the sub-modules'.  `--model_size 5b` is the 42-layer DiT (dim
 3072, 48 x 64 heads, 226 + 17,550 tokens, face and audio, LoRA r128) over
 49 x 480 x 720 clips.  Its stand-in text and face embeddings are drawn once
 from the seed (T5 and EVA-CLIP are not ported) and given to every batch,
@@ -77,7 +80,8 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--module_dir", type=str, default=None,
                    help="pretrained audio/face/router sub-modules (modules-{step})")
-    p.add_argument("--reference_transformer", type=str, nargs="*", default=None)
+    p.add_argument("--reference_transformer", type=str, nargs="*", default=None,
+                   help="reference safetensors shards of the base transformer")
     p.add_argument("--num_validation_videos", type=int, default=0)
     p.add_argument("--validation_steps", type=int, default=8)
     p.add_argument("--num_layers", type=int, default=None,
@@ -88,9 +92,6 @@ def get_args(argv=None):
 def _check_supported(args) -> None:
     unsupported = {
         "--index_file": (args.index_file, "the on-disk datasets, ROADMAP.md A 13"),
-        "--reference_transformer": (args.reference_transformer,
-                                    "import with the JAX package's importers and convert with "
-                                    "bindyouravatar_tpu_torch.convert, ROADMAP.md A 13"),
         "--fsdp": ((args.fsdp or 1) > 1, "distribution, ROADMAP.md A 12"),
         "--num_validation_videos": (args.num_validation_videos > 0,
                                     "the validation hook, ROADMAP.md A 13"),
@@ -117,7 +118,7 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
     from ..models.dit import DiT
     from ..models.vae import CausalVAE
     from ..ops.scheduler import Schedule
-    from .checkpoint import load_submodules
+    from .checkpoint import import_reference_dit, load_submodules
     from .data import SyntheticAvatarDataset
     from .train_loop import TrainDriver
     from .trainer import Trainer
@@ -160,9 +161,10 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
                                    else args.remat_policy), device=dev, generator=gen)
         vae = CausalVAE.create(VAEConfig(), device=dev, generator=gen)
         vit_tokens = 577
+    if args.reference_transformer:
+        import_reference_dit(args.reference_transformer, dit)
     if args.module_dir:
-        with torch.no_grad():
-            dit.load_state_dict(load_submodules(dit.state_dict(), args.module_dir))
+        load_submodules(dit, args.module_dir)
 
     c, lfe = dit.cfg, dit.lfe_cfg
     dataset = SyntheticAvatarDataset(

@@ -4,7 +4,8 @@
     python3 chip_smoke.py     # 42 layers; serving requests of 2 steps each; 2 optimizer steps
                               # of the Stage-3 train step; the sft launcher: 2 steps, a
                               # checkpoint, a resume and a third step; a 50-step clip; the CLI
-                              # (also two-stage); SAM2 and the upscaler
+                              # (also two-stage, and from reference-format files); SAM2 and
+                              # the upscaler
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
 
 Phases (one line each; any failure exits non-zero and prints no result):
@@ -80,9 +81,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      "save_attn"), peak memory and wall of both.
   6. the port's training entry point at the 5B geometry, after phase 5's
      model is freed: `training.sft.main` in this process, `--model_size
-     5b --remat_policy nested`, 16 layers with widths full
+     5b --remat_policy nested`, 8 layers with widths full
      (`--driver-layers`; a save at 42 layers writes 32.4 GB of state and
-     sub-modules, and the phase saves twice), synthetic 49 x 480 x 720
+     sub-modules, the phase saves twice, and the card's machine stops a run
+     after 45 GiB of writes, of which 7e takes 18 GB), synthetic 49 x 480 x 720
      clips encoded by the VAE, teacher masks, the driver: 2 optimizer
      steps and a checkpoint into a temporary directory, then `--max_train_steps 3
      --resume latest`: the restored trainable tensors, AdamW moments,
@@ -117,6 +119,18 @@ Phases (one line each; any failure exits non-zero and prints no result):
      (49 frames per identity), stage 2 forced on the same pipeline; launch
      counts twice 7c's, the mp4, finite clips; `main`'s wall, the tool's
      seconds, the peak beside 7c's.
+  7e. the CLI's `run` from reference-format files of a drawn 42-layer 5B
+     model (another seed than the run's): the base transformer as bf16
+     safetensors in 3 shards, the three sub-module `.pt` files under the
+     reference's names and layouts, a peft r128 q/k LoRA and a
+     diffusers-named VAE file, through `--reference_transformer`,
+     `--reference_{audio,face,router}_modules` and `--lora_path` with 7c's
+     inputs: every DiT tensor equals the drawn one bit for bit (q/k: drawn
+     + the LoRA delta, computed here in fp32 and cast), launches are 7c's,
+     the clip equals `generate` on a pipeline given the same tensors
+     directly, bit for bit, and `import_vae` of the VAE file gives the
+     drawn VAE; the bytes written, each group's read seconds, the peak
+     device memory beside 7c's and the host's peak RSS.
   8. the conditioning encoders at full size, bf16 weights drawn on the
      card: T5-XXL's encoder on 2 x 226 tokens, EVA02-CLIP-L-336, IR-100,
      RetinaFace-R50 on a 480 x 720 image, BiSeNet at 512: shapes,
@@ -1707,6 +1721,164 @@ def cli_face_phase(args, peaks: dict) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------ #
+# reference-format files of drawn weights (phase 7e's scaffolding; the CPU
+# tests hold export-then-read as the identity): the inverse of the port's
+# readers, written from the reference's names and layouts
+# ------------------------------------------------------------------ #
+
+def _dit_rope_index(heads: int, head_dim: int):
+    """For each interleaved (reference) q/k channel, the port's rotate-half
+    channel: within a head, pair member 2j sits at j, 2j + 1 at hd/2 + j."""
+    import torch
+
+    r = torch.arange(head_dim)
+    local = torch.where(r % 2 == 0, r // 2, head_dim // 2 + r // 2)
+    return torch.cat([local + h * head_dim for h in range(heads)]), local
+
+
+def export_reference_dit(named: dict, cfg) -> dict:
+    """The DiT's base transformer (port names) -> a reference
+    `BindyouravatarTransformer3DModel` state dict."""
+    import re
+
+    full, local = _dit_rope_index(cfg.num_attention_heads, cfg.attention_head_dim)
+    groups = ("audio_statics.", "audio_layers.", "lfe.", "perceivers.", "router_norms.",
+              "router_layers.", "router_trunk.")
+    out = {}
+    for name, t in named.items():
+        if name.startswith(groups) or "_lora_" in name:
+            continue
+        if name == "patch_embed.proj.weight":
+            p = cfg.patch_size
+            t = t.reshape(t.shape[0], -1, p, p)
+        elif re.search(r"attn1\.to_[qk]\.", name):
+            t = t[full]
+        elif re.search(r"attn1\.norm_[qk]\.", name):
+            t = t[local]
+        name = re.sub(r"^blocks\.", "transformer_blocks.", name)
+        name = (name.replace(".attn1.to_out.", ".attn1.to_out.0.")
+                .replace(".ff.net_0.", ".ff.net.0.proj.").replace(".ff.net_2.", ".ff.net.2."))
+        out[name] = t
+    return out
+
+
+def export_reference_submodules(named: dict, router_heads: int) -> dict:
+    """The conditioning modules (port names) -> the reference's
+    `audio_modules.pt`, `face_modules.pt` and `router_modules.pt` objects:
+    the audio Conv1d as [C, C, 2], each perceiver's `to_kv` fused, the
+    router's q/k features d-major (f = d*H + h)."""
+    import re
+
+    import torch
+
+    audio, lfe, router, pcas = {}, {}, {}, {}
+    for name, t in named.items():
+        if name.startswith("audio_statics.proj.conv."):
+            leaf = name.rsplit(".", 1)[1]
+            if leaf == "weight":
+                c = t.shape[0]
+                t = torch.stack([t[:, :c], t[:, c:]], dim=-1)
+            audio[f"audio_proj_model.conv1.{leaf}"] = t
+        elif name.startswith("audio_statics.proj."):
+            audio[name.replace("audio_statics.proj.", "audio_proj_model.")] = t
+        elif name.startswith("audio_statics."):
+            audio[name[len("audio_statics."):]] = t
+        elif name.startswith("audio_layers."):
+            n = re.sub(r"^audio_layers\.(\d+)\.to_out\.", r"layers.\1.attn.to_out.0.", name)
+            n = re.sub(r"^audio_layers\.(\d+)\.(to_[qkv])\.", r"layers.\1.attn.\2.", n)
+            audio[re.sub(r"^audio_layers\.", "layers.", n)] = t
+        elif name.startswith("lfe."):
+            n = name[len("lfe."):]
+            for mine, idx in (("fc0", 0), ("ln0", 1), ("fc1", 3), ("ln1", 4), ("fc_out", 6)):
+                n = re.sub(rf"^((?:id_embedding_)?mapping(?:_\d)?)\.{mine}\.", rf"\1.{idx}.", n)
+            n = re.sub(r"^attn_(\d+)\.", r"layers.\1.0.", n)
+            for mine, idx in (("norm", 0), ("fc1", 1), ("fc2", 3)):
+                n = re.sub(rf"^ff_(\d+)\.{mine}\.", rf"layers.\1.1.{idx}.", n)
+            lfe[n] = t
+        elif name.startswith("perceivers."):
+            _, j, rest = name.split(".", 2)
+            pcas.setdefault(int(j), {})[rest] = t
+        elif name.startswith(("router_norms.", "router_layers.", "router_trunk.")):
+            router[name] = t
+    qk = router["router_norms.norm_q.weight"].shape[0]
+    dh = qk // router_heads
+    f = torch.arange(qk)
+    to_port = (f % router_heads) * dh + f // router_heads     # d-major f -> h-major
+    rout = {}
+    for name, t in router.items():
+        m = re.match(r"^router_layers\.(\d+)\.(to_[qk])\.weight$", name)
+        if m:
+            rout[f"{m.group(2)}.{m.group(1)}.weight"] = t[:, to_port]
+        elif name.startswith("router_norms."):
+            rout[name[len("router_norms."):]] = t[to_port]
+        else:
+            n = name[len("router_trunk."):]
+            n = re.sub(r"^st_(\d+)\.", r"spatial_temporal_layers.\1.", n)
+            n = (n.replace(".to_out.", ".to_out.0.").replace(".mlp_fc1.", ".mlp.0.")
+                 .replace(".mlp_fc2.", ".mlp.2."))
+            rout[re.sub(r"^final_proj\.", "final_proj.0.", n)] = t
+    perceivers = []
+    for j in sorted(pcas):
+        sd = dict(pcas[j])
+        sd["to_kv.weight"] = torch.cat([sd.pop("to_k.weight"), sd.pop("to_v.weight")])
+        perceivers.append(sd)
+    return {"audio": audio, "face": {"local_facial_extractor": lfe,
+                                     "perceiver_cross_attention": perceivers},
+            "router": rout}
+
+
+def export_vae(named: dict, cfg) -> dict:
+    """The VAE (port names) -> a diffusers `AutoencoderKLCogVideoX` state
+    dict: the down / upsamplers' convs lose their temporal axis."""
+    from bindyouravatar_tpu_torch.training.import_encoders import vae_key_map
+
+    return {theirs: named[ours][:, :, 0] if kind == "conv2d" else named[ours]
+            for theirs, (ours, kind) in vae_key_map(cfg).items()}
+
+
+def draw_peft_lora(cfg, rank: int, gen, dtype, std: float = 0.02) -> dict:
+    """A peft LoRA file's tensors for every layer's q and k, named as the
+    reference saves them (`transformer.transformer_blocks.{i}.attn1.to_q.
+    lora_A.weight` [r, in], `lora_B` [out, r]), drawn on the CPU."""
+    import torch
+
+    inner = cfg.num_attention_heads * cfg.attention_head_dim
+    out = {}
+    for i in range(cfg.num_layers):
+        for proj in ("to_q", "to_k"):
+            base = f"transformer.transformer_blocks.{i}.attn1.{proj}"
+            for leaf, shape in (("lora_A", (rank, inner)), ("lora_B", (inner, rank))):
+                out[f"{base}.{leaf}.weight"] = (torch.randn(shape, generator=gen) * std).to(dtype)
+    return out
+
+
+def write_reference_files(named: dict, dit_cfg, router_heads: int, directory: str,
+                          shards: int = 2) -> dict:
+    """Write the DiT's tensors (port names, on the CPU) as the reference
+    ships them into `directory`: the base transformer as `shards`
+    safetensors shards (`diffusion_pytorch_model-0000k-of-0000n`) and the
+    three sub-module `.pt` files.  Returns the paths and the bytes written."""
+    import torch
+    from bindyouravatar_tpu_torch.utils.safetensors import save_file
+
+    base = export_reference_dit(named, dit_cfg)
+    keys = list(base)
+    paths, nbytes = {"transformer": []}, 0
+    for k in range(shards):
+        part = {n: base[n] for n in keys[k * len(keys) // shards:(k + 1) * len(keys) // shards]}
+        path = os.path.join(directory,
+                            f"diffusion_pytorch_model-{k + 1:05d}-of-{shards:05d}.safetensors")
+        nbytes += save_file(part, path)
+        paths["transformer"].append(path)
+    for group, obj in export_reference_submodules(named, router_heads).items():
+        path = paths[group] = os.path.join(directory, f"{group}_modules.pt")
+        torch.save(obj, path)
+        nbytes += os.path.getsize(path)
+    paths["bytes"] = nbytes
+    return paths
+
+
 def cli_two_stage_phase(args, peaks: dict) -> bool:
     """Phase 7d: the CLI's `main` with `--two_stage_generate` from phase
     7c's inputs (two faces through the three face checkpoint flags, two
@@ -1800,6 +1972,219 @@ def cli_two_stage_phase(args, peaks: dict) -> bool:
           f"{meta.get('stage1_seconds')} s, mask tool {meta.get('mask_tool_seconds')} s, stage 2 "
           f"{meta.get('stage2_seconds')} s), peak {peak:.2f} GiB against phase 7c's "
           f"{peaks.get('7c', float('nan')):.2f} {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _proc_io() -> dict:
+    """This process's `/proc/self/io` counters (bytes written: `wchar`
+    through write calls, `write_bytes` sent to the storage layer)."""
+    with open("/proc/self/io") as f:
+        return {k: int(v) for k, v in (line.split(":") for line in f)}
+
+
+def _rss_gib(field: str) -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+class _RssPeak:
+    """The largest `VmRSS` of this process seen while the `with` block runs
+    (sampled every 20 ms on a thread: the kernel's own high-water mark
+    cannot be reset without write access to `/proc/self/clear_refs`)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = _rss_gib("VmRSS"), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, _rss_gib("VmRSS"))
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss_gib("VmRSS"))
+        return False
+
+
+def _reference_rows(heads: int, head_dim: int):
+    """The reference's q/k row held by each of the port's rows (rotate-half
+    row j < hd/2 of a head is interleaved row 2j, row hd/2 + j is 2j + 1)."""
+    import torch
+
+    c = torch.arange(head_dim)
+    local = torch.where(c < head_dim // 2, 2 * c, 2 * (c - head_dim // 2) + 1)
+    return torch.cat([local + h * head_dim for h in range(heads)])
+
+
+def cli_reference_phase(args, peaks: dict) -> bool:
+    """Phase 7e: the CLI's `run` from reference-format files.  The 42-layer
+    5B DiT and VAE are drawn as 7c draws them, from another seed, cast as
+    the CLI casts (bf16 DiT, fp32 VAE) and kept on the host; written as
+    the reference ships them: the base transformer as bf16 safetensors in
+    3 shards, `audio_modules.pt`, `face_modules.pt` (each perceiver's
+    `to_kv` fused) and `router_modules.pt` (d-major q/k features) in bf16, a
+    peft-named r128 q/k LoRA in bf16 and a diffusers-named VAE file
+    (`write_reference_files`, `export_vae`).  `run` at 7c's inputs with
+    `--reference_transformer`, the three `--reference_*_modules` flags and
+    `--lora_path`, `--seed` the serving one; then: every DiT tensor equals
+    the drawn one bit for bit, q/k equal the drawn + (B @ A)[rows] * alpha /
+    r computed here in fp32 and cast; launches are 7c's; the clip equals
+    `generate` on a pipeline built anew with those tensors copied in
+    directly, bit for bit; `import_vae` of the VAE file gives the drawn
+    VAE bit for bit.  Prints the bytes written, each group's read seconds,
+    the peak device memory beside 7c's and the host's peak RSS."""
+    import gc
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
+    from bindyouravatar_tpu_torch.training.import_encoders import import_vae
+    from bindyouravatar_tpu_torch.utils.safetensors import save_file
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    faces = [os.path.join(here, "assets", "faces", f"000_{i}.png") for i in (0, 1)]
+    tmp = tempfile.mkdtemp(prefix="bya_reference_")
+    rank, alpha = 128, 64.0     # alpha / r = 0.5: the scale shows, exact in fp32
+    try:
+        base = (_cli_inputs(tmp, args.seed + 200) + ["--img_file_path", *faces]
+                + _face_checkpoints(tmp, args.seed))
+        t0 = time.perf_counter()
+        dargs = infer.get_args(base + ["--seed", str(args.seed + 700)])
+        pipe = infer.build_models(dargs, dev)
+        infer.load_params(pipe, dargs)
+        named = {k: v.detach().cpu() for k, v in pipe.dit.state_dict().items()}
+        vae_named = {k: v.detach().cpu() for k, v in pipe.vae.state_dict().items()}
+        cfg, heads, vae_cfg = pipe.dit.cfg, pipe.dit.router_cfg.num_heads, pipe.vae.cfg
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        draw_s = time.perf_counter() - t0
+
+        io0, t0 = _proc_io(), time.perf_counter()
+        paths = write_reference_files(named, cfg, heads, tmp, shards=3)
+        lora = draw_peft_lora(cfg, rank, torch.Generator().manual_seed(args.seed + 701),
+                              torch.bfloat16)
+        lora_path = os.path.join(tmp, "pytorch_lora_weights.safetensors")
+        vae_path = os.path.join(tmp, "vae_diffusion_pytorch_model.safetensors")
+        written = (paths["bytes"] + save_file(lora, lora_path)
+                   + save_file(export_vae(vae_named, vae_cfg), vae_path))
+        write_s, io1 = time.perf_counter() - t0, _proc_io()
+        files = {"transformer": sum(os.path.getsize(f) for f in paths["transformer"]),
+                 **{g: os.path.getsize(paths[g]) for g in ("audio", "face", "router")},
+                 "lora": os.path.getsize(lora_path), "vae": os.path.getsize(vae_path)}
+
+        argv = base + ["--seed", str(args.seed), "--reference_transformer",
+                       *paths["transformer"], "--reference_audio_modules", paths["audio"],
+                       "--reference_face_modules", paths["face"], "--reference_router_modules",
+                       paths["router"], "--lora_path", lora_path, "--lora_alpha", str(alpha)]
+        rss0 = _rss_gib("VmRSS")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _RssPeak() as rss:
+            res = infer.run(infer.get_args(argv))
+            torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, _read_launches()
+        peak, rss_peak = torch.cuda.max_memory_allocated() / 2**30, rss.peak
+        for f in paths["transformer"] + [paths[g] for g in ("audio", "face", "router")]:
+            os.remove(f)
+        os.remove(lora_path)
+
+        # the loaded tensors against the drawn ones; q/k drawn + the LoRA delta
+        prep = res.prep
+        dit = prep.pipe.dit
+        rows = _reference_rows(cfg.num_attention_heads, cfg.attention_head_dim).to(dev)
+        want_dev, n_equal, bad = {}, 0, []
+        live = dict(dit.named_parameters())
+        for k, t in named.items():
+            want = t.to(dev)
+            if k.startswith("blocks.") and k.endswith((".to_q.weight", ".to_k.weight")):
+                i, proj = int(k.split(".")[1]), k.split(".")[3]
+                key = f"transformer.transformer_blocks.{i}.attn1.{proj}"
+                a = lora[f"{key}.lora_A.weight"].to(dev, torch.float32)
+                b = lora[f"{key}.lora_B.weight"].to(dev, torch.float32)
+                want = (want.float() + (b @ a)[rows] * (alpha / rank)).to(t.dtype)
+                want_dev[k] = want.cpu()
+            if live[k].dtype == want.dtype and torch.equal(live[k], want):
+                n_equal += 1
+            else:
+                bad.append(k)
+        qk_moved = sum(not torch.equal(want_dev[k], named[k]) for k in want_dev)
+        dit_ok = not bad and len(named) == len(live) and qk_moved == len(want_dev) == 84
+
+        # the clip against generate on a pipeline built anew, tensors set directly
+        video, load_s = res.video, dict(prep.load_seconds)
+        prep.pipe = None
+        del res, dit, live
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = infer.get_args(base + ["--seed", str(args.seed)])
+        pipe = infer.build_models(plain, dev)
+        with torch.no_grad():
+            for k, p in pipe.dit.named_parameters():
+                p.copy_(want_dev.get(k, named[k]))
+        infer.load_params(pipe, plain)                 # no file flags: the cast alone
+        direct = pipe.generate(prep.pe, prep.ne, prep.image,
+                               torch.Generator(dev).manual_seed(args.seed),
+                               image_bg=prep.image_bg, **prep.cond)
+        clip_ok = bool(np.array_equal(video, direct.float().cpu().numpy()))
+
+        # the VAE file into the new pipeline's VAE (drawn from the serving seed)
+        vae = pipe.vae
+        differed = any(not torch.equal(p.cpu(), vae_named[k]) for k, p in vae.state_dict().items())
+        t0 = time.perf_counter()
+        import_vae(vae_path, vae)
+        torch.cuda.synchronize()
+        load_s["vae"] = time.perf_counter() - t0
+        os.remove(vae_path)
+        vae_ok = differed and all(torch.equal(p.cpu(), vae_named[k])
+                                  for k, p in vae.state_dict().items())
+        del pipe, vae, direct
+    except Exception as e:
+        import traceback
+
+        traceback.print_exc()
+        print(f"cli from reference files: FAILED with {type(e).__name__}: {e}", flush=True)
+        return False
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = _video_ok("CLI from reference files", video, (1, 49, 3, 480, 720))
+    five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
+                                   router_cfg=RouterConfig())
+    ok &= _counts_ok("CLI from reference files (7c's)", counts, _serving_want(five_b, 2, 0, 1))
+    ok &= dit_ok and clip_ok and vae_ok
+    gb = lambda n: f"{n / 1e9:.3f} GB"
+    print(f"cli from reference files: drawn (seed {args.seed + 700}) and moved to the host in "
+          f"{draw_s:.1f} s; wrote {gb(written)} in {write_s:.1f} s ("
+          + ", ".join(f"{g} {gb(n)}" for g, n in files.items())
+          + f"; this process's wchar +{gb(io1['wchar'] - io0['wchar'])}, write_bytes "
+          f"+{gb(io1['write_bytes'] - io0['write_bytes'])}, since it started wchar "
+          f"{gb(io1['wchar'])}); run() in {wall:.1f} s, read and loaded: "
+          + ", ".join(f"{g} {v:.2f} s" for g, v in load_s.items())
+          + f"; DiT {n_equal}/{len(named)} tensors equal the drawn bit for bit (q/k: drawn + "
+          f"LoRA r{rank} delta, {qk_moved} moved){'' if not bad else f' FAILED {bad[:4]}'}; "
+          f"clip == generate with the tensors set directly bit for bit: {clip_ok}; VAE from its "
+          f"file == drawn bit for bit: {vae_ok}; peak {peak:.2f} GiB against phase 7c's "
+          f"{peaks.get('7c', float('nan')):.2f}; host RSS {rss0:.2f} GiB before run(), peak "
+          f"{rss_peak:.2f} GiB during it {'ok' if ok else 'FAILED'}", flush=True)
     return ok
 
 
@@ -2364,10 +2749,11 @@ def main(argv=None) -> int:
     p.add_argument("--train-layers", type=int, default=42,
                    help="depth of the phase-5 DiT (widths stay full)")
     p.add_argument("--clip-steps", type=int, default=50,
-                   help="denoise steps of phase 7's clip (0 skips phases 7 to 7d)")
-    p.add_argument("--driver-layers", type=int, default=16,
+                   help="denoise steps of phase 7's clip (0 skips phases 7 to 7e)")
+    p.add_argument("--driver-layers", type=int, default=8,
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
-                        "layers writes 32.4 GB, and the phase saves twice)")
+                        "layers writes 32.4 GB, the phase saves twice, and a run may write 45 "
+                        "GiB, 18 GB of them phase 7e's files)")
     p.add_argument("--only-kernels", metavar="NAMES",
                    help="run phase 2 for these kernels only (comma-separated names of the "
                         "kernels line, or their first word: 'B2,B3,B7'), then stop; fails on "
@@ -2441,6 +2827,7 @@ def main(argv=None) -> int:
         ok &= cli_phase(args, peaks)
         ok &= cli_face_phase(args, peaks)
         ok &= cli_two_stage_phase(args, peaks)
+        ok &= cli_reference_phase(args, peaks)
     else:
         ok = False
         print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)

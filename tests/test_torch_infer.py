@@ -8,8 +8,10 @@ the neighbouring bf16), under both `cfg_microbatch` settings, and None
 with the face path off.  The host-side copies (`load_precomputed`, the wav
 reader and mix, `masks_to_routing_logits`) against JAX's on the same files,
 bit for bit.  `python -m bindyouravatar_tpu_torch.infer` end to end at
-`--model_size tiny --device cpu`, from drawn weights and from a checkpoint
-of the port's trainer, and its refusals.
+`--model_size tiny --device cpu`, from drawn weights, from a checkpoint
+of the port's trainer and from reference-format files (equal to the same
+tensors set directly, loaded in JAX's `load_params` order), and its
+refusals.
 """
 
 import json
@@ -41,6 +43,7 @@ from bindyouravatar_tpu_torch.preprocess import audio as taudio
 from bindyouravatar_tpu_torch.training import sft
 from bindyouravatar_tpu_torch.utils import masks as tmasks
 from bindyouravatar_tpu_torch.utils import media as tmedia
+from bindyouravatar_tpu_torch.utils import safetensors as tsafe
 from torch_port_utils import max_err, realistic, threads_per_worker
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
@@ -301,15 +304,132 @@ def test_cli_takes_the_face_and_t5_flags(flag, face_files):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "A 12"), (["--sp", "2"], "A 12"),
-    (["--reference_transformer", "x.safetensors"], "JAX package's importers"),
-    (["--reference_audio_modules", "a.pt"], "JAX package's importers"),
-    (["--reference_face_modules", "f.pt"], "JAX package's importers"),
-    (["--reference_router_modules", "r.pt"], "JAX package's importers"),
-    (["--lora_path", "l.safetensors"], "JAX package's importers"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         infer.main(TINY + ["--output_dir", str(tmp_path)] + flags)
+
+
+def _smoke():
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root,
+                                                                           "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rope_rows(heads, head_dim):
+    """The port's q/k row c holds the reference's row `_rope_rows[c]`."""
+    local = torch.cat([torch.arange(0, head_dim, 2), torch.arange(1, head_dim, 2)])
+    return torch.cat([local + h * head_dim for h in range(heads)])
+
+
+def test_cli_from_reference_files_equals_the_tensors_set_directly(tmp_path, monkeypatch):
+    """The tiny CLI from two faces with `--reference_transformer` (3
+    shards), the three `--reference_*_modules` files and a peft r4
+    `--lora_path` at `--lora_alpha 64`, all written from a DiT drawn with
+    seed 3 and run with `--seed 7`: its DiT is the seed-3 DiT, q/k plus
+    (B @ A) * 64 / 4 in fp32, and its clip equals, bit for bit, the CLI's
+    with those tensors copied in directly."""
+    smoke = _smoke()
+    argv = TINY + ["--output_dir", str(tmp_path / "out"), "--audio_path"] + AUDIO + [
+        "--img_file_path"] + FACE_IMGS
+    face_dims = dict(id_embed_dim=528, vit_dim=32)
+    drawn = infer.build_models(infer.get_args(argv + ["--seed", "3"]), torch.device("cpu"),
+                               face_dims=face_dims).dit
+    named = {k: v.detach().clone() for k, v in drawn.state_dict().items()}
+    c = drawn.cfg
+    paths = smoke.write_reference_files(named, c, drawn.router_cfg.num_heads, str(tmp_path),
+                                        shards=3)
+    lora = smoke.draw_peft_lora(c, 4, torch.Generator().manual_seed(1), torch.float32)
+    lora_path = str(tmp_path / "lora.safetensors")
+    tsafe.save_file(lora, lora_path)
+    rows = _rope_rows(c.num_attention_heads, c.attention_head_dim)
+    want = dict(named)
+    for i in range(c.num_layers):
+        for proj in ("to_q", "to_k"):
+            base = f"transformer.transformer_blocks.{i}.attn1.{proj}"
+            delta = (lora[f"{base}.lora_B.weight"] @ lora[f"{base}.lora_A.weight"])[rows]
+            k = f"blocks.{i}.attn1.{proj}.weight"
+            want[k] = named[k] + delta * (64.0 / 4)
+    flags = (["--seed", "7", "--reference_transformer"] + paths["transformer"] +
+             ["--reference_audio_modules", paths["audio"], "--reference_face_modules",
+              paths["face"], "--reference_router_modules", paths["router"],
+              "--lora_path", lora_path, "--lora_alpha", "64"])
+    res = infer.run(infer.get_args(argv + flags))
+    got = res.prep.pipe.dit.state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert set(res.prep.load_seconds) == {"transformer", "audio", "face", "router", "lora"}
+
+    def direct(pipe, args, trainable=None):
+        with torch.no_grad():
+            for k, p in pipe.dit.named_parameters():
+                p.copy_(want[k])
+        return {}
+
+    monkeypatch.setattr(infer, "load_params", direct)
+    again = infer.run(infer.get_args(argv + ["--seed", "7"]))
+    assert np.array_equal(res.video, again.video) and np.isfinite(res.video).all()
+
+
+def test_cli_loads_in_jax_order(tmp_path):
+    """`load_params` against the root `infer.py`'s on the same files (JAX's
+    synthetic reference dicts): the base transformer, then the sub-modules,
+    then the LoRA fused into the loaded q/k.  Base and sub-module tensors
+    equal JAX's converted bit for bit, the fused q/k within 1e-6 (fp32 sums
+    in another order), the router JAX's at the model's 4 heads (JAX's CLI
+    permutes with 16: `test_torch_import.test_router_heads_pin`).  A
+    `--module_dir` file loads before the reference files, which win."""
+    import infer as jinfer
+    from test_checkpoint import _synthetic_reference_sd
+    from test_import_submodules import _synth_audio_sd, _synth_face_sd, _synth_router_sd
+
+    from bindyouravatar_tpu.training.import_submodules import import_router_modules
+    from bindyouravatar_tpu_torch.training.checkpoint import save_submodules
+
+    jd = JDiT.tiny(in_channels=8, out_channels=4)
+    to_t = lambda o: ({k: to_t(v) for k, v in o.items()} if isinstance(o, dict) else
+                      [to_t(v) for v in o] if isinstance(o, list) else torch.from_numpy(o))
+    tsafe.save_file(to_t(_synthetic_reference_sd(jd.cfg)), str(tmp_path / "dit.safetensors"))
+    for name, synth in (("audio", _synth_audio_sd), ("face", _synth_face_sd),
+                        ("router", _synth_router_sd)):
+        torch.save(to_t(synth(jd)), str(tmp_path / f"{name}_modules.pt"))
+    rng = np.random.default_rng(2)
+    inner = jd.cfg.num_attention_heads * jd.cfg.attention_head_dim
+    tsafe.save_file({f"transformer.transformer_blocks.{i}.attn1.{p}.lora_{ab}.weight":
+                     torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32))
+                     for i in range(jd.cfg.num_layers) for p in ("to_q", "to_k")
+                     for ab, shape in (("A", (4, jd.cfg.inner_dim)), ("B", (inner, 4)))},
+                    str(tmp_path / "lora.safetensors"))
+    flags = ["--reference_transformer", str(tmp_path / "dit.safetensors"),
+             "--reference_audio_modules", str(tmp_path / "audio_modules.pt"),
+             "--reference_face_modules", str(tmp_path / "face_modules.pt"),
+             "--lora_path", str(tmp_path / "lora.safetensors"), "--lora_alpha", "32"]
+    jargs = infer.get_args(TINY + flags)
+    jparams = jinfer.load_params(jinfer.build_models(jargs), jargs)
+    want = jax_params_to_torch(jax.tree.map(np.asarray, jparams["dit"]))
+    want.update(jax_params_to_torch(jax.tree.map(np.asarray, import_router_modules(
+        _synth_router_sd(jd), num_heads=4))))
+    # a --module_dir of another draw, loaded first, the reference files over it
+    other = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(9), in_channels=8,
+                     out_channels=4)
+    save_submodules(dict(other.named_parameters()), str(tmp_path / "modules"))
+    args = infer.get_args(TINY + flags + ["--reference_router_modules",
+                                          str(tmp_path / "router_modules.pt"),
+                                          "--module_dir", str(tmp_path / "modules")])
+    pipe = infer.build_models(args, torch.device("cpu"))
+    infer.load_params(pipe, args)
+    got = pipe.dit.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        if k.startswith("blocks.") and k.endswith(("to_q.weight", "to_k.weight")):
+            torch.testing.assert_close(got[k], want[k], atol=1e-6, rtol=1e-6)
+        else:
+            assert torch.equal(got[k], want[k]), k
 
 
 def _recorded_generate(monkeypatch):

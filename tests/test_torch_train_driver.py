@@ -303,24 +303,27 @@ def test_checkpoint_rotation_and_partial_saves(tmp_path):
 
 def test_submodules_round_trip(tmp_path):
     """`modules-{step}/{audio,face,router}_modules.pt` from one DiT load into
-    another: their groups' tensors replaced, every other tensor kept."""
+    another in place: their groups' tensors replaced, every other tensor
+    kept; `names` loads only the groups named."""
     a = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(1))
-    b = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(2))
     named = dict(a.named_parameters())
     ckpt.save_submodules(named, str(tmp_path / "m"))
     assert sorted(os.listdir(tmp_path / "m")) == [
         "audio_modules.pt", "face_modules.pt", "router_modules.pt"]
     prefixes = tuple(p for group in ckpt.SUBMODULE_KEYS.values() for p in group)
-    mine = b.state_dict()
-    merged = ckpt.load_submodules(mine, str(tmp_path / "m"))
-    b.load_state_dict(merged, strict=True)
+    b = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(2))
+    mine = {k: v.clone() for k, v in b.state_dict().items()}
+    loaded = ckpt.load_submodules(b, str(tmp_path / "m"))
+    assert loaded == {k for k in named if k.startswith(prefixes)}
     for k, v in b.state_dict().items():
         if k.startswith(prefixes):
             assert torch.equal(v, named[k].detach()), k
         else:
             assert torch.equal(v, mine[k]), k
-    only_audio = ckpt.load_submodules(mine, str(tmp_path / "m"), names=["audio"])
-    assert torch.equal(only_audio["router_trunk.final_proj.weight"],
+    c = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(2))
+    only_audio = ckpt.load_submodules(c, str(tmp_path / "m"), names=["audio"])
+    assert only_audio and all(k.startswith(ckpt.SUBMODULE_KEYS["audio"]) for k in only_audio)
+    assert torch.equal(c.state_dict()["router_trunk.final_proj.weight"],
                        mine["router_trunk.final_proj.weight"])
     assert sum(k.startswith("lfe.") for k in named) > 0
 
@@ -346,13 +349,50 @@ def test_sft_launcher_tiny_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--index_file", "x.txt"], "A 13"), (["--reference_transformer", "a.safetensors"], "A 13"),
+    (["--index_file", "x.txt"], "A 13"),
     (["--fsdp", "2"], "A 12"), (["--num_validation_videos", "1"], "A 13"),
     (["--optimizer", "prodigy"], "A 5"), (["--use_8bit_adam"], "A 5"),
 ])
 def test_sft_launcher_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         sft.main(["--device", "cpu"] + flags)
+
+
+def test_sft_launcher_takes_the_reference_transformer(tmp_path):
+    """`training.sft --reference_transformer` on a 4-channel reference file
+    (JAX's synthetic dict as two safetensors shards): the launcher's base
+    tensors equal JAX `scripts/sft.py`'s import (`import_reference_dit` on
+    its r8 tiny DiT) followed by `convert`, bit for bit, the patch embed
+    grown to the DiT's 8 channels; the LoRA slots (which JAX's import drops
+    from its tree) and the conditioning modules are the seed's draw."""
+    from test_checkpoint import _synthetic_reference_sd
+
+    from bindyouravatar_tpu.training.checkpoint import import_reference_dit
+    from bindyouravatar_tpu_torch.utils.safetensors import save_file
+
+    sd = _synthetic_reference_sd(JDiT.tiny(is_train_face=False, is_train_audio=False,
+                                           in_channels=4).cfg)
+    names = sorted(sd)
+    files = [str(tmp_path / f"diffusion_pytorch_model-0000{k + 1}-of-00002.safetensors")
+             for k in (0, 1)]
+    for k, f in enumerate(files):
+        save_file({n: torch.from_numpy(sd[n]) for n in names[k::2]}, f)
+    jd = JDiT.tiny(lora_rank=8, in_channels=8, out_channels=4)
+    want = jax_params_to_torch(jax.tree.map(np.asarray, import_reference_dit(files, jd)))
+    run = sft.main(["--model_size", "tiny", "--device", "cpu", "--output_dir",
+                    str(tmp_path / "run"), "--max_train_steps", "0",
+                    "--reference_transformer"] + files)
+    dit = run.driver.trainer.dit
+    got = dit.state_dict()
+    base = ckpt.base_names(dit)
+    # JAX's import rebuilds `blocks` from the file alone: its tree has no LoRA slots
+    assert base <= set(want) and not any("_lora_" in k for k in want)
+    assert all(torch.equal(got[k], want[k]) for k in base)
+    assert got["patch_embed.proj.weight"].shape == (96, 8 * 4)
+    drawn = DiT.tiny(device="cpu", generator=torch.Generator().manual_seed(42), lora_rank=8,
+                     in_channels=8, out_channels=4).state_dict()
+    assert all(torch.equal(got[k], drawn[k]) for k in set(got) - base)
+    assert not torch.equal(got["blocks.0.attn1.to_q.weight"], drawn["blocks.0.attn1.to_q.weight"])
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):
