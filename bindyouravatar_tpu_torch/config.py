@@ -1,14 +1,13 @@
 """Configuration dataclasses of the port (torch dtypes, JAX defaults).
 
 Mirrors `bindyouravatar_tpu/config.py` field for field for the configs the
-serving and training paths need: the DiT's LoRA fields and its execution
-knobs `fuse_qk_norm`, `remat` and `remat_policy` are here, as is
-`TrainConfig`, and the conditioning encoders' `T5Config` (with
-`from_dir`, the shapes of an HF T5 directory) and `EVACLIPConfig`; the 2B
-position-table fields and the TPU-only knobs
-(`use_flash_attention`, `ff_chunks`) are left out.  That module imports
-`jax.numpy` for its dtype fields, so it is re-stated here rather than
-imported.
+serving and training paths need: the DiT's LoRA fields, the 2B variant's
+position-table fields and its execution knobs `fuse_qk_norm`, `remat`,
+`remat_policy` and `ff_chunks` are here, as is `TrainConfig`, and the
+conditioning encoders' `T5Config` (with `from_dir`, the shapes of an HF T5
+directory) and `EVACLIPConfig`; the TPU-only `use_flash_attention` is left
+out.  That module imports `jax.numpy` for its dtype fields, so it is
+re-stated here rather than imported.
 """
 
 from __future__ import annotations
@@ -43,7 +42,9 @@ class DiTConfig:
     ff_mult: int = 4
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
-    use_rotary_positional_embeddings: bool = True
+    spatial_interpolation_scale: float = 1.875
+    temporal_interpolation_scale: float = 1.0
+    use_rotary_positional_embeddings: bool = True   # 5B; False => 2B sincos
 
     # --- conditioning subsystems ---
     is_train_face: bool = True
@@ -71,6 +72,10 @@ class DiTConfig:
     # inside a group is checkpointed too, so the group's backward recomputes
     # one block at a time
     remat_policy: Optional[str] = None
+    # sequence-chunk the FF's backward (`ops/ff.py`): the block backward
+    # holds [S / ff_chunks, 4 dim] of its intermediates at a time, not
+    # [S, 4 dim]; 1 = the plain MLP
+    ff_chunks: int = 1
 
     @property
     def inner_dim(self) -> int:

@@ -29,8 +29,9 @@ JAX importers' renames and reshapes.
 `jax_sam2_to_torch` and `jax_rrdbnet_to_torch` do the same for SAM2
 (sam2.1's names) and RRDBNet (Real-ESRGAN's).
 Takes numpy arrays (e.g. `jax.tree.map(np.asarray, params)`); never jax.
-`jax_train_state_to_torch` carries a JAX train state (trainable params,
-AdamW moments and count, step, EMA) across the same way.
+`jax_state_to_torch` carries a JAX train state (trainable params, the
+optimizer's state and count, step, EMA) of any of the trainer's optimizers
+across the same way.
 """
 
 from __future__ import annotations
@@ -157,20 +158,164 @@ def check_trainable_set(jax_trainable: Mapping[str, Any],
                          f"sizes {sizes[:5]}")
 
 
-def jax_train_state_to_torch(params: Mapping[str, Any], mu: Mapping[str, Any],
-                             nu: Mapping[str, Any], count: int, step: int,
-                             ema_params: Optional[Mapping[str, Any]] = None):
-    """A JAX `TrainState` (as numpy: the trainable params, AdamW's `mu`,
-    `nu` and `count`, the step, the EMA params or None) -> (the trainable
-    tensors by the port's names, the port's `TrainState`).  The moments
-    have the params' tree, so `jax_params_to_torch`'s rules convert them
-    too.  Copy the tensors into the trainer's `trainable` to continue a JAX
-    fine-tune in the port."""
+def _drop_masked(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A masked optax tree (`multi_transform`'s) without its empty
+    `MaskedNode` leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            sub = _drop_masked(v)
+            if sub:
+                out[k] = sub
+        elif not (isinstance(v, tuple) and len(v) == 0):
+            out[k] = v
+    return out
+
+
+def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A flax tree -> {"a/b/c": array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _unflat(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in flat.items():
+        *parents, name = k.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = v
+    return out
+
+
+def _optax_states(state: Any, label: str = "all"):
+    """(group label, optax state NamedTuple) pairs of a JAX optimizer state
+    (numpy leaves): a chain's tuple, `multi_transform`'s `inner_states`
+    dict of `MaskedState`s, and the states that hold a `count`."""
+    if isinstance(state, Mapping):
+        for k, v in state.items():
+            yield from _optax_states(v, k)
+    elif hasattr(state, "_fields"):
+        if "inner_states" in state._fields:
+            yield from _optax_states(state.inner_states, label)
+        elif "inner_state" in state._fields:
+            yield from _optax_states(state.inner_state, label)
+        elif "count" in state._fields and len(state._fields) > 1:
+            yield label, state
+        else:
+            for v in state:
+                yield from _optax_states(v, label)
+    elif isinstance(state, (tuple, list)):
+        for v in state:
+            yield from _optax_states(v, label)
+
+
+def _adafactor_to_torch(v_row: Mapping[str, Any], v_col: Mapping[str, Any],
+                        v: Mapping[str, Any], params: Mapping[str, Any]):
+    """optax's `FactoredState` trees -> the port's `v_row`, `v_col`, `v`.
+    A factored leaf's row / column statistics are broadcast back to the
+    parameter's shape, converted with the parameter's rules and reduced
+    again along the port tensor's own factored dims; an index array along
+    JAX's reduced dim shows which of the two each port statistic is (the
+    port factors a transposed tensor along the same physical dims)."""
+    from .training.adafactor import factored_dims
+
+    fr, fc, fv, fp = (_leaves(t) for t in (v_row, v_col, v, params))
+    full_v, rows, cols, marks = {}, {}, {}, {}
+    for k, p in fp.items():
+        dims = factored_dims(p.shape)
+        if dims is None:
+            full_v[k] = fv[k]
+            continue
+        d1, d0 = dims
+        rows[k] = np.broadcast_to(np.expand_dims(fr[k], d0), p.shape)
+        cols[k] = np.broadcast_to(np.expand_dims(fc[k], d1), p.shape)
+        idx = [1] * p.ndim
+        idx[d0] = p.shape[d0]
+        marks[k] = np.broadcast_to(np.arange(p.shape[d0], dtype=np.float32).reshape(idx), p.shape)
+    out = {"v_row": {}, "v_col": {}, "v": jax_params_to_torch(_unflat(full_v)) if full_v else {}}
+    if rows:
+        r, c, mark = (jax_params_to_torch(_unflat(t)) for t in (rows, cols, marks))
+        for name, m in mark.items():
+            d1, d0 = factored_dims(tuple(m.shape))
+            # JAX's d0 (its row statistics' reduced dim) in the port's layout
+            jax_d0 = next(a for a in range(m.ndim) if m.shape[a] > 1
+                          and not bool((m.select(a, 0) == m.select(a, 1)).all()))
+            row_src, col_src = (r, c) if jax_d0 == d0 else (c, r)
+            out["v_row"][name] = row_src[name].select(d0, 0).contiguous()
+            out["v_col"][name] = col_src[name].select(d1, 0).contiguous()
+    return out
+
+
+def jax_opt_state_to_torch(opt_state: Any, params: Mapping[str, Any]):
+    """A JAX optimizer state of `trainer.make_optimizer` (numpy leaves:
+    `jax.tree.map(np.asarray, state.opt_state)`) and its trainable params
+    -> (count, the port's `TrainState.opt`), for AdamW, 8-bit AdamW,
+    adafactor and prodigy, with or without `is_diff_lr`'s two groups.  The
+    8-bit moments are dequantized in JAX's stacked layout and quantized
+    again in the port's (`training/adam8bit.py`); prodigy's scalars go to
+    their group's label ("all", or "high" / "low")."""
+    import torch as _torch
+
+    from .training import adam8bit
+
+    opt: Dict[str, Dict[str, Any]] = {}
+    count = None
+    for label, st in _optax_states(opt_state):
+        f = st._fields
+        count = int(st.count)
+        part: Dict[str, Dict[str, Any]]
+        if "mu" in f:
+            part = {"mu": jax_params_to_torch(_drop_masked(st.mu)),
+                    "nu": jax_params_to_torch(_drop_masked(st.nu))}
+        elif "qm" in f:
+            qm, qv, sm, sv = (_leaves(_drop_masked(t)) for t in (st.qm, st.qv, st.sm, st.sv))
+            m = {k: adam8bit.dequantize_m(_torch.from_numpy(np.array(qm[k])),
+                                          _torch.from_numpy(np.array(sm[k])))
+                 for k in qm}
+            v = {k: adam8bit.dequantize_v(_torch.from_numpy(np.array(qv[k])),
+                                          _torch.from_numpy(np.array(sv[k])))
+                 for k in qv}
+            part = {"qm": {}, "qv": {}, "sm": {}, "sv": {}}
+            for kind, src, quant in (("m", m, adam8bit.quantize_m), ("v", v, adam8bit.quantize_v)):
+                for name, t in jax_params_to_torch(_unflat({k: x.numpy()
+                                                            for k, x in src.items()})).items():
+                    q, sc = quant(t)
+                    part[f"q{kind}"][name], part[f"s{kind}"][name] = q, sc
+        elif "v_row" in f:
+            trees = [_drop_masked(t) for t in (st.v_row, st.v_col, st.v)]
+            keep = _leaves(trees[0]).keys() | _leaves(trees[2]).keys()
+            sub = _unflat({k: a for k, a in _leaves(params).items() if k in keep})
+            part = _adafactor_to_torch(*trees, sub)
+        elif "exp_avg" in f:
+            part = {kind: jax_params_to_torch(_drop_masked(getattr(st, kind)))
+                    for kind in ("exp_avg", "exp_avg_sq", "s", "p0")}
+            for kind in ("d", "d_max", "d_numerator"):
+                part[kind] = {label: _torch.tensor(np.asarray(getattr(st, kind), np.float32))}
+        else:
+            continue
+        for kind, tensors in part.items():
+            opt.setdefault(kind, {}).update(tensors)
+    if count is None:
+        raise ValueError("no optimizer state of the port's optimizers in this JAX state")
+    return count, opt
+
+
+def jax_state_to_torch(state: Any):
+    """A whole JAX `TrainState` (numpy leaves) of any optimizer -> (the
+    trainable tensors by the port's names, the port's `TrainState`)."""
     from .training.trainer import TrainState
 
-    return jax_params_to_torch(params), TrainState(
-        step=int(step), count=int(count), mu=jax_params_to_torch(mu), nu=jax_params_to_torch(nu),
-        ema=None if ema_params is None else jax_params_to_torch(ema_params))
+    count, opt = jax_opt_state_to_torch(state.opt_state, state.params)
+    ema = None if state.ema_params is None else jax_params_to_torch(state.ema_params)
+    return jax_params_to_torch(state.params), TrainState(step=int(state.step), count=count,
+                                                          opt=opt, ema=ema)
 
 
 def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:

@@ -14,8 +14,12 @@
 //   B2  (per identity, q-major, D = 128) replaces `_kernel` with
 //       `combine=False`, reached through `short_kv_attention_flat` from the
 //       perceiver face injection: q read in the to_q projection's flat
-//       layout and each identity's output written [B, I, Sq, H*128], the
+//       layout and each identity's output written [B, I, Sq, H*D], the
 //       layout the routing combine reads, with no head-major transposes.
+//       Narrower heads (the 2B router's 80) run the D = 128 body on tensor
+//       maps of their own width: the copies read the columns past it as
+//       zeros (so every score is unchanged and those output columns are
+//       0) and the stores clip them, so no padded copy is made.
 //   B14 (q-major, both modes, D = 64 or 128) replaces `_kernel_qmajor`
 //       (`short_kv_attention_qmajor`, `short_kv_attention_combined_qmajor`).
 //   B2c (combined, head-major) replaces `_kernel` with `combine=True`
@@ -479,21 +483,24 @@ __global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) skv_layout_kernel(S
 
 // The grid: as many blocks as fit on the card at once (the occupancy query
 // is made once per kernel and identity count), at most one per tile.
+// `dh` is the tensors' head width: D, or (per identity, B2) a multiple of 8
+// below it whose missing columns the tensor maps fill with zeros.
 template <auto KERNEL, int D, bool COMBINE>
 int launch(bool qmajor, const void* q, const void* k, const void* v, const void* w, void* o,
-           int G, int Sq, int I, int H, int K_tokens, float scale, void* stream) {
-  if (K_tokens != KT || I < 1 || I > MAX_ID || G < 0 || Sq < 0 || H < 1)
+           int G, int Sq, int I, int H, int K_tokens, float scale, void* stream, int dh = D) {
+  if (K_tokens != KT || I < 1 || I > MAX_ID || G < 0 || Sq < 0 || H < 1 || dh < 8 || dh > D ||
+      dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = (Sq + BM - 1) / BM;
   const long long total = (long long)G * tiles;  // tiles of one head
   if (total == 0) return 0;
-  const Layout lq = make_layout(Sq, H, D, qmajor ? 1 : 0);
-  const Layout lkv = make_layout(KT, H, D, 0);
+  const Layout lq = make_layout(Sq, H, dh, qmajor ? 1 : 0);
+  const Layout lkv = make_layout(KT, H, dh, 0);
   CUtensorMap tq, tk, tv, to;
   // per identity, o is [G * I] batches of q's layout
-  if (!make_map(&tq, q, lq, G, H, Sq, D, BM) || !make_map(&tk, k, lkv, G * I, H, KT, D, KT) ||
-      !make_map(&tv, v, lkv, G * I, H, KT, D, KT) ||
-      !make_map(&to, o, lq, COMBINE ? G : G * I, H, Sq, D, PANEL_ROWS))
+  if (!make_map(&tq, q, lq, G, H, Sq, dh, BM) || !make_map(&tk, k, lkv, G * I, H, KT, dh, KT) ||
+      !make_map(&tv, v, lkv, G * I, H, KT, dh, KT) ||
+      !make_map(&to, o, lq, COMBINE ? G : G * I, H, Sq, dh, PANEL_ROWS))
     return (int)cudaErrorInvalidValue;
   static int sms = 0, per_sm[MAX_ID + 1] = {};
   const int smem = SkvSmem<D>::bytes(I, COMBINE);
@@ -534,15 +541,15 @@ int launch_layout(const void* q, const void* k, const void* v, const void* w, vo
 
 }  // namespace
 
-// B2.  q: [B, Sq, H*128]; k, v: [B, I, H, 32, 128]; o: [B, I, Sq, H*128]; all
-// bf16, contiguous and 16-byte aligned; 1 <= I <= 4.  Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for a K or I it does
-// not take.
+// B2.  q: [B, Sq, H*D]; k, v: [B, I, H, 32, D]; o: [B, I, Sq, H*D]; all bf16,
+// contiguous and 16-byte aligned; D a multiple of 8 up to 128; 1 <= I <= 4.
+// Returns the cudaError_t of the launch, or cudaErrorInvalidValue for a K,
+// I or D it does not take.
 extern "C" int bya_short_kv_attention(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Sq, int I, int H, int K, float scale,
+                                      int B, int Sq, int I, int H, int K, int D, float scale,
                                       void* stream) {
   return launch<short_kv_attend_kernel, 128, false>(true, q, k, v, nullptr, o, B, Sq, I, H, K,
-                                                    scale, stream);
+                                                    scale, stream, D);
 }
 
 // B3.  q, o: [G, Sq, H*64]; k, v: [G, I, H, 32, 64]; w: [G, Sq, I]; all bf16,

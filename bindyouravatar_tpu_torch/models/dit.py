@@ -17,6 +17,9 @@ combines the identities' features with the routing before one `to_out`
 (JAX `dit.py:400-424`); the audio layer is weighted by the swap-and-inverted
 routing of the last face injection, or by the uniform 0.5 when no face
 tokens are given (JAX `dit.py:430-437, 449-451`).
+With `use_rotary_positional_embeddings=False` (the CogVideoX-2B variant) a
+fixed 3D sincos `pos_embedding` is added after the patch embed, no
+attention gets RoPE, and `norm_final` runs on the video tokens only.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional, Tuple
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
@@ -34,8 +38,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import AudioConfig, DiTConfig, LFEConfig, RouterConfig, tiny_dit_config
 from ..ops.flash_attention import keep_attention
 from ..ops.patch import patchify, unpatchify
-from ..ops.rope import (get_3d_rotary_pos_embed, get_resize_crop_region_for_grid,
-                        timestep_embedding)
+from ..ops.rope import (get_3d_rotary_pos_embed, get_3d_sincos_pos_embed,
+                        get_resize_crop_region_for_grid, timestep_embedding)
 from .audio import AudioCrossAttnLayer, AudioStatics
 from .layers import (ATTN_OUT, AdaLayerNorm, CogVideoXBlock, Dense, LayerNorm, PatchEmbed,
                      TimestepEmbedding, init_random_)
@@ -55,8 +59,6 @@ class DiT(nn.Module):
     def __init__(self, cfg: DiTConfig, audio_cfg: AudioConfig, router_cfg: RouterConfig,
                  lfe_cfg: LFEConfig):
         super().__init__()
-        if not cfg.use_rotary_positional_embeddings:
-            raise NotImplementedError("the 2B sincos position table is not ported")
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat_policy={cfg.remat_policy!r}: the port checkpoints with "
@@ -72,8 +74,13 @@ class DiT(nn.Module):
                            cfg.time_embed_dim, eps=cfg.norm_eps, ff_mult=cfg.ff_mult,
                            qk_norm=cfg.qk_norm, attention_bias=cfg.attention_bias,
                            lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
-                           fuse_qk_norm=cfg.fuse_qk_norm, **kw)
+                           fuse_qk_norm=cfg.fuse_qk_norm, ff_chunks=cfg.ff_chunks, **kw)
             for _ in range(cfg.num_layers)])
+        if not cfg.use_rotary_positional_embeddings:
+            # the 2B variant: a fixed sincos table over the text rows (zero)
+            # and the configured latent grid's rows (JAX `dit.py:186-192`)
+            self.pos_embedding = nn.Parameter(torch.zeros(
+                1, cfg.max_text_seq_length + cfg.video_seq_len, dim, dtype=cfg.param_dtype))
         self.norm_final = LayerNorm(dim, eps=cfg.norm_eps, dtype=cfg.param_dtype)
         self.norm_out = AdaLayerNorm(cfg.time_embed_dim, dim, eps=cfg.norm_eps, **kw)
         self.proj_out = Dense(dim, p * p * cfg.out_channels, **kw)
@@ -160,6 +167,8 @@ class DiT(nn.Module):
             self.lfe.init_params_(generator)
         if self.cfg.is_train_audio:
             self.audio_statics.learnable_scale.fill_(0.01)
+        if not self.cfg.use_rotary_positional_embeddings:
+            self.pos_embedding.copy_(self.sincos_table())
         if self.cfg.lora_rank > 0:
             # peft's LoRA: A he-uniform over its fan-in, B zero (the update
             # starts at 0), as the flax initialisers
@@ -169,6 +178,19 @@ class DiT(nn.Module):
                     bound = math.sqrt(6.0 / a.shape[0])
                     a.uniform_(-bound, bound, generator=generator)
                     getattr(blk.attn1, f"{name}_lora_B").zero_()
+
+    def sincos_table(self) -> torch.Tensor:
+        """The 2B variant's `pos_embedding` value: [1, text + T*H*W, dim],
+        zero on the text rows, the 3D sincos table of the configured latent
+        grid (float64, cast once) on the video rows."""
+        c = self.cfg
+        t, hg, wg = c.latent_grid
+        pos = get_3d_sincos_pos_embed(c.inner_dim, (hg, wg), t, c.spatial_interpolation_scale,
+                                      c.temporal_interpolation_scale).reshape(-1, c.inner_dim)
+        table = torch.zeros(1, c.max_text_seq_length + pos.shape[0], c.inner_dim,
+                            dtype=torch.float32)
+        table[0, c.max_text_seq_length:] = torch.from_numpy(pos.astype(np.float32))
+        return table.to(device=self.pos_embedding.device, dtype=self.pos_embedding.dtype)
 
     def set_fuse_qk_norm(self, fuse: bool) -> None:
         """Switch between the inference path (`fuse=True`: QK-LN and RoPE
@@ -184,9 +206,15 @@ class DiT(nn.Module):
 
     def rope(self, height_px: int, width_px: int, latent_frames: int,
              base_height_px: int = 480, base_width_px: int = 720, vae_spatial: int = 8,
-             device: Optional[torch.device] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """3D RoPE tables (fp32 [T*H*W, head_dim]) for a pixel resolution."""
+             device: Optional[torch.device] = None
+             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """3D RoPE tables (fp32 [T*H*W, head_dim]) for a pixel resolution;
+        None for the 2B variant, which has no RoPE (the reference's
+        CogVideoX-2B path; the JAX pipeline and trainer build the tables for
+        it too and its attention would apply them)."""
         c = self.cfg
+        if not c.use_rotary_positional_embeddings:
+            return None
         gh = height_px // (vae_spatial * c.patch_size)
         gw = width_px // (vae_spatial * c.patch_size)
         base_w = base_width_px // (vae_spatial * c.patch_size)
@@ -299,6 +327,10 @@ class DiT(nn.Module):
         t_freq = timestep_embedding(timesteps, c.inner_dim, c.flip_sin_to_cos, c.freq_shift)
         temb = self.time_embedding(t_freq.to(c.dtype))
         x = self.patch_embed(text_embeds.to(c.dtype), patchify(latents, c.patch_size).to(c.dtype))
+        if not c.use_rotary_positional_embeddings:
+            if rope is not None:
+                raise ValueError("the 2B sincos DiT takes no RoPE tables (DiT.rope gives None)")
+            x = x + self.pos_embedding[:, :text_len + s].to(x.dtype)
         enc, hid = x[:, :text_len], x[:, text_len:]
 
         if face_emb is None and c.is_train_face and id_cond is not None:
@@ -332,8 +364,11 @@ class DiT(nn.Module):
                 hid, enc, routing, group_preds = self._group(*args)
             preds += group_preds
 
-        joint = self.norm_final(torch.cat([enc, hid], dim=1))
-        hid = self.norm_out(joint[:, text_len:], temb)
+        if c.use_rotary_positional_embeddings:
+            hid = self.norm_final(torch.cat([enc, hid], dim=1))[:, text_len:]
+        else:       # the 2B variant normalises the video rows only (JAX `dit.py:460-465`)
+            hid = self.norm_final(hid)
+        hid = self.norm_out(hid, temb)
         hid = self.proj_out(hid)
         out = unpatchify(hid, grid, c.out_channels, c.patch_size).float()
         return out, torch.stack(preds) if preds else None

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import attention
+from ..ops.ff import ff_chunked
 from ..ops.flash_attention import flash_attention, flash_attention_flat
 from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
 
@@ -144,16 +145,22 @@ class TimestepEmbedding(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """gelu(tanh) MLP with biases (diffusers FeedForward)."""
+    """gelu(tanh) MLP with biases (diffusers FeedForward).  `chunks > 1`
+    runs it through `ops.ff.ff_chunked` (S-chunks, a recompute backward),
+    the same parameters, so checkpoints are interchangeable."""
 
-    def __init__(self, dim: int, mult: int = 4,
+    def __init__(self, dim: int, mult: int = 4, chunks: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.chunks = chunks
         self.net_0 = Dense(dim, dim * mult, compute_dtype=compute_dtype, dtype=dtype)
         self.net_2 = Dense(dim * mult, dim, compute_dtype=compute_dtype, dtype=dtype)
 
     def forward(self, x):
+        if self.chunks > 1:
+            return ff_chunked(x.to(self.net_0.compute_dtype), self.net_0.weight,
+                              self.net_0.bias, self.net_2.weight, self.net_2.bias, self.chunks)
         return self.net_2(F.gelu(self.net_0(x), approximate="tanh"))
 
 
@@ -243,7 +250,7 @@ class CogVideoXBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int, time_embed_dim: int,
                  eps: float = 1e-5, ff_mult: int = 4, qk_norm: bool = True,
                  attention_bias: bool = True, lora_rank: int = 0, lora_alpha: float = 128.0,
-                 fuse_qk_norm: bool = False,
+                 fuse_qk_norm: bool = False, ff_chunks: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -253,7 +260,7 @@ class CogVideoXBlock(nn.Module):
                                         bias=attention_bias, lora_rank=lora_rank,
                                         lora_alpha=lora_alpha, fuse_qk_norm=fuse_qk_norm, **kw)
         self.norm2 = LayerNormZero(time_embed_dim, dim, eps=eps, **kw)
-        self.ff = FeedForward(dim, mult=ff_mult, **kw)
+        self.ff = FeedForward(dim, mult=ff_mult, chunks=ff_chunks, **kw)
 
     def forward(self, hidden, encoder_hidden, temb, rope):
         text_len = encoder_hidden.shape[1]

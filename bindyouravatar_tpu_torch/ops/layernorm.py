@@ -290,3 +290,44 @@ fused_layernorm.launches = 0
 layernorm_bwd.launches = 0
 head_layernorm_fwd.launches = 0
 head_layernorm_bwd.launches = 0
+
+
+class _LeanLayerNorm(torch.autograd.Function):
+    """JAX `ops/layernorm.py:lean_layernorm`: the forward saves the input
+    and the squeezed fp32 mean and rsqrt only, the backward is the closed
+    form (`layernorm_bwd_plain`'s math from the saved statistics)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        xc = x32 - mu
+        r = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+        y = (xc * r * scale.float() + bias.float()).to(x.dtype)
+        ctx.save_for_backward(x, scale, mu[..., 0], r[..., 0])
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mu, r = ctx.saved_tensors
+        mu, r = mu[..., None], r[..., None]
+        x32, g32 = x.float(), g.float()
+        xhat = (x32 - mu) * r
+        gy = g32 * scale.float()
+        mg = gy.mean(-1, keepdim=True)
+        mgx = (gy * xhat).mean(-1, keepdim=True)
+        dx = (r * (gy - mg - xhat * mgx)).to(x.dtype)
+        rows = tuple(range(x.ndim - 1))
+        return (dx, (g32 * xhat).sum(rows).to(scale.dtype), g32.sum(rows).to(ctx.bias_dtype),
+                None)
+
+
+def lean_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with a memory-lean backward (JAX
+    `lean_layernorm`, which JAX's model never selects): what autograd
+    keeps is the input plus fp32 [...] mean and rsqrt, not the fp32 chain of
+    the plain version.  The same function as `layernorm_plain`; no kernel
+    (JAX's is XLA), so the same code on the CPU and the card."""
+    return _LeanLayerNorm.apply(x, scale, bias, eps)

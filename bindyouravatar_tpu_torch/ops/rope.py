@@ -1,4 +1,5 @@
-"""3D rotary position embeddings and timestep features (torch).
+"""3D rotary position embeddings, the 2B variant's 3D sincos table and
+timestep features (torch).
 
 Port of `bindyouravatar_tpu/ops/rope.py`: the same rotate-half convention
 (pairs are (x_i, x_{i+d/2})), the same diffusers CogVideoX channel split, and
@@ -72,6 +73,36 @@ def get_3d_rotary_pos_embed(
     sin = np.concatenate([np.sin(freqs), np.sin(freqs)], axis=-1)
     return (torch.from_numpy(cos).to(device=device, dtype=dtype),
             torch.from_numpy(sin).to(device=device, dtype=dtype))
+
+
+def get_1d_sincos_pos_embed_np(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    """[P, embed_dim] transformer sincos table (sin || cos halves), float64."""
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000.0 ** omega
+    out = np.einsum("p,d->pd", pos.astype(np.float64), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_3d_sincos_pos_embed(embed_dim: int, spatial_size: Tuple[int, int], temporal_size: int,
+                            spatial_interpolation_scale: float = 1.875,
+                            temporal_interpolation_scale: float = 1.0) -> np.ndarray:
+    """[T, H*W, embed_dim] float64 3D sincos table of the CogVideoX-2B
+    variant: 3/4 of the channels encode space (the 2D grid, w first), 1/4
+    time, time first in the output."""
+    h, w = spatial_size
+    dim_s = embed_dim // 4 * 3
+    dim_t = embed_dim // 4
+    gh = np.arange(h, dtype=np.float64) / spatial_interpolation_scale
+    gw = np.arange(w, dtype=np.float64) / spatial_interpolation_scale
+    grid = np.stack(np.meshgrid(gw, gh), axis=0).reshape([2, 1, h, w])
+    emb_h = get_1d_sincos_pos_embed_np(dim_s // 2, grid[1].reshape(-1))
+    emb_w = get_1d_sincos_pos_embed_np(dim_s // 2, grid[0].reshape(-1))
+    spatial = np.concatenate([emb_h, emb_w], axis=1)                   # [H*W, dim_s]
+    gt = np.arange(temporal_size, dtype=np.float64) / temporal_interpolation_scale
+    temporal = get_1d_sincos_pos_embed_np(dim_t, gt)                    # [T, dim_t]
+    spatial = np.broadcast_to(spatial[None], (temporal_size, h * w, dim_s))
+    temporal = np.broadcast_to(temporal[:, None], (temporal_size, h * w, dim_t))
+    return np.concatenate([temporal, spatial], axis=-1)
 
 
 def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

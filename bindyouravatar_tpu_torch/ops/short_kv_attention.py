@@ -100,8 +100,9 @@ def short_kv_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             sm_scale: float) -> torch.Tensor:
     """q [B, Sq, H*D], k/v [B, I, H, K, D] -> softmax(q k_i^T * sm_scale) v_i
     per identity as [B, I, Sq, H*D].  A CPU tensor takes the plain version;
-    a CUDA tensor launches kernel B2 (bf16, D = 128, K = 32 tokens per
-    identity, I <= 4) or raises."""
+    a CUDA tensor launches kernel B2 (bf16, K = 32 tokens per identity,
+    I <= 4, D = 128 or a multiple of 8 below it, whose missing columns the
+    kernel's loads fill with zeros) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_flat_plain(q, k, v, sm_scale)
     return kernel_with_plain_vjp(_flat_kernel, short_kv_attention_flat_plain, (q, k, v),
@@ -111,17 +112,18 @@ def short_kv_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flat_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     b, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
-    ok = (q.device.type == "cuda" and d == 128 and hd == h * d and kk == 32
+    ok = (q.device.type == "cuda" and 8 <= d <= 128 and d % 8 == 0 and hd == h * d and kk == 32
           and 1 <= n_id <= 4 and k.shape == (b, n_id, h, kk, d) and v.shape == k.shape
           and _kernel_dtype_ok(q, k, v))
     if not ok:
         raise ValueError(
-            f"short_kv_attention_flat kernel takes contiguous bf16 CUDA q [B,Sq,H*128], "
-            f"k/v [B,I,H,32,128] with I <= 4; got q {tuple(q.shape)} {q.dtype}, "
+            f"short_kv_attention_flat kernel takes contiguous bf16 CUDA q [B,Sq,H*D], "
+            f"k/v [B,I,H,32,D] with I <= 4 and D <= 128 a multiple of 8; got "
+            f"q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} on {q.device}")
     o = torch.empty((b, n_id, sq, hd), dtype=q.dtype, device=q.device)
     err = cuda_lib().bya_short_kv_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, n_id, h, kk,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, n_id, h, kk, d,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "short_kv_attention_flat (B2)")
     short_kv_attention_flat.launches += 1

@@ -1,11 +1,14 @@
-"""Audio inputs of the CLI (the port's copy of the JAX package's
-`preprocess/audio.py`, host-side): reference-format precomputed wav2vec2
-embeddings, wav decoding and the two-speaker mix.  The wav2vec2 extractor
-(`extract_wav2vec_embeddings`) is not ported (`ROADMAP.md`): requests take
-precomputed embeddings.
+"""Audio inputs of the CLI (the port of the JAX package's
+`preprocess/audio.py`): reference-format precomputed wav2vec2 embeddings,
+wav decoding, the two-speaker mix, and `extract_wav2vec_embeddings`, the
+wav2vec2-base hidden states of a wav (`preprocess/wav2vec2.py`, the port's
+own model in place of transformers').
 """
 
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,6 +40,30 @@ def read_wav_mono_16k(path: str) -> np.ndarray:
         data = np.interp(np.linspace(0, len(data) - 1, n), np.arange(len(data)),
                          data).astype(np.float32)
     return data
+
+
+def extract_wav2vec_embeddings(wav_path: str, num_pixel_frames: int, fps: float = 25.0,
+                               model_dir: Optional[str] = None,
+                               device: torch.device | str = "cuda") -> np.ndarray:
+    """wav -> [num_pixel_frames, 12, 768] float32: the 12 layers' hidden
+    states of wav2vec2-base over the raw 16 kHz samples (no feature-extractor
+    normalisation, as in JAX), linearly resampled from ~50 a second to the
+    video frames.  The model is an HF directory, `model_dir` or
+    `$BYA_WAV2VEC_DIR`; without one it raises (precomputed `.pt` embeddings
+    always work).  Runs on the card unless `device` says otherwise, in fp32."""
+    from .wav2vec2 import extract, load_wav2vec2
+
+    model_dir = model_dir or os.environ.get("BYA_WAV2VEC_DIR")
+    if not model_dir or not os.path.isdir(model_dir):
+        raise FileNotFoundError(
+            "wav2vec2 checkpoint not available locally; pass precomputed "
+            "audio embeddings (.pt) or set BYA_WAV2VEC_DIR")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to extract on the CPU")
+    model = load_wav2vec2(model_dir, device=dev)
+    wav = torch.from_numpy(read_wav_mono_16k(wav_path)).to(dev)
+    return extract(model, wav, num_pixel_frames).cpu().numpy()
 
 
 def mix_tracks(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -190,10 +190,11 @@ def _lora_name(name: str) -> bool:
 
 def base_names(dit) -> Set[str]:
     """The DiT's base transformer: every parameter but the conditioning
-    modules' (`SUBMODULE_KEYS`) and the LoRA slots."""
+    modules' (`SUBMODULE_KEYS`), the LoRA slots and the 2B variant's fixed
+    sincos `pos_embedding` (diffusers keeps it out of the state dict)."""
     groups = tuple(p for ps in SUBMODULE_KEYS.values() for p in ps)
     return {k for k, _ in dit.named_parameters()
-            if not k.startswith(groups) and not _lora_name(k)}
+            if not k.startswith(groups) and not _lora_name(k) and k != "pos_embedding"}
 
 
 def _dit_tensors(sd: StateDict, cfg) -> Iterator[Tuple[str, torch.Tensor]]:

@@ -4,27 +4,34 @@
     python -m bindyouravatar_tpu_torch.training.sft --model_size 5b --output_dir runs/sft
     python -m bindyouravatar_tpu_torch.training.sft --model_size tiny --device cpu
 
-Synthetic data at the configuration's frames and size, the VAE, the DiT
-with LoRA, the trainer and the driver with auto-resume.  Weights are drawn
-from `--seed`; `--reference_transformer` (the reference's safetensors
-shards) then replaces the base transformer's, its patch embed grown with
-zero channels to the DiT's (48 at 5b), while the LoRA slots and the
-conditioning modules keep their draw (JAX `scripts/sft.py:138-142`), and
-`--module_dir` the sub-modules'.  `--model_size 5b` is the 42-layer DiT (dim
-3072, 48 x 64 heads, 226 + 17,550 tokens, face and audio, LoRA r128) over
-49 x 480 x 720 clips.  Its stand-in text and face embeddings are drawn once
-from the seed (T5 and EVA-CLIP are not ported) and given to every batch,
-so a resumed run sees the same ones; the EVA-CLIP hidden states have 577
-tokens at 5b (the serving path's length; the JAX launcher's stand-in has
-9).  `--num_layers` cuts the 5b depth (widths stay full).  Flags that need
-what the port lacks raise `NotImplementedError` naming their `ROADMAP.md`
-item.
+The data (synthetic at the configuration's frames and size, or with
+`--index_file` the reference's on-disk layout through `AvatarVideoDataset`,
+at the configuration's frames and size), the VAE, the DiT with LoRA, the
+trainer (`--optimizer adamw|adafactor|prodigy`, `--use_8bit_adam` with
+AdamW only, the prodigy flags) and the driver with auto-resume; with
+`--num_validation_videos N`, N videos of `--validation_steps` steps from the
+live DiT at every checkpoint (`validation-{step}/video_{i}.mp4`).  Weights
+are drawn from `--seed`; `--reference_transformer` (the reference's
+safetensors shards) then replaces the base transformer's, its patch embed
+grown with zero channels to the DiT's (48 at 5b), while the LoRA slots and
+the conditioning modules keep their draw (JAX `scripts/sft.py:138-142`),
+and `--module_dir` the sub-modules'.  `--model_size 5b` is the 42-layer DiT
+(dim 3072, 48 x 64 heads, 226 + 17,550 tokens, face and audio, LoRA r128)
+over 49 x 480 x 720 clips.  Its stand-in text and face embeddings are
+drawn once from the seed (the launcher runs no T5 or EVA-CLIP) and given
+to every batch, so a resumed run sees the same ones; the EVA-CLIP hidden
+states have 577 tokens at 5b (the serving path's length; the JAX
+launcher's stand-in has 9).  `--num_layers` cuts the 5b depth (widths stay
+full).  `--fsdp` above 1 raises `NotImplementedError` naming its
+`ROADMAP.md` item (distribution, A 12); `--use_8bit_adam` with another
+optimizer raises `ValueError` (JAX ignores it there).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from typing import Callable, Optional
 
@@ -48,7 +55,8 @@ def get_args(argv=None):
     p.add_argument("--text_drop_ratio", type=float, default=0.0,
                    help="prob of training with an empty caption (on-disk data only)")
     p.add_argument("--optimizer", choices=["adamw", "adafactor", "prodigy"], default="adamw")
-    p.add_argument("--use_8bit_adam", action="store_true")
+    p.add_argument("--use_8bit_adam", action="store_true",
+                   help="block-wise 8-bit AdamW state (AdamW only; training/adam8bit.py)")
     p.add_argument("--prodigy_beta3", type=float, default=None)
     p.add_argument("--prodigy_decouple", type=bool, default=True)
     p.add_argument("--prodigy_use_bias_correction", type=bool, default=False)
@@ -90,17 +98,11 @@ def get_args(argv=None):
 
 
 def _check_supported(args) -> None:
-    unsupported = {
-        "--index_file": (args.index_file, "the on-disk datasets, ROADMAP.md A 13"),
-        "--fsdp": ((args.fsdp or 1) > 1, "distribution, ROADMAP.md A 12"),
-        "--num_validation_videos": (args.num_validation_videos > 0,
-                                    "the validation hook, ROADMAP.md A 13"),
-        "--optimizer": (args.optimizer != "adamw", "ROADMAP.md A 5"),
-        "--use_8bit_adam": (args.use_8bit_adam, "ROADMAP.md A 5"),
-    }
-    for flag, (given, item) in unsupported.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported ({item})")
+    if (args.fsdp or 1) > 1:
+        raise NotImplementedError("--fsdp is not ported (distribution, ROADMAP.md A 12)")
+    if args.use_8bit_adam and args.optimizer != "adamw":
+        raise ValueError(f"--use_8bit_adam is AdamW's option, not --optimizer "
+                         f"{args.optimizer}'s (the JAX launcher ignores it there)")
 
 
 @dataclasses.dataclass
@@ -119,7 +121,7 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
     from ..models.vae import CausalVAE
     from ..ops.scheduler import Schedule
     from .checkpoint import import_reference_dit, load_submodules
-    from .data import SyntheticAvatarDataset
+    from .data import AvatarVideoDataset, SyntheticAvatarDataset
     from .train_loop import TrainDriver
     from .trainer import Trainer
 
@@ -167,10 +169,18 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
         load_submodules(dit, args.module_dir)
 
     c, lfe = dit.cfg, dit.lfe_cfg
-    dataset = SyntheticAvatarDataset(
-        length=64, num_frames=c.sample_frames, height=c.sample_height * 8,
-        width=c.sample_width * 8, audio_blocks=dit.audio_cfg.blocks,
-        audio_dim=dit.audio_cfg.audio_dim)
+    if args.index_file:
+        # the clip size of the configuration (JAX's launcher leaves the
+        # dataset's 480 x 720, the 5b configuration's), errors logged in the run
+        dataset = AvatarVideoDataset(args.index_file, num_frames=c.sample_frames,
+                                     height=c.sample_height * 8, width=c.sample_width * 8,
+                                     text_drop_ratio=args.text_drop_ratio,
+                                     error_log=os.path.join(args.output_dir, "error_log.txt"))
+    else:
+        dataset = SyntheticAvatarDataset(
+            length=64, num_frames=c.sample_frames, height=c.sample_height * 8,
+            width=c.sample_width * 8, audio_blocks=dit.audio_cfg.blocks,
+            audio_dim=dit.audio_cfg.audio_dim)
     rngc = np.random.default_rng(args.seed)
     stand_in = dict(
         text_embeds=rngc.normal(0, 1, (1, c.max_text_seq_length, c.text_embed_dim)),
@@ -185,8 +195,23 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
     trainer = Trainer(dit, Schedule.create(SchedulerConfig()), cfg)
     driver = TrainDriver(trainer=trainer, vae=vae, cfg=cfg, output_dir=args.output_dir,
                          device=dev)
+    validation_fn = None
+    if args.num_validation_videos > 0:
+        # every-checkpoint videos from the live DiT (JAX `scripts/sft.py:178-194`)
+        from ..config import PipelineConfig
+        from ..pipeline.pipeline import BindYourAvatarPipeline
+        from .validation import make_validation_fn
+
+        pipe = BindYourAvatarPipeline.create(dit, vae, PipelineConfig(
+            height=c.sample_height * 8, width=c.sample_width * 8, num_frames=c.sample_frames))
+        dit.set_fuse_qk_norm(False)         # `create` set the inference path: train first
+        val_pe = rngc.normal(0, 1, (1, c.max_text_seq_length, c.text_embed_dim))
+        validation_fn = make_validation_fn(
+            pipe, args.output_dir, val_pe.astype(np.float32),
+            num_inference_steps=args.validation_steps, num_videos=args.num_validation_videos,
+            seed=args.seed)
     state = driver.run(dataset, batch_size=args.batch_size, make_batch_extras=extras,
-                       resume=args.resume, resume_fn=resume_fn)
+                       resume=args.resume, resume_fn=resume_fn, validation_fn=validation_fn)
     return SftRun(driver=driver, state=state)
 
 

@@ -13,12 +13,17 @@ tokens' dropout mask) comes out of `Trainer.draw`, from an explicit
 `torch.Generator`; `loss_and_metrics` and `train_step` also take the draws
 ready-made, which is how the tests feed the port JAX's own draws.
 
-With `is_diff_lr` the perceivers (names starting with `perceiver`) step at
-`lr * diff_lr_high` and every other trainable tensor at `lr * diff_lr_low`,
-weight decay scaled with them (JAX's `optax.multi_transform` of two AdamWs
-under one clip).  With `ema_decay` an EMA copy of the trainable tensors
-follows each update.  Not ported: adafactor, prodigy and 8-bit Adam; the
-trainer raises on them.
+The optimizer is `cfg.optimizer`, as JAX's `make_optimizer` builds it:
+"adamw" (optax's AdamW, or with `use_8bit_adam` the block-wise 8-bit AdamW
+of `adam8bit.py`), "adafactor" (`optax.adafactor(lr)`, `adafactor.py`) or
+"prodigy" (`prodigy.py`).  `use_8bit_adam` with another optimizer raises:
+JAX reads the flag only under AdamW and silently runs the full-precision
+optimizer instead.  With `is_diff_lr` the perceivers (names starting with
+`perceiver`) form the group "high", stepping at `lr * diff_lr_high`, and
+every other trainable tensor the group "low" at `lr * diff_lr_low` (JAX's
+`optax.multi_transform` of one optimizer per group under one clip: prodigy
+keeps its scalars per group); otherwise one group, "all".  With `ema_decay`
+an EMA copy of the trainable tensors follows each update.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from ..models.audio import mute_dropout_keep
 from ..models.dit import DiT
 from ..ops.scheduler import Schedule
 from . import losses as L
+from .adafactor import Adafactor
+from .adam8bit import AdamW8bit
+from .prodigy import Prodigy
 
 # Trainable parameter-name patterns: sft.sh's unfreeze list (the mute
 # tokens, the perceivers, the router, the audio layers) plus LoRA, in the
@@ -94,16 +102,62 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+class AdamW:
+    """optax's AdamW: mu/nu moments, bias correction, the update
+    mu_hat / (sqrt(nu_hat) + eps) plus weight decay, times -lr.  State
+    `mu`, `nu` (fp32 like each tensor)."""
+
+    def __init__(self, b1: float, b2: float, eps: float, weight_decay: float):
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor], groups=None):
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+        return {"mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def step(self, params, grads, state, groups, lrs, count: int) -> None:
+        b1, b2 = self.b1, self.b2
+        bc1, bc2 = 1.0 - b1 ** (count + 1), 1.0 - b2 ** (count + 1)
+        for label, names in groups.items():
+            for k in names:
+                p, g, mu, nu = params[k], grads[k].float(), state["mu"][k], state["nu"][k]
+                mu.mul_(b1).add_((1.0 - b1) * g)
+                nu.mul_(b2).add_(g.square().mul_(1.0 - b2))
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                update.add_(p.float(), alpha=self.wd)
+                p.add_((-lrs[label] * update).to(p.dtype))
+
+
+def make_optimizer(cfg: TrainConfig):
+    """The optimizer of `cfg` (JAX `trainer.py:_base_opt`)."""
+    if cfg.use_8bit_adam and cfg.optimizer != "adamw":
+        raise ValueError(f"use_8bit_adam is AdamW's option, not {cfg.optimizer!r}'s (the JAX "
+                         "trainer ignores it there and runs the full-precision optimizer)")
+    if cfg.optimizer == "adamw":
+        cls = AdamW8bit if cfg.use_8bit_adam else AdamW
+        return cls(cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon, cfg.weight_decay)
+    if cfg.optimizer == "adafactor":
+        return Adafactor()
+    if cfg.optimizer == "prodigy":
+        return Prodigy(cfg.adam_beta1, cfg.adam_beta2, beta3=cfg.prodigy_beta3,
+                       eps=cfg.adam_epsilon, weight_decay=cfg.weight_decay,
+                       decouple=cfg.prodigy_decouple,
+                       use_bias_correction=cfg.prodigy_use_bias_correction,
+                       safeguard_warmup=cfg.prodigy_safeguard_warmup)
+    raise ValueError(f"unknown optimizer {cfg.optimizer}")
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The step count, AdamW's state (optax `ScaleByAdamState`: the count
-    and the first and second moments of each trainable tensor) and the EMA
-    copy of the trainable tensors when `ema_decay` is set.  The trainable
-    tensors themselves are the model's."""
+    """The step count, the optimizer's update count and state (`opt`: its
+    kinds of state by name, each name -> tensor, or label -> scalar tensor
+    for prodigy's per-group scalars; AdamW's are `mu` and `nu`, optax's
+    `ScaleByAdamState` moments) and the EMA copy of the trainable tensors
+    when `ema_decay` is set.  The trainable tensors themselves are the
+    model's."""
     step: int
     count: int
-    mu: Dict[str, torch.Tensor]
-    nu: Dict[str, torch.Tensor]
+    opt: Dict[str, Dict[str, torch.Tensor]]
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
@@ -112,38 +166,43 @@ class Trainer:
 
     def __init__(self, dit: DiT, schedule: Schedule, cfg: TrainConfig = TrainConfig(),
                  trainable_patterns: Sequence[str] = DEFAULT_TRAINABLE_PATTERNS):
-        if cfg.optimizer != "adamw" or cfg.use_8bit_adam:
-            raise NotImplementedError("the port's trainer runs AdamW (adafactor, prodigy and "
-                                      "8-bit AdamW: ROADMAP.md A 5)")
+        self.optimizer = make_optimizer(cfg)
         self.dit, self.schedule, self.cfg = dit, schedule, cfg
         self.trainable, self.frozen = partition_params(dict(dit.named_parameters()),
                                                        trainable_patterns)
         self.lr = make_lr_schedule(cfg)
-
-    def lr_mult(self, name: str) -> float:
-        """The learning-rate factor of a trainable tensor (`is_diff_lr`)."""
-        if not self.cfg.is_diff_lr:
-            return 1.0
-        return self.cfg.diff_lr_high if name.startswith("perceiver") else self.cfg.diff_lr_low
+        names = list(self.trainable)
+        # the LR groups (label -> tensor names) and each one's factor of the
+        # learning rate: `is_diff_lr` gives the perceivers their own
+        if cfg.is_diff_lr:
+            self.groups = {"high": [k for k in names if k.startswith("perceiver")],
+                           "low": [k for k in names if not k.startswith("perceiver")]}
+            self.lr_factors = {"high": cfg.diff_lr_high, "low": cfg.diff_lr_low}
+        else:
+            self.groups = {"all": names}
+            self.lr_factors = {"all": 1.0}
 
     def init_state(self) -> TrainState:
-        """Mark the trainable partition (only it takes gradients), zero
-        AdamW's moments and copy the EMA's start (with `ema_decay`)."""
+        """Mark the trainable partition (only it takes gradients), start the
+        optimizer's state and copy the EMA's start (with `ema_decay`)."""
         for p in self.frozen.values():
             p.requires_grad_(False)
         for p in self.trainable.values():
             p.requires_grad_(True)
-        zeros = lambda: {k: torch.zeros_like(p) for k, p in self.trainable.items()}
+        with torch.no_grad():
+            opt = self.optimizer.init(self.trainable, self.groups)
         ema = ({k: p.detach().clone() for k, p in self.trainable.items()}
                if self.cfg.ema_decay else None)
-        return TrainState(step=0, count=0, mu=zeros(), nu=zeros(), ema=ema)
+        return TrainState(step=0, count=0, opt=opt, ema=ema)
 
     def state_dict(self, state: TrainState) -> Dict[str, object]:
-        """What a checkpoint holds of the training state: the step, AdamW's
-        count and moments, the trainable tensors and the EMA copy."""
+        """What a checkpoint holds of the training state: the step, the
+        optimizer's count and each kind of its state under its own key
+        (AdamW's `mu` and `nu`, the format's first layout), the trainable
+        tensors and the EMA copy."""
         return {"step": state.step, "count": state.count,
                 "params": {k: p.detach() for k, p in self.trainable.items()},
-                "mu": state.mu, "nu": state.nu, "ema": state.ema}
+                **state.opt, "ema": state.ema}
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping[str, object], state: TrainState) -> TrainState:
@@ -154,12 +213,14 @@ class Trainer:
         if set(params) != set(self.trainable) or (saved["ema"] is None) != (state.ema is None):
             raise ValueError("the checkpoint's trainable set (or its EMA) is not this "
                              "trainer's")
-        for name, dst in (("params", self.trainable), ("mu", state.mu), ("nu", state.nu),
-                          ("ema", state.ema)):
+        if any(set(saved.get(kind, ())) != set(part) for kind, part in state.opt.items()):
+            raise ValueError(f"the checkpoint holds no {self.cfg.optimizer} state of this "
+                             f"trainer's tensors ({sorted(state.opt)})")
+        for name, dst in (("params", self.trainable), ("ema", state.ema), *state.opt.items()):
             for k, t in (dst or {}).items():
                 t.copy_(saved[name][k])
-        return TrainState(step=int(saved["step"]), count=int(saved["count"]), mu=state.mu,
-                          nu=state.nu, ema=state.ema)
+        return TrainState(step=int(saved["step"]), count=int(saved["count"]), opt=state.opt,
+                          ema=state.ema)
 
     # ------------------------------------------------------------------ #
     def draw(self, batch: Mapping[str, torch.Tensor],
@@ -272,31 +333,23 @@ class Trainer:
     @torch.no_grad()
     def apply_gradients(self, state: TrainState,
                         grads: Mapping[str, torch.Tensor]) -> TrainState:
-        """optax.chain(clip_by_global_norm, adamw) on the trainable tensors,
-        in place (the gradients are clipped in place too): mu/nu moments,
-        bias correction, the update mu_hat / (sqrt(nu_hat) + eps) plus
-        weight decay, times -lr(count) (and the tensor's `lr_mult`); then
-        the EMA, ema = d * ema + (1 - d) * p."""
+        """optax.chain(clip_by_global_norm, the optimizer) on the trainable
+        tensors, in place (the gradients are clipped in place too), each
+        group at lr(count) times its factor; then the EMA, ema = d * ema +
+        (1 - d) * p."""
         c = self.cfg
         g_norm = global_norm(grads.values())
         if not bool(g_norm < c.max_grad_norm):
             for g in grads.values():
                 g.div_(g_norm).mul_(c.max_grad_norm)
-        lr, count = self.lr(state.count), state.count + 1
-        b1, b2 = c.adam_beta1, c.adam_beta2
-        bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
-        for k, p in self.trainable.items():
-            g, mu, nu = grads[k].float(), state.mu[k], state.nu[k]
-            mu.mul_(b1).add_((1.0 - b1) * g)
-            nu.mul_(b2).add_(g.square().mul_(1.0 - b2))
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + c.adam_epsilon)
-            update.add_(p.float(), alpha=c.weight_decay)
-            p.add_((-lr * self.lr_mult(k) * update).to(p.dtype))
+        lr = self.lr(state.count)
+        lrs = {label: lr * f for label, f in self.lr_factors.items()}
+        self.optimizer.step(self.trainable, grads, state.opt, self.groups, lrs, state.count)
         if state.ema is not None:
             d = c.ema_decay
             for k, e in state.ema.items():
                 e.mul_(d).add_(self.trainable[k], alpha=1.0 - d)
-        return TrainState(step=state.step + 1, count=count, mu=state.mu, nu=state.nu,
+        return TrainState(step=state.step + 1, count=state.count + 1, opt=state.opt,
                           ema=state.ema)
 
     def train_step(self, state: TrainState, batch: Mapping[str, torch.Tensor],

@@ -31,7 +31,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      every B6 and B9 width from 128 to 8192, B9 also at 64 and 5 rows; B8
      at M = 1,001 for S = 8, 13, 16; B8 and B9 run twice, bitwise equal;
      B5 and B5', timed, at M = 1,001 for S = 1, 2, 7, 8, 9, 13, 16 and at
-     M = 5, and B5 run twice at its main shape, bitwise equal);
+     M = 5, and B5 run twice at its main shape, bitwise equal; the 2B
+     variant's instantiations: B1 with the fused QK-LN and no RoPE at
+     [2, 17776, 1920] (30 heads) and ragged, B2 at 16 x 80 heads (the
+     kernel's loads fill columns 80-127 with zeros), B6 at width 1920);
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -79,16 +82,26 @@ Phases (one line each; any failure exits non-zero and prints no result):
      every trainable gradient within 10% relative L2, exact launch counts
      of both (the joint attention's forward once per block under
      "save_attn"), peak memory and wall of both.
+  5c. the same model and batch: one optimizer step each of adafactor,
+     prodigy and 8-bit AdamW (seconds, peak, the state's bytes, launches;
+     the update of five stacked leaves against the same optimizer on the
+     CPU in fp32), two prodigy steps with those leaves as the trainable set
+     (d and its numerator against the CPU's; d grows at step 2), then one
+     micro-batch at `ff_chunks=4` beside
+     `ff_chunks=1` (seconds, peak, gradients within 5% relative L2).
   6. the port's training entry point at the 5B geometry, after phase 5's
      model is freed: `training.sft.main` in this process, `--model_size
-     5b --remat_policy nested`, 8 layers with widths full
+     5b --remat_policy nested --use_8bit_adam --index_file <2 samples of
+     49 x 480 x 720 written here> --num_validation_videos 1
+     --validation_steps 2`, 8 layers with widths full
      (`--driver-layers`; a save at 42 layers writes 32.4 GB of state and
      sub-modules, the phase saves twice, and the card's machine stops a run
      after 45 GiB of writes, of which 7e takes 18 GB), synthetic 49 x 480 x 720
      clips encoded by the VAE, teacher masks, the driver: 2 optimizer
      steps and a checkpoint into a temporary directory, then `--max_train_steps 3
-     --resume latest`: the restored trainable tensors, AdamW moments,
-     sampler and generator states equal the saved ones, step 3 runs,
+     --resume latest`: the restored trainable tensors, 8-bit AdamW state,
+     sampler and generator states equal the saved ones, step 3 runs, a
+     validation mp4 at steps 2 and 3,
      `metrics.jsonl` holds 3 finite rows, the frozen tensors are
      bit-identical and each run's launch counts are exact; per step the
      `prepare_batch` and step seconds and peak memory, the checkpoint's
@@ -136,7 +149,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      RetinaFace-R50 on a 480 x 720 image, BiSeNet at 512: shapes,
      finiteness, ms and peak; at 2 blocks (T5, EVA-CLIP) or whole (the
      CNNs) against the CPU in fp32 on the same weights.  None of them
-     launches a kernel: JAX's twins reach no Pallas kernel.
+     launches a kernel: JAX's twins reach no Pallas kernel.  Then
+     wav2vec2-base (94 M, drawn, written as an HF directory and read back)
+     on 10 s of 16 kHz audio to [250, 12, 768], fp32 with TF32 off, and at
+     2 layers against the CPU.
   9. SAM2 at `sam2.1_hiera_large` (image 1024) and RRDBNet at
      `RealESRGAN_x4plus`, fp32 weights drawn on the card: the image
      encoder's ms a frame, `propagate_in_video` over 49 x 480 x 720 with 2
@@ -144,6 +160,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      (512 tiles, overlap 32) on one 480 x 720 frame, peaks; each against
      the CPU in fp32 at reduced depth.  Neither launches a kernel: JAX's
      SAM2 and RRDBNet reach no Pallas kernel.
+  10. the 2B variant at CogVideoX-2B's widths (30 layers, 30 x 64 heads,
+     sincos positions) with the avatar's face + audio layout: one request
+     of 2 steps at 49 x 480 x 720 through `pipeline.generate` in bf16
+     (s a step, peak, exact launches), and 2 layers on the card against
+     the CPU in fp32.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -334,9 +355,13 @@ def kernel_phase(results: dict, only=None) -> bool:
     # kernel also rounds the scaled q (one more bf16 ulp, ~0.4% of a logit);
     # the bare calls scale the fp32 scores, as the plain version does.
     # library: SDPA computes the bare function only (no QK-LN, no RoPE).
+    # The 2B variant's form: QK-LN fused, no RoPE, 30 heads (15 head pairs)
+    # at [2, 17776, 1920], and ragged beside it.
     for tag, b, s, h, text_len, grid, kv_len, mag in pick((
             ("slice[2,17776,3072]", 2, 17776, 48, 226, (13, 30, 45), None, 1.0),
             ("ragged[1,1000,512] kv_len=937", 1, 1000, 8, 10, (3, 18, 18), 937, 1.0),
+            ("2b[2,17776,1920] QK-LN no RoPE", 2, 17776, 30, 226, "ln", None, 1.0),
+            ("2b ragged[1,1000,1920] kv_len=937 QK-LN no RoPE", 1, 1000, 30, 10, "ln", 937, 1.0),
             ("bare[52,1350,512] no LN/RoPE", 52, 1350, 8, 0, None, None, 1.0),
             ("ragged[2,777,256] no LN/RoPE", 2, 777, 4, 0, None, None, 1.0),
             ("ragged[2,1350,512] kv_len=1000 no LN/RoPE", 2, 1350, 8, 0, None, 1000, 1.0),
@@ -345,10 +370,12 @@ def kernel_phase(results: dict, only=None) -> bool:
         kw = dict(kv_len=kv_len)
         library = None
         if grid is not None:
-            rope = get_3d_rotary_pos_embed(64, ((0, 0), grid[1:]), grid[1:], grid[0], device=dev)
             norm = (rnd(64, std=0.1, mean=1.0), rnd(64, std=0.1),
                     rnd(64, std=0.1, mean=1.0), rnd(64, std=0.1))
-            kw.update(rope=rope, rope_start=text_len, qk_norm=norm)
+            kw.update(qk_norm=norm)
+            if grid != "ln":
+                kw.update(rope=get_3d_rotary_pos_embed(64, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                                       device=dev), rope_start=text_len)
         else:
             qb, kb, vb = bhsd(q, h), bhsd(k, h), bhsd(v, h)
             library = lambda: F.scaled_dot_product_attention(qb, kb, vb)
@@ -356,8 +383,8 @@ def kernel_phase(results: dict, only=None) -> bool:
         plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
         work = (_nbytes(q, k, v, q), 4.0 * b * h * s * (kv_len or s) * 64, "bf16")
         r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work)
-        if tag.startswith(("slice", "bare")):
-            results["B1" if tag.startswith("slice") else "B1 bare"] = r
+        if tag.startswith(("slice", "bare", "2b[")):
+            results[{"s": "B1", "b": "B1 bare", "2": "B1 2b"}[tag[0]]] = r
 
     # --- B2: perceiver face attention, q [2, 17550, 16*128], k/v [2, 2, 16, 32,
     # 128], one output per identity; ragged Sq=1000.
@@ -365,19 +392,22 @@ def kernel_phase(results: dict, only=None) -> bool:
     # does; fp32 sums in another order.
     # library: SDPA with the identities folded into the heads (q repeated
     # per identity before timing), output [B, I*H, Sq, 128].
-    for tag, b, sq in pick((("slice[2,17550,2048] I=2 K=32", 2, 17550),
-                            ("ragged[1,1000,2048] I=2 K=32", 1, 1000)), ["B2"]):
-        q = rnd(b, sq, 16 * 128).to(bf)
-        k, v = (rnd(b, 2, 16, 32, 128).to(bf) for _ in range(2))
-        kern = lambda: skv.short_kv_attention_flat(q, k, v, 128 ** -0.5)
-        plain = lambda: skv.short_kv_attention_flat_plain(q, k, v, 128 ** -0.5)
-        qi = bhsd(q, 16).unsqueeze(1).expand(b, 2, 16, sq, 128).reshape(b, 32, sq, 128)
-        ki, vi = k.reshape(b, 32, 32, 128), v.reshape(b, 32, 32, 128)
+    # The 2B variant's router: 16 heads of 80 (q_k_dim 1280), read by the
+    # kernel's 128-wide body through tensor maps 80 wide.
+    for tag, b, sq, d in pick((("slice[2,17550,2048] I=2 K=32", 2, 17550, 128),
+                               ("ragged[1,1000,2048] I=2 K=32", 1, 1000, 128),
+                               ("2b[2,17550,1280] I=2 K=32 D=80", 2, 17550, 80)), ["B2"]):
+        q = rnd(b, sq, 16 * d).to(bf)
+        k, v = (rnd(b, 2, 16, 32, d).to(bf) for _ in range(2))
+        kern = lambda: skv.short_kv_attention_flat(q, k, v, d ** -0.5)
+        plain = lambda: skv.short_kv_attention_flat_plain(q, k, v, d ** -0.5)
+        qi = bhsd(q, 16).unsqueeze(1).expand(b, 2, 16, sq, d).reshape(b, 32, sq, d)
+        ki, vi = k.reshape(b, 32, 32, d), v.reshape(b, 32, 32, d)
         library = lambda: F.scaled_dot_product_attention(qi, ki, vi)
-        work = (_nbytes(q, k, v) + 2 * _nbytes(q), 4.0 * b * 2 * 16 * sq * 32 * 128, "bf16")
+        work = (_nbytes(q, k, v) + 2 * _nbytes(q), 4.0 * b * 2 * 16 * sq * 32 * d, "bf16")
         r = report("B2", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20, library, work)
-        if tag.startswith("slice"):
-            results["B2"] = r
+        if tag.startswith(("slice", "2b")):
+            results["B2" if tag.startswith("slice") else "B2 2b"] = r
 
     # --- B3: audio cross-attention, q [26, 1350, 3072], k/v [26, 2, 48, 32, 64]
     # tol: the plain version rounds each identity's output and the combine
@@ -454,9 +484,11 @@ def kernel_phase(results: dict, only=None) -> bool:
     # the face path's widths: router norms [35100, 2048], STAB/trunk [70200, 512]
     # tol: one bf16 rounding of the same fp32 value, summed in another order
     # library: F.layer_norm (affine cast to bf16 before timing)
+    # the 2B variant's audio norm_q rows [2*17550, 1920]
     for tag, rows, d in pick((("slice[35100,3072]", 35100, 3072), ("slice[1664,768]", 1664, 768),
                               ("slice[35100,2048]", 35100, 2048), ("slice[70200,512]", 70200, 512),
-                              ("ragged[1001,768]", 1001, 768)), ["B6"]):
+                              ("ragged[1001,768]", 1001, 768), ("2b[35100,1920]", 35100, 1920)),
+                             ["B6"]):
         x = rnd(rows, d, std=2.3, mean=0.7).to(bf)
         sc, bi = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
         scb, bib = sc.to(bf), bi.to(bf)
@@ -465,12 +497,12 @@ def kernel_phase(results: dict, only=None) -> bool:
         library = lambda: F.layer_norm(x, (d,), scb, bib, 1e-5)
         work = (_nbytes(x, sc, bi, x), 8.0 * rows * d, "fp32")
         r = report("B6", tag, kern(), plain(), 1e-2, 1e-2, kern, plain, 20, library, work)
-        if tag == "slice[35100,3072]":
-            results["B6"] = r
+        if tag in ("slice[35100,3072]", "2b[35100,1920]"):
+            results["B6" if tag.startswith("slice") else "B6 2b"] = r
     # B6 hazards, not timed: a ragged row count (1,001) at every width above,
     # at the wrapper's extremes (D = 128, 8192) and at widths whose 16-byte
     # chunks do not fill the threads of a row (640, 1152)
-    for d in pick((128, 512, 640, 768, 1152, 2048, 3072, 8192), ["B6"]):
+    for d in pick((128, 512, 640, 768, 1152, 1920, 2048, 3072, 8192), ["B6"]):
         x = rnd(1001, d, std=2.3, mean=0.7).to(bf)
         sc, bi = rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
         check("B6", f"ragged[1001,{d}]", ln.fused_layernorm(x, sc, bi),
@@ -2285,6 +2317,205 @@ def encoder_phase(args) -> bool:
     return ok
 
 
+def write_wav2vec2_dir(directory: str, layers: int, gen) -> None:
+    """A wav2vec2-base HF directory (facebook/wav2vec2-base-960h's
+    `config.json`, `layers` deep) with weights drawn from `gen`, written
+    with the port's safetensors writer under HF's names, the positional
+    kernel as weight-norm g / v (`parametrizations.weight.original0/1`)."""
+    import torch
+    from bindyouravatar_tpu_torch.preprocess.wav2vec2 import Wav2Vec2, Wav2Vec2Config
+    from bindyouravatar_tpu_torch.utils.safetensors import save_file
+
+    cfg = Wav2Vec2Config(num_hidden_layers=layers)
+    model = Wav2Vec2(cfg)
+    sd = {}
+    with torch.no_grad():
+        for k, p in model.state_dict().items():
+            if k.endswith("layer_norm.weight"):
+                t = 1.0 + 0.1 * torch.randn(p.shape, generator=gen)
+            elif p.ndim >= 2:
+                t = torch.randn(p.shape, generator=gen) * p[0].numel() ** -0.5
+            else:
+                t = 0.02 * torch.randn(p.shape, generator=gen)
+            sd[k] = t
+    v = sd.pop("encoder.pos_conv_embed.conv.weight")
+    sd["encoder.pos_conv_embed.conv.parametrizations.weight.original1"] = v
+    sd["encoder.pos_conv_embed.conv.parametrizations.weight.original0"] = (
+        v.square().sum(dim=(0, 1), keepdim=True).sqrt() * 1.1)
+    os.makedirs(directory, exist_ok=True)
+    hf = {f.name: getattr(cfg, f.name) for f in __import__("dataclasses").fields(cfg)}
+    hf.update(architectures=["Wav2Vec2ForCTC"], model_type="wav2vec2")
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(hf, f)
+    save_file(sd, os.path.join(directory, "model.safetensors"))
+
+
+def wav2vec_phase(args) -> bool:
+    """Phase 8, the audio encoder: wav2vec2-base at its published size
+    (12 layers, 768 wide; weights drawn, written as an HF directory and
+    read back through `preprocess/wav2vec2.load_wav2vec2`), fp32 with TF32
+    off: `extract_wav2vec_embeddings` of 10 s of a synthetic 16 kHz wav to
+    [250, 12, 768] at 25 fps, finite; the model's ms (CUDA events, median of
+    3) and peak.  At 2 layers, the card against the CPU on the same files
+    (relative L2 of the embeddings; tol 1e-4: fp32 on both sides, sums in
+    another order).  It launches no kernel: JAX's wav2vec2 is transformers'."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from bindyouravatar_tpu_torch.preprocess import audio, wav2vec2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="bya_w2v_")
+    try:
+        gen = torch.Generator().manual_seed(args.seed + 500)
+        t = np.arange(16000 * 10) / 16000
+        rng = np.random.default_rng(args.seed + 500)
+        sig = 0.3 * np.sin(2 * np.pi * 180 * t * (1 + 0.2 * np.sin(t))) + 0.05 * rng.normal(size=t.shape)
+        wav = os.path.join(tmp, "speech.wav")
+        wavfile.write(wav, 16000, (sig * 32767).astype(np.int16))
+        full, two = os.path.join(tmp, "base"), os.path.join(tmp, "base2")
+        write_wav2vec2_dir(full, 12, gen)
+        write_wav2vec2_dir(two, 2, gen)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        emb = audio.extract_wav2vec_embeddings(wav, 250, model_dir=full, device="cuda")
+        first_s = time.perf_counter() - t0
+        model = wav2vec2.load_wav2vec2(full, device="cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        x = torch.from_numpy(audio.read_wav_mono_16k(wav)).cuda()
+        ms = _time_ms(lambda: wav2vec2.extract(model, x, 250), runs=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = sum(_read_launches().values())
+        del model
+        got = audio.extract_wav2vec_embeddings(wav, 250, model_dir=two, device="cuda")
+        want = audio.extract_wav2vec_embeddings(wav, 250, model_dir=two, device="cpu")
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    finite = bool(np.isfinite(emb).all())
+    ok = emb.shape == (250, 12, 768) and finite and rel <= 1e-4 and launched == 0
+    print(f"wav2vec2-base ({n_params / 1e6:.1f}M params, 12 x 768, fp32, TF32 off) on 10 s at "
+          f"16 kHz: embeddings {list(emb.shape)} finite={finite}, first call (read + extract) "
+          f"{first_s:.2f} s, extract {ms:.3f} ms (CUDA events), peak {peak:.2f} GiB, kernel "
+          f"launches {launched}; 2 layers cuda vs cpu relative L2 {rel:.2e} (tol 1e-4) "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def two_b_phase(args) -> bool:
+    """Phase 10, the 2B variant at full width: CogVideoX-2B's published
+    transformer widths (THUDM/CogVideoX-2b `transformer/config.json`: 30
+    layers, 30 x 64 heads, dim 1920, text 4096, time embed 512, sincos
+    positions, interpolation 1.875 / 1.0) with the 5B avatar layout (48
+    input channels, a face layer every second block, audio in every block,
+    the router and LFE as `DiT.create` derives them: q_k_dim 1280, 16
+    router heads of 80), bf16 weights drawn on the card: one face + audio
+    request of 2 DPM++ steps at 49 x 480 x 720 through `pipeline.generate`,
+    decoded whole: finite [1, 49, 3, 480, 720], s a step, peak, exact
+    launches (B1 with the fused QK-LN and no RoPE at 30 heads, B2 at 16 x 80
+    heads padded to 128).  Then 2 layers at the same widths (3 latent
+    frames, 16 x 24 latents) on the card in bf16 against the CPU in fp32 on
+    the same weights: output relative L2 <= 2e-2, routing within 0.05."""
+    import gc
+
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.models.vae import CausalVAE
+    from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    two_b = dict(num_attention_heads=30, attention_head_dim=64, num_layers=30,
+                 time_embed_dim=512, text_embed_dim=4096, use_rotary_positional_embeddings=False,
+                 spatial_interpolation_scale=1.875, temporal_interpolation_scale=1.0)
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(args.seed + 600)
+    dit = DiT.create(DiTConfig(dtype=bf, param_dtype=bf, **two_b), device=dev, generator=gen)
+    vae = CausalVAE.create(VAEConfig(param_dtype=bf), device=dev, generator=gen)
+    pipe = BindYourAvatarPipeline.create(dit, vae, PipelineConfig(num_inference_steps=2))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    weights = torch.cuda.memory_allocated() / 2**30
+    draw_s = time.perf_counter() - t0
+    c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
+    rng = np.random.default_rng(args.seed + 600)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    n_af = 49 + a.window_size - a.window_stride
+    pe = f(1, c.max_text_seq_length, c.text_embed_dim)
+    image = torch.from_numpy(rng.uniform(-1, 1, (1, 1, 3, 480, 720)).astype(np.float32)).to(dev)
+    cond = dict(id_cond=f(1, c.num_ids, lf.id_embed_dim),
+                id_vit_hidden=f(1, c.num_ids, lf.num_scales, 577, lf.vit_dim),
+                audio_embeds=f(1, 2, n_af, a.blocks, a.audio_dim))
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with torch.inference_mode():
+        video = pipe.generate(pe, torch.zeros_like(pe), image,
+                              torch.Generator(dev).manual_seed(args.seed), timings=timings,
+                              **cond)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _read_launches()
+    want = _serving_want(dit, 2, 0, 1)
+    v = video.float().cpu().numpy()
+    ok = _video_ok("2b clip", v, (1, 49, 3, 480, 720))
+    ok &= _counts_ok("2b clip", counts, want)
+    print(f"2b model: DiT {n_params / 1e9:.3f}B params (30 layers, 30 x 64 heads, dim 1920, "
+          f"pos_embedding {list(dit.pos_embedding.shape)}, router q_k_dim "
+          f"{dit.router_cfg.q_k_dim} = 16 x {dit.perceivers[0].dim_head}), bf16 drawn in "
+          f"{draw_s:.1f} s, weights {weights:.2f} GiB; 2 steps: encode "
+          f"{timings['encode_s']:.2f} s, denoise {timings['denoise_s']:.2f} s "
+          f"({timings['denoise_s'] / 2:.3f} s a step), decode {timings['decode_s']:.2f} s, peak "
+          f"{peak:.2f} GiB", flush=True)
+    del pipe, dit, vae, video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 layers at the same widths: bf16 on the card against fp32 on the CPU
+    small = dict(two_b, num_layers=2, sample_frames=9, sample_height=16, sample_width=24)
+    ref = DiT.create(DiTConfig(dtype=torch.float32, param_dtype=torch.float32, **small),
+                     device="cpu", generator=torch.Generator().manual_seed(args.seed + 601))
+    gpu = DiT.create(DiTConfig(dtype=bf, param_dtype=torch.float32, fuse_qk_norm=True, **small),
+                     device=dev)
+    gpu.load_state_dict(ref.state_dict())
+    ref.set_fuse_qk_norm(True)
+    rc = ref.cfg
+    n_af = rc.sample_frames + a.window_size - a.window_stride
+    inputs = dict(latents=rng.normal(size=(2, rc.latent_frames, 48, 16, 24)),
+                  text_embeds=rng.normal(size=(2, 226, 4096)), timesteps=np.array([999.0, 499.0]),
+                  id_cond=rng.normal(size=(2, 2, lf.id_embed_dim)),
+                  id_vit_hidden=rng.normal(size=(2, 2, lf.num_scales, 17, lf.vit_dim)),
+                  audio_embeds=rng.normal(size=(2, 2, n_af, a.blocks, a.audio_dim)))
+    outs = []
+    with torch.inference_mode():
+        for model, d in ((ref, "cpu"), (gpu, "cuda")):
+            t = {k: torch.tensor(v, dtype=torch.float32, device=d) for k, v in inputs.items()}
+            out, routing = model.apply(t.pop("latents"), t.pop("text_embeds"),
+                                       t.pop("timesteps"), model.rope(128, 192, 3, device=d), **t)
+            outs.append((out.float().cpu(), routing.float().cpu()))
+    rel = float((outs[1][0] - outs[0][0]).norm() / outs[0][0].norm())
+    r_err = float((outs[1][1] - outs[0][1]).abs().max())
+    small_ok = rel <= 2e-2 and r_err <= 0.05 and bool(outs[1][0].isfinite().all())
+    ok &= small_ok
+    print(f"2b 2 layers (widths full, 226 + 288 tokens, face + audio): cuda-bf16 vs cpu-fp32 "
+          f"output relative L2 {rel:.3e} (tol 2e-2), routing {list(outs[0][1].shape)} "
+          f"max_abs_err {r_err:.3e} (tol 0.05) {'ok' if small_ok else 'FAILED'}", flush=True)
+    del ref, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"2b phase {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def _sam2_frames(t: int, h: int, w: int, seed: int):
     """A synthetic clip [t, h, w, 3] uint8: two bright discs drifting over a
     noisy background."""
@@ -2432,11 +2663,11 @@ def sam2_upscaler_phase(args) -> bool:
 
 def _fingerprint(t) -> tuple:
     """An exact, order-independent fingerprint of a tensor's bits (two int64
-    sums over its 32- or 16-bit words; wrap-around is deterministic)."""
+    sums over its 32-, 16- or 8-bit words; wrap-around is deterministic)."""
     import torch
 
     w = t.detach().contiguous()
-    w = w.view(torch.int32 if w.element_size() == 4 else torch.int16).long()
+    w = w.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[w.element_size()]).long()
     return int(w.sum()), int((w * (w & 0xFFFF)).sum())
 
 
@@ -2518,7 +2749,7 @@ def train_phase(args, launches: dict) -> bool:
     # clipping leaves below an ulp's worth of update.
     still = [k for k, p in tr.trainable.items() if _fingerprint(p) == before_t[k]]
     with torch.no_grad():
-        no_grad = [k for k in still if not bool(state.mu[k].any())]
+        no_grad = [k for k in still if not bool(state.opt["mu"][k].any())]
     still_ok = all(k in no_grad or k.endswith("to_k.bias") for k in still)
     want = train_launches(dit, args.train_steps * tr.cfg.grad_accum_steps)
     counts_ok = all(launches[k] == want[k] for k in want)
@@ -2533,7 +2764,9 @@ def train_phase(args, launches: dict) -> bool:
           f"{len(tr.frozen)} tensors bit-identical={frozen_same}; peak memory {peak:.2f} GiB; "
           "launches " + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
           + f" {'ok' if ok else 'FAILED'}", flush=True)
-    return ok & save_attn_phase(args, tr, batch)
+    ok &= save_attn_phase(args, tr, batch)
+    del state          # AdamW's moments: phase 5c keeps its own optimizers' state
+    return ok & optimizer_phase(args, tr, batch)
 
 
 def save_attn_phase(args, tr, batch) -> bool:
@@ -2600,11 +2833,270 @@ def save_attn_phase(args, tr, batch) -> bool:
     return ok
 
 
+def _state_bytes(opt: dict) -> int:
+    """Bytes of an optimizer's state (`TrainState.opt`)."""
+    return sum(t.numel() * t.element_size() for part in opt.values() for t in part.values())
+
+
+# phase 5c's CPU reference: whole stacked leaves (adafactor's block RMS spans
+# the layers of one), factored ([3072, 128], [128, 3072], [2048, 2048]) and not
+OPT_CHECK = (r"^blocks\.\d+\.attn1\.to_q_lora_A$", r"^blocks\.\d+\.attn1\.to_k_lora_B$",
+             r"^perceivers\.\d+\.to_k\.weight$", r"^audio_layers\.\d+\.norm_q\.bias$",
+             r"^router_trunk\.final_proj\.weight$")
+
+
+def _prodigy_two_steps(dit, schedule, one, draw) -> bool:
+    """Prodigy's d moves from its second step on (x0 - x is 0 at the first,
+    so d_hat is 0 there): two steps on one micro-batch with the same draws,
+    `OPT_CHECK`'s tensors the whole trainable set so that the CPU reference
+    (fp32, the card's clipped gradients) sums d's numerator and the norm of
+    s over the same group.  Each step's update within 1e-5 of the largest
+    plus an fp32 spacing, d, d_max and d's numerator within 1e-5 relative
+    of the CPU's, and d above d0 after step 2.  lr 10: with the same
+    gradient twice, step 2's d_hat is about lr (1 - b1) / sqrt(1 - b2) /
+    (1 + b3^(1/2)) d0, 0.22 lr d0 at b2 = 0.95, so at lr 1 d would stay d0
+    for about five steps."""
+    import gc
+
+    import torch
+    from bindyouravatar_tpu_torch.config import TrainConfig
+    from bindyouravatar_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = TrainConfig(optimizer="prodigy", learning_rate=10.0, lr_scheduler="constant",
+                      grad_accum_steps=1)
+    tr = Trainer(dit, schedule, cfg, trainable_patterns=OPT_CHECK)
+    state = tr.init_state()
+    names, groups = list(tr.trainable), {"all": list(tr.trainable)}
+    ref = make_optimizer(cfg)
+    cpu_p = {k: p.detach().float().cpu().clone() for k, p in tr.trainable.items()}
+    cpu_state = ref.init(cpu_p, groups)
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    ok, lines = True, []
+    for step in range(2):
+        before = {k: tr.trainable[k].detach().float().cpu().clone() for k in names}
+        cpu_before = {k: v.clone() for k, v in cpu_p.items()}
+        grads, _ = tr.grads_and_metrics(one, [draw])
+        state = tr.apply_gradients(state, grads)
+        g_cpu = {k: grads[k].detach().float().cpu() for k in names}      # clipped in place
+        del grads
+        ref.step(cpu_p, g_cpu, cpu_state, groups, {"all": tr.lr(step)}, step)
+        worst, largest = 0.0, 0.0
+        for k in names:
+            u_card = tr.trainable[k].detach().double().cpu() - before[k].double()
+            u_cpu = cpu_p[k].double() - cpu_before[k].double()
+            largest = max(largest, float(u_cpu.abs().max()))
+            spacing = torch.finfo(torch.float32).eps * cpu_p[k].double().abs()
+            worst = max(worst, float(((u_card - u_cpu).abs() - spacing).max()))
+        d, d_max, num = (state.opt[kind]["all"] for kind in ("d", "d_max", "d_numerator"))
+        d_ref, d_max_ref, num_ref = (cpu_state[kind]["all"]
+                                     for kind in ("d", "d_max", "d_numerator"))
+        step_ok = (worst <= 1e-5 * largest and largest > 0 and rel(d, d_ref) <= 1e-5
+                   and rel(d_max, d_max_ref) <= 1e-5
+                   and (step == 0 or (rel(num, num_ref) <= 1e-5 and float(d) > ref.d0)))
+        ok &= step_ok
+        lines.append(f"step {step + 1}: d {float(d):.6e} (cpu {float(d_ref):.6e}), d_max "
+                     f"{float(d_max):.6e} (cpu {float(d_max_ref):.6e}), d's numerator {float(num):.6e} (cpu {float(num_ref):.6e}), update worst "
+                     f"excess {worst:.3e} of largest {largest:.3e} "
+                     f"{'ok' if step_ok else 'FAILED'}")
+    print(f"optimizer prodigy, 2 steps on {len(names)} tensors ({dit.cfg.num_layers} layers, one "
+          f"micro-batch, the same draws, lr 10; d0 {ref.d0:g}; tol 1e-5): " + "; ".join(lines)
+          + f" {'ok' if ok else 'FAILED'}", flush=True)
+    del tr, state
+    return ok
+
+
+def optimizer_phase(args, tr5, batch) -> bool:
+    """Phase 5c on phase 5's DiT (42 layers unless `--train-layers`, LoRA
+    r128, "nested") and batch (2 micro-batches): one optimizer step each of
+    adafactor (lr 1e-5), prodigy (lr 1.0) and 8-bit AdamW (lr 1e-5),
+    constant schedules: the step's seconds, peak memory, the optimizer
+    state's bytes and launches; each update on `OPT_CHECK`'s tensors against
+    the same optimizer on the CPU in fp32 from the card's clipped gradients
+    and the same start (every element within 1e-5 of the largest update
+    plus an fp32 spacing of the parameter: the same fp32 math, sums in
+    another order; prodigy's first step keeps d at d0, so its update needs
+    no sum over the other tensors; `_prodigy_two_steps` checks d's growth).
+    Then one micro-batch at `ff_chunks=4`
+    beside `ff_chunks=1`: peak, seconds, and every trainable gradient within
+    5% relative L2 of ff_chunks=1's (bf16 products: the chunked backward
+    rounds its weight gradients once a chunk), key biases against their
+    query biases' norms.  No checkpoint is written."""
+    import dataclasses
+    import gc
+    import re
+
+    import torch
+    from bindyouravatar_tpu_torch.config import TrainConfig
+    from bindyouravatar_tpu_torch.training.trainer import Trainer, make_optimizer
+
+    dit, dev = tr5.dit, torch.device("cuda")
+    accum = tr5.cfg.grad_accum_steps
+    gen = torch.Generator(dev).manual_seed(args.seed + 400)
+    draws = [tr5.draw({"video_latents": batch["video_latents"][j:j + 1]}, gen)
+             for j in range(accum)]
+    ok = True
+    n_train = sum(p.numel() for p in tr5.trainable.values())
+    for name, kw in (("adafactor", dict(optimizer="adafactor")),
+                     ("prodigy", dict(optimizer="prodigy", learning_rate=1.0)),
+                     ("adamw 8-bit", dict(optimizer="adamw", use_8bit_adam=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = TrainConfig(lr_scheduler="constant", **kw)
+        tr = Trainer(dit, tr5.schedule, cfg)
+        state = tr.init_state()
+        state_b = _state_bytes(state.opt)
+        names = [k for k in tr.trainable if any(re.match(r, k) for r in OPT_CHECK)]
+        before = {k: tr.trainable[k].detach().float().cpu() for k in names}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        grads, metrics = tr.grads_and_metrics(batch, draws)
+        state = tr.apply_gradients(state, grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _read_launches()
+        want = train_launches(dit, accum)
+        after = {k: tr.trainable[k].detach().float().cpu() for k in names}
+        g_cpu = {k: grads[k].detach().float().cpu() for k in names}      # clipped in place
+        del grads
+        ref = make_optimizer(cfg)
+        groups = {"all": names}
+        cpu_p = {k: v.clone() for k, v in before.items()}
+        cpu_state = ref.init(cpu_p, groups)
+        ref.step(cpu_p, g_cpu, cpu_state, groups, {"all": tr.lr(0)}, 0)
+        worst, largest = 0.0, 0.0
+        for k in names:
+            u_card, u_cpu = after[k].double() - before[k].double(), cpu_p[k].double() - before[k].double()
+            largest = max(largest, float(u_cpu.abs().max()))
+            spacing = torch.finfo(torch.float32).eps * cpu_p[k].double().abs()
+            worst = max(worst, float(((u_card - u_cpu).abs() - spacing).max()))
+        upd_ok = worst <= 1e-5 * largest and largest > 0
+        counts_ok = {k: counts[k] for k in want} == want
+        finite = all(math.isfinite(float(v)) for v in metrics.values())
+        step_ok = upd_ok and counts_ok and finite
+        ok &= step_ok
+        print(f"optimizer {name} ({dit.cfg.num_layers} layers, {accum} micro-batches): step "
+              f"{wall:.2f} s, peak {peak:.2f} GiB, state {state_b / 1e9:.3f} GB "
+              f"({state_b / n_train:.2f} B a trainable parameter), loss "
+              f"{float(metrics['loss']):.5g}; update of {len(names)} tensors against the CPU "
+              f"(fp32): worst excess {worst:.3e} of largest update {largest:.3e} (tol 1e-5 of "
+              f"it + an fp32 spacing) {'ok' if upd_ok else 'FAILED'}; launches "
+              + " ".join(f"{k}={counts[k]} (want {want[k]})" for k in want if want[k] or counts[k])
+              + f" {'ok' if step_ok else 'FAILED'}", flush=True)
+        del tr, state
+    one = {k: v if v is None or k == "mute_embeds" else v[:1] for k, v in batch.items()}
+    ok &= _prodigy_two_steps(dit, tr5.schedule, one, draws[0])
+    # ff_chunks: one micro-batch (the first), the same draws, chunks 1 then 4
+    tr = Trainer(dit, tr5.schedule, TrainConfig(grad_accum_steps=1))
+    tr.init_state()
+    runs = {}
+    for chunks in (1, 4):
+        dit.cfg = dataclasses.replace(dit.cfg, ff_chunks=chunks)
+        for blk in dit.blocks:
+            blk.ff.chunks = chunks
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        grads, metrics = tr.grads_and_metrics(one, draws[:1])
+        torch.cuda.synchronize()
+        runs[chunks] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30,
+                        _read_launches(), float(metrics["loss"]),
+                        {k: g.detach().float().cpu() for k, g in grads.items()})
+        del grads
+    dit.cfg = dataclasses.replace(dit.cfg, ff_chunks=1)
+    for blk in dit.blocks:
+        blk.ff.chunks = 1
+    (w1, p1, c1, l1, g1), (w4, p4, c4, l4, g4) = runs[1], runs[4]
+
+    def rel_l2(k):
+        ref = g1[k.replace("_k.bias", "_q.bias")] if k.endswith("to_k.bias") else g1[k]
+        d = float((g4[k] - g1[k]).norm())
+        return d / float(ref.norm()) if float(ref.norm()) > 0 else d
+
+    rel = {k: rel_l2(k) for k in g1}
+    worst = sorted(rel, key=rel.get)[-3:][::-1]
+    want = train_launches(dit, 1)
+    ff_ok = (rel[worst[0]] <= 0.05 and abs(l4 - l1) <= 1e-2 * abs(l1)
+             and {k: c4[k] for k in want} == want == {k: c1[k] for k in want})
+    ok &= ff_ok
+    print(f"ff_chunks=4 vs 1 (one micro-batch, {dit.cfg.num_layers} layers): "
+          f"{w4:.2f} s vs {w1:.2f} s, peak {p4:.2f} GiB vs {p1:.2f} GiB, loss {l4:.6g} vs "
+          f"{l1:.6g}; {len(rel)} trainable gradients, worst relative L2 "
+          + " ".join(f"{k}={rel[k]:.3e}" for k in worst)
+          + f" (tol 0.05); launches equal to train_launches {'ok' if ff_ok else 'FAILED'}",
+          flush=True)
+    return ok
+
+
+def write_index_fixture(directory: str, seed: int, samples: int = 2, frames: int = 49,
+                        height: int = 480, width: int = 720) -> str:
+    """An `AvatarVideoDataset` index under `directory` (the reference's
+    `video_root,anno_json,anno_base` rows): per sample an mp4 written with
+    `cv2.VideoWriter` (two discs on a moving gradient), the left / right
+    identities' PNG masks for every frame, two audio `.pt` tracks [frames +
+    4, 12, 768] and the JSON annotation (caption, bboxes, tracks, speaker).
+    Returns the index's path."""
+    import cv2
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    videos = os.path.join(directory, "videos")
+    os.makedirs(videos, exist_ok=True)
+    yy, xx = np.mgrid[0:height, 0:width]
+    rows = []
+    for j in range(samples):
+        base = os.path.join(directory, f"anno{j}")
+        path = os.path.join(videos, f"clip{j}.mp4")
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (width, height))
+        centres = [(width // 4, height // 2), (3 * width // 4, height // 2)]
+        for f in range(frames):
+            img = np.stack([(xx // 3 + 4 * f) % 256, (yy // 2 + 2 * f + 40 * j) % 256,
+                            np.full_like(xx, 90)], -1).astype(np.uint8)
+            for i, (cx, cy) in enumerate(centres):
+                disc = (xx - cx - 2 * f) ** 2 + (yy - cy) ** 2 < (height // 5) ** 2
+                img[disc] = (230, 200 - 60 * i, 160)
+                mdir = os.path.join(base, str(i + 1))
+                os.makedirs(mdir, exist_ok=True)
+                cv2.imwrite(os.path.join(mdir, f"{f:05d}.png"), disc.astype(np.uint8) * 255)
+            wr.write(img)
+        wr.release()
+        tracks = []
+        for t in range(2):
+            tracks.append(os.path.join(base, f"audio{t}.pt"))
+            torch.save(torch.from_numpy(rng.standard_normal((frames + 4, 12, 768))
+                                        .astype(np.float32)), tracks[-1])
+        r = height // 5
+        anno = {"video": f"clip{j}.mp4", "caption": f"two people talking, clip {j}",
+                "audio_emb": tracks, "speaker_left": j == 0,
+                "bboxes": {str(i + 1): [cx - r, cy - r, cx + r, cy + r]
+                           for i, (cx, cy) in enumerate(centres)}}
+        with open(os.path.join(directory, f"anno{j}.json"), "w") as fh:
+            json.dump(anno, fh)
+        rows.append(f"{videos},{os.path.join(directory, f'anno{j}.json')},{base}")
+    index = os.path.join(directory, "index.txt")
+    with open(index, "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return index
+
+
 def driver_phase(args) -> bool:
     """Phase 6: `training.sft.main` at `--model_size 5b` (`--driver-layers`
-    deep, widths full), 2 steps and a checkpoint, then a resumed run to
-    step 3; checks the restore, the rows of `metrics.jsonl`, the frozen
-    tensors and each run's launch counts against `train_launches`."""
+    deep, widths full) on the on-disk dataset (`--index_file`: 2 samples of
+    49 x 480 x 720 that `write_index_fixture` writes), with 8-bit AdamW
+    (`--use_8bit_adam`) and a validation video of 2 steps at every
+    checkpoint (`--num_validation_videos 1 --validation_steps 2`): 2 steps
+    and a checkpoint, then a resumed run to step 3; checks the restore (the
+    trainable tensors and every kind of optimizer state, bit for bit), the
+    rows of `metrics.jsonl`, the frozen tensors, the validation mp4s and each
+    run's launch counts against `train_launches` plus the validation's B1."""
     import gc
     import shutil
     import tempfile
@@ -2616,16 +3108,22 @@ def driver_phase(args) -> bool:
     gc.collect()
     torch.cuda.empty_cache()
     out = tempfile.mkdtemp(prefix="bya_sft_")
+    data_dir = tempfile.mkdtemp(prefix="bya_data_")
+    t0 = time.perf_counter()
+    index = write_index_fixture(data_dir, args.seed)
+    fixture_s = time.perf_counter() - t0
     argv = ["--model_size", "5b", "--output_dir", out, "--checkpointing_steps", "2",
             "--checkpoints_total_limit", "1", "--remat_policy", "nested",
-            "--seed", str(args.seed), "--num_layers", str(args.driver_layers)]
+            "--seed", str(args.seed), "--num_layers", str(args.driver_layers),
+            "--index_file", index, "--use_8bit_adam", "--num_validation_videos", "1",
+            "--validation_steps", "2"]
 
     def digest(driver, state):
         tr = driver.trainer
         host = driver.host_state()
         return dict(params={k: _fingerprint(p) for k, p in tr.trainable.items()},
-                    mu={k: _fingerprint(t) for k, t in state.mu.items()},
-                    nu={k: _fingerprint(t) for k, t in state.nu.items()},
+                    opt={kind: {k: _fingerprint(t) for k, t in part.items()}
+                         for kind, part in state.opt.items()},
                     frozen={k: _fingerprint(p) for k, p in tr.frozen.items()},
                     sampler=host["sampler"], np_rng=host["np_rng"],
                     torch_rng=host["torch_rng"].tolist(), step=state.step)
@@ -2638,7 +3136,13 @@ def driver_phase(args) -> bool:
         wall1, counts1 = time.perf_counter() - t0, _read_launches()
         dit, accum = first.driver.trainer.dit, first.driver.cfg.grad_accum_steps
         want1, want2 = train_launches(dit, 2 * accum), train_launches(dit, accum)
+        # each run validates once (a checkpoint at step 2, then at the end,
+        # step 3): 2 unconditioned CFG forwards, B1 in every block
+        for want in (want1, want2):
+            want["B1"] += 2 * dit.cfg.num_layers
         n_layers = dit.cfg.num_layers
+        kinds = sorted(first.state.opt)
+        state_b = _state_bytes(first.state.opt)
         saved, log = digest(first.driver, first.state), list(first.driver.checkpoint_log)
         del first, dit
         gc.collect()
@@ -2657,6 +3161,9 @@ def driver_phase(args) -> bool:
         del second
         with open(os.path.join(out, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
+        videos = {s: os.path.getsize(os.path.join(out, f"validation-{s}", "video_0.mp4"))
+                  for s in (2, 3) if os.path.isfile(os.path.join(out, f"validation-{s}",
+                                                                 "video_0.mp4"))}
         free = shutil.disk_usage(out).free
     except Exception as e:
         traceback.print_exc()
@@ -2664,17 +3171,20 @@ def driver_phase(args) -> bool:
         return False
     finally:
         shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(data_dir, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
 
     same = {k: restored.get(k) == saved[k]
-            for k in ("params", "mu", "nu", "sampler", "np_rng", "torch_rng", "step")}
+            for k in ("params", "opt", "sampler", "np_rng", "torch_rng", "step")}
     rows_ok = ([r["step"] for r in rows] == [1, 2, 3]
                and all(math.isfinite(v) for r in rows for v in r.values()))
     frozen_ok = final["frozen"] == saved["frozen"]
     counts_ok = ({k: counts1[k] for k in want1} == want1
                  and {k: counts2[k] for k in want2} == want2)
-    ok = all(same.values()) and final["step"] == 3 and rows_ok and frozen_ok and counts_ok
+    videos_ok = sorted(videos) == [2, 3] and all(v > 0 for v in videos.values())
+    ok = (all(same.values()) and final["step"] == 3 and rows_ok and frozen_ok and counts_ok
+          and videos_ok and kinds == ["qm", "qv", "sm", "sv"])
     for r in rows:
         print(f"driver step {r['step']}: prepare_batch {r['prepare_batch_s']:.2f} s (peak "
               f"{r['prepare_batch_peak_gib']:.2f} GiB), step {r['step_time_s']:.2f} s (peak "
@@ -2686,8 +3196,10 @@ def driver_phase(args) -> bool:
         print(f"driver checkpoint {e['event']} step {e['step']}: {e['bytes'] / 1e9:.3f} GB"
               f"{extra} in {e['seconds']:.2f} s", flush=True)
     print(f"driver (sft 5b, {n_layers} layers{'' if n_layers == 42 else ', depth cut from 42'}, "
-          f"{accum} micro-batches a step): run 1 (2 steps) {wall1:.1f} s, run 2 (restore + "
-          f"step 3) {wall2:.1f} s; {left:.2f} GiB left between runs; restored == saved "
+          f"{accum} micro-batches a step, --index_file of 2 samples written in {fixture_s:.1f} s, "
+          f"8-bit AdamW state {kinds} {state_b / 1e9:.3f} GB, validation mp4s "
+          f"{ {s: v for s, v in videos.items()} } bytes): run 1 (2 steps) {wall1:.1f} s, run 2 "
+          f"(restore + step 3) {wall2:.1f} s; {left:.2f} GiB left between runs; restored == saved "
           + " ".join(f"{k}={v}" for k, v in same.items())
           + f"; final step {final['step']}; metrics rows {len(rows)} finite={rows_ok}; frozen "
           f"{len(saved['frozen'])} tensors bit-identical={frozen_ok}; free disk "
@@ -2832,7 +3344,9 @@ def main(argv=None) -> int:
         ok = False
         print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)
     ok &= encoder_phase(args)
+    ok &= wav2vec_phase(args)
     ok &= sam2_upscaler_phase(args)
+    ok &= two_b_phase(args)
     if not ok:
         return _fail("a phase failed")
 

@@ -258,8 +258,9 @@ def test_resumed_run_equals_an_uninterrupted_run(tmp_path):
     assert seen == [2] and s_full.step == s_res.step == 4 and s_full.count == 4
     for k, p in full.trainer.trainable.items():
         assert torch.equal(p, resumed.trainer.trainable[k]), k
-        for name in ("mu", "nu", "ema"):
-            assert torch.equal(getattr(s_full, name)[k], getattr(s_res, name)[k]), (name, k)
+        for name, part in (("mu", lambda s: s.opt["mu"]), ("nu", lambda s: s.opt["nu"]),
+                           ("ema", lambda s: s.ema)):
+            assert torch.equal(part(s_full)[k], part(s_res)[k]), (name, k)
     assert full.host_state()["sampler"] == resumed.host_state()["sampler"] == \
         {"epoch": 1, "cursor": 2, "seed": full.cfg.seed}
     assert full.host_state()["np_rng"] == resumed.host_state()["np_rng"]
@@ -349,9 +350,7 @@ def test_sft_launcher_tiny_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--index_file", "x.txt"], "A 13"),
-    (["--fsdp", "2"], "A 12"), (["--num_validation_videos", "1"], "A 13"),
-    (["--optimizer", "prodigy"], "A 5"), (["--use_8bit_adam"], "A 5"),
+    (["--fsdp", "2"], "A 12"), (["--fsdp", "4", "--optimizer", "prodigy"], "A 12"),
 ])
 def test_sft_launcher_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):

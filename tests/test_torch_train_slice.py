@@ -20,7 +20,6 @@ rate (each moved by at most a few thousandths of a step in all).
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -31,7 +30,7 @@ from bindyouravatar_tpu.ops.scheduler import Schedule as JSchedule
 from bindyouravatar_tpu.training import trainer as jtrainer
 from bindyouravatar_tpu_torch.config import SchedulerConfig, TrainConfig
 from bindyouravatar_tpu_torch.convert import (check_trainable_set, jax_params_to_torch,
-                                               jax_train_state_to_torch)
+                                               jax_state_to_torch)
 from bindyouravatar_tpu_torch.models.dit import DiT
 from bindyouravatar_tpu_torch.ops.scheduler import Schedule
 from bindyouravatar_tpu_torch.training.trainer import Trainer, make_lr_schedule
@@ -177,21 +176,19 @@ def _port_trainer(params, **extra):
     return Trainer(td, Schedule.create(SchedulerConfig()), TrainConfig(**CFG, **extra))
 
 
+def _lr_factors(tr):
+    """Each trainable tensor's factor of the learning rate (its group's)."""
+    return {k: tr.lr_factors[label] for label, names in tr.groups.items() for k in names}
+
+
 def _assert_params_close(tr, got, jax_tree):
     """`got` (name -> tensor) against a JAX trainable tree: within 5e-4 of
     the tensor's learning rate (5e-3 for the attention key biases)."""
     want = jax_params_to_torch(_np(jax_tree))
     assert set(want) == set(got)
     for k, w in want.items():
-        tol = (5e-3 if k.endswith("to_k.bias") else 5e-4) * LR * tr.lr_mult(k)
+        tol = (5e-3 if k.endswith("to_k.bias") else 5e-4) * LR * _lr_factors(tr)[k]
         assert float((got[k].detach() - w).abs().max()) < tol, k
-
-
-def _adam(opt_state):
-    """The (first) optax `ScaleByAdamState` of an optimizer state."""
-    return next(x for x in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
-        if isinstance(x, optax.ScaleByAdamState))
 
 
 def test_two_train_steps_match_jax(setup, jax_run):
@@ -242,28 +239,27 @@ def test_ema_and_two_group_lr_steps_match_jax(setup, jax_run, name):
                                tr.trainable["perceivers.0.to_q.weight"])
     else:
         assert tstate.ema is None
-        assert tr.lr_mult("perceivers.0.to_q.weight") == 10.0
-        assert tr.lr_mult("blocks.0.attn1.to_q_lora_A") == 0.1
-        assert sum(tr.lr_mult(k) == 10.0 for k in tr.trainable) == sum(
+        factors = _lr_factors(tr)
+        assert factors["perceivers.0.to_q.weight"] == 10.0
+        assert factors["blocks.0.attn1.to_q_lora_A"] == 0.1
+        assert sum(factors[k] == 10.0 for k in tr.trainable) == sum(
             k.startswith("perceivers.") for k in tr.trainable) > 0
 
 
 @pytest.mark.parametrize("name", ["adamw", "ema"])
 def test_port_continues_a_converted_jax_train_state(setup, jax_run, name):
     """JAX's state after step 1 (trainable params, AdamW mu / nu / count,
-    step, EMA) through `jax_train_state_to_torch`; the port's step 2 from
+    step, EMA) through `jax_state_to_torch`; the port's step 2 from
     it against JAX's step 2."""
     _, params, _ = setup
     batch, runs = jax_run
     (_, s1, s2), _ = runs[name]
-    adam = _adam(s1.opt_state)
-    got_params, tstate = jax_train_state_to_torch(
-        _np(s1.params), _np(adam.mu), _np(adam.nu), int(adam.count), int(s1.step),
-        None if s1.ema_params is None else _np(s1.ema_params))
+    got_params, tstate = jax_state_to_torch(_np(s1))
     assert tstate.step == tstate.count == 1 and (tstate.ema is None) == (name == "adamw")
     tr = _port_trainer(params, **OPTIMIZERS[name])
     tr.init_state()
-    assert set(got_params) == set(tstate.mu) == set(tstate.nu) == set(tr.trainable)
+    assert set(tstate.opt) == {"mu", "nu"}
+    assert set(got_params) == set(tstate.opt["mu"]) == set(tstate.opt["nu"]) == set(tr.trainable)
     with torch.no_grad():
         for k, v in got_params.items():
             tr.trainable[k].copy_(v)
