@@ -47,8 +47,18 @@ peft LoRA files fused into the base q/k weights with `--lora_alpha`:
         --reference_router_modules router_modules.pt --lora_path lora.safetensors \
         --img_file_path a.png b.png --audio_path a.pt b.pt --prompt_embeds pe.npy
 
-Flags that need what the port lacks raise `NotImplementedError` naming
-their `ROADMAP.md` item.
+Under `torchrun` (one process per GPU) `--tp N` splits the DiT's blocks
+Megatron-style over N ranks (`parallel.tp`) and `--sp N` runs its joint
+attention as ring attention over N ranks (`ops.ring_attention`); every rank
+builds the same weights and inputs from `--seed`, and rank 0 writes the
+outputs:
+
+    torchrun --nproc_per_node 4 -m bindyouravatar_tpu_torch.infer --tp 4 --audio_path a.pt b.pt
+    torchrun --nproc_per_node 2 -m bindyouravatar_tpu_torch.infer --sp 2 --num_frames 97 ...
+
+`--tp` with `--sp`, or more ranks than the launch has, raise.  Flags that
+need what the port lacks raise `NotImplementedError` naming their
+`ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -135,13 +145,40 @@ def get_args(argv=None):
 
 
 def check_supported(args) -> None:
-    unsupported = {
-        "--tp": (args.tp > 1, "distribution, ROADMAP.md A 12"),
-        "--sp": (args.sp > 1, "distribution, ROADMAP.md A 12"),
-    }
-    for flag, (given, item) in unsupported.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported ({item})")
+    if args.tp > 1 and args.sp > 1:
+        raise SystemExit("--tp and --sp build conflicting meshes over the same ranks; use one "
+                         "(a combined tp x sp mesh is future work, ROADMAP)")
+    if (args.tp > 1 or args.sp > 1) and args.two_stage_generate and not args.tracking_mask_dir:
+        raise NotImplementedError("--two_stage_generate's mask tool under --tp / --sp "
+                                  "(ROADMAP.md A12b): pass --tracking_mask_dir")
+
+
+def setup_parallel(args, dev: torch.device):
+    """(the tp mesh or None, the sp process group or None) of a `torchrun`
+    launch; joins the process group when `--tp` or `--sp` asks for ranks."""
+    from .parallel.mesh import create_mesh, init_distributed, world_size
+
+    n = max(args.tp, args.sp)
+    if n == 1:
+        return None, None
+    init_distributed(backend="nccl" if dev.type == "cuda" else "gloo")
+    world = world_size()
+    if n > world or world % n:
+        raise ValueError(f"--tp {args.tp} / --sp {args.sp}: the launch has {world} rank(s) "
+                         f"(run under torchrun --nproc_per_node {n})")
+    if args.tp > 1:
+        return create_mesh(dp=None, fsdp=1, tp=args.tp, device_type=dev.type), None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(dev.type, (world // n, n), mesh_dim_names=("dp", "sp"))
+    return None, mesh.get_group("sp")
+
+
+def lead() -> bool:
+    """Whether this process writes the outputs (rank 0, or the only one)."""
+    from .parallel.mesh import rank
+
+    return rank() == 0
 
 
 def restore_trainable(checkpoint_dir: str):
@@ -343,6 +380,9 @@ def prepare(args) -> Prepared:
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    tp_mesh, sp_group = setup_parallel(args, dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     from .preprocess.audio import load_precomputed
     from .training.data import AUDIO_WINDOW_SLACK, af_matrix_from_speaker
     from .utils.masks import masks_to_routing_logits
@@ -358,6 +398,14 @@ def prepare(args) -> Prepared:
                       if k.endswith("to_q_lora_A")), 0)
     pipe = build_models(args, dev, lora_rank, face_dims)
     load_seconds = load_params(pipe, args, trainable)
+    if tp_mesh is not None:
+        from .parallel.tp import shard_params_tp
+
+        shard_params_tp(pipe.dit, tp_mesh)
+        print(f"[tp] DiT blocks split over {args.tp} ranks")
+    if sp_group is not None:
+        pipe.sp_group = sp_group
+        print(f"[sp] ring attention over {args.sp} ranks")
     c = pipe.dit.cfg
 
     # the conditioning image: the bg frame if given, else the face stack's
@@ -485,15 +533,18 @@ def second_stage(res: InferRun, video_path: str) -> InferRun:
 def main(argv=None) -> str:
     """`run`, then the mp4, the `--draw_routing_logits` videos, stage 2 of
     `--two_stage_generate` (which overwrites the mp4), the `--wav_path` mux
-    and the meta line; returns the output path."""
+    and the meta line; returns the output path.  Under `--tp` / `--sp` only
+    rank 0 writes."""
     args = get_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     from .utils.media import export_to_video, merge_audio_files, merge_audio_video
 
     t0 = time.time()
     res = run(args)
-    out_path = export_to_video(res.video[0], os.path.join(args.output_dir, "output.mp4"),
-                               fps=args.fps)
+    out_path = os.path.join(args.output_dir, "output.mp4")
+    if not lead():
+        return out_path
+    out_path = export_to_video(res.video[0], out_path, fps=args.fps)
     if args.draw_routing_logits:
         save_routing_debug(res.routing, res.grid, args.output_dir, args.fps)
     if args.two_stage_generate and not args.tracking_mask_dir:

@@ -72,7 +72,10 @@ class AudioProjModel(nn.Module):
 
 class EinsumOutProj(nn.Module):
     """to_out with a per-query-scaled bias: y = o W^T + bias_scale * b
-    (the identity-combined path's bias is sum_i(w_i) * bias)."""
+    (the identity-combined path's bias is sum_i(w_i) * bias).  Split
+    row-wise under tensor parallelism (`parallel.tp`): `weight` holds this
+    rank's input columns and `tp_group` sums the partial products before
+    the bias."""
 
     def __init__(self, in_dim: int, out_dim: int, compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
@@ -80,22 +83,27 @@ class EinsumOutProj(nn.Module):
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(out_dim, dtype=dtype))
+        self.tp_group = None
 
     def forward(self, o: torch.Tensor, bias_scale: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         y = F.linear(o.to(cd), self.weight.to(cd))
+        if self.tp_group is not None:
+            torch.distributed.all_reduce(y, group=self.tp_group)
         return y + bias_scale[..., None] * self.bias.to(cd)
 
 
 class AudioCrossAttnLayer(nn.Module):
     """One per-DiT-layer audio cross-attention (frame-local), routing path:
     video [B, S, D] (S = F*HW), audio ctx [B, I, F, n_ctx, A], weights
-    [B, S, I] -> the injection [B, S, D]."""
+    [B, S, I] -> the injection [B, S, D].  `heads` is this rank's share
+    under tensor parallelism (`parallel.tp`)."""
 
     def __init__(self, cfg: AudioConfig, compute_dtype: torch.dtype = torch.bfloat16,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.heads = cfg.num_attention_heads
         inner = cfg.num_attention_heads * cfg.attention_head_dim
         kw = dict(compute_dtype=compute_dtype, dtype=dtype)
         self.norm_q = LayerNorm(cfg.dim, fused=True, dtype=dtype)
@@ -110,7 +118,7 @@ class AudioCrossAttnLayer(nn.Module):
         b, s, _ = video.shape
         n_id, f, n_ctx = audio_ctx.shape[1], audio_ctx.shape[2], audio_ctx.shape[3]
         hw = s // f
-        nh, dh = c.num_attention_heads, c.attention_head_dim
+        nh, dh = self.heads, c.attention_head_dim
         q = self.to_q(self.norm_q(video))
         k = self.to_k(audio_ctx)
         v = self.to_v(audio_ctx)

@@ -271,7 +271,8 @@ class DiT(nn.Module):
     def _group(self, gi: int, hid: torch.Tensor, enc: torch.Tensor, routing: torch.Tensor,
                temb: torch.Tensor, rope, grid: Tuple[int, int, int],
                face_emb: Optional[torch.Tensor], audio_ctx: Optional[torch.Tensor],
-               af_matrix: Optional[torch.Tensor], routing_override: Optional[torch.Tensor]):
+               af_matrix: Optional[torch.Tensor], routing_override: Optional[torch.Tensor],
+               sp_group=None):
         """Layers [gi * g, (gi + 1) * g) (JAX `group_body`): each block, the
         face injection and the audio layer of the layers that have one.
         Returns (hid, enc, the routing used last, this group's predictions)."""
@@ -284,7 +285,7 @@ class DiT(nn.Module):
             if nested:
                 hid, enc = checkpoint(block, hid, enc, temb, rope, use_reentrant=False)
             else:
-                hid, enc = block(hid, enc, temb, rope)
+                hid, enc = block(hid, enc, temb, rope, sp_group)
             if face_emb is not None and li % c.cross_attn_interval == 0:
                 hid, pred, routing = self._face_injection(li // c.cross_attn_interval, face_emb,
                                                           hid, grid, routing_override)
@@ -308,15 +309,22 @@ class DiT(nn.Module):
               audio_ctx: Optional[torch.Tensor] = None,
               deterministic: bool = True,
               generator: Optional[torch.Generator] = None,
-              dropout_keep: Optional[torch.Tensor] = None):
+              dropout_keep: Optional[torch.Tensor] = None,
+              sp_group=None):
         """One denoise step: latents [B, T, C_in, H, W], text [B, L, text_dim],
         timesteps [B] -> (output [B, T, C_out, H, W] fp32, routing_logits
         [num_ca, B, S, I] fp32, or None when the face path did not run).
         `routing_override` [B, S, I] replaces the predicted routing in the
         face combine and the audio weights (the predictions are still
         returned).  `deterministic=False` (training) turns on the mute
-        tokens' dropout, from `dropout_keep` or else drawn from `generator`."""
+        tokens' dropout, from `dropout_keep` or else drawn from `generator`.
+        `sp_group` (a process group; inference only, as in JAX) runs every
+        block's joint attention as ring attention over its ranks
+        (`JointSelfAttention`); the rest of the step is replicated."""
         c = self.cfg
+        if sp_group is not None and torch.is_grad_enabled():
+            raise ValueError("sequence parallelism (sp_group) is inference only: call under "
+                             "torch.no_grad()")
         b, t, _, h_px, w_px = latents.shape
         grid = (t, h_px // c.patch_size, w_px // c.patch_size)
         s = grid[0] * grid[1] * grid[2]
@@ -350,7 +358,7 @@ class DiT(nn.Module):
         remat = c.remat and torch.is_grad_enabled()
         for gi in range(c.num_layers // c.group_size):
             args = (gi, hid, enc, routing, temb, rope, grid, face_emb, audio_ctx, af_matrix,
-                    routing_override)
+                    routing_override, sp_group)
             if remat:
                 kw = {}
                 if c.remat_policy == "save_attn":

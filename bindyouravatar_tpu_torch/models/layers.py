@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -19,6 +20,8 @@ from ..ops.attention import attention
 from ..ops.ff import ff_chunked
 from ..ops.flash_attention import flash_attention, flash_attention_flat
 from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
+from ..ops.ring_attention import ring_attention
+from ..ops.rope import apply_rotary_emb
 
 # The tag of the joint attention's differentiable forward (the JAX
 # `checkpoint_name(o, "attn_out")`), whose outputs remat_policy="save_attn"
@@ -180,7 +183,15 @@ class JointSelfAttention(nn.Module):
         `layers.py:354-367`), else kernels B11 and B12 + B13 on the [B, S, H, D]
         view of them (`attention(layout="bshd")`, JAX `layers.py:368-373`;
         below 1,024 rows `sdpa`, as JAX's dispatch rule decides).  The kernels'
-        forward is tagged `ATTN_OUT` for remat_policy="save_attn"."""
+        forward is tagged `ATTN_OUT` for remat_policy="save_attn".
+
+    With an `sp_group` (sequence parallelism, inference only, JAX
+    `layers.py:249-253, 334-352`) the joint sequence is padded to a multiple
+    of `sp * 128`, each rank projects its own rows, applies `norm_q`/`norm_k`
+    and the RoPE of its rows outside the attention, runs the ring
+    (`ops.ring_attention`, kernel B7's forward per block) and all-gathers
+    the output rows, so the rest of the block runs replicated.  Under
+    tensor parallelism (`parallel.tp`) `heads` is this rank's share."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, qk_norm: bool = True,
                  bias: bool = True, out_bias: bool = True, lora_rank: int = 0,
@@ -214,10 +225,45 @@ class JointSelfAttention(nn.Module):
             out = out + (x.to(cd) @ a.to(cd)) @ b.to(cd) * self.lora_scaling
         return out
 
+    def _sp_attention(self, x: torch.Tensor, text_len: int, rope, group) -> torch.Tensor:
+        """The ring path: this rank's rows of the padded joint sequence
+        through the projections, the QK norms, RoPE and the ring; the
+        gathered output [B, S, H*D] (the padding sliced away)."""
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        b, s_real, _ = x.shape
+        s_pad = -(-s_real // (n * 128)) * n * 128
+        rows = s_pad // n
+        lo = me * rows
+        x = F.pad(x, (0, 0, 0, s_pad - s_real))[:, lo:lo + rows]
+        q, k, v = self._proj("to_q", x), self._proj("to_k", x), self.to_v(x)
+        if self.norm_q is not None:
+            q, k = self.norm_q(q), self.norm_k(k)
+        if rope is not None:
+            # rows [text_len, text_len + R) of the whole sequence take RoPE:
+            # rotate the ones that fall in this shard
+            cos, sin = rope
+            a, e = max(lo, text_len), min(lo + rows, text_len + cos.shape[0])
+            if a < e:
+                view = lambda t: t.reshape(b, rows, self.heads, self.head_dim).transpose(1, 2)
+                rot = lambda t: torch.cat([
+                    t[:, :a - lo], apply_rotary_emb(
+                        view(t)[:, :, a - lo:e - lo], cos[a - text_len:e - text_len],
+                        sin[a - text_len:e - text_len]).transpose(1, 2).reshape(b, e - a, -1),
+                    t[:, e - lo:]], dim=1)
+                q, k = rot(q), rot(k)
+        o = ring_attention(q.contiguous(), k.contiguous(), v.contiguous(), self.heads, group,
+                           self.head_dim ** -0.5, valid_len=s_real)
+        parts = [torch.empty_like(o) for _ in range(n)]
+        dist.all_gather(parts, o.contiguous(), group=group)
+        return torch.cat(parts, dim=1)[:, :s_real]
+
     def forward(self, hidden, encoder_hidden,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]], sp_group=None):
         text_len = encoder_hidden.shape[1]
         x = torch.cat([encoder_hidden, hidden], dim=1)
+        if sp_group is not None:
+            o = self.to_out(self._sp_attention(x, text_len, rope, sp_group))
+            return o[:, text_len:], o[:, :text_len]
         q, k, v = self._proj("to_q", x), self._proj("to_k", x), self.to_v(x)
         if self.fuse_qk_norm:
             qk_norm = None
@@ -262,10 +308,10 @@ class CogVideoXBlock(nn.Module):
         self.norm2 = LayerNormZero(time_embed_dim, dim, eps=eps, **kw)
         self.ff = FeedForward(dim, mult=ff_mult, chunks=ff_chunks, **kw)
 
-    def forward(self, hidden, encoder_hidden, temb, rope):
+    def forward(self, hidden, encoder_hidden, temb, rope, sp_group=None):
         text_len = encoder_hidden.shape[1]
         nh, ne, gate, e_gate = self.norm1(hidden, encoder_hidden, temb)
-        attn_h, attn_e = self.attn1(nh, ne, rope)
+        attn_h, attn_e = self.attn1(nh, ne, rope, sp_group)
         hidden = hidden + (gate * attn_h).to(hidden.dtype)
         encoder_hidden = encoder_hidden + (e_gate * attn_e).to(hidden.dtype)
         nh, ne, gate_ff, e_gate_ff = self.norm2(hidden, encoder_hidden, temb)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,9 @@ class BindYourAvatarPipeline:
     vae: CausalVAE
     schedule: Schedule
     cfg: PipelineConfig = PipelineConfig()
+    # a process group: every DiT step runs its joint attention as ring
+    # attention over its ranks (sequence parallelism; JAX's `sp_mesh`)
+    sp_group: Any = None
 
     @classmethod
     def create(cls, dit: DiT, vae: CausalVAE, cfg: PipelineConfig = PipelineConfig(),
@@ -133,7 +136,8 @@ class BindYourAvatarPipeline:
             pred, routing = self.dit.apply(model_in, sel(inp["pe"]), tvec, inp["rope"],
                                            face_emb=sel(inp["face"]), audio_ctx=sel(inp["actx"]),
                                            af_matrix=sel(inp["af"]),
-                                           routing_override=sel(inp["force"]))
+                                           routing_override=sel(inp["force"]),
+                                           sp_group=self.sp_group)
             return pred.float(), routing
 
         if c.cfg_microbatch:

@@ -11,6 +11,15 @@ decodes through `CausalVAE.decode_stream` and hands each chunk to its
 predicted routing (`pipeline.denoise(routing_forcing=...)`).  Every result
 carries per-stage wall timings and its batch size.  `serve_http` puts a
 stdlib HTTP/JSON front end on a server (arrays travel as `.npy` paths).
+
+Over several ranks (every rank launched by `torchrun`; a DiT split by
+`parallel.tp.shard_params_tp`, or a pipeline whose `sp_group` runs the
+joint attention as a ring) each rank builds the server with that process
+`group`: its rank 0 owns the queue, the batching and the HTTP front end,
+and broadcasts each batch's prepared inputs and request seeds before it
+computes; the other ranks run `follow()`, which takes the same batches and
+runs the same step in lockstep until rank 0's `close()` broadcasts the
+stop.  Each rank draws the same noise from the same seeds.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import dataclasses
 import json
 import os
 import queue
+import sys
 import tempfile
 import threading
 import time
@@ -74,9 +84,14 @@ class InferenceServer:
     """
 
     def __init__(self, pipeline, device: torch.device | str, max_queue: int = 64,
-                 batch_max: int = 1, batch_wait_s: float = 0.25):
+                 batch_max: int = 1, batch_wait_s: float = 0.25, group=None):
         self.pipeline = pipeline
         self.device = torch.device(device)
+        self.group = group
+        self._src = 0 if group is None else torch.distributed.get_global_rank(group, 0)
+        if group is not None and torch.distributed.get_rank(group) != 0:
+            self.requests_served = 0
+            return          # a follower: `follow()` runs its loop
         self.batch_max = max(1, batch_max)
         self.batch_wait_s = batch_wait_s
         self._submit_q: "queue.Queue" = queue.Queue(maxsize=max_queue)
@@ -184,7 +199,44 @@ class InferenceServer:
             return False
         return all(sa["cond"][k].shape == sb["cond"][k].shape for k in sa["cond"])
 
+    def follow(self) -> None:
+        """A follower rank's loop: take each batch the group's rank 0
+        broadcasts and run it, until the stop message.  A batch that raises
+        is logged and skipped, as rank 0 fails its futures and goes on."""
+        from types import SimpleNamespace
+
+        while True:
+            msg = self._broadcast(None)
+            if msg is None:
+                return
+            reqs = [SimpleNamespace(seed=seed, decode=decode, stream_chunk_frames=chunks,
+                                    on_chunk=None) for seed, decode, chunks in msg["reqs"]]
+            dev = lambda d: {k: dev(v) if isinstance(v, dict) else v.to(self.device)
+                             for k, v in d.items()}
+            try:
+                self._generate(reqs, [dev(st) for st in msg["staged"]], {})
+            except Exception as e:   # noqa: BLE001 - rank 0 fails the batch's futures
+                # rank 0 hit the same error on the same batch and goes on to
+                # the next one: stay in step with it
+                print(f"[follow] batch failed on rank {torch.distributed.get_rank()}: {e!r}",
+                      file=sys.stderr, flush=True)
+                continue
+            self.requests_served += len(reqs)
+
+    def _broadcast(self, msg):
+        """Rank 0's `msg` on every rank of the group."""
+        box = [msg]
+        torch.distributed.broadcast_object_list(box, src=self._src, group=self.group)
+        return box[0]
+
     def _compute_loop(self) -> None:
+        try:
+            self._compute_batches()
+        finally:
+            if self.group is not None:
+                self._broadcast(None)          # the followers' stop
+
+    def _compute_batches(self) -> None:
         pending = None    # taken while gathering a batch, but not co-batchable: runs next
         while True:
             item, pending = (pending if pending is not None else self._ready_q.get()), None
@@ -226,9 +278,18 @@ class InferenceServer:
     def _run(self, items, timings: Dict[str, float]) -> List[np.ndarray]:
         """One `generate` over the stacked requests of `items`; one video
         (or latents) per request, decoded as the docstring of the class
-        says; the stage seconds go into `timings`."""
-        pipe = self.pipeline
+        says; the stage seconds go into `timings`.  With a group the batch
+        goes to the followers first."""
         reqs, staged = [it[0] for it in items], [it[2] for it in items]
+        if self.group is not None:
+            cpu = lambda d: {k: cpu(v) if isinstance(v, dict) else v.cpu() for k, v in d.items()}
+            self._broadcast({"reqs": [(r.seed, r.decode, r.stream_chunk_frames) for r in reqs],
+                             "staged": [cpu(st) for st in staged]})
+        return self._generate(reqs, staged, timings)
+
+    @torch.inference_mode()
+    def _generate(self, reqs, staged, timings: Dict[str, float]) -> List[np.ndarray]:
+        pipe = self.pipeline
         cat = lambda xs: torch.cat(xs, dim=0)
         gens = [torch.Generator(self.device).manual_seed(r.seed) for r in reqs]
         latents = None

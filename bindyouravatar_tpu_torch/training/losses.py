@@ -99,21 +99,34 @@ def id_distribution_loss(routing_logits: torch.Tensor, grid: Tuple[int, int, int
     return ((left + right) / 2.0).mean(dim=0).mean()
 
 
+def _mask(dense_mask: torch.Tensor, shape) -> torch.Tensor:
+    m = dense_mask.float()
+    if m.ndim == len(shape) - 1:
+        m = m[:, :, None]
+    return m.expand(shape)
+
+
+def mask_count(dense_mask: torch.Tensor, shape) -> torch.Tensor:
+    """The elements a dense mask selects in a loss over latents of `shape`."""
+    return _mask(dense_mask, tuple(shape)).sum()
+
+
 def diffusion_loss(model_output: torch.Tensor, noisy_latents: torch.Tensor,
                    clean_latents: torch.Tensor, timesteps: torch.Tensor, schedule,
-                   dense_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   dense_mask: Optional[torch.Tensor] = None,
+                   mask_denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v-prediction loss weighted 1 / (1 - a_t): the prediction mapped to x0
     by `schedule.get_velocity(noisy, model_output, t)` against the clean
     latents; an optional per-token dense mask ([B, T, H, W] or the
-    latents' shape) restricts it."""
+    latents' shape) restricts it, the masked sum divided by the mask's
+    element count (at least 1) or by `mask_denominator` (a sharded batch
+    divides by the whole batch's count)."""
     pred = schedule.get_velocity(noisy_latents, model_output, timesteps)
     w = schedule.loss_weight(timesteps)
     w = w.reshape(w.shape + (1,) * (pred.ndim - w.ndim))
     sq = w * (pred - clean_latents.float()) ** 2
     if dense_mask is not None:
-        m = dense_mask.float()
-        if m.ndim == sq.ndim - 1:
-            m = m[:, :, None]
-        m = m.expand(sq.shape)
-        return (sq * m).sum() / m.sum().clamp_min(1.0)
+        m = _mask(dense_mask, sq.shape)
+        den = m.sum().clamp_min(1.0) if mask_denominator is None else mask_denominator
+        return (sq * m).sum() / den
     return sq.reshape(sq.shape[0], -1).mean(dim=1).mean()

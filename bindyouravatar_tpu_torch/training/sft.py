@@ -22,9 +22,18 @@ drawn once from the seed (the launcher runs no T5 or EVA-CLIP) and given
 to every batch, so a resumed run sees the same ones; the EVA-CLIP hidden
 states have 577 tokens at 5b (the serving path's length; the JAX
 launcher's stand-in has 9).  `--num_layers` cuts the 5b depth (widths stay
-full).  `--fsdp` above 1 raises `NotImplementedError` naming its
-`ROADMAP.md` item (distribution, A 12); `--use_8bit_adam` with another
-optimizer raises `ValueError` (JAX ignores it there).
+full).  `--use_8bit_adam` with another optimizer raises `ValueError` (JAX
+ignores it there).
+
+Under `torchrun` (one process per GPU) the run is sharded: `--fsdp F`
+(default: the world size) ranks shard the DiT (`parallel.sharding`) and the
+rest form the dp axis (JAX `scripts/sft.py:134-136`); `--batch_size` is the
+global batch, each rank takes its slice.  An fsdp size that the world does
+not divide, or that exceeds it, raises; adafactor, prodigy and 8-bit AdamW
+raise `NotImplementedError` under fsdp > 1 (`ROADMAP.md` A12b):
+
+    torchrun --nproc_per_node 8 -m bindyouravatar_tpu_torch.training.sft \
+        --model_size 5b --fsdp 8 --output_dir runs/sft
 """
 
 from __future__ import annotations
@@ -83,7 +92,8 @@ def get_args(argv=None):
     p.add_argument("--remat_policy", choices=["none", "save_attn", "nested"], default="none",
                    help="5b checkpointing: per layer group (none), the joint attention's "
                         "outputs kept (save_attn), or each block too (nested)")
-    p.add_argument("--fsdp", type=int, default=None, help="fsdp axis size (1 only)")
+    p.add_argument("--fsdp", type=int, default=None,
+                   help="fsdp axis size (default: the world size under torchrun)")
     p.add_argument("--resume", type=str, default="latest", help="'latest' or 'none'")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--module_dir", type=str, default=None,
@@ -98,11 +108,22 @@ def get_args(argv=None):
 
 
 def _check_supported(args) -> None:
-    if (args.fsdp or 1) > 1:
-        raise NotImplementedError("--fsdp is not ported (distribution, ROADMAP.md A 12)")
     if args.use_8bit_adam and args.optimizer != "adamw":
         raise ValueError(f"--use_8bit_adam is AdamW's option, not --optimizer "
                          f"{args.optimizer}'s (the JAX launcher ignores it there)")
+
+
+def make_mesh(fsdp: Optional[int], dev: torch.device):
+    """The (dp, fsdp) mesh of a `torchrun` launch (None on one rank):
+    fsdp defaults to the world size, dp takes the rest."""
+    from ..parallel.mesh import create_mesh, init_distributed, world_size
+
+    init_distributed(backend="nccl" if dev.type == "cuda" else "gloo")
+    n = world_size()
+    fsdp = n if fsdp is None else fsdp
+    if fsdp > n or n % fsdp:
+        raise ValueError(f"--fsdp {fsdp} does not divide the {n} rank(s) of the launch")
+    return create_mesh(dp=n // fsdp, fsdp=fsdp, device_type=dev.type) if n > 1 else None
 
 
 @dataclasses.dataclass
@@ -128,6 +149,9 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
+    mesh = make_mesh(args.fsdp, dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = TrainConfig(
         learning_rate=args.learning_rate, max_train_steps=args.max_train_steps,
         optimizer=args.optimizer, use_8bit_adam=args.use_8bit_adam,
@@ -192,7 +216,7 @@ def main(argv=None, resume_fn: Optional[Callable] = None) -> SftRun:
         b = sample["video"].shape[0]
         return {k: np.repeat(v, b, axis=0) for k, v in stand_in.items()}
 
-    trainer = Trainer(dit, Schedule.create(SchedulerConfig()), cfg)
+    trainer = Trainer(dit, Schedule.create(SchedulerConfig()), cfg, mesh=mesh)
     driver = TrainDriver(trainer=trainer, vae=vae, cfg=cfg, output_dir=args.output_dir,
                          device=dev)
     validation_fn = None

@@ -17,6 +17,11 @@ Where it differs from the JAX driver, on purpose:
   latents) gets `bg_latents` of zeros, the pipeline's convention; the JAX
   driver builds none, and its 5B step then fails on the patch embed's
   shape.
+Under a mesh (the trainer built with one: `--fsdp` under `torchrun`) every
+rank prepares the whole global batch from the same generators and keeps its
+rows (`parallel.mesh.local_batch`), so the step equals one rank's; rank 0
+writes the metrics, the checkpoints (whole tensors, gathered) and the
+sub-module files.
 The numpy generator is used in the JAX driver's order (each stochastic
 encode's seed, the image noise, each sample's teacher masks), so the masks
 and the noised image equal JAX's from the same seed; only the VAE's own
@@ -38,10 +43,11 @@ from ..config import TrainConfig
 from ..models.vae import CausalVAE
 from ..utils.masks import (index_mask_to_routing, masks_to_index_mask, noisy_teacher_routing,
                            resize_mask_trilinear)
-from .checkpoint import (checkpoint_bytes, latest_step, restore_checkpoint, save_checkpoint,
-                         save_submodules)
+from ..parallel.mesh import local_batch
+from .checkpoint import (SUBMODULE_KEYS, checkpoint_bytes, latest_step, restore_checkpoint,
+                         save_checkpoint, save_submodules)
 from .data import PrefetchLoader, ResumableSampler
-from .trainer import Trainer, TrainState, merge_params
+from .trainer import Trainer, TrainState
 
 
 class MetricsLogger:
@@ -200,14 +206,33 @@ class TrainDriver:
         return {"sampler": self._loader_state, "np_rng": self._rng_np.bit_generator.state,
                 "torch_rng": self._gen.get_state()}
 
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes (rank 0, or the only one)."""
+        return self.trainer.mesh is None or torch.distributed.get_rank() == 0
+
+    def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a prepared global batch (the batch itself
+        without a mesh)."""
+        tr = self.trainer
+        if tr.mesh is None:
+            return batch
+        accum = max(1, int(self.cfg.grad_accum_steps))
+        return {k: v if v is None or k == "mute_embeds"
+                else local_batch(v, tr.batch_index, tr.batch_count, accum)
+                for k, v in batch.items()}
+
     def _checkpoint(self, ckpt_dir: str, step: int, state: TrainState):
         t0 = time.perf_counter()
-        path = save_checkpoint(ckpt_dir, step,
-                               {"state": self.trainer.state_dict(state), **self.host_state()},
+        payload = {"state": self.trainer.state_dict(state), **self.host_state()}
+        named = self.trainer.named_tensors(
+            state, [p for ps in SUBMODULE_KEYS.values() for p in ps])
+        if not self.lead:
+            torch.distributed.barrier()
+            return
+        path = save_checkpoint(ckpt_dir, step, payload,
                                total_limit=self.cfg.checkpoints_total_limit)
         seconds = time.perf_counter() - t0
-        named = merge_params(self.trainer.trainable if state.ema is None else state.ema,
-                             self.trainer.frozen)
         modules = os.path.join(self.output_dir, f"modules-{step}")
         t0 = time.perf_counter()
         save_submodules(named, modules)
@@ -218,6 +243,8 @@ class TrainDriver:
         print(f"[checkpoint] step {step}: {entry['bytes'] / 1e9:.3f} GB in {seconds:.2f} s "
               f"(+ sub-modules {entry['modules_bytes'] / 1e9:.3f} GB in "
               f"{entry['modules_seconds']:.2f} s)", flush=True)
+        if self.trainer.mesh is not None:
+            torch.distributed.barrier()
 
     def _restore(self, ckpt_dir: str, state: TrainState, sampler: ResumableSampler) -> TrainState:
         t0 = time.perf_counter()
@@ -268,7 +295,7 @@ class TrainDriver:
             raise ValueError(f"resume={resume!r}: 'latest' or None")
         cfg = self.cfg
         os.makedirs(self.output_dir, exist_ok=True)
-        logger = MetricsLogger(self.output_dir)
+        logger = MetricsLogger(self.output_dir) if self.lead else None
         ckpt_dir = os.path.join(self.output_dir, "checkpoints")
         state = self.trainer.init_state()
         sampler = ResumableSampler(len(dataset), shuffle=True, seed=cfg.seed)
@@ -288,7 +315,7 @@ class TrainDriver:
                 self._loader_state = loader.state_dict()
                 extras = make_batch_extras(sample) if make_batch_extras else {}
                 batch, prep_s, prep_peak = self._measured(
-                    lambda: self.prepare_batch(sample, self._rng_np, **extras))
+                    lambda: self.local_batch(self.prepare_batch(sample, self._rng_np, **extras)))
                 (state, metrics), dt, step_peak = self._measured(
                     lambda: self.trainer.train_step(state, batch, generator=self._gen))
                 del batch
@@ -298,13 +325,12 @@ class TrainDriver:
                 metrics.update(step_time_s=dt, prepare_batch_s=prep_s)
                 if prep_peak is not None:
                     metrics.update(prepare_batch_peak_gib=prep_peak, step_peak_gib=step_peak)
-                logger.log(state.step, metrics)
+                if logger is not None:
+                    logger.log(state.step, metrics)
                 if state.step % cfg.checkpointing_steps == 0 or state.step >= total:
                     self._checkpoint(ckpt_dir, state.step, state)
                     if validation_fn is not None:
-                        validation_fn(state.step, merge_params(
-                            self.trainer.trainable if state.ema is None else state.ema,
-                            self.trainer.frozen))
+                        validation_fn(state.step, self.trainer.model_named(state))
         finally:
             loader.close()
         return state

@@ -34,11 +34,14 @@ import re
 from typing import Dict, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..config import TrainConfig
 from ..models.audio import mute_dropout_keep
 from ..models.dit import DiT
 from ..ops.scheduler import Schedule
+from ..parallel.sharding import gather, local, part_of
 from . import losses as L
 from .adafactor import Adafactor
 from .adam8bit import AdamW8bit
@@ -165,11 +168,13 @@ class Trainer:
     """Train step over a `DiT` whose parameters it updates in place."""
 
     def __init__(self, dit: DiT, schedule: Schedule, cfg: TrainConfig = TrainConfig(),
-                 trainable_patterns: Sequence[str] = DEFAULT_TRAINABLE_PATTERNS):
+                 trainable_patterns: Sequence[str] = DEFAULT_TRAINABLE_PATTERNS, mesh=None):
         self.optimizer = make_optimizer(cfg)
-        self.dit, self.schedule, self.cfg = dit, schedule, cfg
+        self.dit, self.schedule, self.cfg, self.mesh = dit, schedule, cfg, mesh
         self.trainable, self.frozen = partition_params(dict(dit.named_parameters()),
                                                        trainable_patterns)
+        if mesh is not None:
+            self._shard(mesh, trainable_patterns)
         self.lr = make_lr_schedule(cfg)
         names = list(self.trainable)
         # the LR groups (label -> tensor names) and each one's factor of the
@@ -182,33 +187,106 @@ class Trainer:
             self.groups = {"all": names}
             self.lr_factors = {"all": 1.0}
 
+    def _shard(self, mesh, trainable_patterns) -> None:
+        """Place the DiT over `mesh`'s (dp, fsdp) axes (`parallel.sharding.
+        shard_params`, the trainable and the frozen tensors alike, as JAX's
+        `init_state(mesh=...)`); the optimizer then works on each rank's
+        parts.  Each rank's batch is its slice of the global batch
+        (`mesh.local_batch`), the draws are made for the global batch and
+        sliced, the gradients of the replicated tensors and the metrics are
+        averaged over the ranks, and the clip takes the global norm."""
+        from ..parallel import sharding
+        from ..parallel.mesh import AXIS_FSDP, AXIS_TENSOR, batch_rank
+
+        if mesh[AXIS_TENSOR].size() != 1:
+            raise ValueError("the trainer shards over dp x fsdp; tp is inference only")
+        if mesh[AXIS_FSDP].size() > 1 and (self.cfg.optimizer != "adamw"
+                                            or self.cfg.use_8bit_adam):
+            name = "8-bit AdamW" if self.cfg.use_8bit_adam else self.cfg.optimizer
+            raise NotImplementedError(f"{name} under fsdp > 1: its statistics span whole "
+                                      f"tensors (ROADMAP.md A12b); use AdamW or fsdp 1")
+        for p in self.frozen.values():          # before sharding: FSDP reads the flags
+            p.requires_grad_(False)
+        for p in self.trainable.values():
+            p.requires_grad_(True)
+        sharding.shard_params(self.dit, mesh)
+        self.trainable, self.frozen = partition_params(dict(self.dit.named_parameters()),
+                                                       trainable_patterns)
+        self.batch_index, self.batch_count = batch_rank(mesh)
+        self.fsdp_group = mesh[AXIS_FSDP].get_group()
+
+    @staticmethod
+    def _local(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: local(p) for k, p in params.items()}
+
     def init_state(self) -> TrainState:
         """Mark the trainable partition (only it takes gradients), start the
-        optimizer's state and copy the EMA's start (with `ema_decay`)."""
+        optimizer's state and copy the EMA's start (with `ema_decay`); under
+        a mesh both hold this rank's parts."""
         for p in self.frozen.values():
             p.requires_grad_(False)
         for p in self.trainable.values():
             p.requires_grad_(True)
+        params = self._local(self.trainable)
         with torch.no_grad():
-            opt = self.optimizer.init(self.trainable, self.groups)
-        ema = ({k: p.detach().clone() for k, p in self.trainable.items()}
+            opt = self.optimizer.init(params, self.groups)
+        ema = ({k: p.detach().clone() for k, p in params.items()}
                if self.cfg.ema_decay else None)
         return TrainState(step=0, count=0, opt=opt, ema=ema)
+
+    def _whole(self, part: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        """The whole tensor of a state part laid out as parameter `name`'s
+        (a collective under a mesh: every rank calls it)."""
+        like = self.trainable.get(name) if name is not None else None
+        if like is None or part.shape != local(like).shape:
+            return part
+        return gather(part, like)
+
+    def named_tensors(self, state: TrainState,
+                      frozen_prefixes: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Whole tensors by name (a collective under a mesh): the trainable
+        ones (their EMA copy when the state keeps one) and the frozen ones
+        starting with one of `frozen_prefixes`."""
+        src = self._local(self.trainable) if state.ema is None else state.ema
+        out = {k: self._whole(t, k) for k, t in src.items()}
+        for k, p in self.frozen.items():
+            if k.startswith(tuple(frozen_prefixes)):
+                out[k] = gather(local(p), p)
+        return out
+
+    def model_named(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The DiT's tensors by name as the model holds them (its own
+        tensors, or the EMA copy in the trainable tensors' layout), for
+        `validation.make_validation_fn`."""
+        named = merge_params(self.trainable, self.frozen)
+        for k, e in (state.ema or {}).items():
+            p = self.trainable[k]
+            named[k] = (DTensor.from_local(e, p.device_mesh, p.placements, shape=p.shape,
+                                           stride=p.stride(), run_check=False)
+                        if isinstance(p, DTensor) else e)
+        return named
 
     def state_dict(self, state: TrainState) -> Dict[str, object]:
         """What a checkpoint holds of the training state: the step, the
         optimizer's count and each kind of its state under its own key
         (AdamW's `mu` and `nu`, the format's first layout), the trainable
-        tensors and the EMA copy."""
+        tensors and the EMA copy.  Under a mesh every tensor is gathered
+        whole (every rank must call it), so a checkpoint does not depend on
+        the rank count."""
         return {"step": state.step, "count": state.count,
-                "params": {k: p.detach() for k, p in self.trainable.items()},
-                **state.opt, "ema": state.ema}
+                "params": {k: self._whole(p.detach(), k)
+                           for k, p in self._local(self.trainable).items()},
+                **{kind: {k: self._whole(t, k) for k, t in part.items()}
+                   for kind, part in state.opt.items()},
+                "ema": None if state.ema is None else {k: self._whole(t, k)
+                                                       for k, t in state.ema.items()}}
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping[str, object], state: TrainState) -> TrainState:
         """Copy a `state_dict` (tensors on any device) into the model's
         trainable tensors and into `state`'s tensors (as `init_state` made
-        them); raise unless the names and shapes are the trainable set's."""
+        them; under a mesh this rank's parts of them); raise unless the
+        names and shapes are the trainable set's."""
         params = saved["params"]
         if set(params) != set(self.trainable) or (saved["ema"] is None) != (state.ema is None):
             raise ValueError("the checkpoint's trainable set (or its EMA) is not this "
@@ -216,9 +294,14 @@ class Trainer:
         if any(set(saved.get(kind, ())) != set(part) for kind, part in state.opt.items()):
             raise ValueError(f"the checkpoint holds no {self.cfg.optimizer} state of this "
                              f"trainer's tensors ({sorted(state.opt)})")
-        for name, dst in (("params", self.trainable), ("ema", state.ema), *state.opt.items()):
+        parts = self._local(self.trainable)
+        for name, dst in (("params", parts), ("ema", state.ema), *state.opt.items()):
             for k, t in (dst or {}).items():
-                t.copy_(saved[name][k])
+                src = saved[name][k]
+                like = self.trainable.get(k)
+                if like is not None and tuple(src.shape) == tuple(like.shape):
+                    src = part_of(src, like)
+                t.copy_(src)
         return TrainState(step=int(saved["step"]), count=int(saved["count"]), opt=state.opt,
                           ema=state.ema)
 
@@ -230,16 +313,20 @@ class Trainer:
         dropout keeps, the mask-loss coin, the dropout keep mask."""
         c = self.cfg
         v = batch["video_latents"]
-        b, dev = v.shape[0], v.device
+        n, dev = v.shape[0], v.device
+        # under a mesh: drawn for the global micro-batch, this rank's rows kept
+        i0, count = (0, 1) if self.mesh is None else (self.batch_index, self.batch_count)
+        b = n * count
+        rows = slice(i0 * n, (i0 + 1) * n)
         t = torch.randint(0, self.schedule.config.num_train_timesteps, (b,),
                           generator=generator, device=dev)
-        noise = torch.randn(v.shape, generator=generator, device=dev)
+        noise = torch.randn((b,) + tuple(v.shape[1:]), generator=generator, device=dev)
         coins = torch.rand(3 * b + 1, generator=generator, device=dev)   # one uniform draw
         return dict(
-            t=t, noise=noise,
-            keep_img=(coins[:b] >= c.noised_image_dropout).reshape(b, 1, 1, 1, 1),
-            keep_bg=(coins[b:2 * b] >= c.drop_inpaint_prob).reshape(b, 1, 1, 1, 1),
-            keep_mask=(coins[2 * b:3 * b] >= c.index_mask_drop_prob).reshape(b, 1, 1),
+            t=t[rows], noise=noise[rows],
+            keep_img=(coins[:b] >= c.noised_image_dropout).reshape(b, 1, 1, 1, 1)[rows],
+            keep_bg=(coins[b:2 * b] >= c.drop_inpaint_prob).reshape(b, 1, 1, 1, 1)[rows],
+            keep_mask=(coins[2 * b:3 * b] >= c.index_mask_drop_prob).reshape(b, 1, 1)[rows],
             use_mask_loss=coins[3 * b] < c.mask_prob,
             dropout_keep=mute_dropout_keep(self.dit.audio_cfg, dev, generator))
 
@@ -264,7 +351,7 @@ class Trainer:
             teacher_noisy = teacher_noisy * draws["keep_mask"]
         rope = self.dit.rope(video.shape[3] * 8, video.shape[4] * 8, video.shape[1],
                              device=video.device)
-        out, routing = self.dit.apply(
+        out, routing = self.dit(
             torch.cat(chans, dim=2), batch["prompt_embeds"], t.float(), rope,
             id_cond=batch.get("id_cond"), id_vit_hidden=batch.get("id_vit_hidden"),
             audio_embeds=batch.get("audio_embeds"), mute_embeds=batch.get("mute_embeds"),
@@ -275,7 +362,14 @@ class Trainer:
         if c.enable_mask_loss and batch.get("dense_mask") is not None:
             m = batch["dense_mask"]
             dense = torch.where(draws["use_mask_loss"], m, torch.ones_like(m))
-        d_loss = L.diffusion_loss(out, noisy, video, t, sch, dense)
+        den = None
+        if dense is not None and self.mesh is not None:
+            # the masked mean is over the global micro-batch: each rank
+            # divides by the whole count (over the ranks, which FSDP averages)
+            den = L.mask_count(dense, out.shape)
+            dist.all_reduce(den)
+            den = den.clamp_min(1.0) / self.batch_count
+        d_loss = L.diffusion_loss(out, noisy, video, t, sch, dense, den)
         metrics = {"diffusion_loss": d_loss}
         total = d_loss
         teacher = batch.get("teacher_clean")
@@ -326,9 +420,30 @@ class Trainer:
                 sums[k] = sums.get(k, 0.0) + v.detach()
         grads = {}
         for k, p in self.trainable.items():       # the summed .grad becomes the mean
-            grads[k] = (torch.zeros_like(p) if p.grad is None else p.grad).div_(accum)
+            g = torch.zeros_like(local(p)) if p.grad is None else local(p.grad)
+            grads[k] = g.div_(accum)
             p.grad = None
-        return grads, {k: v / accum for k, v in sums.items()}
+        metrics = {k: v / accum for k, v in sums.items()}
+        if self.mesh is not None:
+            # FSDP averaged the sharded tensors' gradients; average the
+            # replicated ones and the metrics over the ranks
+            rep = [grads[k] for k, p in self.trainable.items() if not isinstance(p, DTensor)]
+            for t in rep + list(metrics.values()):
+                dist.all_reduce(t)
+                t.div_(self.batch_count)
+        return grads, metrics
+
+    def grad_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients (under a mesh: of the whole
+        tensors, from each rank's parts)."""
+        if self.mesh is None:
+            return global_norm(grads.values())
+        sharded = {k for k, p in self.trainable.items() if isinstance(p, DTensor)}
+        sq = lambda ks: sum(((grads[k].float() ** 2).sum() for k in ks),
+                            torch.zeros((), device=next(iter(grads.values())).device))
+        part = sq([k for k in grads if k in sharded])
+        dist.all_reduce(part, group=self.fsdp_group)
+        return torch.sqrt(part + sq([k for k in grads if k not in sharded]))
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState,
@@ -338,17 +453,18 @@ class Trainer:
         group at lr(count) times its factor; then the EMA, ema = d * ema +
         (1 - d) * p."""
         c = self.cfg
-        g_norm = global_norm(grads.values())
+        g_norm = self.grad_norm(grads)
         if not bool(g_norm < c.max_grad_norm):
             for g in grads.values():
                 g.div_(g_norm).mul_(c.max_grad_norm)
         lr = self.lr(state.count)
         lrs = {label: lr * f for label, f in self.lr_factors.items()}
-        self.optimizer.step(self.trainable, grads, state.opt, self.groups, lrs, state.count)
+        params = self._local(self.trainable)
+        self.optimizer.step(params, grads, state.opt, self.groups, lrs, state.count)
         if state.ema is not None:
             d = c.ema_decay
             for k, e in state.ema.items():
-                e.mul_(d).add_(self.trainable[k], alpha=1.0 - d)
+                e.mul_(d).add_(params[k], alpha=1.0 - d)
         return TrainState(step=state.step + 1, count=state.count + 1, opt=state.opt,
                           ema=state.ema)
 
@@ -358,5 +474,5 @@ class Trainer:
         """One optimizer step -> (new state, metrics with `grad_norm`, the
         global norm of the mean gradients before clipping)."""
         grads, metrics = self.grads_and_metrics(batch, draws, generator)
-        metrics["grad_norm"] = global_norm(grads.values())
+        metrics["grad_norm"] = self.grad_norm(grads)
         return self.apply_gradients(state, grads), metrics

@@ -8,6 +8,9 @@ The pipeline wraps the trainer's own DiT.  A generate runs under
 fused QK-LN has no backward) and the DiT goes back to the training path
 after it.  Tensors the driver passes that are not the DiT's own (the EMA
 copy) are copied in for the call and the live values put back after.
+A DiT placed with `parallel.sharding.shard_params` runs on every rank
+(its root unit gathered for the call, each block gathered by its own
+hooks); rank 0 writes the mp4s.
 """
 
 from __future__ import annotations
@@ -44,18 +47,27 @@ def make_validation_fn(pipe, output_dir: str, prompt_embeds: np.ndarray,
         swapped = {k: live[k].detach().clone() for k, t in named.items() if t is not live[k]}
         for k in swapped:
             live[k].copy_(named[k])
+        sharded = hasattr(dit, "unshard")       # an FSDP unit: gather its root's tensors
+        lead = not sharded or torch.distributed.get_rank() == 0
         out_dir = os.path.join(output_dir, f"validation-{step}")
-        os.makedirs(out_dir, exist_ok=True)
+        if lead:
+            os.makedirs(out_dir, exist_ok=True)
         dit.set_fuse_qk_norm(True)
+        if sharded:
+            dit.unshard()
         try:
             for i in range(num_videos):
                 gen = torch.Generator(dev).manual_seed(seed + i)
                 video = pipe.generate(pe, ne, img, gen, num_inference_steps=num_inference_steps,
                                       **cond)
+                if not lead:
+                    continue
                 path = os.path.join(out_dir, f"video_{i}.mp4")
                 export_to_video(video[0].float().cpu().numpy(), path, fps=25)
                 print(f"[validation] step {step}: wrote {path}", flush=True)
         finally:
+            if sharded:
+                dit.reshard()
             dit.set_fuse_qk_norm(False)
             for k, t in swapped.items():
                 live[k].copy_(t)

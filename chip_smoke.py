@@ -7,6 +7,7 @@
                               # (also two-stage, and from reference-format files); SAM2 and
                               # the upscaler
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
+    python3 chip_smoke.py --only-distribution      # phase 11 only
 
 Phases (one line each; any failure exits non-zero and prints no result):
   1. the card's `nvidia-smi` name and power limit; build every kernel (one
@@ -165,6 +166,34 @@ Phases (one line each; any failure exits non-zero and prints no result):
      of 2 steps at 49 x 480 x 720 through `pipeline.generate` in bf16
      (s a step, peak, exact launches), and 2 layers on the card against
      the CPU in fp32.
+  11. distribution and the profiling helpers, after every other phase (so
+     their launch counts are unchanged).  The card has one GPU and NCCL
+     takes one rank a device, so the multi-rank paths run here at world
+     size 1 (their multi-rank checks run on the CPU over gloo, in the
+     tests).  The ring's per-block function (`ring_block`, `ring_merge`:
+     kernel B7's forward per block, merged by LSE) over every (rank, step)
+     pair of sp 2 and sp 4 at [2, 17776, 3072] bf16 padded to 17,920, and
+     at 300 tokens (sp 4: the last shard all padding, its blocks skipped),
+     against B7's unsharded forward with kv_len = the real rows (phase 2's
+     tolerance), ms a block step and in all beside the unsharded call; B1
+     and B3 at the TP plan's 24 heads a rank at tp 2 against their plain
+     versions; then an NCCL group of world size 1: the sequence-parallel
+     2-layer full-width `DiT.apply` (the ring of 1) against the fused B1
+     path and against the blocks' training path (B10, then B7 with RoPE
+     inside: the witness of the roundings of two correct paths), within
+     twice their spread in relative L2, launches B1 -> B7 forward + B10
+     per block; the TP-planned forward (`shard_params_tp` wraps its
+     modules over the one rank) against the unsharded one (bit for bit or
+     not, launches equal); `trace()` and `PhaseTimer` around a forward (the
+     trace file names the kernels' symbols); and phase 5's Stage-3 step
+     (AdamW, 2 micro-batches, rebuilt from its seeds at its depth)
+     unsharded again (B7's backward adds dq in no fixed order: the floor)
+     and through `shard_params` (`fully_shard` over the one rank): the
+     trainable change within relative L2 1e-2 of phase 5's, frozen tensors
+     bit-identical, launches equal phase 5's, step walls and peaks beside
+     phase 5's, and the extra peak parted into the root unit's gathered
+     copy (read at the root's forward) and the rest.  The group is
+     destroyed at the end.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -2671,7 +2700,7 @@ def _fingerprint(t) -> tuple:
     return int(w.sum()), int((w * (w & 0xFFFF)).sum())
 
 
-def train_phase(args, launches: dict) -> bool:
+def train_phase(args, launches: dict, record: dict) -> bool:
     """`args.train_steps` optimizer steps of `Trainer.train_step` (2
     micro-batches each, batch 1 per micro-batch) on the repo's default
     configuration at full width: `DiTConfig(lora_rank=128, remat=True,
@@ -2679,33 +2708,26 @@ def train_phase(args, launches: dict) -> bool:
     dim 3072, 226 + 17,550 tokens, face + audio), fp32 weights drawn on the
     card from a seed, bf16 compute.  Checks finite loss and metrics, moved
     trainable and bit-identical frozen tensors, and each kernel's launch
-    count; fills `launches`."""
+    count; fills `launches`, and `record` with the step walls, the peak, the
+    launches and the trainable tensors after the steps (on the host: phase
+    11 holds its sharded step against them)."""
     import gc
 
     import torch
-    from bindyouravatar_tpu_torch.config import DiTConfig, SchedulerConfig, TrainConfig
-    from bindyouravatar_tpu_torch.models.dit import DiT
-    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
-    from bindyouravatar_tpu_torch.training.trainer import Trainer
 
     gc.collect()
     torch.cuda.empty_cache()
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    gen = torch.Generator(dev).manual_seed(args.seed + 100)
-    cfg = DiTConfig(lora_rank=128, remat=True, remat_policy="nested",
-                    num_layers=args.train_layers)
-    dit = DiT.create(cfg, device=dev, generator=gen)
-    tr = Trainer(dit, Schedule.create(SchedulerConfig()), TrainConfig(lr_warmup_steps=1))
-    state = tr.init_state()
-    batch = _train_batch(dit, tr.cfg.grad_accum_steps, gen, dev)
+    dit, tr, state, batch, gen_step = _stage3_setup(args)
+    cfg = dit.cfg
     torch.cuda.synchronize()
     n_train = sum(p.numel() for p in tr.trainable.values())
     n_all = sum(p.numel() for p in dit.parameters())
     print(f"train model: DiT {n_all / 1e9:.3f}B params ({cfg.num_layers} layers"
           f"{'' if cfg.num_layers == 42 else ', depth cut from 42'}), trainable "
           f"{n_train / 1e9:.3f}B in {len(tr.trainable)} tensors, fp32 weights drawn on the card "
-          f"in {time.perf_counter() - t0:.1f} s; weights + AdamW state "
+          f"with the AdamW state and the batch in {time.perf_counter() - t0:.1f} s; weights + "
+          f"AdamW state "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     before_t = {k: _fingerprint(p) for k, p in tr.trainable.items()}
     before_f = {k: _fingerprint(p) for k, p in tr.frozen.items()}
@@ -2713,7 +2735,6 @@ def train_phase(args, launches: dict) -> bool:
     ok = True
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    gen_step = torch.Generator(dev).manual_seed(args.seed + 200)
     accum = tr.cfg.grad_accum_steps
     for i in range(args.train_steps):
         t0 = time.perf_counter()
@@ -2726,6 +2747,7 @@ def train_phase(args, launches: dict) -> bool:
         state, m = tr.train_step(state, batch, draws=draws)
         vals = {k: float(v) for k, v in m.items()}
         wall = time.perf_counter() - t0
+        record.setdefault("step_s", []).append(wall)
         finite = all(math.isfinite(v) for v in vals.values())
         ok &= finite
         print(f"train step {i + 1}: {wall:.2f} s wall ({accum} micro-batches: {shown}; "
@@ -2735,6 +2757,9 @@ def train_phase(args, launches: dict) -> bool:
     torch.cuda.synchronize()
     launches.update(_read_launches())
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # phase 11 holds its sharded step against these trainable tensors
+    record.update(peak_gib=peak, layers=cfg.num_layers, launches=dict(launches),
+                  after={k: p.detach().to("cpu", copy=True) for k, p in tr.trainable.items()})
 
     moved = sum(_fingerprint(p) != before_t[k] for k, p in tr.trainable.items())
     frozen_same = all(_fingerprint(p) == before_f[k] for k, p in tr.frozen.items())
@@ -3252,6 +3277,384 @@ KERNELS = {
 }
 
 
+def _rel_l2(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _ring_check(rnd, b: int, s_real: int, n: int, h: int) -> bool:
+    """Every (rank, step) pair of an n-rank ring on one card
+    (`ring_attention_local`: `ring_block` / `ring_merge`, kernel B7's
+    forward per block), the sequence padded to a multiple of n * 128 as the
+    DiT pads it, against B7's unsharded forward with kv_len = s_real."""
+    import torch
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops.ring_attention import (block_kv_len, ring_attention_local,
+                                                             ring_block)
+
+    s_pad = -(-s_real // (n * 128)) * n * 128
+    q, k, v = (rnd(b, s_pad, h * 64).to(torch.bfloat16) for _ in range(3))
+    scale = 64 ** -0.5
+    ring = lambda: ring_attention_local(q, k, v, h, n, scale, s_real)
+    whole = lambda: fa.flash_attention_flat_fwd(q, k, v, h, scale, s_real)
+    got, (want, _) = ring(), whole()
+    # tol: phase 2's B7 forward, 2% of the output's largest magnitude (+2%
+    # relative): each block's p and output are rounded to bf16, the merge
+    # is fp32
+    atol = _rel_compare(want[:, :s_real], want[:, :s_real], 2e-2)
+    err, rel, ok = _compare(got[:, :s_real], want[:, :s_real], atol, 2e-2)
+    skipped = sum(block_kv_len(src, s_pad // n, s_real) == 0 for src in range(n))
+    shard = [t[:, :s_pad // n].contiguous() for t in (q, k, v)]
+    block_ms = _time_ms(lambda: ring_block(*shard, h, 0, scale, s_real), 5)
+    ring_ms, whole_ms = _time_ms(ring, 3), _time_ms(whole, 5)
+    print(f"distribution ring sp={n} [{b},{s_real},{h * 64}] padded to {s_pad} "
+          f"({s_pad // n} rows a shard, {skipped} kv block(s) all padding, skipped at every "
+          f"rank): max_abs_err={err:.3e} max_rel_err={rel:.3e} tol=|d|<={atol:.3e}+0.02*|ref| "
+          f"{'ok' if ok else 'FAILED'}; a block step {block_ms:.4f} ms, all {n * n} steps with "
+          f"the merges (and the shards' copies) {ring_ms:.4f} ms, unsharded B7 forward "
+          f"{whole_ms:.4f} ms", flush=True)
+    return ok
+
+
+def distribution_phase(args, phase5: dict) -> bool:
+    """Phase 11: distribution and the profiling helpers on the one card.
+    The ring's per-block function over all (rank, step) pairs at sp 2 and
+    4; an NCCL group of world size 1 driving the sequence-parallel and the
+    TP-planned 2-layer full-width `DiT.apply` and the FSDP-sharded Stage-3
+    step; B1 and B3 at the TP plan's per-rank heads at tp 2; `trace()` and
+    `PhaseTimer` around a forward.  The group is destroyed at the end."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+    from bindyouravatar_tpu_torch.ops.rope import get_3d_rotary_pos_embed
+    from bindyouravatar_tpu_torch.parallel.mesh import init_distributed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(args.seed + 1100)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    ok = True
+
+    # --- the ring: the joint attention at the DiT's geometry after QK-LN
+    # and RoPE, and 300 tokens at sp 4 (the last shard all padding)
+    for b, s_real, n in ((2, 17776, 2), (2, 17776, 4), (1, 300, 4), (1, 300, 2)):
+        ok &= _ring_check(rnd, b, s_real, n, 48)
+
+    # --- B1 and B3 at the TP plan's per-rank heads at tp 2 (24 of 48); B2's
+    # perceivers stay whole under the plan (phase 2's 16 heads)
+    # tol: phase 2's B1 and B3 tolerances
+    q, k, v = (rnd(2, 17776, 24 * 64).to(bf) for _ in range(3))
+    norm = tuple(rnd(64) * 0.1 + (1.0 if i % 2 == 0 else 0.0) for i in range(4))
+    rope = get_3d_rotary_pos_embed(64, ((0, 0), (30, 45)), (30, 45), 13, device=dev)
+    kern = lambda: fa.flash_attention(q, k, v, 24, rope=rope, rope_start=226, qk_norm=norm)
+    plain = lambda: fa.flash_attention_plain(q, k, v, 24, rope=rope, rope_start=226,
+                                             qk_norm=norm, block_q=512)
+    err, rel, b1_ok = _compare(kern(), plain(), 1e-2, 2e-2)
+    print(f"distribution B1 at tp 2's 24 heads [2,17776,1536] QK-LN + RoPE: max_abs_err="
+          f"{err:.3e} tol=|d|<=0.01+0.02*|ref| {'ok' if b1_ok else 'FAILED'} kernel_ms="
+          f"{_time_ms(kern, 5):.4f} plain_ms={_time_ms(plain, 2):.4f}", flush=True)
+    q = rnd(26, 1350, 24 * 64).to(bf)
+    k, v = (rnd(26, 2, 24, 32, 64).to(bf) for _ in range(2))
+    w = torch.rand((26, 1350, 2), generator=gen, device=dev).to(bf)
+    kern = lambda: skv.short_kv_attention_combined_flat(q, k, v, w, 0.125)
+    plain = lambda: skv.short_kv_attention_combined_flat_plain(q, k, v, w, 0.125)
+    err, rel, b3_ok = _compare(kern(), plain(), 1e-2, 2e-2)
+    print(f"distribution B3 at tp 2's 24 heads [26,1350,1536]: max_abs_err={err:.3e} "
+          f"tol=|d|<=0.01+0.02*|ref| {'ok' if b3_ok else 'FAILED'} kernel_ms="
+          f"{_time_ms(kern, 20):.4f} plain_ms={_time_ms(plain, 5):.4f}", flush=True)
+    ok &= b1_ok and b3_ok
+    del q, k, v, w
+
+    # --- an NCCL group of world size 1 (no other rank exists on this card)
+    store = tempfile.mkdtemp(prefix="bya_pg_")
+    init_distributed(coordinator=f"file://{store}/store", num_processes=1, process_id=0,
+                     backend="nccl")
+    try:
+        ok &= _distributed_model_checks(args, phase5, gen, rnd)
+    finally:
+        dist.destroy_process_group()
+    print(f"distribution phase {'ok' if ok else 'FAILED'} in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok
+
+
+def _distributed_model_checks(args, phase5: dict, gen, rnd) -> bool:
+    """The world-size-1 checks of phase 11 (the group is joined)."""
+    import gc
+    import glob
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from bindyouravatar_tpu_torch.config import DiTConfig
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.parallel.mesh import create_mesh
+    from bindyouravatar_tpu_torch.parallel.tp import shard_params_tp, tp_plan
+    from bindyouravatar_tpu_torch.utils.profiling import PhaseTimer, sync, trace
+
+    dev = torch.device("cuda")
+    ok = True
+    world = dist.group.WORLD
+    dit = DiT.create(DiTConfig(num_layers=2), device=dev, generator=gen).eval()
+    dit.set_fuse_qk_norm(True)
+    c = dit.cfg
+    batch = _train_batch(dit, 2, gen, dev)
+    model_in = torch.cat([batch["video_latents"], batch["image_latents"], batch["bg_latents"]],
+                         dim=2)
+    rope = dit.rope(480, 720, c.latent_frames, device=dev)
+    kw = dict(id_cond=batch["id_cond"], id_vit_hidden=batch["id_vit_hidden"],
+              audio_embeds=batch["audio_embeds"], af_matrix=batch["af_matrix"])
+    ts = torch.full((2,), 500.0, device=dev)
+
+    def run(**extra):
+        _reset_launches()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = dit.apply(model_in, batch["prompt_embeds"], ts, rope, **kw, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, _read_launches(), wall
+
+    run()                                    # first calls: warm-up (B10's Triton build)
+    run(sp_group=world)
+    (fused, r_fused), n_fused, s_fused = run()
+    (sp, r_sp), n_sp, s_sp = run(sp_group=world)
+    # under sp the blocks' joint attention leaves B1 for B10 (QK-LN) and one
+    # B7 forward a ring step (1 step at world size 1)
+    want_sp = dict(n_fused, **{"B1": n_fused["B1"] - c.num_layers,
+                               "B7 fwd": n_fused["B7 fwd"] + c.num_layers,
+                               "B10 fwd": n_fused["B10 fwd"] + 2 * c.num_layers})
+    # the witness: the blocks' training path (B10, then B7 with RoPE inside
+    # the kernel) on the same inputs, the same launches as the sp path's; it
+    # differs from the sp path only where RoPE is applied (and the ring's
+    # one-block merge), from the fused path only where QK-LN is
+    for blk in dit.blocks:
+        blk.attn1.fuse_qk_norm = False
+    (unf, r_unf), n_unf, s_unf = run()
+    for blk in dit.blocks:
+        blk.attn1.fuse_qk_norm = True
+    rel_o, rel_r = _rel_l2(sp, fused), _rel_l2(r_sp, r_fused)
+    rel_wo, rel_wr = _rel_l2(sp, unf), _rel_l2(r_sp, r_unf)
+    rel_uo, rel_ur = _rel_l2(unf, fused), _rel_l2(r_unf, r_fused)
+    # tol: the two in-kernel paths differ by their bf16 roundings alone
+    # (7.4e-3 / 8.2e-3 on the H100); the sp path may stand at most twice
+    # that spread from either (it read 1.07x / 1.11x), and the spread itself
+    # within 2e-2
+    spread_ok = rel_uo < 2e-2 and rel_ur < 2e-2
+    sp_ok = (spread_ok and max(rel_o, rel_wo) < 2 * rel_uo and max(rel_r, rel_wr) < 2 * rel_ur
+             and n_sp == want_sp and n_unf == want_sp and bool(sp.isfinite().all()))
+    print(f"distribution sp (NCCL world size 1, ring of 1): 2-layer 5B-width DiT.apply "
+          f"[2,{c.latent_frames},{c.in_channels},60,90] face + audio, 226 + 17,550 tokens "
+          f"padded to 17,792: relative L2 output / routing, the blocks' training path (B10, "
+          f"B7 with RoPE inside) against the fused B1 path {rel_uo:.3e} / {rel_ur:.3e} (the "
+          f"spread, tol 2e-2); the sp path against the fused {rel_o:.3e} / {rel_r:.3e} and "
+          f"against the training path {rel_wo:.3e} / {rel_wr:.3e} (tol 2x the spread: "
+          f"{max(rel_o, rel_wo) / rel_uo:.2f}x / {max(rel_r, rel_wr) / rel_ur:.2f}x); "
+          f"{s_sp * 1e3:.1f} ms against "
+          f"{s_fused * 1e3:.1f} ms fused, {s_unf * 1e3:.1f} ms training path; launches "
+          + " ".join(f"{k}={n_sp[k]} (want {want_sp[k]})" for k in want_sp if want_sp[k])
+          + f", the training path's equal: {n_unf == want_sp} {'ok' if sp_ok else 'FAILED'}",
+          flush=True)
+    ok &= sp_ok
+    del unf, r_unf
+
+    mesh = create_mesh(dp=1, fsdp=1, tp=1, device_type="cuda")
+    shard_params_tp(dit, mesh)
+    wrapped = sum(1 for m in dit.modules() if any(
+        type(p).__name__ == "DTensor" for p in m.parameters(recurse=False)))
+    (tp, r_tp), n_tp, s_tp = run()
+    (tp, r_tp), n_tp, s_tp = run()
+    bitwise = torch.equal(tp, fused) and torch.equal(r_tp, r_fused)
+    rel_t = _rel_l2(tp, fused)
+    tp_ok = rel_t < 1e-2 and n_tp == n_fused and bool(tp.isfinite().all())
+    print(f"distribution tp (NCCL world size 1): the TP plan wraps {wrapped} modules "
+          f"({len(tp_plan(dit, 2))} planned at tp 2, whole heads kept; the same at tp 1), "
+          f"2-layer forward against the unsharded one: bit for bit {bitwise}, relative L2 "
+          f"{rel_t:.3e} (tol 1e-2); {s_tp * 1e3:.1f} ms against {s_fused * 1e3:.1f} ms; "
+          f"launches equal the unsharded run's: {n_tp == n_fused} "
+          f"{'ok' if tp_ok else 'FAILED'}", flush=True)
+    ok &= tp_ok
+
+    # trace() and PhaseTimer around the same 2-layer forward
+    tdir = tempfile.mkdtemp(prefix="bya_trace_")
+    timer = PhaseTimer()
+    with torch.no_grad():
+        with trace(tdir), timer.phase("forward") as holder:
+            holder["value"] = dit.apply(model_in, batch["prompt_embeds"], ts, rope, **kw)
+    files = glob.glob(os.path.join(tdir, "*.json"))
+    text = open(files[0]).read() if files else ""
+    symbols = ("flash_fwd_kernel", "short_kv", "layernorm_rows_kernel")
+    events = json.loads(text).get("traceEvents", []) if text else []
+    dev_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+
+    def forward():
+        with torch.no_grad():
+            dit.apply(model_in, batch["prompt_embeds"], ts, rope, **kw)
+
+    ev = _time_ms(forward, 3)
+    t_ok = all(sym in text for sym in symbols) and timer.report()["forward"] > 0
+    print(f"distribution profiling: trace() wrote {len(files)} file(s) "
+          f"({sum(os.path.getsize(f) for f in files) / 1e6:.1f} MB) naming "
+          + ", ".join(f"{sym}={sym in text}" for sym in symbols)
+          + f"; kernel time in it {dev_ms:.1f} ms; PhaseTimer (sync) "
+          f"{timer.report()['forward'] * 1e3:.1f} ms under the trace, CUDA events around the "
+          f"same forward {ev:.1f} ms {'ok' if t_ok else 'FAILED'}", flush=True)
+    ok &= t_ok
+    sync(holder["value"])
+    del dit, fused, sp, tp, holder, batch, model_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- phase 5's Stage-3 step (its seeds: the same weights, batch and
+    # draws, at its depth) unsharded again and through `shard_params`
+    # (fully_shard over the one rank), against phase 5's result
+    ref = phase5 if "after" in phase5 else _stage3_run(args, None)
+    again = _stage3_run(args, None, ref)
+    s_ = _stage3_run(args, create_mesh(dp=1, fsdp=1, device_type="cuda"), ref)
+    f_ok = (s_["rel"] < 1e-2 and s_["frozen_same"] and s_["launches"] == ref["launches"]
+            and math.isfinite(s_["loss"]))
+    print(f"distribution fsdp (NCCL world size 1): Stage-3 step, AdamW, 2 micro-batches, "
+          f"{args.train_layers} layers (phase 5's depth), {s_['wrapped']}/{s_['n']} tensors "
+          f"placed by fully_shard over the one rank: trainable change relative L2 against "
+          f"phase 5's step {s_['rel']:.3e} (tol 1e-2; key biases apart; the unsharded step "
+          f"again {again['rel']:.3e}), frozen bit-identical {s_['frozen_same']}, launches equal "
+          f"phase 5's {s_['launches'] == ref['launches']}; step walls sharded "
+          + ", ".join(f"{w:.2f}" for w in s_["step_s"]) + " s, unsharded again "
+          + ", ".join(f"{w:.2f}" for w in again["step_s"]) + ", phase 5 "
+          + ", ".join(f"{w:.2f}" for w in ref["step_s"]) + f" s; peak {s_['peak_gib']:.2f} GiB "
+          f"sharded, {again['peak_gib']:.2f} unsharded again, {ref['peak_gib']:.2f} phase 5 "
+          f"{'ok' if f_ok else 'FAILED'}", flush=True)
+    # where the sharded step's extra peak goes: FSDP2 keeps the root unit
+    # gathered from the root's forward to the end of its backward, and each
+    # unit's backward holds its unsharded gradients while they are
+    # reduce-scattered into the sharded ones
+    g = s_["at_root"] - again["at_root"]
+    extra = s_["peak_gib"] - again["peak_gib"]
+    print(f"distribution fsdp memory (GiB): model {again['model']:.2f} unsharded, "
+          f"{s_['model']:.2f} before fully_shard, {s_['placed']:.2f} after it, "
+          f"{s_['state']:.2f} with AdamW's state ({again['state']:.2f} unsharded); at the "
+          f"root's forward +{s_['at_root']:.2f} over the step's start (unsharded "
+          f"+{again['at_root']:.2f}): the root unit's gathered copy {g:.2f} (its wrapped "
+          f"tensors {s_['root_gib']:.2f}, {s_['root_train_gib']:.2f} of them trainable; one "
+          f"block unit {s_['block_gib']:.3f}); peak {s_['peak_gib']:.2f} against "
+          f"{again['peak_gib']:.2f}: extra {extra:.2f} = the gathered root {g:.2f} + the rest "
+          f"{extra - g:.2f} (gradient buffers; the root's trainable gradients are "
+          f"{s_['root_train_gib']:.2f}); after the steps {s_['end']:.2f} against "
+          f"{again['end']:.2f}", flush=True)
+    return ok & f_ok
+
+
+def _stage3_setup(args, mesh=None, mem=None):
+    """Phase 5's Stage-3 configuration from its seeds: the repo's default
+    `DiTConfig(lora_rank=128, remat=True, remat_policy="nested")` at
+    `--train-layers`, drawn on the card, its trainer (through
+    `shard_params` over `mesh`) and AdamW state, the batch, and the
+    generator of the steps' draws.  `mem` (if given) takes the device GiB
+    after the model, its placement and the state."""
+    import torch
+    from bindyouravatar_tpu_torch.config import DiTConfig, SchedulerConfig, TrainConfig
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
+    from bindyouravatar_tpu_torch.training.trainer import Trainer
+
+    mem = {} if mem is None else mem
+    gib = lambda: torch.cuda.memory_allocated() / 2**30
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(args.seed + 100)
+    cfg = DiTConfig(lora_rank=128, remat=True, remat_policy="nested",
+                    num_layers=args.train_layers)
+    dit = DiT.create(cfg, device=dev, generator=gen)
+    mem["model"] = gib()
+    tr = Trainer(dit, Schedule.create(SchedulerConfig()), TrainConfig(lr_warmup_steps=1),
+                 mesh=mesh)
+    mem["placed"] = gib()
+    state = tr.init_state()
+    mem["state"] = gib()
+    batch = _train_batch(dit, tr.cfg.grad_accum_steps, gen, dev)
+    return dit, tr, state, batch, torch.Generator(dev).manual_seed(args.seed + 200)
+
+
+def _stage3_run(args, mesh, ref=None) -> dict:
+    """Phase 5's Stage-3 steps (`_stage3_setup`: the same weights, batch
+    and draws), unsharded (`mesh` None) or
+    through `shard_params` over `mesh`: walls, launches, memory readings
+    and, against `ref` (phase 5's record), the trainable change's relative
+    L2 (key biases apart).  Returns a record with phase 5's keys (and,
+    without `ref`, the trainable tensors after the steps, on the host)."""
+    import gc
+    import re
+
+    import torch
+    from bindyouravatar_tpu_torch.parallel.sharding import local
+
+    gib = lambda: torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    out = {}
+    dit, tr, state, batch, gs = _stage3_setup(args, mesh, out)
+    before = {k: local(p).detach().to("cpu", copy=True) for k, p in tr.trainable.items()}
+    # fingerprints a 2^27-element piece at a time (the int64 words of the
+    # largest frozen tensor whole are 9 GiB)
+    fp = lambda t: tuple(_fingerprint(c) for c in local(t).detach().reshape(-1).split(1 << 27))
+    frozen = {k: fp(p) for k, p in tr.frozen.items()}
+    is_d = lambda p: type(p).__name__ == "DTensor"
+    unit = re.compile(r"^(blocks|audio_layers|router_layers)\.\d+\.")
+    size = lambda names: sum(p.numel() * p.element_size() for n, p in dit.named_parameters()
+                             if n in names and is_d(p)) / 2**30
+    named = dict(dit.named_parameters())
+    root = {n for n in named if not unit.match(n)}
+    out.update(root_gib=size(root), root_train_gib=size(root & set(tr.trainable)),
+               block_gib=size({n for n in named if n.startswith("blocks.0.")}),
+               wrapped=sum(1 for p in named.values() if is_d(p)), n=len(named))
+    marks = []
+    hook = dit.register_forward_pre_hook(lambda m, a: marks.append(gib()))
+    accum = tr.cfg.grad_accum_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = gib()
+    _reset_launches()
+    walls = []
+    for _ in range(args.train_steps):
+        t0 = time.perf_counter()
+        draws = [tr.draw({"video_latents": batch["video_latents"][j:j + 1]}, gs)
+                 for j in range(accum)]
+        state, m = tr.train_step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    hook.remove()
+    out.update(step_s=walls, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=_read_launches(),
+               loss=float(m["loss"]), at_root=marks[0] - start, end=gib())
+    print(f"distribution fsdp run ({'sharded' if mesh is not None else 'unsharded'}): walls "
+          + ", ".join(f"{w:.2f}" for w in walls) + f" s, peak {out['peak_gib']:.2f} GiB, at the "
+          f"root's forward +{out['at_root']:.2f}, after the steps {out['end']:.2f}", flush=True)
+    out["frozen_same"] = all(fp(p) == frozen[k] for k, p in tr.frozen.items())
+    after = {k: local(p).detach() for k, p in tr.trainable.items()}
+    if ref is None:
+        out["after"] = {k: t.to("cpu", copy=True) for k, t in after.items()}
+    else:
+        num = den = 0.0
+        for k, t in after.items():
+            if k.endswith("to_k.bias"):
+                continue
+            r = ref["after"][k].to(dev).double()
+            num += float((t.double() - r).square().sum())
+            den += float((r - before[k].to(dev).double()).square().sum())
+        out["rel"] = (num / max(den, 1e-30)) ** 0.5
+    del dit, tr, state, batch, after, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=2, help="denoise steps per request")
@@ -3266,6 +3669,8 @@ def main(argv=None) -> int:
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
                         "layers writes 32.4 GB, the phase saves twice, and a run may write 45 "
                         "GiB, 18 GB of them phase 7e's files)")
+    p.add_argument("--only-distribution", action="store_true",
+                   help="build, then run phase 11 only; fails on purpose (no launch counts)")
     p.add_argument("--only-kernels", metavar="NAMES",
                    help="run phase 2 for these kernels only (comma-separated names of the "
                         "kernels line, or their first word: 'B2,B3,B7'), then stop; fails on "
@@ -3314,6 +3719,10 @@ def main(argv=None) -> int:
 
     results, launches, reduced_launches, train_launches_ = {}, {}, {}, {}
     unpaired_launches, entry_launches = {}, {}
+    if args.only_distribution:
+        ok = distribution_phase(args, {})
+        return _fail(f"--only-distribution: phase 11 {'passed' if ok else 'FAILED'}, no other "
+                     f"phase run")
     ok = kernel_phase(results, only)
     if only is not None:
         return _fail(f"--only-kernels: phase 2 of {sorted(only)} {'passed' if ok else 'FAILED'}, "
@@ -3327,8 +3736,9 @@ def main(argv=None) -> int:
     else:
         ok = False
         print("serving phase skipped (--requests 0): no launch counts", flush=True)
+    phase5 = {}
     if args.train_steps > 0:
-        ok &= train_phase(args, train_launches_)
+        ok &= train_phase(args, train_launches_, phase5)
     else:
         ok = False
         print("train phase skipped (--train-steps 0): no launch counts", flush=True)
@@ -3347,6 +3757,7 @@ def main(argv=None) -> int:
     ok &= wav2vec_phase(args)
     ok &= sam2_upscaler_phase(args)
     ok &= two_b_phase(args)
+    ok &= distribution_phase(args, phase5)
     if not ok:
         return _fail("a phase failed")
 

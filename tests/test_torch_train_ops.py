@@ -337,7 +337,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "utils/safetensors", "training/import_submodules", "training/import_encoders",
         # the optimizers, the validation hook, the chunked FF and the wav2vec2 extractor
         "training/adafactor", "training/prodigy", "training/adam8bit", "training/validation",
-        "ops/ff", "preprocess/wav2vec2")} <= names
+        "ops/ff", "preprocess/wav2vec2",
+        # distribution and the profiling helpers
+        "parallel/mesh", "parallel/sharding", "parallel/tp", "ops/ring_attention",
+        "utils/profiling")} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
