@@ -1,6 +1,7 @@
 // Flash attention forward for Hopper: one wgmma + TMA body computes B1 and
-// B7's forward over the flat [B, S, H*64] layout, and B11 over [B, H, S, D]
-// ("bhsd") or [B, S, H, D] ("bshd") for head dims 64 and 128.  The backward
+// B7's forward over the flat [B, S, H*D] layout for head dims 32, 64 and
+// 128, and B11 over [B, H, S, D] ("bhsd") or [B, S, H, D] ("bshd") for head
+// dims 64 and 128.  The backward
 // of B7 and of B11 (B12 + B13) is one fused kernel in flash_attention_bwd.cu;
 // both sources take their Hopper building blocks from hopper.cuh.
 //
@@ -79,6 +80,15 @@
 //  * Epilogue: O normalised in registers, written as bf16 into the group's
 //    own rows of the q tile in shared memory and stored by TMA in the
 //    caller's layout (rows >= S are not written); the LSE when asked.
+//  * Head dims 32 and 128 on the flat layout (the JAX DiT's other flat
+//    widths): D = 128 is the body above at 128 columns behind the flat
+//    pre-pass.  D = 32 runs the 64-column body: the tensor maps describe
+//    rows 32 wide, so their 64-column boxes read columns 32-63 as zeros
+//    (outside the tensor) and the output store leaves them out; the
+//    products over the zero columns add nothing.  It pays twice the
+//    tensor-core work per score, but at the same width a 32-wide head has
+//    twice the scores, and the 2^x of each bounds the D = 64 body already;
+//    a 64-byte-swizzle body with m64n32 products is future work.
 #include "hopper.cuh"
 
 namespace {
@@ -130,12 +140,10 @@ __device__ __forceinline__ void prep_qk(const bf16* q, const bf16* k, bf16* qo, 
   q, k, qo, ko, lnqw, lnqb, lnkw, lnkb, cos_t, sin_t, rope_start, rope_rows, B, S, H, L, \
       q_scale, eps
 
-// B1 / B7's pre-pass (flat, D = 64, q scaled by scale * log2 e)
-__global__ void __launch_bounds__(256) prep_qk_kernel(PREP_PARAMS) { prep_qk<64>(PREP_ARGS); }
-
-// B11's (LN and RoPE) pre-pass
+// The pre-pass of B1 / B7 (flat, q scaled by scale * log2 e) and of B11
+// (LN and RoPE), D = 32, 64 or 128
 template <int D>
-__global__ void __launch_bounds__(256) layout_prep_kernel(PREP_PARAMS) { prep_qk<D>(PREP_ARGS); }
+__global__ void __launch_bounds__(256) prep_qk_kernel(PREP_PARAMS) { prep_qk<D>(PREP_ARGS); }
 
 // ---------------------------------------------------------------- forward
 
@@ -386,12 +394,13 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,      \
       float *__restrict__ lse, int S, int H, int kv_len, float scale_log2
 
-// B1 and B7's forward, flat [B, S, H*64]: SCALE = false behind the pre-pass
-// (q prepared and pre-scaled), true for the bare calls
-template <bool SCALE>
+// B1 and B7's forward, flat [B, S, H*D] over DC-column tiles (DC = 64 for
+// D = 32 and 64, 128 for D = 128): SCALE = false behind the pre-pass (q
+// prepared and pre-scaled), true for the bare calls
+template <int DC, bool SCALE>
 __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(FWD_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_body<64, SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
+  fwd_body<DC, SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
 }
 
 // B11: bhsd / bshd, D = 64 or 128, the scale on the scores
@@ -418,14 +427,17 @@ cudaError_t launch_prep(K kernel, const void* q, const void* k, void* q_prep, vo
   return cudaGetLastError();
 }
 
-template <int D, typename K>
+// The forward over DC-column tiles of D-wide heads (D <= DC: the maps'
+// boxes read the columns past D as zeros and the store leaves them out).
+template <int DC, typename K>
 int launch_fwd(K kernel, const void* q, const void* k, const void* v, void* o, float* lse,
-               Layout L, int B, int S, int H, int kv_len, float scale_log2, cudaStream_t st) {
+               Layout L, int B, int S, int H, int D, int kv_len, float scale_log2,
+               cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, L, B, H, S, D, BM) || !make_map(&tk, k, L, B, H, S, D, BN) ||
       !make_map(&tv, v, L, B, H, S, D, BN) || !make_map(&to, o, L, B, H, S, D, 64))
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = FwdSmem<D>::BYTES;
+  constexpr int smem = FwdSmem<DC>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BM - 1) / BM, H, B);
@@ -442,42 +454,59 @@ int run_layout_fwd(const void* q, const void* k, const void* v, void* o, void* q
   const Layout L = make_layout(S, H, D, bshd);
   if (q_prep != nullptr) {
     const cudaError_t err =
-        launch_prep(layout_prep_kernel<D>, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b,
+        launch_prep(prep_qk_kernel<D>, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b,
                     cos_t, sin_t, rope_start, rope_rows, B, S, H, L, 1.0f, ln_eps, st);
     if (err != cudaSuccess) return (int)err;
     q = q_prep;
     k = k_prep;
   }
-  return launch_fwd<D>(mha_fwd_layout_kernel<D>, q, k, v, o, lse, L, B, S, H, kv_len,
+  return launch_fwd<D>(mha_fwd_layout_kernel<D>, q, k, v, o, lse, L, B, S, H, D, kv_len,
                        scale * LOG2E, st);
+}
+
+// B1 / B7's forward at head dim D, on DC-column tiles
+template <int D, int DC>
+int run_flat_fwd(const void* q, const void* k, const void* v, void* o, void* q_prep,
+                 void* k_prep, const float* ln_q_w, const float* ln_q_b, const float* ln_k_w,
+                 const float* ln_k_b, const float* cos_t, const float* sin_t, int rope_start,
+                 int rope_rows, int B, int S, int H, int kv_len, float scale, float ln_eps,
+                 float* lse, cudaStream_t st) {
+  const Layout L = make_layout(S, H, D, 1);
+  if (ln_q_w == nullptr && cos_t == nullptr)
+    return launch_fwd<DC>(flash_fwd_kernel<DC, true>, q, k, v, o, lse, L, B, S, H, D, kv_len,
+                          scale * LOG2E, st);
+  if (q_prep == nullptr || k_prep == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_prep(prep_qk_kernel<D>, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b,
+                  cos_t, sin_t, rope_start, rope_rows, B, S, H, L, scale * LOG2E, ln_eps, st);
+  if (err != cudaSuccess) return (int)err;
+  return launch_fwd<DC>(flash_fwd_kernel<DC, false>, q_prep, k_prep, v, o, lse, L, B, S, H, D,
+                        kv_len, 1.0f, st);
 }
 
 }  // namespace
 
-// B1 / B7 forward.  q, k, v, o: [B, S, H*64] bf16, contiguous.  ln_*: [64]
-// fp32 or all null (no QK LayerNorm).  cos_t/sin_t: [rope_rows, 64] fp32 or
-// null (no RoPE).  q_prep, k_prep: scratch of q's shape, required when there
-// is LN or RoPE, else unused (may be null).  lse: [B, H, S] fp32 or null.
-// Returns the cudaError_t of the launches.
+// B1 / B7 forward.  q, k, v, o: [B, S, H*D] bf16, contiguous, D = 32, 64 or
+// 128.  ln_*: [D] fp32 or all null (no QK LayerNorm).  cos_t/sin_t:
+// [rope_rows, D] fp32 or null (no RoPE).  q_prep, k_prep: scratch of q's
+// shape, required when there is LN or RoPE, else unused (may be null).
+// lse: [B, H, S] fp32 or null.  Returns the cudaError_t of the launches.
 extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void* v, void* o,
                                         void* q_prep, void* k_prep, const float* ln_q_w,
                                         const float* ln_q_b, const float* ln_k_w,
                                         const float* ln_k_b, const float* cos_t,
                                         const float* sin_t, int rope_start, int rope_rows,
-                                        int B, int S, int H, int kv_len, float scale,
+                                        int B, int S, int H, int D, int kv_len, float scale,
                                         float ln_eps, float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L = make_layout(S, H, 64, 1);
-  if (ln_q_w == nullptr && cos_t == nullptr)
-    return launch_fwd<64>(flash_fwd_kernel<true>, q, k, v, o, lse, L, B, S, H, kv_len,
-                          scale * LOG2E, st);
-  if (q_prep == nullptr || k_prep == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      launch_prep(prep_qk_kernel, q, k, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b, cos_t,
-                  sin_t, rope_start, rope_rows, B, S, H, L, scale * LOG2E, ln_eps, st);
-  if (err != cudaSuccess) return (int)err;
-  return launch_fwd<64>(flash_fwd_kernel<false>, q_prep, k_prep, v, o, lse, L, B, S, H, kv_len,
-                        1.0f, st);
+#define FLAT_ARGS                                                                          \
+  q, k, v, o, q_prep, k_prep, ln_q_w, ln_q_b, ln_k_w, ln_k_b, cos_t, sin_t, rope_start,     \
+      rope_rows, B, S, H, kv_len, scale, ln_eps, lse, st
+  if (D == 32) return run_flat_fwd<32, 64>(FLAT_ARGS);
+  if (D == 64) return run_flat_fwd<64, 64>(FLAT_ARGS);
+  if (D == 128) return run_flat_fwd<128, 128>(FLAT_ARGS);
+#undef FLAT_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 // B11.  q, k, v, o: [B, H, S, D] (bshd = 0) or [B, S, H, D] (bshd = 1) bf16,

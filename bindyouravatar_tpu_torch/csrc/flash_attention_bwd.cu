@@ -1,6 +1,9 @@
 // Flash attention backward for Hopper: one fused kernel computes dq, dk and
-// dv of B7 (the flat [B, S, H*64] training attention) and of B12 + B13 (the
-// [B, H, S, D] "bhsd" / [B, S, H, D] "bshd" layouts, D = 64 or 128).
+// dv of B7 (the flat [B, S, H*D] training attention, D = 32, 64 or 128) and
+// of B12 + B13 (the [B, H, S, D] "bhsd" / [B, S, H, D] "bshd" layouts, D =
+// 64 or 128).  D = 32 runs on 64-column tiles, as the forward does: the
+// TMA boxes read columns 32-63 as zeros, so dk, dv and dq there are 0, the
+// dq accumulator keeps 64 columns a row and the stores keep the first 32.
 //
 // It replaces three TPU kernels of bindyouravatar_tpu/ops/flash_attention.py:
 // `_bwd_flat_kernel` (B7's backward, the `_flash_flat` custom vjp) and the
@@ -106,9 +109,9 @@ __device__ __forceinline__ int acc_col(int r, int c) { return (((c >> 2) ^ (r & 
 
 // One warp per row (b, s, h), s < S_pad = NQ * 64: RoPE (and B7's q scale)
 // of q and k into qo/ko when qo is given; lse2 and delta; the row of the
-// dq accumulator zeroed.  FLAT: delta_in given [B, H, S]; else delta =
-// rowsum(o * dO), fp32.
-template <int D, bool FLAT>
+// dq accumulator (DC columns) zeroed.  FLAT: delta_in given [B, H, S]; else
+// delta = rowsum(o * dO), fp32.
+template <int D, int DC, bool FLAT>
 __device__ __forceinline__ void pre_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          bf16* __restrict__ qo, bf16* __restrict__ ko,
                                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -118,7 +121,7 @@ __device__ __forceinline__ void pre_body(const bf16* __restrict__ q, const bf16*
                                          float* __restrict__ dq_acc, const float* cos_t,
                                          const float* sin_t, int rope_start, int rope_rows, int B,
                                          int S, int H, int NQ, Layout L, float q_scale) {
-  constexpr int E = D / 32, NP = D / 64;
+  constexpr int E = D / 32, NP = DC / 64;
   const int s_pad = NQ * BQ;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -158,14 +161,15 @@ __device__ __forceinline__ void pre_body(const bf16* __restrict__ q, const bf16*
 
 // -------------------------------------------------------------- post-pass
 
-// One warp per row (b, s, h), s < S: dq = the accumulator row (times scale
-// for B7), RoPE adjoint on the RoPE rows, bf16 into the layout.
-template <int D, bool FLAT>
+// One warp per row (b, s, h), s < S: dq = the accumulator row's first D
+// columns (times scale for B7), RoPE adjoint on the RoPE rows, bf16 into
+// the layout.
+template <int D, int DC, bool FLAT>
 __device__ __forceinline__ void post_body(const float* __restrict__ dq_acc, bf16* __restrict__ dq,
                                           const float* cos_t, const float* sin_t, int rope_start,
                                           int rope_rows, int B, int S, int H, int NQ, Layout L,
                                           float scale) {
-  constexpr int E = D / 32, NP = D / 64;
+  constexpr int E = D / 32, NP = DC / 64;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= (long long)B * S * H) return;
@@ -179,9 +183,11 @@ __device__ __forceinline__ void post_body(const float* __restrict__ dq_acc, bf16
   if constexpr (E == 4) {
     const float4 x = *reinterpret_cast<const float4*>(row + i);
     v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
+  } else if constexpr (E == 2) {
     const float2 x = *reinterpret_cast<const float2*>(row + i);
     v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = row[i];
   }
   float c[E], sn[E];
   const bool rot = bya::rope_factors<E>(c, sn, cos_t, sin_t, s, rope_start, rope_rows, lane);
@@ -196,10 +202,7 @@ __device__ __forceinline__ void post_body(const float* __restrict__ dq_acc, bf16
 #pragma unroll
     for (int e = 0; e < E; ++e) v[e] = v[e] * c[e] + sign * p[e] * sn[e];
   }
-  bf16* out = dq + L.off(b, h) + s * L.ss + c0;
-#pragma unroll
-  for (int e = 0; e < E / 2; ++e)
-    reinterpret_cast<__nv_bfloat162*>(out)[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  bya::store_row<E>(dq + L.off(b, h) + s * L.ss + c0, v);
 }
 
 
@@ -219,10 +222,12 @@ __device__ __forceinline__ void post_body(const float* __restrict__ dq_acc, bf16
 // contributions.  q, k are the prepared rows (B7: RoPE and the q scale;
 // B12/B13: RoPE, or q and k themselves).  FLAT (B7): P = exp2(q_s k^T -
 // lse2), dS = P (dP - delta); else P = exp2(q k^T * scale * log2 e -
-// lse2), dS = P (dP - delta) * scale.
-template <int D, bool FLAT>
+// lse2), dS = P (dP - delta) * scale.  Tiles are DC columns wide; heads of
+// D < DC columns (D = 32 in 64) read as zeros past D (the TMA boxes fill
+// them), so the products are exact and the stores keep the first D.
+template <int D, int DC, bool FLAT>
 __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
-  using SM = BwdSmem<D>;
+  using SM = BwdSmem<DC>;
   constexpr int NP = SM::NP, NST = SM::NST;
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sK = reinterpret_cast<bf16*>(smem + SM::K_OFF);    // [NP][BN][64], swizzled
@@ -281,9 +286,9 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
     const float scale_log2 = scale * LOG2E;
     const bf16* kw = sK + w * 64 * 64;
     const bf16* vw = sV + w * 64 * 64;
-    float dk[D / 8][4], dv[D / 8][4], sT[8][4], dpT[8][4];
+    float dk[DC / 8][4], dv[DC / 8][4], sT[8][4], dpT[8][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DC / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 #pragma unroll
@@ -303,12 +308,12 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
       // S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared memory
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DC / 16; ++kk)
         wgmma_ss<0, 0>(&sT[0][0], desc_kmajor(kw + (kk / 4) * BN * 64 + (kk % 4) * 16),
                        desc_kmajor(qt + (kk / 4) * BQ * 64 + (kk % 4) * 16), kk > 0);
       wg_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DC / 16; ++kk)
         wgmma_ss<0, 0>(&dpT[0][0], desc_kmajor(vw + (kk / 4) * BN * 64 + (kk % 4) * 16),
                        desc_kmajor(gt + (kk / 4) * BQ * 64 + (kk % 4) * 16), kk > 0);
       wg_commit();
@@ -397,15 +402,15 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
           bulk_reduce_add(dq_acc + acc_row(bh, j * BQ, NQ, NP) + p * BQ * 64, stg, SM::STG);
       }
       wg_wait<0>();
-      fence_regs<D / 2>(&dk[0][0]);
-      fence_regs<D / 2>(&dv[0][0]);
+      fence_regs<DC / 2>(&dk[0][0]);
+      fence_regs<DC / 2>(&dv[0][0]);
       mbar_arrive(&empty[st]);
     }
     if (tw == 0) bulk_wait_all();
 
     if (FLAT) {  // unwind the q-scale fold: dk = dS^T (q * scale * log2 e) / log2 e
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DC / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk[i][e] *= 1.0f / LOG2E;
     }
@@ -438,36 +443,40 @@ __device__ __forceinline__ void bwd_body(unsigned char* smem_raw, BWD_PARAMS) {
       const float *cos_t, const float *sin_t, int rope_start, int rope_rows, Layout L, int S, \
       int H, int NQ, int kv_len, float scale
 
-// B7's backward: flat [B, S, H*64], q scale folded into the prepared q
+// B7's backward: flat [B, S, H*D], D = 32, 64 or 128 on DC-column tiles
+// (DC = max(D, 64)), q scale folded into the prepared q
+template <int D, int DC>
 __global__ void __launch_bounds__(256) flash_bwd_pre_kernel(PRE_PARAMS) {
-  pre_body<64, true>(PRE_ARGS);
+  pre_body<D, DC, true>(PRE_ARGS);
 }
+template <int D, int DC>
 __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_kernel(MAIN_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_body<64, true>(smem_raw, BWD_ARGS);
+  bwd_body<D, DC, true>(smem_raw, BWD_ARGS);
 }
+template <int D, int DC>
 __global__ void __launch_bounds__(256) flash_bwd_post_kernel(POST_PARAMS) {
-  post_body<64, true>(POST_ARGS);
+  post_body<D, DC, true>(POST_ARGS);
 }
 
 // B12 + B13: bhsd / bshd, D = 64 or 128, scale on the scores
 template <int D>
 __global__ void __launch_bounds__(256) mha_bwd_pre_kernel(PRE_PARAMS) {
-  pre_body<D, false>(PRE_ARGS);
+  pre_body<D, D, false>(PRE_ARGS);
 }
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1) mha_bwd_kernel(MAIN_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_body<D, false>(smem_raw, BWD_ARGS);
+  bwd_body<D, D, false>(smem_raw, BWD_ARGS);
 }
 template <int D>
 __global__ void __launch_bounds__(256) mha_bwd_post_kernel(POST_PARAMS) {
-  post_body<D, false>(POST_ARGS);
+  post_body<D, D, false>(POST_ARGS);
 }
 
 // ---------------------------------------------------------------- host
 
-template <int D, bool FLAT, typename PreK, typename MainK, typename PostK>
+template <int D, int DC, bool FLAT, typename PreK, typename MainK, typename PostK>
 int run_bwd(PreK pre, MainK fused, PostK post, const void* q, const void* k, const void* v,
             const void* o, const void* dout, const float* lse, const float* delta_in, void* dq,
             void* dk, void* dv, void* q_prep, void* k_prep, float* dq_acc, float* lse2,
@@ -491,7 +500,7 @@ int run_bwd(PreK pre, MainK fused, PostK post, const void* q, const void* k, con
   if (!make_map(&tq, qa, L, B, H, S, D, BQ) || !make_map(&tk, ka, L, B, H, S, D, BN) ||
       !make_map(&tv, v, L, B, H, S, D, BN) || !make_map(&tdo, dout, L, B, H, S, D, BQ))
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = BwdSmem<D>::BYTES;
+  constexpr int smem = BwdSmem<DC>::BYTES;
   err = cudaFuncSetAttribute(fused, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BN - 1) / BN, H, B);
@@ -511,12 +520,13 @@ int run_bwd(PreK pre, MainK fused, PostK post, const void* q, const void* k, con
 
 // The fused flash backward: dq, dk, dv (bf16, in the layout of q) from q,
 // k, v, dO and the forward's LSE (natural log, fp32 [B, H, S]).
-//  flat = 1 (B7): [B, S, H*64] contiguous (D = 64, bshd = 1); delta_in =
-//    rowsum(o * dO), fp32 [B, H, S]; o unused; q_prep/k_prep required.
+//  flat = 1 (B7): [B, S, H*D] contiguous (D = 32, 64 or 128, bshd = 1);
+//    delta_in = rowsum(o * dO), fp32 [B, H, S]; o unused; q_prep/k_prep
+//    required.
 //  flat = 0 (B12 + B13): [B, H, S, D] (bshd = 0) or [B, S, H, D] (bshd =
 //    1), D = 64 or 128; o given, delta_in unused; q_prep/k_prep scratch of
 //    q's shape when there is RoPE, else null.
-// Workspaces (the caller's, uninitialised): dq_acc [B*H*S_pad*D] fp32,
+// Workspaces (the caller's, uninitialised): dq_acc [B*H*S_pad*max(D, 64)] fp32,
 // lse2 and delta [B*H*S_pad] fp32, S_pad = S rounded up to 64.  cos_t/sin_t:
 // [rope_rows, D] fp32 or null.  Returns the cudaError_t of the launches.
 extern "C" int bya_flash_bwd(int flat, const void* q, const void* k, const void* v,
@@ -527,21 +537,28 @@ extern "C" int bya_flash_bwd(int flat, const void* q, const void* k, const void*
                              int rope_rows, int B, int S, int H, int D, int bshd, int kv_len,
                              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BWD_CALL_ARGS                                                                      \
+  q, k, v, o, dout, lse, delta_in, dq, dk, dv, q_prep, k_prep, dq_acc, lse2, delta, cos_t, sin_t, \
+      rope_start, rope_rows, B, S, H, bshd, kv_len, scale, st
+#define FLAT_BWD(D, DC)                                                                  \
+  run_bwd<D, DC, true>(flash_bwd_pre_kernel<D, DC>, flash_bwd_kernel<D, DC>,              \
+                       flash_bwd_post_kernel<D, DC>, BWD_CALL_ARGS)
   if (flat) {
-    if (D != 64 || !bshd || q_prep == nullptr || k_prep == nullptr)
-      return (int)cudaErrorInvalidValue;
-    return run_bwd<64, true>(flash_bwd_pre_kernel, flash_bwd_kernel, flash_bwd_post_kernel, q, k,
-                             v, o, dout, lse, delta_in, dq, dk, dv, q_prep, k_prep, dq_acc, lse2,
-                             delta, cos_t, sin_t, rope_start, rope_rows, B, S, H, bshd, kv_len,
-                             scale, st);
+    if (!bshd || q_prep == nullptr || k_prep == nullptr) return (int)cudaErrorInvalidValue;
+    if (D == 32) return FLAT_BWD(32, 64);
+    if (D == 64) return FLAT_BWD(64, 64);
+    if (D == 128) return FLAT_BWD(128, 128);
+    return (int)cudaErrorInvalidValue;
   }
+#undef FLAT_BWD
+#undef BWD_CALL_ARGS
   if (D == 64)
-    return run_bwd<64, false>(mha_bwd_pre_kernel<64>, mha_bwd_kernel<64>, mha_bwd_post_kernel<64>,
+    return run_bwd<64, 64, false>(mha_bwd_pre_kernel<64>, mha_bwd_kernel<64>, mha_bwd_post_kernel<64>,
                               q, k, v, o, dout, lse, delta_in, dq, dk, dv, q_prep, k_prep, dq_acc,
                               lse2, delta, cos_t, sin_t, rope_start, rope_rows, B, S, H, bshd,
                               kv_len, scale, st);
   if (D == 128)
-    return run_bwd<128, false>(mha_bwd_pre_kernel<128>, mha_bwd_kernel<128>,
+    return run_bwd<128, 128, false>(mha_bwd_pre_kernel<128>, mha_bwd_kernel<128>,
                                mha_bwd_post_kernel<128>, q, k, v, o, dout, lse, delta_in, dq, dk,
                                dv, q_prep, k_prep, dq_acc, lse2, delta, cos_t, sin_t, rope_start,
                                rope_rows, B, S, H, bshd, kv_len, scale, st);

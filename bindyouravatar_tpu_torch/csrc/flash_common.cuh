@@ -34,6 +34,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A lane's E consecutive bf16 elements of a head row as fp32, and back
+// (E = 1 at D = 32: one element a lane; else bf16 pairs).
+template <int E>
+__device__ __forceinline__ void load_row(float (&v)[E], const bf16* x) {
+  if constexpr (E == 1) {
+    v[0] = __bfloat162float(x[0]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E / 2; ++e) {
+      const __nv_bfloat162 p = reinterpret_cast<const __nv_bfloat162*>(x)[e];
+      v[2 * e] = __low2float(p);
+      v[2 * e + 1] = __high2float(p);
+    }
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_row(bf16* out, const float (&v)[E]) {
+  if constexpr (E == 1) {
+    out[0] = __float2bfloat16(v[0]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E / 2; ++e)
+      reinterpret_cast<__nv_bfloat162*>(out)[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  }
+}
+
 // One warp prepares one D-wide head row; lane holds elements E*lane..+E-1.
 // The rotate-half partner of element i < D/2 is i + D/2, held by lane ^ 16.
 // LN (if w) -> bf16, RoPE (if rot) -> bf16, then * scale -> bf16.
@@ -43,12 +70,7 @@ __device__ __forceinline__ void prep_row(const bf16* x, bf16* out, const float* 
                                          const float (&sn)[E], float scale, float eps, int lane) {
   constexpr int D = 32 * E;
   float v[E];
-#pragma unroll
-  for (int e = 0; e < E / 2; ++e) {
-    const __nv_bfloat162 p = reinterpret_cast<const __nv_bfloat162*>(x)[e];
-    v[2 * e] = __low2float(p);
-    v[2 * e + 1] = __high2float(p);
-  }
+  load_row<E>(v, x);
   if (w != nullptr) {
     float sum = 0.f;
 #pragma unroll
@@ -73,9 +95,8 @@ __device__ __forceinline__ void prep_row(const bf16* x, bf16* out, const float* 
     for (int e = 0; e < E; ++e) v[e] = bf16_round(v[e] * c[e] + sign * p[e] * sn[e]);
   }
 #pragma unroll
-  for (int e = 0; e < E / 2; ++e)
-    reinterpret_cast<__nv_bfloat162*>(out)[e] =
-        __floats2bfloat162_rn(v[2 * e] * scale, v[2 * e + 1] * scale);
+  for (int e = 0; e < E; ++e) v[e] *= scale;
+  store_row<E>(out, v);
 }
 
 // The RoPE factors of this lane's E elements of row s (identity outside
@@ -122,9 +143,10 @@ __device__ __forceinline__ void prep_qk_row(const bf16* q, const bf16* k, bf16* 
 // g <- the JAX kernels' `_rope_tile(g, cos, -sin)` on the rows of a warp's
 // [16, D] fp32 fragment tile (rows row0, row0 + 8 of this lane) that lie in
 // [rope_start, rope_start + rope_rows).  Column c < D/2 pairs with c + D/2:
-// fragment nd with nd + D/16 of the same lane.
-template <int D>
-__device__ __forceinline__ void rope_adjoint(float (&g)[D / 8][4], int row0, int lane,
+// fragment nd with nd + D/16 of the same lane.  The tile may be held in a
+// wider accumulator (N >= D/8 fragments: D = 32 in a 64-column one).
+template <int D, int N>
+__device__ __forceinline__ void rope_adjoint(float (&g)[N][4], int row0, int lane,
                                              const float* cos_t, const float* sin_t,
                                              int rope_start, int rope_rows) {
   constexpr int HALF = D / 16;
@@ -148,10 +170,11 @@ __device__ __forceinline__ void rope_adjoint(float (&g)[D / 8][4], int row0, int
   }
 }
 
-// Store a warp's [16, D] fp32 fragment tile (rows row0, row0 + 8 of this
-// lane) as bf16 rows `ld` apart; rows >= S are not stored.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* base, long long ld, const float (&a)[D / 8][4],
+// Store the first D columns of a warp's [16, 8N] fp32 fragment tile (rows
+// row0, row0 + 8 of this lane) as bf16 rows `ld` apart; rows >= S are not
+// stored.
+template <int D, int N>
+__device__ __forceinline__ void store_tile(bf16* base, long long ld, const float (&a)[N][4],
                                            int row0, int S, int lane) {
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {

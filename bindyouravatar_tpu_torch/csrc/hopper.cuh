@@ -237,8 +237,8 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A [B, H, S, D] bf16 tensor map over `ptr` with the strides of L: boxes of
-// 64 columns x `rows` rows in the 128-byte swizzle; rows past S read as 0
-// (and are not written by a store).
+// 64 columns x `rows` rows in the 128-byte swizzle; rows past S, and
+// columns past D (D = 32), read as 0 (and are not written by a store).
 inline bool make_map(CUtensorMap* map, const void* ptr, Layout L, int B, int H, int S, int D,
                      int rows) {
   const EncodeTiled encode = encode_tiled();

@@ -51,10 +51,14 @@ Under `torchrun` (one process per GPU) `--tp N` splits the DiT's blocks
 Megatron-style over N ranks (`parallel.tp`) and `--sp N` runs its joint
 attention as ring attention over N ranks (`ops.ring_attention`); every rank
 builds the same weights and inputs from `--seed`, and rank 0 writes the
-outputs:
+outputs.  With `--two_stage_generate` rank 0 runs the mask tool on the clip
+it wrote and hands every rank its status, then the forcing logits; every
+rank runs stage 2 (a failing tool raises on each):
 
     torchrun --nproc_per_node 4 -m bindyouravatar_tpu_torch.infer --tp 4 --audio_path a.pt b.pt
     torchrun --nproc_per_node 2 -m bindyouravatar_tpu_torch.infer --sp 2 --num_frames 97 ...
+    torchrun --nproc_per_node 2 -m bindyouravatar_tpu_torch.infer --tp 2 --two_stage_generate \
+        --img_file_path a.png b.png --audio_path a.pt b.pt
 
 `--tp` with `--sp`, or more ranks than the launch has, raise.  Flags that
 need what the port lacks raise `NotImplementedError` naming their
@@ -148,9 +152,6 @@ def check_supported(args) -> None:
     if args.tp > 1 and args.sp > 1:
         raise SystemExit("--tp and --sp build conflicting meshes over the same ranks; use one "
                          "(a combined tp x sp mesh is future work, ROADMAP)")
-    if (args.tp > 1 or args.sp > 1) and args.two_stage_generate and not args.tracking_mask_dir:
-        raise NotImplementedError("--two_stage_generate's mask tool under --tp / --sp "
-                                  "(ROADMAP.md A12b): pass --tracking_mask_dir")
 
 
 def setup_parallel(args, dev: torch.device):
@@ -501,28 +502,54 @@ def run(args) -> InferRun:
     return denoise(prepare(args), return_routing=args.draw_routing_logits)
 
 
+def _from_lead(obj):
+    """Rank 0's `obj` on every rank of the launch (itself on one rank)."""
+    from .parallel.mesh import world_size
+
+    if world_size() == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def second_stage(res: InferRun, video_path: str) -> InferRun:
     """Stage 2 of `--two_stage_generate` (JAX `infer.py:346-364`): the mask
     tool over stage 1's clip into `{output_dir}/tracking_mask_results`, the
     masks as the forced routing, and the denoise again on the same pipeline
-    and seed.  A failing tool raises (JAX keeps the stage-1 clip)."""
+    and seed.  A failing tool raises (JAX keeps the stage-1 clip).  Under
+    `--tp` / `--sp` rank 0, which wrote the clip, runs the tool and reads
+    the masks; its status goes to every rank first (a failure raises on
+    each, with the tool's error), then the forcing logits, and every rank
+    runs the sharded denoise."""
     from .tools.sam2_tools import make_masks
     from .utils.masks import masks_to_routing_logits
 
     args = res.prep.args
     mask_dir = os.path.join(args.output_dir, "tracking_mask_results")
     t0 = time.time()
-    try:
-        make_masks(video_path, mask_dir, device=args.device)
-    except Exception as e:
-        raise RuntimeError(f"--two_stage_generate: the mask tool failed on {video_path}: "
-                           f"{type(e).__name__}: {e}") from e
-    if not os.path.isdir(os.path.join(mask_dir, "1")):
-        raise RuntimeError(f"--two_stage_generate: the mask tool wrote no masks to {mask_dir}")
+    error = cause = logits = None
+    if lead():
+        try:
+            make_masks(video_path, mask_dir, device=args.device)
+        except Exception as e:
+            error, cause = (f"--two_stage_generate: the mask tool failed on {video_path}: "
+                            f"{type(e).__name__}: {e}"), e
+        else:
+            if not os.path.isdir(os.path.join(mask_dir, "1")):
+                error = f"--two_stage_generate: the mask tool wrote no masks to {mask_dir}"
+    error = _from_lead(error)
+    if error is not None:
+        raise RuntimeError(error) from cause
+    if lead():
+        logits = masks_to_routing_logits(mask_dir, *res.grid)
+    logits = _from_lead(logits)
     tool_s = time.time() - t0
     dev = res.prep.pe.device
     _free(dev)
-    forcing = torch.from_numpy(masks_to_routing_logits(mask_dir, *res.grid)).to(dev)
+    forcing = torch.from_numpy(logits).to(dev)
     t1 = time.time()
     out = denoise(res.prep, routing_forcing=forcing)
     out.meta.update(mask_dir=mask_dir, mask_tool_seconds=round(tool_s, 1),
@@ -533,8 +560,8 @@ def second_stage(res: InferRun, video_path: str) -> InferRun:
 def main(argv=None) -> str:
     """`run`, then the mp4, the `--draw_routing_logits` videos, stage 2 of
     `--two_stage_generate` (which overwrites the mp4), the `--wav_path` mux
-    and the meta line; returns the output path.  Under `--tp` / `--sp` only
-    rank 0 writes."""
+    and the meta line; returns the output path.  Under `--tp` / `--sp` every
+    rank runs both stages and only rank 0 writes."""
     args = get_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     from .utils.media import export_to_video, merge_audio_files, merge_audio_video
@@ -542,16 +569,18 @@ def main(argv=None) -> str:
     t0 = time.time()
     res = run(args)
     out_path = os.path.join(args.output_dir, "output.mp4")
-    if not lead():
-        return out_path
-    out_path = export_to_video(res.video[0], out_path, fps=args.fps)
-    if args.draw_routing_logits:
-        save_routing_debug(res.routing, res.grid, args.output_dir, args.fps)
+    if lead():
+        out_path = export_to_video(res.video[0], out_path, fps=args.fps)
+        if args.draw_routing_logits:
+            save_routing_debug(res.routing, res.grid, args.output_dir, args.fps)
     if args.two_stage_generate and not args.tracking_mask_dir:
         stage1_s = round(time.time() - t0, 1)
         res = second_stage(res, out_path)
         res.meta["stage1_seconds"] = stage1_s
-        export_to_video(res.video[0], out_path, fps=args.fps)
+        if lead():
+            export_to_video(res.video[0], out_path, fps=args.fps)
+    if not lead():
+        return out_path
     if args.wav_path:
         wav = args.wav_path[0]
         if len(args.wav_path) > 1:

@@ -75,10 +75,12 @@ class PerceiverCrossAttention(nn.Module):
 
 class SelfAttention(nn.Module):
     """MHA with biases over [B, S, dim] (the STAB spatial attention): with
-    S >= 1024 and dh = 64 the differentiable kernel B7 without RoPE, or
-    with `inference` (the DiT's `fuse_qk_norm`, JAX `inference_vt`) bare
-    B1; otherwise the plain attention (the JAX dispatch,
-    `ops/attention.py:144`, takes XLA SDPA there)."""
+    S >= 1024 and dh = 64 or 128 the differentiable kernel B7 without RoPE,
+    or with `inference` (the DiT's `fuse_qk_norm`, JAX `inference_vt`) bare
+    B1; another multiple of 64 (where JAX's `dh % 64 == 0` takes its flash
+    kernel) raises; otherwise the plain attention (the JAX dispatch,
+    `ops/attention.py:144`, takes XLA SDPA there: below 1,024 rows, or at a
+    head dim such as the 2B router's 80)."""
 
     def __init__(self, dim: int, heads: int = 8, inference: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -95,7 +97,11 @@ class SelfAttention(nn.Module):
         b, s, dim = x.shape
         dh = dim // self.heads
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        if s >= 1024 and dh == 64:
+        if s >= 1024 and dh % 64 == 0:
+            if dh not in (64, 128):
+                raise NotImplementedError(f"the STAB attention's flash path at head dim {dh}: "
+                                          f"the flat kernels take 64 and 128 (ROADMAP.md queue "
+                                          f"B item 2)")
             if self.inference:
                 o = attention(q, k, v, layout="flat", heads=self.heads)
             else:

@@ -31,7 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (all return a cudaError_t)
 _SIGNATURES = {
     "bya_flash_attention_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "bya_flash_layout_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "bya_flash_bwd": [_I, *[_P] * 17, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -3,7 +3,7 @@ backward.  B6 and B9, the row LayerNorm forward and backward, are CUDA C++
 (`csrc/layernorm.cu`).
 
 Both compute statistics over SEG-wide segments of a flat row with the
-affine shared across segments (B10: 64-wide heads).
+affine shared across segments (B10: heads of 32, 64 or 128).
 
 Imported only by `layernorm.py` when it launches on a CUDA tensor: this
 module imports `triton`, which only the GPU machine has.

@@ -25,6 +25,10 @@ themselves.  The port does not mirror the JAX switch `COMBINED_BWD`, which
 picks between the combined and the two-kernel TPU backward for VMEM and
 layout reasons: on the GPU every backward is the one fused kernel.
 
+The flat kernels take heads of 32, 64 and 128, the widths at which the
+JAX DiT takes its flat kernels (32-wide heads run the 64-column tiles, the
+columns past 32 read as zeros); the general-layout ones 64 and 128.
+
 On the card, flat attention under grad goes through B7 (as JAX sends
 `qk_norm=None` through `_flash_flat`), and the fused QK-LN forms, which
 have no backward here or in JAX, raise under grad instead of returning a
@@ -89,8 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-head LayerNorm (eps 1e-6, fp32 stats), inference only on the card;
     `rope=(cos, sin)` ([R, D]) rotates rows [rope_start, rope_start + R)
     after it; kv rows >= kv_len are masked.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (bf16; flat: D = 64) or
-    raises.  `name` tags a differentiable call's forward for
+    version; a CUDA tensor launches the kernel (bf16; flat: D = 32, 64 or
+    128) or raises.  `name` tags a differentiable call's forward for
     `keep_attention` (the JAX `checkpoint_name`)."""
     if layout is None:
         layout = "flat" if heads is not None else "bhsd"
@@ -118,8 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()
     err = cuda_lib().bya_flash_attention_flat(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(q_prep), ptr(k_prep),
-        *[ptr(a) for a in ln], ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, kv_len,
-        float(scale), QK_NORM_EPS, None, torch.cuda.current_stream(dev).cuda_stream)
+        *[ptr(a) for a in ln], ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, d,
+        kv_len, float(scale), QK_NORM_EPS, None, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "flash_attention (B1)")
     flash_attention.launches += 1
     return o
@@ -169,11 +173,24 @@ def _rope_tables(rope, rope_start: int, s: int, d: int, dev: torch.device):
     return cos, sin, rows
 
 
+# the head dims of the flat kernels (B1, B7): 64, and 32 and 128, the other
+# widths at which the JAX DiT takes its flat kernels
+FLAT_HEAD_DIMS = (32, 64, 128)
+
+
+def check_flat_head_dim(hd: int, heads: int) -> None:
+    """Raise, naming the head dim, unless [.., H*D] splits into heads of a
+    width the flat kernels take (other widths: ROADMAP.md queue B item 2)."""
+    d = hd // heads
+    _require(hd == heads * d and d in FLAT_HEAD_DIMS,
+             f"head dim {hd}/{heads}: the flat kernels take {FLAT_HEAD_DIMS} (other head "
+             f"dims: ROADMAP.md queue B item 2)")
+
+
 def _check_flat(q, k, v, heads: int, kv_len: int) -> None:
     b, s, hd = q.shape
-    d = hd // heads
+    check_flat_head_dim(hd, heads)
     _require(q.device.type == "cuda", f"tensors on {q.device}")
-    _require(d == 64 and hd == heads * d, f"head dim {hd}/{heads}, kernel takes 64")
     _require(k.shape == q.shape and v.shape == q.shape, "q, k, v shapes differ")
     _require(0 < kv_len <= s, f"kv_len {kv_len} outside (0, {s}]")
     for t in (q, k, v):
@@ -256,7 +273,7 @@ def flash_attention_flat_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              rope_start: int = 0):
     """Kernel B7's forward on its own: (o [B, S, H*D], lse fp32 [B, H, S]).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, D = 64) or raises."""
+    (bf16, D = 32, 64 or 128) or raises."""
     if q.device.type == "cpu":
         return flash_attention_flat_fwd_plain(q, k, v, heads, scale, kv_len, rope, rope_start)
     b, s, hd = q.shape
@@ -271,8 +288,8 @@ def flash_attention_flat_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     ptr = lambda t: None if t is None else t.data_ptr()
     err = cuda_lib().bya_flash_attention_flat(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(q_prep), ptr(k_prep),
-        None, None, None, None, ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, kv_len,
-        float(scale), 0.0, lse.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        None, None, None, None, ptr(cos), ptr(sin), rope_start, rope_rows, b, s, heads, d,
+        kv_len, float(scale), 0.0, lse.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention_flat forward (B7)")
     flash_attention_flat_fwd.launches += 1
     return o, lse
@@ -286,7 +303,7 @@ def flash_attention_flat_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rope_start: int = 0):
     """Kernel B7's backward on its own: (dq, dk, dv), each [B, S, H*D] in
     q's dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the fused kernel (bf16, D = 64) or raises."""
+    the fused kernel (bf16, D = 32, 64 or 128) or raises."""
     if q.device.type == "cpu":
         return flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, heads, scale, kv_len,
                                               rope, rope_start)
@@ -311,14 +328,15 @@ def _fused_bwd(flat: bool, q, k, v, o, do, lse, delta, dims, bshd: bool, kv_len:
     """Launch the fused backward (`csrc/flash_attention_bwd.cu`: pre-pass,
     the dq/dk/dv kernel, dq post-pass) on checked CUDA tensors; returns (dq,
     dk, dv).  The wrapper allocates the workspaces: the prepared q and k
-    (B7's q scale, RoPE), lse2 and delta per row, the fp32 dq accumulator."""
+    (B7's q scale, RoPE), lse2 and delta per row, the fp32 dq accumulator
+    (64 columns a row at D = 32, whose tiles are 64 wide)."""
     b, s, h, d = dims
     s_pad = -(-s // 64) * 64
     dev = q.device
     prep = flat or cos is not None
     q_prep, k_prep = (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.empty(b * h * s_pad * d, dtype=torch.float32, device=dev)
+    dq_acc = torch.empty(b * h * s_pad * max(d, 64), dtype=torch.float32, device=dev)
     lse2, delta_ws = (torch.empty(b * h * s_pad, dtype=torch.float32, device=dev)
                       for _ in range(2))
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -532,13 +550,14 @@ def _layout_dims(q: torch.Tensor, layout: str):
 
 def _check_layout(layout: str, *tensors) -> None:
     """The general-layout kernels' contract: CUDA bf16 tensors of one shape,
-    contiguous in their layout, D = 64 or 128.  Rows are read as 16-byte
-    vectors, bhsd rows D apart and bshd rows H*D apart, which needs D % 8
-    == 0 and 16-byte aligned tensors."""
+    contiguous in their layout, D = 64 or 128 (other head dims: ROADMAP.md
+    queue B item 2).  Rows are read as 16-byte vectors, bhsd rows D apart
+    and bshd rows H*D apart, which needs 16-byte aligned tensors."""
     q = tensors[0]
     d = q.shape[-1]
+    _require(d in (64, 128), f"head dim {d}: the {layout} kernels take 64 or 128 (other "
+             f"head dims: ROADMAP.md queue B item 2)")
     _require(q.device.type == "cuda", f"tensors on {q.device}")
-    _require(d in (64, 128), f"head dim {d}: the {layout} kernels take 64 or 128")
     for t in tensors:
         _require(t.shape == q.shape, f"shapes {tuple(t.shape)} and {tuple(q.shape)} differ")
         _require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0,

@@ -11,9 +11,11 @@ their plain versions.
     vectors in registers, the affine read once per block; its source note
     says what bounds them and how).
   * `head_layernorm` (B10) replaces `_hln_fwd_kernel` and `_hln_bwd_kernel`:
-    LN over 64-wide head segments of a flat [.., H*64] row with the affine
-    shared across heads, the training path's QK norms ([17776, 3072] per
-    block at the 5B geometry).  Both directions are `_ln_triton.py`.
+    LN over the head segments (32, 64 or 128 wide) of a flat [.., H*dh]
+    row with the affine shared across heads, the training path's QK norms
+    ([17776, 3072] per block at the 5B geometry, 48 heads of 64).  Both
+    directions are `_ln_triton.py`, the segment width a compile-time
+    constant.
 
 What bounds them on the H100: memory.  The forward reads and writes each
 bf16 element once (4 B/element) for ~8 FLOP/element; the backward reads x
@@ -37,7 +39,7 @@ from ._build import check, cuda_lib, import_triton
 
 # widths the kernels take: whole rows in registers, 128-element multiples
 _MAX_D = 8192
-HEAD_DIM = 64           # the segment width of the per-head kernels
+HEAD_DIMS = (32, 64, 128)   # the segment widths of the per-head kernels (B10)
 _BWD_PROGRAMS = 528     # B10 backward programs: 4 per SM of the H100
 # (device, stream) -> B9's grid-barrier counter: zeroed once, then kept by
 # the kernel (each barrier leaves it as it found it); one per stream, since
@@ -117,11 +119,19 @@ def _row_ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.view(x.shape)
 
 
+def _check_head_dim(dh: int) -> int:
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_layernorm kernel takes dh in {HEAD_DIMS}, got {dh} (other "
+                         f"head dims: ROADMAP.md queue B item 2)")
+    return dh
+
+
 def _hln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
     """B10's forward (Triton) over rows of `x` ([..., D]), statistics per
-    64-wide head segment."""
-    d = _check(x, "head_layernorm (B10)", HEAD_DIM)
+    head segment of scale's width."""
+    seg = _check_head_dim(scale.shape[0])
+    d = _check(x, "head_layernorm (B10)", seg)
     import_triton()
     from ._ln_triton import ln_fwd_kernel
 
@@ -130,7 +140,7 @@ def _hln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     block = 1 << (d - 1).bit_length()      # Triton blocks are powers of two
     ln_fwd_kernel[(x2.shape[0],)](
         x2, scale.float().contiguous(), bias.float().contiguous(), y, d, eps,
-        BLOCK=block, SEG=HEAD_DIM, num_warps=8 if block >= 4096 else 4)
+        BLOCK=block, SEG=seg, num_warps=8 if block >= 4096 else 4)
     return y.view(x.shape)
 
 
@@ -169,7 +179,8 @@ def _row_ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: floa
 def _hln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
     """B10's backward kernel (Triton): (dx in x.dtype, per-column
     partial-sum totals of g * xhat and g over the rows, fp32 [D])."""
-    d = _check(x, "head_layernorm backward (B10)", HEAD_DIM)
+    seg = _check_head_dim(scale.shape[0])
+    d = _check(x, "head_layernorm backward (B10)", seg)
     import_triton()
     from ._ln_triton import ln_bwd_kernel
 
@@ -183,7 +194,7 @@ def _hln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
     block = 1 << (d - 1).bit_length()
     ln_bwd_kernel[(progs,)](
         x2, scale.float().contiguous(), g2, dx, dw, db, m, d, rows_per_prog, eps,
-        BLOCK=block, SEG=HEAD_DIM, num_warps=8 if block >= 2048 else 4)
+        BLOCK=block, SEG=seg, num_warps=8 if block >= 2048 else 4)
     return dx.view(x.shape), dw.sum(0), db.sum(0)
 
 
@@ -254,8 +265,8 @@ def head_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     affine shared across heads.  A CPU tensor, or a shape outside the JAX
     op's kernel rule (`_hln_kernel_shape`: e.g. 15 heads of 64), takes the
     plain version (autograd differentiates it); otherwise a CUDA tensor
-    launches kernel B10's forward (bf16, dh = 64) or raises, and its
-    backward B10's backward."""
+    launches kernel B10's forward (bf16, dh = 32, 64 or 128) or raises,
+    and its backward B10's backward."""
     if x.device.type == "cpu" or not _hln_kernel_shape(x, scale.shape[0]):
         return head_layernorm_plain(x, scale, bias, eps)
     return _HeadLayerNorm.apply(x, scale, bias, eps)
@@ -266,8 +277,6 @@ def head_layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Kernel B10's forward on its own (CPU tensors: the plain version)."""
     if x.device.type == "cpu":
         return head_layernorm_plain(x, scale, bias, eps)
-    if scale.shape[0] != HEAD_DIM:
-        raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
     y = _hln_fwd(x, scale, bias, eps)
     head_layernorm_fwd.launches += 1
     return y
@@ -279,11 +288,10 @@ def head_layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     sums folded over rows and then heads (CPU tensors: the plain version)."""
     if x.device.type == "cpu":
         return head_layernorm_bwd_plain(x, scale, g, eps)
-    if scale.shape[0] != HEAD_DIM:
-        raise ValueError(f"head_layernorm kernel takes dh = {HEAD_DIM}, got {scale.shape[0]}")
     dx, ds, db = _hln_bwd(x, scale, g, eps)
     head_layernorm_bwd.launches += 1
-    return dx, ds.reshape(-1, HEAD_DIM).sum(0), db.reshape(-1, HEAD_DIM).sum(0)
+    dh = scale.shape[0]
+    return dx, ds.reshape(-1, dh).sum(0), db.reshape(-1, dh).sum(0)
 
 
 fused_layernorm.launches = 0

@@ -33,15 +33,12 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def create_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
-                device_type: Optional[str] = None) -> DeviceMesh:
+                device_type: str = "cuda") -> DeviceMesh:
     """A (dp, fsdp, tp) mesh over the world's ranks; `dp=None` takes the
-    ranks that are left over.  Needs `init_distributed` first when the
-    world has more than one rank."""
+    ranks that are left over.  On the card unless `device_type="cpu"` asks
+    for a CPU mesh (there is no fallback when no GPU is found).  Needs
+    `init_distributed` first when the world has more than one rank."""
     n = world_size()
     if dp is None:
         if n % (fsdp * tp) != 0:
@@ -49,26 +46,24 @@ def create_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1,
         dp = n // (fsdp * tp)
     if dp * fsdp * tp != n:
         raise ValueError(f"mesh {dp}x{fsdp}x{tp} != {n} ranks")
-    return init_device_mesh(device_type or default_device_type(), (dp, fsdp, tp),
+    return init_device_mesh(device_type, (dp, fsdp, tp),
                             mesh_dim_names=(AXIS_DATA, AXIS_FSDP, AXIS_TENSOR))
 
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None) -> None:
+                     backend: str = "nccl") -> None:
     """Join the default process group, once per process.  A no-op when it
     is already joined, and on one host when no `coordinator` is given and
     `torchrun`'s environment (`RANK`, `WORLD_SIZE`) is absent.  The backend
-    is NCCL when a GPU is present and gloo otherwise (CPU tensors only);
-    `backend` asks for one explicitly.  With a GPU the rank's device is
-    `LOCAL_RANK`'s.  `coordinator` is an `init_method` URL
-    (`tcp://host:port` or `file:///path`)."""
+    is NCCL, on the card, unless `backend="gloo"` asks for CPU tensors;
+    under NCCL the rank's device is `LOCAL_RANK`'s.  `coordinator` is an
+    `init_method` URL (`tcp://host:port` or `file:///path`)."""
     if dist.is_initialized():
         return
     if coordinator is None and "RANK" not in os.environ:
         return
-    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", process_id or 0)))
     kw = {}

@@ -29,6 +29,7 @@ a perceiver's `to_out` after the perceiver's own forward
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Dict, Iterable, Mapping, Optional, Tuple
@@ -147,22 +148,58 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
-def gather(part: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The whole tensor of which `part` is this rank's part in the layout
-    of parameter `like` (every rank must call it)."""
-    if not isinstance(like, DTensor):
-        return part
-    return DTensor.from_local(part, like.device_mesh, like.placements, shape=like.shape,
-                              stride=like.stride(), run_check=False).full_tensor()
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """Where this rank's part of a whole tensor lies: the whole tensor's
+    shape, the dim split over the fsdp group and the part's first index
+    along it (FSDP2 splits as `torch.chunk` does: the last ranks' parts may
+    be shorter, or empty)."""
+    shape: Tuple[int, ...]
+    dim: int
+    start: int
+
+    def without(self, dim: int) -> Optional["Part"]:
+        """The part of a statistic reduced over `dim` (None: that statistic
+        is whole on every rank once summed over the group)."""
+        if dim == self.dim:
+            return None
+        shape = self.shape[:dim] + self.shape[dim + 1:]
+        return Part(shape, self.dim - (dim < self.dim), self.start)
 
 
-def part_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """This rank's part of a whole tensor `full` in the layout of `like`."""
-    if not isinstance(like, DTensor):
-        return full
-    coord = like.device_mesh.get_coordinate()
-    for i, pl in enumerate(like.placements):
+def param_part(p: torch.Tensor) -> Optional[Part]:
+    """The `Part` of a parameter FSDP sharded over its mesh's fsdp axis
+    (also over an axis of one rank), or None when it is not sharded."""
+    if not isinstance(p, DTensor):
+        return None
+    coord = p.device_mesh.get_coordinate()
+    for i, pl in enumerate(p.placements):
         if isinstance(pl, Shard):
-            n = like.device_mesh.size(i)
-            full = full.chunk(n, dim=pl.dim)[coord[i]]
-    return full
+            size = p.shape[pl.dim]
+            chunk = -(-size // p.device_mesh.size(i))
+            return Part(tuple(p.shape), pl.dim, min(coord[i] * chunk, size))
+    return None
+
+
+def _contiguous_stride(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    stride, out = 1, []
+    for n in reversed(shape):
+        out.append(stride)
+        stride *= n
+    return tuple(reversed(out))
+
+
+def gather_part(t: torch.Tensor, like: torch.Tensor, part: Optional[Part]) -> torch.Tensor:
+    """The whole tensor of which `t` is this rank's `part`, split over
+    parameter `like`'s fsdp axis (every rank must call it)."""
+    if part is None:
+        return t
+    placements = [Shard(part.dim) if isinstance(pl, Shard) else pl for pl in like.placements]
+    return DTensor.from_local(t, like.device_mesh, placements, shape=torch.Size(part.shape),
+                              stride=_contiguous_stride(part.shape), run_check=False).full_tensor()
+
+
+def narrow_part(full: torch.Tensor, part: Optional[Part], length: int) -> torch.Tensor:
+    """This rank's `part` (`length` indices along its dim) of a whole
+    tensor `full`."""
+    return full if part is None else full.narrow(part.dim, part.start, length)

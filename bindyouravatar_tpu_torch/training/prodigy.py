@@ -17,6 +17,11 @@ each group its own prodigy), and the two global sums run over the group's
 tensors.  They are fp32 0-d tensors on the parameters' device, summed over
 JAX's leaves in JAX's tree order (`adafactor.stacked_leaves`).  As in JAX,
 `decouple=False` applies no weight decay at all.
+
+Under FSDP (`shards.py`) the two sums <g, x0 - x> and ||s||_1 add the
+split tensors' partial sums over the fsdp group (one all-reduce of both)
+to the replicated tensors' sums, which every rank counts once: `d`,
+`d_max` and `d_numerator` stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -26,11 +31,14 @@ from typing import List, Mapping, Optional
 import torch
 
 from .adafactor import stacked_leaves
+from .shards import ShardAware
 
 
-class Prodigy:
+class Prodigy(ShardAware):
     """State: per tensor `exp_avg`, `exp_avg_sq`, `s` and `p0` (fp32); per
     group label `d`, `d_max` and `d_numerator` (fp32 0-d tensors)."""
+
+    PARAM_LIKE = ("exp_avg", "exp_avg_sq", "s", "p0")
 
     # prodigyopt's defaults, which the trainer keeps (its flags are the rest)
     d0, d_coef, growth = 1e-6, 1.0, float("inf")
@@ -69,14 +77,14 @@ class Prodigy:
             d = state["d"][label]
             dlr = d * lr * bc
             g32 = {k: grads[k].float() for k in names}
-            dot = sum(sum((g32[k] * (state["p0"][k] - params[k].float())).sum() for k in leaf)
-                      for leaf in leaves.values())
-            num = state["d_numerator"][label] * sqrt_b3 + (d / self.d0) * dlr * dot
+            dots = {k: (g32[k] * (state["p0"][k] - params[k].float())).sum() for k in names}
             s_coef = (d / self.d0) * (d if self.safeguard else dlr)
             for k in names:
                 s = state["s"][k]
                 s.copy_(s * sqrt_b3 + s_coef * g32[k])
-            denom = sum(sum(state["s"][k].abs().sum() for k in leaf) for leaf in leaves.values())
+            dot, denom = self._sums(leaves, dots,
+                                    {k: state["s"][k].abs().sum() for k in names})
+            num = state["d_numerator"][label] * sqrt_b3 + (d / self.d0) * dlr * dot
             for k in names:
                 g, m, v = g32[k], state["exp_avg"][k], state["exp_avg_sq"][k]
                 m.copy_(m * b1 + (1.0 - b1) * d * g)
@@ -100,3 +108,16 @@ class Prodigy:
             state["d"][label].copy_(new_d)
             state["d_max"][label].copy_(d_max)
             state["d_numerator"][label].copy_(num)
+
+    def _sums(self, leaves, *terms):
+        """Each of `terms` (name -> 0-d tensor) summed over the leaves'
+        tensors in JAX's tree order; under FSDP the split tensors' partial
+        sums are added over the fsdp group (one all-reduce for all terms)
+        to the replicated tensors' sums."""
+        zero = next(iter(terms[0].values())).new_zeros(())
+        total = lambda t, keep: sum((sum((t[k] for k in leaf if keep(k)), zero)
+                                     for leaf in leaves.values()), zero)
+        if not self.parts:
+            return [total(t, lambda k: True) for t in terms]
+        split = self.all_sum(torch.stack([total(t, lambda k: k in self.parts) for t in terms]))
+        return [split[i] + total(t, lambda k: k not in self.parts) for i, t in enumerate(terms)]

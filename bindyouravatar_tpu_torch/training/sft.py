@@ -29,11 +29,14 @@ Under `torchrun` (one process per GPU) the run is sharded: `--fsdp F`
 (default: the world size) ranks shard the DiT (`parallel.sharding`) and the
 rest form the dp axis (JAX `scripts/sft.py:134-136`); `--batch_size` is the
 global batch, each rank takes its slice.  An fsdp size that the world does
-not divide, or that exceeds it, raises; adafactor, prodigy and 8-bit AdamW
-raise `NotImplementedError` under fsdp > 1 (`ROADMAP.md` A12b):
+not divide, or that exceeds it, raises.  Every optimizer runs sharded: the
+statistics that span a split tensor (adafactor's factored means and block
+RMS, prodigy's sums, 8-bit AdamW's block absmax) are summed over the fsdp
+group (`training/shards.py`), and a checkpoint holds the whole state, so it
+restores at any rank count:
 
     torchrun --nproc_per_node 8 -m bindyouravatar_tpu_torch.training.sft \
-        --model_size 5b --fsdp 8 --output_dir runs/sft
+        --model_size 5b --fsdp 8 --optimizer prodigy --output_dir runs/sft
 """
 
 from __future__ import annotations
@@ -93,7 +96,8 @@ def get_args(argv=None):
                    help="5b checkpointing: per layer group (none), the joint attention's "
                         "outputs kept (save_attn), or each block too (nested)")
     p.add_argument("--fsdp", type=int, default=None,
-                   help="fsdp axis size (default: the world size under torchrun)")
+                   help="fsdp axis size (default: the world size under torchrun); every "
+                        "--optimizer (and --use_8bit_adam) steps on the ranks' parts")
     p.add_argument("--resume", type=str, default="latest", help="'latest' or 'none'")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--module_dir", type=str, default=None,

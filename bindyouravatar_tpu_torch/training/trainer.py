@@ -24,6 +24,10 @@ every other trainable tensor the group "low" at `lr * diff_lr_low` (JAX's
 `optax.multi_transform` of one optimizer per group under one clip: prodigy
 keeps its scalars per group); otherwise one group, "all".  With `ema_decay`
 an EMA copy of the trainable tensors follows each update.
+
+Under a (dp, fsdp) mesh every optimizer steps on each rank's parts of the
+sharded tensors and sums over the fsdp group the statistics that span a
+split (`shards.py`); a checkpoint holds every tensor of the state whole.
 """
 
 from __future__ import annotations
@@ -41,11 +45,12 @@ from ..config import TrainConfig
 from ..models.audio import mute_dropout_keep
 from ..models.dit import DiT
 from ..ops.scheduler import Schedule
-from ..parallel.sharding import gather, local, part_of
+from ..parallel.sharding import Part, gather_part, local, narrow_part, param_part
 from . import losses as L
 from .adafactor import Adafactor
 from .adam8bit import AdamW8bit
 from .prodigy import Prodigy
+from .shards import ShardAware
 
 # Trainable parameter-name patterns: sft.sh's unfreeze list (the mute
 # tokens, the perceivers, the router, the audio layers) plus LoRA, in the
@@ -105,10 +110,13 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-class AdamW:
+class AdamW(ShardAware):
     """optax's AdamW: mu/nu moments, bias correction, the update
     mu_hat / (sqrt(nu_hat) + eps) plus weight decay, times -lr.  State
-    `mu`, `nu` (fp32 like each tensor)."""
+    `mu`, `nu` (fp32 like each tensor; elementwise, so a rank's parts need
+    no collective)."""
+
+    PARAM_LIKE = ("mu", "nu")
 
     def __init__(self, b1: float, b2: float, eps: float, weight_decay: float):
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
@@ -173,6 +181,7 @@ class Trainer:
         self.dit, self.schedule, self.cfg, self.mesh = dit, schedule, cfg, mesh
         self.trainable, self.frozen = partition_params(dict(dit.named_parameters()),
                                                        trainable_patterns)
+        self.parts: Dict[str, Part] = {}
         if mesh is not None:
             self._shard(mesh, trainable_patterns)
         self.lr = make_lr_schedule(cfg)
@@ -191,7 +200,8 @@ class Trainer:
         """Place the DiT over `mesh`'s (dp, fsdp) axes (`parallel.sharding.
         shard_params`, the trainable and the frozen tensors alike, as JAX's
         `init_state(mesh=...)`); the optimizer then works on each rank's
-        parts.  Each rank's batch is its slice of the global batch
+        parts, summing over the fsdp group what spans a split (`shards.py`).
+        Each rank's batch is its slice of the global batch
         (`mesh.local_batch`), the draws are made for the global batch and
         sliced, the gradients of the replicated tensors and the metrics are
         averaged over the ranks, and the clip takes the global norm."""
@@ -200,11 +210,6 @@ class Trainer:
 
         if mesh[AXIS_TENSOR].size() != 1:
             raise ValueError("the trainer shards over dp x fsdp; tp is inference only")
-        if mesh[AXIS_FSDP].size() > 1 and (self.cfg.optimizer != "adamw"
-                                            or self.cfg.use_8bit_adam):
-            name = "8-bit AdamW" if self.cfg.use_8bit_adam else self.cfg.optimizer
-            raise NotImplementedError(f"{name} under fsdp > 1: its statistics span whole "
-                                      f"tensors (ROADMAP.md A12b); use AdamW or fsdp 1")
         for p in self.frozen.values():          # before sharding: FSDP reads the flags
             p.requires_grad_(False)
         for p in self.trainable.values():
@@ -214,6 +219,9 @@ class Trainer:
                                                        trainable_patterns)
         self.batch_index, self.batch_count = batch_rank(mesh)
         self.fsdp_group = mesh[AXIS_FSDP].get_group()
+        self.parts = {k: part for k, p in self.trainable.items()
+                      if (part := param_part(p)) is not None}
+        self.optimizer.shard(self.parts, self.fsdp_group)
 
     @staticmethod
     def _local(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -234,13 +242,17 @@ class Trainer:
                if self.cfg.ema_decay else None)
         return TrainState(step=0, count=0, opt=opt, ema=ema)
 
-    def _whole(self, part: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-        """The whole tensor of a state part laid out as parameter `name`'s
-        (a collective under a mesh: every rank calls it)."""
-        like = self.trainable.get(name) if name is not None else None
-        if like is None or part.shape != local(like).shape:
-            return part
-        return gather(part, like)
+    def _part(self, kind: str, name: str) -> Optional[Part]:
+        """Where this rank's tensor `name` of the state's `kind` ("params",
+        "ema" or a kind of optimizer state) is split, or None (whole)."""
+        if kind in ("params", "ema"):
+            return self.parts.get(name)
+        return self.optimizer.state_part(kind, name)
+
+    def _whole(self, t: torch.Tensor, kind: str, name: str) -> torch.Tensor:
+        """The whole tensor of this rank's tensor `name` of `kind` (a
+        collective under a mesh: every rank calls it)."""
+        return gather_part(t, self.trainable.get(name), self._part(kind, name))
 
     def named_tensors(self, state: TrainState,
                       frozen_prefixes: Sequence[str]) -> Dict[str, torch.Tensor]:
@@ -248,10 +260,10 @@ class Trainer:
         ones (their EMA copy when the state keeps one) and the frozen ones
         starting with one of `frozen_prefixes`."""
         src = self._local(self.trainable) if state.ema is None else state.ema
-        out = {k: self._whole(t, k) for k, t in src.items()}
+        out = {k: self._whole(t, "params", k) for k, t in src.items()}
         for k, p in self.frozen.items():
             if k.startswith(tuple(frozen_prefixes)):
-                out[k] = gather(local(p), p)
+                out[k] = gather_part(local(p), p, param_part(p))
         return out
 
     def model_named(self, state: TrainState) -> Dict[str, torch.Tensor]:
@@ -273,13 +285,12 @@ class Trainer:
         tensors and the EMA copy.  Under a mesh every tensor is gathered
         whole (every rank must call it), so a checkpoint does not depend on
         the rank count."""
+        whole = lambda kind, ts: {k: self._whole(t, kind, k) for k, t in ts.items()}
         return {"step": state.step, "count": state.count,
-                "params": {k: self._whole(p.detach(), k)
-                           for k, p in self._local(self.trainable).items()},
-                **{kind: {k: self._whole(t, k) for k, t in part.items()}
-                   for kind, part in state.opt.items()},
-                "ema": None if state.ema is None else {k: self._whole(t, k)
-                                                       for k, t in state.ema.items()}}
+                "params": whole("params", {k: p.detach()
+                                           for k, p in self._local(self.trainable).items()}),
+                **{kind: whole(kind, ts) for kind, ts in state.opt.items()},
+                "ema": None if state.ema is None else whole("ema", state.ema)}
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping[str, object], state: TrainState) -> TrainState:
@@ -287,21 +298,17 @@ class Trainer:
         trainable tensors and into `state`'s tensors (as `init_state` made
         them; under a mesh this rank's parts of them); raise unless the
         names and shapes are the trainable set's."""
-        params = saved["params"]
-        if set(params) != set(self.trainable) or (saved["ema"] is None) != (state.ema is None):
+        if set(saved["params"]) != set(self.trainable) or (saved["ema"] is None) != (state.ema is None):
             raise ValueError("the checkpoint's trainable set (or its EMA) is not this "
                              "trainer's")
         if any(set(saved.get(kind, ())) != set(part) for kind, part in state.opt.items()):
             raise ValueError(f"the checkpoint holds no {self.cfg.optimizer} state of this "
                              f"trainer's tensors ({sorted(state.opt)})")
-        parts = self._local(self.trainable)
-        for name, dst in (("params", parts), ("ema", state.ema), *state.opt.items()):
+        params = self._local(self.trainable)
+        for kind, dst in (("params", params), ("ema", state.ema), *state.opt.items()):
             for k, t in (dst or {}).items():
-                src = saved[name][k]
-                like = self.trainable.get(k)
-                if like is not None and tuple(src.shape) == tuple(like.shape):
-                    src = part_of(src, like)
-                t.copy_(src)
+                part = self._part(kind, k)
+                t.copy_(narrow_part(saved[kind][k], part, t.shape[part.dim] if part else 0))
         return TrainState(step=int(saved["step"]), count=int(saved["count"]), opt=state.opt,
                           ema=state.ema)
 

@@ -35,7 +35,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      M = 5, and B5 run twice at its main shape, bitwise equal; the 2B
      variant's instantiations: B1 with the fused QK-LN and no RoPE at
      [2, 17776, 1920] (30 heads) and ragged, B2 at 16 x 80 heads (the
-     kernel's loads fill columns 80-127 with zeros), B6 at width 1920);
+     kernel's loads fill columns 80-127 with zeros), B6 at width 1920; B1
+     with QK-LN + RoPE at [2, 17776, 3072] and B7's forward and backward
+     with RoPE at [1, 17776, 3072] as 96 x 32 and 24 x 128 heads, and each
+     ragged at [1, 1000, 3072] with kv_len 937, SDPA on B7's q/k/v
+     without RoPE beside them; B10 at heads of 32 and 128, untimed);
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -59,6 +63,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      `flash_attention` under grad (B7 forward and backward, q's gradient
      against the plain backward) and the fused QK-LN forms under grad
      (they must raise); exact launch counts.
+  3e. a 2-layer DiT at full width (dim 3072) with 24 x 128 and with 96 x
+     32 heads, audio only, 16 + 1,024 tokens: the serving forward (B1
+     fused) and one Stage-3 micro-batch (B7, B10 at the head dim) on the
+     card against the CPU in fp32, exact launch counts; its B1 and B7
+     launches are the kernels line's `dh32` / `dh128` rows'.
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
@@ -84,7 +93,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      of both (the joint attention's forward once per block under
      "save_attn"), peak memory and wall of both.
   5c. the same model and batch: one optimizer step each of adafactor,
-     prodigy and 8-bit AdamW (seconds, peak, the state's bytes, launches;
+     prodigy and 8-bit AdamW, each from phase 5's trainable tensors with
+     the same draws (seconds, peak, the state's bytes, launches;
      the update of five stacked leaves against the same optimizer on the
      CPU in fp32), two prodigy steps with those leaves as the trainable set
      (d and its numerator against the CPU's; d grows at step 2), then one
@@ -192,8 +202,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      trainable change within relative L2 1e-2 of phase 5's, frozen tensors
      bit-identical, launches equal phase 5's, step walls and peaks beside
      phase 5's, and the extra peak parted into the root unit's gathered
-     copy (read at the root's forward) and the rest.  The group is
-     destroyed at the end.
+     copy (read at the root's forward) and the rest; then adafactor and
+     8-bit AdamW sharded so, phase 5c's step from its start and draws,
+     against it, and prodigy (2 steps, lr 10, at 8 layers: 42 do not fit
+     sharded) sharded and unsharded, each within relative L2 1e-2 of the
+     trainable change.  The group is destroyed at the end.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -414,6 +427,31 @@ def kernel_phase(results: dict, only=None) -> bool:
         r = report("B1", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 5, library, work)
         if tag.startswith(("slice", "bare", "2b[")):
             results[{"s": "B1", "b": "B1 bare", "2": "B1 2b"}[tag[0]]] = r
+
+    # --- B1 at the other flat head dims, 96 x 32 and 24 x 128 heads at width
+    # 3072 (the dh-64 rows' FLOPs: the bound does not depend on the head
+    # dim), QK-LN + RoPE, and ragged (1,000 rows, kv_len 937).  D = 32 runs
+    # the 64-column tiles, the TMA boxes reading columns 32-63 as zeros.
+    # tol: as the dh-64 rows.  No library call applies the QK-LN and RoPE.
+    for d, (tag, b, s, text_len, grid, kv_len) in pick(
+            [(d, row) for d in (32, 128) for row in (
+                (f"slice[2,17776,3072] dh{d}", 2, 17776, 226, (13, 30, 45), None),
+                (f"ragged[1,1000,3072] kv_len=937 dh{d}", 1, 1000, 10, (3, 18, 18), 937))],
+            ["B1"]):
+        h = 3072 // d
+        q, k, v = (rnd(b, s, 3072).to(bf) for _ in range(3))
+        norm = (rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1), rnd(d, std=0.1, mean=1.0),
+                rnd(d, std=0.1))
+        kw = dict(kv_len=kv_len, qk_norm=norm, rope_start=text_len,
+                  rope=get_3d_rotary_pos_embed(d, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                               device=dev))
+        kern = lambda: fa.flash_attention(q, k, v, h, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
+        work = (_nbytes(q, k, v, q), 4.0 * b * s * (kv_len or s) * 3072, "bf16")
+        r = report(f"B1 dh{d}", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 3, None, work)
+        if tag.startswith("slice"):
+            results[f"B1 dh{d}"] = r
+        del q, k, v
 
     # --- B2: perceiver face attention, q [2, 17550, 16*128], k/v [2, 2, 16, 32,
     # 128], one output per identity; ragged Sq=1000.
@@ -651,6 +689,51 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check
             results["B7 fwd"], results["B7 bwd"] = r, r_b
         del q, k, v, do, o, lse, o_p, lse_p, delta
 
+    # --- B7 at the other flat head dims: the DiT blocks' q/k/v [1, 17776,
+    # 3072] as 96 x 32 and 24 x 128 heads with RoPE on rows 226..17775, and
+    # ragged [1, 1000, 3072] with a masked kv tail (937), RoPE from row 10.
+    # tol: as the dh-64 rows.  No library call applies RoPE; `sdpa_bare_ms`
+    # times SDPA on the same q/k/v without it (forward; forward + autograd
+    # backward as the backward), a yardstick of the attention alone.
+    for d, (tag, b, s, text_len, grid, kv_len) in pick(
+            [(d, row) for d in (32, 128) for row in (
+                (f"train[1,17776,3072] rope dh{d}", 1, 17776, 226, (13, 30, 45), None),
+                (f"ragged[1,1000,3072] kv_len=937 rope dh{d}", 1, 1000, 10, (3, 18, 18),
+                 937))], ["B7 fwd", "B7 bwd"]):
+        h = 3072 // d
+        q, k, v, do = (rnd(b, s, 3072).to(bf) for _ in range(4))
+        kw = dict(kv_len=kv_len, rope_start=text_len,
+                  rope=get_3d_rotary_pos_embed(d, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                               device=dev))
+        kv = kv_len or s
+        fwd = lambda: fa.flash_attention_flat_fwd(q, k, v, h, **kw)
+        fwd_plain = lambda: fa.flash_attention_flat_fwd_plain(q, k, v, h, block_q=512, **kw)
+        o, lse = fwd()
+        o_p, lse_p = fwd_plain()
+        work = (_nbytes(q, k, v, o, lse), 4.0 * b * s * kv * 3072, "bf16")
+        r = report_all(f"B7 fwd dh{d}", tag, (o, lse), (o_p, lse_p), (2e-2, 3e-3), fwd,
+                       fwd_plain, 3, None, work)
+        delta = fa.attention_delta(o, do, h)
+        bwd = lambda: fa.flash_attention_flat_bwd(q, k, v, do, lse, delta, h, **kw)
+        bwd_plain = lambda: fa.flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, h,
+                                                              block_q=512, **kw)
+        work = (_nbytes(q, k, v, do, lse, delta, q, k, v), 10.0 * b * s * kv * 3072, "bf16")
+        r_b = report_all(f"B7 bwd dh{d}", tag, bwd(), bwd_plain(), (2e-2, 2e-2, 2e-2), bwd,
+                         bwd_plain, 3, None, work)
+        if tag.startswith("train"):
+            qb, kb, vb = (bhsd(t, h).requires_grad_() for t in (q, k, v))
+            ob = F.scaled_dot_product_attention(qb, kb, vb)
+            dob = bhsd(do, h)
+            r["sdpa_bare_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 3)
+            r_b["sdpa_bare_ms"] = _time_ms(
+                lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True), 3)
+            print(f"kernel B7 dh{d} {tag}: SDPA on the same q/k/v without RoPE: forward "
+                  f"{r['sdpa_bare_ms']:.4f} ms, backward {r_b['sdpa_bare_ms']:.4f} ms",
+                  flush=True)
+            results[f"B7 fwd dh{d}"], results[f"B7 bwd dh{d}"] = r, r_b
+            del qb, kb, vb, ob, dob
+        del q, k, v, do, o, lse, o_p, lse_p, delta
+
     # --- B8: temporal STAB attention backward [2700, 13, 8*64] (batch 1:
     # M = 2 identities x 30 x 45); ragged M = 1001.
     # tol: both sides compute the softmax vjp in fp32 from the same bf16
@@ -731,6 +814,20 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check
             check(name, f"{tag} out{i}", got, ref, _rel_compare(got, ref, rel), rel)
         same = all(torch.equal(a, b) for a, b in zip(first, again))
         check_ok(name, f"{tag} run twice: bitwise equal", same)
+
+    # B10 at the DiT's other head dims (segments of 32 and 128 at width
+    # 3072, phase 3e's QK norms), not timed.  tol: as the timed rows.
+    for seg in pick((32, 128), ["B10 fwd", "B10 bwd"]):
+        x = rnd(17776, 3072, std=2.3, mean=0.7).to(bf)
+        g = rnd(17776, 3072).to(bf)
+        sc, bi = rnd(seg, std=0.1, mean=1.0), rnd(seg, std=0.1)
+        check("B10 fwd", f"train[17776,3072] dh{seg}", ln.head_layernorm_fwd(x, sc, bi, 1e-6),
+              ln.head_layernorm_plain(x, sc, bi, 1e-6), 1e-2, 1e-2)
+        for i, (got, ref, rel) in enumerate(zip(ln.head_layernorm_bwd(x, sc, g, 1e-6),
+                                                ln.head_layernorm_bwd_plain(x, sc, g, 1e-6),
+                                                (1e-2, 1e-3, 1e-3))):
+            check("B10 bwd", f"train[17776,3072] dh{seg} out{i}", got, ref,
+                  _rel_compare(got, ref, rel), rel)
 
     for s_ in pick((8, 13, 16), ["B8"]):
         q, k, v, g = (rnd(1001, s_, 512).to(bf) for _ in range(4))
@@ -1302,6 +1399,135 @@ def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
           + f" tol=0.1 {'ok' if g_ok else 'FAILED'}; launches "
           + " ".join(f"{k}={launches[k]} (want {want[k]})" for k in want)
           + f" {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def head_dim_phase(launches: dict) -> bool:
+    """Phase 3e: the flat kernels at head dims 128 and 32 inside the model.
+    A 2-layer DiT at full width (dim 3072) with 24 x 128 and with 96 x 32
+    heads (both pair in 128 lanes: the flat path), audio only (its audio
+    layers keep the 5B's 48 x 64 heads), 8 latent frames, 16 + 1,024
+    tokens, LoRA r8; for each, on the card (bf16) against the same weights
+    on the CPU (plain versions, fp32):
+      * the serving forward (`fuse_qk_norm`: B1 with the QK-LN and RoPE
+        fused), its output, and B1 launched once a block;
+      * one Stage-3 micro-batch (`Trainer.grads_and_metrics`: B7 forward
+        and backward, B10 at the head dim), its metrics and every trainable
+        gradient, the launches those of `train_launches`.
+    `launches` takes, per head dim, B1's launches in the forward and B7's
+    in the micro-batch (`B1 dh128`, `B7 fwd dh128`, ...)."""
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
+                                                 RouterConfig, SchedulerConfig, TrainConfig)
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
+    from bindyouravatar_tpu_torch.training.trainer import Trainer
+
+    ok = True
+    sub = (AudioConfig(dim=3072, audio_dim=128, num_attention_heads=48, attention_head_dim=64,
+                       num_layers=2, blocks=2, intermediate_dim=64, context_tokens=32),
+           RouterConfig(num_layers=1, q_k_dim=512, num_heads=4, num_id_token=32, attn_heads=2),
+           LFEConfig(dim=128, depth=5, dim_head=64, heads=2, num_id_token=2, num_queries=32,
+                     output_dim=512, id_embed_dim=64, vit_dim=64))
+    for d in (128, 32):
+        t0 = time.perf_counter()
+        base = dict(num_attention_heads=3072 // d, attention_head_dim=d, in_channels=48,
+                    out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
+                    sample_width=32, sample_height=16, sample_frames=29, max_text_seq_length=16,
+                    lora_rank=8, lora_alpha=8.0, is_train_face=False)
+        gen = torch.Generator().manual_seed(13)
+        make = lambda dtype, dev, fuse: DiT.create(
+            DiTConfig(dtype=dtype, fuse_qk_norm=fuse, **base), *sub, device=dev,
+            generator=gen if dev == "cpu" else None)
+        ref = make(torch.float32, "cpu", False)
+        with torch.no_grad():        # LoRA B off zero, so LoRA A takes gradients too
+            for blk in ref.blocks:
+                for name in ("to_q_lora_B", "to_k_lora_B"):
+                    getattr(blk.attn1, name).normal_(0.0, 0.02, generator=gen)
+        sd = ref.state_dict()
+        c = ref.cfg
+
+        # the serving forward: fused QK-LN (B1)
+        rng = np.random.default_rng(13)
+        n_af = c.sample_frames + sub[0].window_size - sub[0].window_stride
+        inputs = dict(latents=rng.normal(size=(1, c.latent_frames, 48, 16, 32)),
+                      text_embeds=rng.normal(size=(1, 16, 128)), timesteps=np.array([499.0]),
+                      audio_embeds=rng.normal(size=(1, 2, n_af, 2, 128)))
+        outs, fwd_counts = [], {}
+        with torch.inference_mode():
+            for dtype, dev in ((torch.float32, "cpu"), (torch.bfloat16, "cuda")):
+                model = make(dtype, dev, True)
+                model.load_state_dict(sd)
+                t = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in inputs.items()}
+                rope = model.rope(16 * 8, 32 * 8, c.latent_frames, device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    _reset_launches()
+                out, _ = model.apply(t.pop("latents"), t.pop("text_embeds"), t.pop("timesteps"),
+                                     rope, **t)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    fwd_counts = _read_launches()
+                outs.append(out.float().cpu())
+                del model
+        # tol: bf16 activations and weights through 2 blocks against fp32
+        scale = float(outs[0].abs().max())
+        f_err, _, f_ok = _compare(outs[1], outs[0], 0.05 * scale, 0.05)
+        f_ok &= fwd_counts["B1"] == c.num_layers and fwd_counts["B7 fwd"] == 0
+
+        # one Stage-3 micro-batch: B7 forward and backward, B10
+        gpu = make(torch.bfloat16, "cuda", False)
+        gpu.load_state_dict(sd)
+        tcfg = TrainConfig(grad_accum_steps=1)
+        trainers = [Trainer(m, Schedule.create(SchedulerConfig()), tcfg) for m in (ref, gpu)]
+        for tr in trainers:
+            tr.init_state()
+        batch = _train_batch(ref, 1, gen, "cpu", vit_tokens=17)
+        for key in ("id_cond", "id_vit_hidden", "teacher_clean", "teacher_noisy"):
+            del batch[key]
+        draws = trainers[0].draw(batch, gen)
+        to_gpu = lambda dd: {k: None if v is None else v.cuda() for k, v in dd.items()}
+        grads_c, m_c = trainers[0].grads_and_metrics(batch, [draws])
+        torch.cuda.synchronize()
+        _reset_launches()
+        grads_g, m_g = trainers[1].grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        # tol: as phase 3b (metrics within 5% + 1e-3, gradients within 10%
+        # relative L2; the key biases, whose true gradient is 0, left out)
+        m_err = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_c}
+        m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
+        g_err = {}
+        for k, gc_ in grads_c.items():
+            if k.endswith("to_k.bias"):
+                continue
+            norm = float(gc_.norm())
+            diff = float((grads_g[k].float().cpu() - gc_).norm())
+            g_err[k] = diff / norm if norm > 0 else diff
+        worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
+        g_ok = all(e <= 0.1 for e in g_err.values())
+        want = train_launches(gpu, 1)
+        c_ok = ({k: counts[k] for k in want} == want and counts["B7 fwd"] > 0
+                and counts["B10 fwd"] > 0)
+        step_ok = f_ok and m_ok and g_ok and c_ok
+        ok &= step_ok
+        launches.update({f"B1 dh{d}": fwd_counts["B1"], f"B7 fwd dh{d}": counts["B7 fwd"],
+                         f"B7 bwd dh{d}": counts["B7 bwd"]})
+        print(f"head dim {d} ({3072 // d} x {d} heads, dim 3072, 2 layers, audio only, 16 + "
+              f"1024 tokens): forward cuda-bf16 vs cpu-fp32 max_abs_err={f_err:.3e} (ref max "
+              f"{scale:.3e}, tol 0.05 of it + 0.05*|ref|), B1 launches {fwd_counts['B1']} (want "
+              f"{c.num_layers}); micro-batch loss {float(m_g['loss']):.5f} / "
+              f"{float(m_c['loss']):.5f}, metrics max |d| "
+              + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
+              + f" (tol 1e-3+0.05*|ref|); {len(g_err)} trainable gradients, worst relative L2 "
+              + " ".join(f"{k}={v:.3e}" for k, v in worst) + " (tol 0.1); launches "
+              + " ".join(f"{k}={counts[k]} (want {want[k]})" for k in want if want[k] or counts[k])
+              + f"; {time.perf_counter() - t0:.1f} s {'ok' if step_ok else 'FAILED'}",
+              flush=True)
+        del gpu, trainers, grads_g, grads_c
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -2791,7 +3017,7 @@ def train_phase(args, launches: dict, record: dict) -> bool:
           + f" {'ok' if ok else 'FAILED'}", flush=True)
     ok &= save_attn_phase(args, tr, batch)
     del state          # AdamW's moments: phase 5c keeps its own optimizers' state
-    return ok & optimizer_phase(args, tr, batch)
+    return ok & optimizer_phase(args, tr, batch, record)
 
 
 def save_attn_phase(args, tr, batch) -> bool:
@@ -2863,6 +3089,11 @@ def _state_bytes(opt: dict) -> int:
     return sum(t.numel() * t.element_size() for part in opt.values() for t in part.values())
 
 
+# phase 5c's optimizers (phase 11 runs each sharded)
+OPTIMIZER_RUNS = {"adafactor": dict(optimizer="adafactor"),
+                  "prodigy": dict(optimizer="prodigy", learning_rate=1.0),
+                  "adamw 8-bit": dict(optimizer="adamw", use_8bit_adam=True)}
+
 # phase 5c's CPU reference: whole stacked leaves (adafactor's block RMS spans
 # the layers of one), factored ([3072, 128], [128, 3072], [2048, 2048]) and not
 OPT_CHECK = (r"^blocks\.\d+\.attn1\.to_q_lora_A$", r"^blocks\.\d+\.attn1\.to_k_lora_B$",
@@ -2932,11 +3163,14 @@ def _prodigy_two_steps(dit, schedule, one, draw) -> bool:
     return ok
 
 
-def optimizer_phase(args, tr5, batch) -> bool:
+def optimizer_phase(args, tr5, batch, record: dict) -> bool:
     """Phase 5c on phase 5's DiT (42 layers unless `--train-layers`, LoRA
     r128, "nested") and batch (2 micro-batches): one optimizer step each of
     adafactor (lr 1e-5), prodigy (lr 1.0) and 8-bit AdamW (lr 1e-5),
-    constant schedules: the step's seconds, peak memory, the optimizer
+    constant schedules, each from phase 5's trainable tensors (`record`'s
+    "after") and the same draws (`record["5c"]` keeps them, and each step's
+    trainable tensors after it, on the host: phase 11 holds its sharded
+    adafactor and 8-bit steps against them): the step's seconds, peak memory, the optimizer
     state's bytes and launches; each update on `OPT_CHECK`'s tensors against
     the same optimizer on the CPU in fp32 from the card's clipped gradients
     and the same start (every element within 1e-5 of the largest update
@@ -2963,11 +3197,13 @@ def optimizer_phase(args, tr5, batch) -> bool:
              for j in range(accum)]
     ok = True
     n_train = sum(p.numel() for p in tr5.trainable.values())
-    for name, kw in (("adafactor", dict(optimizer="adafactor")),
-                     ("prodigy", dict(optimizer="prodigy", learning_rate=1.0)),
-                     ("adamw 8-bit", dict(optimizer="adamw", use_8bit_adam=True))):
+    record["5c"] = {"draws": draws}
+    for name, kw in OPTIMIZER_RUNS.items():
         gc.collect()
         torch.cuda.empty_cache()
+        with torch.no_grad():
+            for k, p in tr5.trainable.items():
+                p.copy_(record["after"][k])
         cfg = TrainConfig(lr_scheduler="constant", **kw)
         tr = Trainer(dit, tr5.schedule, cfg)
         state = tr.init_state()
@@ -3004,6 +3240,10 @@ def optimizer_phase(args, tr5, batch) -> bool:
         finite = all(math.isfinite(float(v)) for v in metrics.values())
         step_ok = upd_ok and counts_ok and finite
         ok &= step_ok
+        if name != "prodigy":
+            record["5c"][name] = dict(step_s=[wall], peak_gib=peak, loss=float(metrics["loss"]),
+                                      after={k: p.detach().to("cpu", copy=True)
+                                             for k, p in tr.trainable.items()})
         print(f"optimizer {name} ({dit.cfg.num_layers} layers, {accum} micro-batches): step "
               f"{wall:.2f} s, peak {peak:.2f} GiB, state {state_b / 1e9:.3f} GB "
               f"({state_b / n_train:.2f} B a trainable parameter), loss "
@@ -3274,6 +3514,14 @@ KERNELS = {
             "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
     "B2h": ("cuda", "bindyouravatar_tpu_torch/csrc/short_kv_attention.cu",
             "bindyouravatar_tpu/ops/short_kv_attention.py:41"),
+    # the flat kernels at the DiT's other head dims (the same TPU bodies)
+    **{f"{name} dh{d}": entry for d in (32, 128) for name, entry in (
+        ("B1", ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                "bindyouravatar_tpu/ops/flash_attention.py:592")),
+        ("B7 fwd", ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
+                    "bindyouravatar_tpu/ops/flash_attention.py:352")),
+        ("B7 bwd", ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "bindyouravatar_tpu/ops/flash_attention.py:1050")))},
 }
 
 
@@ -3548,16 +3796,129 @@ def _distributed_model_checks(args, phase5: dict, gen, rnd) -> bool:
           f"{extra - g:.2f} (gradient buffers; the root's trainable gradients are "
           f"{s_['root_train_gib']:.2f}); after the steps {s_['end']:.2f} against "
           f"{again['end']:.2f}", flush=True)
-    return ok & f_ok
+    return ok & f_ok & _sharded_optimizer_checks(args, phase5)
 
 
-def _stage3_setup(args, mesh=None, mem=None):
+def _opt_steps(args, mesh, kw: dict, layers: int, steps: int, start=None, draws=None) -> dict:
+    """`steps` optimizer steps of the Stage-3 configuration (`_stage3_setup`
+    at `layers`, trainable tensors from `start` if given) with the
+    optimizer of `kw` (constant schedule), each step's micro-batches with
+    `draws` (or drawn from the setup's generator), unsharded (`mesh` None)
+    or through `shard_params`: walls, peak, loss and the trainable tensors
+    after the steps (and, without `start`, before them; on the host)."""
+    import gc
+
+    import torch
+    from bindyouravatar_tpu_torch.config import TrainConfig
+    from bindyouravatar_tpu_torch.parallel.sharding import local
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit, tr, state, batch, gs = _stage3_setup(
+        args, mesh, None, TrainConfig(lr_scheduler="constant", **kw), layers, start)
+    accum = tr.cfg.grad_accum_steps
+    before = None if start is not None else {
+        k: local(p).detach().to("cpu", copy=True) for k, p in tr.trainable.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        d = draws or [tr.draw({"video_latents": batch["video_latents"][j:j + 1]}, gs)
+                      for j in range(accum)]
+        grads, m = tr.grads_and_metrics(batch, d)
+        state = tr.apply_gradients(state, grads)
+        del grads
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = dict(step_s=walls, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss=float(m["loss"]), sharded=len(tr.parts), before=before,
+               after={k: local(p).detach().to("cpu", copy=True) for k, p in tr.trainable.items()})
+    del dit, tr, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_optimizer_checks(args, phase5: dict) -> bool:
+    """Adafactor, 8-bit AdamW and prodigy through `shard_params` over the
+    one rank (every trainable tensor a part: the optimizers' sums over the
+    fsdp group run, over NCCL), each against its unsharded step within
+    relative L2 1e-2 of the trainable change (key biases apart), the
+    bound AdamW's sharded step is held to, or twice the unsharded step's
+    own run-to-run floor where that is larger: adafactor's first step is
+    g / sqrt(g^2 + 1e-30), +-1 wherever g is nearly 0, so the run-to-run
+    noise of B7's dq (added in no fixed order) flips whole elements of its
+    change, and its floor is read by running the unsharded step again.
+    Adafactor and 8-bit AdamW: one step at phase 5's depth from phase 5's
+    trainable tensors with phase 5c's draws, against phase 5c's step (run
+    here when phase 5c did not run).
+    Prodigy: 2 steps at 8 layers, lr 10 (its d grows from the second step),
+    unsharded and sharded: at phase 5's 42 layers its unsharded peak (73.69
+    GiB) and the sharded root unit's gathered copy (8.12 GiB) pass the 80
+    GB card."""
+    import torch
+    from bindyouravatar_tpu_torch.parallel.mesh import create_mesh
+
+    ok = True
+    mesh = lambda: create_mesh(dp=1, fsdp=1, device_type="cuda")
+    fivec = phase5.get("5c", {})
+    start = phase5.get("after")
+    cases = [(name, OPTIMIZER_RUNS[name], args.train_layers, 1) for name in
+             ("adafactor", "adamw 8-bit")]
+    cases.append(("prodigy", dict(OPTIMIZER_RUNS["prodigy"], learning_rate=10.0), 8, 2))
+
+    def rel_change(got, ref, before):
+        num = den = 0.0
+        for k, t in got.items():
+            if k.endswith("to_k.bias"):
+                continue
+            r = ref[k].double()
+            num += float((t.double() - r).square().sum())
+            den += float((r - before[k].double()).square().sum())
+        return (num / max(den, 1e-30)) ** 0.5
+
+    for name, kw, layers, steps in cases:
+        t0 = time.perf_counter()
+        if name in fivec and start is not None:
+            ref, src = fivec[name], "phase 5c's step"
+            begin, draws = start, fivec["draws"]
+        else:       # prodigy, or phase 5 did not run: both from the seed's draw
+            begin = start if name != "prodigy" else None
+            draws = None
+            ref, src = _opt_steps(args, None, kw, layers, steps, begin), "unsharded again"
+        got = _opt_steps(args, mesh(), kw, layers, steps, begin, draws)
+        before = begin if begin is not None else ref["before"]
+        rel = rel_change(got["after"], ref["after"], before)
+        floor, tol = None, 1e-2
+        if name == "adafactor":
+            again = _opt_steps(args, None, kw, layers, steps, begin, draws)
+            floor = rel_change(again["after"], ref["after"], before)
+            tol = max(tol, 2 * floor)
+            del again
+        o_ok = rel < tol and math.isfinite(got["loss"]) and got["sharded"] > 0
+        ok &= o_ok
+        shown = "" if floor is None else f"; the unsharded step again {floor:.3e}"
+        print(f"distribution fsdp {name} (NCCL world size 1): {steps} step(s), 2 micro-batches, "
+              f"{layers} layers, {got['sharded']} trainable tensors as parts: trainable change "
+              f"relative L2 against {src} {rel:.3e} (tol {tol:.3e}{shown}; key biases apart), loss "
+              f"{got['loss']:.6g} / {ref['loss']:.6g}; step walls sharded "
+              + ", ".join(f"{w:.2f}" for w in got["step_s"]) + f" s, {src} "
+              + ", ".join(f"{w:.2f}" for w in ref["step_s"]) + f" s; peak "
+              f"{got['peak_gib']:.2f} GiB sharded, {ref['peak_gib']:.2f} GiB {src}; "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if o_ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _stage3_setup(args, mesh=None, mem=None, tcfg=None, layers=None, start=None):
     """Phase 5's Stage-3 configuration from its seeds: the repo's default
     `DiTConfig(lora_rank=128, remat=True, remat_policy="nested")` at
-    `--train-layers`, drawn on the card, its trainer (through
-    `shard_params` over `mesh`) and AdamW state, the batch, and the
-    generator of the steps' draws.  `mem` (if given) takes the device GiB
-    after the model, its placement and the state."""
+    `layers` (default `--train-layers`), drawn on the card, its trainer
+    (`tcfg`, default phase 5's AdamW; through `shard_params` over `mesh`)
+    with its trainable tensors set to `start` (name -> whole tensor) if
+    given, and the optimizer's state, the batch, and the generator of the
+    steps' draws.  `mem` (if given) takes the device GiB after the model,
+    its placement and the state."""
     import torch
     from bindyouravatar_tpu_torch.config import DiTConfig, SchedulerConfig, TrainConfig
     from bindyouravatar_tpu_torch.models.dit import DiT
@@ -3569,12 +3930,18 @@ def _stage3_setup(args, mesh=None, mem=None):
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(args.seed + 100)
     cfg = DiTConfig(lora_rank=128, remat=True, remat_policy="nested",
-                    num_layers=args.train_layers)
+                    num_layers=layers or args.train_layers)
     dit = DiT.create(cfg, device=dev, generator=gen)
     mem["model"] = gib()
-    tr = Trainer(dit, Schedule.create(SchedulerConfig()), TrainConfig(lr_warmup_steps=1),
+    tr = Trainer(dit, Schedule.create(SchedulerConfig()), tcfg or TrainConfig(lr_warmup_steps=1),
                  mesh=mesh)
     mem["placed"] = gib()
+    if start is not None:
+        from bindyouravatar_tpu_torch.parallel.sharding import local
+
+        with torch.no_grad():
+            for k, p in tr.trainable.items():
+                local(p).copy_(start[k])      # one rank: its part is the whole tensor
     state = tr.init_state()
     mem["state"] = gib()
     batch = _train_batch(dit, tr.cfg.grad_accum_steps, gen, dev)
@@ -3731,6 +4098,8 @@ def main(argv=None) -> int:
     ok &= reduced_train_phase({})
     ok &= reduced_train_phase(unpaired_launches, unpaired=True)
     ok &= entry_point_phase(entry_launches)
+    head_dim_launches = {}
+    ok &= head_dim_phase(head_dim_launches)
     if args.requests > 0:
         ok &= serving_phase(args)
     else:
@@ -3774,6 +4143,8 @@ def main(argv=None) -> int:
         launches[name] = unpaired_launches[name]
     for name in ("B14", "B2c", "B2h"):
         launches[name] = entry_launches[name]
+    # B1 and B7 at head dims 32 and 128: the 2-layer full-width DiT (phase 3e)
+    launches.update(head_dim_launches)
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}
                for name, (route, source, replaces) in KERNELS.items()]

@@ -96,10 +96,11 @@ def test_perceiver_cross_attention(return_pre_out):
     assert _rel(got_q, want_q) < 1e-5 and _rel(got_k, want_k) < 1e-5
 
 
-@pytest.mark.parametrize("s,heads", [(96, 4), (1056, 2)])
+@pytest.mark.parametrize("s,heads", [(96, 4), (1056, 2), (1056, 1)])
 def test_self_attention(s, heads):
     """The STAB spatial attention: plain SDPA at short lengths, B1's bare
-    path (no QK-LN, no RoPE) at S >= 1024 with 64-wide heads."""
+    path (no QK-LN, no RoPE) at S >= 1024 with 64-wide heads and with
+    128-wide heads (JAX's flash kernel at `dh % 64 == 0`)."""
     dim = 128
     rng = np.random.default_rng(32)
     x = rng.standard_normal((2, s, dim)).astype(np.float32)

@@ -32,7 +32,8 @@ from bindyouravatar_tpu_torch.convert import jax_params_to_torch
 from bindyouravatar_tpu_torch.models.dit import DiT
 from bindyouravatar_tpu_torch.parallel.sharding import param_specs, shard_bytes, shard_dim
 from bindyouravatar_tpu_torch.parallel.tp import tp_specs
-from torch_dist_worker import Ranks, cli_argv, one_rank_cli, serve, serve_spec
+from torch_dist_worker import (Ranks, check_two_stage, check_two_stage_failure, cli_argv,
+                               one_rank_cli, serve, serve_spec, two_stage_inputs)
 from torch_port_utils import realistic, threads_per_worker
 
 STEPS = 2
@@ -80,7 +81,8 @@ def started(tmp_path_factory):
     inputs = dict(dit_kwargs={}, state=jax_params_to_torch(params),
                   args=(t["lat"], t["text"], t["ts"], rope),
                   kwargs={k: t[k] for k in COND}, server=serve_spec(),
-                  cli_argv=cli_argv(str(tmp_path_factory.mktemp("cli"))))
+                  cli_argv=cli_argv(str(tmp_path_factory.mktemp("cli"))),
+                  **two_stage_inputs(tmp_path_factory.mktemp))
     ranks = Ranks("tp", 2, str(tmp_path_factory.mktemp("tp")), inputs)
     yield ranks
     ranks.close()
@@ -291,12 +293,23 @@ def test_shard_bytes_equal_jax_5b():
 
 @pytest.mark.parametrize("flags,error", [
     (["--tp", "2", "--sp", "2"], SystemExit),
-    (["--tp", "2", "--two_stage_generate"], NotImplementedError),
+    (["--tp", "2", "--two_stage_generate"], ValueError),
 ])
 def test_cli_refuses_tp_with_sp_and_the_ranked_mask_tool(flags, error, tmp_path):
-    """--tp with --sp raises as JAX's CLI does; the two-stage mask tool
-    under --tp / --sp raises (ROADMAP.md A12b), before any rank is asked."""
+    """--tp with --sp raises as JAX's CLI does, before any rank is asked;
+    the two-stage CLI under --tp is taken (its mask tool runs on rank 0)
+    and, in this one process, asks for the ranks the launch lacks."""
     from bindyouravatar_tpu_torch import infer
 
     with pytest.raises(error):
         infer.main(cli_argv(str(tmp_path)) + flags)
+
+
+def test_tp_two_stage_cli_equals_one_rank(ranks, tmp_path):
+    """`infer.main(... --two_stage_generate --tp 2)`: rank 0 runs the mask
+    tool once, both ranks run stage 2, each clip equals one rank's."""
+    check_two_stage(ranks, tmp_path)
+
+
+def test_tp_two_stage_tool_failure_raises_on_every_rank(ranks):
+    check_two_stage_failure(ranks)

@@ -25,7 +25,8 @@ from bindyouravatar_tpu.models.dit import DiT as JDiT
 from bindyouravatar_tpu.ops.ring_attention import ring_attention as jax_ring
 from bindyouravatar_tpu_torch.convert import jax_params_to_torch
 from bindyouravatar_tpu_torch.ops.ring_attention import block_kv_len, ring_attention_local
-from torch_dist_worker import Ranks, cli_argv, one_rank_cli, serve, serve_spec
+from torch_dist_worker import (Ranks, check_two_stage, check_two_stage_failure, cli_argv,
+                               one_rank_cli, serve, serve_spec, two_stage_inputs)
 from torch_port_utils import realistic, threads_per_worker
 
 B, H, D = 2, 4, 32
@@ -91,7 +92,8 @@ def started(tmp_path_factory):
         args=(t["lat"], t["text"], t["ts"], rope),
         kwargs=dict(id_cond=t["id_cond"], id_vit_hidden=t["id_vit_hidden"],
                     audio_embeds=t["audio_embeds"], num_pixel_frames=n_px),
-        cli_argv=cli_argv(str(tmp_path_factory.mktemp("cli"))), server=serve_spec())
+        cli_argv=cli_argv(str(tmp_path_factory.mktemp("cli"))), server=serve_spec(),
+        **two_stage_inputs(tmp_path_factory.mktemp))
     ranks = Ranks("ring", 2, str(tmp_path_factory.mktemp("ring")), inputs)
     yield ranks
     ranks.close()
@@ -183,3 +185,13 @@ def test_sp_server_equals_one_rank(ranks):
                         want["videos"] + want["after_failure"]):
         assert got.shape == ref.shape
         assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
+
+
+def test_sp_two_stage_cli_equals_one_rank(ranks, tmp_path):
+    """`infer.main(... --two_stage_generate --sp 2)`: rank 0 runs the mask
+    tool once, both ranks run stage 2's ring, each clip equals one rank's."""
+    check_two_stage(ranks, tmp_path)
+
+
+def test_sp_two_stage_tool_failure_raises_on_every_rank(ranks):
+    check_two_stage_failure(ranks)

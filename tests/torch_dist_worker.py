@@ -81,6 +81,81 @@ def one_rank_cli(out_dir: str):
     return infer.run(infer.get_args(cli_argv(out_dir))).video
 
 
+def two_stage_cli(argv, fail: bool = False):
+    """`infer.main(argv + ["--two_stage_generate"])` (no SAM2 checkpoint:
+    the mask tool's coarse masks) with the tool wrapped to count its calls
+    on this rank, or (`fail`) replaced by one that raises; returns the
+    calls, stage 2's clip (None if it did not run) and the error `main`
+    raised (None if none)."""
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.tools import sam2_tools
+
+    os.environ.pop("BYA_SAM2_CKPT", None)
+    calls, clips = [], []
+    tool, second = sam2_tools.make_masks, infer.second_stage
+
+    def counted(*a, **kw):
+        calls.append(a)
+        if fail:
+            raise FileNotFoundError("stub mask tool: no such checkpoint")
+        return tool(*a, **kw)
+
+    def recorded(*a, **kw):
+        out = second(*a, **kw)
+        clips.append(out.video)
+        return out
+
+    sam2_tools.make_masks, infer.second_stage = counted, recorded
+    error = None
+    try:
+        infer.main(argv + ["--two_stage_generate"])
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        sam2_tools.make_masks, infer.second_stage = tool, second
+    return dict(calls=len(calls), clip=clips[0] if clips else None, error=error)
+
+
+def two_stage_runs(inp, flags):
+    """The two-stage CLI with `flags` (the mesh), and again with a failing
+    tool."""
+    return {"two_stage": two_stage_cli(inp["two_stage_argv"] + flags),
+            "two_stage_fail": two_stage_cli(inp["two_stage_fail_argv"] + flags, fail=True)}
+
+
+def two_stage_inputs(mktemp):
+    """The two-stage CLI's flags for the ranks: one output directory for
+    the run and one for the run whose tool fails."""
+    return dict(two_stage_argv=cli_argv(str(mktemp("two_stage"))),
+                two_stage_fail_argv=cli_argv(str(mktemp("two_stage_fail"))))
+
+
+def check_two_stage(ranks, tmp_path):
+    """`--two_stage_generate` under the mesh: the tool ran once (on rank
+    0), and each rank's stage-2 clip equals one rank's within relative L2
+    1e-5 (the CLI tests' bound)."""
+    import numpy as np
+
+    want = two_stage_cli(cli_argv(str(tmp_path)))
+    assert want["error"] is None and want["calls"] == 1
+    assert [r["two_stage"]["calls"] for r in ranks] == [1] + [0] * (len(ranks) - 1)
+    for r in ranks:
+        got = r["two_stage"]
+        assert got["error"] is None and got["clip"].shape == want["clip"].shape
+        diff = np.linalg.norm(got["clip"].astype(np.float64) - want["clip"])
+        assert diff / np.linalg.norm(want["clip"].astype(np.float64)) < 1e-5
+
+
+def check_two_stage_failure(ranks):
+    """A tool that raises on rank 0: every rank raises, with the tool's
+    error, and none runs stage 2 (none waits in a broadcast: the ranks
+    returned within their timeout)."""
+    for r in ranks:
+        got = r["two_stage_fail"]
+        assert got["clip"] is None
+        assert "mask tool failed" in got["error"] and "stub mask tool" in got["error"], got
+
+
 # ------------------------------------------------------------------ suites
 def _dit(inp):
     from bindyouravatar_tpu_torch.models.dit import DiT
@@ -105,6 +180,7 @@ def suite_ring(inp, rank, world):
                                                      **inp["kwargs"])
     out["cli"] = _cli(inp["cli_argv"] + ["--sp", str(world)])
     out.update(serve(inp["server"], rank, sp_group=dist.group.WORLD))
+    out.update(two_stage_runs(inp, ["--sp", str(world)]))
     return out
 
 
@@ -127,6 +203,7 @@ def suite_tp(inp, rank, world):
     res = {"tp_out": out, "heads": (dit.blocks[0].attn1.heads, dit.audio_layers[0].heads)}
     res.update(serve(inp["server"], rank, tp_mesh=mesh))
     res["cli"] = _cli(inp["cli_argv"] + ["--tp", str(world)])
+    res.update(two_stage_runs(inp, ["--tp", str(world)]))
     return res
 
 
@@ -217,24 +294,83 @@ def local_draws(draws, index: int, count: int):
              for k, v in d.items()} for d in draws]
 
 
+def _copy(tree):
+    """A copy of a state dict's tensors (whole tensors that are not split
+    are the live ones, which the next step changes in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
 def two_steps(trainer, batch, draws):
     """Two `train_step`s on `batch`, step i with the global micro-batches'
-    draws `draws[i]` (this rank's rows of them); the whole trainable
-    tensors after them and each step's loss (every rank calls it)."""
+    draws `draws[i]` (this rank's rows of them); the whole state after them
+    (the trainable tensors, the EMA, each kind of optimizer state), each
+    step's loss, the whole mean gradients each step handed the optimizer
+    and the whole state after the first step (every rank calls it)."""
+    from bindyouravatar_tpu_torch.parallel.sharding import gather_part
+
     state = trainer.init_state()
     index, count = (0, 1) if trainer.mesh is None else (trainer.batch_index, trainer.batch_count)
-    losses = []
+    losses, grads, first = [], [], None
+    apply = trainer.apply_gradients
+
+    def recording(state, g):
+        grads.append({k: gather_part(t.clone(), trainer.trainable[k], trainer.parts.get(k))
+                      for k, t in g.items()})
+        return apply(state, g)
+
+    trainer.apply_gradients = recording
     for step in draws:
         state, m = trainer.train_step(state, batch, draws=local_draws(step, index, count))
         losses.append(float(m["loss"]))
+        if first is None:
+            first = _copy(trainer.state_dict(state))
     sd = trainer.state_dict(state)
-    return dict({k: sd[k] for k in ("params", "mu", "nu", "ema")}, loss=losses)
+    return dict({k: v for k, v in sd.items() if k not in ("step", "count")}, loss=losses,
+                grads=grads, first=first)
+
+
+def optimizer_parts(case, world: int, rank: int, group):
+    """`case["steps"]` updates of `case["cfg"]`'s optimizer on this rank's
+    parts of whole tensors (`case["params"]`, split along `case["dims"]`
+    as FSDP2 splits: torch.chunk's pieces, the last ones shorter or empty;
+    None: replicated), each step's gradients `case["grads"][i]`; returns
+    each rank's parts of the parameters and of every state tensor with the
+    `Part` each lies in, for the test to put the whole tensors together."""
+    from bindyouravatar_tpu_torch.config import TrainConfig
+    from bindyouravatar_tpu_torch.parallel.sharding import Part
+    from bindyouravatar_tpu_torch.training.trainer import make_optimizer
+
+    parts, local = {}, {}
+    for k, t in case["params"].items():
+        d = case["dims"].get(k)
+        if d is None:
+            local[k] = t.clone()
+            continue
+        chunk = -(-t.shape[d] // world)
+        start = min(rank * chunk, t.shape[d])
+        parts[k] = Part(tuple(t.shape), d, start)
+        local[k] = t.narrow(d, start, min(chunk, t.shape[d] - start)).clone()
+    opt = make_optimizer(TrainConfig(**case["cfg"]))
+    opt.shard(parts, group)
+    groups = {"all": sorted(local)}
+    state = opt.init(local, groups)
+    cut = lambda k, g: g if k not in parts else g.narrow(parts[k].dim, parts[k].start,
+                                                          local[k].shape[parts[k].dim])
+    for i, grads in enumerate(case["grads"]):
+        opt.step(local, {k: cut(k, g) for k, g in grads.items()}, state, groups,
+                 {"all": case["cfg"]["learning_rate"]}, i)
+    return dict(params=(local, {k: parts.get(k) for k in local}),
+                **{kind: (ts, {k: opt.state_part(kind, k) for k in ts})
+                   for kind, ts in state.items()})
 
 
 def suite_train(inp, rank, world):
     """Two train steps over each (dp, fsdp) layout of `inp["layouts"]`,
-    the other optimizers' refusal at fsdp > 1, the mesh bring-up's
-    all-reduce, and (with `inp["sft_argv"]`) the launcher."""
+    with AdamW and with each optimizer of `inp["optimizers"]`, the
+    optimizers on parts of whole tensors (`inp["parts"]`), the mesh
+    bring-up's all-reduce, and (with `inp["sft_argv"]`) the launcher."""
     from torch.distributed.tensor import DTensor
 
     from bindyouravatar_tpu_torch.parallel.mesh import (batch_rank, batch_sharding, create_mesh,
@@ -249,6 +385,9 @@ def suite_train(inp, rank, world):
         batch = {k: v if v is None else local_batch(v, i, n, accum)
                  for k, v in inp["batch"].items()}
         out[f"dp{dp}_fsdp{fsdp}"] = two_steps(tr, batch, inp["draws"])
+        for name, over in inp.get("optimizers", {}).items():
+            tr = _trainer(dict(inp, train_cfg=dict(inp["train_cfg"], **over)), mesh)
+            out[f"{name}-dp{dp}_fsdp{fsdp}"] = two_steps(tr, batch, inp["draws"])
         # the reduce over the flattened (dp, fsdp) axis: a [dp * fsdp] batch,
         # and the rows `local_batch` gives each rank laid out as
         # `batch_sharding` says
@@ -260,15 +399,8 @@ def suite_train(inp, rank, world):
         part = part.sum()
         dist.all_reduce(part)
         out[f"sum_dp{dp}_fsdp{fsdp}"] = float(part)
-    if inp.get("refuse"):
-        mesh = create_mesh(dp=1, fsdp=world, device_type="cpu")
-        for opt, flag in inp["refuse"]:
-            cfg = dict(inp["train_cfg"], optimizer=opt, use_8bit_adam=flag)
-            try:
-                _trainer(dict(inp, train_cfg=cfg), mesh)
-                out[f"refuse_{opt}_{flag}"] = "no error"
-            except NotImplementedError as e:
-                out[f"refuse_{opt}_{flag}"] = str(e)
+    for name, case in inp.get("parts", {}).items():
+        out[f"parts-{name}"] = optimizer_parts(case, world, rank, dist.group.WORLD)
     if inp.get("sft_argv"):
         from bindyouravatar_tpu_torch.training import sft
 
