@@ -1,7 +1,8 @@
 // What the flash attention forward (flash_attention.cu) and the fused
 // backward (flash_attention_bwd.cu) share: the [B, H, S, D] strides of the
-// three layouts, the per-row q/k preparation (LN, RoPE, q scale) and the
-// RoPE adjoint and bf16 store of an mma fragment tile.
+// three layouts, the per-row q/k preparation (LN, RoPE, q scale) at D = 32,
+// 64 and 128 and at any D with D % 8 == 0, and the RoPE adjoint and the
+// stores of an mma fragment tile.
 #pragma once
 
 #include "mma_utils.cuh"
@@ -138,6 +139,105 @@ __device__ __forceinline__ void prep_qk_row(const bf16* q, const bf16* k, bf16* 
   const bool rot = rope_factors<E>(c, sn, cos_t, sin_t, s, rope_start, rope_rows, lane);
   prep_row<E>(q + off, qo + off, lnqw, lnqb, rot, c, sn, q_scale, eps, lane);
   prep_row<E>(k + off, ko + off, lnkw, lnkb, rot, c, sn, 1.0f, eps, lane);
+}
+
+// ------------------------------------------------ any head width (D % 8 == 0)
+// The forms above hold E = D / 32 consecutive elements a lane and find the
+// rotate-half partner at lane ^ 16, which exists only for D = 32, 64 and
+// 128.  Below, for any D with D % 8 == 0 and D <= 32 * NE_ANY: lane holds
+// elements lane + 32 e (e < NE_ANY, those < D), and reads the partner of
+// element c (c + D/2 or c - D/2 of the true D) from the row itself, putting
+// it through the same LN (warp-uniform mean and rstd, so the same value
+// the partner's lane computes).
+constexpr int NE_ANY = 8;
+
+__device__ __forceinline__ int rope_partner(int c, int D) { return c < D / 2 ? c + D / 2 : c - D / 2; }
+
+// prep_row for a D-wide row at x (LN if w, RoPE with row tables cr/sr if
+// cr, then * scale); the statistics divide by D over D columns.
+__device__ __forceinline__ void prep_row_any(const bf16* x, bf16* out, const float* w,
+                                             const float* b, const float* cr, const float* sr,
+                                             int D, float scale, float eps, int lane) {
+  float v[NE_ANY], mean = 0.f, r = 1.f;
+#pragma unroll
+  for (int e = 0; e < NE_ANY; ++e) {
+    const int c = lane + 32 * e;
+    v[e] = c < D ? __bfloat162float(x[c]) : 0.f;
+  }
+  if (w != nullptr) {
+    const float inv_d = 1.0f / D;
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE_ANY; ++e) sum += v[e];
+    mean = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE_ANY; ++e)
+      if (lane + 32 * e < D) sq += (v[e] - mean) * (v[e] - mean);
+    r = rsqrtf(warp_sum(sq) * inv_d + eps);
+#pragma unroll
+    for (int e = 0; e < NE_ANY; ++e) {
+      const int c = lane + 32 * e;
+      if (c < D) v[e] = bf16_round((v[e] - mean) * r * w[c] + b[c]);
+    }
+  }
+  if (cr != nullptr) {
+#pragma unroll
+    for (int e = 0; e < NE_ANY; ++e) {
+      const int c = lane + 32 * e;
+      if (c >= D) continue;
+      const int pc = rope_partner(c, D);
+      float p = __bfloat162float(x[pc]);
+      if (w != nullptr) p = bf16_round((p - mean) * r * w[pc] + b[pc]);
+      v[e] = bf16_round(v[e] * cr[c] + (c < D / 2 ? -p : p) * sr[c]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < NE_ANY; ++e) {
+    const int c = lane + 32 * e;
+    if (c < D) out[c] = __float2bfloat16(v[e] * scale);
+  }
+}
+
+// prep_qk_row for any D: LN (if lnqw) and RoPE (if cos_t) of q and k row
+// (b, s, h) into qo/ko; q also scaled by q_scale.  Called by one warp.
+__device__ __forceinline__ void prep_qk_row_any(const bf16* q, const bf16* k, bf16* qo, bf16* ko,
+                                                const float* lnqw, const float* lnqb,
+                                                const float* lnkw, const float* lnkb,
+                                                const float* cos_t, const float* sin_t,
+                                                int rope_start, int rope_rows, int b, int s,
+                                                int h, Layout L, float q_scale, float eps,
+                                                int lane, int D) {
+  const long long off = L.off(b, h) + s * L.ss;
+  const bool rot = cos_t != nullptr && s >= rope_start && s < rope_start + rope_rows;
+  const long long t = (long long)(s - rope_start) * D;
+  const float* cr = rot ? cos_t + t : nullptr;
+  const float* sr = rot ? sin_t + t : nullptr;
+  prep_row_any(q + off, qo + off, lnqw, lnqb, cr, sr, D, q_scale, eps, lane);
+  prep_row_any(k + off, ko + off, lnkw, lnkb, cr, sr, D, 1.0f, eps, lane);
+}
+
+// Store columns col0 + 0 .. 8N-1 of a warp's [16, 8N] fp32 fragment tile
+// (rows row0, row0 + 8 of this lane) that lie below the head's D (D % 8 ==
+// 0: a fragment is wholly in or out) as T (bf16 or fp32) rows `ld` apart;
+// rows >= S are not stored.
+template <typename T, int N>
+__device__ __forceinline__ void store_tile_any(T* base, long long ld, const float (&a)[N][4],
+                                               int row0, int S, int lane, int col0, int D) {
+#pragma unroll
+  for (int nd = 0; nd < N; ++nd) {
+    if (col0 + nd * 8 >= D) break;
+    const int col = col0 + nd * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + 8 * hf;
+      if (r >= S) continue;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(base + r * ld + col) = pack_bf16(a[nd][2 * hf], a[nd][2 * hf + 1]);
+      else
+        *reinterpret_cast<float2*>(base + r * ld + col) = make_float2(a[nd][2 * hf], a[nd][2 * hf + 1]);
+    }
+  }
 }
 
 // g <- the JAX kernels' `_rope_tile(g, cos, -sin)` on the rows of a warp's

@@ -238,7 +238,9 @@ inline EncodeTiled encode_tiled() {
 
 // A [B, H, S, D] bf16 tensor map over `ptr` with the strides of L: boxes of
 // 64 columns x `rows` rows in the 128-byte swizzle; rows past S, and
-// columns past D (D = 32), read as 0 (and are not written by a store).
+// columns past D (a head narrower than its body), read as 0 (and are not
+// written by a store).  The strides must be multiples of 16 bytes: D % 8 ==
+// 0.
 inline bool make_map(CUtensorMap* map, const void* ptr, Layout L, int B, int H, int S, int D,
                      int rows) {
   const EncodeTiled encode = encode_tiled();

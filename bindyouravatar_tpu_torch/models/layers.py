@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.ff import ff_chunked
-from ..ops.flash_attention import flash_attention, flash_attention_flat
+from ..ops.flash_attention import flash_attention, flash_attention_flat, flat_heads_pack
 from ..ops.layernorm import fused_layernorm, head_layernorm, layernorm_plain
 from ..ops.ring_attention import ring_attention
 from ..ops.rope import apply_rotary_emb
@@ -174,8 +174,11 @@ class JointSelfAttention(nn.Module):
     named `to_q_lora_A`/`to_q_lora_B` as the flax leaves.
 
     Two paths, as the JAX module decides by `fuse_qk_norm`:
-      * inference (`fuse_qk_norm=True`): the per-head QK LayerNorm (eps
-        1e-6) and the video-only RoPE run inside kernel B1 (no backward);
+      * inference (`fuse_qk_norm=True`) at head dims 32, 64 and 128 (JAX
+        `layers.py:276-278`) with heads that pack into 128 lanes: the
+        per-head QK LayerNorm (eps 1e-6) and the video-only RoPE run inside
+        kernel B1 (no backward); at other head dims the training path's
+        kernels, as JAX's module takes its other path;
       * training: `norm_q`/`norm_k` (kernel B10) on the projections, then
         the differentiable attention with RoPE from row `text_len` inside
         it: kernel B7 on the flat projections when the heads pack into
@@ -265,17 +268,25 @@ class JointSelfAttention(nn.Module):
             o = self.to_out(self._sp_attention(x, text_len, rope, sp_group))
             return o[:, text_len:], o[:, :text_len]
         q, k, v = self._proj("to_q", x), self._proj("to_k", x), self.to_v(x)
-        if self.fuse_qk_norm:
+        if (self.fuse_qk_norm and self.head_dim in (32, 64, 128)
+                and flat_heads_pack(self.head_dim, self.heads)):
             qk_norm = None
             if self.norm_q is not None:
                 qk_norm = (self.norm_q.weight, self.norm_q.bias,
                            self.norm_k.weight, self.norm_k.bias)
-            # the fused flat form at every length: JAX pads the sequence to
-            # 2,048 rows and takes it from 1,024 on, below that its XLA path
-            # computes the same function
+            # the fused flat form (B1) at JAX's head dims (`layers.py:276-278`)
+            # and at every length: JAX pads the sequence to 2,048 rows and
+            # takes it from 1,024 on, below that its XLA path computes the
+            # same function.  Heads that do not pack into 128 lanes (15 x 64,
+            # 6 x 32) would meet the assert of JAX's flat kernel; the port
+            # takes the unfused path below, which computes the same function
             o = flash_attention(q, k, v, self.heads, rope=rope, rope_start=text_len,
                                 qk_norm=qk_norm, layout="flat")
         else:
+            # the QK norms (B10), then B7's flat kernels where the heads pair
+            # in 128 lanes (JAX's rule: 48-wide heads pass it and then meet
+            # the flat kernels' packing check, as in JAX), else B11 and
+            # B12 + B13 on the bshd view
             if self.norm_q is not None:
                 q, k = self.norm_q(q), self.norm_k(k)
             if self.heads % max(1, 128 // self.head_dim) == 0:

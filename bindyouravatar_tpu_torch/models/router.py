@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..config import RouterConfig
 from ..ops.attention import attention, sdpa
-from ..ops.flash_attention import flash_attention_flat
+from ..ops.flash_attention import MAX_HEAD_DIM, flash_attention_flat, flat_heads_pack
 from ..ops.packed_attention import pair_axis_attention, tiny_seq_attention
 from ..ops.short_kv_attention import short_kv_attention_flat
 from .layers import Dense, LayerNorm
@@ -75,12 +75,15 @@ class PerceiverCrossAttention(nn.Module):
 
 class SelfAttention(nn.Module):
     """MHA with biases over [B, S, dim] (the STAB spatial attention): with
-    S >= 1024 and dh = 64 or 128 the differentiable kernel B7 without RoPE,
-    or with `inference` (the DiT's `fuse_qk_norm`, JAX `inference_vt`) bare
-    B1; another multiple of 64 (where JAX's `dh % 64 == 0` takes its flash
-    kernel) raises; otherwise the plain attention (the JAX dispatch,
-    `ops/attention.py:144`, takes XLA SDPA there: below 1,024 rows, or at a
-    head dim such as the 2B router's 80)."""
+    S >= 1024 and dh a multiple of 64 (JAX's `dh % 64 == 0`) the
+    differentiable kernel B7 without RoPE, or with `inference` (the DiT's
+    `fuse_qk_norm`, JAX `inference_vt`) bare B1, where the flat kernels take
+    the heads: dh 64, 128 and 256 (at 64, an even head count); other such
+    heads raise (192 does not pack into 128 lanes and JAX's flat kernels
+    assert there; past 256 the port's kernels stop); otherwise the plain
+    attention (the JAX dispatch, `ops/attention.py:144`, takes XLA SDPA
+    there: below 1,024 rows, or at a head dim such as the 2B router's
+    80)."""
 
     def __init__(self, dim: int, heads: int = 8, inference: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -98,10 +101,15 @@ class SelfAttention(nn.Module):
         dh = dim // self.heads
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         if s >= 1024 and dh % 64 == 0:
-            if dh not in (64, 128):
+            if dh > MAX_HEAD_DIM:
                 raise NotImplementedError(f"the STAB attention's flash path at head dim {dh}: "
-                                          f"the flat kernels take 64 and 128 (ROADMAP.md queue "
-                                          f"B item 2)")
+                                          f"the flat kernels take D <= {MAX_HEAD_DIM} (wider "
+                                          f"heads: ROADMAP.md queue B item 4)")
+            if not flat_heads_pack(dh, self.heads):
+                raise NotImplementedError(
+                    f"the STAB attention's flash path at head dim {dh}: {self.heads} heads of "
+                    f"{dh} do not pack into 128 lanes, which JAX's flat kernels assert "
+                    f"(bindyouravatar_tpu/ops/flash_attention.py:490)")
             if self.inference:
                 o = attention(q, k, v, layout="flat", heads=self.heads)
             else:

@@ -34,7 +34,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "bya_flash_layout_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P],
-    "bya_flash_bwd": [_I, *[_P] * 17, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "bya_flash_bwd": [_I, *[_P] * 18, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_layout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                              _I, _F, _P],

@@ -25,9 +25,13 @@ themselves.  The port does not mirror the JAX switch `COMBINED_BWD`, which
 picks between the combined and the two-kernel TPU backward for VMEM and
 layout reasons: on the GPU every backward is the one fused kernel.
 
-The flat kernels take heads of 32, 64 and 128, the widths at which the
-JAX DiT takes its flat kernels (32-wide heads run the 64-column tiles, the
-columns past 32 read as zeros); the general-layout ones 64 and 128.
+Every kernel takes head dims D with D % 8 == 0 and 8 <= D <= 256
+(`check_head_dim`): a head runs on the narrowest of three bodies, 64, 128
+and 256 columns wide, that holds it, the columns past D read as zeros.
+The flat kernels take, besides, only the heads JAX's flat kernels take:
+those that pack into 128 lanes (`check_flat_head_dim`), 8, 16, 32, 64,
+128 and 256.  D % 8 != 0 (ROADMAP.md queue B item 3) and D > 256 (item 4)
+raise.
 
 On the card, flat attention under grad goes through B7 (as JAX sends
 `qk_norm=None` through `_flash_flat`), and the fused QK-LN forms, which
@@ -93,8 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per-head LayerNorm (eps 1e-6, fp32 stats), inference only on the card;
     `rope=(cos, sin)` ([R, D]) rotates rows [rope_start, rope_start + R)
     after it; kv rows >= kv_len are masked.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (bf16; flat: D = 32, 64 or
-    128) or raises.  `name` tags a differentiable call's forward for
+    version; a CUDA tensor launches the kernel (bf16; `check_head_dim`,
+    flat also `check_flat_head_dim`) or raises.  `name` tags a differentiable call's forward for
     `keep_attention` (the JAX `checkpoint_name`)."""
     if layout is None:
         layout = "flat" if heads is not None else "bhsd"
@@ -173,18 +177,46 @@ def _rope_tables(rope, rope_start: int, s: int, d: int, dev: torch.device):
     return cos, sin, rows
 
 
-# the head dims of the flat kernels (B1, B7): 64, and 32 and 128, the other
-# widths at which the JAX DiT takes its flat kernels
-FLAT_HEAD_DIMS = (32, 64, 128)
+# the widest head the kernels take: the widest body (wgmma's widest N)
+MAX_HEAD_DIM = 256
+
+
+def body_width(d: int) -> int:
+    """The columns of the body a D-wide head runs on (`csrc/flash_attention.cu`)."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def check_head_dim(d: int, what: str) -> None:
+    """Raise, naming the head dim, unless every flash kernel takes it: D % 8
+    == 0 (TMA's 16-byte row strides) and 8 <= D <= 256."""
+    _require(d % 8 == 0 and d >= 8,
+             f"head dim {d}: the {what} kernels take D % 8 == 0 (TMA needs 16-byte row "
+             f"strides; other head dims: ROADMAP.md queue B item 3)")
+    _require(d <= MAX_HEAD_DIM,
+             f"head dim {d}: the {what} kernels take D <= {MAX_HEAD_DIM} (wider heads: "
+             f"ROADMAP.md queue B item 4)")
+
+
+def flat_heads_pack(d: int, heads: int) -> bool:
+    """JAX's flat-kernel rule (`bindyouravatar_tpu/ops/flash_attention.py:490`):
+    hpb = max(1, 128 // D) heads fill 128 lanes and the head count is a
+    multiple of hpb."""
+    hpb = max(1, 128 // d)
+    return heads % hpb == 0 and (hpb * d) % 128 == 0
 
 
 def check_flat_head_dim(hd: int, heads: int) -> None:
-    """Raise, naming the head dim, unless [.., H*D] splits into heads of a
-    width the flat kernels take (other widths: ROADMAP.md queue B item 2)."""
+    """Raise, naming the head dim, unless [.., H*D] splits into heads the
+    flat kernels take: `check_head_dim` and JAX's packing rule
+    (`flat_heads_pack`), which leaves 8, 16, 32, 64, 128 and 256."""
     d = hd // heads
-    _require(hd == heads * d and d in FLAT_HEAD_DIMS,
-             f"head dim {hd}/{heads}: the flat kernels take {FLAT_HEAD_DIMS} (other head "
-             f"dims: ROADMAP.md queue B item 2)")
+    _require(hd == heads * d, f"width {hd} does not split into {heads} heads")
+    check_head_dim(d, "flat")
+    _require(flat_heads_pack(d, heads),
+             f"head dim {hd}/{heads}: {heads} heads of {d} do not pack into 128 lanes, as "
+             f"JAX's flat kernels need (heads % hpb == 0 and (hpb * D) % 128 == 0, hpb = "
+             f"max(1, 128 // D): the assert at bindyouravatar_tpu/ops/flash_attention.py:490); "
+             f"the bhsd / bshd kernels take them")
 
 
 def _check_flat(q, k, v, heads: int, kv_len: int) -> None:
@@ -273,7 +305,7 @@ def flash_attention_flat_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              rope_start: int = 0):
     """Kernel B7's forward on its own: (o [B, S, H*D], lse fp32 [B, H, S]).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, D = 32, 64 or 128) or raises."""
+    (bf16, `check_flat_head_dim`) or raises."""
     if q.device.type == "cpu":
         return flash_attention_flat_fwd_plain(q, k, v, heads, scale, kv_len, rope, rope_start)
     b, s, hd = q.shape
@@ -303,7 +335,7 @@ def flash_attention_flat_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rope_start: int = 0):
     """Kernel B7's backward on its own: (dq, dk, dv), each [B, S, H*D] in
     q's dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the fused kernel (bf16, D = 32, 64 or 128) or raises."""
+    the fused kernel (bf16, `check_flat_head_dim`) or raises."""
     if q.device.type == "cpu":
         return flash_attention_flat_bwd_plain(q, k, v, do, lse, delta, heads, scale, kv_len,
                                               rope, rope_start)
@@ -329,21 +361,25 @@ def _fused_bwd(flat: bool, q, k, v, o, do, lse, delta, dims, bshd: bool, kv_len:
     the dq/dk/dv kernel, dq post-pass) on checked CUDA tensors; returns (dq,
     dk, dv).  The wrapper allocates the workspaces: the prepared q and k
     (B7's q scale, RoPE), lse2 and delta per row, the fp32 dq accumulator
-    (64 columns a row at D = 32, whose tiles are 64 wide)."""
+    (the body's columns a row: `body_width`), and, with RoPE at a head dim
+    other than 32, 64 and 128, the fp32 dK that the post-pass rotates."""
     b, s, h, d = dims
     s_pad = -(-s // 64) * 64
     dev = q.device
     prep = flat or cos is not None
     q_prep, k_prep = (torch.empty_like(q), torch.empty_like(k)) if prep else (None, None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.empty(b * h * s_pad * max(d, 64), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty(b * h * s_pad * body_width(d), dtype=torch.float32, device=dev)
+    dk_acc = (torch.empty(k.shape, dtype=torch.float32, device=dev)
+              if cos is not None and d not in (32, 64, 128) else None)
     lse2, delta_ws = (torch.empty(b * h * s_pad, dtype=torch.float32, device=dev)
                       for _ in range(2))
     ptr = lambda t: None if t is None else t.data_ptr()
     err = cuda_lib().bya_flash_bwd(
         int(flat), q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), do.data_ptr(),
         lse.data_ptr(), ptr(delta), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(q_prep),
-        ptr(k_prep), dq_acc.data_ptr(), lse2.data_ptr(), delta_ws.data_ptr(), ptr(cos), ptr(sin),
+        ptr(k_prep), dq_acc.data_ptr(), ptr(dk_acc), lse2.data_ptr(), delta_ws.data_ptr(),
+        ptr(cos), ptr(sin),
         rope_start, rope_rows, b, s, h, d, int(bshd), kv_len, float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, what)
@@ -550,13 +586,11 @@ def _layout_dims(q: torch.Tensor, layout: str):
 
 def _check_layout(layout: str, *tensors) -> None:
     """The general-layout kernels' contract: CUDA bf16 tensors of one shape,
-    contiguous in their layout, D = 64 or 128 (other head dims: ROADMAP.md
-    queue B item 2).  Rows are read as 16-byte vectors, bhsd rows D apart
-    and bshd rows H*D apart, which needs 16-byte aligned tensors."""
+    contiguous in their layout, a head dim `check_head_dim` takes.  Rows are
+    read by TMA, bhsd rows D apart and bshd rows H*D apart, which needs
+    16-byte aligned tensors."""
     q = tensors[0]
-    d = q.shape[-1]
-    _require(d in (64, 128), f"head dim {d}: the {layout} kernels take 64 or 128 (other "
-             f"head dims: ROADMAP.md queue B item 2)")
+    check_head_dim(q.shape[-1], layout)
     _require(q.device.type == "cuda", f"tensors on {q.device}")
     for t in tensors:
         _require(t.shape == q.shape, f"shapes {tuple(t.shape)} and {tuple(q.shape)} differ")
@@ -573,7 +607,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel B11: (o in `layout`, lse fp32 [B, H, S]) over q/k/v [B, H, S, D]
     (`layout="bhsd"`) or [B, S, H, D] (`"bshd"`), with the options of
     `flash_attention`.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16, D = 64 or 128) or raises."""
+    launches the kernel (bf16, `check_head_dim`) or raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, layout, scale, kv_len, rope, rope_start,
                                          qk_norm)

@@ -11,11 +11,12 @@ their plain versions.
     vectors in registers, the affine read once per block; its source note
     says what bounds them and how).
   * `head_layernorm` (B10) replaces `_hln_fwd_kernel` and `_hln_bwd_kernel`:
-    LN over the head segments (32, 64 or 128 wide) of a flat [.., H*dh]
-    row with the affine shared across heads, the training path's QK norms
-    ([17776, 3072] per block at the 5B geometry, 48 heads of 64).  Both
-    directions are `_ln_triton.py`, the segment width a compile-time
-    constant.
+    LN over the head segments of a flat [.., H*dh] row with the affine
+    shared across heads, the training path's QK norms ([17776, 3072] per
+    block at the 5B geometry, 48 heads of 64).  Both directions are
+    `_ln_triton.py`: any dh with dh % 8 == 0 that divides the row, at any
+    head count, as a [heads, dh] block padded to powers of two and masked,
+    the segment width a compile-time constant.
 
 What bounds them on the H100: memory.  The forward reads and writes each
 bf16 element once (4 B/element) for ~8 FLOP/element; the backward reads x
@@ -39,7 +40,6 @@ from ._build import check, cuda_lib, import_triton
 
 # widths the kernels take: whole rows in registers, 128-element multiples
 _MAX_D = 8192
-HEAD_DIMS = (32, 64, 128)   # the segment widths of the per-head kernels (B10)
 _BWD_PROGRAMS = 528     # B10 backward programs: 4 per SM of the H100
 # (device, stream) -> B9's grid-barrier counter: zeroed once, then kept by
 # the kernel (each barrier leaves it as it found it); one per stream, since
@@ -93,10 +93,9 @@ def head_layernorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tens
     return dx.reshape(x.shape), ds, db
 
 
-def _check(x: torch.Tensor, what: str, seg: int) -> int:
+def _check(x: torch.Tensor, what: str) -> int:
     d = x.shape[-1]
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or d % 128 or d > _MAX_D \
-            or d % seg:
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or d % 128 or d > _MAX_D:
         raise ValueError(f"{what} kernel takes bf16 CUDA rows with D % 128 == 0 and "
                          f"D <= {_MAX_D}; got {x.dtype} {tuple(x.shape)} on {x.device}")
     return d
@@ -107,7 +106,7 @@ def _row_ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Kernel B6 over the rows of `x` ([..., D]): the CUDA kernel of
     `csrc/layernorm.cu`, which takes 16-byte-aligned rows and affine (a
     misaligned input is copied first)."""
-    d = _check(x, "fused_layernorm (B6)", x.shape[-1])
+    d = _check(x, "fused_layernorm (B6)")
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     x2 = aligned(x.reshape(-1, d).contiguous())
     sc, bi = (aligned(t.float().contiguous()) for t in (scale, bias))
@@ -119,28 +118,39 @@ def _row_ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.view(x.shape)
 
 
-def _check_head_dim(dh: int) -> int:
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_layernorm kernel takes dh in {HEAD_DIMS}, got {dh} (other "
-                         f"head dims: ROADMAP.md queue B item 2)")
-    return dh
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _check_heads(x: torch.Tensor, dh: int, what: str):
+    """B10's contract: bf16 CUDA rows of C <= 8192 columns that split into
+    heads of dh, dh % 8 == 0 (other head dims: ROADMAP.md queue B item 3).
+    Returns (C, heads, the [heads, dh] block's power-of-two sides)."""
+    c = x.shape[-1]
+    if dh % 8 or c % dh:
+        raise ValueError(f"{what} kernel takes heads with dh % 8 == 0 that divide the row; got "
+                         f"dh {dh} in {c} columns (other head dims: ROADMAP.md queue B item 3)")
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or c > _MAX_D:
+        raise ValueError(f"{what} kernel takes bf16 CUDA rows with C <= {_MAX_D}; got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    heads = c // dh
+    return c, heads, _pow2(heads), _pow2(dh)
 
 
 def _hln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
-    """B10's forward (Triton) over rows of `x` ([..., D]), statistics per
+    """B10's forward (Triton) over rows of `x` ([..., C]), statistics per
     head segment of scale's width."""
-    seg = _check_head_dim(scale.shape[0])
-    d = _check(x, "head_layernorm (B10)", seg)
+    seg = scale.shape[0]
+    d, heads, hb, sb = _check_heads(x, seg, "head_layernorm (B10)")
     import_triton()
     from ._ln_triton import ln_fwd_kernel
 
     x2 = x.reshape(-1, d).contiguous()
     y = torch.empty_like(x2)
-    block = 1 << (d - 1).bit_length()      # Triton blocks are powers of two
     ln_fwd_kernel[(x2.shape[0],)](
-        x2, scale.float().contiguous(), bias.float().contiguous(), y, d, eps,
-        BLOCK=block, SEG=seg, num_warps=8 if block >= 4096 else 4)
+        x2, scale.float().contiguous(), bias.float().contiguous(), y, heads, eps,
+        SEG=seg, HB=hb, SB=sb, num_warps=8 if hb * sb >= 4096 else 4)
     return y.view(x.shape)
 
 
@@ -150,7 +160,7 @@ def _row_ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: floa
     takes 16-byte-aligned rows and scale (a misaligned input is copied
     first), a [blocks, 2, D] fp32 scratch of partial rows, and the
     stream's grid-barrier counter (`_BARRIERS`)."""
-    d = _check(x, "layernorm backward (B9)", x.shape[-1])
+    d = _check(x, "layernorm backward (B9)")
     aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
     x2 = aligned(x.reshape(-1, d).contiguous())
     g2 = aligned(g.reshape(-1, d).contiguous().to(x.dtype))
@@ -178,9 +188,9 @@ def _row_ln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: floa
 
 def _hln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
     """B10's backward kernel (Triton): (dx in x.dtype, per-column
-    partial-sum totals of g * xhat and g over the rows, fp32 [D])."""
-    seg = _check_head_dim(scale.shape[0])
-    d = _check(x, "head_layernorm backward (B10)", seg)
+    partial-sum totals of g * xhat and g over the rows, fp32 [C])."""
+    seg = scale.shape[0]
+    d, heads, hb, sb = _check_heads(x, seg, "head_layernorm backward (B10)")
     import_triton()
     from ._ln_triton import ln_bwd_kernel
 
@@ -191,10 +201,9 @@ def _hln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
     dx = torch.empty_like(x2)
     dw = torch.empty((progs, d), dtype=torch.float32, device=x.device)
     db = torch.empty_like(dw)
-    block = 1 << (d - 1).bit_length()
     ln_bwd_kernel[(progs,)](
-        x2, scale.float().contiguous(), g2, dx, dw, db, m, d, rows_per_prog, eps,
-        BLOCK=block, SEG=seg, num_warps=8 if block >= 2048 else 4)
+        x2, scale.float().contiguous(), g2, dx, dw, db, m, heads, rows_per_prog, eps,
+        SEG=seg, HB=hb, SB=sb, num_warps=8 if hb * sb >= 2048 else 4)
     return dx.view(x.shape), dw.sum(0), db.sum(0)
 
 
@@ -251,23 +260,17 @@ class _HeadLayerNorm(torch.autograd.Function):
         return dx, ds.to(scale.dtype), db.to(scale.dtype), None
 
 
-def _hln_kernel_shape(x: torch.Tensor, dh: int) -> bool:
-    """The JAX op's shape rule for its kernel (`_hln_pallas_ok`): rows of
-    a multiple of 128 wide holding at most 128 whole heads.  Other shapes
-    take the plain math there and here."""
-    c = x.shape[-1]
-    return x.ndim >= 2 and c % 128 == 0 and c % dh == 0 and c // dh <= 128
-
-
 def head_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """Per-head LayerNorm of a flat [..., H*dh] tensor, dh = scale's size,
-    affine shared across heads.  A CPU tensor, or a shape outside the JAX
-    op's kernel rule (`_hln_kernel_shape`: e.g. 15 heads of 64), takes the
-    plain version (autograd differentiates it); otherwise a CUDA tensor
-    launches kernel B10's forward (bf16, dh = 32, 64 or 128) or raises,
-    and its backward B10's backward."""
-    if x.device.type == "cpu" or not _hln_kernel_shape(x, scale.shape[0]):
+    affine shared across heads.  A CPU tensor takes the plain version
+    (autograd differentiates it); a CUDA tensor launches kernel B10's
+    forward (bf16, dh % 8 == 0 dividing a row of at most 8,192, at any
+    head count) or raises, and its backward B10's backward.  (The JAX op
+    takes its kernel only for rows of a multiple of 128 holding at most 128
+    heads, `_hln_pallas_ok`, and computes the same function in XLA
+    otherwise: 15 heads of 64, or 192 heads of 16 at width 3,072.)"""
+    if x.device.type == "cpu":
         return head_layernorm_plain(x, scale, bias, eps)
     return _HeadLayerNorm.apply(x, scale, bias, eps)
 

@@ -19,10 +19,11 @@ against the JAX package on the CPU, fp32.
   and metrics within 1e-4 relative, the step's gradients within relative
   L2 1e-5 (each tensor 1e-4).
 * The dispatch: 32-wide heads that do not pair (6 heads) take the bshd
-  kernels, which raise there naming ROADMAP.md queue B item 2; a flat head
-  dim no kernel takes raises by name; the STAB attention at another
-  multiple of 64 raises instead of calling sdpa (the dh 128 case against
-  JAX is in `tests/test_torch_face_models.py`).
+  kernels; a flat head dim the flat kernels refuse raises by name (JAX's
+  packing rule, D % 8 != 0, D > 256); the STAB attention at dh 192 and
+  512 raises instead of calling sdpa (the dh 128 case against JAX is in
+  `tests/test_torch_face_models.py`, dh 256 in
+  `tests/test_torch_head_dims_general.py`).
 """
 
 import jax
@@ -163,40 +164,69 @@ def test_b7_plain_forward_and_backward_match_flat_kernels_interpret(d):
 
 
 def test_flat_head_dims_and_the_refusal():
-    """The flat kernels take heads of 32, 64 and 128; any other head dim
-    (16 here) raises, naming it, before a kernel is asked (the check a CUDA
-    tensor meets)."""
-    for d in (32, 64, 128):
-        tfa.check_flat_head_dim(4 * d, 4)
-    with pytest.raises(ValueError, match="head dim 64/4.*queue B item 2"):
-        tfa.check_flat_head_dim(64, 4)
-    meta = torch.empty((1, 1024, 64), device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64/4"):
-        tfa.flash_attention_flat_fwd(meta, meta, meta, 4)
+    """The flat kernels take the heads JAX's flat kernels take, those that
+    pack into 128 lanes: 8, 16, 32, 64, 128 and 256.  2 heads of 48 or 96
+    (JAX asserts: `ops/flash_attention.py:490`), 32 heads of 4 (JAX packs
+    them; the port's kernels need D % 8 == 0: ROADMAP.md queue B item 3)
+    and 1 head of 512 (past the port's widest body: item 4) raise, naming
+    the rule, before a kernel is asked (the check a CUDA tensor meets)."""
+    for d in (8, 16, 32, 64, 128, 256):
+        tfa.check_flat_head_dim(max(1, 128 // d) * 2 * d, max(1, 128 // d) * 2)
+    for hd, h in ((96, 2), (192, 2)):
+        with pytest.raises(ValueError, match=f"head dim {hd}/{h}.*do not pack.*py:490"):
+            tfa.check_flat_head_dim(hd, h)
+    with pytest.raises(ValueError, match="head dim 4:.*queue B item 3"):
+        tfa.check_flat_head_dim(128, 32)
+    with pytest.raises(ValueError, match="head dim 512:.*queue B item 4"):
+        tfa.check_flat_head_dim(512, 1)
+    meta = torch.empty((1, 1024, 96), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96/2"):
+        tfa.flash_attention_flat_fwd(meta, meta, meta, 2)
 
 
 @pytest.mark.parametrize("heads,path", [(4, "flat"), (6, "bshd")])
-def test_32_wide_heads_take_the_flat_kernels_when_they_pair(heads, path):
+def test_32_wide_heads_take_the_flat_kernels_when_they_pair(heads, path, monkeypatch):
     """The training path's rule `heads % (128 // 32) == 0`: 4 heads of 32
-    reach the flat B7 wrapper (which passes the head dim and raises only
-    for the meta tensors), 6 heads reach the bshd kernels, which raise at
-    32 naming ROADMAP.md queue B item 2 (no QK-LN here: B10 would raise
+    reach the flat B7 forward, 6 heads the bshd B11 forward (which takes
+    32 since the kernels take every D % 8 == 0 up to 256); on meta tensors
+    each wrapper's own check then raises (no QK-LN here: B10 would raise
     first on meta tensors)."""
+    asked = []
+
+    def record(name, real):
+        def fn(*args, **kw):
+            asked.append(name)
+            return real(*args, **kw)
+        return fn
+
+    monkeypatch.setattr(tfa, "flash_attention_flat_fwd",
+                        record("flat", tfa.flash_attention_flat_fwd))
+    monkeypatch.setattr(tfa, "flash_attention_fwd", record("bshd", tfa.flash_attention_fwd))
     attn = JointSelfAttention(heads * 32, heads, 32, qk_norm=False,
                               compute_dtype=torch.bfloat16).to("meta")
     x = torch.empty((1, 1100, heads * 32), device="meta", requires_grad=True)
     enc = torch.empty((1, 24, heads * 32), device="meta")
-    match = "tensors on meta" if path == "flat" else "head dim 32: the bshd.*queue B item 2"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="tensors on meta"):
         attn(x, enc, None)
+    assert asked == [path]
 
 
 def test_stab_attention_refuses_other_flash_head_dims():
-    """The STAB attention at S >= 1,024 and dh 192 (a multiple of 64, where
-    JAX takes its flash kernel) raises rather than call sdpa."""
+    """The STAB attention at S >= 1,024 and a multiple of 64 (where JAX
+    takes its flash kernel) raises rather than call sdpa where the flat
+    kernels refuse: dh 192 (does not pack into 128 lanes, which JAX's flat
+    kernels assert) and dh 512 (past the port's widest body, ROADMAP.md
+    queue B item 4); dh 256 reaches them (the case against JAX is in
+    `tests/test_torch_head_dims_general.py`)."""
     attn = trouter.SelfAttention(192, heads=1, compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="head dim 192.*queue B item 2"):
+    with pytest.raises(NotImplementedError, match="head dim 192.*flash_attention.py:490"):
         attn(torch.zeros((1, 1024, 192)))
+    attn = trouter.SelfAttention(512, heads=1, compute_dtype=torch.float32).to("meta")
+    with pytest.raises(NotImplementedError, match="head dim 512.*queue B item 4"):
+        attn(torch.zeros((1, 1024, 512), device="meta"))
+    attn = trouter.SelfAttention(256, heads=1, compute_dtype=torch.float32).to("meta")
+    with pytest.raises(ValueError, match="tensors on meta"):
+        attn(torch.zeros((1, 1024, 256), device="meta"))
 
 
 # ------------------------------------------------------------ 2-layer DiT

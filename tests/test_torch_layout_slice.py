@@ -118,17 +118,19 @@ def test_attention_layout_dispatch_matches_jax(layout):
 
 
 def test_head_layernorm_dispatch_by_width():
-    """The op `head_layernorm` (and `HeadLayerNorm` through it) takes kernel
-    B10 only where the JAX op's shape rule allows its kernel
-    (`ops/layernorm.py:309-313`): off the CPU 15 heads of 64 (960) take the
-    plain math, 16 heads (1,024) go to the kernel's wrapper (which raises
-    for meta tensors)."""
-    for heads, kernel in ((15, False), (16, True)):
-        norm = HeadLayerNorm(64).to("meta")
-        x = torch.empty((4, heads * 64), device="meta", dtype=torch.bfloat16)
+    """The op `head_layernorm` (and `HeadLayerNorm` through it) sends every
+    CUDA-side call to kernel B10's wrapper, also where the JAX op's shape
+    rule (`ops/layernorm.py:309-313`) leaves its kernel for XLA math: 15
+    heads of 64 (960) and 16 heads (1,024) both reach the wrapper, which
+    raises for meta tensors; a head dim the kernel does not take (12)
+    raises naming its ROADMAP entry.  A CPU tensor takes the plain math at
+    every width."""
+    for heads, dh in ((15, 64), (16, 64), (5, 12)):
+        norm = HeadLayerNorm(dh).to("meta")
+        x = torch.empty((4, heads * dh), device="meta", dtype=torch.bfloat16)
+        match = "queue B item 3" if dh % 8 else "bf16 CUDA rows"
         for fn in (norm, lambda t: tln.head_layernorm(t, norm.weight, norm.bias)):
-            if kernel:
-                with pytest.raises(ValueError):
-                    fn(x)
-            else:
-                assert fn(x).shape == (4, heads * 64)
+            with pytest.raises(ValueError, match=match):
+                fn(x)
+        cpu = HeadLayerNorm(dh)
+        assert cpu(torch.zeros((4, heads * dh))).shape == (4, heads * dh)
