@@ -51,6 +51,26 @@
 // item.  S is a template parameter (1..16).
 //
 // B8 is the same design with four tiles an item (q, k, v, g) and S >= 8.
+//
+// Past 16 rows (the router's temporal STAB at 81 and 97 frames: S = 21,
+// 25 latent frames) an item no longer fits one tile.  The long bodies
+// (B5, B5' and B8 at 16 < S <= LONG_MAX_S) give a warp one whole item at a
+// time: q, k, v (and g) in shared memory, S rows padded to 16 * nt,
+// double-buffered across items by cp.async as above; blocks of one warp,
+// as many resident as shared memory allows (the smem of an item grows
+// with S, so no share of a block waits on another warp).  Inside an item
+// the warp loops over 16-row q tiles and 16-row kv chunks, the numerics
+// of the one-tile bodies kept: fp32 scores, the row max and sum found
+// first (one pass over the chunks, the sum rescaled as the max grows),
+// then P = 2^(s - max) / sum normalised in fp32 before it is rounded to
+// bf16.  The forward's O tile leaves over its q tile (its fragments are in
+// registers).  The backward finds each row's max, 1 / sum and delta =
+// sum_b p_ab dp_ab in one pass (kept in shared memory), then dQ a q tile
+// at a time (dS K over the chunks), then dK and dV a kv chunk at a time
+// (dS^T Q and P^T G over the q tiles), each through a 16-row staging tile:
+// no sums across items or warps, so it stays bitwise repeatable.  The
+// item's smem sets the cap: LONG_MAX_S = 192 (the backward's two buffers
+// of four tensors take 225,792 bytes there).
 #include "mma_utils.cuh"
 
 namespace {
@@ -58,7 +78,8 @@ namespace {
 using bya::bf16;
 
 constexpr int DH = 64;
-constexpr int MAX_S = 16;
+constexpr int MAX_S = 16;         // the one-tile bodies
+constexpr int LONG_MAX_S = 192;   // the whole-item bodies (see the notes at the top)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -90,11 +111,9 @@ __device__ __forceinline__ uint32_t transpose8(uint32_t x) {
   return y;
 }
 
-// acc[nd] = A (16 x 16) * T (16 x 64) for T row-major in a [16, LDS] tile
-__device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&a)[4],
-                                           const bf16* tile, int lane) {
-#pragma unroll
-  for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+// acc[nd] += A (16 x 16) * T (16 x 64) for T row-major in a [16, LDS] tile
+__device__ __forceinline__ void mma_a_tile_add(float (&acc)[8][4], const uint32_t (&a)[4],
+                                               const bf16* tile, int lane) {
 #pragma unroll
   for (int nd = 0; nd < 8; nd += 2) {
     uint32_t b0, b1, b2, b3;
@@ -104,19 +123,32 @@ __device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&
   }
 }
 
-// the rows < S of a [16, 64] fp32 result into a tile, as bf16
-template <int S>
-__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[8][4], int lane) {
+// acc[nd] = A (16 x 16) * T (16 x 64)
+__device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&a)[4],
+                                           const bf16* tile, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  mma_a_tile_add(acc, a, tile, lane);
+}
+
+// the rows < `rows` of a [16, 64] fp32 result into a tile, as bf16
+__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[8][4], int lane,
+                                           int rows) {
   const int r = lane >> 2, c = 2 * (lane & 3);
 #pragma unroll
   for (int nd = 0; nd < 8; ++nd) {
-    if (r < S)
+    if (r < rows)
       *reinterpret_cast<uint32_t*>(tile + r * LDS + nd * 8 + c) =
           bya::pack_bf16(acc[nd][0], acc[nd][1]);
-    if (r + 8 < S)
+    if (r + 8 < rows)
       *reinterpret_cast<uint32_t*>(tile + (r + 8) * LDS + nd * 8 + c) =
           bya::pack_bf16(acc[nd][2], acc[nd][3]);
   }
+}
+
+template <int S>
+__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[8][4], int lane) {
+  stage_rows(tile, acc, lane, S);
 }
 
 // B5 / B5': a warp takes one tile at a time, PACK = 16 / S consecutive
@@ -405,14 +437,334 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- the long bodies, 16 < S <= LONG_MAX_S: one warp a whole item ----
+// An item's tensor takes nt = ceil(S / 16) tiles of 16 rows in shared memory.
+
+constexpr int long_fwd_smem(int nt) { return 2 * 3 * nt * TILE * (int)sizeof(bf16); }
+// two buffers of q, k, v, g; one staging tile; each row's max, 1 / sum, delta
+constexpr int long_bwd_smem(int nt) {
+  return (2 * 4 * nt + 1) * TILE * (int)sizeof(bf16) + 3 * nt * 16 * (int)sizeof(float);
+}
+static_assert(long_bwd_smem(LONG_MAX_S / 16) <= 232448, "B8's long body past the smem of a block");
+static_assert(LONG_MAX_S % 16 == 0, "LONG_MAX_S is a whole number of tiles");
+
+// rows S .. 16 nt - 1 of `count` item tensors (`span` elements apart) to zero:
+// loads and staged outputs touch rows < S only, so they stay zero
+__device__ __forceinline__ void zero_pad_rows(bf16* sm, int count, int span, int S, int nt,
+                                              int lane) {
+  const int pad = 16 * nt - S;
+  for (int i = lane; i < count * pad * 8; i += 32) {
+    const int t = i / (pad * 8), r = S + (i >> 3) % pad;
+    *reinterpret_cast<uint4*>(sm + t * span + r * LDS + (i & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the 16 x 16 score block of q tile A fragments `a` against the 16 rows of
+// `rows` (k for S, v for dP); fragment element (nt, e) is row r0 + 8 (e >> 1),
+// column nt * 8 + c0 + (e & 1) of the block
+__device__ __forceinline__ void scores16(float (&s)[2][4], const uint32_t (&a)[4][4],
+                                         const bf16* rows, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  bya::qk_scores<2, 4, LDS>(s, a, rows, lane);
+}
+
+// rows [tile * 16, tile * 16 + 16) < S of a [16, 64] fp32 result out to
+// [M, S, H*64] at `base` (row stride `ld`) through the staging tile `stg`
+__device__ __forceinline__ void write_tile(bf16* __restrict__ out, long long base, long long ld,
+                                           bf16* stg, const float (&acc)[8][4], int tile, int S,
+                                           int lane) {
+  const int rows = min(16, S - tile * 16);
+  __syncwarp();
+  stage_rows(stg, acc, lane, rows);
+  __syncwarp();
+  for (int i = lane; i < rows * 8; i += 32)
+    *reinterpret_cast<uint4*>(out + base + (long long)(tile * 16 + (i >> 3)) * ld + (i & 7) * 8) =
+        *reinterpret_cast<const uint4*>(stg + (i >> 3) * LDS + (i & 7) * 8);
+  __syncwarp();
+}
+
+// `count` tensors of item `it` ([M, S, H*64], the item's rows at `base`)
+// into consecutive spans of `dst` as one cp.async group
+__device__ __forceinline__ void load_item(bf16* dst, int span, const bf16* const* srcs,
+                                          int count, long long base, long long ld, int S,
+                                          int lane) {
+  for (int t = 0; t < count; ++t)
+    for (int i = lane; i < S * 8; i += 32)
+      bya::cp_async16(dst + t * span + (i >> 3) * LDS + (i & 7) * 8,
+                      srcs[t] + base + (long long)(i >> 3) * ld + (i & 7) * 8, 16);
+}
+
+__global__ void __launch_bounds__(32)
+tiny_seq_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, long long n_items, int H,
+                     int S, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = threadIdx.x;
+  const int nt = (S + 15) >> 4, span = nt * TILE;
+  const long long ld = (long long)H * DH;
+  const float scale_log2 = scale * LOG2E;
+  const int c0 = 2 * (lane & 3);
+  zero_pad_rows(sm, 2 * 3, span, S, nt, lane);
+  const bf16* const srcs[3] = {q, k, v};
+  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * DH; };
+  auto load = [&](int buf, long long it) {
+    if (it < n_items) load_item(sm + buf * 3 * span, span, srcs, 3, base_of(it), ld, S, lane);
+    bya::cp_async_commit();
+  };
+
+  long long item = blockIdx.x;
+  int buf = 0;
+  load(0, item);
+  for (; item < n_items; item += gridDim.x, buf ^= 1) {
+    load(buf ^ 1, item + gridDim.x);
+    bya::cp_async_wait<1>();
+    __syncwarp();
+    bf16* qs = sm + buf * 3 * span;
+    const bf16* ks = qs + span;
+    const bf16* vs = ks + span;
+    const long long base = base_of(item);
+    for (int qt = 0; qt < nt; ++qt) {
+      uint32_t af[4][4];
+      bya::load_a_frags<4, LDS>(af, qs + qt * TILE, lane);
+      // the row max and sum over every key column < S, the sum rescaled as
+      // the max grows chunk by chunk
+      float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
+      for (int kc = 0; kc < nt; ++kc) {
+        float s[2][4];
+        scores16(s, af, ks + kc * TILE, lane);
+        float cm[2] = {mx[0], mx[1]}, cs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kc * 16 + n * 8 + c0 + (e & 1) < S) cm[e >> 1] = fmaxf(cm[e >> 1], s[n][e]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 1));
+          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 2));
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kc * 16 + n * 8 + c0 + (e & 1) < S)
+              cs[e >> 1] += exp2f((s[n][e] - cm[e >> 1]) * scale_log2);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          sum[i] = sum[i] * exp2f((mx[i] - cm[i]) * scale_log2) + cs[i];
+          mx[i] = cm[i];
+        }
+      }
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
+        sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
+        inv[i] = 1.f / sum[i];
+      }
+      // O = P V over the chunks, P normalised in fp32, then rounded to bf16
+      float acc[8][4];
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+      for (int kc = 0; kc < nt; ++kc) {
+        float s[2][4];
+        scores16(s, af, ks + kc * TILE, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = kc * 16 + n * 8 + c0 + (e & 1) < S
+                          ? exp2f((s[n][e] - mx[e >> 1]) * scale_log2) * inv[e >> 1]
+                          : 0.f;
+        const uint32_t p_a[4] = {
+            bya::pack_bf16(s[0][0], s[0][1]), bya::pack_bf16(s[0][2], s[0][3]),
+            bya::pack_bf16(s[1][0], s[1][1]), bya::pack_bf16(s[1][2], s[1][3])};
+        mma_a_tile_add(acc, p_a, vs + kc * TILE, lane);
+      }
+      // O leaves over its own q tile: this tile's q is in the fragments
+      write_tile(o, base, ld, qs + qt * TILE, acc, qt, S, lane);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32)
+tiny_seq_long_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         long long n_items, int H, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = threadIdx.x;
+  const int nt = (S + 15) >> 4, span = nt * TILE;
+  const long long ld = (long long)H * DH;
+  const float scale_log2 = scale * LOG2E;
+  const int r0 = lane >> 2, c0 = 2 * (lane & 3);
+  bf16* const stg = sm + 2 * 4 * span;
+  float* const row_max = reinterpret_cast<float*>(stg + TILE);
+  float* const row_inv = row_max + nt * 16;
+  float* const row_delta = row_inv + nt * 16;
+  zero_pad_rows(sm, 2 * 4, span, S, nt, lane);
+  const bf16* const srcs[4] = {q, k, v, g};
+  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * DH; };
+  auto load = [&](int buf, long long it) {
+    if (it < n_items) load_item(sm + buf * 4 * span, span, srcs, 4, base_of(it), ld, S, lane);
+    bya::cp_async_commit();
+  };
+  auto col_ok = [&](int kc, int n, int e) { return kc * 16 + n * 8 + c0 + (e & 1) < S; };
+
+  long long item = blockIdx.x;
+  int buf = 0;
+  load(0, item);
+  for (; item < n_items; item += gridDim.x, buf ^= 1) {
+    load(buf ^ 1, item + gridDim.x);
+    bya::cp_async_wait<1>();
+    __syncwarp();
+    const bf16* qs = sm + buf * 4 * span;
+    const bf16* ks = qs + span;
+    const bf16* vs = ks + span;
+    const bf16* gs = vs + span;
+    const long long base = base_of(item);
+
+    // each row's max, 1 / sum and delta = sum_b p_ab dp_ab, one pass over
+    // the chunks (the sum and delta rescaled as the max grows)
+    for (int qt = 0; qt < nt; ++qt) {
+      uint32_t aq[4][4], ag[4][4];
+      bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
+      bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
+      float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+      for (int kc = 0; kc < nt; ++kc) {
+        float s[2][4], dp[2][4];
+        scores16(s, aq, ks + kc * TILE, lane);
+        scores16(dp, ag, vs + kc * TILE, lane);
+        float cm[2] = {mx[0], mx[1]}, cs[2] = {0.f, 0.f}, cd[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col_ok(kc, n, e)) cm[e >> 1] = fmaxf(cm[e >> 1], s[n][e]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 1));
+          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 2));
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col_ok(kc, n, e)) {
+              const float p = exp2f((s[n][e] - cm[e >> 1]) * scale_log2);
+              cs[e >> 1] += p;
+              cd[e >> 1] += p * dp[n][e];
+            }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float alpha = exp2f((mx[i] - cm[i]) * scale_log2);
+          sum[i] = sum[i] * alpha + cs[i];
+          dl[i] = dl[i] * alpha + cd[i];
+          mx[i] = cm[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
+        sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
+        dl[i] += __shfl_xor_sync(FULL, dl[i], 1);
+        dl[i] += __shfl_xor_sync(FULL, dl[i], 2);
+        if ((lane & 3) == 0) {
+          const int row = qt * 16 + r0 + 8 * i;
+          row_max[row] = mx[i];
+          row_inv[row] = 1.f / sum[i];
+          row_delta[row] = dl[i] / sum[i];
+        }
+      }
+    }
+    __syncwarp();
+
+    // P and dS of q tile qt against kv chunk kc from the fragments and the
+    // row statistics: P normalised in fp32 (rows >= S and columns >= S
+    // zero), dS = P o (dP - delta) * scale
+    auto p_ds = [&](float (&s)[2][4], float (&dp)[2][4], const uint32_t (&aq)[4][4],
+                    const uint32_t (&ag)[4][4], int qt, int kc) {
+      scores16(s, aq, ks + kc * TILE, lane);
+      scores16(dp, ag, vs + kc * TILE, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qt * 16 + r0 + 8 * i;
+        const float m = row_max[row], iv = row < S ? row_inv[row] : 0.f, de = row_delta[row];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = 2 * i + j;
+            const float p = col_ok(kc, n, e) ? exp2f((s[n][e] - m) * scale_log2) * iv : 0.f;
+            s[n][e] = p;
+            dp[n][e] = p * (dp[n][e] - de) * scale;
+          }
+      }
+    };
+
+    // dQ = dS K, a q tile at a time over the chunks
+    for (int qt = 0; qt < nt; ++qt) {
+      uint32_t aq[4][4], ag[4][4];
+      bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
+      bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
+      float acc[8][4];
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+      for (int kc = 0; kc < nt; ++kc) {
+        float s[2][4], dp[2][4];
+        p_ds(s, dp, aq, ag, qt, kc);
+        const uint32_t ds_a[4] = {
+            bya::pack_bf16(dp[0][0], dp[0][1]), bya::pack_bf16(dp[0][2], dp[0][3]),
+            bya::pack_bf16(dp[1][0], dp[1][1]), bya::pack_bf16(dp[1][2], dp[1][3])};
+        mma_a_tile_add(acc, ds_a, ks + kc * TILE, lane);
+      }
+      write_tile(dq, base, ld, stg, acc, qt, S, lane);
+    }
+
+    // dV = P^T G and dK = dS^T Q, a kv chunk at a time over the q tiles
+    // (P^T and dS^T transposed 8x8 block by block, as the one-tile body)
+    for (int kc = 0; kc < nt; ++kc) {
+      float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
+      for (int qt = 0; qt < nt; ++qt) {
+        uint32_t aq[4][4], ag[4][4];
+        bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
+        bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
+        float s[2][4], dp[2][4];
+        p_ds(s, dp, aq, ag, qt, kc);
+        const uint32_t pt_a[4] = {transpose8(bya::pack_bf16(s[0][0], s[0][1])),
+                                  transpose8(bya::pack_bf16(s[1][0], s[1][1])),
+                                  transpose8(bya::pack_bf16(s[0][2], s[0][3])),
+                                  transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
+        const uint32_t dst_a[4] = {transpose8(bya::pack_bf16(dp[0][0], dp[0][1])),
+                                   transpose8(bya::pack_bf16(dp[1][0], dp[1][1])),
+                                   transpose8(bya::pack_bf16(dp[0][2], dp[0][3])),
+                                   transpose8(bya::pack_bf16(dp[1][2], dp[1][3]))};
+        mma_a_tile_add(acc_v, pt_a, gs + qt * TILE, lane);
+        mma_a_tile_add(acc_k, dst_a, qs + qt * TILE, lane);
+      }
+      write_tile(dk, base, ld, stg, acc_k, kc, S, lane);
+      write_tile(dv, base, ld, stg, acc_v, kc, S, lane);
+    }
+  }
+}
+
 // The blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
 // memory) resident on the card at once, computed on first use into `*fit`
+// (the kernel's dynamic shared memory limit set to `max_smem`, default
+// `smem`: a long body's limit is that of its largest S, whatever S comes first)
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* fit) {
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* fit, int max_smem = 0) {
   if (*fit > 0) return cudaSuccess;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         max_smem > 0 ? max_smem : smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
@@ -451,19 +803,51 @@ cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* 
   return cudaGetLastError();
 }
 
+// the long bodies: one-warp blocks, one item a warp at a time; the resident
+// blocks depend on S through the item's smem, so one count per tile count
+cudaError_t launch_long(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int S,
+                        int H, float scale, cudaStream_t st) {
+  static int fit[LONG_MAX_S / 16 + 1];
+  const int nt = (S + 15) / 16, smem = long_fwd_smem(nt);
+  cudaError_t err = resident_blocks(tiny_seq_long_kernel, 32, smem, &fit[nt],
+                                    long_fwd_smem(LONG_MAX_S / 16));
+  if (err != cudaSuccess) return err;
+  const long long n_items = (long long)M * H;
+  const unsigned blocks = (unsigned)(n_items < fit[nt] ? n_items : fit[nt]);
+  tiny_seq_long_kernel<<<blocks, 32, smem, st>>>(q, k, v, o, n_items, H, S, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_long_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
+                            bf16* dq, bf16* dk, bf16* dv, int M, int S, int H, float scale,
+                            cudaStream_t st) {
+  static int fit[LONG_MAX_S / 16 + 1];
+  const int nt = (S + 15) / 16, smem = long_bwd_smem(nt);
+  cudaError_t err = resident_blocks(tiny_seq_long_bwd_kernel, 32, smem, &fit[nt],
+                                    long_bwd_smem(LONG_MAX_S / 16));
+  if (err != cudaSuccess) return err;
+  const long long n_items = (long long)M * H;
+  const unsigned blocks = (unsigned)(n_items < fit[nt] ? n_items : fit[nt]);
+  tiny_seq_long_bwd_kernel<<<blocks, 32, smem, st>>>(q, k, v, g, dq, dk, dv, n_items, H, S,
+                                                     scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v, o: [M, S, H*64] bf16, contiguous; 1 <= S <= 16.  Returns the
+// q, k, v, o: [M, S, H*64] bf16, contiguous; 1 <= S <= LONG_MAX_S (the
+// one-tile body up to 16, the long body past it).  Returns the
 // cudaError_t of the launch, or cudaErrorInvalidValue for a shape it does
 // not take.
 extern "C" int bya_tiny_seq_attention(const void* q, const void* k, const void* v, void* o,
                                       int M, int S, int H, int D, float scale, void* stream) {
-  if (D != DH || S < 1 || S > MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (D != DH || S < 1 || S > LONG_MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S > MAX_S) return (int)launch_long(qp, kp, vp, op, M, S, H, scale, st);
   switch (S) {
 #define BYA_TINY_CASE(n) \
   case n:                \
@@ -478,12 +862,12 @@ extern "C" int bya_tiny_seq_attention(const void* q, const void* k, const void* 
 }
 
 // B8: q, k, v, g (the output gradient), dq, dk, dv: [M, S, H*64] bf16,
-// contiguous; 8 <= S <= 16.  Returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for a shape it does not take.
+// contiguous; 8 <= S <= LONG_MAX_S.  Returns the cudaError_t of the launch,
+// or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int bya_tiny_seq_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* g, void* dq, void* dk, void* dv, int M,
                                           int S, int H, int D, float scale, void* stream) {
-  if (D != DH || S < 8 || S > MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (D != DH || S < 8 || S > LONG_MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -492,6 +876,7 @@ extern "C" int bya_tiny_seq_attention_bwd(const void* q, const void* k, const vo
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S > MAX_S) return (int)launch_long_bwd(qp, kp, vp, gp, dqp, dkp, dvp, M, S, H, scale, st);
   switch (S) {
 #define BYA_TINY_BWD_CASE(n) \
   case n:                    \

@@ -10,6 +10,9 @@ rows, multi-ID over the S = 2 identities for 2 x 17,550 rows (dim 512,
   * `packed_head_attention` (B5', `_kernel`, the packed-head fold): the
     same function on [M, S*H, D] for S < 8; the B5 kernel instantiated for
     small S (the operand is the same memory as [M, S, H*D]).
+  Both take every S up to `MAX_S` (T = 25 latent frames at a 97-frame
+  clip): one 16-row tile an item up to 16, a whole item in shared memory
+  past it (`kernel_body` is the shape rule).
   * `pair_axis_attention` (B4, `_pair_kernel`): attention across a leading
     pair axis [B, 2, M, C] as the closed-form 2-way softmax
     o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`).
@@ -31,7 +34,29 @@ from ._build import check, cuda_lib, import_triton
 from .autograd import kernel_with_plain_vjp
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-_MAX_S = 16          # sequence lengths the B5 kernel is instantiated for
+# the longest sequence the kernels take: the long bodies hold a (row, head)
+# item whole in shared memory, double-buffered (`LONG_MAX_S` of the source)
+MAX_S = 192
+
+
+def kernel_body(s: int, width: int, heads: int, backward: bool = False) -> str:
+    """The CUDA body that a call on [M, S, width] with `heads` heads
+    launches on the card, from the shape alone: "packed" (B5', S < 8: 16 //
+    S items a 16-row tile), "tile" (S <= 16: one item a tile), "long" (16 <
+    S <= MAX_S: a whole item in shared memory, looped over 16-row tiles).
+    The backward (B8) takes S >= 8; below, the gradient is the plain
+    version's vjp, as in the JAX package.  Raises ValueError, naming the
+    limit, for a shape no body takes."""
+    what = "tiny_seq_attention backward (B8)" if backward else "tiny_seq_attention (B5 / B5')"
+    if heads < 1 or width != heads * 64:
+        raise ValueError(f"{what}: the kernels take heads of 64 channels; got width {width} "
+                         f"over {heads} heads (other head dims: ROADMAP.md queue B item 5)")
+    if s > MAX_S:
+        raise ValueError(f"{what}: the kernels take S <= {MAX_S} (a (row, head) item is held "
+                         f"whole in shared memory; longer: ROADMAP.md queue B item 5); got S = {s}")
+    if s < (8 if backward else 1):
+        raise ValueError(f"{what}: takes S >= {8 if backward else 1}; got S = {s}")
+    return "packed" if s < 8 else "tile" if s <= 16 else "long"
 
 
 def _head_mask(sh: int, heads: int, device: torch.device) -> torch.Tensor:
@@ -115,7 +140,7 @@ def packed_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head self-attention over a tiny packed axis: q/k/v [M, S*H, D]
     with packing (s, h) -> s*H + h (the reshape of [M, S, H, D]) -> the
     same.  A CPU tensor takes the plain version; a CUDA tensor launches
-    kernel B5' (bf16, D = 64, S <= 16) or raises."""
+    kernel B5' (bf16, D = 64, S <= MAX_S) or raises."""
     if q.device.type == "cpu":
         return packed_head_attention_plain(q, k, v, heads, sm_scale)
     return kernel_with_plain_vjp(_packed_head_kernel, packed_head_attention_plain, (q, k, v),
@@ -124,10 +149,11 @@ def packed_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _packed_head_kernel(q, k, v, heads: int, sm_scale: float) -> torch.Tensor:
     m, sh, d = q.shape
-    if not (q.device.type == "cuda" and d == 64 and sh % heads == 0
-            and 1 <= sh // heads <= _MAX_S and k.shape == q.shape and v.shape == q.shape):
-        raise ValueError(f"packed_head_attention kernel takes CUDA [M, S*H, 64] with "
-                         f"S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
+    if not (q.device.type == "cuda" and sh % heads == 0 and k.shape == q.shape
+            and v.shape == q.shape):
+        raise ValueError(f"packed_head_attention kernel takes CUDA [M, S*H, D]; got "
+                         f"{tuple(q.shape)}, {heads} heads on {q.device}")
+    kernel_body(sh // heads, heads * d, heads)
     o = _launch_tiny(q, k, v, m, sh // heads, heads, d, sm_scale, "packed_head_attention (B5')")
     packed_head_attention.launches += 1
     return o
@@ -143,7 +169,7 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     takes the plain version; on a CUDA tensor S < 8 goes to
     `packed_head_attention` (B5', as the JAX dispatch does) with the plain
     version's vjp as its gradient, S >= 8 launches kernel B5 (bf16, dh = 64,
-    S <= 16) with kernel B8 as its gradient, and anything else raises."""
+    S <= MAX_S) with kernel B8 as its gradient, and anything else raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_plain(q, k, v, heads, sm_scale)
     m, s, c = q.shape
@@ -153,10 +179,10 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *(t.reshape(m, s * h_, dh) for t in (q_, k_, v_)), h_, sc_).reshape(m, s, c)
         return kernel_with_plain_vjp(packed, tiny_seq_attention_plain, (q, k, v),
                                      (heads, sm_scale))
-    if not (q.device.type == "cuda" and c == heads * 64 and s <= _MAX_S
-            and k.shape == q.shape and v.shape == q.shape):
-        raise ValueError(f"tiny_seq_attention kernel takes CUDA [M, S, H*64] with "
-                         f"S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
+    if not (q.device.type == "cuda" and k.shape == q.shape and v.shape == q.shape):
+        raise ValueError(f"tiny_seq_attention kernel takes CUDA [M, S, H*64]; got "
+                         f"{tuple(q.shape)}, {heads} heads on {q.device}")
+    kernel_body(s, c, heads)
     return _TinySeq.apply(q, k, v, heads, sm_scale)
 
 
@@ -181,15 +207,16 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     """Kernel B8 on its own (what `tiny_seq_attention`'s backward launches
     at S >= 8): (dq, dk, dv), each [M, S, C] in q's dtype, for output
     gradient `g`.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16, dh = 64, 8 <= S <= 16) or raises."""
+    launches the kernel (bf16, dh = 64, 8 <= S <= MAX_S) or raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_bwd_plain(q, k, v, g, heads, sm_scale)
     m, s, c = q.shape
     g = g.to(q.dtype).contiguous()
-    if not (q.device.type == "cuda" and c == heads * 64 and 8 <= s <= _MAX_S
-            and k.shape == q.shape and v.shape == q.shape and g.shape == q.shape):
-        raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*64] with "
-                         f"8 <= S <= {_MAX_S}; got {tuple(q.shape)}, {heads} heads on {q.device}")
+    if not (q.device.type == "cuda" and k.shape == q.shape and v.shape == q.shape
+            and g.shape == q.shape):
+        raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*64]; got "
+                         f"{tuple(q.shape)}, {heads} heads on {q.device}")
+    kernel_body(s, c, heads, backward=True)
     for t in (q, k, v, g):
         if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
             raise ValueError("tiny_seq_attention backward kernel takes contiguous 16-byte "

@@ -1,11 +1,12 @@
 """Where a denoise step's or a train step's device time goes, on one GPU.
 
-    python -m bindyouravatar_tpu_torch.profile_step [--steps 2] [--face]
+    python -m bindyouravatar_tpu_torch.profile_step [--steps 2] [--face] [--num_frames 97]
     python -m bindyouravatar_tpu_torch.profile_step --train [--steps 2] [--policy nested,save_attn]
 
 Serving: builds the DiT at the 5B serving geometry (random bf16 weights
 drawn on the card): audio-only, or with `--face` fully conditioned (face +
-audio: 21 perceiver injections and router invocations).  Prepares one
+audio: 21 perceiver injections and router invocations), at 49 frames
+or `--num_frames` (81 and 97: T = 21 and 25 latent frames).  Prepares one
 clip's audio context (and face tokens), runs one warm-up forward and then
 `--steps` batch-2 CFG forwards under `torch.profiler`.
 
@@ -55,8 +56,9 @@ GROUPS = (("B1 flash_attention", ("flash_fwd_kernel", "prep_qk_kernel")),
           ("B2 short_kv_attention (face)", ("short_kv_attend_kernel",)),
           ("B3 short_kv_attention (audio)", ("short_kv_kernel",)),
           ("B4 pair_axis_attention", ("pair_attention_kernel",)),
-          ("B8 tiny_seq_attention backward", ("tiny_seq_bwd_kernel",)),
-          ("B5 tiny_seq_attention", ("tiny_seq_kernel",)),
+          ("B8 tiny_seq_attention backward",
+           ("tiny_seq_bwd_kernel", "tiny_seq_long_bwd_kernel")),
+          ("B5 tiny_seq_attention", ("tiny_seq_kernel", "tiny_seq_long_kernel")),
           ("B6 LayerNorm forward", ("layernorm_rows_kernel",)),
           ("B10 LayerNorm forward", ("ln_fwd_kernel",)),
           ("B9 LayerNorm backward", ("layernorm_bwd_kernel",)),
@@ -259,6 +261,9 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--face", action="store_true",
                    help="the fully conditioned (face + audio) forward")
+    p.add_argument("--num_frames", type=int, default=49,
+                   help="pixel frames of the serving forward's clip (81, 97: 21, 25 latent "
+                        "frames)")
     p.add_argument("--train", action="store_true",
                    help="the Stage-3 train step's micro-batch, forward + backward")
     p.add_argument("--policy", default="nested",
@@ -275,7 +280,8 @@ def main(argv=None) -> None:
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(dev).manual_seed(args.seed)
     dit = DiT.create(DiTConfig(is_train_face=args.face, dtype=bf, param_dtype=bf,
-                               fuse_qk_norm=True), device=dev, generator=gen)
+                               fuse_qk_norm=True, sample_frames=args.num_frames),
+                     device=dev, generator=gen)
     c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
     t, hg, wg = c.latent_grid
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)

@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py     # 42 layers; serving requests of 2 steps each; 2 optimizer steps
-                              # of the Stage-3 train step; the sft launcher: 2 steps, a
-                              # checkpoint, a resume and a third step; a 50-step clip; the CLI
-                              # (also two-stage, and from reference-format files); SAM2 and
-                              # the upscaler
+                              # of the Stage-3 train step (14 layers); the sft launcher: 2
+                              # steps, a checkpoint, a resume and a third step; a 50-step
+                              # clip; the CLI (also two-stage, and from reference-format
+                              # files); SAM2 and the upscaler; 81- and 97-frame clips
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
     python3 chip_smoke.py --only-kernels dh16,dsweep  # phase 2's rows of a head-dim class
     python3 chip_smoke.py --only-distribution      # phase 11 only
+    python3 chip_smoke.py --only-long-clips        # phase 12 only
 
 Phases (one line each; any failure exits non-zero and prints no result):
   1. the card's `nvidia-smi` name and power limit; build every kernel (one
@@ -31,9 +32,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      128 in both layouts and modes, and combined at [26, 1350, 16, 128], so
      that persistent blocks' shares cross a change of batch; 1,001 rows at
      every B6 and B9 width from 128 to 8192, B9 also at 64 and 5 rows; B8
-     at M = 1,001 for S = 8, 13, 16; B8 and B9 run twice, bitwise equal;
-     B5 and B5', timed, at M = 1,001 for S = 1, 2, 7, 8, 9, 13, 16 and at
-     M = 5, and B5 run twice at its main shape, bitwise equal; the 2B
+     at M = 1,001 for S = 8, 13, 16 and on the long body for S = 17, 24,
+     25, 31, 32, 33, 48, 64, 129 and 192; B8 and B9 run twice, bitwise
+     equal; B5 and B5', timed, at M = 1,001 for S = 1, 2, 7, 8, 9, 13, 16
+     and at M = 5, and B5 run twice at its main shapes, bitwise equal; B5
+     and B8 at 81 and 97 frames ([5400 | 2700, 21 | 25, 512], timed), B5
+     untimed at B8's long lengths, B5' at 17 and 25; the 2B
      variant's instantiations: B1 with the fused QK-LN and no RoPE at
      [2, 17776, 1920] (30 heads) and ragged, B2 at 16 x 80 heads (the
      kernel's loads fill columns 80-127 with zeros), B6 at width 1920; B1
@@ -104,8 +108,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      checked.
   5. 2 optimizer steps (2 micro-batches each) of `Trainer.train_step` on the
      default configuration at full width (LoRA r128, nested per-group
-     checkpointing, 42 layers): finite metrics, moved trainable and
-     bit-identical frozen tensors, exact launch counts, peak memory.
+     checkpointing), 14 layers (`--train-layers`, cut from 42 so that
+     the smoke, phase 12 included, ends well inside its 1,200 s: phases
+     5, 5b, 5c and 11's steps scale with it): finite metrics, moved
+     trainable and bit-identical frozen tensors, exact launch counts, peak
+     memory.
   5b. the same model, weights and batch: one optimizer step's
      micro-batches (gradients, no update) under remat_policy="save_attn"
      against "nested" with the same draws: loss within 1e-3 relative,
@@ -227,6 +234,21 @@ Phases (one line each; any failure exits non-zero and prints no result):
      against it, and prodigy (2 steps, lr 10, at 8 layers: 42 do not fit
      sharded) sharded and unsharded, each within relative L2 1e-2 of the
      trainable change.  The group is destroyed at the end.
+  12. long clips, 81 and 97 frames (T = 21 and 25 latent frames: the
+     router's temporal STAB attention on B5 / B8's long body).  12a, on
+     phase 4's model: one face + audio request through the
+     `InferenceServer` at 97 x 480 x 720, 2 steps, streamed in chunks of 4
+     latent frames: [1, 97, 3, 480, 720], seconds a step, `decode_s`,
+     peak, exact launches, B5 dispatched on the long body at S = 25 only
+     and no plain version called.  12b (after phase 10): 7c's flow at
+     `--num_frames 81`, whole decode: the meta line's seconds, wall, peak,
+     launches, B5 at S = 21.  12c: a 2-layer DiT at the 5B widths (48 x 64 heads, its
+     audio layers, router and LFE full width), face + audio, T = 25 on a
+     12 x 18 latent grid: the serving forward within 2% and one Stage-3
+     micro-batch's gradients within 3% relative L2 of the CPU's fp32 (the
+     face path's within phase 3b's 10%), B5 and B8 at S = 25 inside the
+     model, exact launches; then the same at 49 frames (T = 13, the
+     one-tile bodies) as the control, its errors printed beside.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -234,6 +256,7 @@ There is no CPU fallback: without a CUDA device it fails at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -289,6 +312,12 @@ def _compare(got, want, atol: float, rtol: float):
     ok = bool(g.isfinite().all()) and bool((diff <= atol + rtol * w.abs()).all())
     rel = float((diff / w.abs().clamp_min(1e-3)).max())
     return float(diff.max()), rel, ok
+
+
+# phase 2's lengths past 16 rows (the long body) besides `MAX_S`: one row
+# into a second tile (17), 97 frames (25), a full last tile (32, 48, 64),
+# one row into a third (33) and a ninth (129) tile
+LONG_S = (17, 24, 25, 31, 32, 33, 48, 64, 129)
 
 
 def kernel_phase(results: dict, only=None) -> bool:
@@ -536,23 +565,27 @@ def kernel_phase(results: dict, only=None) -> bool:
         if tag.startswith("slice"):
             results["B4"] = r
 
-    # --- B5: temporal STAB attention [5400, 13, 8*64]; ragged M=1001.  B5':
-    # the same kernel for S < 8 through `packed_head_attention` on the
-    # packed [M, S*8, 64] view, at S = 3 (the reduced step's frames) and 2.
-    # Then every kind of tile the kernel makes: at M = 1,001 S = 1, 2, 7
-    # (16 / S items packed in a tile, the last tile part empty) and 8, 9, 16
-    # (one item a tile: 8 or 7 pad rows, none); and M = 5 (fewer tiles than
-    # resident warps) at S = 13 and 3.
+    # --- B5: temporal STAB attention [5400, 13, 8*64] (49 frames); at 81 and
+    # 97 frames [5400, 21, 512] and [5400, 25, 512] on the long body (rows
+    # "B5 S21", "B5 S25"); ragged M=1001.  B5': the same kernel for S < 8
+    # through `packed_head_attention` on the packed [M, S*8, 64] view, at S =
+    # 3 (the reduced step's frames) and 2.  Then every kind of tile the
+    # kernel makes: at M = 1,001 S = 1, 2, 7 (16 / S items packed in a tile,
+    # the last tile part empty) and 8, 9, 16 (one item a tile: 8 or 7 pad
+    # rows, none); and M = 5 (fewer tiles than resident warps) at S = 13
+    # and 3.
     # tol: both sides round p to bf16; fp32 sums in another order.
     # library: SDPA on a [M, 8, S, 64] copy (permuted before timing).
     b5_rows = [("B5", "slice[5400,13,512]", 5400, 13), ("B5", "ragged[1001,13,512]", 1001, 13),
+               ("B5 S21", "slice[5400,21,512]", 5400, 21),
+               ("B5 S25", "slice[5400,25,512]", 5400, 25),
                ("B5'", "slice[5400,3,512]", 5400, 3), ("B5'", "slice[5400,2,512]", 5400, 2)]
     b5_rows += [("B5" if s >= 8 else "B5'", f"ragged[1001,{s},512]", 1001, s)
                 for s in (1, 2, 7, 8, 9, 16)]
     b5_rows += [("B5", "tiny[5,13,512]", 5, 13), ("B5'", "tiny[5,3,512]", 5, 3)]
     for name, tag, m, s in pick(b5_rows):
         q, k, v = (rnd(m, s, 512).to(bf) for _ in range(3))
-        if name == "B5":
+        if name != "B5'":
             kern = lambda: pa.tiny_seq_attention(q, k, v, 8, 0.125)
             plain = lambda: pa.tiny_seq_attention_plain(q, k, v, 8, 0.125)
         else:
@@ -567,9 +600,26 @@ def kernel_phase(results: dict, only=None) -> bool:
                    library, work)
         if tag.startswith("slice") and name not in results:
             results[name] = r
-        if tag == "slice[5400,13,512]":
+        if tag in ("slice[5400,13,512]", "slice[5400,25,512]"):
             # no sums across items, so a second call repeats the first bit for bit
             check_ok(name, f"{tag} run twice: bitwise equal", torch.equal(got, kern()))
+    # B5 and B5' past 16 rows (the long body), untimed: M = 1,001 (a
+    # persistent warp's last items ragged) at S = 17 (one row into a second
+    # tile), 24, 25, 31, 32, 33 (a third tile), 48, 64, 129 (nine tiles) and
+    # pa.MAX_S (the most shared memory a warp takes); B5' at 17 and 25
+    # through `packed_head_attention`'s [M, S*8, 64] view.
+    # tol: as the timed rows.
+    long_s = LONG_S + (pa.MAX_S,)
+    for name, s in pick([("B5", s) for s in long_s] + [("B5'", 17), ("B5'", 25)]):
+        q, k, v = (rnd(1001, s, 512).to(bf) for _ in range(3))
+        if name == "B5":
+            got = pa.tiny_seq_attention(q, k, v, 8, 0.125)
+            want = pa.tiny_seq_attention_plain(q, k, v, 8, 0.125)
+        else:
+            packed = [t.reshape(1001, s * 8, 64) for t in (q, k, v)]
+            got = pa.packed_head_attention(*packed, 8, 0.125).reshape(1001, s, 512)
+            want = pa.packed_head_attention_plain(*packed, 8, 0.125).reshape(1001, s, 512)
+        check(name, f"ragged[1001,{s},512]", got, want, 1e-2, 2e-2)
 
     # --- B6: audio norm_q rows [2*17550, 3072], AudioProjModel [2*2*13*32, 768];
     # the face path's widths: router norms [35100, 2048], STAB/trunk [70200, 512]
@@ -765,18 +815,23 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check
     # inputs and round once: 1e-2 of each gradient's largest magnitude.
     # library: SDPA at S = 13 on [M, 8, 13, 64] copies, its autograd
     # backward timed alone.
-    for tag, m in pick((("train[2700,13,512]", 2700), ("ragged[1001,13,512]", 1001)), ["B8"]):
-        q, k, v, g = (rnd(m, 13, 512).to(bf) for _ in range(4))
+    # At 81 and 97 frames [2700, 21, 512] and [2700, 25, 512] on the long
+    # body (rows "B8 S21", "B8 S25").
+    for name, tag, m, s in pick((("B8", "train[2700,13,512]", 2700, 13),
+                                 ("B8", "ragged[1001,13,512]", 1001, 13),
+                                 ("B8 S21", "train[2700,21,512]", 2700, 21),
+                                 ("B8 S25", "train[2700,25,512]", 2700, 25)), ["B8"]):
+        q, k, v, g = (rnd(m, s, 512).to(bf) for _ in range(4))
         qh, kh, vh = (bhsd(t, 8).requires_grad_() for t in (q, k, v))
         oh = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
         gh = bhsd(g, 8)
         lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)
         kern = lambda: pa.tiny_seq_attention_bwd(q, k, v, g, 8, 0.125)
         plain = lambda: pa.tiny_seq_attention_bwd_plain(q, k, v, g, 8, 0.125)
-        work = (_nbytes(q, k, v, g, q, k, v), 10.0 * m * 8 * 13 * 13 * 64, "fp32")
-        r = report_all("B8", tag, kern(), plain(), (1e-2,) * 3, kern, plain, 20, lib, work)
+        work = (_nbytes(q, k, v, g, q, k, v), 10.0 * m * 8 * s * s * 64, "fp32")
+        r = report_all(name, tag, kern(), plain(), (1e-2,) * 3, kern, plain, 20, lib, work)
         if tag.startswith("train"):
-            results["B8"] = r
+            results[name] = r
 
     # --- B9: row LayerNorm backward.  Audio norm_q and perceiver norm2
     # [17550, 3072], router norm_q [17550, 2048], trunk/STAB norms
@@ -828,10 +883,11 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check
     # itself bit for bit (B9 folds its partial rows in a fixed order, B8
     # has no sums across items).  B8: M = 1,001 (a persistent warp's last
     # items ragged) at S = 8, 13 and 16 (pad rows 8, 3 and 0 of the 16-row
-    # tile).  B9: 1,001 rows at every width (D = 640 and 1,152 leave a
-    # thread's last chunk empty, 8,192 takes four chunks a thread), and
-    # fewer rows than the card holds blocks ([64, 2048], [5, 3072]: a grid
-    # of row steps, no block without rows).
+    # tile) and on the long body at B5's lengths past 16 (pad rows 15, 8, 7,
+    # 1, 0, 15, 0, 0, 15 and 0 of the last tile).  B9: 1,001 rows at every
+    # width (D = 640 and 1,152 leave a thread's last chunk empty, 8,192
+    # takes four chunks a thread), and fewer rows than the card holds blocks
+    # ([64, 2048], [5, 3072]: a grid of row steps, no block without rows).
     # tol: as the timed rows.
     def check_twice(name, tag, fn, want, rels):
         first, again = fn(), fn()
@@ -840,7 +896,7 @@ def train_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, check
         same = all(torch.equal(a, b) for a, b in zip(first, again))
         check_ok(name, f"{tag} run twice: bitwise equal", same)
 
-    for s_ in pick((8, 13, 16), ["B8"]):
+    for s_ in pick((8, 13, 16) + LONG_S + (pa.MAX_S,), ["B8"]):
         q, k, v, g = (rnd(1001, s_, 512).to(bf) for _ in range(4))
         check_twice("B8", f"ragged[1001,{s_},512]",
                     lambda: pa.tiny_seq_attention_bwd(q, k, v, g, 8, 0.125),
@@ -1923,7 +1979,7 @@ def _video_ok(what: str, video, shape) -> bool:
     return ok
 
 
-def serving_phase(args) -> bool:
+def serving_phase(args, long_launches: dict) -> bool:
     """Phase 4 on one fully conditioned DiT at the 5B geometry, each run's
     launch counts exact: `--requests` face + audio requests and 1
     audio-only request through the port's InferenceServer (whole decode);
@@ -1933,7 +1989,8 @@ def serving_phase(args) -> bool:
     a direct `generate(routing_forcing=..., return_routing=True)` (bit for
     bit; the routing [steps, 21, 1, 17550, 2] bf16); one request through
     `serve_http` on 127.0.0.1; two co-batchable requests on a server with
-    `batch_max=2`: one denoise, batch size 2."""
+    `batch_max=2`: one denoise, batch size 2.  Then phase 12a on the same
+    model (`long_clip_server_phase`, its launches into `long_launches`)."""
     import json as _json
     import tempfile
     import urllib.request
@@ -2092,7 +2149,7 @@ def serving_phase(args) -> bool:
           flush=True)
     ok &= _counts_ok("co-batched pair", counts, want(1, 0, 1))
     print(f"serving phase {'ok' if ok else 'FAILED'}", flush=True)
-    return ok
+    return ok & long_clip_server_phase(args, pipe, long_launches)
 
 
 def clip_phase(args, launches: dict) -> bool:
@@ -3241,7 +3298,7 @@ def train_phase(args, launches: dict, record: dict) -> bool:
     """`args.train_steps` optimizer steps of `Trainer.train_step` (2
     micro-batches each, batch 1 per micro-batch) on the repo's default
     configuration at full width: `DiTConfig(lora_rank=128, remat=True,
-    remat_policy="nested")` (42 layers unless `--train-layers` cuts depth,
+    remat_policy="nested")` (`--train-layers`: 14 of the 42 layers,
     dim 3072, 226 + 17,550 tokens, face + audio), fp32 weights drawn on the
     card from a seed, bf16 compute.  Checks finite loss and metrics, moved
     trainable and bit-identical frozen tensors, and each kernel's launch
@@ -3475,7 +3532,7 @@ def _prodigy_two_steps(dit, schedule, one, draw) -> bool:
 
 
 def optimizer_phase(args, tr5, batch, record: dict) -> bool:
-    """Phase 5c on phase 5's DiT (42 layers unless `--train-layers`, LoRA
+    """Phase 5c on phase 5's DiT (`--train-layers`, 14 by default, LoRA
     r128, "nested") and batch (2 micro-batches): one optimizer step each of
     adafactor (lr 1e-5), prodigy (lr 1.0) and 8-bit AdamW (lr 1e-5),
     constant schedules, each from phase 5's trainable tensors (`record`'s
@@ -3786,6 +3843,326 @@ def driver_phase(args) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------ #
+# phase 12: long clips, 81 and 97 frames (T = 21 and 25 latent frames: the
+# router's temporal STAB attention on B5's and B8's long body)
+# ------------------------------------------------------------------ #
+
+@contextlib.contextmanager
+def _watch_tiny_seq():
+    """While open, count each (body, S, fwd / bwd) that the tiny-sequence
+    wrappers dispatch on the card (`packed_attention.kernel_body`) and
+    every call of their plain versions (a run on the card makes none)."""
+    from collections import Counter
+
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+
+    seen = {"bodies": Counter(), "plain": 0}
+    plains = ("tiny_seq_attention_plain", "packed_head_attention_plain",
+              "tiny_seq_attention_bwd_plain")
+    saved = {n: getattr(pa, n) for n in plains + ("kernel_body",)}
+
+    def body(s, width, heads, backward=False):
+        name = saved["kernel_body"](s, width, heads, backward)
+        seen["bodies"][(name, s, "bwd" if backward else "fwd")] += 1
+        return name
+
+    def counted(fn):
+        def call(*a, **kw):
+            seen["plain"] += 1
+            return fn(*a, **kw)
+        return call
+
+    pa.kernel_body = body
+    for n in plains:
+        setattr(pa, n, counted(saved[n]))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(pa, n, fn)
+
+
+def _bodies_ok(what: str, seen: dict, want: set) -> bool:
+    """The dispatched (body, S, direction)s are `want` and no plain version ran."""
+    ok = set(seen["bodies"]) == want and seen["plain"] == 0
+    got = " ".join(f"{b} S={s} {d} x{n}" for (b, s, d), n in sorted(seen["bodies"].items()))
+    print(f"  {what} tiny-sequence dispatch: {got or 'none'} (want "
+          + " ".join(f"{b} S={s} {d}" for b, s, d in sorted(want))
+          + f"), plain versions called {seen['plain']} times {'ok' if ok else 'FAILED'}",
+          flush=True)
+    return ok
+
+
+def long_clip_server_phase(args, pipe, launches: dict) -> bool:
+    """Phase 12a on phase 4's model (the 42-layer face + audio 5B, bf16
+    weights drawn on the card): one face + audio request through the
+    `InferenceServer` at 97 frames (T = 25 latent frames, 226 + 33,750
+    tokens), `--steps` DPM++ steps, streamed in chunks of 4 latent frames
+    (the server's streamed path; `bench_vae_decode` measures the whole
+    decode at 97 frames): the video's shape, the wall of a denoise step,
+    `decode_s` and the peak; exact launches, B5 on its long body at S = 25
+    only, no plain version called.  Fills `launches` with the run's
+    counts."""
+    import gc
+
+    import torch
+    from bindyouravatar_tpu_torch.config import PipelineConfig
+    from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
+    from bindyouravatar_tpu_torch.serving import InferenceServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    frames = 97
+    long = BindYourAvatarPipeline.create(
+        pipe.dit, pipe.vae, PipelineConfig(num_frames=frames, num_inference_steps=args.steps))
+    pc = long.cfg
+    t_lat = (frames - 1) // pipe.dit.cfg.temporal_compression_ratio + 1
+    starts = []
+    req = _serving_request(long, args.seed + 50, "97 frames", stream_chunk_frames=4,
+                           on_chunk=lambda start, arr: starts.append(start))
+    server = InferenceServer(long, dev)
+    try:
+        with _watch_tiny_seq() as seen:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = server.submit(req).result(timeout=1200)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches.update(_read_launches())
+    finally:
+        server.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd = args.steps * (2 if pc.cfg_microbatch else 1)
+    tm = res.timings
+    ok = _video_ok("97-frame request", res.video, (1, frames, 3, pc.height, pc.width))
+    ok &= _counts_ok("97-frame request", launches, _serving_want(long.dit, fwd, 0, 1))
+    ok &= _bodies_ok("97-frame request", seen, {("long", t_lat, "fwd")})
+    print(f"long clip, server (phase 12a; face + audio, {long.dit.cfg.num_layers} layers, "
+          f"{frames} x {pc.height} x {pc.width}, T = {t_lat}, {args.steps} DPM++ steps, streamed "
+          f"decode, {len(starts)} chunks from frames {starts}): "
+          + " ".join(f"{k}={tm[k]:.3f}" for k in ("prep_s", "encode_s", "denoise_s", "decode_s",
+                                                   "compute_s"))
+          + f"; {tm['denoise_s'] / args.steps:.4f} s a denoise step; wall {wall:.2f} s; peak "
+          f"{peak:.2f} GiB {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def long_clip_cli_phase(args, launches: dict) -> bool:
+    """Phase 12b: phase 7c's flow (`infer.run` from
+    `assets/faces/000_{0,1}.png` through the drawn face nets' checkpoint
+    flags, phase 7b's audio and prompt files, weights drawn from `--seed`)
+    at `--num_frames 81` (T = 21 latent frames), 2 steps, whole decode:
+    the meta line's `seconds`, the wall and the peak; the launches of 2
+    face + audio forwards, B5 on its long body at S = 21 only, no plain
+    version called.  Fills `launches` with the run's counts."""
+    import gc
+    import tempfile
+    import types
+
+    import torch
+    from bindyouravatar_tpu_torch import infer
+    from bindyouravatar_tpu_torch.config import AudioConfig, DiTConfig, RouterConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    frames = 81
+    here = os.path.dirname(os.path.abspath(__file__))
+    faces = [os.path.join(here, "assets", "faces", f"000_{i}.png") for i in (0, 1)]
+    with tempfile.TemporaryDirectory(prefix="bya_cli_long_") as tmp:
+        argv = (_cli_inputs(tmp, args.seed + 200)
+                + ["--seed", str(args.seed), "--num_frames", str(frames), "--img_file_path",
+                   *faces] + _face_checkpoints(tmp, args.seed))
+        with _watch_tiny_seq() as seen:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = infer.run(infer.get_args(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches.update(_read_launches())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t_lat = (frames - 1) // 4 + 1
+    five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
+                                   router_cfg=RouterConfig())
+    ok = _video_ok("CLI at 81 frames", res.video, (1, frames, 3, 480, 720))
+    meta_ok = res.meta["frames"] == frames and res.meta["steps"] == 2
+    ok &= meta_ok
+    ok &= _counts_ok("CLI at 81 frames (face + audio)", launches, _serving_want(five_b, 2, 0, 1))
+    ok &= _bodies_ok("CLI at 81 frames", seen, {("long", t_lat, "fwd")})
+    print(f"long clip, CLI (phase 12b): --img_file_path assets/faces/000_0.png 000_1.png, the "
+          f"drawn face nets, --model_size 5b --num_layers 42 --num_inference_steps 2 "
+          f"--num_frames {frames} (T = {t_lat}), whole decode -> run() in {wall:.1f} s (weights "
+          f"drawn in fp32 and cast to bf16 included), meta {res.meta}, peak {peak:.2f} GiB "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _long_clip_case(frames: int, launches: dict) -> tuple:
+    """One run of phase 12c at `frames` pixel frames; returns (ok, the
+    gradients' relative L2 errors by name).  See `long_clip_model_phase`."""
+    import numpy as np
+    import torch
+    from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
+                                                 RouterConfig, SchedulerConfig, TrainConfig)
+    from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.scheduler import Schedule
+    from bindyouravatar_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    sub = (AudioConfig(num_layers=2), RouterConfig(num_layers=1), LFEConfig())
+    base = dict(num_layers=2, sample_height=12, sample_width=18, sample_frames=frames,
+                max_text_seq_length=16, lora_rank=8, lora_alpha=8.0)
+    gen = torch.Generator().manual_seed(17)
+    make = lambda dtype, dev, fuse: DiT.create(
+        DiTConfig(dtype=dtype, fuse_qk_norm=fuse, **base), *sub, device=dev,
+        generator=gen if dev == "cpu" else None)
+    ref = make(torch.float32, "cpu", False)
+    with torch.no_grad():        # LoRA B off zero, so LoRA A takes gradients too
+        for blk in ref.blocks:
+            for name in ("to_q_lora_B", "to_k_lora_B"):
+                getattr(blk.attn1, name).normal_(0.0, 0.02, generator=gen)
+    sd = ref.state_dict()
+    c, a, lf = ref.cfg, ref.audio_cfg, ref.lfe_cfg
+    t_lat = c.latent_frames
+    n_st = ref.router_cfg.num_attention_layers
+    body = "long" if t_lat > 16 else "tile"
+
+    # the serving forward, batch-2 CFG shapes
+    rng = np.random.default_rng(17)
+    n_af = c.sample_frames + a.window_size - a.window_stride
+    inputs = dict(
+        latents=rng.normal(size=(2, t_lat, c.in_channels, c.sample_height, c.sample_width)),
+        text_embeds=rng.normal(size=(2, c.max_text_seq_length, c.text_embed_dim)),
+        timesteps=np.array([999.0, 499.0]),
+        audio_embeds=rng.normal(size=(2, 2, n_af, a.blocks, a.audio_dim)),
+        id_cond=rng.normal(size=(2, c.num_ids, lf.id_embed_dim)),
+        id_vit_hidden=rng.normal(size=(2, c.num_ids, lf.num_scales, 17, lf.vit_dim)))
+    outs = []
+    with torch.inference_mode():
+        for model, dev in ((ref, "cpu"), (make(torch.bfloat16, "cuda", True), "cuda")):
+            if dev == "cuda":
+                model.load_state_dict(sd)
+            t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in inputs.items()}
+            rope = model.rope(c.sample_height * 8, c.sample_width * 8, t_lat, device=dev)
+            with _watch_tiny_seq() as seen_f:
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    _reset_launches()
+                out, routing = model.apply(t.pop("latents"), t.pop("text_embeds"),
+                                           t.pop("timesteps"), rope, **t)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    fwd_counts = _read_launches()
+            outs.append((out.float().cpu(), routing.float().cpu()))
+            if dev == "cuda":
+                fwd_seen = seen_f
+        del model
+    f_rel, r_rel = _rel_l2(outs[1][0], outs[0][0]), _rel_l2(outs[1][1], outs[0][1])
+    want_fwd = {"B5": c.num_ca * n_st, "B5'": 0, "B8": 0}
+    f_ok = ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
+            and bool(outs[1][0].isfinite().all()))
+    f_ok &= _bodies_ok(f"T = {t_lat} forward", fwd_seen, {(body, t_lat, "fwd")})
+
+    # one Stage-3 micro-batch: every trainable gradient
+    gpu = make(torch.bfloat16, "cuda", False)
+    gpu.load_state_dict(sd)
+    tcfg = TrainConfig(grad_accum_steps=1)
+    trainers = [Trainer(m, Schedule.create(SchedulerConfig()), tcfg) for m in (ref, gpu)]
+    for tr in trainers:
+        tr.init_state()
+    batch = _train_batch(ref, 1, gen, "cpu", vit_tokens=17)
+    draws = trainers[0].draw(batch, gen)
+    # keep the teacher mask (its dropout would zero the injected routing and
+    # with it every perceiver gradient), so those are compared
+    draws["keep_mask"][:] = True
+    to_gpu = lambda d: {k: None if v is None else v.cuda() for k, v in d.items()}
+    grads_c, m_c = trainers[0].grads_and_metrics(batch, [draws])
+    with _watch_tiny_seq() as seen_t:
+        torch.cuda.synchronize()
+        _reset_launches()
+        grads_g, m_g = trainers[1].grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
+        torch.cuda.synchronize()
+        launches.update(_read_launches())
+    # tol: metrics within 5% + 1e-3 and the gradients within 3% relative L2
+    # each (phases 3e / 3f's), the key biases (true gradient 0) left out;
+    # the face path's (perceivers, router, LFE) within phase 3b's 10%: its
+    # bf16 roundings pass through the router's sigmoids and 2-way softmaxes,
+    # and phase 3b (T = 8, one-tile bodies) puts its multi-ID q / k
+    # gradients at 3.8-3.9% on an H100; the control at T = 13 shows the
+    # floor that the long bodies do not set
+    m_err = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_c}
+    m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
+    g_err = {}
+    for k, gc_ in grads_c.items():
+        if k.endswith("to_k.bias"):
+            continue
+        norm = float(gc_.norm())
+        diff = float((grads_g[k].float().cpu() - gc_).norm())
+        g_err[k] = diff / norm if norm > 0 else diff
+    g_ok = all(e <= (0.1 if _face_path(k) else 0.03) for k, e in g_err.items())
+    want = train_launches(gpu, 1)
+    c_ok = {k: launches[k] for k in want} == want and launches["B8"] > 0
+    c_ok &= _bodies_ok(f"T = {t_lat} micro-batch", seen_t,
+                       {(body, t_lat, "fwd"), (body, t_lat, "bwd")})
+    ok = f_ok and m_ok and g_ok and c_ok
+    shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w if w[k] or cnt[k])
+    worst = lambda pick: " ".join(f"{k}={e:.3e}" for k, e in sorted(
+        ((k, e) for k, e in g_err.items() if pick(k)), key=lambda kv: -kv[1])[:3])
+    over = sum(e > 0.03 for e in g_err.values())
+    print(f"long clip, 2-layer full-width DiT (phase 12c; 48 x 64 heads, dim 3072, face + audio, "
+          f"{frames} frames: T = {t_lat}, {body} bodies, {c.sample_height} x {c.sample_width} "
+          f"latents, 16 + {c.video_seq_len} tokens): forward cuda-bf16 vs cpu-fp32 relative L2 "
+          f"{f_rel:.3e} (tol 0.02), routing {r_rel:.3e}, launches {shown(fwd_counts, want_fwd)}; "
+          f"micro-batch loss {float(m_g['loss']):.5f} / {float(m_c['loss']):.5f}, metrics max "
+          f"|d| " + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
+          + f" (tol 1e-3+0.05*|ref|); {len(g_err)} trainable gradients, worst relative L2 "
+          f"outside the face path " + worst(lambda k: not _face_path(k)) + " (tol 0.03), the "
+          f"temporal STAB attentions' " + worst(lambda k: ".temporal_attn." in k) + ", the face "
+          f"path's " + worst(_face_path) + f" (tol 0.1, phase 3b's); {over} above 0.03; "
+          f"launches " + shown(launches, want) + f"; {time.perf_counter() - t0:.1f} s "
+          + ("ok" if ok else "FAILED"), flush=True)
+    del gpu, trainers, grads_g, grads_c, ref
+    torch.cuda.empty_cache()
+    return ok, g_err
+
+
+def _face_path(name: str) -> bool:
+    """A parameter of the DiT's face path: the LFE, the perceivers, the
+    router's norms, layer projections and trunk."""
+    return name.startswith(("lfe.", "perceivers.", "router_norms.", "router_layers.",
+                            "router_trunk."))
+
+
+def long_clip_model_phase(launches: dict) -> bool:
+    """Phase 12c: a 2-layer DiT at the 5B widths (dim 3,072, 48 x 64 heads;
+    its audio layers, router and LFE at their own full widths), face +
+    audio, at 97 frames (T = 25) on a 12 x 18 latent grid (16 + 1,350
+    tokens, cut so that the CPU's fp32 reference runs in seconds), LoRA r8,
+    on the card (bf16) against the same weights on the CPU (plain versions,
+    fp32): the serving forward (`fuse_qk_norm`) and one Stage-3 micro-batch
+    (`Trainer.grads_and_metrics`) at phases 3e / 3f's limits (relative L2
+    <= 0.02 forward, <= 0.03 each trainable gradient, the key biases
+    apart; the face path's gradients at phase 3b's 0.1; metrics within 5%
+    + 1e-3); B5 and B8 on their long bodies at S = 25, no plain version
+    called, the launches exact.  Then the same at 49 frames (T = 13, the
+    one-tile bodies) as the control: its gradients' errors beside T = 25's.
+    Fills `launches` with the T = 25 micro-batch's counts."""
+    ok, errs = _long_clip_case(97, launches)
+    ok_13, errs_13 = _long_clip_case(49, {})
+    worst = lambda e, pick: max((v for k, v in e.items() if pick(k)), default=0.0)
+    print(f"  phase 12c, T = 25 (long bodies) beside T = 13 (one-tile bodies): worst gradient "
+          f"error outside the face path {worst(errs, lambda k: not _face_path(k)):.3e} / "
+          f"{worst(errs_13, lambda k: not _face_path(k)):.3e}, in the temporal STAB attentions "
+          f"{worst(errs, lambda k: '.temporal_attn.' in k):.3e} / "
+          f"{worst(errs_13, lambda k: '.temporal_attn.' in k):.3e}, in the face path "
+          f"{worst(errs, _face_path):.3e} / {worst(errs_13, _face_path):.3e}", flush=True)
+    return ok and ok_13
+
+
 # Every kernel of the port: (route, source, the TPU kernel it replaces);
 # the kernels line lists them in this order
 KERNELS = {
@@ -3801,6 +4178,14 @@ KERNELS = {
            "bindyouravatar_tpu/ops/packed_attention.py:139"),
     "B5'": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
             "bindyouravatar_tpu/ops/packed_attention.py:47"),
+    # B5 and B8 on the long body at 81 and 97 frames (T = 21, 25): the
+    # launches of phases 12b, 12a and 12c
+    "B5 S21": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+               "bindyouravatar_tpu/ops/packed_attention.py:139"),
+    "B5 S25": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+               "bindyouravatar_tpu/ops/packed_attention.py:139"),
+    "B8 S25": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
+               "bindyouravatar_tpu/ops/packed_attention.py:351"),
     "B6": ("cuda", "bindyouravatar_tpu_torch/csrc/layernorm.cu",
            "bindyouravatar_tpu/ops/layernorm.py:26"),
     "B7 fwd": ("cuda", "bindyouravatar_tpu_torch/csrc/flash_attention.cu",
@@ -4353,8 +4738,9 @@ def main(argv=None) -> int:
     p.add_argument("--requests", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train-steps", type=int, default=2, help="optimizer steps of phase 5")
-    p.add_argument("--train-layers", type=int, default=42,
-                   help="depth of the phase-5 DiT (widths stay full)")
+    p.add_argument("--train-layers", type=int, default=14,
+                   help="depth of the phase-5 DiT (widths stay full; cut from 42 for the "
+                        "smoke's time: phases 5, 5b, 5c and 11 step it)")
     p.add_argument("--clip-steps", type=int, default=50,
                    help="denoise steps of phase 7's clip (0 skips phases 7 to 7e)")
     p.add_argument("--driver-layers", type=int, default=8,
@@ -4363,6 +4749,9 @@ def main(argv=None) -> int:
                         "GiB, 18 GB of them phase 7e's files)")
     p.add_argument("--only-distribution", action="store_true",
                    help="build, then run phase 11 only; fails on purpose (no launch counts)")
+    p.add_argument("--only-long-clips", action="store_true",
+                   help="build, then run phase 12 only (12a on a model of its own); fails on "
+                        "purpose (no launch counts)")
     p.add_argument("--only-kernels", metavar="NAMES",
                    help="run phase 2 for these kernels only (comma-separated names of the "
                         "kernels line, or their first word: 'B2,B3,B7'), then stop; fails on "
@@ -4415,6 +4804,14 @@ def main(argv=None) -> int:
         ok = distribution_phase(args, {})
         return _fail(f"--only-distribution: phase 11 {'passed' if ok else 'FAILED'}, no other "
                      f"phase run")
+    long_launches, cli81_launches, model25_launches = {}, {}, {}
+    if args.only_long_clips:
+        t12 = time.perf_counter()
+        ok = long_clip_server_phase(args, _serving_model(args, args.steps), long_launches)
+        ok &= long_clip_cli_phase(args, cli81_launches)
+        ok &= long_clip_model_phase(model25_launches)
+        return _fail(f"--only-long-clips: phase 12 {'passed' if ok else 'FAILED'} in "
+                     f"{time.perf_counter() - t12:.1f} s, no other phase run")
     t2 = time.perf_counter()
     ok = kernel_phase(results, only)
     print(f"phase 2 in {time.perf_counter() - t2:.1f} s", flush=True)
@@ -4431,7 +4828,7 @@ def main(argv=None) -> int:
     ok &= head_dim_model_phase(head_dim_launches)
     print(f"phases 3e and 3f in {time.perf_counter() - t3:.1f} s", flush=True)
     if args.requests > 0:
-        ok &= serving_phase(args)
+        ok &= serving_phase(args, long_launches)
     else:
         ok = False
         print("serving phase skipped (--requests 0): no launch counts", flush=True)
@@ -4456,6 +4853,10 @@ def main(argv=None) -> int:
     ok &= wav2vec_phase(args)
     ok &= sam2_upscaler_phase(args)
     ok &= two_b_phase(args)
+    t12 = time.perf_counter()
+    ok &= long_clip_cli_phase(args, cli81_launches)
+    ok &= long_clip_model_phase(model25_launches)
+    print(f"phases 12b and 12c in {time.perf_counter() - t12:.1f} s", flush=True)
     ok &= distribution_phase(args, phase5)
     if not ok:
         return _fail("a phase failed")
@@ -4476,6 +4877,10 @@ def main(argv=None) -> int:
     # B1 and B7 at head dims 32 and 128: the 2-layer full-width DiTs of phase
     # 3e; B7, B11, B12 + B13 and B10 at 16 and 256: those of phase 3f
     launches.update(head_dim_launches)
+    # B5 at 97 frames: phase 12a's request; at 81: phase 12b's CLI run; B8 at
+    # T = 25: phase 12c's micro-batch
+    launches.update({"B5 S25": long_launches["B5"], "B5 S21": cli81_launches["B5"],
+                     "B8 S25": model25_launches["B8"]})
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}
                for name, (route, source, replaces) in KERNELS.items()]

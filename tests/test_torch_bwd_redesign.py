@@ -8,7 +8,7 @@ bitwise repeat).  Here the plain versions, which a CPU tensor takes, are
 held against the Pallas bodies they replace, run in interpret mode as the
 JAX package's own tests run them, at the shapes the new kernels treat
 apart: B8 at S = 9 and 16 (the kernel pads S to a 16-row tile; the train
-ops file covers 8 and 13), B9 at D = 128 and 640 (one chunk a thread, and
+ops file covers 8 and 13) and at 17, 25, 33 and 64 (the long body's), B9 at D = 128 and 640 (one chunk a thread, and
 a thread's last chunk empty) with ragged row counts, one of them below the
 Pallas row block.  fp32 on both sides: 1e-5 of each output's magnitude,
 1e-4 for the sums over rows.  Then the profiler groups that read the new
@@ -43,11 +43,13 @@ def _normal(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("m,s", [(131, 9), (20, 16)])
+@pytest.mark.parametrize("m,s", [(131, 9), (20, 16), (20, 17), (20, 25), (20, 33), (20, 64)])
 def test_b8_plain_matches_slice_bwd_kernel_interpret(m, s):
     """B8's plain version vs `_slice_bwd_kernel` through
     `_tiny_bwd_pallas(interpret=True)`, 2 heads of 64 (131 rows at S = 9:
-    two row blocks of 128, the second partial)."""
+    two row blocks of 128, the second partial); past 16 rows, the long
+    body's lengths: 25 (97 frames), 17 and 33 (one row into a second and a
+    third tile) and 64."""
     heads, dh = 2, 64
     rng = np.random.default_rng(81)
     q, k, v, g = (_normal(rng, m, s, heads * dh) for _ in range(4))
@@ -106,11 +108,19 @@ def test_b9_plain_matches_ln_bwd_kernel_interpret(m, d):
      "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
      "__nv_bfloat16*, __nv_bfloat16*, long long, int, float)",
      "B8 tiny_seq_attention backward"),
+    ("(anonymous namespace)::tiny_seq_long_bwd_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, long long, int, int, float)",
+     "B8 tiny_seq_attention backward"),
+    ("(anonymous namespace)::tiny_seq_long_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, long long, int, int, float)",
+     "B5 tiny_seq_attention"),
 ])
 def test_train_profile_groups_name_each_backward(kernel, group):
     """`profile_step --train` reads B9's device time from its CUDA kernel's
     own group and B10's backward from the Triton `ln_bwd_kernel`'s; neither
-    name falls into the other's group."""
+    name falls into the other's group.  B5's and B8's long bodies (S > 16)
+    count in B5's and B8's groups."""
     assert profile_step._group(kernel, profile_step.TRAIN_GROUPS) == group
 
 

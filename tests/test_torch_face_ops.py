@@ -98,12 +98,13 @@ def test_b4_plain_matches_pair_kernel_interpret():
 
 
 # ----------------------------------------------------------------- B5, B5'
-@pytest.mark.parametrize("s", range(1, 17))
+@pytest.mark.parametrize("s", [*range(1, 17), 17, 25, 33, 64])
 def test_b5_plain_matches_spec_channel(s):
     """Channel-packed B5 plain version vs `_spec_channel` at every length
-    the kernel is instantiated for: the temporal STAB's 13 latent frames,
-    3 (the reduced step's, which B5' serves on the card) and the rest of
-    1..16."""
+    the one-tile body is instantiated for: the temporal STAB's 13 latent
+    frames, 3 (the reduced step's, which B5' serves on the card) and the
+    rest of 1..16; and on the long body's side of 16: 25 (97 frames), 17
+    and 33 (one row into a second and a third tile), 64."""
     m, heads, dh = 20, 4, 16
     rng = np.random.default_rng(25)
     q, k, v = (_normal(rng, m, s, heads * dh) for _ in range(3))
