@@ -110,10 +110,6 @@ constexpr int BM = 128;  // q rows per CTA: two consumer warp groups of 64
 constexpr int BN = 128;  // kv rows per streamed tile
 constexpr int NTHREADS = 384;
 
-// The head width's body: the narrowest of 64, 128 and 256 columns that holds
-// D.
-inline int body_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
-
 template <int DC>
 struct FwdSmem {
   static constexpr int NP = DC / 64;              // 64-column panels of Q and K
@@ -538,7 +534,7 @@ extern "C" int bya_flash_attention_flat(const void* q, const void* k, const void
                                         float ln_eps, float* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
-  const int dc = body_width(D);
+  const int dc = body_of(D);  // the head's body (D checked)
   if (dc == 64) return run_flat_fwd<64>(RUN_ARGS);
   if (dc == 128) return run_flat_fwd<128>(RUN_ARGS);
   return run_flat_fwd<256>(RUN_ARGS);
@@ -558,7 +554,7 @@ extern "C" int bya_flash_layout_fwd(const void* q, const void* k, const void* v,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
-  const int dc = body_width(D);
+  const int dc = body_of(D);  // the head's body (D checked)
   if (dc == 64) return run_layout_fwd<64>(bshd, RUN_ARGS);
   if (dc == 128) return run_layout_fwd<128>(bshd, RUN_ARGS);
   return run_layout_fwd<256>(bshd, RUN_ARGS);

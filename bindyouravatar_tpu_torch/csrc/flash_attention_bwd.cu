@@ -97,8 +97,6 @@ using namespace bya;
 constexpr int BQ = 64;    // q rows per streamed tile
 constexpr float PAD_LSE2 = 1e30f;  // lse2 of the pad rows >= S: P = 0 there
 
-inline int body_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
-
 template <int DC>
 struct BwdSmem {
   static constexpr int NC = DC == 256 ? 1 : 2;      // consumer warp groups
@@ -608,7 +606,7 @@ int dispatch_bwd(int D, const void* q, const void* k, const void* v, const void*
   if (D == 32) return run_bwd<32, 64, FLAT>(BWD_CALL_ARGS);
   if (D == 64) return run_bwd<64, 64, FLAT>(BWD_CALL_ARGS);
   if (D == 128) return run_bwd<128, 128, FLAT>(BWD_CALL_ARGS);
-  const int dc = body_width(D);
+  const int dc = body_of(D);  // the head's body (D checked)
   if (dc == 64) return run_bwd<0, 64, FLAT>(BWD_CALL_ARGS);
   if (dc == 128) return run_bwd<0, 128, FLAT>(BWD_CALL_ARGS);
   return run_bwd<0, 256, FLAT>(BWD_CALL_ARGS);

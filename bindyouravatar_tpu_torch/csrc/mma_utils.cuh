@@ -133,4 +133,12 @@ __device__ __forceinline__ void pv_accumulate(float (&o)[ND][4], const float (&p
   }
 }
 
+// the body a head of width dh runs on in the attention kernels: 64, 128 or
+// 256 columns (the narrowest that holds it), or 0 for a width none takes
+// (dh % 8 != 0, or outside 8..256)
+inline int body_of(int dh) {
+  if (dh < 8 || dh % 8 != 0 || dh > 256) return 0;
+  return dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+
 }  // namespace bya

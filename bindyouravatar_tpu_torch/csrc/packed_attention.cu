@@ -1,7 +1,9 @@
 // B5 (and B5', and B8 its backward): multi-head self-attention over a tiny sequence, per row of a
 // huge batch, channel-packed:
-//   q, k, v, o: [M, S, H*64]; head h = channels [64h, 64h + 64)
+//   q, k, v, o: [M, S, H*dh]; head h = channels [dh h, dh h + dh)
 //   o[m, a, h] = sum_b softmax_b(q[m, a, h] . k[m, b, h] * scale) v[m, b, h]
+// for every dh % 8 == 0 up to 256 (the router's STAB: 8 heads of 64 at the
+// 5B, 4 of 128 or 16 of 32 at other `attn_heads`).
 //
 // Replaces two TPU kernels of bindyouravatar_tpu/ops/packed_attention.py
 // that compute this one function:
@@ -10,8 +12,8 @@
 //     (S = T = 13 latent frames, M = B*I*H*W = 5,400 rows at the 5B path);
 //   * B5', `_kernel` (the packed-head fold with a block-diagonal head mask,
 //     S < 8), reached through `packed_head_attention` from the same call at
-//     fewer than 8 latent frames.  Its [M, S*H, 64] operand is the same
-//     memory as [M, S, H*64], so one kernel, instantiated per S, serves both.
+//     fewer than 8 latent frames.  Its [M, S*H, dh] operand is the same
+//     memory as [M, S, H*dh], so one kernel, instantiated per S, serves both.
 // Same math and roundings: fp32 scores, fp32 softmax normalised before p is
 // rounded to bf16, fp32 P.V, bf16 store.
 //
@@ -28,7 +30,7 @@
 //   dv_b = sum_a p_ab g_a,  dp_ab = g_a . v_b,
 //   ds_ab = p_ab (dp_ab - sum_b' p_ab' dp_ab') * scale,
 //   dq_a = sum_b ds_ab k_b,  dk_b = sum_a ds_ab q_a,
-// written flat [M, S, H*64] in the input dtype.  Memory bound as the
+// written flat [M, S, H*dh] in the input dtype.  Memory bound as the
 // forward: 4 tensors read, 3 written (~252 MB at [2700, 13, 512], 0.075 ms
 // at 3.35 TB/s) against ~10 S^2 * 64 FLOP per (row, head).
 //
@@ -69,39 +71,77 @@
 // at a time (dS K over the chunks), then dK and dV a kv chunk at a time
 // (dS^T Q and P^T G over the q tiles), each through a 16-row staging tile:
 // no sums across items or warps, so it stays bitwise repeatable.  The
-// item's smem sets the cap: LONG_MAX_S = 192 (the backward's two buffers
-// of four tensors take 225,792 bytes there).
+// item's smem sets the cap: LONG_MAX_S = 192 at dh 64 (the backward's two
+// buffers of four tensors take 225,792 bytes there; other widths below).
+//
+// Head widths.  Every body is templated on its width DP = 64, 128 or 256
+// columns, and a head of dh columns runs on the narrowest that holds it
+// (`kernel_body` in the Python wrapper is the rule), as the flash kernels
+// do.  Narrower heads ride a wider body padded, not instantiated per dh:
+// one instance per (body, S) keeps the build to 3 x 27 kernels where one
+// per dh % 8 would take 32 x 27 (the long bodies are compiled twice a body:
+// with dh = DP known, which kept them at their dh-64 times, and with a
+// run-time dh narrower than DP), and the copies already work in 16-byte
+// chunks, so a row's chunks past dh / 8 are simply not loaded.  Shared
+// memory is zeroed once when a block starts; the loads write only a row's
+// first dh / 8 chunks and every output leaves only those, so the columns
+// past dh stay zero (each product over them adds 0, and every staged
+// output's pad columns are exact zeros: products with the zero columns of
+// V, G, K or Q).  A narrow head pays its body's product width, not its
+// bytes.  The blocks' warps scale as 4 x 64 / DP, so a block's shared
+// memory is about the same at every body.  The one-tile bodies hold a
+// tile's whole output row (DP / 2 fp32 registers a thread: 128 at DP =
+// 256); the long bodies make their outputs 64 columns at a time,
+// recomputing the scores per panel (at DP = 64, one panel: unchanged;
+// panels wholly past dh are skipped), and at DP = 256 B8's long body reads
+// its A operands from shared memory as it goes (`ATile`), so no thread
+// holds q's and g's fragments (128 registers) beside two panels' sums.  The long bodies' cap is the largest S whose backward
+// item (two buffers of four [16 nt, DP + 8] tensors, a staging tile and
+// three floats a row) fits the 232,448 bytes of a block: LONG_MAX_S = 192
+// at DP = 64, 96 at 128, 48 at 256 (`Geo::LONG_MAX_S`), all past the 25
+// latent frames of a 97-frame clip.
 #include "mma_utils.cuh"
 
 namespace {
 
 using bya::bf16;
 
-constexpr int DH = 64;
 constexpr int MAX_S = 16;         // the one-tile bodies
-constexpr int LONG_MAX_S = 192;   // the whole-item bodies (see the notes at the top)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_LIMIT = 232448;  // the shared memory a block may have
 
-// B8 on the tensor cores: a warp takes one (m, head) item at a time, a
-// [S, 64] tile of each of q, k, v and g padded to 16 rows, in shared
-// memory rows of LDS elements.  Per item, with A from ldmatrix (or from
-// the fp32 score fragments), B from ldmatrix (.trans where the operand is
-// row-major along n) and mma.sync m16n8k16 bf16 -> fp32:
-//   S = Q K^T, dP = G V^T          (2 x 8 products)
-//   P = softmax(S * scale) in fp32 in the fragments, key columns >= S and
-//   query rows >= S zeroed; delta = rowsum(P o dP); dS = P o (dP - delta) * scale
-//   dV = P^T G, dQ = dS K, dK = dS^T Q   (3 x 8 products; P and dS rounded
-//   to bf16 as their A operand, P^T and dS^T by movmatrix)
-// 40 products an item, where the warp-shuffle version reduced ~1,690
-// scores and dP entries across the warp.  The outputs leave through the
-// item's own tiles (dV over g, dQ over k, dK over q, each once its
-// operand is read) as 16-byte rows.
-constexpr int BWD_WARPS = 4;
-constexpr int LDS = DH + 8;            // padded smem row: conflict-free ldmatrix
-constexpr int TILE = 16 * LDS;         // one [16, 64] operand tile, bf16 elements
-constexpr int ITEM = 4 * TILE;         // q, k, v, g of one item
-constexpr int BWD_SMEM = BWD_WARPS * 2 * ITEM * (int)sizeof(bf16);  // double-buffered
+// The shapes of the DP-column body
+template <int DP>
+struct Geo {
+  static constexpr int LDS = DP + 8;        // padded smem row: conflict-free ldmatrix
+  static constexpr int TILE = 16 * LDS;     // one [16, DP] operand tile, bf16 elements
+  static constexpr int CPR = DP / 8;        // 16-byte chunks in a row
+  static constexpr int KS = DP / 16;        // k steps of 16 over a row
+  static constexpr int ND = DP / 8;         // 8-column blocks of a row
+  static constexpr int NPN = DP / 64;       // 64-column output panels
+  static constexpr int WARPS = 4 * 64 / DP;  // a one-tile block's warps: 4, 2, 1
+  static constexpr int FWD_SMEM = WARPS * 2 * 3 * TILE * (int)sizeof(bf16);  // q, k, v, x2
+  static constexpr int BWD_SMEM = WARPS * 2 * 4 * TILE * (int)sizeof(bf16);  // + g
+  // the long bodies, nt 16-row tiles an item: the forward's two buffers of
+  // q, k, v; the backward's two of q, k, v, g, a staging tile and each
+  // row's max, 1 / sum and delta
+  static constexpr int long_fwd_smem(int nt) { return 2 * 3 * nt * TILE * (int)sizeof(bf16); }
+  static constexpr int long_bwd_smem(int nt) {
+    return (2 * 4 * nt + 1) * TILE * (int)sizeof(bf16) + 3 * nt * 16 * (int)sizeof(float);
+  }
+  static constexpr int LONG_NT =
+      (SMEM_LIMIT - TILE * (int)sizeof(bf16)) / (8 * TILE * (int)sizeof(bf16) + 48 * 4);
+  static constexpr int LONG_MAX_S = 16 * LONG_NT;
+};
+static_assert(Geo<64>::LONG_MAX_S == 192 && Geo<128>::LONG_MAX_S == 96 &&
+                  Geo<256>::LONG_MAX_S == 48,
+              "the long bodies' caps (kernel_body's MAX_S in ops/packed_attention.py)");
+static_assert(Geo<64>::long_bwd_smem(Geo<64>::LONG_NT) <= SMEM_LIMIT &&
+                  Geo<128>::long_bwd_smem(Geo<128>::LONG_NT) <= SMEM_LIMIT &&
+                  Geo<256>::long_bwd_smem(Geo<256>::LONG_NT) <= SMEM_LIMIT,
+              "B8's long body past the smem of a block");
+static_assert(Geo<256>::BWD_SMEM <= SMEM_LIMIT, "B8's one-tile body past the smem of a block");
 
 // movmatrix: the transpose of the 8x8 bf16 matrix whose fragment (lane
 // holds row lane / 4, columns 2 (lane % 4) + 0, 1) is x, in the same layout
@@ -111,11 +151,12 @@ __device__ __forceinline__ uint32_t transpose8(uint32_t x) {
   return y;
 }
 
-// acc[nd] += A (16 x 16) * T (16 x 64) for T row-major in a [16, LDS] tile
-__device__ __forceinline__ void mma_a_tile_add(float (&acc)[8][4], const uint32_t (&a)[4],
+// acc[nd] += A (16 x 16) * T (16 x 8 ND) for T row-major in a [16, LDS] tile
+template <int ND, int LDS>
+__device__ __forceinline__ void mma_a_tile_add(float (&acc)[ND][4], const uint32_t (&a)[4],
                                                const bf16* tile, int lane) {
 #pragma unroll
-  for (int nd = 0; nd < 8; nd += 2) {
+  for (int nd = 0; nd < ND; nd += 2) {
     uint32_t b0, b1, b2, b3;
     bya::ldmatrix_x4_trans(b0, b1, b2, b3, tile + (lane & 15) * LDS + (nd + (lane >> 4)) * 8);
     bya::mma_bf16(acc[nd], a, b0, b1);
@@ -123,20 +164,27 @@ __device__ __forceinline__ void mma_a_tile_add(float (&acc)[8][4], const uint32_
   }
 }
 
-// acc[nd] = A (16 x 16) * T (16 x 64)
-__device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&a)[4],
-                                           const bf16* tile, int lane) {
+template <int ND>
+__device__ __forceinline__ void zero_acc(float (&acc)[ND][4]) {
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  mma_a_tile_add(acc, a, tile, lane);
+  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
 }
 
-// the rows < `rows` of a [16, 64] fp32 result into a tile, as bf16
-__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[8][4], int lane,
+// acc[nd] = A (16 x 16) * T (16 x 8 ND)
+template <int ND, int LDS>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[ND][4], const uint32_t (&a)[4],
+                                           const bf16* tile, int lane) {
+  zero_acc(acc);
+  mma_a_tile_add<ND, LDS>(acc, a, tile, lane);
+}
+
+// the rows < `rows` of a [16, 8 ND] fp32 result into a [16, LDS] tile, as bf16
+template <int ND, int LDS>
+__device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[ND][4], int lane,
                                            int rows) {
   const int r = lane >> 2, c = 2 * (lane & 3);
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd) {
+  for (int nd = 0; nd < ND; ++nd) {
     if (r < rows)
       *reinterpret_cast<uint32_t*>(tile + r * LDS + nd * 8 + c) =
           bya::pack_bf16(acc[nd][0], acc[nd][1]);
@@ -146,43 +194,36 @@ __device__ __forceinline__ void stage_rows(bf16* tile, const float (&acc)[8][4],
   }
 }
 
-template <int S>
-__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[8][4], int lane) {
-  stage_rows(tile, acc, lane, S);
+// `n` bf16 elements of shared memory from `sm` to zero (n % 8 == 0), by a warp
+__device__ __forceinline__ void zero_smem(bf16* sm, int n, int lane) {
+  for (int i = lane * 8; i < n; i += 32 * 8)
+    *reinterpret_cast<uint4*>(sm + i) = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // B5 / B5': a warp takes one tile at a time, PACK = 16 / S consecutive
-// (m, head) items of S rows each ([PACK * S, 64] of q, k and v, padded to
-// 16 rows); see the design at the top.
-constexpr int FWD_WARPS = 4;
-constexpr int FWD_TILES = 3 * TILE;                                     // q, k, v
-constexpr int FWD_SMEM = FWD_WARPS * 2 * FWD_TILES * (int)sizeof(bf16);  // double-buffered
-
-template <int S>
-__global__ void __launch_bounds__(FWD_WARPS * 32)
+// (m, head) items of S rows each ([PACK * S, dh] of q, k and v, padded to
+// 16 rows and DP columns); see the design at the top.
+template <int DP, int S>
+__global__ void __launch_bounds__(Geo<DP>::WARPS * 32)
 tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, long long n_items, int H,
-                float scale) {
+                int dh, float scale) {
+  using G = Geo<DP>;
+  constexpr int LDS = G::LDS, TILE = G::TILE, CPR = G::CPR, TILES = 3 * TILE;
   constexpr int PACK = 16 / S;
   constexpr int ROWS = PACK * S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * FWD_TILES;  // this warp's two tiles
-  const long long ld = (long long)H * DH;
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * TILES;  // this warp's two tiles
+  const long long ld = (long long)H * dh;
+  const int ch = dh / 8;  // a row's chunks that hold the head
   const long long n_tiles = (n_items + PACK - 1) / PACK;
-  const long long step = (long long)gridDim.x * FWD_WARPS;
+  const long long step = (long long)gridDim.x * G::WARPS;
   const float scale_log2 = scale * LOG2E;
 
-  // rows ROWS..15 of every tile stay zero: loads and the staged output
-  // touch rows < ROWS only
-  if constexpr (ROWS < 16) {
-    for (int i = lane; i < 2 * 3 * 16 * 8; i += 32) {
-      const int r = (i >> 3) & 15;
-      if (r >= ROWS)
-        *reinterpret_cast<uint4*>(sm + (i >> 7) * TILE + r * LDS + (i & 7) * 8) =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+  // rows ROWS..15 and columns dh..DP-1 of every tile stay zero: loads and
+  // the staged output write rows < ROWS, loads columns < dh only
+  zero_smem(sm, 2 * TILES, lane);
   // a tile's first item and its (m, head): one division a tile
   struct First {
     long long item, m;
@@ -192,16 +233,15 @@ tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long long item = tile * PACK, m = item / H;
     return First{item, m, (int)(item - m * H)};
   };
-  // the offset in [M, S, H*64] of the tile's 16-byte chunk i (row i / 8 of
-  // the tile: row (i / 8) % S of its item (i / 8) / S), or -1 for an item
-  // past the end
-  auto chunk_offset = [&](const First& f, int i) -> long long {
-    const int r = i >> 3, j = r / S;
+  // the offset in [M, S, H*dh] of chunk c of the tile's row r (row r % S of
+  // its item r / S), or -1 for an item past the end
+  auto chunk_offset = [&](const First& f, int r, int c) -> long long {
+    const int j = r / S;
     if (f.item + j >= n_items) return -1;
     long long m = f.m;
     int h = f.h + j;
     for (; h >= H; h -= H) ++m;
-    return m * S * ld + (long long)h * DH + (long long)(r - j * S) * ld + (i & 7) * 8;
+    return m * S * ld + (long long)h * dh + (long long)(r - j * S) * ld + c * 8;
   };
   const bf16* const srcs[3] = {q, k, v};
   // tile `tile`'s rows of q, k and v into buffer `buf`, the rows of items
@@ -209,35 +249,39 @@ tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load = [&](int buf, long long tile) {
     if (tile < n_tiles) {
       const First f = first_of(tile);
-      for (int i = lane; i < ROWS * 8; i += 32) {
-        const long long off = chunk_offset(f, i);
-        const int dst = (i >> 3) * LDS + (i & 7) * 8;
+      for (int i = lane; i < ROWS * CPR; i += 32) {
+        const int r = i / CPR, c = i % CPR;
+        if (c >= ch) continue;
+        const long long off = chunk_offset(f, r, c);
+        const int dst = r * LDS + c * 8;
 #pragma unroll
         for (int t = 0; t < 3; ++t)
-          bya::cp_async16(sm + buf * FWD_TILES + t * TILE + dst, srcs[t] + (off < 0 ? 0 : off),
+          bya::cp_async16(sm + buf * TILES + t * TILE + dst, srcs[t] + (off < 0 ? 0 : off),
                           off < 0 ? 0 : 16);
       }
     }
     bya::cp_async_commit();
   };
 
-  long long tile = (long long)blockIdx.x * FWD_WARPS + warp;
+  long long tile = (long long)blockIdx.x * G::WARPS + warp;
   int buf = 0;
   load(0, tile);
   for (; tile < n_tiles; tile += step, buf ^= 1) {
     load(buf ^ 1, tile + step);
     bya::cp_async_wait<1>();
     __syncwarp();
-    bf16* qs = sm + buf * FWD_TILES;
+    bf16* qs = sm + buf * TILES;
     const bf16* ks = qs + TILE;
     const bf16* vs = ks + TILE;
 
     // S = Q K^T; fragment element (nt, e) is row r0 + 8 (e >> 1), column
     // nt * 8 + c0 + (e & 1)
-    uint32_t af[4][4];
     float s[2][4] = {};
-    bya::load_a_frags<4, LDS>(af, qs, lane);
-    bya::qk_scores<2, 4, LDS>(s, af, ks, lane);
+    {
+      uint32_t af[G::KS][4];
+      bya::load_a_frags<G::KS, LDS>(af, qs, lane);
+      bya::qk_scores<2, G::KS, LDS>(s, af, ks, lane);
+    }
 
     // a key column counts for a row of the same item (block-diagonal when
     // PACK > 1); the rows past ROWS get p = 0
@@ -280,47 +324,59 @@ tiny_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
     const uint32_t p_a[4] = {bya::pack_bf16(s[0][0], s[0][1]), bya::pack_bf16(s[0][2], s[0][3]),
                              bya::pack_bf16(s[1][0], s[1][1]), bya::pack_bf16(s[1][2], s[1][3])};
-    float acc[8][4];
-    mma_a_tile(acc, p_a, vs, lane);
+    float acc[G::ND][4];
+    mma_a_tile<G::ND, LDS>(acc, p_a, vs, lane);
     __syncwarp();  // every lane's q fragments are read: O goes over q
-    stage<ROWS>(qs, acc, lane);
+    stage_rows<G::ND, LDS>(qs, acc, lane, ROWS);
     __syncwarp();
     const First f = first_of(tile);
-    for (int i = lane; i < ROWS * 8; i += 32) {
-      const long long off = chunk_offset(f, i);
+    for (int i = lane; i < ROWS * CPR; i += 32) {
+      const int r = i / CPR, c = i % CPR;
+      if (c >= ch) continue;
+      const long long off = chunk_offset(f, r, c);
       if (off >= 0)
-        *reinterpret_cast<uint4*>(o + off) =
-            *reinterpret_cast<const uint4*>(qs + (i >> 3) * LDS + (i & 7) * 8);
+        *reinterpret_cast<uint4*>(o + off) = *reinterpret_cast<const uint4*>(qs + r * LDS + c * 8);
     }
     __syncwarp();
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(BWD_WARPS * 32)
+// B8 on the tensor cores: a warp takes one (m, head) item at a time, a
+// [S, dh] tile of each of q, k, v and g padded to 16 rows and DP columns,
+// in shared memory rows of LDS elements.  Per item, with A from ldmatrix
+// (or from the fp32 score fragments), B from ldmatrix (.trans where the
+// operand is row-major along n) and mma.sync m16n8k16 bf16 -> fp32:
+//   S = Q K^T, dP = G V^T          (2 x DP / 8 products)
+//   P = softmax(S * scale) in fp32 in the fragments, key columns >= S and
+//   query rows >= S zeroed; delta = rowsum(P o dP); dS = P o (dP - delta) * scale
+//   dV = P^T G, dQ = dS K, dK = dS^T Q   (3 x DP / 8 products; P and dS
+//   rounded to bf16 as their A operand, P^T and dS^T by movmatrix)
+// 40 products an item at DP = 64, where the warp-shuffle version reduced
+// ~1,690 scores and dP entries across the warp.  The outputs leave through
+// the item's own tiles (dV over g, dQ over k, dK over q, each once its
+// operand is read) as 16-byte chunks.
+template <int DP, int S>
+__global__ void __launch_bounds__(Geo<DP>::WARPS * 32)
 tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
                     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    long long n_items, int H, float scale) {
+                    long long n_items, int H, int dh, float scale) {
+  using G = Geo<DP>;
+  constexpr int LDS = G::LDS, TILE = G::TILE, CPR = G::CPR, ITEM = 4 * TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bf16* sm = reinterpret_cast<bf16*>(smem_raw) + warp * 2 * ITEM;  // this warp's two items
-  const long long ld = (long long)H * DH;
-  const long long step = (long long)gridDim.x * BWD_WARPS;
+  const long long ld = (long long)H * dh;
+  const int ch = dh / 8;
+  const long long step = (long long)gridDim.x * G::WARPS;
   const float scale_log2 = scale * LOG2E;
 
-  // rows S..15 of every tile stay zero: loads and staged outputs touch rows < S only
-  if constexpr (S < 16) {
-    for (int i = lane; i < 2 * 4 * 16 * 8; i += 32) {
-      const int r = (i >> 3) & 15;
-      if (r >= S)
-        *reinterpret_cast<uint4*>(sm + (i >> 7) * TILE + r * LDS + (i & 7) * 8) =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+  // rows S..15 and columns dh..DP-1 of every tile stay zero: loads and
+  // staged outputs write rows < S, loads columns < dh only
+  zero_smem(sm, 2 * ITEM, lane);
   const bf16* const srcs[4] = {q, k, v, g};
   auto base_of = [&](long long it) {
-    return (it / H) * S * ld + (long long)(it % H) * DH;
+    return (it / H) * S * ld + (long long)(it % H) * dh;
   };
   // item `it`'s rows of q, k, v and g into buffer `buf` (an empty group past the end)
   auto load = [&](int buf, long long it) {
@@ -328,14 +384,17 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const long long base = base_of(it);
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        for (int i = lane; i < S * 8; i += 32)
-          bya::cp_async16(sm + buf * ITEM + t * TILE + (i >> 3) * LDS + (i & 7) * 8,
-                          srcs[t] + base + (i >> 3) * ld + (i & 7) * 8, 16);
+        for (int i = lane; i < S * CPR; i += 32) {
+          const int r = i / CPR, c = i % CPR;
+          if (c < ch)
+            bya::cp_async16(sm + buf * ITEM + t * TILE + r * LDS + c * 8,
+                            srcs[t] + base + r * ld + c * 8, 16);
+        }
     }
     bya::cp_async_commit();
   };
 
-  long long item = (long long)blockIdx.x * BWD_WARPS + warp;
+  long long item = (long long)blockIdx.x * G::WARPS + warp;
   int buf = 0;
   load(0, item);
   for (; item < n_items; item += step, buf ^= 1) {
@@ -349,12 +408,14 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // S = Q K^T and dP = G V^T; fragment element (nt, e) is row
     // r0 + 8 (e >> 1), column nt * 8 + c0 + (e & 1)
-    uint32_t af[4][4];
     float s[2][4] = {}, dp[2][4] = {};
-    bya::load_a_frags<4, LDS>(af, qs, lane);
-    bya::qk_scores<2, 4, LDS>(s, af, ks, lane);
-    bya::load_a_frags<4, LDS>(af, gs, lane);
-    bya::qk_scores<2, 4, LDS>(dp, af, vs, lane);
+    {
+      uint32_t af[G::KS][4];
+      bya::load_a_frags<G::KS, LDS>(af, qs, lane);
+      bya::qk_scores<2, G::KS, LDS>(s, af, ks, lane);
+      bya::load_a_frags<G::KS, LDS>(af, gs, lane);
+      bya::qk_scores<2, G::KS, LDS>(dp, af, vs, lane);
+    }
 
     const int r0 = lane >> 2, c0 = 2 * (lane & 3);
     float mx[2] = {-1e30f, -1e30f};
@@ -413,16 +474,16 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
     const uint32_t dst_a[4] = {transpose8(ds_a[0]), transpose8(ds_a[2]), transpose8(ds_a[1]),
                                transpose8(ds_a[3])};
-    float acc[8][4];
-    mma_a_tile(acc, pt_a, gs, lane);  // dV = P^T G, staged over g
+    float acc[G::ND][4];
+    mma_a_tile<G::ND, LDS>(acc, pt_a, gs, lane);  // dV = P^T G, staged over g
     __syncwarp();
-    stage<S>(gs, acc, lane);
-    mma_a_tile(acc, ds_a, ks, lane);  // dQ = dS K, over k
+    stage_rows<G::ND, LDS>(gs, acc, lane, S);
+    mma_a_tile<G::ND, LDS>(acc, ds_a, ks, lane);  // dQ = dS K, over k
     __syncwarp();
-    stage<S>(ks, acc, lane);
-    mma_a_tile(acc, dst_a, qs, lane);  // dK = dS^T Q, over q
+    stage_rows<G::ND, LDS>(ks, acc, lane, S);
+    mma_a_tile<G::ND, LDS>(acc, dst_a, qs, lane);  // dK = dS^T Q, over q
     __syncwarp();
-    stage<S>(qs, acc, lane);
+    stage_rows<G::ND, LDS>(qs, acc, lane, S);
     __syncwarp();
 
     const long long base = base_of(item);
@@ -430,9 +491,12 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* const tiles[3] = {qs, ks, gs};
 #pragma unroll
     for (int t = 0; t < 3; ++t)
-      for (int i = lane; i < S * 8; i += 32)
-        *reinterpret_cast<uint4*>(outs[t] + base + (i >> 3) * ld + (i & 7) * 8) =
-            *reinterpret_cast<const uint4*>(tiles[t] + (i >> 3) * LDS + (i & 7) * 8);
+      for (int i = lane; i < S * CPR; i += 32) {
+        const int r = i / CPR, c = i % CPR;
+        if (c < ch)
+          *reinterpret_cast<uint4*>(outs[t] + base + r * ld + c * 8) =
+              *reinterpret_cast<const uint4*>(tiles[t] + r * LDS + c * 8);
+      }
     __syncwarp();
   }
 }
@@ -440,77 +504,125 @@ tiny_seq_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---- the long bodies, 16 < S <= LONG_MAX_S: one warp a whole item ----
 // An item's tensor takes nt = ceil(S / 16) tiles of 16 rows in shared memory.
 
-constexpr int long_fwd_smem(int nt) { return 2 * 3 * nt * TILE * (int)sizeof(bf16); }
-// two buffers of q, k, v, g; one staging tile; each row's max, 1 / sum, delta
-constexpr int long_bwd_smem(int nt) {
-  return (2 * 4 * nt + 1) * TILE * (int)sizeof(bf16) + 3 * nt * 16 * (int)sizeof(float);
-}
-static_assert(long_bwd_smem(LONG_MAX_S / 16) <= 232448, "B8's long body past the smem of a block");
-static_assert(LONG_MAX_S % 16 == 0, "LONG_MAX_S is a whole number of tiles");
-
-// rows S .. 16 nt - 1 of `count` item tensors (`span` elements apart) to zero:
-// loads and staged outputs touch rows < S only, so they stay zero
-__device__ __forceinline__ void zero_pad_rows(bf16* sm, int count, int span, int S, int nt,
-                                              int lane) {
-  const int pad = 16 * nt - S;
-  for (int i = lane; i < count * pad * 8; i += 32) {
-    const int t = i / (pad * 8), r = S + (i >> 3) % pad;
-    *reinterpret_cast<uint4*>(sm + t * span + r * LDS + (i & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // the 16 x 16 score block of q tile A fragments `a` against the 16 rows of
 // `rows` (k for S, v for dP); fragment element (nt, e) is row r0 + 8 (e >> 1),
 // column nt * 8 + c0 + (e & 1) of the block
-__device__ __forceinline__ void scores16(float (&s)[2][4], const uint32_t (&a)[4][4],
+template <int DP>
+__device__ __forceinline__ void scores16(float (&s)[2][4], const uint32_t (&a)[DP / 16][4],
                                          const bf16* rows, int lane) {
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  bya::qk_scores<2, 4, LDS>(s, a, rows, lane);
+  bya::qk_scores<2, DP / 16, DP + 8>(s, a, rows, lane);
 }
 
-// rows [tile * 16, tile * 16 + 16) < S of a [16, 64] fp32 result out to
-// [M, S, H*64] at `base` (row stride `ld`) through the staging tile `stg`
+// the same with the A operand read from its [16, LDS] tile as it goes (two
+// k steps of fragments live at a time); the same sums in the same order
+template <int DP>
+__device__ __forceinline__ void scores16_smem(float (&s)[2][4], const bf16* a_tile,
+                                              const bf16* rows, int lane) {
+  constexpr int LDS = DP + 8;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; kk += 2) {
+    uint32_t a[2][4];
+    bya::load_a_frags<2, LDS>(a, a_tile + kk * 16, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      uint32_t b0, b1, b2, b3;
+      bya::ldmatrix_x4(b0, b1, b2, b3,
+                       rows + (nt * 8 + (lane & 7)) * LDS + kk * 16 + (lane >> 3) * 8);
+      bya::mma_bf16(s[nt], a[0], b0, b1);
+      bya::mma_bf16(s[nt], a[1], b2, b3);
+    }
+  }
+}
+
+// The A operand of one 16-row tile of q or g for the long backward's score
+// blocks: its fragments held in registers (DP / 4 a thread: 16 at DP = 64,
+// 32 at 128), or at DP = 256, where q's and g's would take 128 registers
+// beside two panels' sums, read from the tile as each block is made.
+template <int DP, bool HOLD = (DP <= 128)>
+struct ATile {
+  uint32_t f[DP / 16][4];
+  __device__ __forceinline__ ATile(const bf16* tile, int lane) {
+    bya::load_a_frags<DP / 16, DP + 8>(f, tile, lane);
+  }
+  __device__ __forceinline__ void scores(float (&s)[2][4], const bf16* rows, int lane) const {
+    scores16<DP>(s, f, rows, lane);
+  }
+};
+template <int DP>
+struct ATile<DP, false> {
+  const bf16* tile;
+  __device__ __forceinline__ ATile(const bf16* t, int) : tile(t) {}
+  __device__ __forceinline__ void scores(float (&s)[2][4], const bf16* rows, int lane) const {
+    scores16_smem<DP>(s, tile, rows, lane);
+  }
+};
+
+// rows [tile * 16, tile * 16 + 16) < S, output panel `pn` (columns 64 pn ..
+// 64 pn + 63, those < dh) of a [16, 64] fp32 result out to [M, S, H*dh] at
+// `base` (row stride `ld`) through the staging tile `stg` (its panel's columns)
+template <int DP>
 __device__ __forceinline__ void write_tile(bf16* __restrict__ out, long long base, long long ld,
-                                           bf16* stg, const float (&acc)[8][4], int tile, int S,
-                                           int lane) {
+                                           bf16* stg, const float (&acc)[8][4], int tile, int pn,
+                                           int S, int ch, int lane) {
+  constexpr int LDS = DP + 8;
   const int rows = min(16, S - tile * 16);
   __syncwarp();
-  stage_rows(stg, acc, lane, rows);
+  stage_rows<8, LDS>(stg, acc, lane, rows);
   __syncwarp();
-  for (int i = lane; i < rows * 8; i += 32)
-    *reinterpret_cast<uint4*>(out + base + (long long)(tile * 16 + (i >> 3)) * ld + (i & 7) * 8) =
-        *reinterpret_cast<const uint4*>(stg + (i >> 3) * LDS + (i & 7) * 8);
+  for (int i = lane; i < rows * 8; i += 32) {
+    const int r = i >> 3, c = pn * 8 + (i & 7);
+    if (c < ch)
+      *reinterpret_cast<uint4*>(out + base + (long long)(tile * 16 + r) * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(stg + r * LDS + (i & 7) * 8);
+  }
   __syncwarp();
 }
 
-// `count` tensors of item `it` ([M, S, H*64], the item's rows at `base`)
+// `count` tensors of item `it` ([M, S, H*dh], the item's rows at `base`)
 // into consecutive spans of `dst` as one cp.async group
+template <int DP>
 __device__ __forceinline__ void load_item(bf16* dst, int span, const bf16* const* srcs,
-                                          int count, long long base, long long ld, int S,
+                                          int count, long long base, long long ld, int S, int ch,
                                           int lane) {
+  constexpr int LDS = DP + 8, CPR = DP / 8;
   for (int t = 0; t < count; ++t)
-    for (int i = lane; i < S * 8; i += 32)
-      bya::cp_async16(dst + t * span + (i >> 3) * LDS + (i & 7) * 8,
-                      srcs[t] + base + (long long)(i >> 3) * ld + (i & 7) * 8, 16);
+    for (int i = lane; i < S * CPR; i += 32) {
+      const int r = i / CPR, c = i % CPR;
+      if (c < ch)
+        bya::cp_async16(dst + t * span + r * LDS + c * 8,
+                        srcs[t] + base + (long long)r * ld + c * 8, 16);
+    }
 }
 
+// DH_IS_DP: the head fills the body (dh == DP), known when compiled, so the
+// chunk and panel tests fold away (the one-tile bodies did not measure the
+// difference; the long ones ran 11-12% slower at dh 64 on a run-time dh)
+template <int DP, bool DH_IS_DP>
 __global__ void __launch_bounds__(32)
 tiny_seq_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, long long n_items, int H,
-                     int S, float scale) {
+                     int S, int dh, float scale) {
+  using G = Geo<DP>;
+  if constexpr (DH_IS_DP) dh = DP;
+  constexpr int TILE = G::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
   const int lane = threadIdx.x;
   const int nt = (S + 15) >> 4, span = nt * TILE;
-  const long long ld = (long long)H * DH;
+  const long long ld = (long long)H * dh;
+  const int ch = dh / 8;
   const float scale_log2 = scale * LOG2E;
   const int c0 = 2 * (lane & 3);
-  zero_pad_rows(sm, 2 * 3, span, S, nt, lane);
+  zero_smem(sm, 2 * 3 * span, lane);  // rows past S, columns past dh
   const bf16* const srcs[3] = {q, k, v};
-  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * DH; };
+  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * dh; };
   auto load = [&](int buf, long long it) {
-    if (it < n_items) load_item(sm + buf * 3 * span, span, srcs, 3, base_of(it), ld, S, lane);
+    if (it < n_items)
+      load_item<DP>(sm + buf * 3 * span, span, srcs, 3, base_of(it), ld, S, ch, lane);
     bya::cp_async_commit();
   };
 
@@ -526,14 +638,14 @@ tiny_seq_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* vs = ks + span;
     const long long base = base_of(item);
     for (int qt = 0; qt < nt; ++qt) {
-      uint32_t af[4][4];
-      bya::load_a_frags<4, LDS>(af, qs + qt * TILE, lane);
+      uint32_t af[G::KS][4];
+      bya::load_a_frags<G::KS, G::LDS>(af, qs + qt * TILE, lane);
       // the row max and sum over every key column < S, the sum rescaled as
       // the max grows chunk by chunk
       float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f};
       for (int kc = 0; kc < nt; ++kc) {
         float s[2][4];
-        scores16(s, af, ks + kc * TILE, lane);
+        scores16<DP>(s, af, ks + kc * TILE, lane);
         float cm[2] = {mx[0], mx[1]}, cs[2] = {0.f, 0.f};
 #pragma unroll
         for (int n = 0; n < 2; ++n)
@@ -564,52 +676,60 @@ tiny_seq_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
         inv[i] = 1.f / sum[i];
       }
-      // O = P V over the chunks, P normalised in fp32, then rounded to bf16
-      float acc[8][4];
+      // O = P V over the chunks, a 64-column panel at a time (the scores
+      // recomputed per panel), P normalised in fp32, then rounded to bf16
+      for (int pn = 0; pn < G::NPN && pn * 64 < dh; ++pn) {
+        float acc[8][4];
+        zero_acc(acc);
+        for (int kc = 0; kc < nt; ++kc) {
+          float s[2][4];
+          scores16<DP>(s, af, ks + kc * TILE, lane);
 #pragma unroll
-      for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-      for (int kc = 0; kc < nt; ++kc) {
-        float s[2][4];
-        scores16(s, af, ks + kc * TILE, lane);
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[n][e] = kc * 16 + n * 8 + c0 + (e & 1) < S
-                          ? exp2f((s[n][e] - mx[e >> 1]) * scale_log2) * inv[e >> 1]
-                          : 0.f;
-        const uint32_t p_a[4] = {
-            bya::pack_bf16(s[0][0], s[0][1]), bya::pack_bf16(s[0][2], s[0][3]),
-            bya::pack_bf16(s[1][0], s[1][1]), bya::pack_bf16(s[1][2], s[1][3])};
-        mma_a_tile_add(acc, p_a, vs + kc * TILE, lane);
+            for (int e = 0; e < 4; ++e)
+              s[n][e] = kc * 16 + n * 8 + c0 + (e & 1) < S
+                            ? exp2f((s[n][e] - mx[e >> 1]) * scale_log2) * inv[e >> 1]
+                            : 0.f;
+          const uint32_t p_a[4] = {
+              bya::pack_bf16(s[0][0], s[0][1]), bya::pack_bf16(s[0][2], s[0][3]),
+              bya::pack_bf16(s[1][0], s[1][1]), bya::pack_bf16(s[1][2], s[1][3])};
+          mma_a_tile_add<8, G::LDS>(acc, p_a, vs + kc * TILE + pn * 64, lane);
+        }
+        // O leaves over its own q tile's panel: this tile's q is in the fragments
+        write_tile<DP>(o, base, ld, qs + qt * TILE + pn * 64, acc, qt, pn, S, ch, lane);
       }
-      // O leaves over its own q tile: this tile's q is in the fragments
-      write_tile(o, base, ld, qs + qt * TILE, acc, qt, S, lane);
     }
   }
 }
 
+template <int DP, bool DH_IS_DP>
 __global__ void __launch_bounds__(32)
 tiny_seq_long_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ g,
                          bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         long long n_items, int H, int S, float scale) {
+                         long long n_items, int H, int S, int dh, float scale) {
+  using G = Geo<DP>;
+  if constexpr (DH_IS_DP) dh = DP;
+  constexpr int TILE = G::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
   const int lane = threadIdx.x;
   const int nt = (S + 15) >> 4, span = nt * TILE;
-  const long long ld = (long long)H * DH;
+  const long long ld = (long long)H * dh;
+  const int ch = dh / 8;
   const float scale_log2 = scale * LOG2E;
   const int r0 = lane >> 2, c0 = 2 * (lane & 3);
   bf16* const stg = sm + 2 * 4 * span;
   float* const row_max = reinterpret_cast<float*>(stg + TILE);
   float* const row_inv = row_max + nt * 16;
   float* const row_delta = row_inv + nt * 16;
-  zero_pad_rows(sm, 2 * 4, span, S, nt, lane);
+  zero_smem(sm, 2 * 4 * span, lane);  // rows past S, columns past dh
   const bf16* const srcs[4] = {q, k, v, g};
-  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * DH; };
+  auto base_of = [&](long long it) { return (it / H) * S * ld + (long long)(it % H) * dh; };
   auto load = [&](int buf, long long it) {
-    if (it < n_items) load_item(sm + buf * 4 * span, span, srcs, 4, base_of(it), ld, S, lane);
+    if (it < n_items)
+      load_item<DP>(sm + buf * 4 * span, span, srcs, 4, base_of(it), ld, S, ch, lane);
     bya::cp_async_commit();
   };
   auto col_ok = [&](int kc, int n, int e) { return kc * 16 + n * 8 + c0 + (e & 1) < S; };
@@ -630,14 +750,12 @@ tiny_seq_long_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // each row's max, 1 / sum and delta = sum_b p_ab dp_ab, one pass over
     // the chunks (the sum and delta rescaled as the max grows)
     for (int qt = 0; qt < nt; ++qt) {
-      uint32_t aq[4][4], ag[4][4];
-      bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
-      bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
+      const ATile<DP> aq(qs + qt * TILE, lane), ag(gs + qt * TILE, lane);
       float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
       for (int kc = 0; kc < nt; ++kc) {
         float s[2][4], dp[2][4];
-        scores16(s, aq, ks + kc * TILE, lane);
-        scores16(dp, ag, vs + kc * TILE, lane);
+        aq.scores(s, ks + kc * TILE, lane);
+        ag.scores(dp, vs + kc * TILE, lane);
         float cm[2] = {mx[0], mx[1]}, cs[2] = {0.f, 0.f}, cd[2] = {0.f, 0.f};
 #pragma unroll
         for (int n = 0; n < 2; ++n)
@@ -682,13 +800,13 @@ tiny_seq_long_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    // P and dS of q tile qt against kv chunk kc from the fragments and the
-    // row statistics: P normalised in fp32 (rows >= S and columns >= S
+    // P and dS of q tile qt (its A operands aq, ag) against kv chunk kc from
+    // the row statistics: P normalised in fp32 (rows >= S and columns >= S
     // zero), dS = P o (dP - delta) * scale
-    auto p_ds = [&](float (&s)[2][4], float (&dp)[2][4], const uint32_t (&aq)[4][4],
-                    const uint32_t (&ag)[4][4], int qt, int kc) {
-      scores16(s, aq, ks + kc * TILE, lane);
-      scores16(dp, ag, vs + kc * TILE, lane);
+    auto p_ds = [&](float (&s)[2][4], float (&dp)[2][4], const ATile<DP>& aq,
+                    const ATile<DP>& ag, int qt, int kc) {
+      aq.scores(s, ks + kc * TILE, lane);
+      ag.scores(dp, vs + kc * TILE, lane);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = qt * 16 + r0 + 8 * i;
@@ -705,53 +823,49 @@ tiny_seq_long_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     };
 
-    // dQ = dS K, a q tile at a time over the chunks
+    // dQ = dS K, a q tile and a 64-column panel at a time over the chunks
     for (int qt = 0; qt < nt; ++qt) {
-      uint32_t aq[4][4], ag[4][4];
-      bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
-      bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
-      float acc[8][4];
-#pragma unroll
-      for (int nd = 0; nd < 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-      for (int kc = 0; kc < nt; ++kc) {
-        float s[2][4], dp[2][4];
-        p_ds(s, dp, aq, ag, qt, kc);
-        const uint32_t ds_a[4] = {
-            bya::pack_bf16(dp[0][0], dp[0][1]), bya::pack_bf16(dp[0][2], dp[0][3]),
-            bya::pack_bf16(dp[1][0], dp[1][1]), bya::pack_bf16(dp[1][2], dp[1][3])};
-        mma_a_tile_add(acc, ds_a, ks + kc * TILE, lane);
+      const ATile<DP> aq(qs + qt * TILE, lane), ag(gs + qt * TILE, lane);
+      for (int pn = 0; pn < G::NPN && pn * 64 < dh; ++pn) {
+        float acc[8][4];
+        zero_acc(acc);
+        for (int kc = 0; kc < nt; ++kc) {
+          float s[2][4], dp[2][4];
+          p_ds(s, dp, aq, ag, qt, kc);
+          const uint32_t ds_a[4] = {
+              bya::pack_bf16(dp[0][0], dp[0][1]), bya::pack_bf16(dp[0][2], dp[0][3]),
+              bya::pack_bf16(dp[1][0], dp[1][1]), bya::pack_bf16(dp[1][2], dp[1][3])};
+          mma_a_tile_add<8, G::LDS>(acc, ds_a, ks + kc * TILE + pn * 64, lane);
+        }
+        write_tile<DP>(dq, base, ld, stg + pn * 64, acc, qt, pn, S, ch, lane);
       }
-      write_tile(dq, base, ld, stg, acc, qt, S, lane);
     }
 
-    // dV = P^T G and dK = dS^T Q, a kv chunk at a time over the q tiles
-    // (P^T and dS^T transposed 8x8 block by block, as the one-tile body)
-    for (int kc = 0; kc < nt; ++kc) {
-      float acc_k[8][4], acc_v[8][4];
-#pragma unroll
-      for (int nd = 0; nd < 8; ++nd)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
-      for (int qt = 0; qt < nt; ++qt) {
-        uint32_t aq[4][4], ag[4][4];
-        bya::load_a_frags<4, LDS>(aq, qs + qt * TILE, lane);
-        bya::load_a_frags<4, LDS>(ag, gs + qt * TILE, lane);
-        float s[2][4], dp[2][4];
-        p_ds(s, dp, aq, ag, qt, kc);
-        const uint32_t pt_a[4] = {transpose8(bya::pack_bf16(s[0][0], s[0][1])),
-                                  transpose8(bya::pack_bf16(s[1][0], s[1][1])),
-                                  transpose8(bya::pack_bf16(s[0][2], s[0][3])),
-                                  transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
-        const uint32_t dst_a[4] = {transpose8(bya::pack_bf16(dp[0][0], dp[0][1])),
-                                   transpose8(bya::pack_bf16(dp[1][0], dp[1][1])),
-                                   transpose8(bya::pack_bf16(dp[0][2], dp[0][3])),
-                                   transpose8(bya::pack_bf16(dp[1][2], dp[1][3]))};
-        mma_a_tile_add(acc_v, pt_a, gs + qt * TILE, lane);
-        mma_a_tile_add(acc_k, dst_a, qs + qt * TILE, lane);
+    // dV = P^T G and dK = dS^T Q, a kv chunk and a panel at a time over the
+    // q tiles (P^T and dS^T transposed 8x8 block by block, as the one-tile body)
+    for (int kc = 0; kc < nt; ++kc)
+      for (int pn = 0; pn < G::NPN && pn * 64 < dh; ++pn) {
+        float acc_k[8][4], acc_v[8][4];
+        zero_acc(acc_k);
+        zero_acc(acc_v);
+        for (int qt = 0; qt < nt; ++qt) {
+          const ATile<DP> aq(qs + qt * TILE, lane), ag(gs + qt * TILE, lane);
+          float s[2][4], dp[2][4];
+          p_ds(s, dp, aq, ag, qt, kc);
+          const uint32_t pt_a[4] = {transpose8(bya::pack_bf16(s[0][0], s[0][1])),
+                                    transpose8(bya::pack_bf16(s[1][0], s[1][1])),
+                                    transpose8(bya::pack_bf16(s[0][2], s[0][3])),
+                                    transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
+          const uint32_t dst_a[4] = {transpose8(bya::pack_bf16(dp[0][0], dp[0][1])),
+                                     transpose8(bya::pack_bf16(dp[1][0], dp[1][1])),
+                                     transpose8(bya::pack_bf16(dp[0][2], dp[0][3])),
+                                     transpose8(bya::pack_bf16(dp[1][2], dp[1][3]))};
+          mma_a_tile_add<8, G::LDS>(acc_v, pt_a, gs + qt * TILE + pn * 64, lane);
+          mma_a_tile_add<8, G::LDS>(acc_k, dst_a, qs + qt * TILE + pn * 64, lane);
+        }
+        write_tile<DP>(dk, base, ld, stg + pn * 64, acc_k, kc, pn, S, ch, lane);
+        write_tile<DP>(dv, base, ld, stg + pn * 64, acc_v, kc, pn, S, ch, lane);
       }
-      write_tile(dk, base, ld, stg, acc_k, kc, S, lane);
-      write_tile(dv, base, ld, stg, acc_v, kc, S, lane);
-    }
   }
 }
 
@@ -775,99 +889,151 @@ cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* fit, int 
   return cudaSuccess;
 }
 
-template <int S>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int H,
+template <int DP, int S>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int H, int dh,
                    float scale, cudaStream_t st) {
+  using G = Geo<DP>;
   static int fit = 0;
-  cudaError_t err = resident_blocks(tiny_seq_kernel<S>, FWD_WARPS * 32, FWD_SMEM, &fit);
+  cudaError_t err = resident_blocks(tiny_seq_kernel<DP, S>, G::WARPS * 32, G::FWD_SMEM, &fit);
   if (err != cudaSuccess) return err;
   constexpr int PACK = 16 / S;
   const long long n_items = (long long)M * H;
-  const long long need = ((n_items + PACK - 1) / PACK + FWD_WARPS - 1) / FWD_WARPS;
+  const long long need = ((n_items + PACK - 1) / PACK + G::WARPS - 1) / G::WARPS;
   const unsigned blocks = (unsigned)(need < fit ? need : fit);
-  tiny_seq_kernel<S><<<blocks, FWD_WARPS * 32, FWD_SMEM, st>>>(q, k, v, o, n_items, H, scale);
+  tiny_seq_kernel<DP, S><<<blocks, G::WARPS * 32, G::FWD_SMEM, st>>>(q, k, v, o, n_items, H, dh,
+                                                                     scale);
   return cudaGetLastError();
 }
 
-template <int S>
+template <int DP, int S>
 cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g, bf16* dq,
-                       bf16* dk, bf16* dv, int M, int H, float scale, cudaStream_t st) {
+                       bf16* dk, bf16* dv, int M, int H, int dh, float scale, cudaStream_t st) {
+  using G = Geo<DP>;
   static int fit = 0;
-  cudaError_t err = resident_blocks(tiny_seq_bwd_kernel<S>, BWD_WARPS * 32, BWD_SMEM, &fit);
+  cudaError_t err =
+      resident_blocks(tiny_seq_bwd_kernel<DP, S>, G::WARPS * 32, G::BWD_SMEM, &fit);
   if (err != cudaSuccess) return err;
   const long long n_items = (long long)M * H;
-  const long long need = (n_items + BWD_WARPS - 1) / BWD_WARPS;
+  const long long need = (n_items + G::WARPS - 1) / G::WARPS;
   const unsigned blocks = (unsigned)(need < fit ? need : fit);
-  tiny_seq_bwd_kernel<S><<<blocks, BWD_WARPS * 32, BWD_SMEM, st>>>(q, k, v, g, dq, dk, dv,
-                                                                  n_items, H, scale);
+  tiny_seq_bwd_kernel<DP, S><<<blocks, G::WARPS * 32, G::BWD_SMEM, st>>>(
+      q, k, v, g, dq, dk, dv, n_items, H, dh, scale);
   return cudaGetLastError();
 }
 
 // the long bodies: one-warp blocks, one item a warp at a time; the resident
 // blocks depend on S through the item's smem, so one count per tile count
+template <int DP, bool DH_IS_DP>
 cudaError_t launch_long(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int S,
-                        int H, float scale, cudaStream_t st) {
-  static int fit[LONG_MAX_S / 16 + 1];
-  const int nt = (S + 15) / 16, smem = long_fwd_smem(nt);
-  cudaError_t err = resident_blocks(tiny_seq_long_kernel, 32, smem, &fit[nt],
-                                    long_fwd_smem(LONG_MAX_S / 16));
+                        int H, int dh, float scale, cudaStream_t st) {
+  using G = Geo<DP>;
+  static int fit[G::LONG_NT + 1];
+  const int nt = (S + 15) / 16, smem = G::long_fwd_smem(nt);
+  cudaError_t err = resident_blocks(tiny_seq_long_kernel<DP, DH_IS_DP>, 32, smem, &fit[nt],
+                                    G::long_fwd_smem(G::LONG_NT));
   if (err != cudaSuccess) return err;
   const long long n_items = (long long)M * H;
   const unsigned blocks = (unsigned)(n_items < fit[nt] ? n_items : fit[nt]);
-  tiny_seq_long_kernel<<<blocks, 32, smem, st>>>(q, k, v, o, n_items, H, S, scale);
+  tiny_seq_long_kernel<DP, DH_IS_DP><<<blocks, 32, smem, st>>>(q, k, v, o, n_items, H, S, dh,
+                                                                scale);
   return cudaGetLastError();
 }
 
+template <int DP, bool DH_IS_DP>
 cudaError_t launch_long_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
-                            bf16* dq, bf16* dk, bf16* dv, int M, int S, int H, float scale,
-                            cudaStream_t st) {
-  static int fit[LONG_MAX_S / 16 + 1];
-  const int nt = (S + 15) / 16, smem = long_bwd_smem(nt);
-  cudaError_t err = resident_blocks(tiny_seq_long_bwd_kernel, 32, smem, &fit[nt],
-                                    long_bwd_smem(LONG_MAX_S / 16));
+                            bf16* dq, bf16* dk, bf16* dv, int M, int S, int H, int dh,
+                            float scale, cudaStream_t st) {
+  using G = Geo<DP>;
+  static int fit[G::LONG_NT + 1];
+  const int nt = (S + 15) / 16, smem = G::long_bwd_smem(nt);
+  cudaError_t err = resident_blocks(tiny_seq_long_bwd_kernel<DP, DH_IS_DP>, 32, smem, &fit[nt],
+                                    G::long_bwd_smem(G::LONG_NT));
   if (err != cudaSuccess) return err;
   const long long n_items = (long long)M * H;
   const unsigned blocks = (unsigned)(n_items < fit[nt] ? n_items : fit[nt]);
-  tiny_seq_long_bwd_kernel<<<blocks, 32, smem, st>>>(q, k, v, g, dq, dk, dv, n_items, H, S,
-                                                     scale);
+  tiny_seq_long_bwd_kernel<DP, DH_IS_DP><<<blocks, 32, smem, st>>>(q, k, v, g, dq, dk, dv,
+                                                                    n_items, H, S, dh, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, k, v, o: [M, S, H*64] bf16, contiguous; 1 <= S <= LONG_MAX_S (the
-// one-tile body up to 16, the long body past it).  Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for a shape it does
-// not take.
-extern "C" int bya_tiny_seq_attention(const void* q, const void* k, const void* v, void* o,
-                                      int M, int S, int H, int D, float scale, void* stream) {
-  if (D != DH || S < 1 || S > LONG_MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S > MAX_S) return (int)launch_long(qp, kp, vp, op, M, S, H, scale, st);
+// the forward on the DP-column body (S checked by the caller)
+template <int DP>
+cudaError_t forward(const bf16* q, const bf16* k, const bf16* v, bf16* o, int M, int S, int H,
+                    int dh, float scale, cudaStream_t st) {
+  if (S > MAX_S)
+    return dh == DP ? launch_long<DP, true>(q, k, v, o, M, S, H, dh, scale, st)
+                    : launch_long<DP, false>(q, k, v, o, M, S, H, dh, scale, st);
   switch (S) {
 #define BYA_TINY_CASE(n) \
   case n:                \
-    return (int)launch<n>(qp, kp, vp, op, M, H, scale, st);
+    return launch<DP, n>(q, k, v, o, M, H, dh, scale, st);
     BYA_TINY_CASE(1) BYA_TINY_CASE(2) BYA_TINY_CASE(3) BYA_TINY_CASE(4)
     BYA_TINY_CASE(5) BYA_TINY_CASE(6) BYA_TINY_CASE(7) BYA_TINY_CASE(8)
     BYA_TINY_CASE(9) BYA_TINY_CASE(10) BYA_TINY_CASE(11) BYA_TINY_CASE(12)
     BYA_TINY_CASE(13) BYA_TINY_CASE(14) BYA_TINY_CASE(15) BYA_TINY_CASE(16)
 #undef BYA_TINY_CASE
   }
-  return (int)cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;
 }
 
-// B8: q, k, v, g (the output gradient), dq, dk, dv: [M, S, H*64] bf16,
-// contiguous; 8 <= S <= LONG_MAX_S.  Returns the cudaError_t of the launch,
-// or cudaErrorInvalidValue for a shape it does not take.
+// the backward on the DP-column body (S checked by the caller)
+template <int DP>
+cudaError_t backward(const bf16* q, const bf16* k, const bf16* v, const bf16* g, bf16* dq,
+                     bf16* dk, bf16* dv, int M, int S, int H, int dh, float scale,
+                     cudaStream_t st) {
+  if (S > MAX_S)
+    return dh == DP ? launch_long_bwd<DP, true>(q, k, v, g, dq, dk, dv, M, S, H, dh, scale, st)
+                    : launch_long_bwd<DP, false>(q, k, v, g, dq, dk, dv, M, S, H, dh, scale, st);
+  switch (S) {
+#define BYA_TINY_BWD_CASE(n) \
+  case n:                    \
+    return launch_bwd<DP, n>(q, k, v, g, dq, dk, dv, M, H, dh, scale, st);
+    BYA_TINY_BWD_CASE(8) BYA_TINY_BWD_CASE(9) BYA_TINY_BWD_CASE(10) BYA_TINY_BWD_CASE(11)
+    BYA_TINY_BWD_CASE(12) BYA_TINY_BWD_CASE(13) BYA_TINY_BWD_CASE(14) BYA_TINY_BWD_CASE(15)
+    BYA_TINY_BWD_CASE(16)
+#undef BYA_TINY_BWD_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the longest S of a body (bya::body_of)
+int long_max_s(int body) {
+  return body == 64 ? Geo<64>::LONG_MAX_S : body == 128 ? Geo<128>::LONG_MAX_S
+                                                        : Geo<256>::LONG_MAX_S;
+}
+
+}  // namespace
+
+// q, k, v, o: [M, S, H*D] bf16, contiguous, 16-byte aligned; D % 8 == 0 up
+// to 256 (on the narrowest body that holds it); 1 <= S <= the body's
+// LONG_MAX_S (the one-tile body up to 16, the long body past it).  Returns
+// the cudaError_t of the launch, or cudaErrorInvalidValue for a shape it
+// does not take.
+extern "C" int bya_tiny_seq_attention(const void* q, const void* k, const void* v, void* o,
+                                      int M, int S, int H, int D, float scale, void* stream) {
+  const int body = bya::body_of(D);
+  if (body == 0 || S < 1 || S > long_max_s(body) || M < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 64) return (int)forward<64>(qp, kp, vp, op, M, S, H, D, scale, st);
+  if (body == 128) return (int)forward<128>(qp, kp, vp, op, M, S, H, D, scale, st);
+  return (int)forward<256>(qp, kp, vp, op, M, S, H, D, scale, st);
+}
+
+// B8: q, k, v, g (the output gradient), dq, dk, dv: [M, S, H*D] bf16,
+// contiguous, 16-byte aligned; D as the forward; 8 <= S <= the body's
+// LONG_MAX_S.  Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for a shape it does not take.
 extern "C" int bya_tiny_seq_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* g, void* dq, void* dk, void* dv, int M,
                                           int S, int H, int D, float scale, void* stream) {
-  if (D != DH || S < 8 || S > LONG_MAX_S || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const int body = bya::body_of(D);
+  if (body == 0 || S < 8 || S > long_max_s(body) || M < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -876,15 +1042,8 @@ extern "C" int bya_tiny_seq_attention_bwd(const void* q, const void* k, const vo
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S > MAX_S) return (int)launch_long_bwd(qp, kp, vp, gp, dqp, dkp, dvp, M, S, H, scale, st);
-  switch (S) {
-#define BYA_TINY_BWD_CASE(n) \
-  case n:                    \
-    return (int)launch_bwd<n>(qp, kp, vp, gp, dqp, dkp, dvp, M, H, scale, st);
-    BYA_TINY_BWD_CASE(8) BYA_TINY_BWD_CASE(9) BYA_TINY_BWD_CASE(10) BYA_TINY_BWD_CASE(11)
-    BYA_TINY_BWD_CASE(12) BYA_TINY_BWD_CASE(13) BYA_TINY_BWD_CASE(14) BYA_TINY_BWD_CASE(15)
-    BYA_TINY_BWD_CASE(16)
-#undef BYA_TINY_BWD_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  if (body == 64) return (int)backward<64>(qp, kp, vp, gp, dqp, dkp, dvp, M, S, H, D, scale, st);
+  if (body == 128)
+    return (int)backward<128>(qp, kp, vp, gp, dqp, dkp, dvp, M, S, H, D, scale, st);
+  return (int)backward<256>(qp, kp, vp, gp, dqp, dkp, dvp, M, S, H, D, scale, st);
 }

@@ -1,5 +1,5 @@
 // Long-query / short-KV cross-attention: kernels B2, B3, B14, B2c and B2h,
-// one body templated on the head dim and the mode:
+// one body templated on its width (64, 128 or 256 columns) and the mode:
 //
 //   per identity:  o[g, i, ., h] = softmax_k(q . k_i^T * scale) . v_i
 //   combined:      o[g, ., h]    = sum_i w[g, ., i] * softmax_k(q . k_i^T * scale) . v_i
@@ -8,19 +8,20 @@
 // [G, Sq, H, D], the flat [G, Sq, H*D] projection layout; head-major q is
 // [G, H, Sq, D].  k, v: [G, I, H, 32, D]; w: [G, Sq, I].
 //
-//   B3  (combined, q-major, D = 64) replaces the TPU kernel `_kernel_flat`
+//   B3  (combined, q-major) replaces the TPU kernel `_kernel_flat`
 //       (bindyouravatar_tpu/ops/short_kv_attention.py), reached through
-//       `short_kv_attention_combined_flat` from the audio cross-attention.
-//   B2  (per identity, q-major, D = 128) replaces `_kernel` with
-//       `combine=False`, reached through `short_kv_attention_flat` from the
-//       perceiver face injection: q read in the to_q projection's flat
-//       layout and each identity's output written [B, I, Sq, H*D], the
-//       layout the routing combine reads, with no head-major transposes.
-//       Narrower heads (the 2B router's 80) run the D = 128 body on tensor
-//       maps of their own width: the copies read the columns past it as
-//       zeros (so every score is unchanged and those output columns are
-//       0) and the stores clip them, so no padded copy is made.
-//   B14 (q-major, both modes, D = 64 or 128) replaces `_kernel_qmajor`
+//       `short_kv_attention_combined_flat` from the audio cross-attention
+//       (the DiT's own head split: 48 x 64 at the 5B, 24 x 128, 96 x 32,
+//       192 x 16 or 12 x 256 at other splits).  Its own instances
+//       (`short_kv_kernel<D>`) at every body, so device time groups by
+//       kernel name; at D = 128 it is the same function as B14's combined
+//       q-major instance, compiled again under B3's name.
+//   B2  (per identity, q-major) replaces `_kernel` with `combine=False`,
+//       reached through `short_kv_attention_flat` from the perceiver face
+//       injection: q read in the to_q projection's flat layout and each
+//       identity's output written [B, I, Sq, H*D], the layout the routing
+//       combine reads, with no head-major transposes.
+//   B14 (q-major, both modes) replaces `_kernel_qmajor`
 //       (`short_kv_attention_qmajor`, `short_kv_attention_combined_qmajor`).
 //   B2c (combined, head-major) replaces `_kernel` with `combine=True`
 //       (`short_kv_attention_combined`), and B2h (per identity, head-major)
@@ -30,6 +31,22 @@
 // instantiations of `skv_layout_kernel`), so device time groups by body.
 // The layout lives in the tensor maps only: the body reads and writes
 // (column, row, head, batch) boxes, whatever the strides.
+//
+// Head widths: every D % 8 == 0 up to 256 (JAX's `_call_kernel_flat` takes
+// every D whose head pairs fill 128 lanes; its other bodies any D).  A head
+// runs on the narrowest body that holds it (`short_kv_body` in the Python
+// wrapper is the rule): D <= 64 on the 64-column body, <= 128 on the 128
+// one, <= 256 on the 256 one.  Every tensor map's innermost extent is the
+// true D, so the boxes' columns past D read as zeros (never the next
+// head's), the products over them add nothing, and the output stores clip
+// them: no padded copy is made.  A narrow head pays the body's product
+// width (D = 16 on the 64 body multiplies four times its useful columns)
+// and its per-tile costs, not its bytes.  (Skipping the products past D on
+// a run-time D put a branch between each ldmatrix and its mma and made
+// B2 and B3 1.7x slower at D = 64 and 128.)  TMA needs 16-byte row
+// strides, so D % 8 == 0.  K = 32
+// tokens an identity and I <= 4 identities are the body's own limits (the
+// score fragments and the weights' registers are sized by them).
 //
 // Same math and roundings as the TPU bodies: fp32 scores in log2 units
 // (q.k * scale * log2 e), one exp2 softmax per identity normalised in fp32
@@ -53,36 +70,46 @@
 //    block's share taken from one list of all heads' tiles, 0.212 so).  A
 //    block loads its head's K and V (I x 2 x 32 x D) once per batch g, by
 //    TMA (two K/V buffers at D = 64, so the next batch's load overlaps the
-//    last tiles of this one; one at D = 128).
+//    last tiles of this one; one at D = 128 and 256).
 //  * One producer warp keeps a ring of q tiles in flight by TMA with
-//    mbarriers (3 at D = 64, 4 at D = 128; rows past Sq are zero-filled by
-//    the copy).  In combined mode the tile's [64, I] slice of w comes with
-//    it: the producer's 32 lanes load it while the tile's copy is in flight
-//    and store it into the ring slot before the producer next waits (a
-//    wait first could deadlock: with one K/V buffer the consumers free it
-//    only after the tile that needs this slice).  A TMA box must start on a
-//    16-byte boundary, and the slice starts at (g Sq + q0) I elements,
-//    which at Sq = 1,350 is not one for odd g.  Loaded by each consumer
-//    thread for its own rows instead, the weights' latency stood in the
-//    way of every tile (B3 0.212 ms, 0.178 with constant weights; times
-//    here are kernel records on an H100 80GB HBM3 at 700 W).
+//    mbarriers (3 at D = 64, 4 at D = 128, 2 at D = 256; rows past Sq are
+//    zero-filled by the copy).  In combined mode the tile's [64, I] slice
+//    of w comes with it: the producer's 32 lanes load it while the tile's
+//    copy is in flight and store it into the ring slot before the producer
+//    next waits (a wait first could deadlock: with one K/V buffer the
+//    consumers free it only after the tile that needs this slice).  A TMA
+//    box must start on a 16-byte boundary, and the slice starts at
+//    (g Sq + q0) I elements, which at Sq = 1,350 is not one for odd g.
+//    Loaded by each consumer thread for its own rows instead, the weights'
+//    latency stood in the way of every tile (B3 0.212 ms, 0.178 with
+//    constant weights; times here are kernel records on an H100 80GB HBM3
+//    at 700 W).
 //  * Four consumer warps take 16 rows each.  A warp copies its q fragments
 //    into registers and frees the ring slot at once, then per identity
 //    computes the [16, 32] scores (mma.sync: at 64-85 FLOP/B the tensor
-//    cores are idle either way), the softmax with ex2.approx, and P.V one
-//    64-column panel at a time.  A wgmma form of this body (one warp group
-//    a block, the scores of two identities per m64n64k16 product) was
-//    slower at D = 64 (B3 0.292 against 0.238 ms): the block's only
+//    cores are idle either way) and the softmax with ex2.approx into P as
+//    bf16 A fragments, and P . V_i one 64-column panel at a time, each
+//    panel stored as it is made (per identity) or added with the weight to
+//    the row's fp32 sum (combined).  The combined 256 body makes every
+//    identity's P first (8 registers an identity), then each panel summed
+//    over the identities: a thread holds one panel's sum, not the row's
+//    128 floats, which beside the q fragments' 64 would not fit.  A wgmma form of this body (one warp
+//    group a block, the scores of two identities per m64n64k16 product)
+//    was slower at D = 64 (B3 0.292 against 0.238 ms): the block's only
 //    consumers then wait on each product in turn, where four independent
 //    warps overlap one another's latencies.
 //  * The output leaves through shared memory: each warp writes a [16, 64]
 //    bf16 panel into its own staging buffers (two, in the 128-byte swizzle)
-//    and one lane stores it by TMA (rows >= Sq are clipped), so a panel's
-//    store overlaps the next panel's math; a buffer is rewritten only after
-//    the store that read it has left shared memory.  No barrier spans
-//    warps except the ring's and the K/V buffers' mbarriers.
+//    and one lane stores it by TMA (rows >= Sq and columns >= D are
+//    clipped), so a panel's store overlaps the next panel's math; a buffer
+//    is rewritten only after the store that read it has left shared
+//    memory.  No barrier spans warps except the ring's and the K/V
+//    buffers' mbarriers.
 // Shared memory is dynamic (`SkvSmem`); the launcher raises each kernel's
-// limit.
+// limit.  At D = 256 and I = 4 a block takes 2 q stages of 32 KB, the
+// staging buffers (16 KB), the barriers and w ring (~1 KB), then one K/V
+// buffer of 4 identities x 2 x 32 x 256 bf16 (128 KB): 216,064 bytes of
+// the 232,448 a block may have; a third q stage would take 248,832.
 #include "hopper.cuh"
 
 namespace {
@@ -97,34 +124,37 @@ constexpr int NTHREADS = (NCW + 1) * 32;
 constexpr int NSB = 2;   // staging buffers per consumer warp
 constexpr int PANEL_ROWS = 16;
 constexpr int OUT_PANEL = PANEL_ROWS * 128;  // bytes of one [16, 64] bf16 panel
+constexpr int KV_PANEL = KT * 128;           // bytes of one identity's [32, 64] K or V panel
 
 // Shared memory of one block, from a 1024-aligned base: the q ring, the
 // consumers' staging buffers, the barriers and the ring of routing-weight
 // slices (combined), then the K/V buffers: at I = 2, 74 KB at D = 64
-// (three blocks an SM) and 114 KB at D = 128 (one; four q stages in one
-// block measured faster than three in each of two).
+// (three blocks an SM), 114 KB at D = 128 (one; four q stages in one
+// block measured faster than three in each of two) and 150 KB at D = 256.
 template <int D>
 struct SkvSmem {
-  static constexpr int NP = D / 64;             // 64-column panels
-  static constexpr int NST = D == 64 ? 3 : 4;   // q ring stages
-  static constexpr int KVB = D == 64 ? 2 : 1;   // K/V buffers
+  static constexpr int NP = D / 64;                        // 64-column panels
+  static constexpr int NST = D == 64 ? 3 : D == 128 ? 4 : 2;  // q ring stages
+  static constexpr int KVB = D == 64 ? 2 : 1;              // K/V buffers
   static constexpr int Q_TILE = BM * D * 2;     // bytes of a q tile
-  static constexpr int KV_PANEL = KT * 128;     // bytes of one identity's [32, 64] panel
   static constexpr int Q_OFF = 0;
   static constexpr int OUT_OFF = Q_OFF + NST * Q_TILE;
   static constexpr int BAR_OFF = OUT_OFF + NCW * NSB * OUT_PANEL;
   static constexpr int W_OFF = BAR_OFF + 128;   // [NST][BM][I] bf16, combined only
   // the K/V buffers start at the next 1024 bytes past the w ring
-  __host__ __device__ static int kv_off(int I, bool combine) {
+  __host__ __device__ static constexpr int kv_off(int I, bool combine) {
     return (W_OFF + (combine ? NST * BM * I * 2 : 0) + 1023) / 1024 * 1024;
   }
   // one K/V buffer: K as [I][NP][32][64], then V the same
-  __host__ __device__ static int kv_buffer(int I) { return 2 * I * NP * KV_PANEL; }
+  __host__ __device__ static constexpr int kv_buffer(int I) { return 2 * I * NP * KV_PANEL; }
   // + 1024 for the base alignment
-  static int bytes(int I, bool combine) {
+  static constexpr int bytes(int I, bool combine) {
     return kv_off(I, combine) + KVB * kv_buffer(I) + 1024;
   }
 };
+static_assert(SkvSmem<64>::bytes(MAX_ID, true) <= 232448, "the 64 body past a block's smem");
+static_assert(SkvSmem<128>::bytes(MAX_ID, true) <= 232448, "the 128 body past a block's smem");
+static_assert(SkvSmem<256>::bytes(MAX_ID, true) <= 232448, "the 256 body past a block's smem");
 
 // The (batch, first row) of position j of a head's tile list (j = g tiles
 // + q0 / BM), advanced without divisions.
@@ -164,6 +194,88 @@ __device__ __forceinline__ void mma_bf16_first(float (&c)[4], const uint32_t (&a
 // Byte offset of 16-byte chunk c (0..7) of row r in a 128-byte-swizzled
 // panel of 128-byte rows.
 __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// P = softmax(Q K^T * scale) of one identity over its 32 keys (ks: its K
+// as NP [32, 64] swizzled panels), normalised in fp32 and then rounded: the
+// bf16 A fragments of keys 0..15 and 16..31 of this warp's 16 rows.  In
+// log2 units, 2^(s sl - max(s) sl), the scale folded into one FMA.
+template <int KS>
+__device__ __forceinline__ void skv_probs(const uint32_t (&qf)[KS][4], const unsigned char* ks,
+                                          float scale_log2, int lane, uint32_t (&pa)[2][4]) {
+  // S = Q K^T: [16, 32] as 4 column blocks of 8 keys
+  float s[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int r = nt * 8 + (lane & 7);
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 2) {
+      const int cc = kk * 2 + (lane >> 3);
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4(b0, b1, b2, b3, ks + (cc >> 3) * KV_PANEL + swz(r, cc & 7));
+      if (kk == 0)
+        mma_bf16_first(s[nt], qf[0], b0, b1);
+      else
+        mma_bf16(s[nt], qf[kk], b0, b1);
+      mma_bf16(s[nt], qf[kk + 1], b2, b3);
+    }
+  }
+  // the softmax over the 32 keys of each row (4 lanes hold a row)
+  float mx0 = -1e30f, mx1 = -1e30f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+  const float m0 = mx0 * scale_log2, m1 = mx1 * scale_log2;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    s[nt][0] = fast_exp2(fmaf(s[nt][0], scale_log2, -m0));
+    s[nt][1] = fast_exp2(fmaf(s[nt][1], scale_log2, -m0));
+    s[nt][2] = fast_exp2(fmaf(s[nt][2], scale_log2, -m1));
+    s[nt][3] = fast_exp2(fmaf(s[nt][3], scale_log2, -m1));
+    sum0 += s[nt][0] + s[nt][1];
+    sum1 += s[nt][2] + s[nt][3];
+  }
+  sum0 += __shfl_xor_sync(FULL, sum0, 1);
+  sum0 += __shfl_xor_sync(FULL, sum0, 2);
+  sum1 += __shfl_xor_sync(FULL, sum1, 1);
+  sum1 += __shfl_xor_sync(FULL, sum1, 2);
+  const float inv0 = __fdividef(1.f, sum0), inv1 = __fdividef(1.f, sum1);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    pa[kk][0] = pack_bf16(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0);
+    pa[kk][1] = pack_bf16(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1);
+  }
+}
+
+// One 64-column panel of O = P V as fp32 fragments (vs: that panel of V,
+// [32, 64] swizzled; pa: skv_probs' P).
+__device__ __forceinline__ void skv_pv(const uint32_t (&pa)[2][4], const unsigned char* vs,
+                                       int lane, float (&o)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int r = kk * 16 + (lane & 15), c = j + (lane >> 4);
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4_trans(b0, b1, b2, b3, vs + swz(r, c));
+      if (kk == 0) {
+        mma_bf16_first(o[j], pa[0], b0, b1);
+        mma_bf16_first(o[j + 1], pa[0], b2, b3);
+      } else {
+        mma_bf16(o[j], pa[1], b0, b1);
+        mma_bf16(o[j + 1], pa[1], b2, b3);
+      }
+    }
+  }
+}
 
 template <int D, bool COMBINE>
 __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensorMap* tq,
@@ -239,9 +351,9 @@ __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensor
         unsigned char* kb = sKV + b * SM::kv_buffer(I);
         for (int i = 0; i < I; ++i)
           for (int p = 0; p < NP; ++p) {
-            tma_load_4d(kb + (i * NP + p) * SM::KV_PANEL, tk, 64 * p, 0, h, c.g * I + i,
+            tma_load_4d(kb + (i * NP + p) * KV_PANEL, tk, 64 * p, 0, h, c.g * I + i,
                         &kv_full[b]);
-            tma_load_4d(kb + ((I + i) * NP + p) * SM::KV_PANEL, tv, 64 * p, 0, h, c.g * I + i,
+            tma_load_4d(kb + ((I + i) * NP + p) * KV_PANEL, tv, 64 * p, 0, h, c.g * I + i,
                         &kv_full[b]);
           }
         ++n_kv;
@@ -294,7 +406,7 @@ __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensor
       }
     }
     // combined: the routing weights of rows rl, rl + 8 (registers: read by
-    // a select on the identity, never by a runtime index)
+    // a select on the identity or an unrolled loop, never by a runtime index)
     float wv[MAX_ID][2] = {};
     if constexpr (COMBINE) {
       const bf16* ws = sW + st * BM * I;
@@ -330,119 +442,84 @@ __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensor
       sb = (sb + 1) % NSB;
     };
 
-    float acc[COMBINE ? D / 8 : 1][4];  // the weighted sum, set by identity 0
-    for (int i = 0; i < I; ++i) {
-      const unsigned char* ks = kb + i * NP * SM::KV_PANEL;
-      const unsigned char* vs = kb + (I + i) * NP * SM::KV_PANEL;
-      // S = Q K_i^T: [16, 32] as 4 column blocks of 8 keys
-      float s[4][4];
+    if constexpr (COMBINE && D == 256) {
+      // every identity's P first (8 registers an identity), then the output
+      // one 64-column panel at a time, the identities summed with the
+      // weights in fp32: a thread holds one panel's sum, not the row's 128
+      // floats (which would not fit beside the q fragments' 64).  The
+      // other bodies keep the identity-outer loop below: this order spilled
+      // on the 64 body (44 bytes at its 128 registers).
+      uint32_t pa[MAX_ID][2][4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = nt * 8 + (lane & 7);
-#pragma unroll
-        for (int kk = 0; kk < KS; kk += 2) {
-          const int cc = kk * 2 + (lane >> 3);
-          uint32_t b0, b1, b2, b3;
-          ldmatrix_x4(b0, b1, b2, b3, ks + (cc >> 3) * SM::KV_PANEL + swz(r, cc & 7));
-          if (kk == 0)
-            mma_bf16_first(s[nt], qf[0], b0, b1);
-          else
-            mma_bf16(s[nt], qf[kk], b0, b1);
-          mma_bf16(s[nt], qf[kk + 1], b2, b3);
-        }
-      }
-      // softmax over the 32 keys of each row (4 lanes hold a row), in log2
-      // units: 2^(s sl - max(s) sl), the scale folded into one FMA
-      float mx0 = -1e30f, mx1 = -1e30f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
-      const float m0 = mx0 * scale_log2, m1 = mx1 * scale_log2;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        s[nt][0] = fast_exp2(fmaf(s[nt][0], scale_log2, -m0));
-        s[nt][1] = fast_exp2(fmaf(s[nt][1], scale_log2, -m0));
-        s[nt][2] = fast_exp2(fmaf(s[nt][2], scale_log2, -m1));
-        s[nt][3] = fast_exp2(fmaf(s[nt][3], scale_log2, -m1));
-        sum0 += s[nt][0] + s[nt][1];
-        sum1 += s[nt][2] + s[nt][3];
-      }
-      sum0 += __shfl_xor_sync(FULL, sum0, 1);
-      sum0 += __shfl_xor_sync(FULL, sum0, 2);
-      sum1 += __shfl_xor_sync(FULL, sum1, 1);
-      sum1 += __shfl_xor_sync(FULL, sum1, 2);
-      const float inv0 = __fdividef(1.f, sum0), inv1 = __fdividef(1.f, sum1);
-      // P (normalised, then bf16) as the A fragments of keys 0..15, 16..31
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0);
-        pa[kk][1] = pack_bf16(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1);
-      }
-      float w0 = 0.f, w1 = 0.f;
-      if constexpr (COMBINE) {
-        w0 = wv[0][0];
-        w1 = wv[0][1];
-#pragma unroll
-        for (int c = 1; c < MAX_ID; ++c)
-          if (i == c) {
-            w0 = wv[c][0];
-            w1 = wv[c][1];
-          }
-      }
-      // O_i = P V_i, one 64-column panel at a time
+      for (int i = 0; i < MAX_ID; ++i)
+        if (i < I) skv_probs<KS>(qf, kb + i * NP * KV_PANEL, scale_log2, lane, pa[i]);
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        float o[8][4];
+        float acc[8][4];
 #pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            const int r = kk * 16 + (lane & 15), c = j + (lane >> 4);
-            uint32_t b0, b1, b2, b3;
-            ldmatrix_x4_trans(b0, b1, b2, b3, vs + p * SM::KV_PANEL + swz(r, c));
-            if (kk == 0) {
-              mma_bf16_first(o[j], pa[0], b0, b1);
-              mma_bf16_first(o[j + 1], pa[0], b2, b3);
-            } else {
-              mma_bf16(o[j], pa[1], b0, b1);
-              mma_bf16(o[j + 1], pa[1], b2, b3);
-            }
-          }
-        }
-        if constexpr (COMBINE) {
+        for (int i = 0; i < MAX_ID; ++i) {
+          if (i >= I) continue;
+          float o[8][4];
+          skv_pv(pa[i], kb + ((I + i) * NP + p) * KV_PANEL, lane, o);
+          const float w0 = wv[i][0], w1 = wv[i][1];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            float* a = acc[p * 8 + j];
-            if (i == 0) {
-              a[0] = w0 * o[j][0];
-              a[1] = w0 * o[j][1];
-              a[2] = w1 * o[j][2];
-              a[3] = w1 * o[j][3];
-            } else {
-              a[0] += w0 * o[j][0];
-              a[1] += w0 * o[j][1];
-              a[2] += w1 * o[j][2];
-              a[3] += w1 * o[j][3];
-            }
+            acc[j][0] = (i == 0 ? 0.f : acc[j][0]) + w0 * o[j][0];
+            acc[j][1] = (i == 0 ? 0.f : acc[j][1]) + w0 * o[j][1];
+            acc[j][2] = (i == 0 ? 0.f : acc[j][2]) + w1 * o[j][2];
+            acc[j][3] = (i == 0 ? 0.f : acc[j][3]) + w1 * o[j][3];
           }
-        } else {
-          store_panel(&o[0][0], p, g * I + i);
+        }
+        store_panel(&acc[0][0], p, g);
+      }
+    } else {
+      // per identity: its P, then its output panels, each stored as it is
+      // made (per identity) or added with its weight to the row's fp32 sum
+      // (combined: D / 2 floats a thread)
+      float acc[COMBINE ? D / 8 : 1][4];  // the weighted sum, set by identity 0
+      for (int i = 0; i < I; ++i) {
+        uint32_t pa[2][4];
+        skv_probs<KS>(qf, kb + i * NP * KV_PANEL, scale_log2, lane, pa);
+        float w0 = 0.f, w1 = 0.f;
+        if constexpr (COMBINE) {
+          w0 = wv[0][0];
+          w1 = wv[0][1];
+#pragma unroll
+          for (int c = 1; c < MAX_ID; ++c)
+            if (i == c) {
+              w0 = wv[c][0];
+              w1 = wv[c][1];
+            }
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float o[8][4];
+          skv_pv(pa, kb + ((I + i) * NP + p) * KV_PANEL, lane, o);
+          if constexpr (COMBINE) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              float* a = acc[p * 8 + j];
+              if (i == 0) {
+                a[0] = w0 * o[j][0];
+                a[1] = w0 * o[j][1];
+                a[2] = w1 * o[j][2];
+                a[3] = w1 * o[j][3];
+              } else {
+                a[0] += w0 * o[j][0];
+                a[1] += w0 * o[j][1];
+                a[2] += w1 * o[j][2];
+                a[3] += w1 * o[j][3];
+              }
+            }
+          } else {
+            store_panel(&o[0][0], p, g * I + i);
+          }
         }
       }
-    }
-    if constexpr (COMBINE) {
+      if constexpr (COMBINE) {
 #pragma unroll
-      for (int p = 0; p < NP; ++p) store_panel(&acc[p * 8][0], p, g);
+        for (int p = 0; p < NP; ++p) store_panel(&acc[p * 8][0], p, g);
+      }
     }
   }
   if (lane == 0) bulk_wait_all();  // the stores have left before the block ends
@@ -463,14 +540,15 @@ template <int D>
 constexpr int min_blocks() { return D == 64 ? 3 : 1; }
 
 // B3
-__global__ void __launch_bounds__(NTHREADS, min_blocks<64>()) short_kv_kernel(SKV_PARAMS) {
-  SKV_ARGS(64, true);
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) short_kv_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, true);
 }
 
 // B2
-__global__ void __launch_bounds__(NTHREADS, min_blocks<128>())
-    short_kv_attend_kernel(SKV_PARAMS) {
-  SKV_ARGS(128, false);
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) short_kv_attend_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, false);
 }
 
 // B14 (QMAJOR), B2c (COMBINE, head-major), B2h (head-major per identity):
@@ -483,11 +561,11 @@ __global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) skv_layout_kernel(S
 
 // The grid: as many blocks as fit on the card at once (the occupancy query
 // is made once per kernel and identity count), at most one per tile.
-// `dh` is the tensors' head width: D, or (per identity, B2) a multiple of 8
-// below it whose missing columns the tensor maps fill with zeros.
+// `dh` is the tensors' head width: D, or a multiple of 8 below it whose
+// missing columns the tensor maps fill with zeros.
 template <auto KERNEL, int D, bool COMBINE>
 int launch(bool qmajor, const void* q, const void* k, const void* v, const void* w, void* o,
-           int G, int Sq, int I, int H, int K_tokens, float scale, void* stream, int dh = D) {
+           int G, int Sq, int I, int H, int K_tokens, float scale, void* stream, int dh) {
   if (K_tokens != KT || I < 1 || I > MAX_ID || G < 0 || Sq < 0 || H < 1 || dh < 8 || dh > D ||
       dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -525,50 +603,79 @@ int launch(bool qmajor, const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
+// B3 (q-major combined) at head width dh on the D-column body
+template <int D>
+int launch_b3(const void* q, const void* k, const void* v, const void* w, void* o, int G,
+              int Sq, int I, int H, int K, int dh, float scale, void* stream) {
+  return launch<short_kv_kernel<D>, D, true>(true, q, k, v, w, o, G, Sq, I, H, K, scale, stream,
+                                             dh);
+}
+
+// B2 (q-major per identity) at head width dh on the D-column body
+template <int D>
+int launch_b2(const void* q, const void* k, const void* v, void* o, int G, int Sq, int I, int H,
+              int K, int dh, float scale, void* stream) {
+  return launch<short_kv_attend_kernel<D>, D, false>(true, q, k, v, nullptr, o, G, Sq, I, H, K,
+                                                     scale, stream, dh);
+}
+
+// B14, B2c, B2h at head width dh on the D-column body
 template <int D>
 int launch_layout(const void* q, const void* k, const void* v, const void* w, void* o, int G,
-                  int Sq, int I, int H, int K, int qmajor, float scale, void* stream) {
+                  int Sq, int I, int H, int K, int dh, int qmajor, float scale, void* stream) {
   if (qmajor)
     return w != nullptr ? launch<skv_layout_kernel<D, true, true>, D, true>(
-                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream)
+                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh)
                         : launch<skv_layout_kernel<D, false, true>, D, false>(
-                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
+                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh);
   return w != nullptr ? launch<skv_layout_kernel<D, true, false>, D, true>(
-                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream)
+                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh)
                       : launch<skv_layout_kernel<D, false, false>, D, false>(
-                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
+                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh);
 }
 
 }  // namespace
 
-// B2.  q: [B, Sq, H*D]; k, v: [B, I, H, 32, D]; o: [B, I, Sq, H*D]; all bf16,
-// contiguous and 16-byte aligned; D a multiple of 8 up to 128; 1 <= I <= 4.
-// Returns the cudaError_t of the launch, or cudaErrorInvalidValue for a K,
-// I or D it does not take.
+// Every entry point takes bf16 tensors, contiguous and 16-byte aligned; D a
+// multiple of 8 up to 256 (the narrowest body that holds it runs), K = 32
+// tokens an identity, 1 <= I <= 4.  Each returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for a K, I or D it does not take.
+
+// B2.  q: [B, Sq, H*D]; k, v: [B, I, H, 32, D]; o: [B, I, Sq, H*D].
 extern "C" int bya_short_kv_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int I, int H, int K, int D, float scale,
                                       void* stream) {
-  return launch<short_kv_attend_kernel, 128, false>(true, q, k, v, nullptr, o, B, Sq, I, H, K,
-                                                    scale, stream, D);
+  switch (bya::body_of(D)) {
+    case 64: return launch_b2<64>(q, k, v, o, B, Sq, I, H, K, D, scale, stream);
+    case 128: return launch_b2<128>(q, k, v, o, B, Sq, I, H, K, D, scale, stream);
+    case 256: return launch_b2<256>(q, k, v, o, B, Sq, I, H, K, D, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// B3.  q, o: [G, Sq, H*64]; k, v: [G, I, H, 32, 64]; w: [G, Sq, I]; all bf16,
-// contiguous and 16-byte aligned; 1 <= I <= 4.
+// B3.  q, o: [G, Sq, H*D]; k, v: [G, I, H, 32, D]; w: [G, Sq, I].
 extern "C" int bya_short_kv_attention_combined_flat(const void* q, const void* k,
                                                     const void* v, const void* w, void* o,
-                                                    int G, int Sq, int I, int H, int K,
+                                                    int G, int Sq, int I, int H, int K, int D,
                                                     float scale, void* stream) {
-  return launch<short_kv_kernel, 64, true>(true, q, k, v, w, o, G, Sq, I, H, K, scale, stream);
+  switch (bya::body_of(D)) {
+    case 64: return launch_b3<64>(q, k, v, w, o, G, Sq, I, H, K, D, scale, stream);
+    case 128: return launch_b3<128>(q, k, v, w, o, G, Sq, I, H, K, D, scale, stream);
+    case 256: return launch_b3<256>(q, k, v, w, o, G, Sq, I, H, K, D, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // B14, B2c, B2h.  q: [G, Sq, H, D] (qmajor = 1) or [G, H, Sq, D]; k, v:
 // [G, I, H, 32, D]; w: [G, Sq, I] or null (per identity); o: q's layout
-// (combined) or [G, I, Sq, H, D] / [G, I, H, Sq, D] (per identity); all bf16,
-// contiguous and 16-byte aligned; D = 64 or 128, 1 <= I <= 4.
+// (combined) or [G, I, Sq, H, D] / [G, I, H, Sq, D] (per identity).
 extern "C" int bya_short_kv_layout(const void* q, const void* k, const void* v, const void* w,
                                    void* o, int G, int Sq, int I, int H, int K, int D,
                                    int qmajor, float scale, void* stream) {
-  if (D == 64) return launch_layout<64>(q, k, v, w, o, G, Sq, I, H, K, qmajor, scale, stream);
-  if (D == 128) return launch_layout<128>(q, k, v, w, o, G, Sq, I, H, K, qmajor, scale, stream);
+  switch (bya::body_of(D)) {
+    case 64: return launch_layout<64>(q, k, v, w, o, G, Sq, I, H, K, D, qmajor, scale, stream);
+    case 128: return launch_layout<128>(q, k, v, w, o, G, Sq, I, H, K, D, qmajor, scale, stream);
+    case 256: return launch_layout<256>(q, k, v, w, o, G, Sq, I, H, K, D, qmajor, scale, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

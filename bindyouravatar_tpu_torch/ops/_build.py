@@ -37,7 +37,7 @@ _SIGNATURES = {
     "bya_flash_bwd": [_I, *[_P] * 18, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_layout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_short_kv_attention_combined_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _F, _P],
+                                             _I, _I, _F, _P],
     "bya_short_kv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -181,8 +181,20 @@ def _rope_tables(rope, rope_start: int, s: int, d: int, dev: torch.device):
 MAX_HEAD_DIM = 256
 
 
-def body_width(d: int) -> int:
-    """The columns of the body a D-wide head runs on (`csrc/flash_attention.cu`)."""
+def body_width(d: int, what: str | None = None) -> int:
+    """The columns of the body a D-wide head runs on: 64, 128 or 256, the
+    narrowest that holds it (`csrc/flash_attention.cu`; the short-KV and
+    packed kernels' `bya::body_of` in `csrc/mma_utils.cuh`).  Given `what`
+    (the kernels' name, which leads the message), it first raises
+    ValueError naming ROADMAP.md queue B item 3 for D % 8 != 0 (16-byte
+    rows) and item 4 for D > 256."""
+    if what is not None:
+        if d < 8 or d % 8 != 0:
+            raise ValueError(f"{what}: head dim {d}: the kernels take D % 8 == 0 (16-byte "
+                             f"rows; other head dims: ROADMAP.md queue B item 3)")
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"{what}: head dim {d}: the kernels take D <= {MAX_HEAD_DIM} "
+                             f"(wider heads: ROADMAP.md queue B item 4)")
     return 64 if d <= 64 else 128 if d <= 128 else 256
 
 

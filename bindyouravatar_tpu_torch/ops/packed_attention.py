@@ -3,19 +3,23 @@
 The MultiIPRouter's temporal and multi-ID attentions run over tiny
 sequences with huge batches: temporal over S = 13 latent frames for 5,400
 rows, multi-ID over the S = 2 identities for 2 x 17,550 rows (dim 512,
-8 heads of 64).  Each replaces a TPU kernel of
+8 heads of 64 at the 5B; `RouterConfig.attn_heads` sets other splits, 4
+x 128 or 16 x 32).  Each replaces a TPU kernel of
 `bindyouravatar_tpu/ops/packed_attention.py`:
   * `tiny_seq_attention` (B5, `_slice_kernel`): channel-packed [M, S, C],
     S >= 8; CUDA C++ (`csrc/packed_attention.cu`).
   * `packed_head_attention` (B5', `_kernel`, the packed-head fold): the
     same function on [M, S*H, D] for S < 8; the B5 kernel instantiated for
     small S (the operand is the same memory as [M, S, H*D]).
-  Both take every S up to `MAX_S` (T = 25 latent frames at a 97-frame
-  clip): one 16-row tile an item up to 16, a whole item in shared memory
-  past it (`kernel_body` is the shape rule).
+  Both take every head width dh % 8 == 0 up to 256 (on a body of 64, 128
+  or 256 columns) and every S up to that body's cap in `MAX_S` (192, 96,
+  48: all past T = 25 latent frames at a 97-frame clip): one 16-row tile
+  an item up to 16, a whole item in shared memory past it (`kernel_body`
+  is the shape rule).
   * `pair_axis_attention` (B4, `_pair_kernel`): attention across a leading
     pair axis [B, 2, M, C] as the closed-form 2-way softmax
-    o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`).
+    o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`),
+    any C and heads <= 128 (the JAX kernel's head indicator is 128 wide).
 Each has its plain PyTorch version, which a CPU tensor takes; a CUDA tensor
 launches the kernel or raises.  The source notes say what bounds them.
 
@@ -32,28 +36,44 @@ import torch
 
 from ._build import check, cuda_lib, import_triton
 from .autograd import kernel_with_plain_vjp
+from .flash_attention import body_width
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-# the longest sequence the kernels take: the long bodies hold a (row, head)
-# item whole in shared memory, double-buffered (`LONG_MAX_S` of the source)
-MAX_S = 192
+# the longest sequence each body takes (`Geo::LONG_MAX_S` of the source): the
+# long bodies hold a (row, head) item whole in shared memory, double-buffered,
+# and B8's two buffers of four [S, body + 8] tensors must fit a block's
+# 232,448 bytes
+MAX_S = {64: 192, 128: 96, 256: 48}
+# the pair kernel's heads: JAX's `_pair_kernel` sums a head's channels with a
+# [C, 128] head indicator
+PAIR_MAX_HEADS = 128
+
+
+def body_columns(dh: int, what: str = "tiny_seq_attention (B5 / B5' / B8)") -> int:
+    """The columns of the body a dh-wide head rides (64, 128 or 256: the
+    narrowest that holds it; the columns past dh are zeros in shared
+    memory).  Raises ValueError naming ROADMAP.md queue B item 3 for dh % 8
+    != 0 and item 4 for dh > 256 (`body_width`)."""
+    return body_width(dh, what)
 
 
 def kernel_body(s: int, width: int, heads: int, backward: bool = False) -> str:
     """The CUDA body that a call on [M, S, width] with `heads` heads
     launches on the card, from the shape alone: "packed" (B5', S < 8: 16 //
     S items a 16-row tile), "tile" (S <= 16: one item a tile), "long" (16 <
-    S <= MAX_S: a whole item in shared memory, looped over 16-row tiles).
-    The backward (B8) takes S >= 8; below, the gradient is the plain
-    version's vjp, as in the JAX package.  Raises ValueError, naming the
-    limit, for a shape no body takes."""
+    S <= MAX_S[body_columns(dh)]: a whole item in shared memory, looped
+    over 16-row tiles).  The backward (B8) takes S >= 8; below, the
+    gradient is the plain version's vjp, as in the JAX package.  Raises
+    ValueError, naming the limit and its ROADMAP.md queue B item, for a
+    shape no body takes."""
     what = "tiny_seq_attention backward (B8)" if backward else "tiny_seq_attention (B5 / B5')"
-    if heads < 1 or width != heads * 64:
-        raise ValueError(f"{what}: the kernels take heads of 64 channels; got width {width} "
-                         f"over {heads} heads (other head dims: ROADMAP.md queue B item 5)")
-    if s > MAX_S:
-        raise ValueError(f"{what}: the kernels take S <= {MAX_S} (a (row, head) item is held "
-                         f"whole in shared memory; longer: ROADMAP.md queue B item 5); got S = {s}")
+    if heads < 1 or width % heads != 0:
+        raise ValueError(f"{what}: width {width} does not split into {heads} heads")
+    cap = MAX_S[body_columns(width // heads, what)]
+    if s > cap:
+        raise ValueError(f"{what}: at head dim {width // heads} the kernels take S <= {cap} (a "
+                         f"(row, head) item is held whole in shared memory; longer: ROADMAP.md "
+                         f"queue B item 5); got S = {s}")
     if s < (8 if backward else 1):
         raise ValueError(f"{what}: takes S >= {8 if backward else 1}; got S = {s}")
     return "packed" if s < 8 else "tile" if s <= 16 else "long"
@@ -140,7 +160,8 @@ def packed_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head self-attention over a tiny packed axis: q/k/v [M, S*H, D]
     with packing (s, h) -> s*H + h (the reshape of [M, S, H, D]) -> the
     same.  A CPU tensor takes the plain version; a CUDA tensor launches
-    kernel B5' (bf16, D = 64, S <= MAX_S) or raises."""
+    kernel B5' (bf16, D % 8 == 0 up to 256, S within `kernel_body`'s cap)
+    or raises."""
     if q.device.type == "cpu":
         return packed_head_attention_plain(q, k, v, heads, sm_scale)
     return kernel_with_plain_vjp(_packed_head_kernel, packed_head_attention_plain, (q, k, v),
@@ -168,8 +189,9 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v [M, S, C] (C = heads * dh, h-major) -> [M, S, C].  A CPU tensor
     takes the plain version; on a CUDA tensor S < 8 goes to
     `packed_head_attention` (B5', as the JAX dispatch does) with the plain
-    version's vjp as its gradient, S >= 8 launches kernel B5 (bf16, dh = 64,
-    S <= MAX_S) with kernel B8 as its gradient, and anything else raises."""
+    version's vjp as its gradient, S >= 8 launches kernel B5 (bf16, dh % 8
+    == 0 up to 256, S within `kernel_body`'s cap) with kernel B8 as its
+    gradient, and anything else raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_plain(q, k, v, heads, sm_scale)
     m, s, c = q.shape
@@ -180,7 +202,7 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return kernel_with_plain_vjp(packed, tiny_seq_attention_plain, (q, k, v),
                                      (heads, sm_scale))
     if not (q.device.type == "cuda" and k.shape == q.shape and v.shape == q.shape):
-        raise ValueError(f"tiny_seq_attention kernel takes CUDA [M, S, H*64]; got "
+        raise ValueError(f"tiny_seq_attention kernel takes CUDA [M, S, H*dh]; got "
                          f"{tuple(q.shape)}, {heads} heads on {q.device}")
     kernel_body(s, c, heads)
     return _TinySeq.apply(q, k, v, heads, sm_scale)
@@ -191,8 +213,8 @@ class _TinySeq(torch.autograd.Function):
     def forward(ctx, q, k, v, heads, sm_scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (heads, sm_scale)
-        m, s, _ = q.shape
-        o = _launch_tiny(q, k, v, m, s, heads, 64, sm_scale, "tiny_seq_attention (B5)")
+        m, s, c = q.shape
+        o = _launch_tiny(q, k, v, m, s, heads, c // heads, sm_scale, "tiny_seq_attention (B5)")
         tiny_seq_attention.launches += 1
         return o
 
@@ -207,14 +229,15 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     """Kernel B8 on its own (what `tiny_seq_attention`'s backward launches
     at S >= 8): (dq, dk, dv), each [M, S, C] in q's dtype, for output
     gradient `g`.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16, dh = 64, 8 <= S <= MAX_S) or raises."""
+    launches the kernel (bf16, dh % 8 == 0 up to 256, 8 <= S within
+    `kernel_body`'s cap) or raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_bwd_plain(q, k, v, g, heads, sm_scale)
     m, s, c = q.shape
     g = g.to(q.dtype).contiguous()
     if not (q.device.type == "cuda" and k.shape == q.shape and v.shape == q.shape
             and g.shape == q.shape):
-        raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*64]; got "
+        raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*dh]; got "
                          f"{tuple(q.shape)}, {heads} heads on {q.device}")
     kernel_body(s, c, heads, backward=True)
     for t in (q, k, v, g):
@@ -224,7 +247,7 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = cuda_lib().bya_tiny_seq_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), m, s, heads, 64, float(sm_scale),
+        dv.data_ptr(), m, s, heads, c // heads, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "tiny_seq_attention backward (B8)")
     tiny_seq_attention_bwd.launches += 1
@@ -240,32 +263,46 @@ def pair_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention across a leading pair axis: q/k/v [B, 2, M, C] -> same; each
     (b, m, head) attends over the 2 entries of axis 1 (the identities).  A
     CPU tensor takes the plain version; a CUDA tensor launches kernel B4
-    (bf16, C and C / heads powers of two, C <= 1024) or raises.  Triton
-    raises itself if a launch fails."""
+    (bf16, any C that `heads` <= 128 divide) or raises.  Triton raises
+    itself if a launch fails."""
     if q.device.type == "cpu":
         return pair_axis_attention_plain(q, k, v, heads, sm_scale)
     return kernel_with_plain_vjp(_pair_kernel, pair_axis_attention_plain, (q, k, v),
                                  (heads, sm_scale))
 
 
+def pair_blocks(c: int, heads: int) -> tuple:
+    """B4's launch shape for [B, 2, M, C] over `heads` heads: (DP, HB,
+    BLOCK_M), the head width and the heads a program takes padded to powers
+    of two (Triton's blocks), and the rows a program takes, so that a
+    program's operand tiles hold about 4,096 elements; a grid column per
+    HB heads.  Raises ValueError, naming ROADMAP.md queue B item 5, past
+    JAX's 128 heads."""
+    if heads < 1 or heads > PAIR_MAX_HEADS or c % heads != 0:
+        raise ValueError(f"pair_axis_attention kernel takes C split into 1..{PAIR_MAX_HEADS} "
+                         f"heads (the JAX kernel's head indicator is {PAIR_MAX_HEADS} wide; more: "
+                         f"ROADMAP.md queue B item 5); got C = {c}, {heads} heads")
+    p2 = lambda n: 1 << (n - 1).bit_length()
+    dp = p2(c // heads)
+    hb = min(p2(heads), max(1, 4096 // dp))
+    return dp, hb, max(1, 4096 // (hb * dp))
+
+
 def _pair_kernel(q, k, v, heads: int, sm_scale: float) -> torch.Tensor:
     b, s, m, c = q.shape
-    pow2 = lambda n: n > 0 and n & (n - 1) == 0
-    ok = (q.device.type == "cuda" and s == 2 and c <= 1024 and pow2(c) and c % heads == 0
-          and pow2(c // heads) and k.shape == q.shape and v.shape == q.shape
+    dp, hb, block_m = pair_blocks(c, heads)
+    ok = (q.device.type == "cuda" and s == 2 and k.shape == q.shape and v.shape == q.shape
           and all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in (q, k, v)))
     if not ok:
-        raise ValueError(f"pair_axis_attention kernel takes contiguous bf16 CUDA [B, 2, M, C] "
-                         f"with C and C/heads powers of two, C <= 1024; got "
-                         f"{tuple(q.shape)} {q.dtype}, {heads} heads on {q.device}")
+        raise ValueError(f"pair_axis_attention kernel takes contiguous bf16 CUDA [B, 2, M, C]; "
+                         f"got {tuple(q.shape)} {q.dtype}, {heads} heads on {q.device}")
     import_triton()
     from ._pair_triton import pair_attention_kernel
 
     o = torch.empty_like(q)
-    block_m = max(1, 4096 // c)
-    pair_attention_kernel[(-(-m // block_m), b)](
-        q, k, v, o, m, float(sm_scale), C=c, HEADS=heads, DH=c // heads, BLOCK_M=block_m,
-        num_warps=8)
+    pair_attention_kernel[(-(-m // block_m), -(-heads // hb), b)](
+        q, k, v, o, m, float(sm_scale), C=c, HEADS=heads, DH=c // heads, DP=dp, HB=hb,
+        BLOCK_M=block_m, num_warps=8)
     pair_axis_attention.launches += 1
     return o
 

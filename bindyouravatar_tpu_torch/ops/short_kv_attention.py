@@ -19,6 +19,13 @@ the H100.
     [G, Sq, H, D] layout.
   * B2c (`_kernel`, `combine=True`): `short_kv_attention_combined`,
     head-major q [G, H, Sq, D], weighted sum over the identities.
+Every kernel takes heads of any D % 8 == 0 up to 256, at any head count, on
+the narrowest of three bodies (64, 128, 256 columns: `short_kv_body` is the
+rule), K = 32 tokens an identity and I <= 4 identities
+(`check_short_kv`); past those limits a CUDA call raises, naming its
+ROADMAP.md queue B item.  JAX's `_kernel_flat` asserts that its heads fill
+128 lanes in pairs (47 x 64 or 189 x 16 do not); the port's B3 takes any
+head count.
 The entry points with JAX's names take JAX's layouts.  Their gradients take
 the vjp of the plain versions, recomputed from the saved inputs (the
 routing weights `w` included), as the JAX custom vjps `_bwd_a`, `_bwd_c`,
@@ -34,6 +41,29 @@ import torch
 
 from ._build import check, cuda_lib
 from .autograd import kernel_with_plain_vjp
+from .flash_attention import body_width
+
+# the body's own limits: the score fragments hold 32 keys, the routing
+# weights' registers 4 identities (`csrc/short_kv_attention.cu`: KT, MAX_ID)
+KV_TOKENS = 32
+MAX_IDS = 4
+
+
+def short_kv_body(d: int) -> int:
+    """The columns of the body a D-wide head runs on: 64 for D <= 64, 128 up
+    to 128, 256 up to 256, as the flash kernels' (the tensor maps read the
+    columns past D as zeros).  Raises ValueError naming ROADMAP.md queue B
+    item 3 for D % 8 != 0 and item 4 for D > 256 (`body_width`)."""
+    return body_width(d, "short-KV kernels")
+
+
+def check_short_kv(kv_tokens: int, n_id: int) -> None:
+    """Raise ValueError, naming ROADMAP.md queue B item 6, unless the body
+    takes `kv_tokens` tokens an identity (32) and `n_id` identities (1..4)."""
+    if kv_tokens != KV_TOKENS or not 1 <= n_id <= MAX_IDS:
+        raise ValueError(f"short-KV kernels: they take K = {KV_TOKENS} tokens an identity and "
+                         f"1 <= I <= {MAX_IDS} identities; got K = {kv_tokens}, I = {n_id} "
+                         f"(other K and I: ROADMAP.md queue B item 6)")
 
 
 def short_kv_attention_combined_flat_plain(q: torch.Tensor, k: torch.Tensor,
@@ -50,8 +80,9 @@ def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.
                                      w: torch.Tensor, sm_scale: float) -> torch.Tensor:
     """q [G, Sq, H*D], k/v [G, I, H, K, D], w [G, Sq, I] ->
     sum_i w_i * softmax(q k_i^T * sm_scale) v_i as [G, Sq, H*D].  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, D = 64, K = 32 tokens per identity, I <= 4) or raises."""
+    tensor takes the plain version; a CUDA tensor launches kernel B3
+    (bf16, D % 8 == 0 up to 256, any head count, K = 32 tokens per
+    identity, I <= 4) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_combined_flat_plain(q, k, v, w, sm_scale)
     return kernel_with_plain_vjp(_combined_flat_kernel, short_kv_attention_combined_flat_plain,
@@ -61,19 +92,20 @@ def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.
 def _combined_flat_kernel(q, k, v, w, sm_scale: float) -> torch.Tensor:
     g, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
-    ok = (q.device.type == "cuda" and d == 64 and hd == h * d and kk == 32
-          and 1 <= n_id <= 4 and k.shape == (g, n_id, h, kk, d) and v.shape == k.shape
-          and w.shape == (g, sq, n_id) and _kernel_dtype_ok(q, k, v, w))
+    short_kv_body(d)
+    check_short_kv(kk, n_id)
+    ok = (q.device.type == "cuda" and hd == h * d and k.shape == (g, n_id, h, kk, d)
+          and v.shape == k.shape and w.shape == (g, sq, n_id) and _kernel_dtype_ok(q, k, v, w))
     if not ok:
         raise ValueError(
-            f"short_kv_attention kernel takes contiguous bf16 CUDA q [G,Sq,H*64], "
-            f"k/v [G,I,H,32,64] with I <= 4, w [G,Sq,I]; got "
+            f"short_kv_attention kernel takes contiguous bf16 CUDA q [G,Sq,H*D], "
+            f"k/v [G,I,H,32,D], w [G,Sq,I]; got "
             f"q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, w {tuple(w.shape)} "
             f"on {q.device}")
     o = torch.empty_like(q)
     err = cuda_lib().bya_short_kv_attention_combined_flat(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), o.data_ptr(),
-        g, sq, n_id, h, kk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        g, sq, n_id, h, kk, d, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "short_kv_attention_combined_flat (B3)")
     short_kv_attention_combined_flat.launches += 1
     return o
@@ -101,8 +133,8 @@ def short_kv_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Sq, H*D], k/v [B, I, H, K, D] -> softmax(q k_i^T * sm_scale) v_i
     per identity as [B, I, Sq, H*D].  A CPU tensor takes the plain version;
     a CUDA tensor launches kernel B2 (bf16, K = 32 tokens per identity,
-    I <= 4, D = 128 or a multiple of 8 below it, whose missing columns the
-    kernel's loads fill with zeros) or raises."""
+    I <= 4, D % 8 == 0 up to 256, on the body `short_kv_body` names, whose
+    columns past D the kernel's loads fill with zeros) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_flat_plain(q, k, v, sm_scale)
     return kernel_with_plain_vjp(_flat_kernel, short_kv_attention_flat_plain, (q, k, v),
@@ -112,14 +144,14 @@ def short_kv_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flat_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     b, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
-    ok = (q.device.type == "cuda" and 8 <= d <= 128 and d % 8 == 0 and hd == h * d and kk == 32
-          and 1 <= n_id <= 4 and k.shape == (b, n_id, h, kk, d) and v.shape == k.shape
-          and _kernel_dtype_ok(q, k, v))
+    short_kv_body(d)
+    check_short_kv(kk, n_id)
+    ok = (q.device.type == "cuda" and hd == h * d and k.shape == (b, n_id, h, kk, d)
+          and v.shape == k.shape and _kernel_dtype_ok(q, k, v))
     if not ok:
         raise ValueError(
             f"short_kv_attention_flat kernel takes contiguous bf16 CUDA q [B,Sq,H*D], "
-            f"k/v [B,I,H,32,D] with I <= 4 and D <= 128 a multiple of 8; got "
-            f"q {tuple(q.shape)} {q.dtype}, "
+            f"k/v [B,I,H,32,D]; got q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} on {q.device}")
     o = torch.empty((b, n_id, sq, hd), dtype=q.dtype, device=q.device)
     err = cuda_lib().bya_short_kv_attention(
@@ -176,15 +208,16 @@ def _layout_kernel(q, k, v, w: Optional[torch.Tensor], sm_scale: float,
     else:
         g, h, sq, d = q.shape
     n_id, kk = k.shape[1], k.shape[3]
+    short_kv_body(d)
+    check_short_kv(kk, n_id)
     tensors = (q, k, v) if w is None else (q, k, v, w)
-    ok = (q.device.type == "cuda" and d in (64, 128) and kk == 32 and 1 <= n_id <= 4
-          and k.shape == (g, n_id, h, kk, d) and v.shape == k.shape
+    ok = (q.device.type == "cuda" and k.shape == (g, n_id, h, kk, d) and v.shape == k.shape
           and (w is None or w.shape == (g, sq, n_id)) and _kernel_dtype_ok(*tensors))
     if not ok:
         lay = "[G,Sq,H,D]" if qmajor else "[G,H,Sq,D]"
         raise ValueError(
             f"short-KV {'q-major' if qmajor else 'head-major'} kernel takes contiguous bf16 "
-            f"CUDA q {lay} with D = 64 or 128, k/v [G,I,H,32,D] with I <= 4, w [G,Sq,I]; "
+            f"CUDA q {lay}, k/v [G,I,H,32,D], w [G,Sq,I]; "
             f"got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} on {q.device}")
     if w is not None:
         o = torch.empty_like(q)
@@ -204,8 +237,8 @@ def short_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-identity cross-attention (the JAX `short_kv_attention`): q
     [G, H, Sq, D], k/v [G, I, H, K, D] -> [G, I, H, Sq, D].  A CPU tensor
     takes the plain version; a CUDA tensor launches kernel B2h, B2's body
-    in the head-major layout (bf16, D = 64 or 128, K = 32, I <= 4), or
-    raises."""
+    in the head-major layout (bf16, D % 8 == 0 up to 256, K = 32, I <= 4),
+    or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_plain(q, k, v, sm_scale)
     return kernel_with_plain_vjp(_headmajor_kernel, short_kv_attention_plain, (q, k, v),
@@ -227,7 +260,7 @@ def short_kv_attention_combined(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     `short_kv_attention_combined`): q [G, H, Sq, D], k/v [G, I, H, K, D],
     w [G, Sq, I] -> sum_i w_i * attn_i as [G, H, Sq, D].  A CPU tensor
     takes the plain version; a CUDA tensor launches kernel B2c (bf16,
-    D = 64 or 128, K = 32, I <= 4) or raises."""
+    D % 8 == 0 up to 256, K = 32, I <= 4) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_combined_plain(q, k, v, w, sm_scale)
     return kernel_with_plain_vjp(_combined_kernel, short_kv_attention_combined_plain,
@@ -248,7 +281,8 @@ def short_kv_attention_qmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-identity cross-attention, q-major IO (the JAX
     `short_kv_attention_qmajor`): q [G, Sq, H, D], k/v [G, I, H, K, D] ->
     [G, I, Sq, H, D].  A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel B14 (bf16, D = 64 or 128, K = 32, I <= 4) or raises.
+    launches kernel B14 (bf16, D % 8 == 0 up to 256, K = 32, I <= 4) or
+    raises.
     `short_kv_attention_qmajor.launches` counts B14 in both modes."""
     if q.device.type == "cpu":
         return short_kv_attention_qmajor_plain(q, k, v, sm_scale)

@@ -43,14 +43,17 @@ def _normal(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("m,s", [(131, 9), (20, 16), (20, 17), (20, 25), (20, 33), (20, 64)])
-def test_b8_plain_matches_slice_bwd_kernel_interpret(m, s):
+@pytest.mark.parametrize("m,s,heads,dh", [
+    *(pytest.param(m, s, 2, 64, id=f"{m}-{s}")
+      for m, s in ((131, 9), (20, 16), (20, 17), (20, 25), (20, 33), (20, 64))),
+    (20, 13, 16, 32), (20, 13, 8, 48), (20, 13, 4, 128), (20, 25, 4, 128)])
+def test_b8_plain_matches_slice_bwd_kernel_interpret(m, s, heads, dh):
     """B8's plain version vs `_slice_bwd_kernel` through
     `_tiny_bwd_pallas(interpret=True)`, 2 heads of 64 (131 rows at S = 9:
     two row blocks of 128, the second partial); past 16 rows, the long
     body's lengths: 25 (97 frames), 17 and 33 (one row into a second and a
-    third tile) and 64."""
-    heads, dh = 2, 64
+    third tile) and 64; and the STAB's other head splits (16 x 32, 8 x 48,
+    4 x 128), at 49 frames and, at dh 128, 97."""
     rng = np.random.default_rng(81)
     q, k, v, g = (_normal(rng, m, s, heads * dh) for _ in range(4))
     want = jpa._tiny_bwd_pallas(*map(jnp.asarray, (q, k, v, g)), heads, dh ** -0.5,

@@ -34,11 +34,15 @@ def _normal(rng, *shape):
 
 
 # --------------------------------------------------------------------- B2
-@pytest.mark.parametrize("n_id,sq", [(2, 40), (1, 37), (3, 19)])
-def test_b2_plain_matches_spec_attend(n_id, sq):
+@pytest.mark.parametrize("n_id,sq,d", [pytest.param(2, 40, 32, id="2-40"),
+                                       pytest.param(1, 37, 32, id="1-37"),
+                                       pytest.param(3, 19, 32, id="3-19"),
+                                       (2, 40, 48), (4, 37, 256)])
+def test_b2_plain_matches_spec_attend(n_id, sq, d):
     """Flat-q B2 plain version vs `_spec_attend` on the head-major layout
-    (ragged Sq, one to three identities)."""
-    b, h, d, kk = 2, 4, 32, 8
+    (ragged Sq, one to four identities), at D = 32 and at 48 and 256 (the
+    card's 64- and 256-column bodies)."""
+    b, h, kk = 2, 4, 8
     rng = np.random.default_rng(21)
     q, k, v = _normal(rng, b, sq, h * d), _normal(rng, b, n_id, h, kk, d), _normal(rng, b, n_id, h, kk, d)
     want = jskv._spec_attend(jnp.asarray(q.reshape(b, sq, h, d).transpose(0, 2, 1, 3)),
@@ -70,7 +74,7 @@ def test_b2_plain_matches_kernel_interpret():
 
 
 # --------------------------------------------------------------------- B4
-@pytest.mark.parametrize("m,heads,dh", [(24, 4, 32), (37, 8, 16)])
+@pytest.mark.parametrize("m,heads,dh", [(24, 4, 32), (37, 8, 16), (24, 8, 48), (11, 3, 128)])
 def test_b4_plain_matches_pair_specs(m, heads, dh):
     """Closed-form B4 plain version vs the einsum softmax spec `_pair_spec`
     and the closed-form spec `_pair_spec2` (q scaled before the dots)."""
@@ -81,6 +85,24 @@ def test_b4_plain_matches_pair_specs(m, heads, dh):
     got = tpa.pair_axis_attention(*to_torch(q, k, v), heads, dh ** -0.5)
     assert _rel(got, jpa._pair_spec(*args, heads, dh ** -0.5)) < 1e-5
     assert _rel(got, jpa._pair_spec2(*args, heads, dh ** -0.5)) < 1e-5
+
+
+@pytest.mark.parametrize("heads,dh", [(8, 48), (24, 128)])
+def test_b4_plain_matches_pair_kernel_interpret_widths(heads, dh):
+    """B4 at C = 384 (8 x 48: neither C nor dh a power of two, the Triton
+    block's lanes padded) and 3,072 (24 x 128: past the old C <= 1,024, a
+    grid column per 4 heads) against the TPU body in interpret mode."""
+    b, m = 2, 24
+    c = heads * dh
+    rng = np.random.default_rng(124)
+    q, k, v = (_normal(rng, b, 2, m, c) for _ in range(3))
+    spec = pl.BlockSpec((1, 2, 8, c), lambda b_, i: (b_, 0, i, 0))
+    want = pl.pallas_call(
+        functools.partial(jpa._pair_kernel, heads=heads, sm_scale=dh ** -0.5),
+        grid=(b, m // 8), in_specs=[spec, spec, spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((b, 2, m, c), jnp.float32),
+        interpret=True)(*map(jnp.asarray, (q, k, v)))
+    assert _rel(tpa.pair_axis_attention(*to_torch(q, k, v), heads, dh ** -0.5), want) < 1e-5
 
 
 def test_b4_plain_matches_pair_kernel_interpret():
@@ -112,6 +134,24 @@ def test_b5_plain_matches_spec_channel(s):
     assert _rel(tpa.tiny_seq_attention(*to_torch(q, k, v), heads, dh ** -0.5), want) < 1e-5
 
 
+@pytest.mark.parametrize("s,heads,dh", [(13, 16, 32), (13, 8, 48), (13, 4, 128), (25, 4, 128)])
+def test_b5_plain_matches_slice_kernel_interpret_widths(s, heads, dh):
+    """B5 at the temporal STAB's other head splits (`RouterConfig.
+    attn_heads` 16 and 4 over 512 channels; 8 x 48 over 384), 49 frames
+    and, at dh 128, 97 (the long body), against `_slice_kernel` in
+    interpret mode."""
+    m, c = 16, heads * dh
+    rng = np.random.default_rng(126)
+    q, k, v = (_normal(rng, m, s, c) for _ in range(3))
+    spec = pl.BlockSpec((8, s, c), lambda i: (i, 0, 0))
+    want = pl.pallas_call(
+        functools.partial(jpa._slice_kernel, heads=heads, sm_scale=dh ** -0.5),
+        grid=(m // 8,), in_specs=[spec, spec, spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((m, s, c), jnp.float32),
+        interpret=True)(*map(jnp.asarray, (q, k, v)))
+    assert _rel(tpa.tiny_seq_attention(*to_torch(q, k, v), heads, dh ** -0.5), want) < 1e-5
+
+
 def test_b5_plain_matches_slice_kernel_interpret():
     m, s, heads, dh = 16, 13, 4, 32
     c = heads * dh
@@ -140,6 +180,22 @@ def test_b5p_plain_matches_einsum_attention(s):
     channel = tpa.tiny_seq_attention(*[t.reshape(m, s, heads * dh) for t in to_torch(q, k, v)],
                                      heads, dh ** -0.5)
     assert _rel(channel.reshape(m, s * heads, dh), want) < 1e-5
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 32), (8, 48), (4, 128)])
+def test_b5p_plain_matches_packed_kernel_interpret_widths(heads, dh):
+    """B5' (the packed-head fold, 3 frames) at the STAB's other head splits
+    against `_kernel` in interpret mode."""
+    m, s = 16, 3
+    rng = np.random.default_rng(128)
+    q, k, v = (_normal(rng, m, s * heads, dh) for _ in range(3))
+    spec = pl.BlockSpec((8, s * heads, dh), lambda i: (i, 0, 0))
+    want = pl.pallas_call(
+        functools.partial(jpa._kernel, heads=heads, sm_scale=dh ** -0.5),
+        grid=(m // 8,), in_specs=[spec, spec, spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((m, s * heads, dh), jnp.float32),
+        interpret=True)(*map(jnp.asarray, (q, k, v)))
+    assert _rel(tpa.packed_head_attention(*to_torch(q, k, v), heads, dh ** -0.5), want) < 1e-5
 
 
 def test_b5p_plain_matches_packed_kernel_interpret():
@@ -185,6 +241,58 @@ def test_face_kernel_wrappers_raise_off_cpu():
             tpa.tiny_seq_attention(meta(64, s, 512), meta(64, s, 512), meta(64, s, 512), 8, 0.125)
     with pytest.raises(ValueError):
         tpa.packed_head_attention(meta(64, 16, 64), meta(64, 16, 64), meta(64, 16, 64), 8, 0.125)
+
+
+@pytest.mark.parametrize("d,body", [(8, 64), (16, 64), (32, 64), (48, 64), (64, 64), (80, 128),
+                                    (128, 128), (136, 256), (256, 256)])
+def test_short_kv_body_rule(d, body):
+    """The short-KV kernels' shape rule: a head of D columns runs on the
+    narrowest of the 64-, 128- and 256-column bodies that holds it (the
+    tensor maps read the columns past D as zeros); on meta tensors (which
+    no kernel takes) each wrapper passes the rule and then refuses the
+    device."""
+    assert tskv.short_kv_body(d) == body
+    meta = lambda *shape: torch.empty(shape, device="meta", dtype=torch.bfloat16)
+    kv, w = meta(1, 2, 3, 32, d), meta(1, 64, 2)
+    for fn, args in ((tskv.short_kv_attention_combined_flat, (meta(1, 64, 3 * d), kv, kv, w)),
+                     (tskv.short_kv_attention_flat, (meta(1, 64, 3 * d), kv, kv)),
+                     (tskv.short_kv_attention_combined_qmajor, (meta(1, 64, 3, d), kv, kv, w)),
+                     (tskv.short_kv_attention, (meta(1, 3, 64, d), kv, kv))):
+        with pytest.raises(ValueError, match="contiguous bf16 CUDA"):
+            fn(*args, 0.1)
+
+
+def test_short_kv_refusals_name_their_item():
+    """Past the rule each short-KV wrapper raises on a non-CPU tensor,
+    naming the ROADMAP.md queue B item that holds the case: D % 8 != 0
+    (item 3), D > 256 (item 4), K != 32 tokens an identity or more than 4
+    identities (item 6)."""
+    meta = lambda *shape: torch.empty(shape, device="meta", dtype=torch.bfloat16)
+    for d, k_tokens, n_id, item in ((12, 32, 2, 3), (264, 32, 2, 4), (64, 16, 2, 6),
+                                    (64, 32, 5, 6)):
+        kv, w = meta(1, n_id, 2, k_tokens, d), meta(1, 64, n_id)
+        for fn, args in ((tskv.short_kv_attention_combined_flat, (meta(1, 64, 2 * d), kv, kv, w)),
+                         (tskv.short_kv_attention_flat, (meta(1, 64, 2 * d), kv, kv)),
+                         (tskv.short_kv_attention_qmajor, (meta(1, 64, 2, d), kv, kv)),
+                         (tskv.short_kv_attention_combined, (meta(1, 2, 64, d), kv, kv, w))):
+            with pytest.raises(ValueError, match=f"ROADMAP.md queue B item {item}"):
+                fn(*args, 0.1)
+
+
+def test_pair_kernel_launch_shape():
+    """B4's launch shape (`pair_blocks`): the head width and the heads a
+    program takes padded to powers of two, about 4,096 elements a tile;
+    past JAX's 128 heads a CUDA call raises naming queue B item 5."""
+    assert tpa.pair_blocks(512, 8) == (64, 8, 8)          # the 5B's 8 x 64: as before
+    assert tpa.pair_blocks(384, 8) == (64, 8, 8)          # 8 x 48: 16 lanes a head masked
+    assert tpa.pair_blocks(3072, 24) == (128, 32, 1)
+    assert tpa.pair_blocks(200, 25) == (8, 32, 16)
+    for c, heads in ((512, 4), (512, 16), (3072, 24), (200, 25), (1024, 128), (384, 8)):
+        dp, hb, block_m = tpa.pair_blocks(c, heads)
+        assert dp >= c // heads > dp // 2 and hb * dp * block_m <= 4096 and hb <= 2 * heads
+    meta = torch.empty((1, 2, 64, 129 * 8), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
+        tpa.pair_axis_attention(meta, meta, meta, 129, 0.1)
 
 
 def test_fused_layernorm_dispatch_by_width():

@@ -222,11 +222,12 @@ def _skv(d, seed, g=2, h=3, sq=40, n_id=2, kk=32):
 
 @pytest.mark.parametrize("qmajor", [False, True])
 @pytest.mark.parametrize("combine", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [48, 64, 128, 256])
 def test_short_kv_plain_matches_kernels_interpret(qmajor, combine, d):
     """B14 (`_kernel_qmajor`), B2c (`_kernel`, combine) and B2h (`_kernel`,
     per identity, head-major): plain versions vs the
-    Pallas bodies in interpret mode (8-row query blocks)."""
+    Pallas bodies in interpret mode (8-row query blocks), at the head dims
+    of the card's three bodies (48 rides the 64 one)."""
     q, k, v, w = _skv(d, seed=10 + d + 2 * combine + qmajor)
     sm = 0.21
     if qmajor:

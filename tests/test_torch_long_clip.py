@@ -114,22 +114,35 @@ def test_kernel_rule_takes_long_sequences(s):
 
 def test_kernel_rule_bodies_and_refusals():
     """The rest of the rule: B5' packs below 8, one tile an item up to 16,
-    B8 from 8; S past `MAX_S` (the source's `LONG_MAX_S`) and heads other
-    than 64 wide raise, naming the ROADMAP item that holds them."""
+    B8 from 8; a head of dh columns rides the narrowest body that holds it
+    (64, 128 or 256 columns) and takes S up to that body's cap in `MAX_S`
+    (the source's `Geo::LONG_MAX_S`), 25 (97 frames) at every width; S past
+    the cap, dh % 8 != 0 and dh > 256 raise, naming the ROADMAP item that
+    holds them."""
     assert [tpa.kernel_body(s, 512, 8) for s in range(1, 17)] == ["packed"] * 7 + ["tile"] * 9
     assert [tpa.kernel_body(s, 512, 8, backward=True) for s in range(8, 17)] == ["tile"] * 9
-    assert tpa.kernel_body(tpa.MAX_S, 512, 8, backward=True) == "long"
     src = open(os.path.join(ROOT, "bindyouravatar_tpu_torch", "csrc", "packed_attention.cu")).read()
-    assert int(re.search(r"constexpr int LONG_MAX_S = (\d+);", src).group(1)) == tpa.MAX_S
-    for s, width, heads, backward in ((7, 512, 8, True), (tpa.MAX_S + 1, 512, 8, False),
-                                      (tpa.MAX_S + 1, 512, 8, True), (25, 256, 8, False),
-                                      (25, 1024, 8, True), (0, 512, 8, False)):
+    caps = re.search(r"Geo<64>::LONG_MAX_S == (\d+) && Geo<128>::LONG_MAX_S == (\d+) &&\s*"
+                     r"Geo<256>::LONG_MAX_S == (\d+)", src)
+    assert dict(zip((64, 128, 256), map(int, caps.groups()))) == tpa.MAX_S
+    for dh, cols in ((8, 64), (32, 64), (48, 64), (64, 64), (80, 128), (128, 128), (136, 256),
+                     (256, 256)):
+        assert tpa.body_columns(dh) == cols
+        cap = tpa.MAX_S[cols]
+        assert tpa.kernel_body(cap, 8 * dh, 8, backward=True) == "long"
+        assert tpa.kernel_body(25, 4 * dh, 4, backward=True) == "long"
+        for backward in (False, True):
+            with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
+                tpa.kernel_body(cap + 1, 8 * dh, 8, backward)
+    for s, width, heads, backward in ((7, 512, 8, True), (tpa.MAX_S[64] + 1, 512, 8, False),
+                                      (tpa.MAX_S[64] + 1, 512, 8, True), (0, 512, 8, False),
+                                      (13, 96, 8, False), (13, 8 * 264, 8, True)):
         with pytest.raises(ValueError, match="B5|B8"):
             tpa.kernel_body(s, width, heads, backward)
-    with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
-        tpa.kernel_body(tpa.MAX_S + 1, 512, 8)
-    with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
-        tpa.kernel_body(25, 8 * 32, 8)
+    with pytest.raises(ValueError, match="ROADMAP.md queue B item 3"):
+        tpa.kernel_body(13, 8 * 12, 8)
+    with pytest.raises(ValueError, match="ROADMAP.md queue B item 4"):
+        tpa.kernel_body(13, 2 * 264, 2)
 
 
 # ---------------------------------------------------------------- router

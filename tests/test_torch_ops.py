@@ -112,18 +112,24 @@ def test_kernel_wrappers_raise_off_cpu():
 
 
 # --------------------------------------------------------------------- B3
-@pytest.mark.parametrize("uniform", [True, False])
-def test_b3_plain_matches_kernel_flat_interpret(uniform):
+@pytest.mark.parametrize("uniform,d", [pytest.param(True, 64, id="True"),
+                                       pytest.param(False, 64, id="False"),
+                                       (False, 16), (False, 32), (False, 128), (False, 256)])
+def test_b3_plain_matches_kernel_flat_interpret(uniform, d):
     """Plain B3 vs the `_kernel_flat` Pallas call (interpret) and the JAX
     spec, with the audio-only routing weights (0.5 for both identities) and
-    with non-uniform weights."""
-    g, h, sq, d, n_id, kk = 3, 4, 40, 64, 2, 8
+    with non-uniform weights; at the 5B's D = 64 and at the other head dims
+    that `_call_kernel_flat` packs (hpb = max(1, 128 // D) heads a block:
+    16, 32, 128, 256), which the audio layers of DiTs with those heads
+    reach."""
+    hpb = max(1, 128 // d)
+    g, h, sq, n_id, kk = 3, 2 * hpb, 40, 2, 8
     rng = np.random.default_rng(13)
     q = rng.standard_normal((g, sq, h * d)).astype(np.float32)
     k, v = (rng.standard_normal((g, n_id, h, kk, d)).astype(np.float32) for _ in range(2))
     w = (np.full((g, sq, n_id), 0.5, np.float32) if uniform
          else rng.uniform(0, 1, (g, sq, n_id)).astype(np.float32))
-    sm, hpb, rows = 0.125, 2, 8
+    sm, rows = d ** -0.5, 8
     got_kernel = pl.pallas_call(
         functools.partial(jskv._kernel_flat, n_id=n_id, hpb=hpb, dh=d, sm_scale=sm),
         grid=(g, h // hpb, sq // rows),
