@@ -1,26 +1,27 @@
 // Long-query / short-KV cross-attention: kernels B2, B3, B14, B2c and B2h,
-// one body templated on its width (64, 128 or 256 columns) and the mode:
+// one body templated on its width (64, 128 or 256 columns), the mode and
+// the key block:
 //
 //   per identity:  o[g, i, ., h] = softmax_k(q . k_i^T * scale) . v_i
 //   combined:      o[g, ., h]    = sum_i w[g, ., i] * softmax_k(q . k_i^T * scale) . v_i
 //
-// with one softmax per identity i over its K = 32 tokens.  q-major q is
+// with one softmax per identity i over its K tokens.  q-major q is
 // [G, Sq, H, D], the flat [G, Sq, H*D] projection layout; head-major q is
-// [G, H, Sq, D].  k, v: [G, I, H, 32, D]; w: [G, Sq, I].
+// [G, H, Sq, D].  k, v: [G, I, H, K, D]; w: [G, Sq, I].
 //
 //   B3  (combined, q-major) replaces the TPU kernel `_kernel_flat`
 //       (bindyouravatar_tpu/ops/short_kv_attention.py), reached through
 //       `short_kv_attention_combined_flat` from the audio cross-attention
 //       (the DiT's own head split: 48 x 64 at the 5B, 24 x 128, 96 x 32,
-//       192 x 16 or 12 x 256 at other splits).  Its own instances
-//       (`short_kv_kernel<D>`) at every body, so device time groups by
-//       kernel name; at D = 128 it is the same function as B14's combined
-//       q-major instance, compiled again under B3's name.
+//       192 x 16 or 12 x 256 at other splits; K = `context_tokens`).  Its
+//       own instances (`short_kv_kernel<D, KB>`) at every body, so device
+//       time groups by kernel name; at D = 128 it is the same function as
+//       B14's combined q-major instance, compiled again under B3's name.
 //   B2  (per identity, q-major) replaces `_kernel` with `combine=False`,
 //       reached through `short_kv_attention_flat` from the perceiver face
-//       injection: q read in the to_q projection's flat layout and each
-//       identity's output written [B, I, Sq, H*D], the layout the routing
-//       combine reads, with no head-major transposes.
+//       injection (K = `lfe_num_tokens`): q read in the to_q projection's
+//       flat layout and each identity's output written [B, I, Sq, H*D], the
+//       layout the routing combine reads, with no head-major transposes.
 //   B14 (q-major, both modes) replaces `_kernel_qmajor`
 //       (`short_kv_attention_qmajor`, `short_kv_attention_combined_qmajor`).
 //   B2c (combined, head-major) replaces `_kernel` with `combine=True`
@@ -44,9 +45,33 @@
 // and its per-tile costs, not its bytes.  (Skipping the products past D on
 // a run-time D put a branch between each ldmatrix and its mma and made
 // B2 and B3 1.7x slower at D = 64 and 128.)  TMA needs 16-byte row
-// strides, so D % 8 == 0.  K = 32
-// tokens an identity and I <= 4 identities are the body's own limits (the
-// score fragments and the weights' registers are sized by them).
+// strides, so D % 8 == 0.
+//
+// Tokens and identities: any K >= 1 and I >= 1, on a key block `KB` (a
+// template parameter; one instantiation per body, mode and key block):
+//  * KB = SHIPPED, the shipped configuration (K = 32, I <= 4: `skv_body`):
+//    the score fragments hold an identity's 32 keys, the routing weights sit
+//    in registers, and a batch's K and V of every identity stay in shared
+//    memory.
+//  * KB = 16, 32 or 64, every other K and I (`skv_general`), the narrowest
+//    that holds K (`key_block`): keys in column blocks of 16, at most KB an
+//    identity in the score registers, the columns past K masked (the tensor
+//    maps' K extent is the true K, so TMA fills the rows past it with
+//    zeros, which would score 0, not -inf).  Past 64 keys an identity's K
+//    goes in chunks of 64 and the softmax in two passes: the row maxima and
+//    sums over the chunks, then each chunk's P normalised in fp32 and
+//    rounded, as the TPU body rounds it.  The routing weights are read from
+//    the tile's [64, I] slice in shared memory.  A batch's K and V stay in
+//    shared memory when every identity's fit; else the chunks stream
+//    through a ring of buffers, in the order the consumers read them,
+//    reloaded (from L2) for every tile.  The output goes one 64-column
+//    panel at a time, the identities inside: a thread holds one panel's
+//    sum, not the row's.  The three key blocks exist for registers: on the
+//    64 body the 16- and 32-key blocks hold three blocks an SM, as the
+//    shipped body does, the 64-key one two (B3 at K = 16 0.385 ms on the
+//    64-key block, 0.187 on its own; H100 80GB HBM3 at 700 W).
+// The only bound left on I is the combined mode's weight slices, which
+// share a block's shared memory with the rest: a few hundred identities.
 //
 // Same math and roundings as the TPU bodies: fp32 scores in log2 units
 // (q.k * scale * log2 e), one exp2 softmax per identity normalised in fp32
@@ -68,7 +93,7 @@
 //    read and write the heads of the same rows side by side (in the
 //    q-major layout those are neighbours in memory; B3 0.250 ms with each
 //    block's share taken from one list of all heads' tiles, 0.212 so).  A
-//    block loads its head's K and V (I x 2 x 32 x D) once per batch g, by
+//    block loads its head's K and V (I x 2 x K x D) once per batch g, by
 //    TMA (two K/V buffers at D = 64, so the next batch's load overlaps the
 //    last tiles of this one; one at D = 128 and 256).
 //  * One producer warp keeps a ring of q tiles in flight by TMA with
@@ -105,11 +130,19 @@
 //    is rewritten only after the store that read it has left shared
 //    memory.  No barrier spans warps except the ring's and the K/V
 //    buffers' mbarriers.
+//  * The general body keeps this pipeline, with three differences: the
+//    producer issues a tile's q copy and stores its w slice before it
+//    waits on any K/V buffer (a streamed chunk of this tile can only be
+//    freed by consumers that hold this tile); the consumers keep the q
+//    slot, whose w slice they read, until the tile is done (combined); a
+//    warp with no row in a ragged last tile still takes and frees every
+//    streamed chunk, so the buffers' barriers count every warp.
 // Shared memory is dynamic (`SkvSmem`); the launcher raises each kernel's
-// limit.  At D = 256 and I = 4 a block takes 2 q stages of 32 KB, the
-// staging buffers (16 KB), the barriers and w ring (~1 KB), then one K/V
-// buffer of 4 identities x 2 x 32 x 256 bf16 (128 KB): 216,064 bytes of
-// the 232,448 a block may have; a third q stage would take 248,832.
+// limit to the configuration's bytes.  At D = 256 and I = 4 (the shipped
+// body) a block takes 2 q stages of 32 KB, the staging buffers (16 KB), the
+// barriers and w ring (~1 KB), then one K/V buffer of 4 identities x 2 x 32
+// x 256 bf16 (128 KB): 216,064 bytes of the 232,448 a block may have; a
+// third q stage would take 248,832.
 #include "hopper.cuh"
 
 namespace {
@@ -117,8 +150,10 @@ namespace {
 using namespace bya;
 
 constexpr int BM = 64;   // q rows per tile (16 per consumer warp)
-constexpr int KT = 32;   // tokens per identity
-constexpr int MAX_ID = 4;
+constexpr int KT = 32;   // the shipped body's key block: K = 32 tokens an identity
+constexpr int MAX_ID = 4;  // and at most 4 identities (its weights' registers)
+constexpr int KC = 64;   // the general body's widest key block: keys an identity in registers
+constexpr int SHIPPED = 0;  // the key-block template value of the shipped body
 constexpr int NCW = 4;   // consumer warps
 constexpr int NTHREADS = (NCW + 1) * 32;
 constexpr int NSB = 2;   // staging buffers per consumer warp
@@ -127,8 +162,9 @@ constexpr int OUT_PANEL = PANEL_ROWS * 128;  // bytes of one [16, 64] bf16 panel
 constexpr int KV_PANEL = KT * 128;           // bytes of one identity's [32, 64] K or V panel
 
 // Shared memory of one block, from a 1024-aligned base: the q ring, the
-// consumers' staging buffers, the barriers and the ring of routing-weight
-// slices (combined), then the K/V buffers: at I = 2, 74 KB at D = 64
+// consumers' staging buffers, the barriers (at most 16: 2 NST + 2 K/V
+// buffers' worth) and the ring of routing-weight slices (combined), then
+// the K/V buffers.  The shipped body: at I = 2, 74 KB at D = 64
 // (three blocks an SM), 114 KB at D = 128 (one; four q stages in one
 // block measured faster than three in each of two) and 150 KB at D = 256.
 template <int D>
@@ -276,6 +312,133 @@ __device__ __forceinline__ void skv_pv(const uint32_t (&pa)[2][4], const unsigne
     }
   }
 }
+
+// ------------------------------------ the general body (key block KB = 16, 32, 64)
+
+// S = Q K^T of one chunk of an identity's keys, raw (unscaled) fp32 as
+// [16, KB] fragments (column block nt: keys 8 nt ..).  `ks`: the chunk's K,
+// NP panels `pstride` bytes apart of KR >= kc swizzled rows.  The 16-key
+// blocks past the chunk's kc keys are skipped and every column past kc is
+// MASKED (the tensor map's rows past K read as zeros, which would score 0).
+template <int KS, int KB>
+__device__ __forceinline__ void skv_scores(const uint32_t (&qf)[KS][4], const unsigned char* ks,
+                                           int pstride, int kc, int lane, float (&s)[KB / 8][4]) {
+  const int nkb = (kc + 15) >> 4;
+#pragma unroll
+  for (int kb = 0; kb < KB / 16; ++kb) {
+    if (kb < nkb) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int nt = 2 * kb + half, r = nt * 8 + (lane & 7);
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 2) {
+          const int cc = kk * 2 + (lane >> 3);
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(b0, b1, b2, b3, ks + (cc >> 3) * pstride + swz(r, cc & 7));
+          if (kk == 0)
+            mma_bf16_first(s[nt], qf[0], b0, b1);
+          else
+            mma_bf16(s[nt], qf[kk], b0, b1);
+          mma_bf16(s[nt], qf[kk + 1], b2, b3);
+        }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int nt = 2 * kb + half, col = nt * 8 + 2 * (lane & 3);
+      if (col >= kc) s[nt][0] = s[nt][2] = MASKED;
+      if (col + 1 >= kc) s[nt][1] = s[nt][3] = MASKED;
+    }
+  }
+}
+
+// The raw row maxima of rows rl and rl + 8 (4 lanes hold a row).
+template <int KB>
+__device__ __forceinline__ void skv_row_max(const float (&s)[KB / 8][4], float& mx0, float& mx1) {
+  mx0 = mx1 = MASKED;
+#pragma unroll
+  for (int nt = 0; nt < KB / 8; ++nt) {
+    mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+}
+
+// s <- 2^(s sl - m) in place over the chunk's kc keys (0 past them); this
+// lane's share of each row's sum is added to sum0 / sum1.
+template <int KB>
+__device__ __forceinline__ void skv_exp(float (&s)[KB / 8][4], int kc, float scale_log2, float m0,
+                                        float m1, float& sum0, float& sum1) {
+  const int nkb = (kc + 15) >> 4;
+#pragma unroll
+  for (int nt = 0; nt < KB / 8; ++nt) {
+    if (nt / 2 < nkb) {
+      s[nt][0] = fast_exp2(fmaf(s[nt][0], scale_log2, -m0));
+      s[nt][1] = fast_exp2(fmaf(s[nt][1], scale_log2, -m0));
+      s[nt][2] = fast_exp2(fmaf(s[nt][2], scale_log2, -m1));
+      s[nt][3] = fast_exp2(fmaf(s[nt][3], scale_log2, -m1));
+      sum0 += s[nt][0] + s[nt][1];
+      sum1 += s[nt][2] + s[nt][3];
+    } else {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// P = s * inv rounded to bf16 A fragments (16-key block kb: column blocks
+// 2 kb, 2 kb + 1).
+template <int KB>
+__device__ __forceinline__ void skv_to_a(const float (&s)[KB / 8][4], float inv0, float inv1,
+                                         uint32_t (&pa)[KB / 16][4]) {
+#pragma unroll
+  for (int kb = 0; kb < KB / 16; ++kb) {
+    pa[kb][0] = pack_bf16(s[2 * kb][0] * inv0, s[2 * kb][1] * inv0);
+    pa[kb][1] = pack_bf16(s[2 * kb][2] * inv1, s[2 * kb][3] * inv1);
+    pa[kb][2] = pack_bf16(s[2 * kb + 1][0] * inv0, s[2 * kb + 1][1] * inv0);
+    pa[kb][3] = pack_bf16(s[2 * kb + 1][2] * inv1, s[2 * kb + 1][3] * inv1);
+  }
+}
+
+// o += P V over one 64-column panel of the chunk's V (vs: [KR, 64]
+// swizzled), the 16-key blocks past kc skipped.
+template <int KB>
+__device__ __forceinline__ void skv_pv_add(const uint32_t (&pa)[KB / 16][4],
+                                           const unsigned char* vs, int kc, int lane,
+                                           float (&o)[8][4]) {
+  const int nkb = (kc + 15) >> 4;
+#pragma unroll
+  for (int kb = 0; kb < KB / 16; ++kb) {
+    if (kb < nkb) {
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const int r = kb * 16 + (lane & 15), c = j + (lane >> 4);
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(b0, b1, b2, b3, vs + swz(r, c));
+        mma_bf16(o[j], pa[kb], b0, b1);
+        mma_bf16(o[j + 1], pa[kb], b2, b3);
+      }
+    }
+  }
+}
+
+// The general body's layout of the K/V buffers, set by the host per launch.
+struct SkvGeo {
+  int C;         // chunks of at most KB keys an identity: ceil(K / KB), 1 unless KB = KC
+  int KR;        // shared-memory rows a chunk takes: K rounded up to 16 (C == 1), else KB
+  int RI;        // rows an identity takes in a buffer: C KR (resident), KR (streamed)
+  int resident;  // 1: a batch's K and V of every identity in one buffer; 0: chunks stream
+  int NKV;       // K/V buffers (<= 4: the barriers' room)
+  int kv_off;    // byte offset of the first buffer (1024-aligned)
+  int buf;       // bytes of one buffer
+};
 
 template <int D, bool COMBINE>
 __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensorMap* tq,
@@ -525,123 +688,512 @@ __device__ __forceinline__ void skv_body(unsigned char* smem_raw, const CUtensor
   if (lane == 0) bulk_wait_all();  // the stores have left before the block ends
 }
 
+// Any K and I: K <= KB, or any K in chunks of KB when KB = KC.  The
+// pipeline of `skv_body`; the K/V buffers hold either every identity's
+// chunks of a batch (geo.resident) or one chunk each, streamed in the
+// order the consumers read them: per output panel, per identity, its
+// chunks (twice when C > 1: the row maxima and sums, then P).
+template <int D, bool COMBINE, int KB>
+__device__ __forceinline__ void skv_general(unsigned char* smem_raw, const CUtensorMap* tq,
+                                            const CUtensorMap* tk, const CUtensorMap* tv,
+                                            const CUtensorMap* to, const bf16* __restrict__ w,
+                                            int Sq, int I, int H, int tiles, long long total,
+                                            float scale_log2, int K, const SkvGeo& geo) {
+  using SM = SkvSmem<D>;
+  constexpr int NP = SM::NP, NST = SM::NST, KS = D / 16;
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem + SM::Q_OFF;                     // [NST][NP][BM][64], swizzled
+  unsigned char* sOut = smem + SM::OUT_OFF;                 // [NCW][NSB][16][64], swizzled
+  unsigned char* sKV = smem + geo.kv_off;                   // [NKV] K/V buffers
+  bf16* sW = reinterpret_cast<bf16*>(smem + SM::W_OFF);     // [NST][BM][I]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
+  uint64_t* empty = full + NST;
+  uint64_t* kv_full = empty + NST;
+  uint64_t* kv_empty = kv_full + geo.NKV;
+  const int NKV = geo.NKV, C = KB == KC ? geo.C : 1, KR = geo.KR, buf_bytes = geo.buf;
+  const bool resident = geo.resident != 0;
+  // a buffer: per identity its K as NP panels of RI rows, then its V so
+  const int pstride = geo.RI * 128, vstride = NP * pstride, id_bytes = 2 * vstride;
+  const int passes = C == 1 ? 1 : 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = (int)(blockIdx.x % H), m = (int)(gridDim.x / H), share = (int)(blockIdx.x / H);
+  const long long t_begin = total * share / m, t_end = total * (share + 1) / m;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], COMBINE ? 2 : 1);  // the q copy, and the w slice
+      mbar_init(&empty[s], NCW);
+    }
+    for (int b = 0; b < NKV; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], NCW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == NCW) {  // producer
+    TileCursor c;
+    c.seek(t_begin, tiles);
+    long long n_kv = 0;
+    // the next K/V buffer, once the consumers have freed it: `bytes` on
+    // its way
+    auto next_buffer = [&](int bytes) {
+      const int b = (int)(n_kv % NKV);
+      if (n_kv >= NKV) mbar_wait(&kv_empty[b], (int)((n_kv / NKV - 1) & 1));
+      mbar_expect_tx(&kv_full[b], bytes);
+      ++n_kv;
+      return b;
+    };
+    // chunk ch of identity i (rows 64 ch .., KR of them) into `dst`
+    auto load_chunk = [&](unsigned char* dst, int i, int ch, uint64_t* bar) {
+      for (int p = 0; p < NP; ++p) {
+        tma_load_4d(dst + p * pstride, tk, 64 * p, KB * ch, h, c.g * I + i, bar);
+        tma_load_4d(dst + vstride + p * pstride, tv, 64 * p, KB * ch, h, c.g * I + i, bar);
+      }
+    };
+    int n = 0;
+    for (long long t = t_begin; t < t_end; ++t, ++n, c.next(Sq)) {
+      const int st = n % NST;
+      if (n >= NST) mbar_wait(&empty[st], (n / NST - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], SM::Q_TILE);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sQ + st * SM::Q_TILE + p * BM * 128, tq, 64 * p, c.q0, h, c.g, &full[st]);
+      }
+      if constexpr (COMBINE) {
+        // the tile's [64, I] slice of w (zeros past Sq), in before any K/V
+        // wait: a streamed chunk of this tile is freed only by consumers
+        // that hold this tile
+        unsigned short* dst = reinterpret_cast<unsigned short*>(sW + st * BM * I);
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(w) +
+                                    ((long long)c.g * Sq + c.q0) * I;
+        const int valid = min(BM, Sq - c.q0) * I;
+        for (int e = lane; e < BM * I; e += 32) dst[e] = e < valid ? src[e] : 0;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[st]);
+      }
+      if (lane == 0) {
+        if (resident) {
+          if (t == t_begin || c.q0 == 0) {  // a new batch: every identity's K and V
+            const int b = next_buffer(I * id_bytes);
+            for (int i = 0; i < I; ++i)
+              for (int ch = 0; ch < C; ++ch)
+                load_chunk(sKV + b * buf_bytes + i * id_bytes + ch * KR * 128, i, ch, &kv_full[b]);
+          }
+        } else {
+          for (int p = 0; p < NP; ++p)
+            for (int i = 0; i < I; ++i)
+              for (int pass = 0; pass < passes; ++pass)
+                for (int ch = 0; ch < C; ++ch) {
+                  const int b = next_buffer(id_bytes);
+                  load_chunk(sKV + b * buf_bytes, i, ch, &kv_full[b]);
+                }
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumer warp `warp`: rows 16 warp .. 16 warp + 15 of each tile; this
+  // lane's fragment rows are rl and rl + 8
+  const int rl = warp * 16 + (lane >> 2);
+  TileCursor cur, nxt;
+  nxt.seek(t_begin, tiles);
+  long long n_kv = 0;
+  const unsigned char* batch_kv = sKV;  // resident: this batch's buffer
+  int n = 0, sb = 0;
+  for (long long t = t_begin; t < t_end; ++t, ++n) {
+    cur = nxt;
+    nxt.next(Sq);
+    const int q0 = cur.q0, g = cur.g;
+    if (resident && (t == t_begin || q0 == 0)) {  // a new batch: free the last one's
+      if (n_kv > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kv_empty[(n_kv - 1) % NKV]);
+      }
+      mbar_wait(&kv_full[n_kv % NKV], (int)((n_kv / NKV) & 1));
+      batch_kv = sKV + (n_kv % NKV) * buf_bytes;
+      ++n_kv;
+    }
+    const int st = n % NST;
+    mbar_wait(&full[st], (n / NST) & 1);
+    uint32_t qf[KS][4];
+    {
+      const unsigned char* qt = sQ + st * SM::Q_TILE;
+      const int r = warp * 16 + (lane & 15);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int cc = kk * 2 + (lane >> 4);
+        ldmatrix_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
+                    qt + (cc >> 3) * BM * 128 + swz(r, cc & 7));
+      }
+    }
+    if constexpr (!COMBINE) {  // per identity the slot is free: q lives in registers
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    const bf16* ws = sW + st * BM * I;
+    const int row0 = q0 + warp * 16;
+    const bool live = row0 < Sq;  // a ragged last tile may leave this warp no row
+
+    // chunk ch of identity i: its K (its V at + vstride), from the batch's
+    // buffer or the next streamed one, which `done` frees
+    auto take = [&](int i, int ch) -> const unsigned char* {
+      if (resident) return batch_kv + i * id_bytes + ch * KR * 128;
+      const int b = (int)(n_kv % NKV);
+      mbar_wait(&kv_full[b], (int)((n_kv / NKV) & 1));
+      return sKV + b * buf_bytes;
+    };
+    auto done = [&]() {
+      if (resident) return;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[n_kv % NKV]);
+      ++n_kv;
+    };
+    auto store_panel = [&](const float* a, int p, int b_out) {
+      if (lane == 0) bulk_wait_read_but<NSB - 1>();
+      __syncwarp();
+      unsigned char* buf = sOut + (warp * NSB + sb) * OUT_PANEL;
+      const int r = lane >> 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(buf + swz(r, j) + (lane & 3) * 4) =
+            pack_bf16(a[4 * j], a[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(buf + swz(r + 8, j) + (lane & 3) * 4) =
+            pack_bf16(a[4 * j + 2], a[4 * j + 3]);
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) tma_store_4d(to, buf, 64 * p, row0, h, b_out);
+      sb = (sb + 1) % NSB;
+    };
+
+    // per output panel, per identity: its chunks' scores, once for the row
+    // maxima and sums (C > 1: pass 1), then for P and P V (one chunk: both
+    // from the same scores); one copy of the math for every case
+    const int steps = C == 1 ? 1 : 2 * C;
+    for (int p = 0; p < NP; ++p) {
+      float acc[8][4];  // combined: the panel's weighted sum, set by identity 0
+      for (int i = 0; i < I; ++i) {
+        float o[8][4] = {};
+        float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+        for (int step = 0; step < steps; ++step) {
+          const bool stats = C == 1 || step < C;  // this step's scores set m and l
+          const int ch = step < C ? step : step - C;
+          const unsigned char* ks = take(i, ch);
+          if (live) {
+            const int kc = min(KB, K - KB * ch);
+            float s[KB / 8][4];
+            skv_scores<KS, KB>(qf, ks, pstride, kc, lane, s);
+            float e0 = 0.f, e1 = 0.f;  // this chunk's share of the sums
+            if (stats) {
+              float mx0, mx1;
+              skv_row_max<KB>(s, mx0, mx1);
+              const float n0 = fmaxf(m0, mx0 * scale_log2), n1 = fmaxf(m1, mx1 * scale_log2);
+              l0 *= fast_exp2(m0 - n0);
+              l1 *= fast_exp2(m1 - n1);
+              m0 = n0;
+              m1 = n1;
+            }
+            skv_exp<KB>(s, kc, scale_log2, m0, m1, e0, e1);
+            if (stats) {
+              l0 += e0;
+              l1 += e1;
+              if (step == (C == 1 ? 0 : C - 1)) {  // the sums are whole
+                inv0 = __fdividef(1.f, quad_sum(l0));
+                inv1 = __fdividef(1.f, quad_sum(l1));
+              }
+            }
+            if (C == 1 || step >= C) {
+              uint32_t pa[KB / 16][4];
+              skv_to_a<KB>(s, inv0, inv1, pa);
+              skv_pv_add<KB>(pa, ks + vstride + p * pstride, kc, lane, o);
+            }
+          }
+          done();
+        }
+        if (!live) continue;
+        if constexpr (COMBINE) {
+          const float w0 = __bfloat162float(ws[rl * I + i]);
+          const float w1 = __bfloat162float(ws[(rl + 8) * I + i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[j][0] = (i == 0 ? 0.f : acc[j][0]) + w0 * o[j][0];
+            acc[j][1] = (i == 0 ? 0.f : acc[j][1]) + w0 * o[j][1];
+            acc[j][2] = (i == 0 ? 0.f : acc[j][2]) + w1 * o[j][2];
+            acc[j][3] = (i == 0 ? 0.f : acc[j][3]) + w1 * o[j][3];
+          }
+        } else {
+          store_panel(&o[0][0], p, g * I + i);
+        }
+      }
+      if constexpr (COMBINE) {
+        if (live) store_panel(&acc[0][0], p, g);
+      }
+    }
+    if constexpr (COMBINE) {  // the w slice has been read: the slot is free
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  }
+  if (lane == 0) bulk_wait_all();  // the stores have left before the block ends
+}
+
 #define SKV_PARAMS                                                                        \
   const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,         \
       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,     \
       const bf16* __restrict__ w, int Sq, int I, int H, int tiles, long long total,       \
-      float scale_log2
-#define SKV_ARGS(D, COMBINE)                                                              \
+      float scale_log2, int K, const __grid_constant__ SkvGeo geo
+// KB = SHIPPED: the shipped body (K = 32, I <= 4); KB = 16, 32, 64: the
+// general one on that key block
+#define SKV_ARGS(D, COMBINE, KB)                                                          \
   extern __shared__ unsigned char smem_raw[];                                             \
-  skv_body<D, COMBINE>(smem_raw, &tq, &tk, &tv, &to, w, Sq, I, H, tiles, total, scale_log2)
+  if constexpr (KB == SHIPPED)                                                            \
+    skv_body<D, COMBINE>(smem_raw, &tq, &tk, &tv, &to, w, Sq, I, H, tiles, total,         \
+                         scale_log2);                                                     \
+  else                                                                                    \
+    skv_general<D, COMBINE, KB>(smem_raw, &tq, &tk, &tv, &to, w, Sq, I, H, tiles, total,  \
+                                scale_log2, K, geo)
 
-// blocks an SM the compiler should leave registers for (as shared memory
-// allows at I = 2)
-template <int D>
-constexpr int min_blocks() { return D == 64 ? 3 : 1; }
+// blocks an SM the compiler should leave registers for: the shipped body
+// as shared memory allows at I = 2; the general one at D = 64 three on the
+// 16- and 32-key blocks, two on the 64-key block (its 32 score registers)
+template <int D, int KB>
+constexpr int min_blocks() {
+  return D != 64 ? 1 : KB == SHIPPED ? 3 : KB == KC ? 2 : 3;
+}
 
 // B3
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) short_kv_kernel(SKV_PARAMS) {
-  SKV_ARGS(D, true);
+template <int D, int KB>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D, KB>()) short_kv_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, true, KB);
 }
 
 // B2
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) short_kv_attend_kernel(SKV_PARAMS) {
-  SKV_ARGS(D, false);
+template <int D, int KB>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D, KB>())
+    short_kv_attend_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, false, KB);
 }
 
 // B14 (QMAJOR), B2c (COMBINE, head-major), B2h (head-major per identity):
-// QMAJOR changes only the host's tensor maps; it keeps the instances apart
-// by name
-template <int D, bool COMBINE, bool QMAJOR>
-__global__ void __launch_bounds__(NTHREADS, min_blocks<D>()) skv_layout_kernel(SKV_PARAMS) {
-  SKV_ARGS(D, COMBINE);
+// QMAJOR changes only the host's tensor maps; it keeps the shipped body's
+// instances apart by name (the general ones share the QMAJOR = false
+// instance)
+template <int D, bool COMBINE, bool QMAJOR, int KB>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<D, KB>()) skv_layout_kernel(SKV_PARAMS) {
+  SKV_ARGS(D, COMBINE, KB);
 }
 
-// The grid: as many blocks as fit on the card at once (the occupancy query
-// is made once per kernel and identity count), at most one per tile.
-// `dh` is the tensors' head width: D, or a multiple of 8 below it whose
-// missing columns the tensor maps fill with zeros.
-template <auto KERNEL, int D, bool COMBINE>
+// The general body's key block for K tokens: the narrowest of 16, 32 and
+// 64 that holds them, 64 (in chunks) past 64.
+inline int key_block(int K) { return K <= 16 ? 16 : K <= 32 ? 32 : KC; }
+
+// The general body's K/V buffers for K tokens and I identities: every
+// identity's chunks of a batch in one buffer when they fit beside the q
+// ring, the staging buffers and the w ring (two such buffers when one is
+// at most 16 KB, so the next batch's load overlaps this one's last tiles)
+// and, on the 64 body, still leave an SM room for two blocks; else one
+// chunk a buffer, as many buffers as fit, up to 4.  False when not even
+// one chunk fits (the weights' slices of some hundreds of identities).
+template <int D>
+bool general_geo(int K, int I, bool combine, SkvGeo& geo) {
+  constexpr int NP = D / 64;
+  if (I > (1 << 16)) return false;
+  const int kb = key_block(K);
+  geo.C = (K + kb - 1) / kb;
+  geo.KR = geo.C == 1 ? (K + 15) / 16 * 16 : kb;
+  geo.kv_off = SkvSmem<D>::kv_off(I, combine);
+  const long long room = 232448 - 1024 - geo.kv_off;  // bytes left for the buffers
+  const long long batch = 2LL * NP * geo.C * geo.KR * 128 * I;
+  // two blocks of the 64 body in an SM's 233,472 bytes, 1 KB reserved each
+  const bool two = D > 64 || geo.kv_off + batch + 1024 <= 233472 / 2 - 1024;
+  if (batch <= room && two) {
+    geo.resident = 1;
+    geo.RI = geo.C * geo.KR;
+    geo.buf = (int)batch;
+    geo.NKV = batch <= 16384 && 2 * batch <= room ? 2 : 1;
+  } else {
+    geo.resident = 0;
+    geo.RI = geo.KR;
+    geo.buf = 2 * NP * geo.KR * 128;
+    geo.NKV = room < geo.buf ? 0 : (int)(room / geo.buf < 4 ? room / geo.buf : 4);
+  }
+  return geo.NKV >= 1;
+}
+
+// The card's SM count, queried once.
+cudaError_t sm_count(int& sms) {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  sms = n;
+  return cudaSuccess;
+}
+
+// Blocks of KERNEL an SM holds at `smem` dynamic bytes: the kernel's limit
+// raised to those bytes first; the query made once per kernel and byte
+// count.
+template <auto KERNEL>
+cudaError_t blocks_per_sm(int smem, int& n) {
+  static int limit = 0, used = 0, keys[32], vals[32];
+  for (int j = 0; j < used; ++j)
+    if (keys[j] == smem) {
+      n = vals[j];
+      return cudaSuccess;
+    }
+  if (smem > limit) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    limit = smem;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, KERNEL, NTHREADS, smem);
+  if (err == cudaSuccess && used < 32) {
+    keys[used] = smem;
+    vals[used++] = n;
+  }
+  return err;
+}
+
+// The grid: as many blocks as fit on the card at once, at most one per
+// tile.  K = 32 with I <= 4 runs KERNEL<SHIPPED>, every other K and I
+// KERNEL<key_block(K)>.  `dh` is the tensors' head width: D, or a multiple
+// of 8 below it whose missing columns the tensor maps fill with zeros.
+template <template <int> class KERNEL, int D, bool COMBINE>
 int launch(bool qmajor, const void* q, const void* k, const void* v, const void* w, void* o,
-           int G, int Sq, int I, int H, int K_tokens, float scale, void* stream, int dh) {
-  if (K_tokens != KT || I < 1 || I > MAX_ID || G < 0 || Sq < 0 || H < 1 || dh < 8 || dh > D ||
-      dh % 8 != 0)
+           int G, int Sq, int I, int H, int K, float scale, void* stream, int dh) {
+  if (K < 1 || I < 1 || G < 0 || Sq < 0 || H < 1 || dh < 8 || dh > D || dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = (Sq + BM - 1) / BM;
   const long long total = (long long)G * tiles;  // tiles of one head
   if (total == 0) return 0;
+  const int kb = K == KT && I <= MAX_ID ? SHIPPED : key_block(K);
+  SkvGeo geo{};
+  int smem = SkvSmem<D>::bytes(I, COMBINE), rows = KT;
+  if (kb != SHIPPED) {
+    if (!general_geo<D>(K, I, COMBINE, geo)) return (int)cudaErrorInvalidConfiguration;
+    smem = geo.kv_off + geo.NKV * geo.buf + 1024;
+    rows = geo.KR;
+  }
   const Layout lq = make_layout(Sq, H, dh, qmajor ? 1 : 0);
-  const Layout lkv = make_layout(KT, H, dh, 0);
+  const Layout lkv = make_layout(K, H, dh, 0);
   CUtensorMap tq, tk, tv, to;
   // per identity, o is [G * I] batches of q's layout
-  if (!make_map(&tq, q, lq, G, H, Sq, dh, BM) || !make_map(&tk, k, lkv, G * I, H, KT, dh, KT) ||
-      !make_map(&tv, v, lkv, G * I, H, KT, dh, KT) ||
+  if (!make_map(&tq, q, lq, G, H, Sq, dh, BM) || !make_map(&tk, k, lkv, G * I, H, K, dh, rows) ||
+      !make_map(&tv, v, lkv, G * I, H, K, dh, rows) ||
       !make_map(&to, o, lq, COMBINE ? G : G * I, H, Sq, dh, PANEL_ROWS))
     return (int)cudaErrorInvalidValue;
-  static int sms = 0, per_sm[MAX_ID + 1] = {};
-  const int smem = SkvSmem<D>::bytes(I, COMBINE);
-  if (per_sm[I] == 0) {
-    int dev = 0, n = 0;
-    cudaError_t err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           SkvSmem<D>::bytes(MAX_ID, COMBINE));
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, KERNEL, NTHREADS, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (n == 0) return (int)cudaErrorInvalidConfiguration;
-    per_sm[I] = n;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(sms);
+  if (err == cudaSuccess) {
+    switch (kb) {
+      case SHIPPED: err = blocks_per_sm<KERNEL<SHIPPED>::fn>(smem, per_sm); break;
+      case 16: err = blocks_per_sm<KERNEL<16>::fn>(smem, per_sm); break;
+      case 32: err = blocks_per_sm<KERNEL<32>::fn>(smem, per_sm); break;
+      default: err = blocks_per_sm<KERNEL<KC>::fn>(smem, per_sm);
+    }
   }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   // blocks per head: as many as fit on the card beside the other heads'
-  const long long per_head = (long long)sms * per_sm[I] / H;
+  const long long per_head = (long long)sms * per_sm / H;
   const long long m = per_head < 1 ? 1 : (per_head < total ? per_head : total);
-  KERNEL<<<(unsigned)(m * H), NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, to, static_cast<const bf16*>(w), Sq, I, H, tiles, total, scale * LOG2E);
+  const unsigned grid = (unsigned)(m * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const float sl = scale * LOG2E;
+#define SKV_LAUNCH(KB)                                                                     \
+  KERNEL<KB>::fn<<<grid, NTHREADS, smem, st>>>(tq, tk, tv, to, wb, Sq, I, H, tiles, total, sl, \
+                                              K, geo)
+  switch (kb) {
+    case SHIPPED: SKV_LAUNCH(SHIPPED); break;
+    case 16: SKV_LAUNCH(16); break;
+    case 32: SKV_LAUNCH(32); break;
+    default: SKV_LAUNCH(KC);
+  }
+#undef SKV_LAUNCH
   return (int)cudaGetLastError();
 }
+
+// The kernels of each entry point by key block (`KERNEL<KB>::fn`)
+template <int D>
+struct B3Kernels {
+  template <int KB>
+  struct of {
+    static constexpr auto fn = short_kv_kernel<D, KB>;
+  };
+};
+template <int D>
+struct B2Kernels {
+  template <int KB>
+  struct of {
+    static constexpr auto fn = short_kv_attend_kernel<D, KB>;
+  };
+};
+// the general key blocks share the QMAJOR = false instance
+template <int D, bool COMBINE, bool QMAJOR>
+struct LayoutKernels {
+  template <int KB>
+  struct of {
+    static constexpr auto fn = skv_layout_kernel<D, COMBINE, KB == SHIPPED && QMAJOR, KB>;
+  };
+};
 
 // B3 (q-major combined) at head width dh on the D-column body
 template <int D>
 int launch_b3(const void* q, const void* k, const void* v, const void* w, void* o, int G,
               int Sq, int I, int H, int K, int dh, float scale, void* stream) {
-  return launch<short_kv_kernel<D>, D, true>(true, q, k, v, w, o, G, Sq, I, H, K, scale, stream,
-                                             dh);
+  return launch<B3Kernels<D>::template of, D, true>(true, q, k, v, w, o, G, Sq, I, H, K, scale,
+                                                    stream, dh);
 }
 
 // B2 (q-major per identity) at head width dh on the D-column body
 template <int D>
 int launch_b2(const void* q, const void* k, const void* v, void* o, int G, int Sq, int I, int H,
               int K, int dh, float scale, void* stream) {
-  return launch<short_kv_attend_kernel<D>, D, false>(true, q, k, v, nullptr, o, G, Sq, I, H, K,
+  return launch<B2Kernels<D>::template of, D, false>(true, q, k, v, nullptr, o, G, Sq, I, H, K,
                                                      scale, stream, dh);
 }
 
-// B14, B2c, B2h at head width dh on the D-column body
+// B14, B2c, B2h (COMBINE, QMAJOR) at head width dh on the D-column body
+template <int D, bool COMBINE, bool QMAJOR>
+int launch_layout_mode(const void* q, const void* k, const void* v, const void* w, void* o,
+                       int G, int Sq, int I, int H, int K, int dh, float scale, void* stream) {
+  return launch<LayoutKernels<D, COMBINE, QMAJOR>::template of, D, COMBINE>(
+      QMAJOR, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh);
+}
+
 template <int D>
 int launch_layout(const void* q, const void* k, const void* v, const void* w, void* o, int G,
                   int Sq, int I, int H, int K, int dh, int qmajor, float scale, void* stream) {
   if (qmajor)
-    return w != nullptr ? launch<skv_layout_kernel<D, true, true>, D, true>(
-                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh)
-                        : launch<skv_layout_kernel<D, false, true>, D, false>(
-                              true, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh);
-  return w != nullptr ? launch<skv_layout_kernel<D, true, false>, D, true>(
-                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh)
-                      : launch<skv_layout_kernel<D, false, false>, D, false>(
-                            false, q, k, v, w, o, G, Sq, I, H, K, scale, stream, dh);
+    return w != nullptr
+               ? launch_layout_mode<D, true, true>(q, k, v, w, o, G, Sq, I, H, K, dh, scale, stream)
+               : launch_layout_mode<D, false, true>(q, k, v, w, o, G, Sq, I, H, K, dh, scale,
+                                                    stream);
+  return w != nullptr
+             ? launch_layout_mode<D, true, false>(q, k, v, w, o, G, Sq, I, H, K, dh, scale, stream)
+             : launch_layout_mode<D, false, false>(q, k, v, w, o, G, Sq, I, H, K, dh, scale,
+                                                   stream);
 }
 
 }  // namespace
 
 // Every entry point takes bf16 tensors, contiguous and 16-byte aligned; D a
-// multiple of 8 up to 256 (the narrowest body that holds it runs), K = 32
-// tokens an identity, 1 <= I <= 4.  Each returns the cudaError_t of the
-// launch, or cudaErrorInvalidValue for a K, I or D it does not take.
+// multiple of 8 up to 256 (the narrowest body that holds it runs), any K >=
+// 1 tokens an identity and I >= 1 identities.  Each returns the
+// cudaError_t of the launch, cudaErrorInvalidValue for a D (or a shape) it
+// does not take, or cudaErrorInvalidConfiguration when the combined mode's
+// weight slices of I identities leave no room for a K/V buffer.
 
-// B2.  q: [B, Sq, H*D]; k, v: [B, I, H, 32, D]; o: [B, I, Sq, H*D].
+// B2.  q: [B, Sq, H*D]; k, v: [B, I, H, K, D]; o: [B, I, Sq, H*D].
 extern "C" int bya_short_kv_attention(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int I, int H, int K, int D, float scale,
                                       void* stream) {
@@ -653,7 +1205,7 @@ extern "C" int bya_short_kv_attention(const void* q, const void* k, const void* 
   return (int)cudaErrorInvalidValue;
 }
 
-// B3.  q, o: [G, Sq, H*D]; k, v: [G, I, H, 32, D]; w: [G, Sq, I].
+// B3.  q, o: [G, Sq, H*D]; k, v: [G, I, H, K, D]; w: [G, Sq, I].
 extern "C" int bya_short_kv_attention_combined_flat(const void* q, const void* k,
                                                     const void* v, const void* w, void* o,
                                                     int G, int Sq, int I, int H, int K, int D,
@@ -667,7 +1219,7 @@ extern "C" int bya_short_kv_attention_combined_flat(const void* q, const void* k
 }
 
 // B14, B2c, B2h.  q: [G, Sq, H, D] (qmajor = 1) or [G, H, Sq, D]; k, v:
-// [G, I, H, 32, D]; w: [G, Sq, I] or null (per identity); o: q's layout
+// [G, I, H, K, D]; w: [G, Sq, I] or null (per identity); o: q's layout
 // (combined) or [G, I, Sq, H, D] / [G, I, H, Sq, D] (per identity).
 extern "C" int bya_short_kv_layout(const void* q, const void* k, const void* v, const void* w,
                                    void* o, int G, int Sq, int I, int H, int K, int D,

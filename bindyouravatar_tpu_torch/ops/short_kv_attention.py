@@ -6,12 +6,14 @@ all five are instantiations of one templated body in
 the H100.
   * B3 (`_kernel_flat`), with the identity combine: the audio
     cross-attention calls it once per layer; every latent frame's 1,350
-    video queries attend to that frame's 32 audio tokens of each identity,
-    and the per-identity results are summed with the routing weights.
+    video queries attend to that frame's audio tokens of each identity
+    (`AudioConfig.context_tokens`, 32 at the 5B), and the per-identity
+    results are summed with the routing weights.
   * B2 (`_kernel`, `combine=False`): the perceiver face injection calls it
     once per face layer, on the flat projection (`short_kv_attention_flat`);
-    all 17,550 video queries attend to each identity's 32 face tokens, one
-    output per identity, combined later by the caller.
+    all 17,550 video queries attend to each identity's face tokens
+    (`DiTConfig.lfe_num_tokens`, 32 at the 5B), one output per identity,
+    combined later by the caller.
   * B2h: the same body in JAX's head-major layout, behind the JAX-layout
     entry `short_kv_attention` (q [G, H, Sq, D]).
   * B14 (`_kernel_qmajor`, both modes): `short_kv_attention_qmajor` and
@@ -21,11 +23,15 @@ the H100.
     head-major q [G, H, Sq, D], weighted sum over the identities.
 Every kernel takes heads of any D % 8 == 0 up to 256, at any head count, on
 the narrowest of three bodies (64, 128, 256 columns: `short_kv_body` is the
-rule), K = 32 tokens an identity and I <= 4 identities
-(`check_short_kv`); past those limits a CUDA call raises, naming its
-ROADMAP.md queue B item.  JAX's `_kernel_flat` asserts that its heads fill
-128 lanes in pairs (47 x 64 or 189 x 16 do not); the port's B3 takes any
-head count.
+rule; past it a CUDA call raises, naming its ROADMAP.md queue B item), and
+any K >= 1 tokens an identity and I >= 1 identities: K = 32 with I <= 4,
+the shipped configuration, on the shipped body, every other K and I on the
+general body's key block of 16, 32 or 64 (keys past 64 in chunks, the
+softmax in two passes; the source note says how).  The combined mode's
+weight slices share a block's shared memory, which bounds I at a few
+hundred identities.  JAX's `_kernel_flat` asserts that its heads fill 128
+lanes in pairs (47 x 64 or 189 x 16 do not); the port's B3 takes any head
+count.
 The entry points with JAX's names take JAX's layouts.  Their gradients take
 the vjp of the plain versions, recomputed from the saved inputs (the
 routing weights `w` included), as the JAX custom vjps `_bwd_a`, `_bwd_c`,
@@ -43,27 +49,12 @@ from ._build import check, cuda_lib
 from .autograd import kernel_with_plain_vjp
 from .flash_attention import body_width
 
-# the body's own limits: the score fragments hold 32 keys, the routing
-# weights' registers 4 identities (`csrc/short_kv_attention.cu`: KT, MAX_ID)
-KV_TOKENS = 32
-MAX_IDS = 4
-
-
 def short_kv_body(d: int) -> int:
     """The columns of the body a D-wide head runs on: 64 for D <= 64, 128 up
     to 128, 256 up to 256, as the flash kernels' (the tensor maps read the
     columns past D as zeros).  Raises ValueError naming ROADMAP.md queue B
     item 3 for D % 8 != 0 and item 4 for D > 256 (`body_width`)."""
     return body_width(d, "short-KV kernels")
-
-
-def check_short_kv(kv_tokens: int, n_id: int) -> None:
-    """Raise ValueError, naming ROADMAP.md queue B item 6, unless the body
-    takes `kv_tokens` tokens an identity (32) and `n_id` identities (1..4)."""
-    if kv_tokens != KV_TOKENS or not 1 <= n_id <= MAX_IDS:
-        raise ValueError(f"short-KV kernels: they take K = {KV_TOKENS} tokens an identity and "
-                         f"1 <= I <= {MAX_IDS} identities; got K = {kv_tokens}, I = {n_id} "
-                         f"(other K and I: ROADMAP.md queue B item 6)")
 
 
 def short_kv_attention_combined_flat_plain(q: torch.Tensor, k: torch.Tensor,
@@ -81,8 +72,7 @@ def short_kv_attention_combined_flat(q: torch.Tensor, k: torch.Tensor, v: torch.
     """q [G, Sq, H*D], k/v [G, I, H, K, D], w [G, Sq, I] ->
     sum_i w_i * softmax(q k_i^T * sm_scale) v_i as [G, Sq, H*D].  A CPU
     tensor takes the plain version; a CUDA tensor launches kernel B3
-    (bf16, D % 8 == 0 up to 256, any head count, K = 32 tokens per
-    identity, I <= 4) or raises."""
+    (bf16, D % 8 == 0 up to 256, any head count, any K and I) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_combined_flat_plain(q, k, v, w, sm_scale)
     return kernel_with_plain_vjp(_combined_flat_kernel, short_kv_attention_combined_flat_plain,
@@ -93,13 +83,12 @@ def _combined_flat_kernel(q, k, v, w, sm_scale: float) -> torch.Tensor:
     g, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
     short_kv_body(d)
-    check_short_kv(kk, n_id)
     ok = (q.device.type == "cuda" and hd == h * d and k.shape == (g, n_id, h, kk, d)
           and v.shape == k.shape and w.shape == (g, sq, n_id) and _kernel_dtype_ok(q, k, v, w))
     if not ok:
         raise ValueError(
             f"short_kv_attention kernel takes contiguous bf16 CUDA q [G,Sq,H*D], "
-            f"k/v [G,I,H,32,D], w [G,Sq,I]; got "
+            f"k/v [G,I,H,K,D], w [G,Sq,I]; got "
             f"q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, w {tuple(w.shape)} "
             f"on {q.device}")
     o = torch.empty_like(q)
@@ -132,9 +121,9 @@ def short_kv_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             sm_scale: float) -> torch.Tensor:
     """q [B, Sq, H*D], k/v [B, I, H, K, D] -> softmax(q k_i^T * sm_scale) v_i
     per identity as [B, I, Sq, H*D].  A CPU tensor takes the plain version;
-    a CUDA tensor launches kernel B2 (bf16, K = 32 tokens per identity,
-    I <= 4, D % 8 == 0 up to 256, on the body `short_kv_body` names, whose
-    columns past D the kernel's loads fill with zeros) or raises."""
+    a CUDA tensor launches kernel B2 (bf16, any K and I, D % 8 == 0 up to
+    256, on the body `short_kv_body` names, whose columns past D the
+    kernel's loads fill with zeros) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_flat_plain(q, k, v, sm_scale)
     return kernel_with_plain_vjp(_flat_kernel, short_kv_attention_flat_plain, (q, k, v),
@@ -145,13 +134,12 @@ def _flat_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     b, sq, hd = q.shape
     n_id, h, kk, d = k.shape[1], k.shape[2], k.shape[3], k.shape[4]
     short_kv_body(d)
-    check_short_kv(kk, n_id)
     ok = (q.device.type == "cuda" and hd == h * d and k.shape == (b, n_id, h, kk, d)
           and v.shape == k.shape and _kernel_dtype_ok(q, k, v))
     if not ok:
         raise ValueError(
             f"short_kv_attention_flat kernel takes contiguous bf16 CUDA q [B,Sq,H*D], "
-            f"k/v [B,I,H,32,D]; got q {tuple(q.shape)} {q.dtype}, "
+            f"k/v [B,I,H,K,D]; got q {tuple(q.shape)} {q.dtype}, "
             f"k {tuple(k.shape)} on {q.device}")
     o = torch.empty((b, n_id, sq, hd), dtype=q.dtype, device=q.device)
     err = cuda_lib().bya_short_kv_attention(
@@ -209,7 +197,6 @@ def _layout_kernel(q, k, v, w: Optional[torch.Tensor], sm_scale: float,
         g, h, sq, d = q.shape
     n_id, kk = k.shape[1], k.shape[3]
     short_kv_body(d)
-    check_short_kv(kk, n_id)
     tensors = (q, k, v) if w is None else (q, k, v, w)
     ok = (q.device.type == "cuda" and k.shape == (g, n_id, h, kk, d) and v.shape == k.shape
           and (w is None or w.shape == (g, sq, n_id)) and _kernel_dtype_ok(*tensors))
@@ -217,7 +204,7 @@ def _layout_kernel(q, k, v, w: Optional[torch.Tensor], sm_scale: float,
         lay = "[G,Sq,H,D]" if qmajor else "[G,H,Sq,D]"
         raise ValueError(
             f"short-KV {'q-major' if qmajor else 'head-major'} kernel takes contiguous bf16 "
-            f"CUDA q {lay}, k/v [G,I,H,32,D], w [G,Sq,I]; "
+            f"CUDA q {lay}, k/v [G,I,H,K,D], w [G,Sq,I]; "
             f"got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} on {q.device}")
     if w is not None:
         o = torch.empty_like(q)
@@ -237,8 +224,8 @@ def short_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-identity cross-attention (the JAX `short_kv_attention`): q
     [G, H, Sq, D], k/v [G, I, H, K, D] -> [G, I, H, Sq, D].  A CPU tensor
     takes the plain version; a CUDA tensor launches kernel B2h, B2's body
-    in the head-major layout (bf16, D % 8 == 0 up to 256, K = 32, I <= 4),
-    or raises."""
+    in the head-major layout (bf16, D % 8 == 0 up to 256, any K and I), or
+    raises."""
     if q.device.type == "cpu":
         return short_kv_attention_plain(q, k, v, sm_scale)
     return kernel_with_plain_vjp(_headmajor_kernel, short_kv_attention_plain, (q, k, v),
@@ -260,7 +247,7 @@ def short_kv_attention_combined(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     `short_kv_attention_combined`): q [G, H, Sq, D], k/v [G, I, H, K, D],
     w [G, Sq, I] -> sum_i w_i * attn_i as [G, H, Sq, D].  A CPU tensor
     takes the plain version; a CUDA tensor launches kernel B2c (bf16,
-    D % 8 == 0 up to 256, K = 32, I <= 4) or raises."""
+    D % 8 == 0 up to 256, any K and I) or raises."""
     if q.device.type == "cpu":
         return short_kv_attention_combined_plain(q, k, v, w, sm_scale)
     return kernel_with_plain_vjp(_combined_kernel, short_kv_attention_combined_plain,
@@ -281,7 +268,7 @@ def short_kv_attention_qmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-identity cross-attention, q-major IO (the JAX
     `short_kv_attention_qmajor`): q [G, Sq, H, D], k/v [G, I, H, K, D] ->
     [G, I, Sq, H, D].  A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel B14 (bf16, D % 8 == 0 up to 256, K = 32, I <= 4) or
+    launches kernel B14 (bf16, D % 8 == 0 up to 256, any K and I) or
     raises.
     `short_kv_attention_qmajor.launches` counts B14 in both modes."""
     if q.device.type == "cpu":

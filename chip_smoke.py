@@ -11,6 +11,10 @@
     python3 chip_smoke.py --only-kernels widths    # the short-KV and packed kernels' widths
     python3 chip_smoke.py --only-distribution      # phase 11 only
     python3 chip_smoke.py --only-head-dims         # phases 3g and 3h only
+    python3 chip_smoke.py --only-kernels tokens    # the short-KV kernels at other K and I
+    python3 chip_smoke.py --only-tokens            # phase 3i only
+    python3 chip_smoke.py --face-plain             # ROADMAP C5: the face path's kernels
+                                                   # swapped for plain fp32 versions
     python3 chip_smoke.py --only-long-clips        # phase 12 only
 
 Phases (one line each; any failure exits non-zero and prints no result):
@@ -68,7 +72,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      combined at [26, 1350] as 16 x 128, 192 x 16 and 12 x 256 heads;
      B5 / B5' and B8 (twice, bitwise) at M = 1,001 at dh 8, 32, 48, 128,
      256 from S = 1 to each width's long-body cap; B4 at 1,001 rows from
-     25 x 8 to 24 x 128 and JAX's 128 heads);
+     25 x 8 to 24 x 128 and JAX's 128 heads; the short-KV kernels at other
+     token and identity counts (`tokens`): B3 at [26, 1350, 3072] with
+     (K, I) = (16, 2), (64, 2), (32, 5), (32, 8), (64, 5) and B2 at q [2,
+     17550, 2048] with (16, 2), (64, 2), (32, 3), (32, 5), timed, and every
+     short-KV entry point, untimed, at K = 1, 4, 8, 16, 24, 33, 64, 100 and
+     I = 1, 3, 5, 8 at D = 64, 128, 256 (16 and 48 at K = 100, I = 5) over
+     Sq = 1,000 in 3 batches, its K/V resident or streamed);
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -118,6 +128,16 @@ Phases (one line each; any failure exits non-zero and prints no result):
      smoke reaches (B2, B14, B2c, B2h at D = 48 and 256; B5 and B8 at 8 x
      48 heads; B5' at dh 32, 48, 128; B4 at C = 384), once each against
      their plain versions, one launch each: the rest of the width rows.
+  3i. `DiT.create`'s face + audio DiT at other token and identity counts, 2
+     layers at dim 3072 (48 x 64 heads, the audio heads derived), 16 +
+     1,024 tokens, with (I, K_f face, K_a audio tokens) = (3, 24, 16), (5,
+     56, 64) and (2, 8, 4): B2 at K_f and B3 at K_a on their general key
+     blocks, the multi-ID STAB on B5' (I = 3, 5) or B4 (I = 2); the serving
+     forward and one Stage-3 micro-batch against the CPU in fp32 at 3g's
+     tolerances, exact launches; then one request at 42 layers with I = 5,
+     K_f = 56, K_a = 64 through the `InferenceServer` (s a denoise step,
+     peak, launches); then each token row's configuration once through its
+     entry point (one launch each: the token rows' launches).
   4. the port's `InferenceServer` answers 2 face + audio requests and 1
      audio-only request through `pipeline.generate` on one fully
      conditioned DiT at the 5B geometry (dim 3072, 48 x 64 heads, 226 +
@@ -285,6 +305,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -728,6 +749,7 @@ def kernel_phase(results: dict, only=None) -> bool:
     layout_kernel_phase(results, rnd, report, report_all, pick)
     head_dim_kernel_phase(results, rnd, report, report_all, bhsd, pick, check)
     width_kernel_phase(results, rnd, report, report_all, check, check_ok, bhsd, only)
+    token_kernel_phase(results, rnd, report, check, bhsd, only)
     return ok_all
 
 
@@ -1089,7 +1111,7 @@ def layout_kernel_phase(results: dict, rnd, report, report_all, pick) -> None:
 # runs every kernel's rows at that head dim (dh32, dh64 and dh128: B10's);
 # `dsweep` the sweep of D
 HEAD_DIM_CLASSES = ("dh16", "dh32", "dh48", "dh64", "dh96", "dh128", "dh256", "dsweep",
-                    "widths")
+                    "widths", "tokens")
 
 
 def _rope_tables(rows: int, d: int, gen, dev):
@@ -1531,6 +1553,114 @@ def width_kernel_phase(results: dict, rnd, report, report_all, check, check_ok, 
               pa.pair_axis_attention_plain(q, k, v, h, 0.3), 1e-2, 1e-2)
 
 
+TOKEN_CLASS = "tokens"
+# the short-KV kernels at other token counts K and identity counts I, on the
+# general key block (K = 32 with I <= 4 keeps the shipped one): their
+# kernels line rows (name, kernel, K, I); B3 on the audio geometry, B2 on
+# the perceiver's
+TOKEN_ROWS = (("B3 K16", "B3", 16, 2), ("B3 K64", "B3", 64, 2), ("B3 I5", "B3", 32, 5),
+              ("B3 I8", "B3", 32, 8), ("B3 K64 I5", "B3", 64, 5),
+              ("B2 K16", "B2", 16, 2), ("B2 K64", "B2", 64, 2), ("B2 I3", "B2", 32, 3),
+              ("B2 I5", "B2", 32, 5))
+# the hazards' token and identity counts: one key (15 masked of its block),
+# a ragged 16-key block (24, 33: one block past 32), a full 64-key block,
+# and 100 (two chunks of 64, the second ragged: the two-pass softmax)
+TOKEN_KS = (1, 4, 8, 16, 24, 33, 64, 100)
+TOKEN_IS = (1, 3, 5, 8)
+
+
+def token_kernel_phase(results: dict, rnd, report, check, bhsd, only) -> None:
+    """The short-KV kernels at token counts K != 32 and identity counts I >
+    4 (the general key block), against their plain versions: the rows of
+    `TOKEN_ROWS` timed at their paths' shapes (B3 at [26, 1350, 3072] as 48
+    x 64 heads, B2 at q [2, 17550, 2048] as 16 x 128), then every entry
+    point, untimed, at each K of `TOKEN_KS` and I of `TOKEN_IS` at D = 64,
+    128 and 256 (and 16 and 48 at K = 100, I = 5) over Sq = 1,000 in 3
+    batches, both layouts and modes: a persistent block's share crosses a
+    change of batch while its K/V is resident or streams (which of the two
+    a (K, I, D) takes: `csrc/short_kv_attention.cu:general_geo`)."""
+    import torch
+    import torch.nn.functional as F
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(4321)
+    firsts = None if only is None else {o.split()[0] for o in only}
+    wanted = lambda kernel: firsts is None or kernel in firsts or TOKEN_CLASS in firsts
+
+    # --- B3 on the audio geometry, q [26, 1350, 3072] (48 x 64 heads), and
+    # B2 on the perceiver's, q [2, 17550, 2048] (16 x 128), at K tokens an
+    # identity and I identities.
+    # tol: as the K = 32, I = 2 rows.  bound: the bytes of q, K, V (0.3195
+    # MB x I K at B3's shape), w and the output(s); operations 4 I K D a row
+    # and head.  library: none for B3 (no single call weights the
+    # identities' softmaxes); SDPA with the identities folded into the heads
+    # for B2 (q repeated per identity before timing).
+    for name, kernel, kk, n_id in (r for r in TOKEN_ROWS if wanted(r[1])):
+        if kernel == "B3":
+            g, sq, h, d = 26, 1350, 48, 64
+            q = rnd(g, sq, h * d).to(bf)
+            k, v = (rnd(g, n_id, h, kk, d).to(bf) for _ in range(2))
+            w = torch.rand((g, sq, n_id), generator=gen, device=dev).to(bf)
+            kern = lambda: skv.short_kv_attention_combined_flat(q, k, v, w, 0.125)
+            plain = lambda: skv.short_kv_attention_combined_flat_plain(q, k, v, w, 0.125)
+            library = None
+            work = (_nbytes(q, k, v, w, q), 4.0 * g * n_id * h * sq * kk * d, "bf16")
+            tag = f"slice[26,1350,3072] K={kk} I={n_id} w~U(0,1)"
+        else:
+            g, sq, h, d = 2, 17550, 16, 128
+            q = rnd(g, sq, h * d).to(bf)
+            k, v = (rnd(g, n_id, h, kk, d).to(bf) for _ in range(2))
+            kern = lambda: skv.short_kv_attention_flat(q, k, v, d ** -0.5)
+            plain = lambda: skv.short_kv_attention_flat_plain(q, k, v, d ** -0.5)
+            qi = bhsd(q, h).unsqueeze(1).expand(g, n_id, h, sq, d).reshape(g, n_id * h, sq, d)
+            ki, vi = k.reshape(g, n_id * h, kk, d), v.reshape(g, n_id * h, kk, d)
+            library = lambda: F.scaled_dot_product_attention(qi, ki, vi)
+            work = (_nbytes(q, k, v) + n_id * _nbytes(q), 4.0 * g * n_id * h * sq * kk * d,
+                    "bf16")
+            tag = f"slice[2,17550,2048] K={kk} I={n_id}"
+        results[name] = report(name, tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 20, library,
+                               work)
+        del q, k, v, library
+
+    # --- hazards, untimed: every entry point at each (K, I, D), Sq = 1,000
+    # over 3 batches (a ragged last 64-row tile), 48 heads at D <= 64, 16 at
+    # 128, 8 at 256.
+    # tol: as the timed rows, 1e-2 + 2e-2 |ref|, with the absolute part
+    # taken of the reference's largest magnitude where that is over 1:
+    # combined over I = 5 and 8 identities at K = 4 the outputs reach 4-8,
+    # where one bf16 ulp is 3.1e-2, and the plain version rounds each
+    # identity's output to bf16 before the combine (the kernel, as the TPU
+    # body, sums them in fp32 and rounds once), so both sides round at that
+    # scale.
+    heads_of = lambda d: 48 if d <= 64 else 16 if d <= 128 else 8
+    cases = [(d, kk, n_id) for d in (64, 128, 256) for kk in TOKEN_KS for n_id in TOKEN_IS]
+    cases += [(16, 100, 5), (48, 100, 5)]
+    entry = (("B14", "combined", "short_kv_attention_combined_qmajor", "q", True),
+             ("B2c", "head-major combined", "short_kv_attention_combined", "h", True),
+             ("B3", "flat combined", "short_kv_attention_combined_flat", "f", True),
+             ("B14", "per-id", "short_kv_attention_qmajor", "q", False),
+             ("B2h", "head-major per-id", "short_kv_attention", "h", False),
+             ("B2", "flat per-id", "short_kv_attention_flat", "f", False))
+    entry = [e for e in entry if wanted(e[0])]
+    if not entry:
+        return
+    g, sq = 3, 1000
+    for d, kk, n_id in cases:
+        h = heads_of(d)
+        k, v = (rnd(g, n_id, h, kk, d).to(bf) for _ in range(2))
+        w = torch.rand((g, sq, n_id), generator=gen, device=dev).to(bf)
+        q_q, q_h = rnd(g, sq, h, d).to(bf), rnd(g, h, sq, d).to(bf)
+        qs = {"q": q_q, "h": q_h, "f": q_q.reshape(g, sq, h * d)}
+        for name, what, fn, lay, combined in entry:
+            args = (qs[lay], k, v, w) if combined else (qs[lay], k, v)
+            want = getattr(skv, f"{fn}_plain")(*args, d ** -0.5)
+            check(name, f"ragged {what} [G={g},Sq={sq},H={h},D={d}] K={kk} I={n_id}",
+                  getattr(skv, fn)(*args, d ** -0.5), want,
+                  1e-2 * max(1.0, float(want.float().abs().max())), 2e-2)
+
+
 def entry_point_phase(launches: dict) -> bool:
     """The general-layout entry points a user calls, once each at the 5B
     geometries, forward and (where differentiable) backward, launches
@@ -1765,6 +1895,15 @@ def reduced_step_phase(launches: dict) -> bool:
     return ok
 
 
+def _multi_id_launches(ids: int, stabs: int, b5: int, b5p: int) -> dict:
+    """B4, B5 and B5' launches of `stabs` multi-ID STAB attentions over
+    `ids` identities, as `models/router.py` dispatches them (B4 at 2
+    identities, B5' below 8, B5 from 8), added to the temporal STABs' `b5`
+    (B5) and `b5p` (B5')."""
+    return {"B4": stabs if ids == 2 else 0, "B5": b5 + (stabs if ids >= 8 else 0),
+            "B5'": b5p + (stabs if ids != 2 and ids < 8 else 0)}
+
+
 def train_launches(dit, micro_batches: int) -> dict:
     """Each kernel's launches over `micro_batches` forward + backward passes
     of `Trainer.loss_and_metrics` (two audio tracks; face + audio unless the
@@ -1778,9 +1917,11 @@ def train_launches(dit, micro_batches: int) -> dict:
       blocks: 2 x B10 fwd per block forward and 2 x B10 bwd per block; the
         attention is B7 (forward, backward) when the heads pair in 128
         lanes, else B11 forward and B12 + B13 backward;
-      face layer: B2; per STAB: B7 (spatial, when H*W >= 1024; else the
-        plain attention), B5 + B8 (temporal, T >= 8; else B5' and the plain
-        vjp), B4 (multi-ID); fused LayerNorms (B6 forward, B9 backward):
+      face layer: B2; per STAB: B7 (spatial, when H*W >= 1024 and its head
+        dim is a multiple of 64, JAX's rule; else the plain attention), B5
+        + B8 (temporal, T >= 8; else B5' and the plain vjp), B4 (multi-ID;
+        at I != 2 identities `_multi_id_launches`, B8 from 8); fused
+        LayerNorms (B6 forward, B9 backward):
         perceiver 2, router norms 2, trunk 1, 4 per STAB;
       audio layer: B3 and the norm_q LayerNorm (B6, B9; a width that is a
         multiple of 128, else the plain math);
@@ -1793,7 +1934,7 @@ def train_launches(dit, micro_batches: int) -> dict:
     n_ca = c.num_ca if c.is_train_face else 0
     n_st = r.num_attention_layers
     stabs = n_ca * n_st
-    spatial = stabs if h * w >= 1024 else 0
+    spatial = stabs if h * w >= 1024 and (r.feat_dim // r.attn_heads) % 64 == 0 else 0
     temporal = t >= 8
     face_ln = n_ca * (2 + 2 + 1 + 4 * n_st)
     n_audio = a.num_layers if c.is_train_audio else 0
@@ -1801,11 +1942,14 @@ def train_launches(dit, micro_batches: int) -> dict:
     paired = c.num_attention_heads % max(1, 128 // c.attention_head_dim) == 0
     flat, layout = (c.num_layers, 0) if paired else (0, c.num_layers)
     hln = c.num_layers                                     # B10 takes any row width
-    per = {"B1": 0, "B2": n_ca * g_mult, "B3": n_audio * g_mult, "B4": stabs * g_mult,
-           "B5": stabs * g_mult if temporal else 0, "B5'": 0 if temporal else stabs * g_mult,
+    multi = _multi_id_launches(c.num_ids, stabs, stabs if temporal else 0,
+                               0 if temporal else stabs)
+    per = {"B1": 0, "B2": n_ca * g_mult, "B3": n_audio * g_mult,
+           **{k: v * g_mult for k, v in multi.items()},
            "B6": (audio_ln + face_ln) * g_mult + int(n_audio > 0 and a.audio_dim % 128 == 0),
            "B7 fwd": flat * a_mult + spatial * g_mult, "B7 bwd": flat + spatial,
-           "B8": stabs if temporal else 0, "B9": audio_ln + face_ln,
+           "B8": (stabs if temporal else 0) + (stabs if c.num_ids >= 8 else 0),
+           "B9": audio_ln + face_ln,
            "B10 fwd": 2 * hln * b_mult, "B10 bwd": 2 * hln,
            "B11": layout * a_mult, "B12+B13": layout, "B14": 0, "B2c": 0, "B2h": 0}
     return {k: v * micro_batches for k, v in per.items()}
@@ -1820,7 +1964,8 @@ def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
     a dense face mask at latent resolution.  Where it differs from
     `prepare_batch`'s: the background latents are drawn (the driver's are
     zeros) and the noisy teacher is clean + 0.1 N(0, 1) clipped, without
-    the 10% of entries replaced by uniforms."""
+    the 10% of entries replaced by uniforms.  Past 2 identities (phase 3i)
+    an audio track each and the teacher from I equal column bands."""
     import torch
 
     c, a, lf = dit.cfg, dit.audio_cfg, dit.lfe_cfg
@@ -1832,7 +1977,12 @@ def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
     col = torch.arange(gw, device=dev)
     left = (col < gw // 2).float().expand(t, gh, gw)
     right = (col > gw // 2).float().expand(t, gh, gw)
-    clean = torch.stack([left, right], -1).reshape(1, t * gh * gw, 2).repeat(b, 1, 1)
+    if c.num_ids == 2:
+        clean = torch.stack([left, right], -1)
+    else:
+        band = (col * c.num_ids // gw)[:, None] == torch.arange(c.num_ids, device=dev)
+        clean = band.float().expand(t, gh, gw, c.num_ids)
+    clean = clean.reshape(1, t * gh * gw, c.num_ids).repeat(b, 1, 1)
     dense = torch.zeros(b, t, c.sample_height, c.sample_width, device=dev)
     hh, ww = c.sample_height, c.sample_width
     dense[..., hh // 6:hh // 2, ww // 10:ww * 2 // 5] = 1.0
@@ -1843,7 +1993,7 @@ def _train_batch(dit, b: int, gen, dev, vit_tokens: int = 577):
         prompt_embeds=rnd(b, c.max_text_seq_length, c.text_embed_dim),
         id_cond=rnd(b, c.num_ids, lf.id_embed_dim),
         id_vit_hidden=rnd(b, c.num_ids, lf.num_scales, vit_tokens, lf.vit_dim),
-        audio_embeds=rnd(b, 2, n_af, a.blocks, a.audio_dim),
+        audio_embeds=rnd(b, c.num_ids, n_af, a.blocks, a.audio_dim),
         mute_embeds=rnd(n_af, a.blocks, a.audio_dim),
         af_matrix=torch.eye(c.num_ids, device=dev)[None].repeat(b, 1, 1),
         teacher_clean=clean, teacher_noisy=(clean + 0.1 * rnd(*clean.shape)).clamp(0, 1),
@@ -1951,8 +2101,9 @@ def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
     return ok
 
 
-def _dit_head_case(heads: int, d: int, face: bool = False,
-                   router_heads: int | None = None) -> tuple:
+def _dit_head_case(heads: int, d: int, face: bool = False, router_heads: int | None = None,
+                   ids: int = 2, face_tokens: int | None = None,
+                   audio_tokens: int | None = None) -> tuple:
     """One 2-layer DiT at full width with `heads` x `d` heads (dim heads *
     d), 8 latent frames, 16 + 1,024 tokens, LoRA r8.  Audio only (phases
     3e, 3f): its audio layers pinned to the 5B's 48 x 64 attention heads
@@ -1961,8 +2112,13 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
     DiT's own head split (B3 at dh `d`), the perceiver its 16 x 128 heads
     (B2 at 128) and the router its STAB of 8 x 64 over 512 channels, or
     `router_heads` heads of 512 / `router_heads` (B5, B8 and B4 at that
-    dh).  On the card (bf16) against the same weights on the CPU (plain
-    versions, fp32):
+    dh).  Phase 3i: `ids` identities (`DiTConfig.num_ids`; the multi-ID
+    STAB then takes B5' below 8 and B5 from 8, B4 only at 2),
+    `face_tokens` the LFE's and perceivers' tokens an identity
+    (`lfe_num_tokens`: B2 at that K) and `audio_tokens` the audio
+    layers' (`AudioConfig.context_tokens`, the rest of the audio
+    configuration derived: B3 at that K).  On the card (bf16) against the
+    same weights on the CPU (plain versions, fp32):
       * the serving forward (`fuse_qk_norm`: B1 with the QK-LN and RoPE
         fused where the DiT takes it, at head dims 32, 64 and 128 with heads
         that pack; else B10 and B7's forward or B11), its output, and the
@@ -1972,7 +2128,8 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
         B11 and B12 + B13), its metrics and every trainable gradient (the
         face path's within phase 3b's 10%: its bf16 floor, phase 12c), the
         launches those of `train_launches`.
-    Returns (ok, the forward's launches, the micro-batch's launches)."""
+    Returns (ok, the forward's launches, the micro-batch's launches, the
+    gradients' relative L2 errors by name)."""
     import numpy as np
     import torch
     from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
@@ -1987,12 +2144,16 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
     base = dict(num_attention_heads=heads, attention_head_dim=d, in_channels=48,
                 out_channels=16, time_embed_dim=64, text_embed_dim=128, num_layers=2,
                 sample_width=32, sample_height=16, sample_frames=29, max_text_seq_length=16,
-                lora_rank=8, lora_alpha=8.0, is_train_face=face)
+                lora_rank=8, lora_alpha=8.0, is_train_face=face, num_ids=ids)
+    if face_tokens is not None:
+        base["lfe_num_tokens"] = face_tokens
     if face:
-        # `DiT.create`'s own audio and LFE configs; its router's, with the
-        # STAB's heads set where asked
+        # `DiT.create`'s own audio and LFE configs (the audio tokens set
+        # where asked); its router's, with the STAB's heads set where asked
         c0 = DiTConfig(**base)
-        sub = (None, None if router_heads is None else RouterConfig(
+        audio = None if audio_tokens is None else dataclasses.replace(
+            DiT.create(c0, device="meta").audio_cfg, context_tokens=audio_tokens)
+        sub = (audio, None if router_heads is None else RouterConfig(
             num_layers=c0.num_ca, q_k_dim=c0.lfe_final_output_dim,
             num_id_token=c0.lfe_num_tokens, attn_heads=router_heads), None)
     else:
@@ -2029,7 +2190,7 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
     n_af = c.sample_frames + a.window_size - a.window_stride
     inputs = dict(latents=rng.normal(size=(1, c.latent_frames, 48, 16, 32)),
                   text_embeds=rng.normal(size=(1, 16, 128)), timesteps=np.array([499.0]),
-                  audio_embeds=rng.normal(size=(1, 2, n_af, a.blocks, a.audio_dim)))
+                  audio_embeds=rng.normal(size=(1, c.num_ids, n_af, a.blocks, a.audio_dim)))
     if face:
         inputs.update(id_cond=rng.normal(size=(1, c.num_ids, lf.id_embed_dim)),
                       id_vit_hidden=rng.normal(size=(1, c.num_ids, lf.num_scales, 17,
@@ -2099,7 +2260,7 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
     want_fwd["B3"] = a.num_layers
     if face:     # T = 8: the temporal STABs on B5's one-tile body
         stabs = c.num_ca * ref.router_cfg.num_attention_layers
-        want_fwd.update({"B2": c.num_ca, "B4": stabs, "B5": stabs, "B5'": 0})
+        want_fwd.update({"B2": c.num_ca, **_multi_id_launches(c.num_ids, stabs, stabs, 0)})
     f_ok &= ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
              and bool(outs[1].isfinite().all()))
 
@@ -2126,10 +2287,11 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
             and counts["B10 fwd"] > 0 and counts["B3"] > 0)
     ok = f_ok and m_ok and g_ok and c_ok
     shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w if w[k] or cnt[k])
+    rc = ref.router_cfg
     what = ("face + audio, derived audio heads "
             f"{a.num_attention_heads} x {a.attention_head_dim}, router STAB "
-            f"{ref.router_cfg.attn_heads} x {ref.router_cfg.feat_dim // ref.router_cfg.attn_heads}"
-            if face else "audio only")
+            f"{rc.attn_heads} x {rc.feat_dim // rc.attn_heads}, I = {c.num_ids}, K = "
+            f"{c.lfe_num_tokens} face / {a.context_tokens} audio tokens" if face else "audio only")
     print(f"head dim {d} ({heads} x {d} heads, dim {dim}, 2 layers, {what}, 16 + 1024 "
           f"tokens): forward cuda-bf16 vs cpu-fp32 relative L2 {f_rel:.3e} (tol 0.02), "
           f"max_abs_err={f_err:.3e} (ref max {scale:.3e}, tol 0.05 of it + 0.05*|ref|), "
@@ -2145,7 +2307,7 @@ def _dit_head_case(heads: int, d: int, face: bool = False,
           flush=True)
     del gpu, gpu_tr, cpu_tr, grads_g, grads_c, ref
     torch.cuda.empty_cache()
-    return ok, fwd_counts, counts
+    return ok, fwd_counts, counts, g_err
 
 
 def head_dim_phase(launches: dict) -> bool:
@@ -2156,7 +2318,7 @@ def head_dim_phase(launches: dict) -> bool:
     in the micro-batch (`B1 dh128`, `B7 fwd dh128`, ...)."""
     ok = True
     for d in (128, 32):
-        case_ok, fwd, train = _dit_head_case(3072 // d, d)
+        case_ok, fwd, train, _ = _dit_head_case(3072 // d, d)
         ok &= case_ok
         launches.update({f"B1 dh{d}": fwd["B1"], f"B7 fwd dh{d}": train["B7 fwd"],
                          f"B7 bwd dh{d}": train["B7 bwd"]})
@@ -2176,7 +2338,7 @@ def head_dim_model_phase(launches: dict) -> bool:
                            (12, 256, ("B7 fwd", "B7 bwd", "B10 fwd", "B10 bwd")),
                            (189, 16, ("B11", "B12+B13", "B10 fwd", "B10 bwd")),
                            (47, 64, ())):
-        case_ok, _, train = _dit_head_case(heads, d)
+        case_ok, _, train, _ = _dit_head_case(heads, d)
         ok &= case_ok
         for name in rows:
             key = f"{name} dh{d}"
@@ -2198,7 +2360,7 @@ def head_dim_face_phase(args, launches: dict) -> bool:
     add = lambda key, n: launches.__setitem__(key, launches.get(key, 0) + n)
     for heads, d, rh in ((24, 128, None), (96, 32, None), (192, 16, None), (12, 256, None),
                          (24, 128, 4), (24, 128, 16)):
-        case_ok, fwd, train = _dit_head_case(heads, d, face=True, router_heads=rh)
+        case_ok, fwd, train, _ = _dit_head_case(heads, d, face=True, router_heads=rh)
         ok &= case_ok
         add(f"B3 dh{d}", fwd["B3"] + train["B3"])
         if rh is not None:
@@ -2208,25 +2370,33 @@ def head_dim_face_phase(args, launches: dict) -> bool:
 
 
 def head_dim_serving_request(args) -> bool:
-    """Phase 3g's request: the 5B geometry (42 layers, face + audio, 226 +
-    17,550 tokens) with 24 x 128 heads, the audio layers' heads derived (24 x
-    128: B1 and B3 at dh 128), bf16 weights drawn on the card; one face +
-    audio request of `--steps` DPM++ steps at 49 x 480 x 720 through the
+    """Phase 3g's request: the 5B geometry with 24 x 128 heads, the audio
+    layers' heads derived (24 x 128: B1 and B3 at dh 128)
+    (`_model_request`).  Phase 4's first request is the 48 x 64 model's
+    beside it."""
+    return _model_request(args, "head dims, 42-layer request (phase 3g; 24 x 128 heads",
+                          40, heads=24)
+
+
+def _model_request(args, what: str, seed: int, **model) -> bool:
+    """One request on the 5B geometry (42 layers, face + audio, 226 + 17,550
+    tokens) with `_serving_model`'s settings `model`, bf16 weights drawn on
+    the card: `--steps` DPM++ steps at 49 x 480 x 720 through the
     `InferenceServer`, whole decode: the clip finite [1, 49, 3, 480, 720],
     exact launches, s a denoise step (one batch-2 CFG forward and the
-    scheduler's update), `denoise_s`, `decode_s`, peak memory.  Phase 4's
-    first request is the 48 x 64 model's beside it."""
+    scheduler's update), `denoise_s`, `decode_s`, peak memory.  `what`
+    opens the printed line."""
     import torch
     from bindyouravatar_tpu_torch.serving import InferenceServer
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    pipe = _serving_model(args, args.steps, heads=24)
+    pipe = _serving_model(args, args.steps, **model)
     dit, pc = pipe.dit, pipe.cfg
     fwd = args.steps * (2 if pc.cfg_microbatch else 1)
     server = InferenceServer(pipe, dev)
     try:
-        req = _serving_request(pipe, args.seed + 40, "24x128 face+audio")
+        req = _serving_request(pipe, args.seed + seed, what)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
@@ -2236,16 +2406,165 @@ def head_dim_serving_request(args) -> bool:
         peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
         server.close()
-    ok = _video_ok("24 x 128 request " + " ".join(f"{k}={v:.3f}" for k, v in r.timings.items()),
+    ok = _video_ok("request " + " ".join(f"{k}={v:.3f}" for k, v in r.timings.items()),
                    r.video, (1, pc.num_frames, 3, pc.height, pc.width))
-    ok &= _counts_ok("24 x 128 request", counts, _serving_want(dit, fwd, 0, 1))
-    print(f"head dims, 42-layer request (phase 3g; 24 x 128 heads, audio layers "
-          f"{dit.audio_cfg.num_attention_heads} x {dit.audio_cfg.attention_head_dim}, face + "
-          f"audio, 49 x 480 x 720, {args.steps} DPM++ steps, whole decode): "
-          f"{r.timings['denoise_s'] / args.steps:.4f} s a denoise step, peak {peak:.2f} GiB, "
-          f"{time.perf_counter() - t0:.1f} s with the draw {'ok' if ok else 'FAILED'}", flush=True)
+    ok &= _counts_ok("request", counts, _serving_want(dit, fwd, 0, 1))
+    a = dit.audio_cfg
+    print(f"{what}, audio layers {a.num_attention_heads} x {a.attention_head_dim}, "
+          f"{dit.cfg.num_ids} identities, {dit.cfg.lfe_num_tokens} face / {a.context_tokens} "
+          f"audio tokens, face + audio, 49 x 480 x 720, {args.steps} DPM++ steps, whole "
+          f"decode): {r.timings['denoise_s'] / args.steps:.4f} s a denoise step, peak "
+          f"{peak:.2f} GiB, {time.perf_counter() - t0:.1f} s with the draw "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
     del pipe, dit, server, r
     torch.cuda.empty_cache()
+    return ok
+
+
+# phase 3i's settings: (tag, identities I, face tokens K_f, audio tokens K_a):
+# (a) the multi-ID STAB on B5' at S = 3; (b) the first I past the shipped
+# body's 4 and the largest I K (B3 at 5 x 64); (c) JAX's tiny tier's token
+# counts at the 5B width, on B4's pair path.  K_f is 24 and 56 where 16
+# and 64 were asked: the router's 3-D sincos table spans K_f x 16 channels
+# in thirds whose width must be even (`models/router.py:_router_pos_emb`,
+# a copy of JAX's), which 16 and 64 tokens (thirds of 85 and 341) fail in
+# both packages.  Its STAB then runs at dh 48 (a), 112 (b) and 16 (c).
+TOKEN_SETTINGS = (("a", 3, 24, 16), ("b", 5, 56, 64), ("c", 2, 8, 4))
+
+
+def token_phase(args, launches: dict) -> bool:
+    """Phase 3i: the face + audio DiT that `DiT.create` builds at other
+    token and identity counts, 2 layers at full width (dim 3072, 48 x 64
+    heads, the audio heads derived), 16 + 1,024 tokens, in each setting of
+    `TOKEN_SETTINGS` (`_dit_head_case`: the serving forward within 2% and
+    one Stage-3 micro-batch's gradients within 3% of the CPU's fp32, the
+    face path's within 10%, exact launches); then one request at 42 layers
+    in setting (b) through the `InferenceServer` (`token_serving_request`);
+    then each `TOKEN_ROWS` configuration once through its entry point
+    against its plain version (one launch each).  `launches` takes the
+    kernels line's token rows: each row's entry-point launch, and setting
+    (b)'s B3 launches (forward + micro-batch) for "B3 K64 I5"."""
+    import torch
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+
+    ok = True
+    for tag, ids, k_f, k_a in TOKEN_SETTINGS:
+        print(f"  phase 3i setting ({tag}): I = {ids}, K_f = {k_f}, K_a = {k_a}", flush=True)
+        case_ok, fwd, train, _ = _dit_head_case(48, 64, face=True, ids=ids, face_tokens=k_f,
+                                             audio_tokens=k_a)
+        ok &= case_ok
+        if (k_a, ids) == (64, 5):
+            launches["B3 K64 I5"] = launches.get("B3 K64 I5", 0) + fwd["B3"] + train["B3"]
+    ok &= token_serving_request(args)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(98)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    calls = []
+    for row, kernel, kk, ids in TOKEN_ROWS:
+        if kernel == "B3":
+            fn, what, sc = "short_kv_attention_combined_flat", "[26,1350,3072] 48x64", 0.125
+            args_ = (rnd(26, 1350, 3072), rnd(26, ids, 48, kk, 64), rnd(26, ids, 48, kk, 64),
+                     torch.rand((26, 1350, ids), generator=gen, device=dev).to(torch.bfloat16))
+        else:
+            fn, what, sc = "short_kv_attention_flat", "[2,17550,2048] 16x128", 128 ** -0.5
+            args_ = (rnd(2, 17550, 2048), rnd(2, ids, 16, kk, 128), rnd(2, ids, 16, kk, 128))
+        calls.append((row, f"{fn} {what} K={kk} I={ids}",
+                      lambda fn=fn, a=args_, sc=sc: getattr(skv, fn)(*a, sc),
+                      lambda fn=fn, a=args_, sc=sc: getattr(skv, f"{fn}_plain")(*a, sc)))
+    return ok & _entry_calls(calls, launches)
+
+
+def token_serving_request(args) -> bool:
+    """Phase 3i's request (`_model_request`): 48 x 64 heads in setting (b)
+    of `TOKEN_SETTINGS` (5 identities, 56 face and 64 audio tokens an
+    identity: B2 and B3 on their general key blocks, the multi-ID STAB on
+    B5' at S = 5)."""
+    _, ids, k_f, k_a = TOKEN_SETTINGS[1]
+    return _model_request(args, "tokens and identities, 42-layer request (phase 3i; 48 x 64 "
+                          "heads", 41, ids=ids, face_tokens=k_f, audio_tokens=k_a)
+
+
+# ROADMAP C5: the face path's kernels and the fp32 plain versions that
+# `face_plain_phase` swaps in for them (inside `models/router.py`, their
+# one caller; B5's swap takes B5' and the backward B8 with it)
+FACE_SWAPS = {"B2": ("short_kv_attention_flat", "short_kv_attention_flat_plain"),
+              "B4": ("pair_axis_attention", "pair_axis_attention_plain"),
+              "B5": ("tiny_seq_attention", "tiny_seq_attention_plain")}
+
+
+@contextlib.contextmanager
+def _face_kernels_plain(names):
+    """Within the block, `models/router.py` calls the plain versions of
+    the kernels `names` (keys of `FACE_SWAPS`) on fp32 copies of their
+    inputs, cast back to the input's type; autograd differentiates them."""
+    from bindyouravatar_tpu_torch.models import router
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+    from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
+
+    kept = {}
+    for name in names:
+        attr, plain = FACE_SWAPS[name]
+        fn = getattr(skv if name == "B2" else pa, plain)
+        kept[attr] = getattr(router, attr)
+        setattr(router, attr, lambda *a, fn=fn: fn(*(t.float() for t in a[:3]), *a[3:]).to(
+            a[0].dtype))
+    try:
+        yield
+    finally:
+        for attr, fn in kept.items():
+            setattr(router, attr, fn)
+
+
+def face_plain_phase() -> bool:
+    """ROADMAP C5 (`--face-plain`): phase 3g's 24 x 128 case and phase 12c
+    at T = 13 and 25, the face path's gradient errors against the CPU's
+    fp32 with its kernels (B2, B4, B5 with B5' and B8) as they are, with
+    all of them swapped for their plain versions in fp32 on the card, and
+    (3g and T = 13) with each swapped alone.  The swapped runs' launch
+    counts are not those the checks want; the errors are printed."""
+    print("C5: the face path's kernels B2, B4 and B5 (with B5' and B8) swapped for their plain "
+          "versions in fp32 on the card, inside models/router.py; the swapped runs' launch "
+          "checks do not apply", flush=True)
+    worst = lambda e: max((v for k, v in e.items() if _face_path(k)), default=0.0)
+    cases = (("3g 24x128", lambda: _dit_head_case(24, 128, face=True)[3], True),
+             ("12c T=13", lambda: _long_clip_case(49, {})[1], True),
+             ("12c T=25", lambda: _long_clip_case(97, {})[1], False))
+    for what, run, each in cases:
+        swaps = [()] + [tuple(FACE_SWAPS)] + ([(n,) for n in FACE_SWAPS] if each else [])
+        for names in swaps:
+            with _face_kernels_plain(names):
+                errs = run()
+            top = sorted(((k, v) for k, v in errs.items() if _face_path(k)),
+                         key=lambda kv: -kv[1])[:3]
+            print(f"C5 {what}, swapped: {'+'.join(names) or 'none'}: the face path's worst "
+                  f"gradient error {worst(errs):.3e} ("
+                  + " ".join(f"{k}={v:.3e}" for k, v in top) + ")", flush=True)
+    return True
+
+
+def _entry_calls(calls, launches: dict) -> bool:
+    """Each (kernels line row, what, call, plain) of `calls` once, launches
+    counted from 0: its output against its plain version, exactly one
+    launch of the row's kernel and none other; `launches[row]` adds it."""
+    import torch
+
+    ok = True
+    for row, what, call, plain in calls:
+        torch.cuda.synchronize()
+        _reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        name = row.split()[0]
+        launches[row] = launches.get(row, 0) + counts[name]
+        ref = plain()
+        # tol: as phase 2 (bf16 roundings of the same fp32 values)
+        err, _, match = _compare(out, ref, _rel_compare(out, ref, 2e-2), 2e-2)
+        one = counts[name] == 1 and sum(counts.values()) == 1
+        ok &= match and one
+        print(f"entry point {what}: max_abs_err={err:.3e}, launches {name}={counts[name]} "
+              f"(want 1, no other) {'ok' if match and one else 'FAILED'}", flush=True)
+        del out, ref
     return ok
 
 
@@ -2294,22 +2613,7 @@ def width_entry_phase(launches: dict) -> bool:
     calls.append(("B4 C384", "pair_axis_attention [2,2,17550,384] 8x48",
                   lambda: pa.pair_axis_attention(*qkv, 8, 48 ** -0.5),
                   lambda: pa.pair_axis_attention_plain(*qkv, 8, 48 ** -0.5)))
-    ok = True
-    for row, what, call, plain in calls:
-        torch.cuda.synchronize()
-        _reset_launches()
-        out = call()
-        torch.cuda.synchronize()
-        counts = _read_launches()
-        name = row.split()[0]
-        launches[row] = counts[name]
-        ref = plain()
-        # tol: as phase 2 (bf16 roundings of the same fp32 values)
-        err, _, match = _compare(out, ref, _rel_compare(out, ref, 2e-2), 2e-2)
-        one = counts[name] == 1 and sum(counts.values()) == 1
-        ok &= match and one
-        print(f"entry point {what}: max_abs_err={err:.3e}, launches {name}={counts[name]} "
-              f"(want 1, no other) {'ok' if match and one else 'FAILED'}", flush=True)
+    ok = _entry_calls(calls, launches)
     # B5 and its backward B8 at 8 x 48 heads under autograd
     q, k, v, g = (rnd(5400, 13, 384) for _ in range(4))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2336,11 +2640,13 @@ def width_entry_phase(launches: dict) -> bool:
     return ok
 
 
-def _serving_model(args, steps: int, heads: int = 48):
+def _serving_model(args, steps: int, heads: int = 48, ids: int = 2,
+                   face_tokens: int | None = None, audio_tokens: int | None = None):
     """The 5B DiT (42 layers, face + audio; `heads` heads of 3072 / `heads`,
-    its audio layers' derived from them) and the VAE with bf16 weights
-    drawn on the card from `--seed`, in a pipeline of `steps` denoise steps
-    (DPM++, guidance 6, 49 x 480 x 720)."""
+    its audio layers' derived from them; `ids` identities, `face_tokens` /
+    `audio_tokens` tokens an identity where given, else the 5B's 32) and
+    the VAE with bf16 weights drawn on the card from `--seed`, in a pipeline
+    of `steps` denoise steps (DPM++, guidance 6, 49 x 480 x 720)."""
     import torch
     from bindyouravatar_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
     from bindyouravatar_tpu_torch.models.dit import DiT
@@ -2351,9 +2657,12 @@ def _serving_model(args, steps: int, heads: int = 48):
     bf = torch.bfloat16
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(args.seed)
-    dit = DiT.create(DiTConfig(is_train_face=True, is_train_audio=True, dtype=bf, param_dtype=bf,
-                               num_attention_heads=heads, attention_head_dim=3072 // heads),
-                     device=dev, generator=gen)
+    cfg = DiTConfig(is_train_face=True, is_train_audio=True, dtype=bf, param_dtype=bf,
+                    num_attention_heads=heads, attention_head_dim=3072 // heads, num_ids=ids,
+                    **({} if face_tokens is None else {"lfe_num_tokens": face_tokens}))
+    audio = None if audio_tokens is None else dataclasses.replace(
+        DiT.create(cfg, device="meta").audio_cfg, context_tokens=audio_tokens)
+    dit = DiT.create(cfg, audio, device=dev, generator=gen)
     vae = CausalVAE.create(VAEConfig(param_dtype=bf), device=dev, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in dit.parameters())
@@ -2380,7 +2689,7 @@ def _serving_request(pipe, seed: int, rid: str, face: bool = True, **kw):
     return GenerationRequest(
         prompt_embeds=f32(1, c.max_text_seq_length, c.text_embed_dim),
         image=rng.uniform(-1, 1, (1, 1, 3, pc.height, pc.width)).astype(np.float32),
-        audio_embeds=f32(1, 2, n_af, a.blocks, a.audio_dim), seed=seed, request_id=rid,
+        audio_embeds=f32(1, c.num_ids, n_af, a.blocks, a.audio_dim), seed=seed, request_id=rid,
         **cond, **kw)
 
 
@@ -2388,15 +2697,21 @@ def _serving_want(dit, fwd_face: int, fwd_audio: int, preps: int) -> dict:
     """Each kernel's launches over `fwd_face` face + audio and `fwd_audio`
     audio-only CFG forwards (batch-2 CFG: one a step, whatever the batch)
     and `preps` once-per-clip conditioning preps.  A face + audio forward
-    runs B1 42 (blocks) + 4 per face layer (STAB spatial), B2 1 and B4, B5
-    4 per face layer, B3 42, B6 42 (audio norm_q) + 21 per face layer; an
-    audio-only one B1 = B3 = B6 = 42; a prep one AudioProjModel B6."""
+    runs B1 42 (blocks) + 4 per face layer (STAB spatial, at a STAB head
+    dim that is a multiple of 64: `models/router.py:SelfAttention`), B2 1
+    and B4, B5
+    4 per face layer (past 2 identities B5' or B5 for B4:
+    `_multi_id_launches`), B3 42, B6 42 (audio norm_q) + 21 per face layer;
+    an audio-only one B1 = B3 = B6 = 42; a prep one AudioProjModel B6."""
     c, a = dit.cfg, dit.audio_cfg
     n_ca, n_st = c.num_ca, dit.router_cfg.num_attention_layers
     face_b6 = 2 + 2 + 1 + 4 * n_st                 # perceiver, router norms, trunk, STABs
-    return {"B1": c.num_layers * (fwd_face + fwd_audio) + n_ca * n_st * fwd_face,
+    stabs = n_ca * n_st * fwd_face
+    r = dit.router_cfg
+    flash = (r.feat_dim // r.attn_heads) % 64 == 0       # the spatial STABs' B1
+    return {"B1": c.num_layers * (fwd_face + fwd_audio) + (stabs if flash else 0),
             "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
-            "B4": n_ca * n_st * fwd_face, "B5": n_ca * n_st * fwd_face, "B5'": 0,
+            **_multi_id_launches(c.num_ids, stabs, stabs, 0),
             "B6": a.num_layers * (fwd_face + fwd_audio) + n_ca * face_b6 * fwd_face + preps,
             **{k: 0 for k in TRAIN_KERNELS + LAYOUT_KERNELS}}   # no backward
 
@@ -4674,8 +4989,10 @@ KERNELS = {
                                 "bindyouravatar_tpu/ops/layernorm.py:285"))) for d in ds},
 }
 
-# the width rows (`WIDTH_ROWS`): their kernels' sources and TPU bodies
+# the width rows (`WIDTH_ROWS`) and the token rows (`TOKEN_ROWS`): their
+# kernels' sources and TPU bodies
 KERNELS.update({row: KERNELS[kernel] for row, kernel in WIDTH_ROWS})
+KERNELS.update({row: KERNELS[kernel] for row, kernel, _, _ in TOKEN_ROWS})
 
 
 def _rel_l2(got, want) -> float:
@@ -5196,6 +5513,16 @@ def main(argv=None) -> int:
                    help="build, then run phases 3g and 3h only (the face + audio DiT at the "
                         "other head splits, its 42-layer request, the width entry points); "
                         "fails on purpose (no launch counts of the main path)")
+    p.add_argument("--only-tokens", action="store_true",
+                   help="build, then run phase 3i only (the face + audio DiT at other token "
+                        "and identity counts, its 42-layer request, the token rows' entry "
+                        "points); fails on purpose (no launch counts of the main path)")
+    p.add_argument("--face-plain", action="store_true",
+                   help="ROADMAP C5: build, then rerun phase 3g's 24 x 128 and phase 12c's "
+                        "face + audio micro-batches with the face path's kernels (B2, B4, "
+                        "B5 / B5' / B8) swapped for their plain versions in fp32 (inside "
+                        "this process: the package has no such switch), printing the face "
+                        "path's gradient errors; fails on purpose")
     p.add_argument("--only-long-clips", action="store_true",
                    help="build, then run phase 12 only (12a on a model of its own); fails on "
                         "purpose (no launch counts)")
@@ -5256,6 +5583,16 @@ def main(argv=None) -> int:
         ok = head_dim_face_phase(args, {}) & width_entry_phase({})
         return _fail(f"--only-head-dims: phases 3g and 3h {'passed' if ok else 'FAILED'} in "
                      f"{time.perf_counter() - t3:.1f} s, no other phase run")
+    if args.only_tokens:
+        t3 = time.perf_counter()
+        ok = token_phase(args, {})
+        return _fail(f"--only-tokens: phase 3i {'passed' if ok else 'FAILED'} in "
+                     f"{time.perf_counter() - t3:.1f} s, no other phase run")
+    if args.face_plain:
+        t3 = time.perf_counter()
+        face_plain_phase()
+        return _fail(f"--face-plain: the C5 runs done in {time.perf_counter() - t3:.1f} s, no "
+                     f"other phase run")
     long_launches, cli81_launches, model25_launches = {}, {}, {}
     if args.only_long_clips:
         t12 = time.perf_counter()
@@ -5284,6 +5621,10 @@ def main(argv=None) -> int:
     ok &= head_dim_face_phase(args, width_launches)
     ok &= width_entry_phase(width_launches)
     print(f"phases 3g and 3h in {time.perf_counter() - t3:.1f} s", flush=True)
+    token_launches = {}
+    t3 = time.perf_counter()
+    ok &= token_phase(args, token_launches)
+    print(f"phase 3i in {time.perf_counter() - t3:.1f} s", flush=True)
     if args.requests > 0:
         ok &= serving_phase(args, long_launches)
     else:
@@ -5342,6 +5683,9 @@ def main(argv=None) -> int:
     # routers of phase 3g (B3 at 16, 32, 128, 256; B4, B5, B8 at 32, 128),
     # the entry points of phase 3h (the rest)
     launches.update(width_launches)
+    # the short-KV kernels at other token and identity counts: the entry
+    # points of phase 3i (and its setting (b)'s B3 launches)
+    launches.update(token_launches)
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **results[name]}
                for name, (route, source, replaces) in KERNELS.items()]
