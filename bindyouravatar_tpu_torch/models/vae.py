@@ -10,12 +10,18 @@ Module names follow the flax tree (`down_0_res_0`, `norm_layer.gn`, ...).
 Without autograd (the decode always; the encode under `no_grad`), group
 norms, causal convs and the spatial upsamples over more than
 `SLICE_ELEMENTS` elements compute the same function a slice at a time
-(group norms by groups, convs and upsamples by output frames, causal convs
-with their causal context) into one output, and the SiLUs, the spatial
-norm's modulation and the residual adds run in place: a whole 49 x 480 x
-720 clip then encodes in about a third of the memory of the one-pass ops
-(each 128-channel activation there is 4 GiB in bf16), and decodes whole
-(its 128-channel activations exceed 2^31 elements).
+(group norms' statistics by groups, convs and upsamples by output frames,
+causal convs with their causal context) into one output.  A resnet block
+over such a tensor makes each conv's input a slice at a time from its
+source (norm, modulation, SiLU: `GroupNorm.stats` / `apply_frames`), so
+no normalised copy of a whole clip exists, writes its second conv over
+its first conv's output (a slice's causal context is kept from the slice
+before, so no frame is read after it is overwritten), and adds its
+shortcut a slice at a time: a block holds two whole-clip activations, its
+input and its output.
+A whole 49 x 480 x 720 clip then encodes in about a third of the memory
+of the one-pass ops (each 128-channel activation there is 4 GiB in bf16),
+and a 193-frame clip decodes whole on one 80 GB card beside the 5B DiT.
 """
 
 from __future__ import annotations
@@ -62,17 +68,31 @@ class CausalConv3d(nn.Module):
             if kt > 1:
                 x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
             return self.conv(F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2)))
-        # output frames [a, b) read input frames [a - kt + 1, b), frame 0
-        # repeated before the start; the spatial zero padding is the conv's
-        c, t = self.conv, x.shape[2]
+        return self.stream(lambda lo, hi: x[:, :, lo:hi], x.shape[2], x[:, :, :1].numel())
+
+    def stream(self, frames, t: int, frame_numel: int, out=None):
+        """This conv, without autograd, over a `t`-frame input whose frames
+        [a, b) `frames(a, b)` makes, a slice of output frames at a time
+        (`frame_numel` elements an input frame set the slice), each input
+        frame made once: output frames [a, b) read input frames [a - kt +
+        1, b), the first kt - 1 of them kept from the slice before (frame 0
+        repeated before the start); the spatial zero padding is the conv's.
+        Into `out` (made when None), which may be the input's own storage:
+        a slice is written after its frames are made, and no later slice
+        reads them again."""
+        kt, kh, kw = self.kernel
+        c = self.conv
         w, bias = c.weight.to(c.compute_dtype), c.bias.to(c.compute_dtype)
-        step = max(1, SLICE_ELEMENTS // x[:, :, :1].numel())
-        out = None
+        step = max(1, SLICE_ELEMENTS // frame_numel)
+        context = None
         for a in range(0, t, step):
-            b, lo = min(t, a + step), a - (kt - 1)
-            xs = x[:, :, max(lo, 0):b]
-            if lo < 0:
-                xs = torch.cat([x[:, :, :1].expand(-1, -1, -lo, -1, -1), xs], dim=2)
+            b = min(t, a + step)
+            xs = frames(a, b)
+            if kt > 1:
+                if context is None:
+                    context = xs[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
+                xs = torch.cat([context, xs], dim=2)
+                context = xs[:, :, -(kt - 1):]
             ys = F.conv3d(xs.to(c.compute_dtype), w, bias, 1, (0, kh // 2, kw // 2))
             if out is None:
                 out = ys.new_empty(ys.shape[:2] + (t,) + ys.shape[3:])
@@ -92,13 +112,22 @@ class GroupNorm(nn.Module):
         if torch.is_grad_enabled() or x.numel() <= SLICE_ELEMENTS:
             return F.group_norm(x.float(), g.num_groups, g.weight.float(), g.bias.float(),
                                 g.eps).to(x.dtype)
-        # each group's statistics are its own: a few groups at a time, the
-        # statistics by a reduction over the whole device (F.group_norm
-        # gives each (sample, group) row one block: ten times slower here)
         out = torch.empty_like(x)
+        stats, t = self.stats(x), x.shape[2]
+        step = max(1, SLICE_ELEMENTS // x[:, :, :1].numel())
+        for a in range(0, t, step):
+            out[:, :, a:a + step] = self.apply_frames(x, a, min(t, a + step), stats)
+        return out
+
+    def stats(self, x):
+        """fp32 (scale, shift) [N, C] that normalise x [N, C, ...] channel
+        by channel.  Each group's statistics are its own: a few groups at a
+        time, by a reduction over the whole device (F.group_norm gives each
+        (sample, group) row one block: ten times slower here)."""
+        g = self.gn
         n, cpg = x.shape[0], x.shape[1] // g.num_groups
         per = max(1, SLICE_ELEMENTS // (x.numel() // g.num_groups))     # groups a slice
-        bshape = (n, -1) + (1,) * (x.dim() - 2)
+        scales, shifts = [], []
         for g0 in range(0, g.num_groups, per):
             k = min(per, g.num_groups - g0)
             c0, c1 = g0 * cpg, (g0 + k) * cpg
@@ -106,8 +135,17 @@ class GroupNorm(nn.Module):
             var, mean = torch.var_mean(xf.view(n, k, -1), dim=2, unbiased=False)
             scale = torch.rsqrt(var + g.eps)[..., None] * g.weight[c0:c1].float().view(1, k, cpg)
             shift = g.bias[c0:c1].float().view(1, k, cpg) - mean[..., None] * scale
-            out[:, c0:c1] = xf.mul_(scale.reshape(bshape)).add_(shift.reshape(bshape))
-        return out
+            scales.append(scale.reshape(n, -1))
+            shifts.append(shift.reshape(n, -1))
+        return torch.cat(scales, 1), torch.cat(shifts, 1)
+
+    def apply_frames(self, x, lo: int, hi: int, stats, zq=None):
+        """The normalised frames [lo, hi) of x (dim 2) from `stats`, in
+        fp32 and rounded to x's dtype (`zq`: SpatialNorm3D's signature)."""
+        scale, shift = stats
+        bshape = scale.shape + (1,) * (x.dim() - 2)
+        xf = x[:, :, lo:hi].to(torch.float32, copy=True)
+        return xf.mul_(scale.view(bshape)).add_(shift.view(bshape)).to(x.dtype)
 
 
 class SpatialNorm3D(nn.Module):
@@ -119,22 +157,43 @@ class SpatialNorm3D(nn.Module):
         self.conv_y = CausalConv3d(zq_channels, features, (1, 1, 1), **kw)
         self.conv_b = CausalConv3d(zq_channels, features, (1, 1, 1), **kw)
 
-    def forward(self, x, zq):
-        t, h, w = x.shape[2:]
+    @staticmethod
+    def _zq_frames(zq, t: int, h: int, w: int, lo: int = 0, hi: Optional[int] = None):
+        """zq resized to frames [lo, hi) of a [t, h, w] activation: frame
+        0 to frame 0 and the rest spread over the rest at an odd t, else
+        spread evenly; nearest in space."""
+        hi = t if hi is None else hi
         zt = zq.shape[2]
         if zt != t:
             dev = zq.device
             if t > 1 and t % 2 == 1 and zt > 1:
-                idx = torch.arange(t - 1, device=dev) * (zt - 1) // (t - 1)
-                zq = torch.cat([zq[:, :, :1], zq[:, :, 1:][:, :, idx]], dim=2)
+                idx = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                                 1 + torch.arange(t - 1, device=dev) * (zt - 1) // (t - 1)])
             else:
-                zq = zq[:, :, torch.arange(t, device=dev) * zt // t]
+                idx = torch.arange(t, device=dev) * zt // t
+            zq = zq[:, :, idx[lo:hi]]
+        elif (lo, hi) != (0, t):
+            zq = zq[:, :, lo:hi]
         if zq.shape[3] != h:
             zq = F.interpolate(zq, size=(zq.shape[2], h, w), mode="nearest")
+        return zq
+
+    def forward(self, x, zq):
+        zq = self._zq_frames(zq, *x.shape[2:])
         out = self.norm_layer(x)                    # a fresh tensor
         if torch.is_grad_enabled():
             return out * self.conv_y(zq) + self.conv_b(zq)
         return out.mul_(self.conv_y(zq)).add_(self.conv_b(zq))
+
+    def stats(self, x):
+        return self.norm_layer.stats(x)
+
+    def apply_frames(self, x, lo: int, hi: int, stats, zq):
+        """This norm's output frames [lo, hi) of x from `stats`
+        (`GroupNorm.apply_frames`), modulated by zq's frames."""
+        zs = self._zq_frames(zq, *x.shape[2:], lo, hi)
+        return self.norm_layer.apply_frames(x, lo, hi, stats).mul_(self.conv_y(zs)).add_(
+            self.conv_b(zs))
 
 
 class ResnetBlock3D(nn.Module):
@@ -154,6 +213,8 @@ class ResnetBlock3D(nn.Module):
                               if in_features != out_features else None)
 
     def forward(self, x, zq=None):
+        if not torch.is_grad_enabled() and x.numel() > SLICE_ELEMENTS:
+            return self._streamed(x, zq)
         norm = (lambda m, h: m(h, zq)) if self.zq else (lambda m, h: m(h))
         inplace = not torch.is_grad_enabled()      # the norms' outputs are fresh
         h = self.conv1(F.silu(norm(self.norm1, x), inplace=inplace))
@@ -161,6 +222,23 @@ class ResnetBlock3D(nn.Module):
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return h.add_(x) if inplace else x + h
+
+    def _streamed(self, x, zq):
+        """The same function without autograd, holding x and the output
+        whole and nothing else: each conv's input made a slice at a time
+        (norm, modulation, SiLU), conv2 written over conv1's output, the
+        shortcut added a slice at a time."""
+        t = x.shape[2]
+        act = lambda norm, src, stats: lambda lo, hi: F.silu(
+            norm.apply_frames(src, lo, hi, stats, zq), inplace=True)
+        h = self.conv1.stream(act(self.norm1, x, self.norm1.stats(x)), t, x[:, :, :1].numel())
+        self.conv2.stream(act(self.norm2, h, self.norm2.stats(h)), t, h[:, :, :1].numel(), out=h)
+        if self.conv_shortcut is None:
+            return h.add_(x)
+        step = max(1, SLICE_ELEMENTS // x[:, :, :1].numel())
+        for a in range(0, t, step):
+            h[:, :, a:a + step].add_(self.conv_shortcut(x[:, :, a:a + step]))
+        return h
 
 
 def _temporal_avg_pool(x):
@@ -217,6 +295,18 @@ class Upsample3D(nn.Module):
         return out
 
 
+def _norm_silu_conv(norm, conv, h, zq=None):
+    """conv(silu(norm(h))) (norm(h, zq) for a SpatialNorm3D); without
+    autograd over more than `SLICE_ELEMENTS` elements the conv's input is
+    made a slice at a time, as in a resnet block."""
+    if not torch.is_grad_enabled() and h.numel() > SLICE_ELEMENTS:
+        stats = norm.stats(h)
+        frames = lambda lo, hi: F.silu(norm.apply_frames(h, lo, hi, stats, zq), inplace=True)
+        return conv.stream(frames, h.shape[2], h[:, :, :1].numel())
+    out = norm(h) if zq is None else norm(h, zq)
+    return conv(F.silu(out, inplace=not torch.is_grad_enabled()))
+
+
 class Encoder3D(nn.Module):
     def __init__(self, c: VAEConfig):
         super().__init__()
@@ -245,7 +335,7 @@ class Encoder3D(nn.Module):
         h = self.conv_in(x)
         for name in self.order:
             h = getattr(self, name)(h)
-        return self.conv_out(F.silu(self.norm_out(h), inplace=not torch.is_grad_enabled()))
+        return _norm_silu_conv(self.norm_out, self.conv_out, h)
 
 
 class Decoder3D(nn.Module):
@@ -276,7 +366,7 @@ class Decoder3D(nn.Module):
         for name in self.order:
             mod = getattr(self, name)
             h = mod(h, z) if isinstance(mod, ResnetBlock3D) else mod(h)
-        return self.conv_out(F.silu(self.norm_out(h, z), inplace=not torch.is_grad_enabled()))
+        return _norm_silu_conv(self.norm_out, self.conv_out, h, z)
 
 
 class CausalVAE(nn.Module):
@@ -355,8 +445,15 @@ class CausalVAE(nn.Module):
         """Scaled latents [B, T', C, h, w] -> video [B, T, 3, H, W].
 
         `temporal_chunk`: the concatenation of `decode_stream`'s chunks
-        (approximate at the joins: group-norm statistics are per chunk)."""
+        (approximate at the joins: group-norm statistics are per chunk).
+
+        On the card a whole decode first hands the allocator's cached free
+        blocks back: a 193-frame clip's largest activations take 32 GiB
+        each, which the cached blocks of a denoise or an earlier decode
+        could hold in pieces too small (`bench_vae_decode`)."""
         if temporal_chunk is None or latents.shape[1] <= temporal_chunk:
+            if latents.is_cuda:
+                torch.cuda.empty_cache()
             return self._decode(latents)
         return torch.cat([c for _, c in self.decode_stream(latents, temporal_chunk)], dim=1)
 

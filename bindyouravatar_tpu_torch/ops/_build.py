@@ -23,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CUDA_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "short_kv_attention.cu",
-                "packed_attention.cu", "layernorm.cu")
+                "packed_attention.cu", "packed_attention_stream.cu", "layernorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -41,6 +41,9 @@ _SIGNATURES = {
     "bya_short_kv_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "bya_tiny_seq_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "bya_tiny_seq_attention_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "bya_tiny_seq_attention_stream_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                          _P],
     "bya_layernorm_fwd": [_P, _P, _P, _P, _I, _I, _F, _P],
     "bya_layernorm_bwd_blocks": [_I, _I, _P],
     "bya_layernorm_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],

@@ -12,10 +12,10 @@ x 128 or 16 x 32).  Each replaces a TPU kernel of
     same function on [M, S*H, D] for S < 8; the B5 kernel instantiated for
     small S (the operand is the same memory as [M, S, H*D]).
   Both take every head width dh % 8 == 0 up to 256 (on a body of 64, 128
-  or 256 columns) and every S up to that body's cap in `MAX_S` (192, 96,
-  48: all past T = 25 latent frames at a 97-frame clip): one 16-row tile
-  an item up to 16, a whole item in shared memory past it (`kernel_body`
-  is the shape rule).
+  or 256 columns) and every S, as JAX's kernels do: one 16-row tile an
+  item up to 16, a whole item in shared memory up to that body's cap in
+  `MAX_S` (192, 96, 48), K and V streamed through shared memory in fixed
+  chunks past it (`kernel_body` is the shape rule).
   * `pair_axis_attention` (B4, `_pair_kernel`): attention across a leading
     pair axis [B, 2, M, C] as the closed-form 2-way softmax
     o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`),
@@ -39,10 +39,10 @@ from .autograd import kernel_with_plain_vjp
 from .flash_attention import body_width
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-# the longest sequence each body takes (`Geo::LONG_MAX_S` of the source): the
-# long bodies hold a (row, head) item whole in shared memory, double-buffered,
-# and B8's two buffers of four [S, body + 8] tensors must fit a block's
-# 232,448 bytes
+# the longest sequence each long body takes (`Geo::LONG_MAX_S` of the
+# source): the long bodies hold a (row, head) item whole in shared memory,
+# double-buffered, and B8's two buffers of four [S, body + 8] tensors must
+# fit a block's 232,448 bytes; past it the streamed body runs
 MAX_S = {64: 192, 128: 96, 256: 48}
 # the pair kernel's heads: JAX's `_pair_kernel` sums a head's channels with a
 # [C, 128] head indicator
@@ -62,21 +62,18 @@ def kernel_body(s: int, width: int, heads: int, backward: bool = False) -> str:
     launches on the card, from the shape alone: "packed" (B5', S < 8: 16 //
     S items a 16-row tile), "tile" (S <= 16: one item a tile), "long" (16 <
     S <= MAX_S[body_columns(dh)]: a whole item in shared memory, looped
-    over 16-row tiles).  The backward (B8) takes S >= 8; below, the
-    gradient is the plain version's vjp, as in the JAX package.  Raises
-    ValueError, naming the limit and its ROADMAP.md queue B item, for a
-    shape no body takes."""
+    over 16-row tiles), "stream" (past that cap: groups of 64 rows, the
+    other side streamed through shared memory in fixed chunks).  The
+    backward (B8) takes S >= 8; below, the gradient is the plain version's
+    vjp, as in the JAX package.  Raises ValueError, naming the limit and
+    its ROADMAP.md queue B item, for a shape no body takes."""
     what = "tiny_seq_attention backward (B8)" if backward else "tiny_seq_attention (B5 / B5')"
     if heads < 1 or width % heads != 0:
         raise ValueError(f"{what}: width {width} does not split into {heads} heads")
     cap = MAX_S[body_columns(width // heads, what)]
-    if s > cap:
-        raise ValueError(f"{what}: at head dim {width // heads} the kernels take S <= {cap} (a "
-                         f"(row, head) item is held whole in shared memory; longer: ROADMAP.md "
-                         f"queue B item 5); got S = {s}")
     if s < (8 if backward else 1):
         raise ValueError(f"{what}: takes S >= {8 if backward else 1}; got S = {s}")
-    return "packed" if s < 8 else "tile" if s <= 16 else "long"
+    return "packed" if s < 8 else "tile" if s <= 16 else "long" if s <= cap else "stream"
 
 
 def _head_mask(sh: int, heads: int, device: torch.device) -> torch.Tensor:
@@ -143,12 +140,15 @@ def pair_axis_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_tiny(q, k, v, m: int, s: int, heads: int, d: int, sm_scale: float,
                  what: str) -> torch.Tensor:
-    """The B5 kernel on [M, S, H*D] memory (shape checks done by the caller)."""
+    """The B5 kernel on [M, S, H*D] memory (shape checks done by the
+    caller): the streamed body's entry point past the long body's cap."""
     for t in (q, k, v):
         if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
             raise ValueError(f"{what} kernel takes contiguous 16-byte aligned bf16 tensors")
     o = torch.empty_like(q)
-    err = cuda_lib().bya_tiny_seq_attention(
+    lib = cuda_lib()
+    stream = kernel_body(s, heads * d, heads) == "stream"
+    err = (lib.bya_tiny_seq_attention_stream if stream else lib.bya_tiny_seq_attention)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m, s, heads, d,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, what)
@@ -160,8 +160,7 @@ def packed_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head self-attention over a tiny packed axis: q/k/v [M, S*H, D]
     with packing (s, h) -> s*H + h (the reshape of [M, S, H, D]) -> the
     same.  A CPU tensor takes the plain version; a CUDA tensor launches
-    kernel B5' (bf16, D % 8 == 0 up to 256, S within `kernel_body`'s cap)
-    or raises."""
+    kernel B5' (bf16, D % 8 == 0 up to 256, any S) or raises."""
     if q.device.type == "cpu":
         return packed_head_attention_plain(q, k, v, heads, sm_scale)
     return kernel_with_plain_vjp(_packed_head_kernel, packed_head_attention_plain, (q, k, v),
@@ -190,8 +189,8 @@ def tiny_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     takes the plain version; on a CUDA tensor S < 8 goes to
     `packed_head_attention` (B5', as the JAX dispatch does) with the plain
     version's vjp as its gradient, S >= 8 launches kernel B5 (bf16, dh % 8
-    == 0 up to 256, S within `kernel_body`'s cap) with kernel B8 as its
-    gradient, and anything else raises."""
+    == 0 up to 256, any S) with kernel B8 as its gradient, and anything
+    else raises."""
     if q.device.type == "cpu":
         return tiny_seq_attention_plain(q, k, v, heads, sm_scale)
     m, s, c = q.shape
@@ -229,8 +228,9 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     """Kernel B8 on its own (what `tiny_seq_attention`'s backward launches
     at S >= 8): (dq, dk, dv), each [M, S, C] in q's dtype, for output
     gradient `g`.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (bf16, dh % 8 == 0 up to 256, 8 <= S within
-    `kernel_body`'s cap) or raises."""
+    launches the kernel (bf16, dh % 8 == 0 up to 256, any S >= 8) or
+    raises.  The streamed body (`kernel_body` "stream") takes 3 x M x H x
+    S floats of scratch for each row's max, 1 / sum and delta."""
     if q.device.type == "cpu":
         return tiny_seq_attention_bwd_plain(q, k, v, g, heads, sm_scale)
     m, s, c = q.shape
@@ -239,16 +239,22 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
             and g.shape == q.shape):
         raise ValueError(f"tiny_seq_attention backward kernel takes CUDA [M, S, H*dh]; got "
                          f"{tuple(q.shape)}, {heads} heads on {q.device}")
-    kernel_body(s, c, heads, backward=True)
+    body = kernel_body(s, c, heads, backward=True)
     for t in (q, k, v, g):
         if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
             raise ValueError("tiny_seq_attention backward kernel takes contiguous 16-byte "
                              "aligned bf16 tensors")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = cuda_lib().bya_tiny_seq_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), m, s, heads, c // heads, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = cuda_lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    shape = (m, s, heads, c // heads, float(sm_scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if body == "stream":
+        stats = torch.empty(3 * m * heads * s, dtype=torch.float32, device=q.device)
+        err = lib.bya_tiny_seq_attention_stream_bwd(*ptrs, stats.data_ptr(), *shape)
+    else:
+        err = lib.bya_tiny_seq_attention_bwd(*ptrs, *shape)
     check(err, "tiny_seq_attention backward (B8)")
     tiny_seq_attention_bwd.launches += 1
     return dq, dk, dv
@@ -276,12 +282,12 @@ def pair_blocks(c: int, heads: int) -> tuple:
     BLOCK_M), the head width and the heads a program takes padded to powers
     of two (Triton's blocks), and the rows a program takes, so that a
     program's operand tiles hold about 4,096 elements; a grid column per
-    HB heads.  Raises ValueError, naming ROADMAP.md queue B item 5, past
-    JAX's 128 heads."""
+    HB heads.  Raises ValueError past JAX's 128 heads, naming ROADMAP.md
+    C4 (JAX's kernel computes those heads wrong)."""
     if heads < 1 or heads > PAIR_MAX_HEADS or c % heads != 0:
         raise ValueError(f"pair_axis_attention kernel takes C split into 1..{PAIR_MAX_HEADS} "
-                         f"heads (the JAX kernel's head indicator is {PAIR_MAX_HEADS} wide; more: "
-                         f"ROADMAP.md queue B item 5); got C = {c}, {heads} heads")
+                         f"heads (the JAX kernel's head indicator is {PAIR_MAX_HEADS} wide and "
+                         f"computes more heads wrong: ROADMAP.md C4); got C = {c}, {heads} heads")
     p2 = lambda n: 1 << (n - 1).bit_length()
     dp = p2(c // heads)
     hb = min(p2(heads), max(1, 4096 // dp))

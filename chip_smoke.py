@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py     # 42 layers; serving requests of 2 steps each; 2 optimizer steps
                               # of the Stage-3 train step (4 layers); the sft launcher: 2
-                              # steps, a checkpoint, a resume and a third step; a 50-step
+                              # steps, a checkpoint, a resume and a third step; a 10-step
                               # clip; the CLI (also two-stage, and from reference-format
-                              # files); SAM2 and the upscaler; 81- and 97-frame clips
+                              # files); SAM2 and the upscaler; 97-, 193- and 801-frame clips
     python3 chip_smoke.py --only-kernels B2,B3,B6   # phase 2 of these kernels only
     python3 chip_smoke.py --only-kernels dh16,dsweep  # phase 2's rows of a head-dim class
     python3 chip_smoke.py --only-kernels widths    # the short-KV and packed kernels' widths
@@ -16,6 +16,7 @@
     python3 chip_smoke.py --face-plain             # ROADMAP C5: the face path's kernels
                                                    # swapped for plain fp32 versions
     python3 chip_smoke.py --only-long-clips        # phase 12 only
+    python3 chip_smoke.py --only-kernels stream    # phase 2's streamed B5 / B5' / B8 rows
 
 Phases (one line each; any failure exits non-zero and prints no result):
   1. the card's `nvidia-smi` name and power limit; build every kernel (one
@@ -78,7 +79,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      17550, 2048] with (16, 2), (64, 2), (32, 3), (32, 5), timed, and every
      short-KV entry point, untimed, at K = 1, 4, 8, 16, 24, 33, 64, 100 and
      I = 1, 3, 5, 8 at D = 64, 128, 256 (16 and 48 at K = 100, I = 5) over
-     Sq = 1,000 in 3 batches, its K/V resident or streamed);
+     Sq = 1,000 in 3 batches, its K/V resident or streamed); B5, B5' and
+     B8 on the streamed body (`stream`), timed: one past each body's cap
+     ([1001, 193, 8 x 64], [1001, 97, 4 x 128], [1001, 49, 2 x 256]), at
+     S = 201 and 400 over M = 1,001, and at [5400, 400, 512] (past 2^31
+     bytes), the plain versions 256 rows at a time, B5 and B8 twice at S
+     = 201 and 49, bitwise equal;
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -121,8 +127,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      (B5, B8 and B4 at dh 128 and 32): the serving forward and one Stage-3
      micro-batch against the CPU in fp32 (forward within 2%, gradients
      within 3%, the face path's within phase 3b's 10%), exact launches;
-     then one request at 42 layers with 24 x 128 heads, face + audio, 49
-     frames, 2 steps, through the `InferenceServer` (s a denoise step,
+     then one request at `--request-layers` (8: the 5B's 42 cut for the
+     smoke's time) with 24 x 128
+     heads, face + audio, 49 frames, 2 steps, through the `InferenceServer`
+     (s a denoise step,
      peak, launches); the kernels line's B3 / B4 / B5 / B8 width rows.
   3h. the short-KV and packed entry points at the widths no model of the
      smoke reaches (B2, B14, B2c, B2h at D = 48 and 256; B5 and B8 at 8 x
@@ -134,7 +142,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      56, 64) and (2, 8, 4): B2 at K_f and B3 at K_a on their general key
      blocks, the multi-ID STAB on B5' (I = 3, 5) or B4 (I = 2); the serving
      forward and one Stage-3 micro-batch against the CPU in fp32 at 3g's
-     tolerances, exact launches; then one request at 42 layers with I = 5,
+     tolerances, exact launches; then one request at `--request-layers`
+     (8) with I = 5,
      K_f = 56, K_a = 64 through the `InferenceServer` (s a denoise step,
      peak, launches); then each token row's configuration once through its
      entry point (one launch each: the token rows' launches).
@@ -178,8 +187,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      model is freed: `training.sft.main` in this process, `--model_size
      5b --remat_policy nested --use_8bit_adam --index_file <2 samples of
      49 x 480 x 720 written here> --num_validation_videos 1
-     --validation_steps 2`, 8 layers with widths full
-     (`--driver-layers`; a save at 42 layers writes 32.4 GB of state and
+     --validation_steps 2`, 4 layers with widths full (`--driver-layers`;
+     a save at 42 layers writes 32.4 GB of state and
      sub-modules, the phase saves twice, and the card's machine stops a run
      after 45 GiB of writes, of which 7e takes 18 GB), synthetic 49 x 480 x 720
      clips encoded by the VAE, teacher masks, the driver: 2 optimizer
@@ -192,9 +201,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      `prepare_batch` and step seconds and peak memory, the checkpoint's
      bytes and its save and restore seconds, and the free disk.
   7. after phase 6 frees its model: one face + audio request through the
-     `InferenceServer` on a new 42-layer 5B model, `--clip-steps` (50)
-     DPM++ steps, guidance 6, 49 x 480 x 720, whole decode, weights and
-     conditioning drawn on the card: finite [1, 49, 3, 480, 720], exact
+     `InferenceServer` on a new 42-layer 5B model, `--clip-steps` (10; a
+     shipped clip takes 50) DPM++ steps, guidance 6, 49 x 480 x 720, whole
+     decode, weights and conditioning drawn on the card: finite [1, 49, 3, 480, 720], exact
      launch counts, `prep_s`, `encode_s`, `denoise_s`, `decode_s`,
      `compute_s`, seconds a step, peak memory.
   7b. the CLI (`infer.run(infer.get_args([...]))`) at `--model_size 5b
@@ -281,21 +290,27 @@ Phases (one line each; any failure exits non-zero and prints no result):
      against it, and prodigy (2 steps, lr 10, at 8 layers: 42 do not fit
      sharded) sharded and unsharded, each within relative L2 1e-2 of the
      trainable change.  The group is destroyed at the end.
-  12. long clips, 81 and 97 frames (T = 21 and 25 latent frames: the
-     router's temporal STAB attention on B5 / B8's long body).  12a, on
-     phase 4's model: one face + audio request through the
-     `InferenceServer` at 97 x 480 x 720, 2 steps, streamed in chunks of 4
-     latent frames: [1, 97, 3, 480, 720], seconds a step, `decode_s`,
-     peak, exact launches, B5 dispatched on the long body at S = 25 only
-     and no plain version called.  12b (after phase 10): 7c's flow at
-     `--num_frames 81`, whole decode: the meta line's seconds, wall, peak,
-     launches, B5 at S = 21.  12c: a 2-layer DiT at the 5B widths (48 x 64 heads, its
-     audio layers, router and LFE full width), face + audio, T = 25 on a
-     12 x 18 latent grid: the serving forward within 2% and one Stage-3
-     micro-batch's gradients within 3% relative L2 of the CPU's fp32 (the
-     face path's within phase 3b's 10%), B5 and B8 at S = 25 inside the
-     model, exact launches; then the same at 49 frames (T = 13, the
-     one-tile bodies) as the control, its errors printed beside.
+  12. long clips (the router's temporal STAB attention over T latent
+     frames: B5 / B8's long body to each body's cap, the streamed body
+     past it).  12a, on phase 4's model: one face + audio request through
+     the `InferenceServer` at 97 x 480 x 720 (T = 25), 2 steps, streamed in
+     chunks of 4 latent frames: [1, 97, 3, 480, 720], seconds a step,
+     `decode_s`, peak, exact launches, B5 dispatched on the long body at S
+     = 25 only and no plain version called; 12d, on the same model: one
+     request at 801 x 128 x 192 (T = 201, 226 + 19,296 tokens), whole
+     decode, B5 on the streamed body at S = 201 only (84 launches a
+     forward).  12b (after phase 10): 7c's flow at `--num_frames 193` (T =
+     49, 226 + 66,150 tokens), decoded whole: the meta line's seconds,
+     wall, peak, launches, B5 at S = 49.  12c: a 2-layer DiT at the 5B
+     widths (48 x 64 heads, its audio layers, router and LFE full width),
+     face + audio, T = 25 on a 12 x 18 latent grid: the serving forward
+     within 2% and one Stage-3 micro-batch's gradients within 3% relative
+     L2 of the CPU's fp32 (the face path's within phase 3b's 10%), B5 and
+     B8 at S = 25 inside the model, exact launches; then the same at 49
+     frames (T = 13, the one-tile bodies) as the control, its errors
+     printed beside; then on the streamed body on a 4 x 6 latent grid: T =
+     201 with the 8 x 64 STAB heads and T = 49 with 2 x 256 (cap 48); and
+     B5' streamed once through `packed_head_attention` [1001, 201 x 8, 64].
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -750,6 +765,7 @@ def kernel_phase(results: dict, only=None) -> bool:
     head_dim_kernel_phase(results, rnd, report, report_all, bhsd, pick, check)
     width_kernel_phase(results, rnd, report, report_all, check, check_ok, bhsd, only)
     token_kernel_phase(results, rnd, report, check, bhsd, only)
+    stream_kernel_phase(results, rnd, report, report_all, check_ok, bhsd, only)
     return ok_all
 
 
@@ -1111,7 +1127,7 @@ def layout_kernel_phase(results: dict, rnd, report, report_all, pick) -> None:
 # runs every kernel's rows at that head dim (dh32, dh64 and dh128: B10's);
 # `dsweep` the sweep of D
 HEAD_DIM_CLASSES = ("dh16", "dh32", "dh48", "dh64", "dh96", "dh128", "dh256", "dsweep",
-                    "widths", "tokens")
+                    "widths", "tokens", "stream")
 
 
 def _rope_tables(rows: int, d: int, gen, dev):
@@ -1659,6 +1675,105 @@ def token_kernel_phase(results: dict, rnd, report, check, bhsd, only) -> None:
             check(name, f"ragged {what} [G={g},Sq={sq},H={h},D={d}] K={kk} I={n_id}",
                   getattr(skv, fn)(*args, d ** -0.5), want,
                   1e-2 * max(1.0, float(want.float().abs().max())), 2e-2)
+
+
+STREAM_CLASS = "stream"
+# B5, B5' and B8 past each body's cap (the streamed body): their kernels
+# line rows (name, kernel, phase-2 tag of the timed row)
+STREAM_ROWS = (("B5 S201", "B5", "ragged[1001,201,512]"),
+               ("B5' S201", "B5'", "ragged[1001,201,512]"),
+               ("B8 S201", "B8", "ragged[1001,201,512]"),
+               ("B5 dh256 S49", "B5", "cap+1[1001,49,2x256]"),
+               ("B8 dh256 S49", "B8", "cap+1[1001,49,2x256]"))
+# the streamed rows' shapes (tag, M, S, heads, dh): one past each body's cap,
+# 201 (801 frames) and 400 (1,597 frames) at a ragged M, and 400 at the
+# full-resolution M, where [M, S, C] passes 2^31 bytes
+STREAM_SHAPES = (("cap+1[1001,193,8x64]", 1001, 193, 8, 64),
+                 ("cap+1[1001,97,4x128]", 1001, 97, 4, 128),
+                 ("cap+1[1001,49,2x256]", 1001, 49, 2, 256),
+                 ("ragged[1001,201,512]", 1001, 201, 8, 64),
+                 ("ragged[1001,400,512]", 1001, 400, 8, 64),
+                 ("slice[5400,400,512]", 5400, 400, 8, 64))
+
+
+def stream_kernel_phase(results: dict, rnd, report, report_all, check_ok, bhsd, only) -> None:
+    """B5, B5' (`packed_head_attention` on the [M, S*H, dh] view) and B8
+    on the streamed body, past each body's cap in `MAX_S`, against their
+    plain versions at every shape of `STREAM_SHAPES`, timed; B5 and B8 run
+    twice at S = 201 and at dh 256, bitwise equal (no sums across units).
+    The plain versions run 256 rows of M at a time (the same function; the
+    fp32 scores of a whole [5400, 8, 400, 400] call would not fit)."""
+    import torch
+    import torch.nn.functional as F
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+
+    bf = torch.bfloat16
+    firsts = None if only is None else {o.split()[0] for o in only}
+    wanted = lambda kernel: firsts is None or kernel in firsts or STREAM_CLASS in firsts
+    keys = {(kernel, tag): name for name, kernel, tag in STREAM_ROWS}
+
+    def by_rows(fn, *ts, step=256):
+        """fn over slices of `step` rows of M, concatenated."""
+        parts = [fn(*(t[i:i + step] for t in ts)) for i in range(0, ts[0].shape[0], step)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
+
+    # tol: as the long bodies' rows (the same numerics, the same sums in
+    # the same order).  bound: the bytes of the inputs and outputs; the
+    # operations 4 (forward) or 10 (backward) M H S^2 dh, bf16 (the
+    # products run on the tensor cores).  library: SDPA on [M, H, S, dh]
+    # copies (permuted before timing); B8: its autograd backward, timed
+    # alone.
+    for kernel in ("B5", "B5'", "B8"):
+        if not wanted(kernel):
+            continue
+        for tag, m, s_, h, d in STREAM_SHAPES:
+            assert pa.kernel_body(s_, h * d, h, kernel == "B8") == "stream", (kernel, tag)
+            c, sc = h * d, d ** -0.5
+            runs = 3 if m > 1001 else 10
+            q, k, v = (rnd(m, s_, c).to(bf) for _ in range(3))
+            qh, kh, vh = bhsd(q, h), bhsd(k, h), bhsd(v, h)
+            key = keys.get((kernel, tag))
+            if kernel == "B8":
+                g = rnd(m, s_, c).to(bf)
+                qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+                oh = F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+                gh = bhsd(g, h)
+                lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)
+                kern = lambda: pa.tiny_seq_attention_bwd(q, k, v, g, h, sc)
+                plain = lambda: by_rows(
+                    lambda *t: pa.tiny_seq_attention_bwd_plain(*t, h, sc), q, k, v, g)
+                work = (_nbytes(q, k, v, g, q, k, v), 10.0 * m * h * s_ * s_ * d, "bf16")
+                first = kern()
+                r = report_all(kernel, tag, first, plain(), (1e-2,) * 3, kern, plain, runs,
+                               lib, work)
+                if m == 1001 and s_ in (201, 49):
+                    check_ok(kernel, f"{tag} run twice: bitwise equal",
+                             all(torch.equal(a, b) for a, b in zip(first, kern())))
+                del g, oh, gh, first
+            else:
+                if kernel == "B5":
+                    kern = lambda: pa.tiny_seq_attention(q, k, v, h, sc)
+                    plain = lambda: by_rows(
+                        lambda *t: pa.tiny_seq_attention_plain(*t, h, sc), q, k, v)
+                else:
+                    packed = [t.reshape(m, s_ * h, d) for t in (q, k, v)]
+                    kern = lambda: pa.packed_head_attention(*packed, h, sc)
+                    plain = lambda: by_rows(
+                        lambda *t: pa.packed_head_attention_plain(*t, h, sc), *packed)
+                lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+                work = (_nbytes(q, k, v, q), 4.0 * m * h * s_ * s_ * d, "bf16")
+                got = kern().reshape(m, s_, c)
+                r = report(kernel, tag, got, plain().reshape(m, s_, c), 1e-2, 2e-2, kern, plain,
+                           runs, lib, work)
+                if kernel == "B5" and m == 1001 and s_ in (201, 49):
+                    check_ok(kernel, f"{tag} run twice: bitwise equal", torch.equal(got, kern()))
+                del got
+            if key is not None:
+                results[key] = r
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
 
 
 def entry_point_phase(launches: dict) -> bool:
@@ -2374,12 +2489,12 @@ def head_dim_serving_request(args) -> bool:
     layers' heads derived (24 x 128: B1 and B3 at dh 128)
     (`_model_request`).  Phase 4's first request is the 48 x 64 model's
     beside it."""
-    return _model_request(args, "head dims, 42-layer request (phase 3g; 24 x 128 heads",
-                          40, heads=24)
+    return _model_request(args, f"head dims, {args.request_layers}-layer request (phase 3g; "
+                          f"24 x 128 heads", 40, heads=24, layers=args.request_layers)
 
 
 def _model_request(args, what: str, seed: int, **model) -> bool:
-    """One request on the 5B geometry (42 layers, face + audio, 226 + 17,550
+    """One request on the 5B geometry (face + audio, 226 + 17,550
     tokens) with `_serving_model`'s settings `model`, bf16 weights drawn on
     the card: `--steps` DPM++ steps at 49 x 480 x 720 through the
     `InferenceServer`, whole decode: the clip finite [1, 49, 3, 480, 720],
@@ -2480,8 +2595,9 @@ def token_serving_request(args) -> bool:
     identity: B2 and B3 on their general key blocks, the multi-ID STAB on
     B5' at S = 5)."""
     _, ids, k_f, k_a = TOKEN_SETTINGS[1]
-    return _model_request(args, "tokens and identities, 42-layer request (phase 3i; 48 x 64 "
-                          "heads", 41, ids=ids, face_tokens=k_f, audio_tokens=k_a)
+    return _model_request(args, f"tokens and identities, {args.request_layers}-layer request "
+                          f"(phase 3i; 48 x 64 heads", 41, ids=ids, face_tokens=k_f,
+                          audio_tokens=k_a, layers=args.request_layers)
 
 
 # ROADMAP C5: the face path's kernels and the fp32 plain versions that
@@ -2641,8 +2757,9 @@ def width_entry_phase(launches: dict) -> bool:
 
 
 def _serving_model(args, steps: int, heads: int = 48, ids: int = 2,
-                   face_tokens: int | None = None, audio_tokens: int | None = None):
-    """The 5B DiT (42 layers, face + audio; `heads` heads of 3072 / `heads`,
+                   face_tokens: int | None = None, audio_tokens: int | None = None,
+                   layers: int = 42):
+    """The 5B DiT (`layers` layers, face + audio; `heads` heads of 3072 / `heads`,
     its audio layers' derived from them; `ids` identities, `face_tokens` /
     `audio_tokens` tokens an identity where given, else the 5B's 32) and
     the VAE with bf16 weights drawn on the card from `--seed`, in a pipeline
@@ -2658,7 +2775,8 @@ def _serving_model(args, steps: int, heads: int = 48, ids: int = 2,
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(args.seed)
     cfg = DiTConfig(is_train_face=True, is_train_audio=True, dtype=bf, param_dtype=bf,
-                    num_attention_heads=heads, attention_head_dim=3072 // heads, num_ids=ids,
+                    num_layers=layers, num_attention_heads=heads,
+                    attention_head_dim=3072 // heads, num_ids=ids,
                     **({} if face_tokens is None else {"lfe_num_tokens": face_tokens}))
     audio = None if audio_tokens is None else dataclasses.replace(
         DiT.create(cfg, device="meta").audio_cfg, context_tokens=audio_tokens)
@@ -2693,12 +2811,15 @@ def _serving_request(pipe, seed: int, rid: str, face: bool = True, **kw):
         **cond, **kw)
 
 
-def _serving_want(dit, fwd_face: int, fwd_audio: int, preps: int) -> dict:
+def _serving_want(dit, fwd_face: int, fwd_audio: int, preps: int,
+                  frame_tokens: int = 1350) -> dict:
     """Each kernel's launches over `fwd_face` face + audio and `fwd_audio`
     audio-only CFG forwards (batch-2 CFG: one a step, whatever the batch)
-    and `preps` once-per-clip conditioning preps.  A face + audio forward
-    runs B1 42 (blocks) + 4 per face layer (STAB spatial, at a STAB head
-    dim that is a multiple of 64: `models/router.py:SelfAttention`), B2 1
+    and `preps` once-per-clip conditioning preps, at `frame_tokens` tokens
+    a latent frame (30 x 45 at 480 x 720).  A face + audio forward runs B1
+    42 (blocks) + 4 per face layer (STAB spatial, at >= 1,024 tokens a
+    frame and a STAB head dim that is a multiple of 64:
+    `models/router.py:SelfAttention`), B2 1
     and B4, B5
     4 per face layer (past 2 identities B5' or B5 for B4:
     `_multi_id_launches`), B3 42, B6 42 (audio norm_q) + 21 per face layer;
@@ -2708,7 +2829,7 @@ def _serving_want(dit, fwd_face: int, fwd_audio: int, preps: int) -> dict:
     face_b6 = 2 + 2 + 1 + 4 * n_st                 # perceiver, router norms, trunk, STABs
     stabs = n_ca * n_st * fwd_face
     r = dit.router_cfg
-    flash = (r.feat_dim // r.attn_heads) % 64 == 0       # the spatial STABs' B1
+    flash = frame_tokens >= 1024 and (r.feat_dim // r.attn_heads) % 64 == 0  # spatial B1
     return {"B1": c.num_layers * (fwd_face + fwd_audio) + (stabs if flash else 0),
             "B2": n_ca * fwd_face, "B3": a.num_layers * (fwd_face + fwd_audio),
             **_multi_id_launches(c.num_ids, stabs, stabs, 0),
@@ -2744,8 +2865,9 @@ def serving_phase(args, long_launches: dict) -> bool:
     a direct `generate(routing_forcing=..., return_routing=True)` (bit for
     bit; the routing [steps, 21, 1, 17550, 2] bf16); one request through
     `serve_http` on 127.0.0.1; two co-batchable requests on a server with
-    `batch_max=2`: one denoise, batch size 2.  Then phase 12a on the same
-    model (`long_clip_server_phase`, its launches into `long_launches`)."""
+    `batch_max=2`: one denoise, batch size 2.  Then phases 12a and 12d on
+    the same model (`long_clip_server_phase`, their launches into
+    `long_launches["12a"]` and `["12d"]`)."""
     import json as _json
     import tempfile
     import urllib.request
@@ -2904,12 +3026,23 @@ def serving_phase(args, long_launches: dict) -> bool:
           flush=True)
     ok &= _counts_ok("co-batched pair", counts, want(1, 0, 1))
     print(f"serving phase {'ok' if ok else 'FAILED'}", flush=True)
-    return ok & long_clip_server_phase(args, pipe, long_launches)
+    return ok & long_clip_requests(args, pipe, long_launches)
+
+
+def long_clip_requests(args, pipe, long_launches: dict) -> bool:
+    """Phases 12a (97 x 480 x 720, streamed in chunks of 4 latent frames)
+    and 12d (801 x 128 x 192, T = 201: B5 on the streamed body; whole
+    decode) on `pipe`'s model, their launches into `long_launches["12a"]`
+    and `["12d"]`."""
+    long_launches["12a"], long_launches["12d"] = {}, {}
+    ok = long_clip_server_phase(args, pipe, long_launches["12a"], "12a", 97, stream_chunk=4)
+    return ok & long_clip_server_phase(args, pipe, long_launches["12d"], "12d", 801,
+                                       size=(128, 192))
 
 
 def clip_phase(args, launches: dict) -> bool:
     """Phase 7: one face + audio request through the InferenceServer at
-    `--clip-steps` denoise steps (50: a clip) on the 42-layer 5B model,
+    `--clip-steps` denoise steps (10; a shipped clip takes 50) on the 42-layer 5B model,
     weights and conditioning drawn on the card from `--seed`, whole decode;
     fills `launches` with the run's counts."""
     import gc
@@ -4649,16 +4782,20 @@ def _bodies_ok(what: str, seen: dict, want: set) -> bool:
     return ok
 
 
-def long_clip_server_phase(args, pipe, launches: dict) -> bool:
-    """Phase 12a on phase 4's model (the 42-layer face + audio 5B, bf16
-    weights drawn on the card): one face + audio request through the
-    `InferenceServer` at 97 frames (T = 25 latent frames, 226 + 33,750
-    tokens), `--steps` DPM++ steps, streamed in chunks of 4 latent frames
-    (the server's streamed path; `bench_vae_decode` measures the whole
-    decode at 97 frames): the video's shape, the wall of a denoise step,
-    `decode_s` and the peak; exact launches, B5 on its long body at S = 25
-    only, no plain version called.  Fills `launches` with the run's
-    counts."""
+def long_clip_server_phase(args, pipe, launches: dict, phase: str, frames: int,
+                           size=None, stream_chunk=None) -> bool:
+    """Phase 12a or 12d on phase 4's model (the 42-layer face + audio 5B,
+    bf16 weights drawn on the card): one face + audio request through the
+    `InferenceServer` at `frames` frames of `size` (height, width; the
+    pipeline's 480 x 720 when None), `--steps` DPM++ steps, streamed in
+    chunks of `stream_chunk` latent frames or decoded whole: the video's
+    shape, the wall of a denoise step, `decode_s` and the peak; exact
+    launches, B5 on the body `kernel_body` picks at S = T only, no plain
+    version called.  12a: 97 frames (T = 25, the long body, 226 + 33,750
+    tokens), streamed in chunks of 4 (`bench_vae_decode` measures the
+    whole decode); 12d: 801 x 128 x 192 (T = 201, the streamed body, 226 +
+    19,296 tokens, about a 49-frame clip's), whole: a ~30-second clip at a
+    low resolution.  Fills `launches` with the run's counts."""
     import gc
 
     import torch
@@ -4666,17 +4803,21 @@ def long_clip_server_phase(args, pipe, launches: dict) -> bool:
     from bindyouravatar_tpu_torch.pipeline.pipeline import BindYourAvatarPipeline
     from bindyouravatar_tpu_torch.serving import InferenceServer
 
+    from bindyouravatar_tpu_torch.ops.packed_attention import kernel_body
+
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    frames = 97
+    hw = {} if size is None else dict(height=size[0], width=size[1])
     long = BindYourAvatarPipeline.create(
-        pipe.dit, pipe.vae, PipelineConfig(num_frames=frames, num_inference_steps=args.steps))
+        pipe.dit, pipe.vae, PipelineConfig(num_frames=frames, num_inference_steps=args.steps,
+                                           **hw))
     pc = long.cfg
     t_lat = (frames - 1) // pipe.dit.cfg.temporal_compression_ratio + 1
     starts = []
-    req = _serving_request(long, args.seed + 50, "97 frames", stream_chunk_frames=4,
-                           on_chunk=lambda start, arr: starts.append(start))
+    streamed = {} if stream_chunk is None else dict(
+        stream_chunk_frames=stream_chunk, on_chunk=lambda start, arr: starts.append(start))
+    req = _serving_request(long, args.seed + 50, f"{frames} frames", **streamed)
     server = InferenceServer(long, dev)
     try:
         with _watch_tiny_seq() as seen:
@@ -4693,12 +4834,18 @@ def long_clip_server_phase(args, pipe, launches: dict) -> bool:
     peak = torch.cuda.max_memory_allocated() / 2**30
     fwd = args.steps * (2 if pc.cfg_microbatch else 1)
     tm = res.timings
-    ok = _video_ok("97-frame request", res.video, (1, frames, 3, pc.height, pc.width))
-    ok &= _counts_ok("97-frame request", launches, _serving_want(long.dit, fwd, 0, 1))
-    ok &= _bodies_ok("97-frame request", seen, {("long", t_lat, "fwd")})
-    print(f"long clip, server (phase 12a; face + audio, {long.dit.cfg.num_layers} layers, "
-          f"{frames} x {pc.height} x {pc.width}, T = {t_lat}, {args.steps} DPM++ steps, streamed "
-          f"decode, {len(starts)} chunks from frames {starts}): "
+    what = f"{frames}-frame request"
+    ok = _video_ok(what, res.video, (1, frames, 3, pc.height, pc.width))
+    patch = long.dit.cfg.patch_size
+    frame_tokens = (pc.height // 8 // patch) * (pc.width // 8 // patch)
+    ok &= _counts_ok(what, launches, _serving_want(long.dit, fwd, 0, 1, frame_tokens))
+    body = kernel_body(t_lat, long.dit.router_cfg.feat_dim, long.dit.router_cfg.attn_heads)
+    ok &= _bodies_ok(what, seen, {(body, t_lat, "fwd")})
+    decode = ("whole decode" if stream_chunk is None else
+              f"streamed decode, {len(starts)} chunks from frames {starts}")
+    print(f"long clip, server (phase {phase}; face + audio, {long.dit.cfg.num_layers} layers, "
+          f"{frames} x {pc.height} x {pc.width}, T = {t_lat}, {args.steps} DPM++ steps, "
+          f"{decode}): "
           + " ".join(f"{k}={tm[k]:.3f}" for k in ("prep_s", "encode_s", "denoise_s", "decode_s",
                                                    "compute_s"))
           + f"; {tm['denoise_s'] / args.steps:.4f} s a denoise step; wall {wall:.2f} s; peak "
@@ -4710,10 +4857,12 @@ def long_clip_cli_phase(args, launches: dict) -> bool:
     """Phase 12b: phase 7c's flow (`infer.run` from
     `assets/faces/000_{0,1}.png` through the drawn face nets' checkpoint
     flags, phase 7b's audio and prompt files, weights drawn from `--seed`)
-    at `--num_frames 81` (T = 21 latent frames), 2 steps, whole decode:
-    the meta line's `seconds`, the wall and the peak; the launches of 2
-    face + audio forwards, B5 on its long body at S = 21 only, no plain
-    version called.  Fills `launches` with the run's counts."""
+    at `--num_frames 193` (T = 49 latent frames, 226 + 66,150 tokens), 2
+    steps, whole decode (its peak: the DiT's weights and the decode's two
+    whole-clip activations, `models/vae.py`): the meta line's `seconds`,
+    the wall and the peak; the launches of 2 face + audio forwards, B5 on
+    its long body at S = 49 only, no plain version called.  Fills
+    `launches` with the run's counts."""
     import gc
     import tempfile
     import types
@@ -4724,7 +4873,7 @@ def long_clip_cli_phase(args, launches: dict) -> bool:
 
     gc.collect()
     torch.cuda.empty_cache()
-    frames = 81
+    frames = 193
     here = os.path.dirname(os.path.abspath(__file__))
     faces = [os.path.join(here, "assets", "faces", f"000_{i}.png") for i in (0, 1)]
     with tempfile.TemporaryDirectory(prefix="bya_cli_long_") as tmp:
@@ -4743,11 +4892,12 @@ def long_clip_cli_phase(args, launches: dict) -> bool:
     t_lat = (frames - 1) // 4 + 1
     five_b = types.SimpleNamespace(cfg=DiTConfig(), audio_cfg=AudioConfig(),
                                    router_cfg=RouterConfig())
-    ok = _video_ok("CLI at 81 frames", res.video, (1, frames, 3, 480, 720))
+    what = f"CLI at {frames} frames"
+    ok = _video_ok(what, res.video, (1, frames, 3, 480, 720))
     meta_ok = res.meta["frames"] == frames and res.meta["steps"] == 2
     ok &= meta_ok
-    ok &= _counts_ok("CLI at 81 frames (face + audio)", launches, _serving_want(five_b, 2, 0, 1))
-    ok &= _bodies_ok("CLI at 81 frames", seen, {("long", t_lat, "fwd")})
+    ok &= _counts_ok(f"{what} (face + audio)", launches, _serving_want(five_b, 2, 0, 1))
+    ok &= _bodies_ok(what, seen, {("long", t_lat, "fwd")})
     print(f"long clip, CLI (phase 12b): --img_file_path assets/faces/000_0.png 000_1.png, the "
           f"drawn face nets, --model_size 5b --num_layers 42 --num_inference_steps 2 "
           f"--num_frames {frames} (T = {t_lat}), whole decode -> run() in {wall:.1f} s (weights "
@@ -4756,35 +4906,53 @@ def long_clip_cli_phase(args, launches: dict) -> bool:
     return ok
 
 
-def _long_clip_case(frames: int, launches: dict) -> tuple:
-    """One run of phase 12c at `frames` pixel frames; returns (ok, the
-    gradients' relative L2 errors by name).  See `long_clip_model_phase`."""
+# phase 12c's CPU weights and the generator's state after them, drawn by its
+# first case and emptied at the phase's end
+_LONG_CLIP_DRAW = {}
+
+
+def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: int = 8) -> tuple:
+    """One run of phase 12c at `frames` pixel frames on a `grid` (height,
+    width) of latents, the router's STABs at `router_heads` heads; returns
+    (ok, the gradients' relative L2 errors by name).  See
+    `long_clip_model_phase`."""
     import numpy as np
     import torch
     from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
                                                  RouterConfig, SchedulerConfig, TrainConfig)
     from bindyouravatar_tpu_torch.models.dit import DiT
+    from bindyouravatar_tpu_torch.ops.packed_attention import kernel_body
     from bindyouravatar_tpu_torch.ops.scheduler import Schedule
     from bindyouravatar_tpu_torch.training.trainer import Trainer
 
     t0 = time.perf_counter()
-    sub = (AudioConfig(num_layers=2), RouterConfig(num_layers=1), LFEConfig())
-    base = dict(num_layers=2, sample_height=12, sample_width=18, sample_frames=frames,
+    rcfg = RouterConfig(num_layers=1, attn_heads=router_heads)
+    sub = (AudioConfig(num_layers=2), rcfg, LFEConfig())
+    base = dict(num_layers=2, sample_height=grid[0], sample_width=grid[1], sample_frames=frames,
                 max_text_seq_length=16, lora_rank=8, lora_alpha=8.0)
     gen = torch.Generator().manual_seed(17)
-    make = lambda dtype, dev, fuse: DiT.create(
+    make = lambda dtype, dev, fuse, draw=False: DiT.create(
         DiTConfig(dtype=dtype, fuse_qk_norm=fuse, **base), *sub, device=dev,
-        generator=gen if dev == "cpu" else None)
-    ref = make(torch.float32, "cpu", False)
-    with torch.no_grad():        # LoRA B off zero, so LoRA A takes gradients too
-        for blk in ref.blocks:
-            for name in ("to_q_lora_B", "to_k_lora_B"):
-                getattr(blk.attn1, name).normal_(0.0, 0.02, generator=gen)
+        generator=gen if draw else None)
+    if not _LONG_CLIP_DRAW:
+        # the same weights at every frame count, grid and STAB head split
+        # (the parameters' shapes do not depend on them): drawn once a phase
+        ref = make(torch.float32, "cpu", False, draw=True)
+        with torch.no_grad():        # LoRA B off zero, so LoRA A takes gradients too
+            for blk in ref.blocks:
+                for name in ("to_q_lora_B", "to_k_lora_B"):
+                    getattr(blk.attn1, name).normal_(0.0, 0.02, generator=gen)
+        _LONG_CLIP_DRAW.update(sd={k: v.clone() for k, v in ref.state_dict().items()},
+                               gen=gen.get_state())
+    else:
+        ref = make(torch.float32, "cpu", False)
+        ref.load_state_dict(_LONG_CLIP_DRAW["sd"])
+        gen.set_state(_LONG_CLIP_DRAW["gen"])
     sd = ref.state_dict()
     c, a, lf = ref.cfg, ref.audio_cfg, ref.lfe_cfg
     t_lat = c.latent_frames
     n_st = ref.router_cfg.num_attention_layers
-    body = "long" if t_lat > 16 else "tile"
+    body, body_b = (kernel_body(t_lat, rcfg.feat_dim, router_heads, b) for b in (False, True))
 
     # the serving forward, batch-2 CFG shapes
     rng = np.random.default_rng(17)
@@ -4862,13 +5030,14 @@ def _long_clip_case(frames: int, launches: dict) -> tuple:
     want = train_launches(gpu, 1)
     c_ok = {k: launches[k] for k in want} == want and launches["B8"] > 0
     c_ok &= _bodies_ok(f"T = {t_lat} micro-batch", seen_t,
-                       {(body, t_lat, "fwd"), (body, t_lat, "bwd")})
+                       {(body, t_lat, "fwd"), (body_b, t_lat, "bwd")})
     ok = f_ok and m_ok and g_ok and c_ok
     shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w if w[k] or cnt[k])
     worst = lambda pick: " ".join(f"{k}={e:.3e}" for k, e in sorted(
         ((k, e) for k, e in g_err.items() if pick(k)), key=lambda kv: -kv[1])[:3])
     over = sum(e > 0.03 for e in g_err.values())
-    print(f"long clip, 2-layer full-width DiT (phase 12c; 48 x 64 heads, dim 3072, face + audio, "
+    print(f"long clip, 2-layer full-width DiT (phase 12c; 48 x 64 heads, dim 3072, STABs "
+          f"{router_heads} x {rcfg.feat_dim // router_heads}, face + audio, "
           f"{frames} frames: T = {t_lat}, {body} bodies, {c.sample_height} x {c.sample_width} "
           f"latents, 16 + {c.video_seq_len} tokens): forward cuda-bf16 vs cpu-fp32 relative L2 "
           f"{f_rel:.3e} (tol 0.02), routing {r_rel:.3e}, launches {shown(fwd_counts, want_fwd)}; "
@@ -4905,9 +5074,43 @@ def long_clip_model_phase(launches: dict) -> bool:
     + 1e-3); B5 and B8 on their long bodies at S = 25, no plain version
     called, the launches exact.  Then the same at 49 frames (T = 13, the
     one-tile bodies) as the control: its gradients' errors beside T = 25's.
-    Fills `launches` with the T = 25 micro-batch's counts."""
-    ok, errs = _long_clip_case(97, launches)
-    ok_13, errs_13 = _long_clip_case(49, {})
+    Then past each body's cap, on the streamed body, on a 4 x 6 latent
+    grid (6 tokens a frame): 801 frames (T = 201, 16 + 1,206 tokens) with
+    the 8 x 64 STAB heads, and 193 frames (T = 49, 16 + 294 tokens) with
+    `RouterConfig(attn_heads=2)`'s 2 x 256 (cap 48).  Last, B5' on the
+    streamed body through `packed_head_attention` at [1001, 201 x 8, 64]
+    against its plain version, once.  Fills `launches["25"]`,
+    `["201"]` and `["49 dh256"]` with the micro-batches' counts and
+    `["B5' S201"]` with the direct call's."""
+    import torch
+    from bindyouravatar_tpu_torch.ops import packed_attention as pa
+
+    for key in ("25", "201", "49 dh256", "B5' S201"):
+        launches[key] = {}
+    try:
+        ok, errs = _long_clip_case(97, launches["25"])
+        ok_13, errs_13 = _long_clip_case(49, {})
+        ok &= _long_clip_case(801, launches["201"], grid=(4, 6))[0]
+        ok &= _long_clip_case(193, launches["49 dh256"], grid=(4, 6), router_heads=2)[0]
+    finally:
+        _LONG_CLIP_DRAW.clear()
+    gen = torch.Generator("cuda").manual_seed(201)
+    q, k, v = (torch.randn(1001, 201 * 8, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    torch.cuda.synchronize()
+    _reset_launches()
+    got = pa.packed_head_attention(q, k, v, 8, 0.125)
+    torch.cuda.synchronize()
+    launches["B5' S201"].update(_read_launches())
+    # tol: phase 2's B5' rows
+    err, _, p_ok = _compare(got, pa.packed_head_attention_plain(q, k, v, 8, 0.125), 1e-2, 2e-2)
+    n = launches["B5' S201"]
+    p_ok &= n["B5'"] == 1 and sum(n.values()) == 1
+    print(f"  phase 12c, B5' streamed: packed_head_attention [1001, 201 x 8, 64] against its "
+          f"plain version max_abs_err {err:.3e} (tol 1e-2 + 2e-2 |ref|), launches "
+          f"{n} (want B5' 1, nothing else) {'ok' if p_ok else 'FAILED'}", flush=True)
+    ok &= p_ok
+    del q, k, v, got
     worst = lambda e, pick: max((v for k, v in e.items() if pick(k)), default=0.0)
     print(f"  phase 12c, T = 25 (long bodies) beside T = 13 (one-tile bodies): worst gradient "
           f"error outside the face path {worst(errs, lambda k: not _face_path(k)):.3e} / "
@@ -4933,8 +5136,9 @@ KERNELS = {
            "bindyouravatar_tpu/ops/packed_attention.py:139"),
     "B5'": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
             "bindyouravatar_tpu/ops/packed_attention.py:47"),
-    # B5 and B8 on the long body at 81 and 97 frames (T = 21, 25): the
-    # launches of phases 12b, 12a and 12c
+    # B5 and B8 on the long body at 81 and 97 frames (T = 21, 25; timed in
+    # phase 2): the launches of phases 12b (its long body at T = 49), 12a
+    # and 12c
     "B5 S21": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
                "bindyouravatar_tpu/ops/packed_attention.py:139"),
     "B5 S25": ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention.cu",
@@ -4993,6 +5197,9 @@ KERNELS = {
 # kernels' sources and TPU bodies
 KERNELS.update({row: KERNELS[kernel] for row, kernel in WIDTH_ROWS})
 KERNELS.update({row: KERNELS[kernel] for row, kernel, _, _ in TOKEN_ROWS})
+# the streamed rows (`STREAM_ROWS`): B5, B5' and B8 past each body's cap
+KERNELS.update({row: ("cuda", "bindyouravatar_tpu_torch/csrc/packed_attention_stream.cu",
+                      KERNELS[kernel][2]) for row, kernel, _ in STREAM_ROWS})
 
 
 def _rel_l2(got, want) -> float:
@@ -5501,9 +5708,13 @@ def main(argv=None) -> int:
     p.add_argument("--train-layers", type=int, default=4,
                    help="depth of the phase-5 DiT (widths stay full; cut from 42 for the "
                         "smoke's time: phases 5, 5b, 5c and 11 step it)")
-    p.add_argument("--clip-steps", type=int, default=50,
-                   help="denoise steps of phase 7's clip (0 skips phases 7 to 7e)")
-    p.add_argument("--driver-layers", type=int, default=8,
+    p.add_argument("--clip-steps", type=int, default=10,
+                   help="denoise steps of phase 7's clip (a shipped clip takes 50: cut for the "
+                        "smoke's time; 0 skips phases 7 to 7e)")
+    p.add_argument("--request-layers", type=int, default=8,
+                   help="depth of phases 3g's and 3i's serving requests (widths stay full; cut "
+                        "from 42 for the smoke's time: phases 4, 7 and 12 serve at 42)")
+    p.add_argument("--driver-layers", type=int, default=4,
                    help="depth of the phase-6 DiT (widths stay full; cut from 42: a save at 42 "
                         "layers writes 32.4 GB, the phase saves twice, and a run may write 45 "
                         "GiB, 18 GB of them phase 7e's files)")
@@ -5565,8 +5776,8 @@ def main(argv=None) -> int:
     except (RuntimeError, OSError, ImportError) as e:
         return _fail(f"kernel build: {e}")
     print(f"build: {lib.name} (nvcc sm_90a: the flash forward of B1, B7 and B11, the fused "
-          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, B6 + B9) and "
-          f"triton import in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, their "
+          f"streamed bodies, B6 + B9) and triton import in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     for line in ptxas:
@@ -5593,12 +5804,12 @@ def main(argv=None) -> int:
         face_plain_phase()
         return _fail(f"--face-plain: the C5 runs done in {time.perf_counter() - t3:.1f} s, no "
                      f"other phase run")
-    long_launches, cli81_launches, model25_launches = {}, {}, {}
+    long_launches, cli_launches, model_launches = {}, {}, {}
     if args.only_long_clips:
         t12 = time.perf_counter()
-        ok = long_clip_server_phase(args, _serving_model(args, args.steps), long_launches)
-        ok &= long_clip_cli_phase(args, cli81_launches)
-        ok &= long_clip_model_phase(model25_launches)
+        ok = long_clip_requests(args, _serving_model(args, args.steps), long_launches)
+        ok &= long_clip_cli_phase(args, cli_launches)
+        ok &= long_clip_model_phase(model_launches)
         return _fail(f"--only-long-clips: phase 12 {'passed' if ok else 'FAILED'} in "
                      f"{time.perf_counter() - t12:.1f} s, no other phase run")
     t2 = time.perf_counter()
@@ -5652,8 +5863,8 @@ def main(argv=None) -> int:
     ok &= sam2_upscaler_phase(args)
     ok &= two_b_phase(args)
     t12 = time.perf_counter()
-    ok &= long_clip_cli_phase(args, cli81_launches)
-    ok &= long_clip_model_phase(model25_launches)
+    ok &= long_clip_cli_phase(args, cli_launches)
+    ok &= long_clip_model_phase(model_launches)
     print(f"phases 12b and 12c in {time.perf_counter() - t12:.1f} s", flush=True)
     ok &= distribution_phase(args, phase5)
     if not ok:
@@ -5675,10 +5886,18 @@ def main(argv=None) -> int:
     # B1 and B7 at head dims 32 and 128: the 2-layer full-width DiTs of phase
     # 3e; B7, B11, B12 + B13 and B10 at 16 and 256: those of phase 3f
     launches.update(head_dim_launches)
-    # B5 at 97 frames: phase 12a's request; at 81: phase 12b's CLI run; B8 at
-    # T = 25: phase 12c's micro-batch
-    launches.update({"B5 S25": long_launches["B5"], "B5 S21": cli81_launches["B5"],
-                     "B8 S25": model25_launches["B8"]})
+    # the long body: B5 at 97 frames, phase 12a's request; at T = 21 (timed
+    # in phase 2), the long body's launches in phase 12b's CLI run at 193
+    # frames (T = 49); B8 at T = 25: phase 12c's micro-batch.  The streamed
+    # body: B5 at T = 201, phase 12d's request; B8 at T = 201 and both at dh
+    # 256 (T = 49), phase 12c's micro-batches; B5', phase 12c's direct call
+    launches.update({"B5 S25": long_launches["12a"]["B5"], "B5 S21": cli_launches["B5"],
+                     "B8 S25": model_launches["25"]["B8"],
+                     "B5 S201": long_launches["12d"]["B5"],
+                     "B5' S201": model_launches["B5' S201"]["B5'"],
+                     "B8 S201": model_launches["201"]["B8"],
+                     "B5 dh256 S49": model_launches["49 dh256"]["B5"],
+                     "B8 dh256 S49": model_launches["49 dh256"]["B8"]})
     # the short-KV and packed kernels at the other widths: the DiTs and
     # routers of phase 3g (B3 at 16, 32, 128, 256; B4, B5, B8 at 32, 128),
     # the entry points of phase 3h (the rest)

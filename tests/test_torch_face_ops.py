@@ -281,7 +281,8 @@ def test_short_kv_refusals_name_their_item():
 def test_pair_kernel_launch_shape():
     """B4's launch shape (`pair_blocks`): the head width and the heads a
     program takes padded to powers of two, about 4,096 elements a tile;
-    past JAX's 128 heads a CUDA call raises naming queue B item 5."""
+    past JAX's 128 heads a CUDA call raises naming ROADMAP.md C4 (JAX's
+    kernel computes those heads wrong)."""
     assert tpa.pair_blocks(512, 8) == (64, 8, 8)          # the 5B's 8 x 64: as before
     assert tpa.pair_blocks(384, 8) == (64, 8, 8)          # 8 x 48: 16 lanes a head masked
     assert tpa.pair_blocks(3072, 24) == (128, 32, 1)
@@ -290,7 +291,7 @@ def test_pair_kernel_launch_shape():
         dp, hb, block_m = tpa.pair_blocks(c, heads)
         assert dp >= c // heads > dp // 2 and hb * dp * block_m <= 4096 and hb <= 2 * heads
     meta = torch.empty((1, 2, 64, 129 * 8), device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
+    with pytest.raises(ValueError, match="ROADMAP.md C4"):
         tpa.pair_axis_attention(meta, meta, meta, 129, 0.1)
 
 

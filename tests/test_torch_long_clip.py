@@ -2,11 +2,13 @@
 frames (81 and 97 pixel frames: T = 21 and 25) against the JAX package.
 
 Kernels B5, B5' and B8 take every S up to `packed_attention.MAX_S` on the
-card (the long bodies of `csrc/packed_attention.cu`; `chip_smoke.py` phase
-2 holds them against their plain versions there, phase 12 drives them in
-the 5B model).  Here: their plain versions, which a CPU tensor takes,
-against the Pallas bodies they replace, run in interpret mode, at S = 17,
-25, 33 and 64; the shape rule that picks a body (`kernel_body`); the
+card on the long bodies of `csrc/packed_attention.cu`, and every S past it
+on the streamed body (`chip_smoke.py` phase 2 holds them against their
+plain versions there, phase 12 drives them in the 5B model;
+`tests/test_torch_any_length.py` holds the lengths past the caps here).
+Here: their plain versions, which a CPU tensor takes, against the Pallas
+bodies they replace, run in interpret mode, at S = 17, 25, 33 and 64; the
+shape rule that picks a body (`kernel_body`); the
 router (norms, one layer's projections, the trunk with its STABs) at T =
 25, forward and every input and parameter gradient against `jax.vjp`; the
 tiny face + audio `DiT.apply` and a 2-step `generate` with
@@ -116,9 +118,10 @@ def test_kernel_rule_bodies_and_refusals():
     """The rest of the rule: B5' packs below 8, one tile an item up to 16,
     B8 from 8; a head of dh columns rides the narrowest body that holds it
     (64, 128 or 256 columns) and takes S up to that body's cap in `MAX_S`
-    (the source's `Geo::LONG_MAX_S`), 25 (97 frames) at every width; S past
-    the cap, dh % 8 != 0 and dh > 256 raise, naming the ROADMAP item that
-    holds them."""
+    (the source's `Geo::LONG_MAX_S`) on the long body, 25 (97 frames) at
+    every width, and past the cap on the streamed body; S below 1 (B8: 8),
+    dh % 8 != 0 and dh > 256 raise, naming the ROADMAP item that holds
+    them."""
     assert [tpa.kernel_body(s, 512, 8) for s in range(1, 17)] == ["packed"] * 7 + ["tile"] * 9
     assert [tpa.kernel_body(s, 512, 8, backward=True) for s in range(8, 17)] == ["tile"] * 9
     src = open(os.path.join(ROOT, "bindyouravatar_tpu_torch", "csrc", "packed_attention.cu")).read()
@@ -132,10 +135,10 @@ def test_kernel_rule_bodies_and_refusals():
         assert tpa.kernel_body(cap, 8 * dh, 8, backward=True) == "long"
         assert tpa.kernel_body(25, 4 * dh, 4, backward=True) == "long"
         for backward in (False, True):
-            with pytest.raises(ValueError, match="ROADMAP.md queue B item 5"):
-                tpa.kernel_body(cap + 1, 8 * dh, 8, backward)
-    for s, width, heads, backward in ((7, 512, 8, True), (tpa.MAX_S[64] + 1, 512, 8, False),
-                                      (tpa.MAX_S[64] + 1, 512, 8, True), (0, 512, 8, False),
+            assert tpa.kernel_body(cap + 1, 8 * dh, 8, backward) == "stream"
+    for backward in (False, True):
+        assert tpa.kernel_body(tpa.MAX_S[64] + 1, 512, 8, backward) == "stream"
+    for s, width, heads, backward in ((7, 512, 8, True), (0, 512, 8, False),
                                       (13, 96, 8, False), (13, 8 * 264, 8, True)):
         with pytest.raises(ValueError, match="B5|B8"):
             tpa.kernel_body(s, width, heads, backward)

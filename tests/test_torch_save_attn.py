@@ -94,7 +94,7 @@ def test_save_attn_gradients_match_jax(path):
                           **{k: jnp.asarray(v) for k, v in cond.items()})
         return (out * jnp.asarray(w)).sum()
 
-    want = jax_params_to_torch(jax.grad(loss)(params))
+    want = jax_params_to_torch(jax.jit(jax.grad(loss))(params))
     td = DiT.tiny(device="cpu", lora_rank=4, remat=True, remat_policy="save_attn", **PATHS[path])
     td.load_state_dict(jax_params_to_torch(params), strict=True)
     got = _port_grads(td, jd, args, cond, w)
