@@ -14,8 +14,9 @@ x 128 or 16 x 32).  Each replaces a TPU kernel of
   Both take every head width dh % 8 == 0 up to 256 (on a body of 64, 128
   or 256 columns) and every S, as JAX's kernels do: one 16-row tile an
   item up to 16, a whole item in shared memory up to that body's cap in
-  `MAX_S` (192, 96, 48), K and V streamed through shared memory in fixed
-  chunks past it (`kernel_body` is the shape rule).
+  `MAX_S` (192, 96, 48), past it a one-pass `wgmma` forward with an item's
+  K and V in shared memory (streamed in key blocks past what fits;
+  `kernel_body` is the shape rule).
   * `pair_axis_attention` (B4, `_pair_kernel`): attention across a leading
     pair axis [B, 2, M, C] as the closed-form 2-way softmax
     o_i = v0 + sigmoid(s_i1 - s_i0) (v1 - v0); Triton (`_pair_triton.py`),
@@ -62,8 +63,10 @@ def kernel_body(s: int, width: int, heads: int, backward: bool = False) -> str:
     launches on the card, from the shape alone: "packed" (B5', S < 8: 16 //
     S items a 16-row tile), "tile" (S <= 16: one item a tile), "long" (16 <
     S <= MAX_S[body_columns(dh)]: a whole item in shared memory, looped
-    over 16-row tiles), "stream" (past that cap: groups of 64 rows, the
-    other side streamed through shared memory in fixed chunks).  The
+    over 16-row tiles), "stream" (past that cap: the forward a one-pass
+    `wgmma` body over 64-row q tiles with an item's K and V in shared
+    memory, or streamed in 64-key blocks past what fits; the backward
+    groups of 64 rows, the other side streamed in fixed chunks).  The
     backward (B8) takes S >= 8; below, the gradient is the plain version's
     vjp, as in the JAX package.  Raises ValueError, naming the limit and
     its ROADMAP.md queue B item, for a shape no body takes."""
@@ -141,7 +144,9 @@ def pair_axis_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_tiny(q, k, v, m: int, s: int, heads: int, d: int, sm_scale: float,
                  what: str) -> torch.Tensor:
     """The B5 kernel on [M, S, H*D] memory (shape checks done by the
-    caller): the streamed body's entry point past the long body's cap."""
+    caller): past the long body's cap, the streamed forward's entry point
+    (`csrc/packed_attention_stream.cu`: one pass, an online softmax on the
+    tensor cores, P rounded to bf16 before the division by its row sum)."""
     for t in (q, k, v):
         if not (t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0):
             raise ValueError(f"{what} kernel takes contiguous 16-byte aligned bf16 tensors")

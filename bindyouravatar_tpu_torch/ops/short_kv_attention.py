@@ -26,8 +26,10 @@ the narrowest of three bodies (64, 128, 256 columns: `short_kv_body` is the
 rule; past it a CUDA call raises, naming its ROADMAP.md queue B item), and
 any K >= 1 tokens an identity and I >= 1 identities: K = 32 with I <= 4,
 the shipped configuration, on the shipped body, every other K and I on the
-general body's key block of 16, 32 or 64 (keys past 64 in chunks, the
-softmax in two passes; the source note says how).  The combined mode's
+general body (a `wgmma` body over every identity's keys in 64-column key
+blocks of 16, 32 or 64 keys an identity; keys past 64 in chunks, the
+softmax in two passes), combined attention on the 16-key block on the
+earlier warp body, which measured faster there (the source note says how).  The combined mode's
 weight slices share a block's shared memory, which bounds I at a few
 hundred identities.  JAX's `_kernel_flat` asserts that its heads fill 128
 lanes in pairs (47 x 64 or 189 x 16 do not); the port's B3 takes any head

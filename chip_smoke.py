@@ -84,7 +84,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      ([1001, 193, 8 x 64], [1001, 97, 4 x 128], [1001, 49, 2 x 256]), at
      S = 201 and 400 over M = 1,001, and at [5400, 400, 512] (past 2^31
      bytes), the plain versions 256 rows at a time, B5 and B8 twice at S
-     = 201 and 49, bitwise equal;
+     = 201 and 49, bitwise equal, B11's bshd forward on the same memory
+     timed beside each B5 row (the yardstick), and B5 untimed where an
+     item's K and V pass the forward's shared memory (they stream);
      kernel, plain version and (where one
      PyTorch call computes the same function) that library call timed with
      CUDA events and, kernel and library call, from profiler device records
@@ -765,7 +767,7 @@ def kernel_phase(results: dict, only=None) -> bool:
     head_dim_kernel_phase(results, rnd, report, report_all, bhsd, pick, check)
     width_kernel_phase(results, rnd, report, report_all, check, check_ok, bhsd, only)
     token_kernel_phase(results, rnd, report, check, bhsd, only)
-    stream_kernel_phase(results, rnd, report, report_all, check_ok, bhsd, only)
+    stream_kernel_phase(results, rnd, report, report_all, check, check_ok, bhsd, only)
     return ok_all
 
 
@@ -1694,17 +1696,27 @@ STREAM_SHAPES = (("cap+1[1001,193,8x64]", 1001, 193, 8, 64),
                  ("ragged[1001,201,512]", 1001, 201, 8, 64),
                  ("ragged[1001,400,512]", 1001, 400, 8, 64),
                  ("slice[5400,400,512]", 5400, 400, 8, 64))
+# B5 past the forward's resident K/V (an item's K and V past a block's
+# shared memory: its key blocks stream), untimed: (tag, M, S, heads, dh)
+STREAM_PAST_SMEM = (("kv-streamed[9,1100,8x64]", 9, 1100, 8, 64),
+                    ("kv-streamed[9,601,4x128]", 9, 601, 4, 128),
+                    ("kv-streamed[9,301,2x256]", 9, 301, 2, 256))
 
 
-def stream_kernel_phase(results: dict, rnd, report, report_all, check_ok, bhsd, only) -> None:
+def stream_kernel_phase(results: dict, rnd, report, report_all, check, check_ok, bhsd,
+                        only) -> None:
     """B5, B5' (`packed_head_attention` on the [M, S*H, dh] view) and B8
     on the streamed body, past each body's cap in `MAX_S`, against their
     plain versions at every shape of `STREAM_SHAPES`, timed; B5 and B8 run
     twice at S = 201 and at dh 256, bitwise equal (no sums across units).
+    Beside each B5 row, the yardstick: the port's B11 forward (bshd, bare)
+    on the same memory, timed.  Then B5, untimed, at `STREAM_PAST_SMEM`,
+    where an item's K and V pass the forward's shared memory and stream.
     The plain versions run 256 rows of M at a time (the same function; the
     fp32 scores of a whole [5400, 8, 400, 400] call would not fit)."""
     import torch
     import torch.nn.functional as F
+    from bindyouravatar_tpu_torch.ops import flash_attention as fa
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
 
     bf = torch.bfloat16
@@ -1764,16 +1776,31 @@ def stream_kernel_phase(results: dict, rnd, report, report_all, check_ok, bhsd, 
                         lambda *t: pa.packed_head_attention_plain(*t, h, sc), *packed)
                 lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
                 work = (_nbytes(q, k, v, q), 4.0 * m * h * s_ * s_ * d, "bf16")
-                got = kern().reshape(m, s_, c)
-                r = report(kernel, tag, got, plain().reshape(m, s_, c), 1e-2, 2e-2, kern, plain,
-                           runs, lib, work)
+                got, want = kern().reshape(m, s_, c), plain().reshape(m, s_, c)
+                r = report(kernel, tag, got, want, 1e-2, 2e-2, kern, plain, runs, lib, work)
                 if kernel == "B5" and m == 1001 and s_ in (201, 49):
                     check_ok(kernel, f"{tag} run twice: bitwise equal", torch.equal(got, kern()))
-                del got
+                if kernel == "B5":
+                    # the yardstick: the port's own B11 forward (bshd, no
+                    # LN or RoPE) on the same memory as [M, S, H, dh], the
+                    # same function with the LSE beside it; timed, not
+                    # recorded as a row
+                    q4, k4, v4 = (t.view(m, s_, h, d) for t in (q, k, v))
+                    b11 = lambda: fa.flash_attention_fwd(q4, k4, v4, "bshd", sc)[0]
+                    report("B11", f"{tag} bshd yardstick", b11().reshape(m, s_, c), want, 1e-2,
+                           2e-2, b11, None, runs, None, work, plain_ms=r["plain_ms"])
+                del got, want
             if key is not None:
                 results[key] = r
             del q, k, v, qh, kh, vh
             torch.cuda.empty_cache()
+    # tol: as the timed rows
+    for tag, m, s_, h, d in STREAM_PAST_SMEM if wanted("B5") else ():
+        q, k, v = (rnd(m, s_, h * d).to(bf) for _ in range(3))
+        got = pa.tiny_seq_attention(q, k, v, h, d ** -0.5)
+        check("B5", tag, got, pa.tiny_seq_attention_plain(q, k, v, h, d ** -0.5), 1e-2, 2e-2)
+        check_ok("B5", f"{tag} run twice: bitwise equal",
+                 torch.equal(got, pa.tiny_seq_attention(q, k, v, h, d ** -0.5)))
 
 
 def entry_point_phase(launches: dict) -> bool:
