@@ -41,16 +41,16 @@
 //    finds its rotate-half partner at lane ^ 16; at any other D a lane holds
 //    every 32nd element and reads its partner (i +- D/2 of the true D) from
 //    the row (`prep_row_any`, flash_common.cuh).
-//  * One CTA per 128-row q tile of one (batch, head), 384 threads: warp
-//    group 0 is the producer (one thread issues every TMA load; setmaxnreg
-//    drops the group to 24 registers), warp groups 1 and 2 each own 64 q
-//    rows (setmaxnreg 240).  The q tile is loaded once; K and V tiles of
-//    128 rows stream through a ring of 4 stages at DC = 64, 2 at DC = 128, 1
-//    at DC = 256 (shared memory 148,584, 164,920 and 164,896 bytes), K and V
-//    on barriers of their own so S can start before V lands.  One 4-D
-//    tensor map [B, H, S, D] with the layout's strides serves flat, bhsd and
-//    bshd; the TMA unit zero-fills rows past S.  Tiles are 64-column panels
-//    of 128-byte rows in the 128-byte swizzle.
+//  * One CTA per 128-row q tile of one (batch, head).  DC = 64 and 128: 384
+//    threads: warp group 0 is the producer (one thread issues every TMA
+//    load; setmaxnreg drops the group to 24 registers), warp groups 1 and 2
+//    each own 64 q rows (setmaxnreg 240).  The q tile is loaded once; K and
+//    V tiles of 128 rows stream through a ring of 4 stages at DC = 64, 2 at
+//    DC = 128 (shared memory 148,584 and 164,920 bytes), K and V on
+//    barriers of their own so S can start before V lands.  One 4-D tensor
+//    map [B, H, S, D] with the layout's strides serves flat, bhsd and bshd;
+//    the TMA unit zero-fills rows past S.  Tiles are 64-column panels of
+//    128-byte rows in the 128-byte swizzle.
 //  * Three bodies, DC = 64, 128 and 256 columns wide: a head of D columns
 //    runs on the narrowest body with DC >= D.  Every tensor map's innermost
 //    extent is the head's true D, so the boxes' columns past D read as zeros
@@ -59,14 +59,26 @@
 //    out.  TMA needs 16-byte row strides, so D % 8 == 0.  A narrow head pays
 //    the body's full product width per score: D = 16 on the 64-column body
 //    multiplies four times its useful columns.
-//  * DC = 256: O's 256 fp32 columns per row would not fit beside S in the
-//    168 registers ptxas allots, so two CTAs share a q tile, each owning 128
-//    of O's columns (grid y = 2 H) and each computing the whole S = Q K^T
-//    (D = 256 deep): S is computed twice, O's registers are the 128 body's.
-//    Only the first writes the LSE.  Q and K are 256 wide, V is the CTA's
-//    128 columns; one ring stage (Q 64 KB + K 64 KB + V 32 KB).
-//  * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
-//    memory.  Its accumulator is already the A-fragment layout, so P goes
+//  * DC = 256 (`fwd_body256`): 256 threads, two consumer warp groups of 64
+//    q rows and no producer warps, so ptxas may give a thread 255 registers
+//    (a ninth warp shares a sub-partition's registers three ways: 168, as
+//    at 384 threads, where setmaxnreg does not raise what ptxas compiled
+//    for).  Consumer threads issue the loads.  Each group holds
+//    all 256 of O's columns (128 fp32 registers) beside S over a 64-key
+//    block (32) and P's bf16 fragments (16), so S = Q K^T is made once per
+//    (q tile, key block): the earlier body split O's columns between two
+//    CTAs that each made the whole S, 1.5 times the forward's products.  Q
+//    64 KB, three stages of a 64-key block's K and two of its V (32 KB
+//    each) take 230,468 bytes; a K stage is freed once S is made, a V stage
+//    once P V is, each reloaded by the second group to free it (the third
+//    K stage measured faster than two: the block loads, not the products,
+//    had held the body; PERF.md section 6).  The
+//    groups run the DC = 64 body's software pipeline (S_j issued with
+//    P_{j-1} V_{j-1}, S_j's softmax under that product) and take turns to
+//    issue; a warp skips O's rescale where no row's max grew.  One CTA a q
+//    tile: one writer of the LSE.
+//  * S = Q K^T is wgmma m64n128k16 (m64n64k16 at DC = 256) with both
+//    operands K-major in shared memory.  Its accumulator is already the A-fragment layout, so P goes
 //    from registers to O += P V (wgmma m64n64k16 per 64-column panel of V,
 //    V read through a transposed, MN-major descriptor).
 //  * Softmax: an fp32 online running max per row (the TPU kernel's static
@@ -91,11 +103,12 @@
 //    against 17.0-17.9 ms for B11 bare); and the two consumers take turns
 //    to issue their products (named barriers), so one group's softmax runs
 //    under the other's products (with both: 16.9-17.0 ms for B11 bare,
-//    15.4-15.5 for B1 fused against 18.4).  At DC = 128 (and 256) the
+//    15.4-15.5 for B1 fused against 18.4).  At DC = 128 the
 //    pipeline's S, P and O need more than the 168 registers ptxas allots
 //    (it serialised the products and spilled 192 bytes: 13.4 ms against
 //    6.7), so each tile runs in order.  ptxas: 168 registers, no spill,
-//    for every instance; setmaxnreg does not raise the 168 it compiles for.
+//    for every 384-thread instance; setmaxnreg does not raise the 168 it
+//    compiles for.
 //  * Epilogue: O normalised in registers, written as bf16 into the group's
 //    own rows of the q tile in shared memory and stored by TMA in the
 //    caller's layout (rows >= S and columns >= D are not written); the LSE
@@ -110,20 +123,45 @@ constexpr int BM = 128;  // q rows per CTA: two consumer warp groups of 64
 constexpr int BN = 128;  // kv rows per streamed tile
 constexpr int NTHREADS = 384;
 
+// DC = 64 and 128
 template <int DC>
 struct FwdSmem {
-  static constexpr int NP = DC / 64;              // 64-column panels of Q and K
-  static constexpr int HALVES = DC == 256 ? 2 : 1;  // CTAs sharing a q tile
-  static constexpr int DV = DC / HALVES;          // O (and V) columns of one CTA
-  static constexpr int NPV = DV / 64;
-  static constexpr int NST = DC == 64 ? 4 : DC == 128 ? 2 : 1;  // kv ring stages
+  static constexpr int NP = DC / 64;              // 64-column panels of Q, K, V and O
+  static constexpr int NST = DC == 64 ? 4 : 2;    // kv ring stages
   static constexpr int Q_TILE = BM * DC * 2;      // bytes of the q tile
   static constexpr int K_TILE = BN * DC * 2;      // bytes of one K tile
-  static constexpr int V_TILE = BN * DV * 2;      // bytes of one V tile (the CTA's columns)
+  static constexpr int V_TILE = BN * DC * 2;      // bytes of one V tile
   static constexpr int Q_OFF = 0, K_OFF = Q_TILE, V_OFF = K_OFF + NST * K_TILE;
   static constexpr int BAR_OFF = V_OFF + NST * V_TILE;
   static constexpr int BYTES = BAR_OFF + (3 * NST + 1) * 8 + 1024;  // + base alignment
 };
+
+// DC = 256: 64-key blocks, three K stages and two V stages
+struct Fwd256Smem {
+  static constexpr int NP = 4;                    // 64-column panels of Q, K, V and O
+  static constexpr int BN = 64;                   // keys a block
+  static constexpr int NSK = 3, NSV = 2;         // K and V ring stages
+  static constexpr int NTHREADS = 256;            // two consumer groups
+  static constexpr int Q_TILE = BM * 256 * 2;     // bytes of the q tile
+  static constexpr int KV_TILE = BN * 256 * 2;    // bytes of one block's K (or V)
+  static constexpr int Q_OFF = 0, K_OFF = Q_TILE, V_OFF = K_OFF + NSK * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + NSV * KV_TILE;
+  // barriers, then a release count a stage
+  static constexpr int BYTES = BAR_OFF + (1 + NSK + NSV) * 8 + (NSK + NSV) * 4 + 1024;
+};
+
+// threads and shared memory of a CTA on the DC-column body
+template <int DC>
+struct FwdThreads {
+  static constexpr int value = DC == 256 ? Fwd256Smem::NTHREADS : NTHREADS;
+};
+template <int DC>
+constexpr int fwd_smem_bytes() {
+  if constexpr (DC == 256)
+    return Fwd256Smem::BYTES;
+  else
+    return FwdSmem<DC>::BYTES;
+}
 
 // ---------------------------------------------------------------- pre-pass
 
@@ -167,16 +205,18 @@ __global__ void __launch_bounds__(256) prep_qk_kernel(PREP_PARAMS) { prep_qk<D>(
 
 // ---------------------------------------------------------------- forward
 
-// The online softmax of one 64 x 128 score tile in log2 units: columns >=
-// kv_len masked (only on a tile that reaches past it), the running row max
-// m and this lane's share of the row sum l updated, alpha the factor that
-// rescales what O holds, and s overwritten by P = 2^(s * sl - m * sl).
-__device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], float (&l)[2],
+// The online softmax of one 64 x 8 NB score tile (NB = 16: a 128-key tile,
+// 8: a 64-key block) in log2 units: columns >= kv_len masked (only on a
+// tile that reaches past it), the running row max m and this lane's share
+// of the row sum l updated, alpha the factor that rescales what O holds,
+// and s overwritten by P = 2^(s * sl - m * sl).
+template <int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int kv0, int kv_len, float sl,
                                              int lane) {
-  if (kv0 + BN > kv_len) {
+  if (kv0 + 8 * NB > kv_len) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < NB; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (kv0 + 8 * i + 2 * (lane & 3) + (e & 1) >= kv_len) s[i][e] = MASKED;
@@ -192,7 +232,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
       rs[r][c] = 0.f;
     }
 #pragma unroll
-  for (int i = 4; i < 16; ++i)
+  for (int i = 4; i < NB; ++i)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       mx[r][i % 4] = fmaxf(mx[r][i % 4], fmaxf(s[i][2 * r], s[i][2 * r + 1]));
@@ -206,7 +246,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
     mb[r] = x * sl;
   }
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < NB; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[i][e] = fast_exp2(fmaf(s[i][e], sl, -mb[e >> 1]));
@@ -218,8 +258,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4], float (&m)[2], f
 }
 
 // O (and the LSE, if `lse`) of one 128-row q tile of one (batch, head) on
-// the DC-column body: this CTA's DV columns of O (all of them unless DC =
-// 256, where blockIdx.y = 2 h + half).  SCALE: the scores are multiplied by
+// the DC-column body, DC = 64 or 128.  SCALE: the scores are multiplied by
 // scale_log2 in the exponent (q, k as given); else q arrives scaled by
 // scale * log2 e.  Scores are in log2 units: P = 2^(s * sl - m * sl), m the
 // running row max of s.
@@ -228,19 +267,19 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
                                          const CUtensorMap* tk, const CUtensorMap* tv,
                                          const CUtensorMap* to, float* __restrict__ lse, int S,
                                          int H, int kv_len, float scale_log2) {
+  static_assert(DC == 64 || DC == 128, "DC = 256 runs fwd_body256");
   using SM = FwdSmem<DC>;
-  constexpr int NP = SM::NP, NPV = SM::NPV, DV = SM::DV, NST = SM::NST;
+  constexpr int NP = SM::NP, NST = SM::NST;
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sQ = reinterpret_cast<bf16*>(smem + SM::Q_OFF);  // [NP][BM][64], swizzled
   bf16* sK = reinterpret_cast<bf16*>(smem + SM::K_OFF);  // [NST][NP][BN][64]
-  bf16* sV = reinterpret_cast<bf16*>(smem + SM::V_OFF);  // [NST][NPV][BN][64]
+  bf16* sV = reinterpret_cast<bf16*>(smem + SM::V_OFF);  // [NST][NP][BN][64]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + NST;
   uint64_t* empty = v_full + NST;
 
-  const int h = blockIdx.y / SM::HALVES, half = blockIdx.y % SM::HALVES;
-  const int b = blockIdx.z, q0 = blockIdx.x * BM, v_col = half * DV;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BM;
   const int n_kv = (kv_len + BN - 1) / BN;
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -266,9 +305,8 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
         for (int p = 0; p < NP; ++p)
           tma_load_4d(sK + (st * NP + p) * BN * 64, tk, 64 * p, j * BN, h, b, &k_full[st]);
         mbar_expect_tx(&v_full[st], SM::V_TILE);
-        for (int p = 0; p < NPV; ++p)
-          tma_load_4d(sV + (st * NPV + p) * BN * 64, tv, v_col + 64 * p, j * BN, h, b,
-                      &v_full[st]);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sV + (st * NP + p) * BN * 64, tv, 64 * p, j * BN, h, b, &v_full[st]);
       }
     }
     return;
@@ -280,10 +318,10 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
   const int r_loc = (tw >> 5) * 16 + (lane >> 2);  // this lane's rows r_loc, r_loc + 8
   const float sl = SCALE ? scale_log2 : 1.0f;
   const bf16* qw = sQ + w * 64 * 64;
-  float o[DV / 8][4], s[16][4], m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[DC / 8][4], s[16][4], m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
   uint32_t pa[8][4];
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < DC / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 
@@ -301,20 +339,20 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
   // O += P V of kv tile j, P from registers, V read transposed, one
   // 64-column panel at a time
   auto issue_pv = [&](int j) {
-    const bf16* vt = sV + (j % NST) * NPV * BN * 64;
+    const bf16* vt = sV + (j % NST) * NP * BN * 64;
     mbar_wait(&v_full[j % NST], (j / NST) & 1);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-      for (int p = 0; p < NPV; ++p)
+      for (int p = 0; p < NP; ++p)
         wgmma_rs<1>(&o[p * 8][0], pa[kk], desc_mnmajor(vt + p * BN * 64 + kk * 16 * 64));
     wg_commit();
   };
 
   auto rescale_o = [&]() {
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i)
+    for (int i = 0; i < DC / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
   };
@@ -333,7 +371,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
     named_arrive(other, 256);
     wg_wait<0>();
     fence_regs<64>(&s[0][0]);
-    softmax_tile(s, m, l, alpha, 0, kv_len, sl, lane);
+    softmax_tile<16>(s, m, l, alpha, 0, kv_len, sl, lane);
     acc_to_a_frags<8>(pa, s);
     for (int j = 1; j < n_kv; ++j) {
       named_sync(turn, 256);
@@ -342,9 +380,9 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
       named_arrive(other, 256);
       wg_wait<1>();
       fence_regs<64>(&s[0][0]);
-      softmax_tile(s, m, l, alpha, j * BN, kv_len, sl, lane);
+      softmax_tile<16>(s, m, l, alpha, j * BN, kv_len, sl, lane);
       wg_wait<0>();
-      fence_regs<DV / 2>(&o[0][0]);
+      fence_regs<DC / 2>(&o[0][0]);
       mbar_arrive(&empty[(j - 1) % NST]);
       rescale_o();
       acc_to_a_frags<8>(pa, s);
@@ -353,27 +391,27 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
     issue_pv(n_kv - 1);
     if (w == 0) named_arrive(other, 256);  // every sync has its arrival
   } else {
-    // DC = 128 and 256: S, P and O do not fit beside each other in 168
+    // DC = 128: S, P and O do not fit beside each other in 168
     // registers (ptxas serialises the products and spills), so each tile
     // runs in order
     for (int j = 0; j < n_kv; ++j) {
       issue_s(j);
       wg_wait<0>();
       fence_regs<64>(&s[0][0]);
-      softmax_tile(s, m, l, alpha, j * BN, kv_len, sl, lane);
+      softmax_tile<16>(s, m, l, alpha, j * BN, kv_len, sl, lane);
       rescale_o();
       acc_to_a_frags<8>(pa, s);
       if (j + 1 < n_kv) {
         issue_pv(j);
         wg_wait<0>();
-        fence_regs<DV / 2>(&o[0][0]);
+        fence_regs<DC / 2>(&o[0][0]);
         mbar_arrive(&empty[j % NST]);
       }
     }
     issue_pv(n_kv - 1);
   }
   wg_wait<0>();
-  fence_regs<DV / 2>(&o[0][0]);
+  fence_regs<DC / 2>(&o[0][0]);
   mbar_arrive(&empty[(n_kv - 1) % NST]);
 
   // epilogue: the row sums across the quad, the LSE, O / l
@@ -384,7 +422,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
   }
   const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
   const int row0 = q0 + 64 * w + r_loc;
-  if (lse != nullptr && half == 0 && (lane & 3) == 0) {
+  if (lse != nullptr && (lane & 3) == 0) {
     float* lb = lse + ((long long)b * H + h) * S;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -396,7 +434,7 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
   // per panel (columns past the head's D fall outside the tensor map)
   unsigned char* ob = reinterpret_cast<unsigned char*>(sQ);
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i)
+  for (int i = 0; i < DC / 8; ++i)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = 64 * w + r_loc + 8 * hf, c = i % 8;
@@ -408,8 +446,192 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
   named_sync(1 + w, 128);
   if (tw == 0 && q0 + 64 * w < S) {
 #pragma unroll
-    for (int p = 0; p < NPV; ++p)
-      tma_store_4d(to, sQ + p * BM * 64 + w * 64 * 64, v_col + 64 * p, q0 + 64 * w, h, b);
+    for (int p = 0; p < NP; ++p)
+      tma_store_4d(to, sQ + p * BM * 64 + w * 64 * 64, 64 * p, q0 + 64 * w, h, b);
+    bulk_wait_read();
+  }
+}
+
+// O (and the LSE, if `lse`) of one 128-row q tile of one (batch, head) on
+// the 256-column body (heads of 136..256 columns): two consumer groups of
+// 64 q rows, each holding all of O's columns.  Thread 0 issues the q tile's
+// and the first blocks' loads; a stage's next block is issued by the group
+// that frees it second (a count a stage), so neither waits on the other to
+// issue.  SCALE and the scores' units as in fwd_body.
+template <bool SCALE>
+__device__ __forceinline__ void fwd_body256(unsigned char* smem_raw, const CUtensorMap* tq,
+                                            const CUtensorMap* tk, const CUtensorMap* tv,
+                                            const CUtensorMap* to, float* __restrict__ lse,
+                                            int S, int H, int kv_len, float scale_log2) {
+  using SM = Fwd256Smem;
+  constexpr int NP = SM::NP, NSK = SM::NSK, NSV = SM::NSV, KB = SM::BN;
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::Q_OFF);  // [NP][BM][64], swizzled
+  bf16* sK = reinterpret_cast<bf16*>(smem + SM::K_OFF);  // [NSK][NP][KB][64]
+  bf16* sV = reinterpret_cast<bf16*>(smem + SM::V_OFF);  // [NSV][NP][KB][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + SM::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + NSK;
+  int* k_freed = reinterpret_cast<int*>(v_full + NSV);  // groups that freed each stage, so far
+  int* v_freed = k_freed + NSK;
+
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BM;
+  const int n_kv = (kv_len + KB - 1) / KB;
+  const int tid = threadIdx.x;
+  // block j's K into stage j % NSK, its V into j % NSV
+  auto load_k = [&](int j) {
+    const int st = j % NSK;
+    mbar_expect_tx(&k_full[st], SM::KV_TILE);
+    for (int p = 0; p < NP; ++p)
+      tma_load_4d(sK + (st * NP + p) * KB * 64, tk, 64 * p, j * KB, h, b, &k_full[st]);
+  };
+  auto load_v = [&](int j) {
+    const int st = j % NSV;
+    mbar_expect_tx(&v_full[st], SM::KV_TILE);
+    for (int p = 0; p < NP; ++p)
+      tma_load_4d(sV + (st * NP + p) * KB * 64, tv, 64 * p, j * KB, h, b, &v_full[st]);
+  };
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NSK; ++s) {
+      mbar_init(&k_full[s], 1);
+      k_freed[s] = 0;
+    }
+    for (int s = 0; s < NSV; ++s) {
+      mbar_init(&v_full[s], 1);
+      v_freed[s] = 0;
+    }
+    mbar_init_fence();
+    mbar_expect_tx(q_full, SM::Q_TILE);
+    for (int p = 0; p < NP; ++p) tma_load_4d(sQ + p * BM * 64, tq, 64 * p, q0, h, b, q_full);
+    for (int j = 0; j < NSK && j < n_kv; ++j) load_k(j);
+    for (int j = 0; j < NSV && j < n_kv; ++j) load_v(j);
+  }
+  __syncthreads();
+
+  // consumer group w: q rows 64 w .. 64 w + 63 of the tile
+  const int w = tid / 128, tw = tid % 128, lane = tid & 31;
+  // block j's K (V) stage is free in this group (its products have
+  // completed): the second group to free it loads block j + NSK (NSV) there
+  auto release_k = [&](int j) {
+    if (tw != 0 || j + NSK >= n_kv) return;
+    __threadfence_block();
+    if (atomicAdd(&k_freed[j % NSK], 1) & 1) load_k(j + NSK);
+  };
+  auto release_v = [&](int j) {
+    if (tw != 0 || j + NSV >= n_kv) return;
+    __threadfence_block();
+    if (atomicAdd(&v_freed[j % NSV], 1) & 1) load_v(j + NSV);
+  };
+  const int r_loc = (tw >> 5) * 16 + (lane >> 2);  // this lane's rows r_loc, r_loc + 8
+  const float sl = SCALE ? scale_log2 : 1.0f;
+  const bf16* qw = sQ + w * 64 * 64;
+  float o[32][4], s[8][4], m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  // S = Q K^T of key block j, both operands K-major in shared memory
+  auto issue_s = [&](int j) {
+    const bf16* kt = sK + (j % NSK) * NP * KB * 64;
+    mbar_wait(&k_full[j % NSK], (j / NSK) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss<0, 0>(&s[0][0], desc_kmajor(qw + (kk / 4) * BM * 64 + (kk % 4) * 16),
+                     desc_kmajor(kt + (kk / 4) * KB * 64 + (kk % 4) * 16), kk > 0);
+    wg_commit();
+  };
+  // O += P V of key block j, P from registers, V read transposed, one
+  // 64-column panel at a time
+  auto issue_pv = [&](int j) {
+    const bf16* vt = sV + (j % NSV) * NP * KB * 64;
+    mbar_wait(&v_full[j % NSV], (j / NSV) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs<1>(&o[p * 8][0], pa[kk], desc_mnmajor(vt + p * KB * 64 + kk * 16 * 64));
+    wg_commit();
+  };
+
+  // block j's S is issued with block j-1's P V, and its softmax runs while
+  // that product finishes; O is rescaled once it has (not where no row of
+  // the warp's max grew: alpha = 2^0 = 1).  The two groups take turns to
+  // issue (named barriers 3 and 4, group 0 first), so one group's softmax
+  // runs under the other's products.
+  const int turn = 3 + w, other = 4 - w;
+  mbar_wait(q_full, 0);
+  if (w == 1) named_arrive(3, 256);
+  named_sync(turn, 256);
+  issue_s(0);
+  named_arrive(other, 256);
+  wg_wait<0>();
+  fence_regs<32>(&s[0][0]);
+  release_k(0);
+  softmax_tile<8>(s, m, l, alpha, 0, kv_len, sl, lane);
+  acc_to_a_frags<4>(pa, s);
+  for (int j = 1; j < n_kv; ++j) {
+    named_sync(turn, 256);
+    issue_s(j);
+    issue_pv(j - 1);
+    named_arrive(other, 256);
+    wg_wait<1>();
+    fence_regs<32>(&s[0][0]);
+    release_k(j);
+    softmax_tile<8>(s, m, l, alpha, j * KB, kv_len, sl, lane);
+    wg_wait<0>();
+    fence_regs<128>(&o[0][0]);
+    release_v(j - 1);
+    if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
+    }
+    acc_to_a_frags<4>(pa, s);
+  }
+  named_sync(turn, 256);
+  issue_pv(n_kv - 1);
+  if (w == 0) named_arrive(other, 256);  // every sync has its arrival
+  wg_wait<0>();
+  fence_regs<128>(&o[0][0]);
+
+  // epilogue: the row sums across the quad, the LSE, O / l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+  }
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+  const int row0 = q0 + 64 * w + r_loc;
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lb = lse + ((long long)b * H + h) * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S)
+        lb[row0 + 8 * r] = l[r] > 0.f ? m[r] * sl * (1.0f / LOG2E) + logf(l[r]) : LSE_EMPTY;
+  }
+  // O as bf16 into this group's rows of the q tile (every S product that
+  // read them has completed), swizzled as TMA reads it, then one TMA store
+  // per panel (columns past the head's D fall outside the tensor map)
+  unsigned char* ob = reinterpret_cast<unsigned char*>(sQ);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 64 * w + r_loc + 8 * hf, c = i % 8;
+      *reinterpret_cast<uint32_t*>(ob + (i / 8) * BM * 128 + r * 128 + ((c ^ (r & 7)) << 4) +
+                                   (lane & 3) * 4) =
+          pack_bf16(o[i][2 * hf] * inv[hf], o[i][2 * hf + 1] * inv[hf]);
+    }
+  fence_async_shared();
+  named_sync(1 + w, 128);
+  if (tw == 0 && q0 + 64 * w < S) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      tma_store_4d(to, sQ + p * BM * 64 + w * 64 * 64, 64 * p, q0 + 64 * w, h, b);
     bulk_wait_read();
   }
 }
@@ -423,16 +645,22 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem_raw, const CUtensor
 // false behind the pre-pass (q prepared and pre-scaled), true for the bare
 // calls
 template <int DC, bool SCALE>
-__global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(FWD_PARAMS) {
+__global__ void __launch_bounds__(FwdThreads<DC>::value, 1) flash_fwd_kernel(FWD_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_body<DC, SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
+  if constexpr (DC == 256)
+    fwd_body256<SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
+  else
+    fwd_body<DC, SCALE>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
 }
 
 // B11: bhsd / bshd on the DC-column body, the scale on the scores
 template <int DC>
-__global__ void __launch_bounds__(NTHREADS, 1) mha_fwd_layout_kernel(FWD_PARAMS) {
+__global__ void __launch_bounds__(FwdThreads<DC>::value, 1) mha_fwd_layout_kernel(FWD_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_body<DC, true>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
+  if constexpr (DC == 256)
+    fwd_body256<true>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
+  else
+    fwd_body<DC, true>(smem_raw, &tq, &tk, &tv, &to, lse, S, H, kv_len, scale_log2);
 }
 
 // ---------------------------------------------------------------- launchers
@@ -462,15 +690,16 @@ template <int DC, typename K>
 int launch_fwd(K kernel, const void* q, const void* k, const void* v, void* o, float* lse,
                Layout L, int B, int S, int H, int D, int kv_len, float scale_log2,
                cudaStream_t st) {
+  constexpr int kv_rows = DC == 256 ? Fwd256Smem::BN : BN;  // rows of a K / V box
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, L, B, H, S, D, BM) || !make_map(&tk, k, L, B, H, S, D, BN) ||
-      !make_map(&tv, v, L, B, H, S, D, BN) || !make_map(&to, o, L, B, H, S, D, 64))
+  if (!make_map(&tq, q, L, B, H, S, D, BM) || !make_map(&tk, k, L, B, H, S, D, kv_rows) ||
+      !make_map(&tv, v, L, B, H, S, D, kv_rows) || !make_map(&to, o, L, B, H, S, D, 64))
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = FwdSmem<DC>::BYTES;
+  constexpr int smem = fwd_smem_bytes<DC>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BM - 1) / BM, H * FwdSmem<DC>::HALVES, B);
-  kernel<<<grid, NTHREADS, smem, st>>>(tq, tk, tv, to, lse, S, H, kv_len, scale_log2);
+  dim3 grid((S + BM - 1) / BM, H, B);
+  kernel<<<grid, FwdThreads<DC>::value, smem, st>>>(tq, tk, tv, to, lse, S, H, kv_len, scale_log2);
   return (int)cudaGetLastError();
 }
 

@@ -12,12 +12,17 @@
 //     bytes' (2.641 ms at [5400, 400, 512]).  Its one rounding apart from
 //     the long bodies': P is rounded to bf16 before it is divided by the
 //     row's sum (the sum divides O in fp32 at the end).
-//   backward (B8), two kernels in the long bodies' math and roundings, on
-//     `mma.sync` and cp.async: a group of q and g rows, K and V streamed
-//     once for each row's max, 1 / sum and delta (saved to `stats`, fp32),
-//     then once a panel for dQ = dS K; then a group of k and v rows, q, g
-//     and the rows' statistics streamed once a panel for dV = P^T G and
-//     dK = dS^T Q.
+//   backward (B8), two kernels on the tensor cores (wgmma, TMA; below,
+//     before `tiny_seq_stream_dq_kernel`): a q-major one (each row's max,
+//     1 / sum and delta, saved to `stats` in fp32, then dQ = dS K) and a
+//     kv-major one (dV = P^T G and dK = dS^T Q from those statistics), an
+//     item's blocks resident in shared memory.  What bounds it on the H100:
+//     bytes on paper (7 S dh bf16 values per (item, head) against 10 S^2
+//     dh FLOP: at S = 201, 144 FLOP/B), but the two kernels make 18 S^2 dh
+//     (at S rounded up to 64) and three 2^x a score, on 64-row tiles.
+//     Its roundings are the long bodies': P and dS rounded to bf16 as the
+//     products' operands, the statistics in fp32; 2^x on the special-
+//     function unit (`ex2.approx`).
 // No unit shares a sum with another, so the bodies repeat bit for bit.
 // Rows past S load as zeros and their key columns are masked (p = 0), so a
 // ragged last block, chunk or group adds nothing; rows past S are never
@@ -28,70 +33,6 @@
 #include "packed_attention.cuh"
 
 namespace {
-
-// ---- B8's streamed bodies, S > LONG_MAX_S: fixed shared memory at any S ----
-// A block of four warps takes one unit at a time: an item's group of 64
-// rows (four 16-row tiles, a tile a warp), held in shared memory, while the
-// other side's rows stream through two buffers of CT-tile chunks by
-// cp.async (the next chunk in flight while the block computes on the
-// current one).  Each warp makes its tile's sums in the long bodies' order
-// (16-row kv chunks in order, the same fragments).
-template <int DP>
-struct Stream {
-  static constexpr int LDS = DP + 8, TILE = 16 * LDS;
-  static constexpr int WARPS = 4, THREADS = 32 * WARPS;
-  static constexpr int GROUP = 16 * WARPS;      // the rows of a unit
-  static constexpr int CT = DP == 64 ? 4 : 2;   // the tiles of a streamed chunk
-  static constexpr int CHUNK = 16 * CT;
-  static constexpr int BUF = 2 * CT * TILE;     // a buffer: two tensors' chunks
-  // the backward: two groups, a staging tile a warp, two buffers (+ the
-  // dK / dV kernel's rows' statistics, three floats a row, two buffers)
-  static constexpr int BWD_SMEM = (3 * WARPS + 2 * 2 * CT) * TILE * (int)sizeof(bf16);
-  static constexpr int DKV_SMEM = BWD_SMEM + 2 * 3 * CHUNK * (int)sizeof(float);
-};
-static_assert(Stream<256>::DKV_SMEM <= SMEM_LIMIT && Stream<128>::DKV_SMEM <= SMEM_LIMIT &&
-                  Stream<64>::DKV_SMEM <= SMEM_LIMIT,
-              "a streamed body past the smem of a block");
-
-// `n` bf16 elements of shared memory from `sm` to zero (n % 8 == 0), by a block
-template <int THREADS>
-__device__ __forceinline__ void zero_smem_block(bf16* sm, int n, int tid) {
-  for (int i = tid * 8; i < n; i += THREADS * 8)
-    *reinterpret_cast<uint4*>(sm + i) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// rows [r0, r0 + n) of an item's [S, H*dh] rows at `src` (row stride `ld`)
-// into `n` rows of `dst`, the rows at or past S zero-filled, the chunks
-// that hold the head (c < ch) only; by the whole block (no commit)
-template <int DP>
-__device__ __forceinline__ void load_stream_rows(bf16* dst, const bf16* src, long long ld,
-                                                 int r0, int n, int S, int ch, int tid) {
-  constexpr int CPR = DP / 8, LDS = DP + 8;
-  for (int i = tid; i < n * CPR; i += Stream<DP>::THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    if (c >= ch) continue;
-    const bool ok = r0 + r < S;
-    bya::cp_async16(dst + r * LDS + c * 8, src + (ok ? (long long)(r0 + r) * ld + c * 8 : 0),
-                    ok ? 16 : 0);
-  }
-}
-
-// chunks 0 .. n-1 through the two buffers: load(buf, c) issues chunk c's
-// copies into buffer buf (no commit), body(buf, c) consumes it; the first
-// chunk's group also takes any copies issued before the call
-template <class Load, class Body>
-__device__ __forceinline__ void stream_chunks(int n, Load load, Body body) {
-  load(0, 0);
-  bya::cp_async_commit();
-  for (int c = 0; c < n; ++c) {
-    if (c + 1 < n) load((c + 1) & 1, c + 1);
-    bya::cp_async_commit();
-    bya::cp_async_wait<1>();
-    __syncthreads();
-    body(c & 1, c);
-    __syncthreads();  // every warp is done with buffer c & 1 before chunk c + 2 refills it
-  }
-}
 
 // ---- B5 / B5' past each long body's cap: the one-pass forward on wgmma ----
 // Two or three consumer warp groups a block (`SFwd::NWG`), each fed by a
@@ -494,245 +435,578 @@ tiny_seq_stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// B8's streamed body, first kernel: each row's statistics, then dQ
-template <int DP>
-__global__ void __launch_bounds__(Stream<DP>::THREADS)
-tiny_seq_stream_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ g,
-                          bf16* __restrict__ dq, float* __restrict__ stats, long long n_items,
-                          int H, int S, int dh, float scale) {
-  using G = Stream<DP>;
-  constexpr int TILE = G::TILE, CT = G::CT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const qg = reinterpret_cast<bf16*>(smem_raw);  // the q group
-  bf16* const gg = qg + G::WARPS * TILE;               // the g group
-  bf16* const stg = gg + G::WARPS * TILE;              // a staging tile a warp
-  bf16* const kv = stg + G::WARPS * TILE;              // buffer b: K at b * BUF, V after it
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long ld = (long long)H * dh;
-  const int ch = dh / 8;
-  const float scale_log2 = scale * LOG2E;
-  const int r0 = lane >> 2, c0 = 2 * (lane & 3);
-  const int groups = (S + G::GROUP - 1) / G::GROUP, n_chunks = (S + G::CHUNK - 1) / G::CHUNK;
-  const long long n_units = n_items * groups, plane = n_items * S;
-  zero_smem_block<G::THREADS>(qg, (3 * G::WARPS + 2 * 2 * CT) * TILE, tid);
-  auto col_ok = [&](int kc, int n, int e) { return kc * 16 + n * 8 + c0 + (e & 1) < S; };
+// ---- B8 past each long body's cap: two wgmma kernels, no atomic sums ----
+// (shared-memory counters only decide which group issues a load)
+// The q-major kernel (`tiny_seq_stream_dq_kernel`) takes a unit of one
+// item's 64 q rows: a pass over the item's 64-key blocks for each row's
+// max, sum and delta = sum_b p_ab dp_ab (online, rescaled as the max grows;
+// written to `stats`), then a pass that makes dS = P (dP - delta) * scale a
+// key block at a time and dQ += dS K.  The kv-major kernel
+// (`tiny_seq_stream_dkv_kernel`) takes a unit of 64 kv rows: per 64-row q
+// block, S^T = K Q^T and dP^T = V G^T, P^T from the rows' statistics, dV
+// += P^T G and dK += dS^T Q.  So S and dP are made once per (unit, block)
+// in each pass: five products of the q-major kernel's two passes and four
+// of the kv-major kernel's, where the mma.sync bodies before made them once
+// for every 64-column panel of the head.
+// Blocks of consumer warp groups only: two at 128 and 256 columns (ptxas
+// may give a thread 255 registers; a producer warp beside them would
+// leave a third of a sub-partition's registers, 168), three (q-major, 168
+// registers) or four (kv-major, 128) at 64 columns, where a 64-row step's
+// products are short and more groups hide their latency.  The item's blocks the units read
+// (K and V for the q-major kernel; Q, G and the rows' statistics for the
+// kv-major kernel) stay resident in shared memory, loaded whole by TMA once
+// per block and item (two buffers where they fit, so the next item's load
+// overlaps); past what fits they stream through a ring, a unit's blocks in
+// order (twice in the q-major kernel: once a pass).  A unit's own 64 rows
+// (Q and G, or K and V) come by TMA into its slot's stage; its result is
+// written as bf16 over that stage and stored by TMA (rows past S and
+// columns past dh fall outside the tensor maps).  Thread 0 issues the
+// first loads; after that the last group to free a stage, buffer or ring
+// slot (a count each) issues its next load, so no group waits on another
+// to issue.
+//   * The q-major kernel: each group a unit.  At dh 256 the scores run in
+//     32-key halves of a block (dQ's 128 fp32 registers a thread beside S
+//     and dP).
+//   * The kv-major kernel: a unit on a pair of groups (dK and dV of a
+//     64-row tile at 256 columns are 256 fp32 registers a thread): group
+//     0 makes S^T and P^T and holds dV, group 1 makes dP^T and holds dK;
+//     P^T goes from group 0 to group 1 through shared memory in fp32 (an
+//     exchange of two slots, or one where two do not fit), so each product
+//     is made once.
+//   * Each group issues the next block's score products before the current
+//     block's accumulating ones and makes the next block's P and dS while
+//     those run (the flash forward's order).
+// The statistics, fp32 [M H][3][T 64] (T = ceil(S / 64)): each row's max
+// times scale log2 e, 1 / sum and delta; rows past S get 1 / sum = delta =
+// 0, so their p is 0 in the kv-major kernel.  Key columns past S are masked
+// by index (p = 0); the TMA unit zero-fills every row past S.  No unit sums
+// with another: the results repeat bit for bit.
+constexpr int SB_ROWS = 64;              // rows of a unit and of a block
+constexpr int SB_PANEL = 64 * 128;       // bytes of a [64, 64] bf16 panel
+constexpr int SB_XBUF = 128 * 32 * 4;    // an exchange slot: a group's 64 x 64 fp32 tile
+constexpr int SB_STATS = 3 * SB_ROWS * 4;  // a block's statistics, bytes
+// the first kilobyte: 8 stage, 4 buffer or ring and 2 x 4 exchange barriers,
+// then 8 + 4 counts of the groups that freed each
+static_assert((8 + 4 + 2 * 4) * 8 + (8 + 4) * 4 <= 1024, "the backward's barriers");
 
-  for (long long unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
-    const long long item = unit / groups;
-    const int row0 = (int)(unit - item * groups) * G::GROUP;
-    const long long base = (item / H) * S * ld + (item % H) * dh;
-    const int qt = row0 / 16 + warp;
-    const bool active = qt * 16 < S;
-    __syncthreads();
-    load_stream_rows<DP>(qg, q + base, ld, row0, G::GROUP, S, ch, tid);
-    load_stream_rows<DP>(gg, g + base, ld, row0, G::GROUP, S, ch, tid);
-    bya::cp_async_commit();
-    bya::cp_async_wait<0>();
-    __syncthreads();
-    const ATile<DP> aq(qg + warp * TILE, lane), ag(gg + warp * TILE, lane);
-    auto load_kv = [&](int buf, int c) {
-      load_stream_rows<DP>(kv + buf * G::BUF, k + base, ld, c * G::CHUNK, G::CHUNK, S, ch, tid);
-      load_stream_rows<DP>(kv + buf * G::BUF + CT * TILE, v + base, ld, c * G::CHUNK, G::CHUNK,
-                           S, ch, tid);
+template <int DP, bool KVM>
+struct SBwd {
+  static constexpr int NP = DP / 64;                    // 64-column panels
+  static constexpr int BLK = 2 * NP * SB_PANEL;         // a block or a unit's rows: two tensors
+  // consumer groups: at 64 columns three (q-major, 168 registers a
+  // thread) or four (kv-major: two pairs, 128), else two (255)
+  static constexpr int NWG = DP == 64 ? (KVM ? 4 : 3) : 2;
+  static constexpr int THREADS = 128 * NWG;
+};
+
+// The backward's shared-memory plan for one launch, set by the host.
+struct SBwdGeo {
+  int T;         // 64-row tiles (units, blocks) of an item
+  int resident;  // 1: an item's blocks whole in a buffer; 0: streamed per unit
+  int NKV;       // resident buffers (1, 2), or ring slots (2 to 4)
+  int NST;       // unit stages of each slot (1, 2)
+  int slots;     // units at work at once: q-major groups, kv-major group pairs
+  int NX;        // exchange slots of each pair (the kv-major kernel)
+  int st_off;    // byte offsets of the stages, the buffers or ring, the exchange
+  int kv_off;
+  int x_off;
+  int buf;       // bytes of a buffer (T blocks, then the statistics) or a ring slot
+};
+
+// wgmma m64nNk16 for the scores, N = 64 or 32, both operands K-major
+template <int N>
+__device__ __forceinline__ void sb_score(float* d, uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    bya::wgmma_ss<0, 0>(d, da, db, accumulate);
+  else
+    bya::wgmma_ss_narrow<N>(d, da, db, accumulate);
+}
+
+// A group's 64 x DP fp32 accumulator as bf16 over the panels at `dst`
+// (128-byte rows, swizzled as TMA reads them)
+template <int NC>
+__device__ __forceinline__ void sb_stage_out(unsigned char* dst, const float (&acc)[NC][4],
+                                             int wq, int lane) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * wq + (lane >> 2) + 8 * hf, cc = c % 8;
+      *reinterpret_cast<uint32_t*>(dst + (c / 8) * SB_PANEL + r * 128 + ((cc ^ (r & 7)) << 4) +
+                                   (lane & 3) * 4) =
+          bya::pack_bf16(acc[c][2 * hf], acc[c][2 * hf + 1]);
+    }
+}
+
+// The two kernels' common frame.  KVM = false: the q-major kernel (units:
+// an item's q tiles, their Q and G rows; blocks: K and V); true: the
+// kv-major kernel (units: kv tiles, their K and V rows; blocks: Q and G
+// and the statistics).  Maps: ua, ub the unit's tensors, ba, bb the
+// blocks', o0 (dQ; dK) and o1 (dV) the outputs'.
+template <int DP, bool KVM>
+__device__ __forceinline__ void stream_bwd_body(
+    unsigned char* smem_raw, const CUtensorMap* ua, const CUtensorMap* ub, const CUtensorMap* ba,
+    const CUtensorMap* bb, const CUtensorMap* o0, const CUtensorMap* o1,
+    float* __restrict__ stats, long long units, int H, int S, float scale, const SBwdGeo& geo) {
+  using G = SBwd<DP, KVM>;
+  constexpr int NP = G::NP, BLK = G::BLK;
+  constexpr int PASSES = KVM ? 1 : 2;  // a unit's walks over its item's blocks
+  unsigned char* smem = smem_raw + ((1024 - (bya::smem_addr(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int T = geo.T, NST = geo.NST, NKV = geo.NKV, slots = geo.slots, NX = geo.NX;
+  const bool resident = geo.resident != 0;
+  const int plane = T * SB_ROWS;  // an item's statistics: three planes of plane floats
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = bars;             // [slot][stage]: a unit's rows
+  uint64_t* kv_full = bars + 8;      // [buffer or ring slot]: a block's or an item's
+  uint64_t* x_full = kv_full + 4;    // [pair][exchange slot]
+  uint64_t* x_empty = x_full + 4;
+  // the groups that have freed each stage, buffer or ring slot, so far
+  int* st_freed = reinterpret_cast<int*>(x_empty + 4);  // [slot][stage]
+  int* kv_freed = st_freed + 8;                           // [buffer or ring slot]
+  auto stage = [&](int sl, int st) { return smem + geo.st_off + (sl * NST + st) * BLK; };
+  unsigned char* kvs = smem + geo.kv_off;  // the buffers, or the ring
+  float* xbuf = reinterpret_cast<float*>(smem + geo.x_off);
+  const int unit_users = KVM ? 2 : 1;      // groups that read a unit's stage
+  const int groups = unit_users * slots;   // consumer groups at work
+  const int block_users = resident ? groups : unit_users;  // groups that read a buffer / ring slot
+  const long long u_begin = units * blockIdx.x / gridDim.x;
+  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
+  const long long it0 = u_begin / T;
+  const long long n_items = u_end > u_begin ? (u_end - 1) / T - it0 + 1 : 0;
+  const long long n_ring = (u_end - u_begin) * PASSES * T;  // streamed: the ring's blocks
+  // the loads, issued by one thread: the k-th item's blocks whole into
+  // buffer k % NKV; slot sl's n-th unit's rows into its stage n % NST; the
+  // ring's c-th block (unit c / (PASSES T) of the share, block c % T)
+  auto load_item = [&](long long k) {
+    const long long it = it0 + k;
+    const int b = (int)(k % NKV), m = (int)(it / H), h = (int)(it % H);
+    bya::mbar_expect_tx(&kv_full[b], T * BLK + (KVM ? 3 * plane * 4 : 0));
+    unsigned char* dst = kvs + b * geo.buf;
+    for (int j = 0; j < T; ++j)
+      for (int p = 0; p < NP; ++p) {
+        bya::tma_load_4d(dst + j * BLK + p * SB_PANEL, ba, 64 * p, j * SB_ROWS, h, m, &kv_full[b]);
+        bya::tma_load_4d(dst + j * BLK + (NP + p) * SB_PANEL, bb, 64 * p, j * SB_ROWS, h, m,
+                         &kv_full[b]);
+      }
+    if (KVM) bya::bulk_load(dst + T * BLK, stats + it * 3 * plane, 3 * plane * 4, &kv_full[b]);
+  };
+  auto load_unit = [&](int sl, long long n) {
+    const long long u = u_begin + sl + n * slots, it = u / T;
+    const int st = (int)(n % NST), tile = (int)(u - it * T), m = (int)(it / H), h = (int)(it % H);
+    uint64_t* bar = &full[sl * 2 + st];
+    bya::mbar_expect_tx(bar, BLK);
+    for (int p = 0; p < NP; ++p) {
+      bya::tma_load_4d(stage(sl, st) + p * SB_PANEL, ua, 64 * p, tile * SB_ROWS, h, m, bar);
+      bya::tma_load_4d(stage(sl, st) + (NP + p) * SB_PANEL, ub, 64 * p, tile * SB_ROWS, h, m, bar);
+    }
+  };
+  auto load_block = [&](long long c) {
+    const long long u = u_begin + c / (PASSES * T), it = u / T;
+    const int j = (int)(c % T), s = (int)(c % NKV), m = (int)(it / H), h = (int)(it % H);
+    bya::mbar_expect_tx(&kv_full[s], BLK + (KVM ? SB_STATS : 0));
+    unsigned char* dst = kvs + s * geo.buf;
+    for (int p = 0; p < NP; ++p) {
+      bya::tma_load_4d(dst + p * SB_PANEL, ba, 64 * p, j * SB_ROWS, h, m, &kv_full[s]);
+      bya::tma_load_4d(dst + (NP + p) * SB_PANEL, bb, 64 * p, j * SB_ROWS, h, m, &kv_full[s]);
+    }
+    if (KVM)
+      for (int q = 0; q < 3; ++q)
+        bya::bulk_load(dst + BLK + q * SB_ROWS * 4, stats + it * 3 * plane + q * plane + j * SB_ROWS,
+                       SB_ROWS * 4, &kv_full[s]);
+  };
+  // the last of `users` groups to free a resource (counted in *freed)
+  // issues its next load; called by one thread of a group whose reads of it
+  // have completed
+  auto last_to_free = [&](int* freed, int users) {
+    __threadfence_block();
+    return atomicAdd(freed, 1) % users == users - 1;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < 8; ++s) {
+      bya::mbar_init(&full[s], 1);
+      st_freed[s] = 0;
+    }
+    for (int s = 0; s < 4; ++s) {
+      bya::mbar_init(&kv_full[s], 1);
+      bya::mbar_init(&x_full[s], 128);
+      bya::mbar_init(&x_empty[s], 128);
+      kv_freed[s] = 0;
+    }
+    bya::mbar_init_fence();
+    // the first loads: the first items (or ring blocks), each slot's first units
+    if (resident)
+      for (long long k = 0; k < NKV && k < n_items; ++k) load_item(k);
+    else
+      for (long long c = 0; c < NKV && c < n_ring; ++c) load_block(c);
+    for (int sl = 0; sl < slots; ++sl)
+      for (long long n = 0; n < NST && u_begin + sl + n * slots < u_end; ++n) load_unit(sl, n);
+  }
+  __syncthreads();
+
+  // the consumer groups: warp wq of group wg holds rows 16 wq + lane / 4 and + 8
+  if (wg >= groups) return;  // an idle group (streamed: one slot)
+  const int slot = KVM ? wg / 2 : wg, tw = tid & 127, wq = tw >> 5;
+  const float sl2 = scale * LOG2E;  // scores to log2 units
+  long long item_n = 0, ring_n = 0, prev = -1, x_n = 0;
+  const unsigned char* kvb = kvs;  // resident: the item's buffer
+  long long n = 0;                 // this slot's units so far
+  for (long long u = u_begin, i = 0; u < u_end; ++u, ++i) {
+    const long long it = u / T;
+    const int tile = (int)(u - it * T);
+    if (resident && it != prev) {  // a new item: free the last one's buffer, wait for this one's
+      if (item_n > 0) {
+        bya::named_sync(1 + wg, 128);  // every warp of the group is done with it
+        const long long k = item_n - 1;
+        if (tw == 0 && k + NKV < n_items && last_to_free(&kv_freed[k % NKV], block_users))
+          load_item(k + NKV);
+      }
+      bya::mbar_wait(&kv_full[item_n % NKV], (int)((item_n / NKV) & 1));
+      kvb = kvs + (item_n % NKV) * geo.buf;
+      ++item_n;
+    }
+    prev = it;
+    if ((int)(i % slots) != slot) continue;  // another slot's unit
+    const int st = (int)(n % NST);
+    unsigned char* us = stage(slot, st);
+    bya::mbar_wait(&full[slot * 2 + st], (int)((n / NST) & 1));
+    // block j of the unit's pass: resident, its place in the buffer;
+    // streamed, its ring slot (waited for) and its release (the group's
+    // reads of it done: its products waited for, and the statistics read
+    // by every warp)
+    auto block = [&](int j, int pass) -> const unsigned char* {
+      if (resident) return kvb + j * BLK;
+      const long long c = ring_n + pass * T + j;
+      bya::mbar_wait(&kv_full[c % NKV], (int)((c / NKV) & 1));
+      return kvs + (c % NKV) * geo.buf;
+    };
+    auto release = [&](int j, int pass) {
+      if (resident) return;
+      const long long c = ring_n + pass * T + j;
+      if (KVM) bya::named_sync(1 + wg, 128);
+      if (tw == 0 && c + NKV < n_ring && last_to_free(&kv_freed[c % NKV], block_users))
+        load_block(c + NKV);
+    };
+    // the unit's result, written over its stage's first (`second`: second)
+    // tensor and stored through `map`; then (`last`) the stage is free
+    auto store = [&](const auto& acc, bool second, const CUtensorMap* map, bool last) {
+      unsigned char* dst = us + (second ? NP * SB_PANEL : 0);
+      sb_stage_out(dst, acc, wq, lane);
+      bya::fence_async_shared();
+      bya::named_sync(1 + wg, 128);
+      if (tw == 0) {
+        const int m = (int)(it / H), h = (int)(it % H);
+        for (int p = 0; p < NP; ++p)
+          bya::tma_store_4d(map, dst + p * SB_PANEL, 64 * p, tile * SB_ROWS, h, m);
+        bya::bulk_wait_read();
+        if (last && u_begin + slot + (n + NST) * slots < u_end &&
+            last_to_free(&st_freed[slot * 2 + st], unit_users))
+          load_unit(slot, n + NST);
+      }
     };
 
-    // each row's max, 1 / sum and delta = sum_b p_ab dp_ab (the sum and
-    // delta rescaled as the max grows)
-    float mx[2] = {-1e30f, -1e30f}, sum[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
-    stream_chunks(n_chunks, load_kv, [&](int buf, int c) {
-      if (!active) return;
-      for (int j = 0; j < CT && (c * CT + j) * 16 < S; ++j) {
-        const int kc = c * CT + j;
-        float s[2][4], dp[2][4];
-        aq.scores(s, kv + buf * G::BUF + j * TILE, lane);
-        ag.scores(dp, kv + buf * G::BUF + (CT + j) * TILE, lane);
-        float cm[2] = {mx[0], mx[1]}, cs[2] = {0.f, 0.f}, cd[2] = {0.f, 0.f};
+    if constexpr (!KVM) {
+      // ---- the q-major unit: the rows' statistics, then dQ ----
+      // keys a score product: 32 at 256 columns, beside dQ's 128 registers
+      constexpr int KN = DP == 256 ? 32 : 64, NSUB = SB_ROWS / KN, NB = KN / 8;
+      const unsigned char* qs = us;                  // Q's panels
+      const unsigned char* gs = us + NP * SB_PANEL;  // G's
+      float s[NB][4], dp[NB][4];
+      // S = Q K^T and dP = G V^T over keys 64 j + KN hs .. of block kb
+      auto issue_sdp = [&](float (&sa)[NB][4], float (&da)[NB][4], const unsigned char* kb,
+                           int hs) {
+        bya::wg_fence();
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int kk = 0; kk < DP / 16; ++kk)
+          sb_score<KN>(&sa[0][0], bya::desc_kmajor(qs + (kk / 4) * SB_PANEL + (kk % 4) * 32),
+                       bya::desc_kmajor(kb + (kk / 4) * SB_PANEL + hs * KN * 128 + (kk % 4) * 32),
+                       kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          sb_score<KN>(&da[0][0], bya::desc_kmajor(gs + (kk / 4) * SB_PANEL + (kk % 4) * 32),
+                       bya::desc_kmajor(kb + (NP + kk / 4) * SB_PANEL + hs * KN * 128 +
+                                        (kk % 4) * 32),
+                       kk > 0);
+        bya::wg_commit();
+      };
+      // key columns past S (the last block's, where it reaches past S)
+      auto mask = [&](float (&sa)[NB][4], int k0) {
+        if (k0 + KN <= S) return;
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (col_ok(kc, n, e)) cm[e >> 1] = fmaxf(cm[e >> 1], s[n][e]);
+            if (k0 + 8 * c + 2 * (lane & 3) + (e & 1) >= S) sa[c][e] = bya::MASKED;
+      };
+      // pass 1: each row's max, this thread's share of the sum and of
+      // sum_b p dp, both rescaled as the max grows (a second register set
+      // to fold one step in while the next one's products ran measured
+      // slower at every width)
+      float mx[2] = {bya::MASKED, bya::MASKED}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+      for (int j = 0; j < T; ++j) {
+        const unsigned char* kb = block(j, 0);
+        for (int hs = 0; hs < NSUB; ++hs) {
+          issue_sdp(s, dp, kb, hs);
+          bya::wg_wait<0>();
+          bya::fence_regs<KN / 2>(&s[0][0]);
+          bya::fence_regs<KN / 2>(&dp[0][0]);
+          mask(s, j * SB_ROWS + hs * KN);
+          float nm[2], mb[2], cs[2] = {0.f, 0.f}, cd[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 1));
-          cm[i] = fmaxf(cm[i], __shfl_xor_sync(FULL, cm[i], 2));
-        }
+          for (int r = 0; r < 2; ++r) {
+            float x = mx[r];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+            for (int c = 0; c < NB; ++c) x = fmaxf(x, fmaxf(s[c][2 * r], s[c][2 * r + 1]));
+            x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+            nm[r] = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+            mb[r] = nm[r] * sl2;
+          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col_ok(kc, n, e)) {
-              const float p = exp2f((s[n][e] - cm[e >> 1]) * scale_log2);
+          for (int c = 0; c < NB; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = bya::fast_exp2(fmaf(s[c][e], sl2, -mb[e >> 1]));
               cs[e >> 1] += p;
-              cd[e >> 1] += p * dp[n][e];
+              cd[e >> 1] += p * dp[c][e];
             }
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float alpha = exp2f((mx[i] - cm[i]) * scale_log2);
-          sum[i] = sum[i] * alpha + cs[i];
-          dl[i] = dl[i] * alpha + cd[i];
-          mx[i] = cm[i];
+          for (int r = 0; r < 2; ++r) {
+            const float alpha = bya::fast_exp2((mx[r] - nm[r]) * sl2);
+            l[r] = l[r] * alpha + cs[r];
+            dl[r] = dl[r] * alpha + cd[r];
+            mx[r] = nm[r];
+          }
+        }
+        release(j, 0);
+      }
+      float mb[2], iv[2], de[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+        dl[r] += __shfl_xor_sync(FULL, dl[r], 1);
+        dl[r] += __shfl_xor_sync(FULL, dl[r], 2);
+        const int row = tile * SB_ROWS + 16 * wq + (lane >> 2) + 8 * r;
+        mb[r] = mx[r] * sl2;
+        iv[r] = row < S ? 1.f / l[r] : 0.f;
+        de[r] = row < S ? dl[r] / l[r] : 0.f;
+        if ((lane & 3) == 0) {
+          float* at = stats + it * 3 * plane + row;
+          at[0] = mb[r];
+          at[plane] = iv[r];
+          at[2 * plane] = de[r];
         }
       }
-    });
-    // the rows' statistics, as the long body keeps them (rows past S: p = 0)
-    float iv[2], de[2];
+      // pass 2: dS = P (dP - delta) * scale, rounded to bf16, dQ += dS K
+      float dq[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
-      sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
-      dl[i] += __shfl_xor_sync(FULL, dl[i], 1);
-      dl[i] += __shfl_xor_sync(FULL, dl[i], 2);
-      const int row = qt * 16 + r0 + 8 * i;
-      iv[i] = row < S ? 1.f / sum[i] : 0.f;
-      de[i] = dl[i] / sum[i];
-      if (active && (lane & 3) == 0 && row < S) {
-        const long long at = item * S + row;
-        stats[at] = mx[i];
-        stats[plane + at] = iv[i];
-        stats[2 * plane + at] = de[i];
+      for (int c = 0; c < DP / 8; ++c) dq[c][0] = dq[c][1] = dq[c][2] = dq[c][3] = 0.f;
+      uint32_t fa[KN / 16][4];
+      auto make_ds = [&](int k0) {
+        mask(s, k0);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = bya::fast_exp2(fmaf(s[c][e], sl2, -mb[e >> 1])) * iv[e >> 1];
+            dp[c][e] = p * (dp[c][e] - de[e >> 1]) * scale;
+          }
+      };
+      auto issue_dq = [&](const unsigned char* kb, int hs) {
+        bya::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            bya::wgmma_rs<1>(&dq[p * 8][0], fa[kk],
+                             bya::desc_mnmajor(kb + p * SB_PANEL + (hs * KN + kk * 16) * 128));
+        bya::wg_commit();
+      };
+      // step t = (block t / NSUB, part t % NSUB): its S and dP are made while
+      // step t - 1's dQ product runs
+      const int n_steps = T * NSUB;
+      const unsigned char* kb = block(0, 1);
+      issue_sdp(s, dp, kb, 0);
+      bya::wg_wait<0>();
+      bya::fence_regs<KN / 2>(&s[0][0]);
+      bya::fence_regs<KN / 2>(&dp[0][0]);
+      make_ds(0);
+      bya::acc_to_a_frags<KN / 16>(fa, dp);
+      for (int t = 1; t < n_steps; ++t) {
+        const int j = t / NSUB, hs = t % NSUB;
+        const unsigned char* kn = hs == 0 ? block(j, 1) : kb;
+        issue_sdp(s, dp, kn, hs);
+        issue_dq(kb, (t - 1) % NSUB);
+        bya::wg_wait<1>();
+        bya::fence_regs<KN / 2>(&s[0][0]);
+        bya::fence_regs<KN / 2>(&dp[0][0]);
+        make_ds(j * SB_ROWS + hs * KN);
+        bya::wg_wait<0>();
+        bya::fence_regs<DP / 2>(&dq[0][0]);
+        if (hs == 0) release(j - 1, 1);
+        bya::acc_to_a_frags<KN / 16>(fa, dp);
+        kb = kn;
+      }
+      issue_dq(kb, (n_steps - 1) % NSUB);
+      bya::wg_wait<0>();
+      bya::fence_regs<DP / 2>(&dq[0][0]);
+      release(T - 1, 1);
+      if (!resident) ring_n += 2 * T;
+      store(dq, false, o0, true);
+    } else {
+      // ---- the kv-major unit: dV = P^T G, dK = dS^T Q over the q blocks ----
+      const unsigned char* ks = us;                  // K's panels
+      const unsigned char* vs = us + NP * SB_PANEL;  // V's
+      // the statistics of block j: pointer and plane stride
+      auto stats_of = [&](int j, const unsigned char* qb, int& stride) -> const float* {
+        if (resident) {
+          stride = plane;
+          return reinterpret_cast<const float*>(kvb + T * BLK) + j * SB_ROWS;
+        }
+        stride = SB_ROWS;
+        return reinterpret_cast<const float*>(qb + BLK);
+      };
+      // X^T = A B^T for A the unit's tensor at `a`, B block qb's at `b`
+      auto issue_t = [&](float (&x)[8][4], const unsigned char* a, const unsigned char* b) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          bya::wgmma_ss<0, 0>(&x[0][0], bya::desc_kmajor(a + (kk / 4) * SB_PANEL + (kk % 4) * 32),
+                              bya::desc_kmajor(b + (kk / 4) * SB_PANEL + (kk % 4) * 32), kk > 0);
+      };
+      // acc += F^T-fragments times block qb's tensor at `b` (read transposed)
+      auto issue_acc = [&](float (&acc)[DP / 8][4], const uint32_t (&f)[4][4],
+                           const unsigned char* b) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            bya::wgmma_rs<1>(&acc[p * 8][0], f[kk],
+                             bya::desc_mnmajor(b + p * SB_PANEL + kk * 16 * 128));
+      };
+      // P^T of block j from its statistics (a column pair's by one load);
+      // q columns past S are 0 (the last block, where it reaches past S)
+      auto make_p = [&](float (&x)[8][4], int j, const float* sm, int ss) {
+        const int edge = (j + 1) * SB_ROWS > S ? S - j * SB_ROWS : SB_ROWS;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = 8 * i + 2 * (lane & 3);
+          const float2 mb = *reinterpret_cast<const float2*>(sm + c);
+          const float2 iv = *reinterpret_cast<const float2*>(sm + ss + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = bya::fast_exp2(fmaf(x[i][e], sl2, (e & 1) ? -mb.y : -mb.x)) *
+                            ((e & 1) ? iv.y : iv.x);
+            x[i][e] = c + (e & 1) < edge ? p : 0.f;
+          }
+        }
+      };
+      // dS^T = P^T (dP^T - delta) * scale, in place in d, P^T read from
+      // the exchange slot xb as it goes
+      auto make_ds = [&](float (&d)[8][4], const float4* xb, const float* sm, int ss) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 de = *reinterpret_cast<const float2*>(sm + 2 * ss + 8 * i + 2 * (lane & 3));
+          const float4 pt = xb[i * 128 + tw];
+          d[i][0] = pt.x * (d[i][0] - de.x) * scale;
+          d[i][1] = pt.y * (d[i][1] - de.y) * scale;
+          d[i][2] = pt.z * (d[i][2] - de.x) * scale;
+          d[i][3] = pt.w * (d[i][3] - de.y) * scale;
+        }
+      };
+      {
+        // group 0 of the pair: S^T, P^T (published), dV; group 1: dP^T,
+        // dS^T, dK
+        const bool pg = wg % 2 == 0;
+        float acc[DP / 8][4], x[8][4];
+#pragma unroll
+        for (int c = 0; c < DP / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+        uint32_t fr[4][4];
+        // the group's score operands: K and Q, or V and G (chosen by
+        // pointer: a wgmma on a divergent path is serialised)
+        const unsigned char* ta = pg ? ks : vs;
+        const int tb = pg ? 0 : NP * SB_PANEL;
+        auto issue_sc = [&](const unsigned char* qb) {
+          bya::wg_fence();
+          issue_t(x, ta, qb + tb);
+          bya::wg_commit();
+        };
+        // block j's P^T or dS^T in x, through the exchange
+        auto probs = [&](int j, const unsigned char* qb) {
+          int ss;
+          const float* sm = stats_of(j, qb, ss);
+          const int xs = (int)(x_n % NX), xi = slot * 2 + xs;
+          float4* xb = reinterpret_cast<float4*>(xbuf + (slot * NX + xs) * (SB_XBUF / 4));
+          if (pg) {
+            make_p(x, j, sm, ss);
+            if (x_n >= NX) bya::mbar_wait(&x_empty[xi], (int)((x_n / NX - 1) & 1));
+#pragma unroll
+            for (int i = 0; i < 8; ++i) xb[i * 128 + tw] = make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+            bya::mbar_arrive(&x_full[xi]);
+          } else {
+            bya::mbar_wait(&x_full[xi], (int)((x_n / NX) & 1));
+            make_ds(x, xb, sm, ss);
+            bya::mbar_arrive(&x_empty[xi]);
+          }
+          ++x_n;
+        };
+        // group 0's operand is G (dV = P^T G), group 1's Q (dK = dS^T Q)
+        const int acc_off = pg ? NP * SB_PANEL : 0;
+        const unsigned char* qb = block(0, 0);
+        issue_sc(qb);
+        bya::wg_wait<0>();
+        bya::fence_regs<32>(&x[0][0]);
+        probs(0, qb);
+        bya::acc_to_a_frags<4>(fr, x);
+        for (int j = 1; j <= T; ++j) {
+          const unsigned char* qn = j < T ? block(j, 0) : nullptr;
+          if (j < T) issue_sc(qn);
+          bya::wg_fence();
+          issue_acc(acc, fr, qb + acc_off);
+          bya::wg_commit();
+          if (j < T) {
+            bya::wg_wait<1>();
+            bya::fence_regs<32>(&x[0][0]);
+            probs(j, qn);
+          }
+          bya::wg_wait<0>();
+          bya::fence_regs<DP / 2>(&acc[0][0]);
+          release(j - 1, 0);
+          if (j < T) bya::acc_to_a_frags<4>(fr, x);
+          qb = qn;
+        }
+        if (!resident) ring_n += T;
+        // dV over K's panels (only group 0 reads K), dK over V's (group 1's)
+        store(acc, !pg, pg ? o1 : o0, true);
       }
     }
-
-    // dQ = dS K, a 64-column panel at a time over the chunks
-    for (int pn = 0; pn < DP / 64 && pn * 64 < dh; ++pn) {
-      float acc[8][4];
-      zero_acc(acc);
-      stream_chunks(n_chunks, load_kv, [&](int buf, int c) {
-        if (!active) return;
-        for (int j = 0; j < CT && (c * CT + j) * 16 < S; ++j) {
-          const int kc = c * CT + j;
-          const bf16* ks = kv + buf * G::BUF + j * TILE;
-          float s[2][4], dp[2][4];
-          aq.scores(s, ks, lane);
-          ag.scores(dp, kv + buf * G::BUF + (CT + j) * TILE, lane);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                const int e = 2 * i + jj;
-                const float p =
-                    col_ok(kc, n, e) ? exp2f((s[n][e] - mx[i]) * scale_log2) * iv[i] : 0.f;
-                dp[n][e] = p * (dp[n][e] - de[i]) * scale;
-              }
-          const uint32_t ds_a[4] = {
-              bya::pack_bf16(dp[0][0], dp[0][1]), bya::pack_bf16(dp[0][2], dp[0][3]),
-              bya::pack_bf16(dp[1][0], dp[1][1]), bya::pack_bf16(dp[1][2], dp[1][3])};
-          mma_a_tile_add<8, G::LDS>(acc, ds_a, ks + pn * 64, lane);
-        }
-      });
-      if (active)
-        write_tile<DP>(dq, base, ld, stg + warp * TILE + pn * 64, acc, qt, pn, S, ch, lane);
-    }
+    ++n;
   }
 }
 
-// B8's streamed body, second kernel: dK and dV of a group of kv rows from
-// the first kernel's statistics
+#define SBWD_PARAMS                                                                         \
+  const __grid_constant__ CUtensorMap ua, const __grid_constant__ CUtensorMap ub,           \
+      const __grid_constant__ CUtensorMap ba, const __grid_constant__ CUtensorMap bb,       \
+      const __grid_constant__ CUtensorMap o0, const __grid_constant__ CUtensorMap o1,       \
+      float *__restrict__ stats, long long units, int H, int S, float scale,               \
+      const __grid_constant__ SBwdGeo geo
+
+// B8's streamed body, first kernel: each row's statistics, then dQ
 template <int DP>
-__global__ void __launch_bounds__(Stream<DP>::THREADS)
-tiny_seq_stream_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ g,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           const float* __restrict__ stats, long long n_items, int H, int S,
-                           int dh, float scale) {
-  using G = Stream<DP>;
-  constexpr int TILE = G::TILE, CT = G::CT, CHUNK = G::CHUNK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const kg = reinterpret_cast<bf16*>(smem_raw);  // the k group
-  bf16* const vg = kg + G::WARPS * TILE;               // the v group
-  bf16* const stg = vg + G::WARPS * TILE;              // a staging tile a warp
-  bf16* const qgb = stg + G::WARPS * TILE;             // buffer b: Q at b * BUF, G after it
-  float* const st = reinterpret_cast<float*>(qgb + 2 * G::BUF);  // buffer b: 3 x CHUNK floats
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long ld = (long long)H * dh;
-  const int ch = dh / 8;
-  const float scale_log2 = scale * LOG2E;
-  const int r0 = lane >> 2, c0 = 2 * (lane & 3);
-  const int groups = (S + G::GROUP - 1) / G::GROUP, n_chunks = (S + CHUNK - 1) / CHUNK;
-  const long long n_units = n_items * groups, plane = n_items * S;
-  zero_smem_block<G::THREADS>(kg, (3 * G::WARPS + 2 * 2 * CT) * TILE, tid);
+__global__ void __launch_bounds__(SBwd<DP, false>::THREADS, 1)
+tiny_seq_stream_dq_kernel(SBWD_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  stream_bwd_body<DP, false>(smem_raw, &ua, &ub, &ba, &bb, &o0, &o1, stats, units, H, S, scale,
+                             geo);
+}
 
-  for (long long unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
-    const long long item = unit / groups;
-    const int row0 = (int)(unit - item * groups) * G::GROUP;
-    const long long base = (item / H) * S * ld + (item % H) * dh;
-    const int kt = row0 / 16 + warp;  // this warp's kv tile
-    const bool active = kt * 16 < S;
-    __syncthreads();
-    load_stream_rows<DP>(kg, k + base, ld, row0, G::GROUP, S, ch, tid);
-    load_stream_rows<DP>(vg, v + base, ld, row0, G::GROUP, S, ch, tid);
-    bya::cp_async_commit();
-    bya::cp_async_wait<0>();
-    __syncthreads();
-    const bf16* ks = kg + warp * TILE;
-    const bf16* vs = vg + warp * TILE;
-    // chunk c of q, g and the rows' statistics (rows past S: all 0, so p = 0)
-    auto load_qg = [&](int buf, int c) {
-      load_stream_rows<DP>(qgb + buf * G::BUF, q + base, ld, c * CHUNK, CHUNK, S, ch, tid);
-      load_stream_rows<DP>(qgb + buf * G::BUF + CT * TILE, g + base, ld, c * CHUNK, CHUNK, S, ch,
-                           tid);
-      for (int i = tid; i < 3 * CHUNK; i += G::THREADS) {
-        const int p = i / CHUNK, row = c * CHUNK + i % CHUNK;
-        st[buf * 3 * CHUNK + i] = row < S ? stats[p * plane + item * S + row] : 0.f;
-      }
-    };
-
-    // dV = P^T G and dK = dS^T Q, a panel at a time over the q tiles
-    // (P^T and dS^T transposed 8x8 block by block, as the long body)
-    for (int pn = 0; pn < DP / 64 && pn * 64 < dh; ++pn) {
-      float acc_k[8][4], acc_v[8][4];
-      zero_acc(acc_k);
-      zero_acc(acc_v);
-      stream_chunks(n_chunks, load_qg, [&](int buf, int c) {
-        if (!active) return;
-        const float* row_max = st + buf * 3 * CHUNK;
-        const float* row_inv = row_max + CHUNK;
-        const float* row_delta = row_inv + CHUNK;
-        for (int j = 0; j < CT && (c * CT + j) * 16 < S; ++j) {
-          const bf16* qs = qgb + buf * G::BUF + j * TILE;
-          const bf16* gs = qs + CT * TILE;
-          const ATile<DP> aq(qs, lane), ag(gs, lane);
-          float s[2][4], dp[2][4];
-          aq.scores(s, ks, lane);
-          ag.scores(dp, vs, lane);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int row = j * 16 + r0 + 8 * i;  // in the chunk
-            const float m = row_max[row], iv = row_inv[row], de = row_delta[row];
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                const int e = 2 * i + jj;
-                const float p = kt * 16 + n * 8 + c0 + (e & 1) < S
-                                    ? exp2f((s[n][e] - m) * scale_log2) * iv
-                                    : 0.f;
-                s[n][e] = p;
-                dp[n][e] = p * (dp[n][e] - de) * scale;
-              }
-          }
-          const uint32_t pt_a[4] = {transpose8(bya::pack_bf16(s[0][0], s[0][1])),
-                                    transpose8(bya::pack_bf16(s[1][0], s[1][1])),
-                                    transpose8(bya::pack_bf16(s[0][2], s[0][3])),
-                                    transpose8(bya::pack_bf16(s[1][2], s[1][3]))};
-          const uint32_t dst_a[4] = {transpose8(bya::pack_bf16(dp[0][0], dp[0][1])),
-                                     transpose8(bya::pack_bf16(dp[1][0], dp[1][1])),
-                                     transpose8(bya::pack_bf16(dp[0][2], dp[0][3])),
-                                     transpose8(bya::pack_bf16(dp[1][2], dp[1][3]))};
-          mma_a_tile_add<8, G::LDS>(acc_v, pt_a, gs + pn * 64, lane);
-          mma_a_tile_add<8, G::LDS>(acc_k, dst_a, qs + pn * 64, lane);
-        }
-      });
-      if (active) {
-        write_tile<DP>(dk, base, ld, stg + warp * TILE + pn * 64, acc_k, kt, pn, S, ch, lane);
-        write_tile<DP>(dv, base, ld, stg + warp * TILE + pn * 64, acc_v, kt, pn, S, ch, lane);
-      }
-    }
-  }
+// B8's streamed body, second kernel: dK and dV from the first kernel's
+// statistics
+template <int DP>
+__global__ void __launch_bounds__(SBwd<DP, true>::THREADS, 1)
+tiny_seq_stream_dkv_kernel(SBWD_PARAMS) {
+  extern __shared__ unsigned char smem_raw[];
+  stream_bwd_body<DP, true>(smem_raw, &ua, &ub, &ba, &bb, &o0, &o1, stats, units, H, S, scale,
+                            geo);
 }
 
 // The one-pass forward: one block an SM (its shared memory), each walking
@@ -803,28 +1077,92 @@ cudaError_t launch_stream_fwd(const bf16* q, const bf16* k, const bf16* v, bf16*
   return cudaGetLastError();
 }
 
-// `stats`: 3 x M x H x S floats of scratch (each row's max, 1 / sum, delta)
+// One of B8's two streamed kernels (KVM: the kv-major one) over the M H T
+// units: one block an SM (its shared memory), each walking an equal
+// contiguous share.  An item's blocks stay resident when a buffer fits (two
+// buffers, then two unit stages a slot, then two exchange slots preferred in
+// that order), else they stream through one slot's ring (2 to 4 blocks).
+template <int DP, bool KVM>
+cudaError_t launch_stream_bwd_pass(const CUtensorMap& ua, const CUtensorMap& ub,
+                                   const CUtensorMap& ba, const CUtensorMap& bb,
+                                   const CUtensorMap& o0, const CUtensorMap& o1, float* stats,
+                                   int M, int S, int H, float scale, cudaStream_t st) {
+  using G = SBwd<DP, KVM>;
+  constexpr int BLK = G::BLK;
+  auto kernel = KVM ? tiny_seq_stream_dkv_kernel<DP> : tiny_seq_stream_dq_kernel<DP>;
+  const int T = (S + SB_ROWS - 1) / SB_ROWS;
+  const long long room = SMEM_LIMIT - 2048;  // the base's alignment and the barriers' kilobyte
+  auto kb1 = [](long long b) { return (b + 1023) / 1024 * 1024; };
+  const long long res_buf = kb1((long long)T * BLK + (KVM ? 3LL * T * SB_ROWS * 4 : 0));
+  const long long ring_buf = kb1(BLK + (KVM ? SB_STATS : 0));
+  const int nx_max = KVM ? 2 : 0, nx_min = KVM ? 1 : 0;
+  const int max_slots = KVM ? G::NWG / 2 : G::NWG;
+  SBwdGeo geo{};
+  geo.T = T;
+  bool found = false;
+  // resident: every slot at work, then fewer; two buffers, then one; two
+  // stages, then one; two exchange slots, then one
+  for (int sl = max_slots; sl >= 1 && !found; --sl)
+    for (int nkv = 2; nkv >= 1 && !found; --nkv)
+      for (int nst = 2; nst >= 1 && !found; --nst)
+        for (int nx = nx_max; nx >= nx_min && !found; --nx)
+          if ((long long)sl * (nst * BLK + nx * SB_XBUF) + nkv * res_buf <= room) {
+            geo = {T, 1, nkv, nst, sl, nx, 0, 0, 0, (int)res_buf};
+            found = true;
+          }
+  // streamed: one slot, its ring of 2 to 4 blocks
+  for (int nst = 2; nst >= 1 && !found; --nst)
+    for (int nx = nx_max; nx >= nx_min && !found; --nx) {
+      const long long nkv = (room - (long long)nst * BLK - nx * SB_XBUF) / ring_buf;
+      if (nkv >= 2) {
+        geo = {T, 0, (int)(nkv < 4 ? nkv : 4), nst, 1, nx, 0, 0, 0, (int)ring_buf};
+        found = true;
+      }
+    }
+  if (!found) return cudaErrorInvalidConfiguration;
+  geo.st_off = 1024;
+  geo.kv_off = geo.st_off + geo.slots * geo.NST * BLK;
+  geo.x_off = geo.kv_off + geo.NKV * geo.buf;
+  const int smem = geo.x_off + geo.slots * geo.NX * SB_XBUF + 1024;
+  static int sms = 0;
+  cudaError_t err = cudaSuccess;
+  if (sms == 0) {  // once: the SM count, the kernel's limit raised to a block's whole
+    int dev = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, G::THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  const long long units = (long long)M * H * T, fit = (long long)sms * per_sm;
+  kernel<<<(unsigned)(units < fit ? units : fit), G::THREADS, smem, st>>>(
+      ua, ub, ba, bb, o0, o1, stats, units, H, S, scale, geo);
+  return cudaGetLastError();
+}
+
+// `stats`: M x H x 3 x T 64 floats of scratch (T = ceil(S / 64): each row's
+// max in log2 units, 1 / sum, delta), written by the first kernel
 template <int DP>
 cudaError_t launch_stream_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                               bf16* dq, bf16* dk, bf16* dv, float* stats, int M, int S, int H,
                               int dh, float scale, cudaStream_t st) {
-  using G = Stream<DP>;
-  static int fit_dq = 0, fit_dkv = 0;
-  cudaError_t err =
-      resident_blocks(tiny_seq_stream_dq_kernel<DP>, G::THREADS, G::BWD_SMEM, &fit_dq);
-  if (err == cudaSuccess)
-    err = resident_blocks(tiny_seq_stream_dkv_kernel<DP>, G::THREADS, G::DKV_SMEM, &fit_dkv);
+  const bya::Layout L = bya::make_layout(S, H, dh, 1);  // [M, S, H, dh]
+  CUtensorMap tq, tk, tv, tg, tdq, tdk, tdv;
+  if (!bya::make_map(&tq, q, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tk, k, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tv, v, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tg, g, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tdq, dq, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tdk, dk, L, M, H, S, dh, SB_ROWS) ||
+      !bya::make_map(&tdv, dv, L, M, H, S, dh, SB_ROWS))
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_stream_bwd_pass<DP, false>(tq, tg, tk, tv, tdq, tdq, stats, M, S, H, scale, st);
   if (err != cudaSuccess) return err;
-  const long long n_items = (long long)M * H, units = n_items * ((S + G::GROUP - 1) / G::GROUP);
-  tiny_seq_stream_dq_kernel<DP><<<(unsigned)(units < fit_dq ? units : fit_dq), G::THREADS,
-                                  G::BWD_SMEM, st>>>(q, k, v, g, dq, stats, n_items, H, S, dh,
-                                                     scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tiny_seq_stream_dkv_kernel<DP><<<(unsigned)(units < fit_dkv ? units : fit_dkv), G::THREADS,
-                                   G::DKV_SMEM, st>>>(q, k, v, g, dk, dv, stats, n_items, H, S,
-                                                      dh, scale);
-  return cudaGetLastError();
+  return launch_stream_bwd_pass<DP, true>(tk, tv, tq, tg, tdk, tdv, stats, M, S, H, scale, st);
 }
 
 }  // namespace
@@ -850,8 +1188,9 @@ extern "C" int bya_tiny_seq_attention_stream(const void* q, const void* k, const
 }
 
 // B8's streamed body: q, k, v, g (the output gradient), dq, dk, dv as the
-// forward's; `stats`: 3 x M x H x S floats of device scratch (each row's
-// max, 1 / sum and delta, from the first kernel to the second).  Returns
+// forward's; `stats`: 3 x M x H x T 64 floats of device scratch, T =
+// ceil(S / 64) (each row's max, 1 / sum and delta, from the first kernel to
+// the second).  Returns
 // the cudaError_t of the launches, or cudaErrorInvalidValue for a shape it
 // does not take.
 extern "C" int bya_tiny_seq_attention_stream_bwd(const void* q, const void* k, const void* v,

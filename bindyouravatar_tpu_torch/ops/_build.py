@@ -11,12 +11,14 @@ kernel call does.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -66,8 +68,8 @@ def _nvcc() -> str:
 def build_cuda() -> Path:
     """Compile the CUDA sources (if this tree's build is missing) and return
     the library path.  Each source compiles in its own `nvcc` process, all
-    at once; the compilers' per-kernel register and shared-memory reports
-    are kept beside the library in `nvcc.log`."""
+    at once; the compilers' per-kernel register and shared-memory reports,
+    and each source's seconds, are kept beside the library in `nvcc.log`."""
     srcs = [CSRC_DIR / s for s in CUDA_SOURCES]
     digest = hashlib.sha256()
     for p in sorted(CSRC_DIR.glob("*.cu*")):
@@ -79,15 +81,19 @@ def build_cuda() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+
+    def compile_one(src: Path, obj: Path) -> tuple:
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
-             for src, obj in zip(srcs, objs)]
-    logs = [(src.name, *proc.communicate(), proc.returncode)
-            for src, proc in zip(srcs, procs)]
+        return src.name, proc.stdout, proc.returncode, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        logs = list(pool.map(compile_one, srcs, objs))
     (BUILD_DIR / "nvcc.log").write_text(
-        "".join(f"== {name} (exit {rc})\n{out}" for name, out, _, rc in logs))
-    failed = [(name, out) for name, out, _, rc in logs if rc != 0]
+        "".join(f"== {name} (exit {rc}, {secs:.1f} s)\n{out}" for name, out, rc, secs in logs))
+    failed = [(name, out) for name, out, rc, _ in logs if rc != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"{name}:\n{out[-4000:]}" for name, out in failed))

@@ -45,6 +45,9 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # double-buffered, and B8's two buffers of four [S, body + 8] tensors must
 # fit a block's 232,448 bytes; past it the streamed body runs
 MAX_S = {64: 192, 128: 96, 256: 48}
+# the rows of the streamed backward's tiles (`SB_ROWS` of the source): its
+# statistics scratch holds whole tiles of rows
+STREAM_BWD_ROWS = 64
 # the pair kernel's heads: JAX's `_pair_kernel` sums a head's channels with a
 # [C, 128] head indicator
 PAIR_MAX_HEADS = 128
@@ -65,8 +68,10 @@ def kernel_body(s: int, width: int, heads: int, backward: bool = False) -> str:
     S <= MAX_S[body_columns(dh)]: a whole item in shared memory, looped
     over 16-row tiles), "stream" (past that cap: the forward a one-pass
     `wgmma` body over 64-row q tiles with an item's K and V in shared
-    memory, or streamed in 64-key blocks past what fits; the backward
-    groups of 64 rows, the other side streamed in fixed chunks).  The
+    memory, or streamed in 64-key blocks past what fits; the backward two
+    `wgmma` kernels over 64-row tiles, q-major for the rows' statistics
+    and dQ, kv-major for dK and dV, the other side's blocks of an item in
+    shared memory, streamed past what fits).  The
     backward (B8) takes S >= 8; below, the gradient is the plain version's
     vjp, as in the JAX package.  Raises ValueError, naming the limit and
     its ROADMAP.md queue B item, for a shape no body takes."""
@@ -234,8 +239,9 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     at S >= 8): (dq, dk, dv), each [M, S, C] in q's dtype, for output
     gradient `g`.  A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (bf16, dh % 8 == 0 up to 256, any S >= 8) or
-    raises.  The streamed body (`kernel_body` "stream") takes 3 x M x H x
-    S floats of scratch for each row's max, 1 / sum and delta."""
+    raises.  The streamed body (`kernel_body` "stream") takes M x H x 3 x
+    S_pad floats of scratch for each row's max, 1 / sum and delta (S_pad: S
+    rounded up to 64, its 64-row tiles)."""
     if q.device.type == "cpu":
         return tiny_seq_attention_bwd_plain(q, k, v, g, heads, sm_scale)
     m, s, c = q.shape
@@ -256,7 +262,8 @@ def tiny_seq_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g:
     shape = (m, s, heads, c // heads, float(sm_scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     if body == "stream":
-        stats = torch.empty(3 * m * heads * s, dtype=torch.float32, device=q.device)
+        stats = torch.empty(m * heads * 3 * STREAM_BWD_ROWS * -(-s // STREAM_BWD_ROWS),
+                            dtype=torch.float32, device=q.device)
         err = lib.bya_tiny_seq_attention_stream_bwd(*ptrs, stats.data_ptr(), *shape)
     else:
         err = lib.bya_tiny_seq_attention_bwd(*ptrs, *shape)

@@ -313,6 +313,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      printed beside; then on the streamed body on a 4 x 6 latent grid: T =
      201 with the 8 x 64 STAB heads and T = 49 with 2 x 256 (cap 48); and
      B5' streamed once through `packed_head_attention` [1001, 201 x 8, 64].
+The CPU's fp32 references of the 2-layer DiT cases of phases 3e to 3i and
+12c run on a worker thread of their own (`_References`) while the card goes
+on with phases 4 to 12b: each case's card side runs when it is started
+between two phases, its line prints when its reference is done, and every
+verdict is in before phase 11 (phase 7e, which reads the host's RSS, runs
+with none in flight).  A line after each group of phases gives its seconds
+and the seconds since the start.
 Then a JSON line with the kernels, and as the last line the device JSON.
 There is no CPU fallback: without a CUDA device it fails at once.
 """
@@ -328,6 +335,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 
@@ -1258,6 +1266,27 @@ def head_dim_kernel_phase(results: dict, rnd, report, report_all, bhsd, pick, ch
               f"{r['sdpa_bare_ms']:.4f} ms, backward {r_b['sdpa_bare_ms']:.4f} ms", flush=True)
         results[f"B7 fwd dh{d}"], results[f"B7 bwd dh{d}"] = r, r_b
         del q, k, v, do, o, lse, delta
+    # --- B1 with the QK-LN and RoPE fused at 12 x 256 heads on the 5B joint
+    # sequence [2, 17776, 3072], and ragged (1,000 rows, kv_len 937): the
+    # 256-column body behind the pre-pass (the DiT at 12 x 256 takes B10
+    # and B7's forward or B11 instead, so no phase launches it).
+    # tol: as the dh-64 rows.  No library call applies the QK-LN and RoPE.
+    for cls, tag, b, s, text_len, grid, kv_len in pick([
+            ("dh256", "slice[2,17776,3072] 12x256 LN+RoPE", 2, 17776, 226, (13, 30, 45), None),
+            ("dh256", "ragged[1,1000,3072] kv_len=937 12x256 LN+RoPE", 1, 1000, 10, (3, 18, 18),
+             937)]):
+        d, h = 256, 12
+        q, k, v = (rnd(b, s, 3072).to(bf) for _ in range(3))
+        norm = (rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1), rnd(d, std=0.1, mean=1.0),
+                rnd(d, std=0.1))
+        kw = dict(kv_len=kv_len, qk_norm=norm, rope_start=text_len,
+                  rope=get_3d_rotary_pos_embed(d, ((0, 0), grid[1:]), grid[1:], grid[0],
+                                               device=dev))
+        kern = lambda: fa.flash_attention(q, k, v, h, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, h, block_q=512, **kw)
+        work = (_nbytes(q, k, v, q), 4.0 * b * s * (kv_len or s) * 3072, "bf16")
+        report("B1 dh256", tag, kern(), plain(), 1e-2, 2e-2, kern, plain, 3, None, work)
+        del q, k, v
     if pick([("dh256",)]):
         b, s, h, d = 52, 1350, 2, 256
         q, k, v, do = (rnd(b, s, h * d).to(bf) for _ in range(4))
@@ -1696,11 +1725,20 @@ STREAM_SHAPES = (("cap+1[1001,193,8x64]", 1001, 193, 8, 64),
                  ("ragged[1001,201,512]", 1001, 201, 8, 64),
                  ("ragged[1001,400,512]", 1001, 400, 8, 64),
                  ("slice[5400,400,512]", 5400, 400, 8, 64))
-# B5 past the forward's resident K/V (an item's K and V past a block's
-# shared memory: its key blocks stream), untimed: (tag, M, S, heads, dh)
+# B5 and B8 past what a block's shared memory holds of an item, untimed:
+# (tag, M, S, heads, dh).  The first three stream an item's blocks in both
+# directions: the forward's key blocks, and both B8 kernels' ring (4, 3 and
+# 2 slots; from S = 833 / 705 at 64 columns, 385 / 321 at 128, 129 at 256,
+# q-major / kv-major).  At 10 x 48 only B8's kv-major kernel streams; 32,
+# 48 and 200 columns ride the 64 and 256 bodies, clipped at the true dh,
+# 3 x 200 both resident (one slot) and streamed.
 STREAM_PAST_SMEM = (("kv-streamed[9,1100,8x64]", 9, 1100, 8, 64),
                     ("kv-streamed[9,601,4x128]", 9, 601, 4, 128),
-                    ("kv-streamed[9,301,2x256]", 9, 301, 2, 256))
+                    ("kv-streamed[9,301,2x256]", 9, 301, 2, 256),
+                    ("narrow[9,200,16x32]", 9, 200, 16, 32),
+                    ("narrow[9,777,10x48]", 9, 777, 10, 48),
+                    ("between[9,70,3x200]", 9, 70, 3, 200),
+                    ("between kv-streamed[9,150,3x200]", 9, 150, 3, 200))
 
 
 def stream_kernel_phase(results: dict, rnd, report, report_all, check, check_ok, bhsd,
@@ -1710,14 +1748,19 @@ def stream_kernel_phase(results: dict, rnd, report, report_all, check, check_ok,
     plain versions at every shape of `STREAM_SHAPES`, timed; B5 and B8 run
     twice at S = 201 and at dh 256, bitwise equal (no sums across units).
     Beside each B5 row, the yardstick: the port's B11 forward (bshd, bare)
-    on the same memory, timed.  Then B5, untimed, at `STREAM_PAST_SMEM`,
-    where an item's K and V pass the forward's shared memory and stream.
+    on the same memory, timed; beside each B8 row, the port's fused flash
+    backward (B12 + B13, bshd) on the same memory, fed the O and LSE of
+    B11's forward (untimed), timed.  Then B5 and B8, untimed, each against
+    its plain version and run twice (bitwise equal) at `STREAM_PAST_SMEM`,
+    where an item's blocks pass a block's shared memory and stream, and at
+    widths below and between the bodies'.
     The plain versions run 256 rows of M at a time (the same function; the
     fp32 scores of a whole [5400, 8, 400, 400] call would not fit)."""
     import torch
     import torch.nn.functional as F
     from bindyouravatar_tpu_torch.ops import flash_attention as fa
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
+    from bindyouravatar_tpu_torch.profile_step import kernel_records
 
     bf = torch.bfloat16
     firsts = None if only is None else {o.split()[0] for o in only}
@@ -1757,13 +1800,30 @@ def stream_kernel_phase(results: dict, rnd, report, report_all, check, check_ok,
                 plain = lambda: by_rows(
                     lambda *t: pa.tiny_seq_attention_bwd_plain(*t, h, sc), q, k, v, g)
                 work = (_nbytes(q, k, v, g, q, k, v), 10.0 * m * h * s_ * s_ * d, "bf16")
-                first = kern()
-                r = report_all(kernel, tag, first, plain(), (1e-2,) * 3, kern, plain, runs,
+                first, want = kern(), plain()
+                r = report_all(kernel, tag, first, want, (1e-2,) * 3, kern, plain, runs,
                                lib, work)
                 if m == 1001 and s_ in (201, 49):
                     check_ok(kernel, f"{tag} run twice: bitwise equal",
                              all(torch.equal(a, b) for a, b in zip(first, kern())))
-                del g, oh, gh, first
+                # where the row's time goes: each of the two kernels'
+                # records (the q-major statistics + dQ, the kv-major dK + dV)
+                split = "; ".join(
+                    f"{'q-major' if 'dq_kernel' in n else 'kv-major' if 'dkv_kernel' in n else n[:40]}"
+                    f" {ms_:.4f} ms x{c / runs:g}"
+                    for n, (c, ms_) in sorted(kernel_records(kern, runs).items()))
+                print(f"  B8 {tag} per kernel (records, median): {split}", flush=True)
+                # the yardstick: the port's own fused flash backward (B12 +
+                # B13, bshd) on the same memory as [M, S, H, dh], fed the O
+                # and LSE of B11's forward (not timed); timed, not recorded
+                # as the row
+                q4, k4, v4, g4 = (t.view(m, s_, h, d) for t in (q, k, v, g))
+                o4, lse4 = fa.flash_attention_fwd(q4, k4, v4, "bshd", sc)
+                b1213 = lambda: fa.flash_attention_bwd(q4, k4, v4, o4, g4, lse4, "bshd", sc)
+                report_all("B12+B13", f"{tag} bshd yardstick",
+                           tuple(t.reshape(m, s_, c) for t in b1213()), want, (1e-2,) * 3,
+                           b1213, None, runs, None, work, plain_ms=r["plain_ms"])
+                del g, oh, gh, first, want, q4, k4, v4, g4, o4, lse4
             else:
                 if kernel == "B5":
                     kern = lambda: pa.tiny_seq_attention(q, k, v, h, sc)
@@ -1794,13 +1854,26 @@ def stream_kernel_phase(results: dict, rnd, report, report_all, check, check_ok,
                 results[key] = r
             del q, k, v, qh, kh, vh
             torch.cuda.empty_cache()
-    # tol: as the timed rows
-    for tag, m, s_, h, d in STREAM_PAST_SMEM if wanted("B5") else ():
-        q, k, v = (rnd(m, s_, h * d).to(bf) for _ in range(3))
-        got = pa.tiny_seq_attention(q, k, v, h, d ** -0.5)
-        check("B5", tag, got, pa.tiny_seq_attention_plain(q, k, v, h, d ** -0.5), 1e-2, 2e-2)
-        check_ok("B5", f"{tag} run twice: bitwise equal",
-                 torch.equal(got, pa.tiny_seq_attention(q, k, v, h, d ** -0.5)))
+    # tol: as the timed rows (B8: 1e-2 of each gradient's largest
+    # magnitude, + 1e-2 relative)
+    for tag, m, s_, h, d in STREAM_PAST_SMEM:
+        sc = d ** -0.5
+        q, k, v, g = (rnd(m, s_, h * d).to(bf) for _ in range(4))
+        if wanted("B5"):
+            assert pa.kernel_body(s_, h * d, h) == "stream", ("B5", tag)
+            got = pa.tiny_seq_attention(q, k, v, h, sc)
+            check("B5", tag, got, pa.tiny_seq_attention_plain(q, k, v, h, sc), 1e-2, 2e-2)
+            check_ok("B5", f"{tag} run twice: bitwise equal",
+                     torch.equal(got, pa.tiny_seq_attention(q, k, v, h, sc)))
+        if wanted("B8"):
+            assert pa.kernel_body(s_, h * d, h, True) == "stream", ("B8", tag)
+            got = pa.tiny_seq_attention_bwd(q, k, v, g, h, sc)
+            want = pa.tiny_seq_attention_bwd_plain(q, k, v, g, h, sc)
+            for i, (a, b) in enumerate(zip(got, want)):
+                check("B8", f"{tag} out{i}", a, b, _rel_compare(a, b, 1e-2), 1e-2)
+            check_ok("B8", f"{tag} run twice: bitwise equal",
+                     all(torch.equal(a, b) for a, b in
+                         zip(got, pa.tiny_seq_attention_bwd(q, k, v, g, h, sc))))
 
 
 def entry_point_phase(launches: dict) -> bool:
@@ -2243,6 +2316,73 @@ def reduced_train_phase(launches: dict, unpaired: bool = False) -> bool:
     return ok
 
 
+# set in `_References`' worker thread (`_watch_tiny_seq` counts no call there)
+_REFERENCE_THREAD = threading.local()
+
+
+def _reference_thread(threads: int) -> None:
+    import torch
+
+    _REFERENCE_THREAD.on = True
+    torch.set_num_threads(threads)
+
+
+class _References:
+    """The CPU's fp32 references of the 2-layer full-width DiT cases
+    (phases 3e, 3f, 3g, 3i and 12c: `_dit_head_case`, `_long_clip_case`),
+    run on a worker thread of their own while the card goes on with the
+    later phases.  `add(start)` queues a case: `start()` runs its card
+    side in the calling thread (the draw, the card's forward and
+    micro-batch, their launch counts) and returns its verdict, which the
+    worker runs (the reference, the comparison and the case's line; no
+    CUDA tensor) and which returns whether the case passed.  `pump()`
+    starts queued cases while fewer than `ahead` verdicts are unfinished
+    (each holds its fp32 reference model on the host), `quiet()` waits
+    for every started verdict, `drain()` starts the rest and returns
+    whether every verdict passed.  A verdict's line prints when it ends,
+    among the later phases' lines."""
+
+    def __init__(self, ahead: int = 2):
+        import collections
+
+        import torch
+
+        self.queued, self.started, self.ahead = collections.deque(), [], ahead
+        # the worker's intra-op threads leave the launching thread a core
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="reference", initializer=_reference_thread,
+            initargs=(max(1, torch.get_num_threads() - 1),))
+
+    def add(self, start) -> None:
+        self.queued.append(start)
+
+    def _busy(self) -> list:
+        return [f for f in self.started if not f.done()]
+
+    def _start(self) -> None:
+        verdict = self.queued.popleft()()
+        if verdict is not None:
+            self.started.append(self.pool.submit(verdict))
+
+    def pump(self) -> None:
+        while self.queued and len(self._busy()) < self.ahead:
+            self._start()
+
+    def quiet(self) -> None:
+        concurrent.futures.wait(self.started)
+
+    def drain(self) -> bool:
+        while self.queued:
+            busy = self._busy()
+            if len(busy) >= self.ahead:
+                concurrent.futures.wait(busy, return_when=concurrent.futures.FIRST_COMPLETED)
+            self._start()
+        try:
+            return all([f.result() for f in self.started])
+        finally:
+            self.pool.shutdown()
+
+
 def _dit_head_case(heads: int, d: int, face: bool = False, router_heads: int | None = None,
                    ids: int = 2, face_tokens: int | None = None,
                    audio_tokens: int | None = None) -> tuple:
@@ -2270,8 +2410,10 @@ def _dit_head_case(heads: int, d: int, face: bool = False, router_heads: int | N
         B11 and B12 + B13), its metrics and every trainable gradient (the
         face path's within phase 3b's 10%: its bf16 floor, phase 12c), the
         launches those of `train_launches`.
-    Returns (ok, the forward's launches, the micro-batch's launches, the
-    gradients' relative L2 errors by name)."""
+    Runs the card's side now and returns (the forward's launches, the
+    micro-batch's launches, the verdict): the verdict runs the CPU's
+    reference (no CUDA tensor: a `_References` worker runs it) and returns
+    (ok, the gradients' relative L2 errors by name)."""
     import numpy as np
     import torch
     from bindyouravatar_tpu_torch.config import (AudioConfig, DiTConfig, LFEConfig,
@@ -2319,8 +2461,10 @@ def _dit_head_case(heads: int, d: int, face: bool = False, router_heads: int | N
         for blk in ref.blocks:
             for name in ("to_q_lora_B", "to_k_lora_B"):
                 getattr(blk.attn1, name).normal_(0.0, 0.02, generator=draw)
-    ref = ref.to("cpu")
+    # the card's models load the draw where it lies (the same fp32 values
+    # as the host's copy, without two host-to-card copies of it)
     sd = ref.state_dict()
+    ref = ref.to("cpu")
     cpu_s = {"draw": time.perf_counter() - t0}      # the CPU reference's seconds
     c, a, lf = ref.cfg, ref.audio_cfg, ref.lfe_cfg
     fused = d in (32, 64, 128) and flat_heads_pack(d, heads)
@@ -2365,130 +2509,149 @@ def _dit_head_case(heads: int, d: int, face: bool = False, router_heads: int | N
         cpu_s.update({"forward": t2 - t1, "micro-batch": time.perf_counter() - t2})
         return out, result
 
-    # the CPU's reference runs in a thread of its own beside the card's
-    # side, whose thread mostly waits on the card (no CPU tensor launches a
-    # kernel, so the counts are the card's alone)
+    # the card's side now; the CPU's reference in `verdict`, which touches
+    # no CUDA tensor (a `_References` worker runs it while the card goes on)
     to_gpu = lambda dd: {k: None if v is None else v.cuda() for k, v in dd.items()}
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        cpu_run = pool.submit(reference)
-        with torch.inference_mode():      # the serving forward
-            model = make(torch.bfloat16, "cuda", True)
-            model.load_state_dict(sd)
-            torch.cuda.synchronize()
-            _reset_launches()
-            out_g = forward(model, "cuda")
-            torch.cuda.synchronize()
-            fwd_counts = _read_launches()
-            out_g = out_g.float().cpu()
-            del model
-        # one Stage-3 micro-batch: B10, B7 or B11 and B12 + B13
-        gpu = make(torch.bfloat16, "cuda", False)
-        gpu.load_state_dict(sd)
-        gpu_tr = Trainer(gpu, Schedule.create(SchedulerConfig()), tcfg)
-        gpu_tr.init_state()
+    with torch.inference_mode():      # the serving forward
+        model = make(torch.bfloat16, "cuda", True)
+        model.load_state_dict(sd)
         torch.cuda.synchronize()
         _reset_launches()
-        grads_g, m_g = gpu_tr.grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
+        out_g = forward(model, "cuda")
         torch.cuda.synchronize()
-        counts = _read_launches()
-        out_c, (grads_c, m_c) = cpu_run.result()
-    outs = [out_c.float(), out_g]
-    # tol: bf16 activations and weights through 2 blocks against fp32
-    scale = float(outs[0].abs().max())
-    f_err, _, f_ok = _compare(outs[1], outs[0], 0.05 * scale, 0.05)
-    f_rel = _rel_l2(outs[1], outs[0])
+        fwd_counts = _read_launches()
+        out_g = out_g.float().cpu()
+        del model
+    # one Stage-3 micro-batch: B10, B7 or B11 and B12 + B13
+    gpu = make(torch.bfloat16, "cuda", False)
+    gpu.load_state_dict(sd)
+    gpu_tr = Trainer(gpu, Schedule.create(SchedulerConfig()), tcfg)
+    gpu_tr.init_state()
+    torch.cuda.synchronize()
+    _reset_launches()
+    grads_g, m_g = gpu_tr.grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    grads_g = {k: v.float().cpu() for k, v in grads_g.items()}
+    m_g = {k: float(v) for k, v in m_g.items()}
+    want = train_launches(gpu, 1)
+    del gpu, gpu_tr, sd
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+
     want_fwd = {k: c.num_layers if k == attn else 0 for k in ("B1", "B7 fwd", "B11")}
     want_fwd["B10 fwd"] = 0 if fused else 2 * c.num_layers
     want_fwd["B3"] = a.num_layers
     if face:     # T = 8: the temporal STABs on B5's one-tile body
         stabs = c.num_ca * ref.router_cfg.num_attention_layers
         want_fwd.update({"B2": c.num_ca, **_multi_id_launches(c.num_ids, stabs, stabs, 0)})
-    f_ok &= ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
-             and bool(outs[1].isfinite().all()))
-
-    # tol: metrics within 5% + 1e-3 (as phase 3b); the gradients within 3%
-    # relative L2 each, the key biases (true gradient 0) left out, the face
-    # path's within phase 3b's 10% (its bf16 floor: 3.45-4.13% in phase 12c)
-    m_err = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_c}
-    m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
-    g_err = {}
-    for k, gc_ in grads_c.items():
-        if k.endswith("to_k.bias"):
-            continue
-        norm = float(gc_.norm())
-        diff = float((grads_g[k].float().cpu() - gc_).norm())
-        g_err[k] = diff / norm if norm > 0 else diff
-    worst = sorted(((k, e) for k, e in g_err.items() if not _face_path(k)),
-                   key=lambda kv: -kv[1])[:3]
-    worst_face = sorted(((k, e) for k, e in g_err.items() if _face_path(k)),
-                        key=lambda kv: -kv[1])[:3]
-    g_ok = all(e <= (0.1 if _face_path(k) else 0.03) for k, e in g_err.items())
-    want = train_launches(gpu, 1)
     train_attn = "B7 fwd" if paired else "B11"
-    c_ok = ({k: counts[k] for k in want} == want and counts[train_attn] > 0
-            and counts["B10 fwd"] > 0 and counts["B3"] > 0)
-    ok = f_ok and m_ok and g_ok and c_ok
-    shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w if w[k] or cnt[k])
-    rc = ref.router_cfg
-    what = ("face + audio, derived audio heads "
-            f"{a.num_attention_heads} x {a.attention_head_dim}, router STAB "
-            f"{rc.attn_heads} x {rc.feat_dim // rc.attn_heads}, I = {c.num_ids}, K = "
-            f"{c.lfe_num_tokens} face / {a.context_tokens} audio tokens" if face else "audio only")
-    print(f"head dim {d} ({heads} x {d} heads, dim {dim}, 2 layers, {what}, 16 + 1024 "
-          f"tokens): forward cuda-bf16 vs cpu-fp32 relative L2 {f_rel:.3e} (tol 0.02), "
-          f"max_abs_err={f_err:.3e} (ref max {scale:.3e}, tol 0.05 of it + 0.05*|ref|), "
-          f"launches {shown(fwd_counts, want_fwd)}; micro-batch loss "
-          f"{float(m_g['loss']):.5f} / {float(m_c['loss']):.5f}, metrics max |d| "
-          + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
-          + f" (tol 1e-3+0.05*|ref|); {len(g_err)} trainable gradients, worst relative L2 "
-          + " ".join(f"{k}={v:.3e}" for k, v in worst) + " (tol 0.03)"
-          + ("; the face path's " + " ".join(f"{k}={v:.3e}" for k, v in worst_face)
-             + " (tol 0.1)" if face else "") + "; launches "
-          + shown(counts, want) + f"; {time.perf_counter() - t0:.1f} s (the CPU reference's "
-          + ", ".join(f"{k} {v:.1f}" for k, v in cpu_s.items()) + f") {'ok' if ok else 'FAILED'}",
-          flush=True)
-    del gpu, gpu_tr, cpu_tr, grads_g, grads_c, ref
-    torch.cuda.empty_cache()
-    return ok, fwd_counts, counts, g_err
+
+    def verdict():
+        t1 = time.perf_counter()
+        out_c, (grads_c, m_c) = reference()
+        outs = [out_c.float(), out_g]
+        # tol: bf16 activations and weights through 2 blocks against fp32
+        scale = float(outs[0].abs().max())
+        f_err, _, f_ok = _compare(outs[1], outs[0], 0.05 * scale, 0.05)
+        f_rel = _rel_l2(outs[1], outs[0])
+        f_ok &= ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
+                 and bool(outs[1].isfinite().all()))
+
+        # tol: metrics within 5% + 1e-3 (as phase 3b); the gradients within
+        # 3% relative L2 each, the key biases (true gradient 0) left out, the
+        # face path's within phase 3b's 10% (its bf16 floor: 3.45-4.13% in
+        # phase 12c)
+        m_err = {k: abs(m_g[k] - float(m_c[k])) for k in m_c}
+        m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
+        g_err = {}
+        for k, gc_ in grads_c.items():
+            if k.endswith("to_k.bias"):
+                continue
+            norm = float(gc_.norm())
+            diff = float((grads_g[k] - gc_).norm())
+            g_err[k] = diff / norm if norm > 0 else diff
+        worst = sorted(((k, e) for k, e in g_err.items() if not _face_path(k)),
+                       key=lambda kv: -kv[1])[:3]
+        worst_face = sorted(((k, e) for k, e in g_err.items() if _face_path(k)),
+                            key=lambda kv: -kv[1])[:3]
+        g_ok = all(e <= (0.1 if _face_path(k) else 0.03) for k, e in g_err.items())
+        c_ok = ({k: counts[k] for k in want} == want and counts[train_attn] > 0
+                and counts["B10 fwd"] > 0 and counts["B3"] > 0)
+        ok = f_ok and m_ok and g_ok and c_ok
+        shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w
+                                        if w[k] or cnt[k])
+        rc = ref.router_cfg
+        what = ("face + audio, derived audio heads "
+                f"{a.num_attention_heads} x {a.attention_head_dim}, router STAB "
+                f"{rc.attn_heads} x {rc.feat_dim // rc.attn_heads}, I = {c.num_ids}, K = "
+                f"{c.lfe_num_tokens} face / {a.context_tokens} audio tokens" if face
+                else "audio only")
+        print(f"head dim {d} ({heads} x {d} heads, dim {dim}, 2 layers, {what}, 16 + 1024 "
+              f"tokens): forward cuda-bf16 vs cpu-fp32 relative L2 {f_rel:.3e} (tol 0.02), "
+              f"max_abs_err={f_err:.3e} (ref max {scale:.3e}, tol 0.05 of it + 0.05*|ref|), "
+              f"launches {shown(fwd_counts, want_fwd)}; micro-batch loss "
+              f"{m_g['loss']:.5f} / {float(m_c['loss']):.5f}, metrics max |d| "
+              + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
+              + f" (tol 1e-3+0.05*|ref|); {len(g_err)} trainable gradients, worst relative L2 "
+              + " ".join(f"{k}={v:.3e}" for k, v in worst) + " (tol 0.03)"
+              + ("; the face path's " + " ".join(f"{k}={v:.3e}" for k, v in worst_face)
+                 + " (tol 0.1)" if face else "") + "; launches "
+              + shown(counts, want) + f"; card side {card_s:.1f} s, the CPU reference "
+              + ", ".join(f"{k} {v:.1f}" for k, v in cpu_s.items())
+              + f", verdict {time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAILED'}",
+              flush=True)
+        return ok, g_err
+
+    return fwd_counts, counts, verdict
 
 
-def head_dim_phase(launches: dict) -> bool:
+def _verdict_ok(verdict):
+    """A `_dit_head_case` / `_long_clip_case` verdict that returns its ok alone."""
+    return lambda: verdict()[0]
+
+
+def head_dim_phase(launches: dict, refs: _References) -> None:
     """Phase 3e: the flat kernels at head dims 128 and 32 inside the model,
     `_dit_head_case` at 24 x 128 and at 96 x 32 heads (dim 3072; both pair
-    in 128 lanes: B1 in the forward, B7 and B10 in the micro-batch).
-    `launches` takes, per head dim, B1's launches in the forward and B7's
-    in the micro-batch (`B1 dh128`, `B7 fwd dh128`, ...)."""
-    ok = True
-    for d in (128, 32):
-        case_ok, fwd, train, _ = _dit_head_case(3072 // d, d)
-        ok &= case_ok
+    in 128 lanes: B1 in the forward, B7 and B10 in the micro-batch), queued
+    on `refs`.  `launches` takes, per head dim, B1's launches in the
+    forward and B7's in the micro-batch (`B1 dh128`, `B7 fwd dh128`, ...)
+    when the case's card side runs."""
+    def start(d):
+        fwd, train, verdict = _dit_head_case(3072 // d, d)
         launches.update({f"B1 dh{d}": fwd["B1"], f"B7 fwd dh{d}": train["B7 fwd"],
                          f"B7 bwd dh{d}": train["B7 bwd"]})
-    return ok
+        return _verdict_ok(verdict)
+
+    for d in (128, 32):
+        refs.add(lambda d=d: start(d))
 
 
-def head_dim_model_phase(launches: dict) -> bool:
+def head_dim_model_phase(launches: dict, refs: _References) -> None:
     """Phase 3f: the head dims the flash kernels and B10 took last, inside
     the model, `_dit_head_case` at 192 x 16 (flat, 8 heads to 128 lanes),
     12 x 256 (flat, the 256-column bodies), 189 x 16 (dim 3,024: B11 and
     B12 + B13 at D = 16) and 47 x 64 (dim 3,008: the unpaired-head DiT at
     full width, B11 and B12 + B13 at D = 64).  None takes the fused B1 at
     inference.  `launches` takes the micro-batches' launches of the kernels
-    line's dh16 / dh256 rows (B10's summed over both 16-wide DiTs)."""
-    ok = True
-    for heads, d, rows in ((192, 16, ("B7 fwd", "B7 bwd", "B10 fwd", "B10 bwd")),
-                           (12, 256, ("B7 fwd", "B7 bwd", "B10 fwd", "B10 bwd")),
-                           (189, 16, ("B11", "B12+B13", "B10 fwd", "B10 bwd")),
-                           (47, 64, ())):
-        case_ok, _, train, _ = _dit_head_case(heads, d)
-        ok &= case_ok
+    line's dh16 / dh256 rows (B10's summed over both 16-wide DiTs).  The
+    cases are queued on `refs`, as phase 3e's."""
+    def start(heads, d, rows):
+        _, train, verdict = _dit_head_case(heads, d)
         for name in rows:
             key = f"{name} dh{d}"
             launches[key] = launches.get(key, 0) + train[name]
-    return ok
+        return _verdict_ok(verdict)
+
+    for case in ((192, 16, ("B7 fwd", "B7 bwd", "B10 fwd", "B10 bwd")),
+                 (12, 256, ("B7 fwd", "B7 bwd", "B10 fwd", "B10 bwd")),
+                 (189, 16, ("B11", "B12+B13", "B10 fwd", "B10 bwd")),
+                 (47, 64, ())):
+        refs.add(lambda case=case: start(*case))
 
 
-def head_dim_face_phase(args, launches: dict) -> bool:
+def head_dim_face_phase(args, launches: dict, refs: _References) -> bool:
     """Phase 3g: the face + audio DiT that `DiT.create` builds, at the head
     splits the flash kernels take (`_dit_head_case(face=True)`): 24 x 128,
     96 x 32, 192 x 16 and 12 x 256 heads, the audio layers derived (B3 at
@@ -2496,19 +2659,23 @@ def head_dim_face_phase(args, launches: dict) -> bool:
     64; then at 24 x 128 with `RouterConfig(attn_heads=4)` and
     `attn_heads=16` over the derived 512 channels (B5, B8 and B4 at dh 128
     and 32).  Then one 42-layer request at 24 x 128
-    (`head_dim_serving_request`).  `launches` takes the B3, B4, B5 and B8
-    launches of the kernels line's width rows (forward + micro-batch)."""
-    ok = True
+    (`head_dim_serving_request`), at once; the cases are queued on `refs`,
+    as phase 3e's.  `launches` takes the B3, B4, B5 and B8 launches of the
+    kernels line's width rows (forward + micro-batch)."""
     add = lambda key, n: launches.__setitem__(key, launches.get(key, 0) + n)
-    for heads, d, rh in ((24, 128, None), (96, 32, None), (192, 16, None), (12, 256, None),
-                         (24, 128, 4), (24, 128, 16)):
-        case_ok, fwd, train, _ = _dit_head_case(heads, d, face=True, router_heads=rh)
-        ok &= case_ok
+
+    def start(heads, d, rh):
+        fwd, train, verdict = _dit_head_case(heads, d, face=True, router_heads=rh)
         add(f"B3 dh{d}", fwd["B3"] + train["B3"])
         if rh is not None:
             for name in ("B4", "B5", "B8"):
                 add(f"{name} dh{512 // rh}", fwd[name] + train[name])
-    return ok & head_dim_serving_request(args)
+        return _verdict_ok(verdict)
+
+    for case in ((24, 128, None), (96, 32, None), (192, 16, None), (12, 256, None),
+                 (24, 128, 4), (24, 128, 16)):
+        refs.add(lambda case=case: start(*case))
+    return head_dim_serving_request(args)
 
 
 def head_dim_serving_request(args) -> bool:
@@ -2574,7 +2741,7 @@ def _model_request(args, what: str, seed: int, **model) -> bool:
 TOKEN_SETTINGS = (("a", 3, 24, 16), ("b", 5, 56, 64), ("c", 2, 8, 4))
 
 
-def token_phase(args, launches: dict) -> bool:
+def token_phase(args, launches: dict, refs: _References) -> bool:
     """Phase 3i: the face + audio DiT that `DiT.create` builds at other
     token and identity counts, 2 layers at full width (dim 3072, 48 x 64
     heads, the audio heads derived), 16 + 1,024 tokens, in each setting of
@@ -2585,19 +2752,23 @@ def token_phase(args, launches: dict) -> bool:
     then each `TOKEN_ROWS` configuration once through its entry point
     against its plain version (one launch each).  `launches` takes the
     kernels line's token rows: each row's entry-point launch, and setting
-    (b)'s B3 launches (forward + micro-batch) for "B3 K64 I5"."""
+    (b)'s B3 launches (forward + micro-batch) for "B3 K64 I5".  The
+    settings' cases are queued on `refs`, as phase 3e's; the request and
+    the entry points run at once."""
     import torch
     from bindyouravatar_tpu_torch.ops import short_kv_attention as skv
 
-    ok = True
-    for tag, ids, k_f, k_a in TOKEN_SETTINGS:
+    def start(tag, ids, k_f, k_a):
         print(f"  phase 3i setting ({tag}): I = {ids}, K_f = {k_f}, K_a = {k_a}", flush=True)
-        case_ok, fwd, train, _ = _dit_head_case(48, 64, face=True, ids=ids, face_tokens=k_f,
+        fwd, train, verdict = _dit_head_case(48, 64, face=True, ids=ids, face_tokens=k_f,
                                              audio_tokens=k_a)
-        ok &= case_ok
         if (k_a, ids) == (64, 5):
             launches["B3 K64 I5"] = launches.get("B3 K64 I5", 0) + fwd["B3"] + train["B3"]
-    ok &= token_serving_request(args)
+        return _verdict_ok(verdict)
+
+    for setting in TOKEN_SETTINGS:
+        refs.add(lambda setting=setting: start(*setting))
+    ok = token_serving_request(args)
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(98)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -2669,9 +2840,9 @@ def face_plain_phase() -> bool:
           "versions in fp32 on the card, inside models/router.py; the swapped runs' launch "
           "checks do not apply", flush=True)
     worst = lambda e: max((v for k, v in e.items() if _face_path(k)), default=0.0)
-    cases = (("3g 24x128", lambda: _dit_head_case(24, 128, face=True)[3], True),
-             ("12c T=13", lambda: _long_clip_case(49, {})[1], True),
-             ("12c T=25", lambda: _long_clip_case(97, {})[1], False))
+    cases = (("3g 24x128", lambda: _dit_head_case(24, 128, face=True)[2]()[1], True),
+             ("12c T=13", lambda: _long_clip_case(49, {})()[1], True),
+             ("12c T=25", lambda: _long_clip_case(97, {})()[1], False))
     for what, run, each in cases:
         swaps = [()] + [tuple(FACE_SWAPS)] + ([(n,) for n in FACE_SWAPS] if each else [])
         for names in swaps:
@@ -4767,7 +4938,10 @@ def driver_phase(args) -> bool:
 def _watch_tiny_seq():
     """While open, count each (body, S, fwd / bwd) that the tiny-sequence
     wrappers dispatch on the card (`packed_attention.kernel_body`) and
-    every call of their plain versions (a run on the card makes none)."""
+    every call of their plain versions (a run on the card makes none), in
+    every thread (a server's worker, autograd's device thread) but the
+    `_References` worker, whose CPU references call the plain versions
+    meanwhile."""
     from collections import Counter
 
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
@@ -4776,15 +4950,18 @@ def _watch_tiny_seq():
     plains = ("tiny_seq_attention_plain", "packed_head_attention_plain",
               "tiny_seq_attention_bwd_plain")
     saved = {n: getattr(pa, n) for n in plains + ("kernel_body",)}
+    counts = lambda: not getattr(_REFERENCE_THREAD, "on", False)
 
     def body(s, width, heads, backward=False):
         name = saved["kernel_body"](s, width, heads, backward)
-        seen["bodies"][(name, s, "bwd" if backward else "fwd")] += 1
+        if counts():
+            seen["bodies"][(name, s, "bwd" if backward else "fwd")] += 1
         return name
 
     def counted(fn):
         def call(*a, **kw):
-            seen["plain"] += 1
+            if counts():
+                seen["plain"] += 1
             return fn(*a, **kw)
         return call
 
@@ -4934,14 +5111,16 @@ def long_clip_cli_phase(args, launches: dict) -> bool:
 
 
 # phase 12c's CPU weights and the generator's state after them, drawn by its
-# first case and emptied at the phase's end
+# first case and emptied after its last case's card side
 _LONG_CLIP_DRAW = {}
 
 
-def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: int = 8) -> tuple:
+def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: int = 8):
     """One run of phase 12c at `frames` pixel frames on a `grid` (height,
-    width) of latents, the router's STABs at `router_heads` heads; returns
-    (ok, the gradients' relative L2 errors by name).  See
+    width) of latents, the router's STABs at `router_heads` heads: the
+    card's side now (`launches` takes its micro-batch's counts); returns
+    its verdict, which runs the CPU's reference (no CUDA tensor) and
+    returns (ok, the gradients' relative L2 errors by name).  See
     `long_clip_model_phase`."""
     import numpy as np
     import torch
@@ -4991,31 +5170,26 @@ def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: in
         audio_embeds=rng.normal(size=(2, 2, n_af, a.blocks, a.audio_dim)),
         id_cond=rng.normal(size=(2, c.num_ids, lf.id_embed_dim)),
         id_vit_hidden=rng.normal(size=(2, c.num_ids, lf.num_scales, 17, lf.vit_dim)))
-    outs = []
+
+    def apply(model, dev):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in inputs.items()}
+        rope = model.rope(c.sample_height * 8, c.sample_width * 8, t_lat, device=dev)
+        out, routing = model.apply(t.pop("latents"), t.pop("text_embeds"), t.pop("timesteps"),
+                                   rope, **t)
+        return out.float().cpu(), routing.float().cpu()
+
     with torch.inference_mode():
-        for model, dev in ((ref, "cpu"), (make(torch.bfloat16, "cuda", True), "cuda")):
-            if dev == "cuda":
-                model.load_state_dict(sd)
-            t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in inputs.items()}
-            rope = model.rope(c.sample_height * 8, c.sample_width * 8, t_lat, device=dev)
-            with _watch_tiny_seq() as seen_f:
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                    _reset_launches()
-                out, routing = model.apply(t.pop("latents"), t.pop("text_embeds"),
-                                           t.pop("timesteps"), rope, **t)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                    fwd_counts = _read_launches()
-            outs.append((out.float().cpu(), routing.float().cpu()))
-            if dev == "cuda":
-                fwd_seen = seen_f
+        model = make(torch.bfloat16, "cuda", True)
+        model.load_state_dict(sd)
+        with _watch_tiny_seq() as fwd_seen:
+            torch.cuda.synchronize()
+            _reset_launches()
+            out_g = apply(model, "cuda")
+            torch.cuda.synchronize()
+            fwd_counts = _read_launches()
         del model
-    f_rel, r_rel = _rel_l2(outs[1][0], outs[0][0]), _rel_l2(outs[1][1], outs[0][1])
     want_fwd = {"B5": c.num_ca * n_st, "B5'": 0, "B8": 0}
-    f_ok = ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
-            and bool(outs[1][0].isfinite().all()))
-    f_ok &= _bodies_ok(f"T = {t_lat} forward", fwd_seen, {(body, t_lat, "fwd")})
+    fwd_bodies_ok = _bodies_ok(f"T = {t_lat} forward", fwd_seen, {(body, t_lat, "fwd")})
 
     # one Stage-3 micro-batch: every trainable gradient
     gpu = make(torch.bfloat16, "cuda", False)
@@ -5030,13 +5204,42 @@ def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: in
     # with it every perceiver gradient), so those are compared
     draws["keep_mask"][:] = True
     to_gpu = lambda d: {k: None if v is None else v.cuda() for k, v in d.items()}
-    grads_c, m_c = trainers[0].grads_and_metrics(batch, [draws])
     with _watch_tiny_seq() as seen_t:
         torch.cuda.synchronize()
         _reset_launches()
         grads_g, m_g = trainers[1].grads_and_metrics(to_gpu(batch), [to_gpu(draws)])
         torch.cuda.synchronize()
         launches.update(_read_launches())
+    grads_g = {k: v.float().cpu() for k, v in grads_g.items()}
+    m_g = {k: float(v) for k, v in m_g.items()}
+    want = train_launches(gpu, 1)
+    c_ok = {k: launches[k] for k in want} == want and launches["B8"] > 0
+    c_ok &= _bodies_ok(f"T = {t_lat} micro-batch", seen_t,
+                       {(body, t_lat, "fwd"), (body_b, t_lat, "bwd")})
+    counts, cpu_tr = dict(launches), trainers[0]
+    del gpu, trainers
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+    return lambda: _long_clip_verdict(frames, router_heads, rcfg, c, body, ref, apply, cpu_tr,
+                                      batch, draws, out_g, fwd_counts, want_fwd, fwd_bodies_ok,
+                                      grads_g, m_g, counts, want, c_ok, card_s)
+
+
+def _long_clip_verdict(frames, router_heads, rcfg, c, body, ref, apply, trainer, batch, draws,
+                       out_g, fwd_counts, want_fwd, fwd_bodies_ok, grads_g, m_g, launches,
+                       want, c_ok, card_s) -> tuple:
+    """`_long_clip_case`'s verdict: the CPU's fp32 forward and micro-batch,
+    each against the card's, and the case's line."""
+    import torch
+
+    t1 = time.perf_counter()
+    t_lat = c.latent_frames
+    with torch.inference_mode():
+        out_c = apply(ref, "cpu")
+    f_rel, r_rel = _rel_l2(out_g[0], out_c[0]), _rel_l2(out_g[1], out_c[1])
+    f_ok = ({k: fwd_counts[k] for k in want_fwd} == want_fwd and f_rel <= 0.02
+            and bool(out_g[0].isfinite().all()) and fwd_bodies_ok)
+    grads_c, m_c = trainer.grads_and_metrics(batch, [draws])
     # tol: metrics within 5% + 1e-3 and the gradients within 3% relative L2
     # each (phases 3e / 3f's), the key biases (true gradient 0) left out;
     # the face path's (perceivers, router, LFE) within phase 3b's 10%: its
@@ -5044,20 +5247,16 @@ def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: in
     # and phase 3b (T = 8, one-tile bodies) puts its multi-ID q / k
     # gradients at 3.8-3.9% on an H100; the control at T = 13 shows the
     # floor that the long bodies do not set
-    m_err = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_c}
+    m_err = {k: abs(m_g[k] - float(m_c[k])) for k in m_c}
     m_ok = all(m_err[k] <= 1e-3 + 0.05 * abs(float(m_c[k])) for k in m_c)
     g_err = {}
     for k, gc_ in grads_c.items():
         if k.endswith("to_k.bias"):
             continue
         norm = float(gc_.norm())
-        diff = float((grads_g[k].float().cpu() - gc_).norm())
+        diff = float((grads_g[k] - gc_).norm())
         g_err[k] = diff / norm if norm > 0 else diff
     g_ok = all(e <= (0.1 if _face_path(k) else 0.03) for k, e in g_err.items())
-    want = train_launches(gpu, 1)
-    c_ok = {k: launches[k] for k in want} == want and launches["B8"] > 0
-    c_ok &= _bodies_ok(f"T = {t_lat} micro-batch", seen_t,
-                       {(body, t_lat, "fwd"), (body_b, t_lat, "bwd")})
     ok = f_ok and m_ok and g_ok and c_ok
     shown = lambda cnt, w: " ".join(f"{k}={cnt[k]} (want {w[k]})" for k in w if w[k] or cnt[k])
     worst = lambda pick: " ".join(f"{k}={e:.3e}" for k, e in sorted(
@@ -5068,16 +5267,14 @@ def _long_clip_case(frames: int, launches: dict, grid=(12, 18), router_heads: in
           f"{frames} frames: T = {t_lat}, {body} bodies, {c.sample_height} x {c.sample_width} "
           f"latents, 16 + {c.video_seq_len} tokens): forward cuda-bf16 vs cpu-fp32 relative L2 "
           f"{f_rel:.3e} (tol 0.02), routing {r_rel:.3e}, launches {shown(fwd_counts, want_fwd)}; "
-          f"micro-batch loss {float(m_g['loss']):.5f} / {float(m_c['loss']):.5f}, metrics max "
+          f"micro-batch loss {m_g['loss']:.5f} / {float(m_c['loss']):.5f}, metrics max "
           f"|d| " + " ".join(f"{k}={v:.2e}" for k, v in m_err.items())
           + f" (tol 1e-3+0.05*|ref|); {len(g_err)} trainable gradients, worst relative L2 "
           f"outside the face path " + worst(lambda k: not _face_path(k)) + " (tol 0.03), the "
           f"temporal STAB attentions' " + worst(lambda k: ".temporal_attn." in k) + ", the face "
           f"path's " + worst(_face_path) + f" (tol 0.1, phase 3b's); {over} above 0.03; "
-          f"launches " + shown(launches, want) + f"; {time.perf_counter() - t0:.1f} s "
-          + ("ok" if ok else "FAILED"), flush=True)
-    del gpu, trainers, grads_g, grads_c, ref
-    torch.cuda.empty_cache()
+          f"launches " + shown(launches, want) + f"; card side {card_s:.1f} s, verdict "
+          f"{time.perf_counter() - t1:.1f} s " + ("ok" if ok else "FAILED"), flush=True)
     return ok, g_err
 
 
@@ -5088,7 +5285,7 @@ def _face_path(name: str) -> bool:
                             "router_trunk."))
 
 
-def long_clip_model_phase(launches: dict) -> bool:
+def long_clip_model_phase(launches: dict, refs: _References) -> bool:
     """Phase 12c: a 2-layer DiT at the 5B widths (dim 3,072, 48 x 64 heads;
     its audio layers, router and LFE at their own full widths), face +
     audio, at 97 frames (T = 25) on a 12 x 18 latent grid (16 + 1,350
@@ -5106,21 +5303,36 @@ def long_clip_model_phase(launches: dict) -> bool:
     the 8 x 64 STAB heads, and 193 frames (T = 49, 16 + 294 tokens) with
     `RouterConfig(attn_heads=2)`'s 2 x 256 (cap 48).  Last, B5' on the
     streamed body through `packed_head_attention` at [1001, 201 x 8, 64]
-    against its plain version, once.  Fills `launches["25"]`,
-    `["201"]` and `["49 dh256"]` with the micro-batches' counts and
+    against its plain version, once, at once; the four cases are queued on
+    `refs` (`_References`), and the line of T = 25 beside T = 13 follows
+    their verdicts.  Fills `launches["25"]`, `["201"]` and `["49 dh256"]`
+    with the micro-batches' counts when their card sides run, and
     `["B5' S201"]` with the direct call's."""
     import torch
     from bindyouravatar_tpu_torch.ops import packed_attention as pa
 
     for key in ("25", "201", "49 dh256", "B5' S201"):
         launches[key] = {}
-    try:
-        ok, errs = _long_clip_case(97, launches["25"])
-        ok_13, errs_13 = _long_clip_case(49, {})
-        ok &= _long_clip_case(801, launches["201"], grid=(4, 6))[0]
-        ok &= _long_clip_case(193, launches["49 dh256"], grid=(4, 6), router_heads=2)[0]
-    finally:
+    errs = {}
+
+    def start(frames, counts, **kw):
+        verdict = _long_clip_case(frames, counts, **kw)
+
+        def judged():
+            ok, errs[frames] = verdict()
+            return ok
+        return judged
+
+    def beside():
+        # the draw the cases share is dropped after the last card side
         _LONG_CLIP_DRAW.clear()
+        return lambda: _long_clip_beside(errs[97], errs[49])
+
+    refs.add(lambda: start(97, launches["25"]))
+    refs.add(lambda: start(49, {}))
+    refs.add(lambda: start(801, launches["201"], grid=(4, 6)))
+    refs.add(lambda: start(193, launches["49 dh256"], grid=(4, 6), router_heads=2))
+    refs.add(beside)
     gen = torch.Generator("cuda").manual_seed(201)
     q, k, v = (torch.randn(1001, 201 * 8, 64, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
@@ -5136,8 +5348,12 @@ def long_clip_model_phase(launches: dict) -> bool:
     print(f"  phase 12c, B5' streamed: packed_head_attention [1001, 201 x 8, 64] against its "
           f"plain version max_abs_err {err:.3e} (tol 1e-2 + 2e-2 |ref|), launches "
           f"{n} (want B5' 1, nothing else) {'ok' if p_ok else 'FAILED'}", flush=True)
-    ok &= p_ok
     del q, k, v, got
+    return p_ok
+
+
+def _long_clip_beside(errs: dict, errs_13: dict) -> bool:
+    """Phase 12c's line of T = 25's gradient errors beside T = 13's."""
     worst = lambda e, pick: max((v for k, v in e.items() if pick(k)), default=0.0)
     print(f"  phase 12c, T = 25 (long bodies) beside T = 13 (one-tile bodies): worst gradient "
           f"error outside the face path {worst(errs, lambda k: not _face_path(k)):.3e} / "
@@ -5145,7 +5361,7 @@ def long_clip_model_phase(launches: dict) -> bool:
           f"{worst(errs, lambda k: '.temporal_attn.' in k):.3e} / "
           f"{worst(errs_13, lambda k: '.temporal_attn.' in k):.3e}, in the face path "
           f"{worst(errs, _face_path):.3e} / {worst(errs_13, _face_path):.3e}", flush=True)
-    return ok and ok_13
+    return True
 
 
 # Every kernel of the port: (route, source, the TPU kernel it replaces);
@@ -5770,6 +5986,14 @@ def main(argv=None) -> int:
                         "purpose (no launch counts).  Run in two unpacked trees, it times two "
                         "versions of the kernels in one call")
     args = p.parse_args(argv)
+    t_main = time.perf_counter()
+
+    def lap(what: str, since: float) -> float:
+        now = time.perf_counter()
+        print(f"{what} in {now - since:.1f} s ({now - t_main:.1f} s since the start)",
+              flush=True)
+        return now
+
     only = None
     if args.only_kernels:
         only = {n.strip() for n in args.only_kernels.split(",") if n.strip()}
@@ -5806,7 +6030,8 @@ def main(argv=None) -> int:
           f"flash backward of B7 and B12 + B13, B2 + B3 + B14 + B2c + B2h, B5 + B8, their "
           f"streamed bodies, B6 + B9) and triton import in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = [ln for ln in (lib.parent / "nvcc.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "entry function" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln
+             or ln.startswith("== ")]
     for line in ptxas:
         print(f"  ptxas: {line.strip()}", flush=True)
 
@@ -5817,13 +6042,15 @@ def main(argv=None) -> int:
         return _fail(f"--only-distribution: phase 11 {'passed' if ok else 'FAILED'}, no other "
                      f"phase run")
     if args.only_head_dims:
-        t3 = time.perf_counter()
-        ok = head_dim_face_phase(args, {}) & width_entry_phase({})
+        t3, refs = time.perf_counter(), _References()
+        ok = head_dim_face_phase(args, {}, refs) & width_entry_phase({})
+        ok &= refs.drain()
         return _fail(f"--only-head-dims: phases 3g and 3h {'passed' if ok else 'FAILED'} in "
                      f"{time.perf_counter() - t3:.1f} s, no other phase run")
     if args.only_tokens:
-        t3 = time.perf_counter()
-        ok = token_phase(args, {})
+        t3, refs = time.perf_counter(), _References()
+        ok = token_phase(args, {}, refs)
+        ok &= refs.drain()
         return _fail(f"--only-tokens: phase 3i {'passed' if ok else 'FAILED'} in "
                      f"{time.perf_counter() - t3:.1f} s, no other phase run")
     if args.face_plain:
@@ -5833,15 +6060,16 @@ def main(argv=None) -> int:
                      f"other phase run")
     long_launches, cli_launches, model_launches = {}, {}, {}
     if args.only_long_clips:
-        t12 = time.perf_counter()
+        t12, refs = time.perf_counter(), _References()
         ok = long_clip_requests(args, _serving_model(args, args.steps), long_launches)
         ok &= long_clip_cli_phase(args, cli_launches)
-        ok &= long_clip_model_phase(model_launches)
+        ok &= long_clip_model_phase(model_launches, refs)
+        ok &= refs.drain()
         return _fail(f"--only-long-clips: phase 12 {'passed' if ok else 'FAILED'} in "
                      f"{time.perf_counter() - t12:.1f} s, no other phase run")
     t2 = time.perf_counter()
     ok = kernel_phase(results, only)
-    print(f"phase 2 in {time.perf_counter() - t2:.1f} s", flush=True)
+    t = lap("phase 2", t2)
     if only is not None:
         return _fail(f"--only-kernels: phase 2 of {sorted(only)} {'passed' if ok else 'FAILED'}, "
                      f"no other phase run")
@@ -5849,51 +6077,78 @@ def main(argv=None) -> int:
     ok &= reduced_train_phase({})
     ok &= reduced_train_phase(unpaired_launches, unpaired=True)
     ok &= entry_point_phase(entry_launches)
-    head_dim_launches = {}
-    t3 = time.perf_counter()
-    ok &= head_dim_phase(head_dim_launches)
-    ok &= head_dim_model_phase(head_dim_launches)
-    print(f"phases 3e and 3f in {time.perf_counter() - t3:.1f} s", flush=True)
-    width_launches = {}
-    t3 = time.perf_counter()
-    ok &= head_dim_face_phase(args, width_launches)
+    t = lap("phases 3a to 3d", t)
+    # the 2-layer full-width DiT cases of phases 3e-3i and 12c: their card
+    # sides at each pump, their CPU references on `refs`' worker beside the
+    # phases that follow (none of which is timed per kernel), every verdict
+    # in before phase 11
+    refs = _References()
+    head_dim_launches, width_launches, token_launches = {}, {}, {}
+    head_dim_phase(head_dim_launches, refs)
+    head_dim_model_phase(head_dim_launches, refs)
+    refs.pump()
+    ok &= head_dim_face_phase(args, width_launches, refs)
+    refs.pump()
     ok &= width_entry_phase(width_launches)
-    print(f"phases 3g and 3h in {time.perf_counter() - t3:.1f} s", flush=True)
-    token_launches = {}
-    t3 = time.perf_counter()
-    ok &= token_phase(args, token_launches)
-    print(f"phase 3i in {time.perf_counter() - t3:.1f} s", flush=True)
+    refs.pump()
+    ok &= token_phase(args, token_launches, refs)
+    refs.pump()
+    ok &= long_clip_model_phase(model_launches, refs)
+    refs.pump()
+    t = lap("phases 3e to 3i and 12c (card sides of the first cases, the requests and entry "
+            "points)", t)
     if args.requests > 0:
         ok &= serving_phase(args, long_launches)
     else:
         ok = False
         print("serving phase skipped (--requests 0): no launch counts", flush=True)
+    refs.pump()
+    t = lap("phases 4, 12a and 12d", t)
     phase5 = {}
     if args.train_steps > 0:
         ok &= train_phase(args, train_launches_, phase5)
     else:
         ok = False
         print("train phase skipped (--train-steps 0): no launch counts", flush=True)
+    refs.pump()
+    t = lap("phase 5", t)
     ok &= driver_phase(args)
+    refs.pump()
+    t = lap("phase 6", t)
     if args.clip_steps > 0:
         peaks = {}
         ok &= clip_phase(args, launches)
+        refs.pump()
         ok &= cli_phase(args, peaks)
+        refs.pump()
         ok &= cli_face_phase(args, peaks)
         ok &= cli_two_stage_phase(args, peaks)
+        # phase 7e reads the host's RSS: no reference model beside it (no
+        # case started since 7b, so the wait is short)
+        refs.quiet()
+        t = lap("phases 7 to 7d", t)
         ok &= cli_reference_phase(args, peaks)
+        refs.pump()
+        t = lap("phase 7e", t)
     else:
         ok = False
         print("clip phases skipped (--clip-steps 0): no launch counts", flush=True)
     ok &= encoder_phase(args)
+    refs.pump()
     ok &= wav2vec_phase(args)
+    refs.pump()
     ok &= sam2_upscaler_phase(args)
+    refs.pump()
+    t = lap("phases 8 to 10", t)
     ok &= two_b_phase(args)
-    t12 = time.perf_counter()
+    refs.pump()
+    t = lap("the 2B phase", t)
     ok &= long_clip_cli_phase(args, cli_launches)
-    ok &= long_clip_model_phase(model_launches)
-    print(f"phases 12b and 12c in {time.perf_counter() - t12:.1f} s", flush=True)
+    t = lap("phase 12b", t)
+    ok &= refs.drain()
+    t = lap("the rest of phases 3e to 3i and 12c", t)
     ok &= distribution_phase(args, phase5)
+    lap("phase 11", t)
     if not ok:
         return _fail("a phase failed")
 
